@@ -10,29 +10,48 @@ result line:
 1. the card (``nvidia-smi`` name and power limit) and the torch, CUDA
    and nvcc versions;
 2. build of every CUDA kernel of the port from ``citus_tpu_torch/csrc``
-   (one nvcc per source, all started together);
+   and of the predicate kernels generated for Q6 and P1 (one nvcc per
+   source, all started together), then one more generated predicate
+   alone, for the cold build time of one predicate;
 3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes: ``scan_agg_fold`` for TPC-H Q6 (scalar mode) and
-   Q1 (direct mode, G = 12, the shared-memory regime) on 2^21 generated
-   lineitem rows (the padded batch of one SF1 shard of four), and a
-   direct G = 65,536 fold (the global-atomics regime) with nulls, NaN,
-   +-inf, +-0.0, an all-false mask and N not a multiple of the block.
-   int64 registers, min/max and NaN positions must be identical, float64
-   sums within rel 1e-12 (atomics add in another order).  Each kernel is
-   timed (CUDA events around 25 launches, median of 3) beside its bound, its plain
-   version and a one-op library yardstick;
+   main path's shapes:
+   - ``scan_agg_fold`` for TPC-H Q6 (scalar mode) and Q1 (direct mode,
+     G = 12, the shared-memory regime) on 2^21 generated lineitem rows
+     (the padded batch of one SF1 shard of four), and a direct
+     G = 65,536 fold (the global-atomics regime) with nulls, NaN, +-inf,
+     +-0.0, an all-false mask and N not a multiple of the block;
+   - ``hash_agg_insert`` for bench.py's ``GROUP BY l_orderkey`` (count
+     and an int64 sum) on the first padded shard batch of the loaded
+     lineitem into 2^20 slots (what citus.hash_agg_slots = auto gives at
+     SF1), and an adversarial insert: three keys (int64; float64 with
+     -0.0, NaN payloads and nulls; int32) on 1,000 slots, so most rows
+     spill, a float64 sum/min/max, an all-false mask, N not a multiple
+     of the block.  The merged groups (table and spilled rows through
+     HostGroupAccumulator) must agree, and each key must sit in at most
+     one slot with placed + spilled rows = masked rows;
+   - ``filter_mask``, the predicate kernels generated from Q6's and P1's
+     WHERE and from a synthetic predicate with nulls, NaN, zero divisors
+     and three-valued AND/OR, on 2^21 rows: identical masks.
+   int64 registers, keys, counts, min/max and NaN positions must be
+   identical, float64 sums within rel 1e-12 (atomics add in another
+   order).  Each kernel is timed (CUDA events, median) beside its bound,
+   its plain version and a one-op library yardstick;
 4. the main path through the port's entry points: ``Cluster(tmpdir)``
    on CUDA, bench.py's lineitem (schema, generator, seed 7) at TPC-H SF1
-   (6,001,215 rows) in 4 shards, bench.py's Q6 cold and warm (served from
-   the device cache).  At SF1, bench.py's Q1 trips the engine's int64
-   overflow guard on sum_charge (a decimal(38,8) sum whose float64
-   shadow passes 2^62; citus_tpu refuses it the same way): the script
-   checks that the guard fires exactly where the oracle says it must,
-   then runs Q1 cold and warm on 5,000,000 rows, the largest round scale
-   the guard admits.  Rows must equal those computed straight from the
-   generated numpy arrays (exact int64 cents grouped with np.unique),
-   and the kernel's launch count must grow by exactly each query's
-   fused dispatches.
+   (6,001,215 rows) in 4 shards, each query cold and then a second
+   time: bench.py's Q6 (the second run served from the device cache);
+   with ``SET citus.hash_agg_slots = auto`` as bench.py sets it, H1
+   (TPC-H Q18's inner aggregate: ~1.47 M groups, more than the 2^20
+   slots, so rows spill and merge on the host) and H2 (Q3's per-order
+   revenue over one ship year, without its joins); and P1, a drill-down
+   projection.  At SF1, bench.py's Q1 trips the engine's int64 overflow
+   guard on sum_charge (a decimal(38,8) sum whose float64 shadow passes
+   2^62; citus_tpu refuses it the same way): the script checks that the
+   guard fires exactly where the oracle says it must, then runs Q1 cold
+   and warm on 5,000,000 rows, the largest round scale the guard admits.
+   Rows must equal those computed straight from the generated numpy
+   arrays (exact int64 cents grouped with np.unique), each query's
+   kernel must launch once per batch and no other kernel may launch.
 
 Then a JSON line of the kernels, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -79,6 +98,20 @@ FROM lineitem
 WHERE l_shipdate >= date '1994-01-01'
   AND l_shipdate < date '1995-01-01'
   AND l_discount BETWEEN 0.05 AND 0.07 AND l_quantity < 24"""
+
+# TPC-H Q18's inner aggregate (H1), Q3's per-order revenue over one ship
+# year without its joins (H2), and a drill-down projection (P1)
+H1 = """SELECT l_orderkey, sum(l_quantity) FROM lineitem
+GROUP BY l_orderkey HAVING sum(l_quantity) > 300 ORDER BY l_orderkey"""
+
+H2 = """SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) AS revenue
+FROM lineitem
+WHERE l_shipdate >= date '1994-01-01' AND l_shipdate < date '1995-01-01'
+GROUP BY l_orderkey ORDER BY revenue DESC, l_orderkey LIMIT 10"""
+
+P1 = """SELECT l_orderkey, l_quantity, l_extendedprice FROM lineitem
+WHERE l_shipdate = date '1994-06-01' AND l_discount >= 0.09
+ORDER BY l_orderkey, l_quantity, l_extendedprice"""
 
 LINEITEM_DDL = """CREATE TABLE lineitem (
         l_orderkey bigint NOT NULL, l_quantity decimal(12,2),
@@ -182,6 +215,36 @@ def oracle_q6(cols: dict) -> list[tuple]:
     rev = int((cols["price"][keep].astype(np.int64)
                * cols["disc"][keep]).sum())
     return [(_dec(rev, 4),)]
+
+
+def oracle_h1(cols: dict, threshold: int = 300) -> list[tuple]:
+    """H1: per-order quantity sums above ``threshold``, by order key."""
+    keys, inv = np.unique(cols["orderkey"], return_inverse=True)
+    qty = np.zeros(len(keys), np.int64)
+    np.add.at(qty, inv, cols["qty"].astype(np.int64))
+    keep = qty > threshold * 100
+    return [(int(k), _dec(q, 2)) for k, q in zip(keys[keep], qty[keep])]
+
+
+def oracle_h2(cols: dict) -> list[tuple]:
+    """H2: the ten largest per-order revenues of 1994 ship dates."""
+    keep = ((cols["ship"] >= _day(1994, 1, 1))
+            & (cols["ship"] < _day(1995, 1, 1)))
+    keys, inv = np.unique(cols["orderkey"][keep], return_inverse=True)
+    rev = np.zeros(len(keys), np.int64)
+    np.add.at(rev, inv, cols["price"][keep].astype(np.int64)
+              * (100 - cols["disc"][keep]))
+    order = np.lexsort((keys, -rev))[:10]
+    return [(int(keys[i]), _dec(rev[i], 4)) for i in order]
+
+
+def oracle_p1(cols: dict) -> list[tuple]:
+    """P1: the lines shipped on 1994-06-01 with a discount of 9 % or more."""
+    keep = (cols["ship"] == _day(1994, 6, 1)) & (cols["disc"] >= 9)
+    rows = sorted(zip(cols["orderkey"][keep].tolist(),
+                      cols["qty"][keep].tolist(),
+                      cols["price"][keep].tolist()))
+    return [(k, _dec(q, 2), _dec(p, 2)) for k, q, p in rows]
 
 
 # ------------------------------------------------------------- phase 1
@@ -328,10 +391,51 @@ def synthetic_global_case(device, n: int, G: int, seed: int, all_false: bool):
     return (regs, rows, mask.to(device), keys, dargs, ops, G)
 
 
-def main_path_fold_calls(device, tmp: str):
-    """The fold inputs the main path gives the kernel for Q6 and Q1: the
-    port's own plans (over a small lineitem, for the key domains),
-    applied to one padded batch of FOLD_N generated rows."""
+SYN_DDL = """CREATE TABLE syn (k bigint NOT NULL, a bigint, b int,
+        s double, f real, p decimal(12,2))"""
+
+#: a synthetic predicate over nulls, NaN, zero divisors and three-valued
+#: AND/OR (filter_mask's adversarial case)
+SYN_WHERE = ("(a / b > 1 OR s > 0.5) AND (NOT (f < 0.25) OR a % b = 1) "
+             "OR (s <> s AND b = 0) OR (p * 2 > 90 AND s IS NULL)")
+
+BENCH_HASH = ("SELECT l_orderkey, count(*), sum(l_quantity) "
+              "FROM lineitem GROUP BY l_orderkey")
+
+
+def plan_as_cluster_does(cl, sql: str):
+    """-> (plan, encoded parameters) of one SELECT, bound, auto-
+    parameterized and planned as ``Cluster.execute`` does it."""
+    from citus_tpu_torch.executor.executor import encode_params
+    from citus_tpu_torch.planner import parse_sql
+    from citus_tpu_torch.planner.auto_param import auto_parameterize
+    from citus_tpu_torch.planner.bind import bind_select
+    from citus_tpu_torch.planner.physical import plan_select
+    bound = bind_select(cl.catalog, parse_sql(sql)[0])
+    values = None
+    ap = auto_parameterize(bound)
+    if ap is not None:
+        bound, values = ap
+    plan = plan_select(cl.catalog, bound,
+                       direct_limit=cl.settings.planner.direct_gid_limit)
+    return plan, encode_params(cl.catalog, bound, values)
+
+
+def filter_program(cl, sql: str):
+    """-> (FilterProgram, host parameter env) of a query's WHERE, as the
+    executor builds it."""
+    from citus_tpu_torch.executor.executor import (
+        _build_filter_mask, _params_env,
+    )
+    plan, params = plan_as_cluster_does(cl, sql)
+    return _build_filter_mask(plan, params), _params_env(plan, params)
+
+
+def smoke_plans(device, tmp: str, n: int = FOLD_N):
+    """The port's plans over a small lineitem (for the key domains) and a
+    synthetic table, the main path's fold inputs for Q6 and Q1 applied
+    to one padded batch of ``n`` generated rows, and the filter
+    programs of Q6, P1 and the synthetic predicate.  -> dict."""
     import torch
     import citus_tpu_torch as ctt
     from citus_tpu_torch.executor.batches import pad_to_batch
@@ -346,11 +450,13 @@ def main_path_fold_calls(device, tmp: str):
     cl.execute(LINEITEM_DDL)
     cl.execute(f"SELECT create_distributed_table('lineitem', 'l_orderkey', {SHARDS})")
     cl.copy_from("lineitem", columns=copy_columns(next(lineitem_chunks(20_000))))
+    cl.execute(SYN_DDL)
+    cl.execute("SELECT create_distributed_table('syn', 'k', 2)")
 
     def ids(col, words):
         return np.array([cl.catalog.lookup_string_id("lineitem", col, w)
                          for w in words], np.int32)
-    chunks = list(lineitem_chunks(FOLD_N))
+    chunks = list(lineitem_chunks(n))
     c = {k: np.concatenate([ch[k] for ch in chunks]) for k in chunks[0]}
     physical = {  # the engine's encoding: cents, dictionary ids, days
         "l_orderkey": c["orderkey"], "l_quantity": c["qty"],
@@ -365,16 +471,299 @@ def main_path_fold_calls(device, tmp: str):
         plan = plan_select(cl.catalog,
                            bind_select(cl.catalog, parse_sql(sql)[0]))
         values = {k: physical[k] for k in plan.scan_columns}
-        masks = {k: np.ones(FOLD_N, bool) for k in plan.scan_columns}
-        hb = pad_to_batch(plan.bound.table, plan, values, masks, FOLD_N,
-                          FOLD_N, 0)
+        masks = {k: np.ones(n, bool) for k in plan.scan_columns}
+        hb = pad_to_batch(plan.bound.table, plan, values, masks, n, n, 0)
         dcols = tuple(torch.from_numpy(a).to(device) for a in hb.cols)
         dvalids = tuple(torch.from_numpy(a).to(device) for a in hb.valids)
         dmask = torch.from_numpy(hb.row_mask).to(device)
         acc = empty_device_partials(plan, device)
         calls[name] = build_fold_inputs(plan, xp)(acc, dcols, dvalids, dmask)
+    filters = {
+        "q6": filter_program(cl, Q6),
+        "p1": filter_program(cl, P1),
+        "syn": filter_program(cl, f"SELECT k FROM syn WHERE {SYN_WHERE}"),
+    }
     cl.close()
-    return calls
+    return {"fold_calls": calls, "physical": physical, "filters": filters}
+
+
+def syn_columns(n: int, seed: int) -> dict:
+    """Columns of the synthetic table, device dtypes, with nulls, NaN,
+    +-inf, +-0.0 and zero divisors: {name: (values, valid)}."""
+    rng = np.random.default_rng(seed)
+    s = rng.normal(0.3, 1, n)
+    f = rng.normal(0.2, 0.5, n).astype(np.float32)
+    for v in (s, f):
+        idx = rng.integers(0, n, 4096)
+        v[idx[:1024]] = np.nan
+        v[idx[1024:1536]] = np.inf
+        v[idx[1536:2048]] = -np.inf
+        v[idx[2048:3072]] = 0.0
+        v[idx[3072:]] = -0.0
+    cols = {"a": rng.integers(-1000, 1000, n), "b": rng.integers(-3, 4, n),
+            "s": s, "f": f, "p": rng.integers(-10_000, 10_000, n)}
+    return {k: (v, rng.random(n) > 0.1) for k, v in cols.items()}
+
+
+def lineitem_filter_columns(physical: dict) -> dict:
+    return {k: (v, np.ones(v.shape[0], bool)) for k, v in physical.items()}
+
+
+def filter_call(prog, columns: dict, params: dict, device, n: int):
+    """-> (cols, params, row_mask) of one filter_mask launch over
+    ``columns`` with the last 1,000 rows padding."""
+    import torch
+    cols = {c: (torch.from_numpy(np.ascontiguousarray(
+                    columns[c][0][:n].astype(prog.col_dtypes[c]))).to(device),
+                torch.from_numpy(np.ascontiguousarray(
+                    columns[c][1][:n])).to(device))
+            for c in prog.columns}
+    mask = np.ones(n, bool)
+    mask[-1000:] = False
+    return cols, params, torch.from_numpy(mask).to(device)
+
+
+def filter_bytes(cols: dict, row_mask) -> int:
+    """Bytes one predicate launch must move: each column and validity
+    read once, the row mask read once, the mask written once."""
+    total = 2 * row_mask.numel()
+    for v, m in cols.values():
+        total += v.numel() * v.element_size() + m.numel()
+    return total
+
+
+# ------------------------------------------------------------- hash phase
+
+
+def clone_table(t):
+    from citus_tpu_torch.ops.hash_agg import HashTable
+    return HashTable([v.clone() for v in t.key_values],
+                     [f.clone() for f in t.key_flags],
+                     [p.clone() for p in t.partials], t.rows.clone(),
+                     t.state.clone())
+
+
+def copy_table_(dst, src) -> None:
+    for a, b in zip(dst.key_values + dst.key_flags + dst.partials
+                    + [dst.rows, dst.state],
+                    src.key_values + src.key_flags + src.partials
+                    + [src.rows, src.state]):
+        a.copy_(b)
+
+
+def hash_partial_ops(table, ops):
+    """HostGroupAccumulator ops of one insert's partial tables."""
+    from citus_tpu_torch.planner.physical import PartialOp
+    out = []
+    for op, t in zip(ops, table.partials):
+        if op.kind == "count_star":
+            out.append(PartialOp("count", -1, "int64"))
+        else:
+            out.append(PartialOp(op.kind, op.arg,
+                                 str(t.dtype).replace("torch.", "")))
+    return out
+
+
+def host_groups(table, spill, mask, keys, args, ops) -> dict:
+    """The merged groups of one insert: the table's occupied slots and
+    the spilled rows through HostGroupAccumulator (executor/host_agg.py),
+    -> {canonical key bytes: partial values}."""
+    from citus_tpu_torch.executor.host_agg import HostGroupAccumulator
+    acc = HostGroupAccumulator(len(keys), hash_partial_ops(table, ops))
+    n = mask.shape[0]
+
+    def host(t):
+        if t is None:
+            return np.ones(n, bool)
+        a = t.cpu().numpy()
+        return np.broadcast_to(a, (n,)) if a.shape[0] != n else a
+    acc.add_batch(spill.cpu().numpy(),
+                  [(host(kv), host(kvm)) for kv, kvm in keys],
+                  [(host(v), host(valid)) for v, valid in args])
+    key_tables, partials, rows = table.to_host()
+    acc.merge_partials(rows > 0, [(kv, kf == 2) for kv, kf in key_tables],
+                       list(partials), rows)
+    return {kb: tuple(acc._accs[gi]) for kb, gi in acc._groups.items()}
+
+
+def compare_groups(name: str, got: dict, want: dict, pops) -> float:
+    """Identical groups; int64 partials identical, float sums within rel
+    1e-12 (atomics add in another order), float min/max identical.
+    -> max abs error of float sums."""
+    if got.keys() != want.keys():
+        raise AssertionError(
+            f"{name}: {len(got)} groups, the plain version {len(want)}; "
+            f"{len(got.keys() ^ want.keys())} differ")
+    max_err = 0.0
+    for kb, w in want.items():
+        for op, a, b in zip(pops, got[kb], w):
+            a, b = np.asarray(a), np.asarray(b)
+            if op.kind == "sum" and b.dtype.kind == "f":
+                if np.isnan(a) != np.isnan(b) or (
+                        np.isinf(b) and a != b):
+                    raise AssertionError(f"{name}: sum {a} vs {b}")
+                if np.isfinite(b):
+                    err = abs(float(a) - float(b))
+                    if err > 1e-12 * abs(float(b)):
+                        raise AssertionError(
+                            f"{name}: float sum {a} vs {b} beyond rel 1e-12")
+                    max_err = max(max_err, err)
+            elif not np.array_equal(a, b, equal_nan=b.dtype.kind == "f"):
+                raise AssertionError(f"{name}: {op.kind} {a} vs {b}")
+    return max_err
+
+
+def check_hash_invariants(name: str, table, spill, mask) -> None:
+    """Each key sits in at most one slot; every masked row is placed or
+    spilled exactly once; the claim words mirror the occupancy."""
+    import torch
+    placed, spilled = int(table.rows.sum()), int(spill.sum())
+    if placed + spilled != int(mask.sum()):
+        raise AssertionError(f"{name}: {placed} placed + {spilled} spilled "
+                             f"!= {int(mask.sum())} masked rows")
+    if not torch.equal(table.state, 2 * (table.rows > 0).to(torch.int32)):
+        raise AssertionError(f"{name}: claim words disagree with rows")
+    occ = (table.rows > 0).cpu().numpy()
+    parts = []
+    for kv, kf in zip(table.key_values, table.key_flags):
+        a = kv.cpu().numpy()[occ]
+        if a.dtype == np.float64:
+            a = a.view(np.int64)
+        elif a.dtype == np.float32:
+            a = a.view(np.int32)
+        parts += [a.astype(np.int64), kf.cpu().numpy()[occ].astype(np.int64)]
+    if occ.any() and len(np.unique(np.stack(parts, 1), axis=0)) != occ.sum():
+        raise AssertionError(f"{name}: a key sits in more than one slot")
+
+
+def hash_bytes(call) -> int:
+    """Bytes one insert must move: each input read once, the spill mask
+    written once, the table read and written once."""
+    table, mask, keys, args, _ops = call
+    seen, total = set(), mask.numel()
+    for t in [mask] + [t for kv in keys for t in kv] \
+            + [t for a in args for t in a]:
+        if t is not None and t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            total += t.numel() * t.element_size()
+    for t in table.key_values + table.key_flags + table.partials \
+            + [table.rows, table.state]:
+        total += 2 * t.numel() * t.element_size()
+    return total
+
+
+def main_path_hash_call(cl, device):
+    """The kernel inputs of bench.py's hash GROUP BY for the first padded
+    shard batch of the loaded lineitem, on a fresh table sized as the
+    main path sizes it (citus.hash_agg_slots = auto)."""
+    import torch
+    from citus_tpu_torch.executor.executor import (
+        _hash_key_dtypes, _hash_slots, _iter_padded_batches,
+    )
+    from citus_tpu_torch.ops.hash_agg import (
+        build_hash_insert_inputs, empty_hash_state,
+    )
+    from citus_tpu_torch.ops.xp_torch import TorchNamespace
+    cl.execute("SET citus.hash_agg_slots = auto")
+    plan, _ = plan_as_cluster_does(cl, BENCH_HASH)
+    if plan.group_mode.kind != "hash_host":
+        raise AssertionError(f"{BENCH_HASH} plans to {plan.group_mode.kind}")
+    S = _hash_slots(cl.catalog, plan, cl.settings)
+    key_dtypes = _hash_key_dtypes(plan, {})
+    batches = _iter_padded_batches(cl.catalog, plan, cl.settings)
+    hb = next(batches)
+    batches.close()
+    table = empty_hash_state(plan, S, key_dtypes, device)
+    call = build_hash_insert_inputs(plan, TorchNamespace(device), key_dtypes)(
+        table, tuple(torch.from_numpy(a).to(device) for a in hb.cols),
+        tuple(torch.from_numpy(a).to(device) for a in hb.valids),
+        torch.from_numpy(hb.row_mask).to(device))
+    return call, hb.n_rows
+
+
+def adversarial_hash_call(device, n: int, S: int, seed: int,
+                          all_false: bool):
+    """Three keys (int64; float64 with +-0.0, NaN payloads, +-inf; int32),
+    each 5 % NULL, a float64 sum, min and max with NaN and +-inf, on S
+    slots (S = 1000: most rows spill)."""
+    import torch
+    from citus_tpu_torch.ops.hash_agg import HashTable
+    from citus_tpu_torch.ops.scan_agg_fold import FoldOp
+    rng = np.random.default_rng(seed)
+    nan_bits = np.array([0x7FF8000000000000, 0x7FF0000000000001,
+                         0xFFF8000000000000, 0x7FFFFFFFFFFFFFFF], np.uint64)
+    fpool = np.concatenate([[0.0, -0.0, np.inf, -np.inf, 1.5, -2.25],
+                            nan_bits.view(np.float64),
+                            rng.normal(0, 100, 6)])
+    k1 = rng.integers(-2**62, 2**62, 600)[rng.integers(0, 600, n)]
+    k2 = fpool[rng.integers(0, fpool.size, n)]
+    k3 = rng.integers(-2**31, 2**31 - 1, 5, dtype=np.int64).astype(
+        np.int32)[rng.integers(0, 5, n)]
+    v = rng.uniform(0, 1000, n)
+    idx = rng.integers(0, n, 64)
+    v[idx[:16]] = np.nan
+    v[idx[16:40]] = np.inf
+    v[idx[40:]] = -np.inf
+    mask = (rng.random(n) < 0.9) & (not all_false)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    keys = [(t(k), t(rng.random(n) > 0.05)) for k in (k1, k2, k3)]
+    args = [(t(v), t(rng.random(n) > 0.1))]
+    ops = [FoldOp("count_star"), FoldOp("count", 0), FoldOp("sum", 0),
+           FoldOp("min", 0), FoldOp("max", 0)]
+    i64 = torch.int64
+    table = HashTable(
+        [torch.full((S,), -2**63, dtype=i64, device=device),
+         torch.full((S,), float("-inf"), dtype=torch.float64, device=device),
+         torch.full((S,), -2**31, dtype=torch.int32, device=device)],
+        [torch.zeros(S, dtype=torch.int8, device=device) for _ in range(3)],
+        [torch.zeros(S, dtype=i64, device=device),
+         torch.zeros(S, dtype=i64, device=device),
+         torch.zeros(S, dtype=torch.float64, device=device),
+         torch.full((S,), float("inf"), dtype=torch.float64, device=device),
+         torch.full((S,), float("-inf"), dtype=torch.float64,
+                    device=device)],
+        torch.zeros(S, dtype=i64, device=device),
+        torch.zeros(S, dtype=torch.int32, device=device))
+    return table, t(mask), keys, args, ops
+
+
+def compare_hash(name: str, call, kernel, plain) -> float:
+    """Kernel vs plain on fresh copies of one insert's table; -> max abs
+    error of float sums in the merged groups."""
+    import torch
+    table, mask, keys, args, ops = call
+    kt, pt = clone_table(table), clone_table(table)
+    ks = kernel(kt, mask, keys, args, ops)
+    ps = plain(pt, mask, keys, args, ops)
+    if mask.is_cuda:
+        torch.cuda.synchronize()
+    check_hash_invariants(f"{name} kernel", kt, ks, mask)
+    check_hash_invariants(f"{name} plain", pt, ps, mask)
+    pops = hash_partial_ops(table, ops)
+    return compare_groups(name, host_groups(kt, ks, mask, keys, args, ops),
+                          host_groups(pt, ps, mask, keys, args, ops), pops)
+
+
+def time_cuda_fresh(fn, reset, reps: int = 10) -> float:
+    """Milliseconds of one call of ``fn`` on state that ``reset`` restores
+    before each call (outside the timed events); the median of ``reps``."""
+    import torch
+    reset()
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        reset()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 # ------------------------------------------------------------- phase 4
@@ -416,35 +805,204 @@ def load_lineitem(ctt, path: str, n_rows: int):
     return cl, cols
 
 
-def run_checked(cl, qname: str, sql: str, want: list, n_rows: int,
-                run_kind: str) -> int:
-    """Run one query; its rows must equal the oracle's and the kernel's
-    launches its fused dispatches.  -> kernel launches."""
-    import torch
+def launch_counters() -> dict:
+    """The launch counter of every kernel of the port, by name."""
+    from citus_tpu_torch.ops.filter_mask import filter_mask
+    from citus_tpu_torch.ops.hash_agg_insert import hash_agg_insert
     from citus_tpu_torch.ops.scan_agg_fold import scan_agg_fold
-    scan_agg_fold.launches = 0
+    return {"scan_agg_fold": scan_agg_fold,
+            "hash_agg_insert": hash_agg_insert, "filter_mask": filter_mask}
+
+
+def run_checked(cl, qname: str, sql: str, want: list, n_rows: int,
+                run_kind: str, kernel: str = "scan_agg_fold") -> int:
+    """Run one query; its rows must equal the oracle's, ``kernel`` must
+    launch once per batch of the query and no other kernel may launch.
+    -> kernel launches."""
+    import torch
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
     t0 = time.perf_counter()
     r = cl.execute(sql)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    got = scan_agg_fold.launches
+    got = {k: f.launches for k, f in counters.items()}
     pipe = r.explain["pipeline"]
-    if got != pipe["fused_dispatches"] or got == 0:
-        raise AssertionError(f"{qname} {run_kind}: {got} kernel launches "
-                             f"for {pipe['fused_dispatches']} fused dispatches")
+    batches = pipe["filter_dispatches" if kernel == "filter_mask"
+                   else "fused_dispatches"]
+    if got[kernel] != batches or got[kernel] == 0:
+        raise AssertionError(f"{qname} {run_kind}: {got[kernel]} {kernel} "
+                             f"launches for {batches} batches")
+    others = {k: v for k, v in got.items() if k != kernel and v}
+    if others:
+        raise AssertionError(f"{qname} {run_kind}: other kernels launched: "
+                             f"{others}")
     if r.rows != want:
         raise AssertionError(f"{qname} {run_kind}: rows differ from the "
-                             f"numpy oracle:\n{r.rows}\n{want}")
-    say(f"phase 4 {qname} {run_kind} at {n_rows} rows: rows equal the numpy "
-        f"oracle; {n_rows / dt:.1f} rows/s ({dt:.4f} s), fused_dispatches "
-        f"{pipe['fused_dispatches']}, kernel launches {got}, "
+                             f"numpy oracle:\n{r.rows[:20]}\n{want[:20]}")
+    extra = ""
+    if kernel == "hash_agg_insert":
+        extra = (f", hash_slots {pipe['hash_slots']}, hash_occupancy_pct "
+                 f"{pipe['hash_occupancy_pct']}, hash_spilled_rows "
+                 f"{pipe['hash_spilled_rows']}, host merge of the table "
+                 f"{pipe['host_merge_ms']} ms, host merge of spilled rows "
+                 f"{pipe['hash_spill_merge_ms']} ms")
+    say(f"phase 4 {qname} {run_kind} at {n_rows} rows: {len(r.rows)} rows "
+        f"equal the numpy oracle; {n_rows / dt:.1f} rows/s ({dt:.4f} s), "
+        f"{kernel} launches {got[kernel]} for {batches} batches, "
         f"stream_window_peak_bytes {pipe.get('stream_window_peak_bytes', 0)}, "
         f"host_decode_ms {pipe.get('host_decode_ms', 0)}, "
-        f"device_ms {pipe.get('device_ms', 0)}")
-    return got
+        f"device_ms {pipe.get('device_ms', 0)}{extra}")
+    return got[kernel]
 
 
 # ------------------------------------------------------------- main
+
+
+def phase3_fold(device, plans, rows: list) -> None:
+    """scan_agg_fold against its plain version; appends its JSON row."""
+    import torch
+    from citus_tpu_torch.ops.scan_agg_fold import (
+        scan_agg_fold, scan_agg_fold_plain,
+    )
+    calls = plans["fold_calls"]
+    cases = [("q6 scalar G=1", calls["q6"]), ("q1 direct G=12", calls["q1"])]
+    for all_false in (False, True):
+        cases.append((f"direct G=65536{' all-false mask' if all_false else ''}",
+                      synthetic_global_case(device, FOLD_N + 3, 65536, 21,
+                                            all_false)))
+    max_err, main = 0.0, None
+    for name, call in cases:
+        err = compare_fold(name, call, scan_agg_fold, scan_agg_fold_plain)
+        max_err = max(max_err, err)
+        regime = {1: "shared-memory table", 0: "global atomics"}.get(
+            scan_agg_fold.last_regime, "none")
+        kc = clone_call(call)
+        ms = time_cuda(lambda: scan_agg_fold(*kc))
+        pc = clone_call(call)
+        plain_ms = time_cuda(lambda: scan_agg_fold_plain(*pc))
+        nbytes, nops = fold_bytes(call), fold_ops(call)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / SIMT_OPS_PER_S) * 1e3
+        # yardstick: ONE index_add_ of one int64 sum at the same N, G
+        G = call[6]
+        acc = torch.zeros(G, dtype=torch.int64, device=device)
+        n = call[2].numel()
+        gid = torch.randint(0, G, (n,), device=device)
+        val = torch.randint(0, 1000, (n,), device=device)
+        lib_ms = time_cuda(lambda: acc.index_add_(0, gid, val))
+        if name.startswith("q1"):
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        say(f"phase 3 scan_agg_fold [{name}]: N={n} G={G} "
+            f"ops={len(call[5])} regime={regime} agrees "
+            f"(max abs err of float sums {err!r}); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({nbytes} B at 3.35 TB/s), library yardstick "
+            f"(one int64 index_add_, one op) {lib_ms:.4f} ms")
+    rows.append({"name": "scan_agg_fold", "route": "cuda",
+                 "source": "citus_tpu_torch/csrc/scan_agg_fold.cu",
+                 "replaces": "citus_tpu/ops/scan_agg.py:277",
+                 "max_abs_err": max_err, **main, "bound_by": "bytes",
+                 "library_ms": None})
+
+
+def phase3_hash(device, cl, rows: list) -> None:
+    """hash_agg_insert against its plain version: the main path's first
+    SF1 shard batch of bench.py's hash GROUP BY on 2^20 slots, and the
+    adversarial case; appends its JSON row."""
+    import torch
+    from citus_tpu_torch.ops.hash_agg_insert import (
+        hash_agg_insert, hash_agg_insert_plain,
+    )
+    main_call, n_real = main_path_hash_call(cl, device)
+    cases = [(f"bench hash GROUP BY l_orderkey, one shard ({n_real} rows)",
+              main_call)]
+    for all_false in (False, True):
+        cases.append((f"adversarial 3 keys S=1000"
+                      f"{' all-false mask' if all_false else ''}",
+                      adversarial_hash_call(device, FOLD_N + 3, 1000, 31,
+                                            all_false)))
+    max_err, main = 0.0, None
+    for name, call in cases:
+        err = compare_hash(name, call, hash_agg_insert, hash_agg_insert_plain)
+        max_err = max(max_err, err)
+        table, mask, keys, args, ops = call
+        work = clone_table(table)
+        ms = time_cuda_fresh(
+            lambda: hash_agg_insert(work, mask, keys, args, ops),
+            lambda: copy_table_(work, table))
+        plain_ms = time_cuda_fresh(
+            lambda: hash_agg_insert_plain(work, mask, keys, args, ops),
+            lambda: copy_table_(work, table), reps=3)
+        copy_table_(work, table)
+        spill = hash_agg_insert(work, mask, keys, args, ops)
+        torch.cuda.synchronize()
+        placed = int(work.rows.sum())
+        nbytes = hash_bytes(call)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # slot traffic: every placed row touches its claim word, each key
+        # and flag, every partial register and rows[slot] at random
+        sectors = 2 + 2 * len(keys) + len(ops)
+        S = table.slots
+        acc = torch.zeros(S, dtype=torch.int64, device=device)
+        n = mask.numel()
+        slot = torch.randint(0, S, (n,), device=device)
+        val = torch.randint(0, 1000, (n,), device=device)
+        lib_ms = time_cuda(lambda: acc.index_add_(0, slot, val))
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        say(f"phase 3 hash_agg_insert [{name}]: N={n} S={S} "
+            f"keys={len(keys)} ops={len(ops)} agrees (merged groups of "
+            f"table and spill; max abs err of float sums {err!r}); placed "
+            f"{placed}, spilled {int(spill.sum())}, occupied "
+            f"{int((work.rows > 0).sum())} slots; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at "
+            f"3.35 TB/s); slot traffic {placed * sectors * 32} B in 32-byte "
+            f"sectors ({sectors} a placed row); library yardstick (one int64 "
+            f"index_add_ into S slots, one op) {lib_ms:.4f} ms")
+    rows.append({"name": "hash_agg_insert", "route": "cuda",
+                 "source": "citus_tpu_torch/csrc/hash_agg_insert.cu",
+                 "replaces": "citus_tpu/ops/hash_agg.py:179",
+                 "max_abs_err": max_err, **main, "bound_by": "bytes",
+                 "library_ms": None})
+
+
+def phase3_filter(device, plans, rows: list) -> None:
+    """filter_mask against its plain version on FOLD_N rows: Q6's and
+    P1's predicates over generated lineitem, and the synthetic one;
+    appends its JSON row."""
+    import torch
+    from citus_tpu_torch.ops.filter_mask import filter_mask, filter_mask_plain
+    line = lineitem_filter_columns(plans["physical"])
+    syn = syn_columns(FOLD_N, 41)
+    main = None
+    for name, cols in (("p1", line), ("q6", line), ("syn", syn)):
+        prog, params = plans["filters"][name]
+        call = filter_call(prog, cols, params, device, FOLD_N)
+        got = filter_mask(prog, *call)
+        want = filter_mask_plain(prog, *call)
+        if not torch.equal(got, want):
+            raise AssertionError(f"filter_mask [{name}]: masks differ in "
+                                 f"{int((got != want).sum())} rows")
+        ms = time_cuda(lambda: filter_mask(prog, *call))
+        plain_ms = time_cuda(lambda: filter_mask_plain(prog, *call))
+        nbytes = filter_bytes(call[0], call[2])
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        first = next(iter(call[0].values()))[0]
+        lib_ms = time_cuda(lambda: torch.ge(first, 1))
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        say(f"phase 3 filter_mask [{name}]: N={FOLD_N} columns "
+            f"{list(prog.columns)} params {len(params)}: masks identical "
+            f"({int(got.sum())} rows pass); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at "
+            f"3.35 TB/s), library yardstick (one torch.ge over one column, "
+            f"one op) {lib_ms:.4f} ms")
+    rows.append({"name": "filter_mask", "route": "cuda",
+                 "source": "citus_tpu_torch/ops/expr_codegen.py",
+                 "replaces": "citus_tpu/executor/executor.py:971",
+                 "max_abs_err": 0.0, **main, "bound_by": "bytes",
+                 "library_ms": None})
 
 
 def run(args) -> dict:
@@ -456,9 +1014,7 @@ def run(args) -> dict:
     from citus_tpu_torch import errors as ctt_errors
     from citus_tpu_torch.executor.device_cache import GLOBAL_CACHE
     from citus_tpu_torch.ops import cuda_build
-    from citus_tpu_torch.ops.scan_agg_fold import (
-        scan_agg_fold, scan_agg_fold_plain,
-    )
+    from citus_tpu_torch.ops.scan_agg_fold import scan_agg_fold
 
     # ---- phase 1: card and versions
     card = card_line()
@@ -470,67 +1026,58 @@ def run(args) -> dict:
         f"{torch.__version__} cuda {torch.version.cuda} nvcc {nvcc}")
     device = torch.device("cuda", 0)
 
-    # ---- phase 2: build every kernel, all nvcc processes at once
-    t0 = time.perf_counter()
-    kernels = ["scan_agg_fold"]
-    cuda_build.build_all(kernels)
-    say(f"phase 2 build: {len(kernels)} kernel(s) in "
-        f"{time.perf_counter() - t0:.3f} s")
-    for k in kernels:
-        for line in cuda_build.build_log(k).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                say(f"phase 2 ptxas {k}: {line.strip()}")
-
     tmp = tempfile.mkdtemp(prefix="citus_tpu_torch_smoke_")
     try:
-        # ---- phase 3: kernel vs plain version at the main path's shapes
-        calls = main_path_fold_calls(device, tmp)
-        cases = [("q6 scalar G=1", calls["q6"]),
-                 ("q1 direct G=12", calls["q1"])]
-        for all_false in (False, True):
-            cases.append((f"direct G=65536{' all-false mask' if all_false else ''}",
-                          synthetic_global_case(device, FOLD_N + 3, 65536,
-                                                21, all_false)))
-        timings = {}
-        max_err = 0.0
-        for name, call in cases:
-            err = compare_fold(name, call, scan_agg_fold,
-                               scan_agg_fold_plain)
-            max_err = max(max_err, err)
-            regime = {1: "shared-memory table", 0: "global atomics"}.get(
-                scan_agg_fold.last_regime, "none")
-            kc = clone_call(call)
-            ms = time_cuda(lambda: scan_agg_fold(*kc))
-            pc = clone_call(call)
-            plain_ms = time_cuda(lambda: scan_agg_fold_plain(*pc))
-            nbytes, nops = fold_bytes(call), fold_ops(call)
-            bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / SIMT_OPS_PER_S) * 1e3
-            # yardstick: ONE index_add_ of one int64 sum at the same N, G
-            G = call[6]
-            acc = torch.zeros(G, dtype=torch.int64, device=device)
-            n = call[2].numel()
-            gid = torch.randint(0, G, (n,), device=device)
-            val = torch.randint(0, 1000, (n,), device=device)
-            lib_ms = time_cuda(lambda: acc.index_add_(0, gid, val))
-            timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
-            say(f"phase 3 scan_agg_fold [{name}]: N={n} G={G} "
-                f"ops={len(call[5])} regime={regime} agrees "
-                f"(max abs err of float sums {err!r}); kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({nbytes} B at 3.35 TB/s), library yardstick "
-                f"(one int64 index_add_, one op) {lib_ms:.4f} ms")
+        plans = smoke_plans(device, tmp)
+        # ---- phase 2: build every kernel, all nvcc processes at once;
+        # then one more generated predicate alone, for its cold build time
+        t0 = time.perf_counter()
+        kernels = ["scan_agg_fold", "hash_agg_insert"]
+        jobs = [cuda_build.start_generated("filter_mask",
+                                           plans["filters"][q][0].predicate.source)
+                for q in ("q6", "p1")]
+        cuda_build.build_all(kernels)
+        for job in jobs:
+            cuda_build.finish_generated(job)
+        say(f"phase 2 build: {len(kernels)} kernels and {len(jobs)} "
+            f"generated predicates in {time.perf_counter() - t0:.3f} s")
+        for k in kernels:
+            for line in cuda_build.build_log(k).splitlines():
+                if "registers" in line or "spill" in line or "error" in line:
+                    say(f"phase 2 ptxas {k}: {line.strip()}")
+        t0 = time.perf_counter()
+        plans["filters"]["syn"][0].library()
+        say(f"phase 2 cold nvcc build of one generated predicate (the "
+            f"synthetic one) alone: {time.perf_counter() - t0:.3f} s")
 
-        # ---- phase 4: the main path through the port's entry points
+        # ---- phase 3: kernel vs plain version at the main path's shapes
         n_rows = args.rows
         if n_rows != SF1_ROWS:
             say(f"phase 4 NOTE: scale cut to {n_rows} rows (SF1 is {SF1_ROWS})")
         torch.cuda.reset_peak_memory_stats(device)
         hits0 = GLOBAL_CACHE.hits
         cl, cols = load_lineitem(ctt, os.path.join(tmp, "sf"), n_rows)
-        launches = 0
+        kernel_rows: list = []
+        phase3_fold(device, plans, kernel_rows)
+        phase3_hash(device, cl, kernel_rows)
+        phase3_filter(device, plans, kernel_rows)
+        launches = dict.fromkeys(launch_counters(), 0)
+
+        # ---- phase 4: the main path through the port's entry points
         for run_kind in ("cold", "warm"):
-            launches += run_checked(cl, "Q6", Q6, oracle_q6(cols), n_rows,
-                                    run_kind)
+            launches["scan_agg_fold"] += run_checked(
+                cl, "Q6", Q6, oracle_q6(cols), n_rows, run_kind)
+        cl.execute("SET citus.hash_agg_slots = auto")
+        for qname, sql, want in (("H1", H1, oracle_h1(cols)),
+                                 ("H2", H2, oracle_h2(cols))):
+            for run_kind in ("cold", "warm"):
+                launches["hash_agg_insert"] += run_checked(
+                    cl, qname, sql, want, n_rows, run_kind,
+                    "hash_agg_insert")
+        want_p1 = oracle_p1(cols)
+        for run_kind in ("cold", "warm"):
+            launches["filter_mask"] += run_checked(
+                cl, "P1", P1, want_p1, n_rows, run_kind, "filter_mask")
         q1_rows = n_rows
         if q1_guard_fires(cols):
             # the engine's int64 overflow guard (executor/finalize.py
@@ -549,7 +1096,7 @@ def run(args) -> dict:
                 raise AssertionError(
                     f"Q1 at {n_rows} rows: {scan_agg_fold.launches} kernel "
                     f"launches for {SHARDS} one-batch shards")
-            launches += scan_agg_fold.launches
+            launches["scan_agg_fold"] += scan_agg_fold.launches
             say(f"phase 4 Q1 at {n_rows} rows: the int64 overflow guard "
                 f"fires as the oracle predicts (largest group sum_charge "
                 f"{q1_max_charge(cols)} at scale 8 >= 2^62), after "
@@ -558,30 +1105,24 @@ def run(args) -> dict:
             q1_rows = Q1_ROWS
             cl, cols = load_lineitem(ctt, os.path.join(tmp, "q1"), q1_rows)
         for run_kind in ("cold", "warm"):
-            launches += run_checked(cl, "Q1", Q1, oracle_q1(cols), q1_rows,
-                                    run_kind)
+            launches["scan_agg_fold"] += run_checked(
+                cl, "Q1", Q1, oracle_q1(cols), q1_rows, run_kind)
         cl.close()
         say(f"phase 4 device cache hits {GLOBAL_CACHE.hits - hits0}, "
             f"peak device memory {torch.cuda.max_memory_allocated(device)} B")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    t = timings["q1 direct G=12"]
+    for row in kernel_rows:
+        row["launches"] = launches[row["name"]]
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} never launched on the "
+                                 "main path")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "card": card,
-        "kernels": [{
-            "name": "scan_agg_fold",
-            "route": "cuda",
-            "source": "citus_tpu_torch/csrc/scan_agg_fold.cu",
-            "replaces": "citus_tpu/ops/scan_agg.py:277",
-            "launches": launches,
-            "max_abs_err": max_err,
-            "ms": t["ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": "bytes",
-            "library_ms": None,
-        }],
+        "kernels": [{k: row[k] for k in keys} for row in kernel_rows],
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                    "count": torch.cuda.device_count()},
     }

@@ -6,10 +6,11 @@ control-plane operations the reference exposes as UDFs
 (create_distributed_table, ...) are available both as Python methods and
 through their SQL spellings (``SELECT create_distributed_table('t','col')``).
 
-This port carries the first slice of the JAX package's surface: CREATE
+This port carries the first slices of the JAX package's surface: CREATE
 TABLE, create_distributed_table, COPY (``copy_from``), INSERT ... VALUES,
-single-table SELECT with aggregates in the scalar and direct group
-modes (with ORDER BY / LIMIT on the result), and EXPLAIN.  Everything
+single-table SELECT with aggregates in every group mode (scalar, direct
+and hash) and without them (filtered projections, DISTINCT), with ORDER
+BY / LIMIT on the result, and EXPLAIN.  Everything
 else raises UnsupportedFeatureError naming its ROADMAP.md item.  A data
 directory written by ``citus_tpu`` opens here unchanged: the catalog
 document, the columnar stripe files and the shard hash are the same.

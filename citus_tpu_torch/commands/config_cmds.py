@@ -42,6 +42,17 @@ def _ms_duration(v) -> float:
     return float(s) / 1000.0
 
 
+def _hash_slots(v) -> int:
+    """citus.hash_agg_slots = <slots> | auto (stored as 0: sized from
+    catalog row-count stats at execution)."""
+    if str(v).lower() == "auto":
+        return 0
+    n = int(v)
+    if n < 0:
+        raise ValueError(v)
+    return n
+
+
 #: GUC name -> (settings section, field, coercion)
 _GUCS = {
     "citus.task_executor_backend": ("executor", "task_executor_backend", _backend),
@@ -51,6 +62,7 @@ _GUCS = {
     "citus.kernel_cache_size": ("executor", "kernel_cache_size", int),
     "citus.plan_cache_mode": ("planner", "plan_cache_mode", _plan_cache_mode),
     "citus.direct_gid_limit": ("planner", "direct_gid_limit", int),
+    "citus.hash_agg_slots": ("planner", "hash_agg_slots", _hash_slots),
     "citus.shard_count": ("sharding", "shard_count", int),
     "citus.shard_replication_factor": ("sharding", "shard_replication_factor", int),
     "lock_timeout": ("executor", "lock_timeout_s", _ms_duration),

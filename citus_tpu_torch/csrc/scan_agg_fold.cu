@@ -32,32 +32,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "atomics.cuh"
+#include "columns.cuh"
+
 #define SAF_MAX_KEYS 8
 #define SAF_MAX_ARGS 32
 #define SAF_MAX_OPS 32
-
-// value dtypes
-#define SAF_U8 0   // bool or uint8
-#define SAF_I32 1
-#define SAF_I64 2
-#define SAF_F32 3
-#define SAF_F64 4
-
-// partial-op kinds
-#define SAF_COUNT_STAR 0
-#define SAF_COUNT 1
-#define SAF_SUM 2
-#define SAF_MIN 3
-#define SAF_MAX 4
-
-struct SafCol {
-    const void* data;       // [n] or [1] values
-    const uint8_t* valid;   // [n] or [1] bool, or null = all valid
-    int64_t data_stride;    // 1, or 0 for a broadcast constant
-    int64_t valid_stride;
-    int32_t dtype;
-    int32_t pad;
-};
 
 struct SafParams {
     int64_t n;
@@ -79,122 +59,6 @@ struct SafParams {
     long long* rows;                 // [G] int64, or null (scalar mode)
 };
 
-// ------------------------------------------------------------ loads
-
-__device__ __forceinline__ long long load_i64(const SafCol& c, int64_t i) {
-    int64_t j = i * c.data_stride;
-    switch (c.dtype) {
-        case SAF_U8: return (long long)((const uint8_t*)c.data)[j];
-        case SAF_I32: return (long long)((const int32_t*)c.data)[j];
-        case SAF_I64: return ((const long long*)c.data)[j];
-        case SAF_F32: return (long long)((const float*)c.data)[j];
-        default: return (long long)((const double*)c.data)[j];
-    }
-}
-
-__device__ __forceinline__ double load_f64(const SafCol& c, int64_t i) {
-    int64_t j = i * c.data_stride;
-    switch (c.dtype) {
-        case SAF_U8: return (double)((const uint8_t*)c.data)[j];
-        case SAF_I32: return (double)((const int32_t*)c.data)[j];
-        case SAF_I64: return (double)((const long long*)c.data)[j];
-        case SAF_F32: return (double)((const float*)c.data)[j];
-        default: return ((const double*)c.data)[j];
-    }
-}
-
-__device__ __forceinline__ float load_f32(const SafCol& c, int64_t i) {
-    int64_t j = i * c.data_stride;
-    switch (c.dtype) {
-        case SAF_U8: return (float)((const uint8_t*)c.data)[j];
-        case SAF_I32: return (float)((const int32_t*)c.data)[j];
-        case SAF_I64: return (float)((const long long*)c.data)[j];
-        case SAF_F32: return ((const float*)c.data)[j];
-        default: return (float)((const double*)c.data)[j];
-    }
-}
-
-__device__ __forceinline__ bool is_valid(const SafCol& c, int64_t i) {
-    return c.valid == nullptr || c.valid[i * c.valid_stride] != 0;
-}
-
-// ------------------------------------------------------------ atomics
-
-// float min/max that propagate NaN (jnp.minimum / jnp.maximum): once a
-// slot holds NaN it stays NaN, and a NaN update always lands
-__device__ __forceinline__ void atomic_min_f64(double* p, double v) {
-    unsigned long long* a = (unsigned long long*)p;
-    unsigned long long old = *a, assumed;
-    do {
-        assumed = old;
-        double cur = __longlong_as_double((long long)assumed);
-        if (cur != cur) return;
-        if (!(v != v) && !(v < cur)) return;
-        old = atomicCAS(a, assumed, (unsigned long long)__double_as_longlong(v));
-    } while (old != assumed);
-}
-
-__device__ __forceinline__ void atomic_max_f64(double* p, double v) {
-    unsigned long long* a = (unsigned long long*)p;
-    unsigned long long old = *a, assumed;
-    do {
-        assumed = old;
-        double cur = __longlong_as_double((long long)assumed);
-        if (cur != cur) return;
-        if (!(v != v) && !(v > cur)) return;
-        old = atomicCAS(a, assumed, (unsigned long long)__double_as_longlong(v));
-    } while (old != assumed);
-}
-
-__device__ __forceinline__ void atomic_min_f32(float* p, float v) {
-    unsigned int* a = (unsigned int*)p;
-    unsigned int old = *a, assumed;
-    do {
-        assumed = old;
-        float cur = __uint_as_float(assumed);
-        if (cur != cur) return;
-        if (!(v != v) && !(v < cur)) return;
-        old = atomicCAS(a, assumed, __float_as_uint(v));
-    } while (old != assumed);
-}
-
-__device__ __forceinline__ void atomic_max_f32(float* p, float v) {
-    unsigned int* a = (unsigned int*)p;
-    unsigned int old = *a, assumed;
-    do {
-        assumed = old;
-        float cur = __uint_as_float(assumed);
-        if (cur != cur) return;
-        if (!(v != v) && !(v > cur)) return;
-        old = atomicCAS(a, assumed, __float_as_uint(v));
-    } while (old != assumed);
-}
-
-// min/max/add of one operand into a register, by accumulator type
-__device__ __forceinline__ void combine_i64(int kind, long long* p, long long v) {
-    if (kind == SAF_MIN) atomicMin(p, v);
-    else if (kind == SAF_MAX) atomicMax(p, v);
-    else atomicAdd((unsigned long long*)p, (unsigned long long)v);
-}
-
-__device__ __forceinline__ void combine_i32(int kind, int* p, int v) {
-    if (kind == SAF_MIN) atomicMin(p, v);
-    else if (kind == SAF_MAX) atomicMax(p, v);
-    else atomicAdd(p, v);
-}
-
-__device__ __forceinline__ void combine_f64(int kind, double* p, double v) {
-    if (kind == SAF_MIN) atomic_min_f64(p, v);
-    else if (kind == SAF_MAX) atomic_max_f64(p, v);
-    else atomicAdd(p, v);
-}
-
-__device__ __forceinline__ void combine_f32(int kind, float* p, float v) {
-    if (kind == SAF_MIN) atomic_min_f32(p, v);
-    else if (kind == SAF_MAX) atomic_max_f32(p, v);
-    else atomicAdd(p, v);
-}
-
 // the identity of a slot, as its 8 raw bytes (the first 4 for 4-byte types)
 __device__ __forceinline__ unsigned long long identity_bits(int kind, int dtype) {
     if (kind == SAF_MIN || kind == SAF_MAX) {
@@ -211,19 +75,7 @@ __device__ __forceinline__ unsigned long long identity_bits(int kind, int dtype)
 
 // fold one valid row of op `o` into the 8-byte slot at `slot`
 __device__ __forceinline__ void fold_row(const SafParams& p, int o, void* slot, int64_t i) {
-    int kind = p.op_kind[o];
-    int dt = p.op_dtype[o];
-    if (kind == SAF_COUNT_STAR || kind == SAF_COUNT) {
-        atomicAdd((unsigned long long*)slot, 1ull);
-        return;
-    }
-    const SafCol& a = p.args[p.op_arg[o]];
-    switch (dt) {
-        case SAF_I64: combine_i64(kind, (long long*)slot, load_i64(a, i)); break;
-        case SAF_I32: combine_i32(kind, (int*)slot, (int)load_i64(a, i)); break;
-        case SAF_F32: combine_f32(kind, (float*)slot, load_f32(a, i)); break;
-        default: combine_f64(kind, (double*)slot, load_f64(a, i)); break;
-    }
+    fold_value(p.op_kind[o], p.op_dtype[o], slot, p.args[p.op_arg[o]], i);
 }
 
 __device__ __forceinline__ int op_width(const SafParams& p, int o) {

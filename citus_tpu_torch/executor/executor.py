@@ -7,7 +7,11 @@ Maps a PhysicalPlan onto the available backend:
 - ``gpu``: the single-device streaming scan on the Cluster's torch
   device: host decode on a prefetch thread, pinned host-to-device
   copies, and one ``scan_agg_fold`` per batch into accumulators that
-  stay on the device until the final copy back
+  stay on the device until the final copy back; GROUP BY without a
+  small key domain streams into one device hash table instead (one
+  ``hash_agg_insert`` per batch, spills merged exactly on the host),
+  and a projection's WHERE runs as one generated ``filter_mask``
+  kernel per batch
 
 Partial states from multiple rounds merge on the host, exactly like the
 reference merges per-task tuples on the coordinator.  The multi-device
@@ -125,20 +129,28 @@ def encode_params(cat: Catalog, bound, values: Optional[list]):
     return tuple(pcols), tuple(pvalids)
 
 
+def _host_batches(cat: Catalog, plan: PhysicalPlan):
+    """Every shard's unpadded batches on the host: (scan columns cast to
+    their device dtypes, validity masks, rows), in plan.scan_columns
+    order."""
+    schema = plan.bound.table.schema
+    for si in plan.shard_indexes:
+        for values, masks, n in load_shard_batches(
+                cat, plan, si, min_batch_rows=1):
+            cols = tuple(values[c].astype(schema.scan_dtype(c, device=True),
+                                          copy=False)
+                         for c in plan.scan_columns)
+            yield cols, tuple(masks[c] for c in plan.scan_columns), n
+
+
 def _run_partials_cpu(cat: Catalog, plan: PhysicalPlan, settings: Settings,
                       params=((), ()), device=None):
     worker = build_worker_fn(plan, np)
     pcols, pvalids = params
     shard_results = []
-    for si in plan.shard_indexes:
-        for values, masks, n in load_shard_batches(
-                cat, plan, si, min_batch_rows=1):
-            cols = tuple(values[c].astype(
-                plan.bound.table.schema.scan_dtype(c, device=True),
-                copy=False) for c in plan.scan_columns)
-            valids = tuple(masks[c] for c in plan.scan_columns)
-            shard_results.append(worker(cols + pcols, valids + pvalids,
-                                        np.ones(n, bool)))
+    for cols, valids, n in _host_batches(cat, plan):
+        shard_results.append(worker(cols + pcols, valids + pvalids,
+                                    np.ones(n, bool)))
     if not shard_results:
         shard_results.append(_empty_partials(plan, np))
     return combine_partials_host(plan, shard_results)
@@ -392,13 +404,15 @@ def _run_agg(cat: Catalog, plan: PhysicalPlan, settings: Settings,
     backend = settings.executor.task_executor_backend
     mode = plan.group_mode.kind
     penv = _params_env(plan, params)
-    if mode not in ("scalar", "direct"):
-        raise UnsupportedFeatureError(
-            "GROUP BY without a small proven key domain (hash mode) is not "
-            "ported yet (ROADMAP.md A7)")
     if backend not in ("cpu", "gpu"):
         raise ExecutionError(
             f"unknown task_executor_backend {backend!r} (cpu | gpu)")
+    if mode not in ("scalar", "direct"):
+        # unbounded-cardinality GROUP BY: the device table and the spills
+        # merge on the host, so the whole strategy renders as one
+        # host_agg span
+        with _trace.span("host_agg", shards=len(plan.shard_indexes)):
+            return _run_agg_hash_host(cat, plan, settings, params, device)
     from citus_tpu_torch.executor.pipeline import dispatch_remote_tasks
     run = _run_partials_cpu if backend == "cpu" else _run_partials_device
     local, _dispatch = dispatch_remote_tasks(cat, plan, settings, params)
@@ -423,6 +437,299 @@ def _params_env(plan, params) -> dict:
     pcols, pvalids = params
     return dict(zip(param_env_names(plan.bound.param_specs),
                     zip(pcols, pvalids)))
+
+
+# ------------------------------------------------------- hash GROUP BY
+
+
+def _hash_has_exact(plan: PhysicalPlan) -> bool:
+    """distinct/collect partial states are exact value (multi)sets and
+    sketch registers have their own merge laws: only the host
+    accumulation path can carry them."""
+    return any(op.kind in ("distinct", "collect", "collect_set", "hll",
+                           "ddsk", "topk", "topkv")
+               for op in plan.partial_ops)
+
+
+def _hash_slots(cat: Catalog, plan: PhysicalPlan, settings: Settings) -> int:
+    """citus.hash_agg_slots; 0 (= auto) sizes the table from catalog
+    row-count stats — next power of two, clamped [1024, 1<<20] — so
+    small tables don't pay a megaslot fetch and big ones don't spill
+    every other row."""
+    S = settings.planner.hash_agg_slots
+    if S > 0:
+        return S
+    from citus_tpu_torch.catalog.stats import table_row_count
+    n = max(1, int(table_row_count(cat, cat.table(plan.bound.table.name))))
+    return min(1 << 20, max(1024, 1 << (n - 1).bit_length()))
+
+
+def _hash_key_dtypes(plan: PhysicalPlan, penv: dict) -> tuple:
+    """Device dtype of each group-key expression, probed by evaluating
+    the compiled key on a zero-row scan env (uuid lanes, casts and
+    dictionary remaps all resolve without trusting declared types)."""
+    from citus_tpu_torch.planner.bound import compile_expr
+    schema = plan.bound.table.schema
+    env = {c: (np.zeros(0, schema.scan_dtype(c, device=True)),
+               np.zeros(0, bool))
+           for c in plan.scan_columns}
+    env.update(penv)
+    dts = []
+    for k in plan.bound.group_keys:
+        kv, _ = compile_expr(k, np)(env)
+        dts.append(np.asarray(kv).dtype)
+    return tuple(dts)
+
+
+def _stream_hash_batches(cat: Catalog, plan: PhysicalPlan, settings: Settings,
+                         fused, table, pcols, pvalids, acc, penv, pstats, hs,
+                         device):
+    """Stream the plan's shards through the fused hash insert.
+
+    One ``hash_agg_insert`` per batch into the running device ``table``
+    (updated in place); spill masks are read back and drained into
+    ``acc`` per prefetch window (not per batch), at the same sync points
+    that bound the un-synced H2D window — so the device holds O(slots)
+    plus depth x batch bytes and the host never materializes the scan.
+    A spilled row's keys and arguments are evaluated again with numpy
+    from its host batch, which is kept until its spill is drained.
+    ``hs`` accumulates dispatch / window / spill bookkeeping."""
+    from citus_tpu_torch.executor.pipeline import (
+        prefetch_batches, read_ahead_depth,
+    )
+    from citus_tpu_torch.testing.faults import FAULTS
+    depth = _prefetch_depth(settings)
+    pending: list = []   # (host batch, device spill mask) awaiting drain
+
+    def _drain():
+        t_drain = clock()
+        for hb, sp in pending:
+            sp = sp.cpu().numpy()
+            if sp.any():
+                n_sp = int(sp.sum())
+                GLOBAL_COUNTERS.bump("hash_spill_rows", n_sp)
+                hs["spilled"] += n_sp
+                env = {n: (np.asarray(c), np.asarray(v))
+                       for n, c, v in zip(plan.scan_columns, hb.cols,
+                                          hb.valids)}
+                env.update(penv)
+                acc.add_batch(sp, [f(env) for f in hs["key_fns_np"]],
+                              [f(env) for f in hs["arg_fns_np"]])
+        pending.clear()
+        hs["drain_s"] += clock() - t_drain
+
+    window_bytes = 0
+    since_sync = 0
+    staging = _Staging(device, depth + 1)
+    host_iter = prefetch_batches(_iter_padded_batches(cat, plan, settings),
+                                 read_ahead_depth(settings), pstats)
+    try:
+        for hb in host_iter:
+            t_dev = clock()
+            FAULTS.hit("device_round", plan.bound.table.name)
+            db = staging.to_device(hb)
+            t0 = clock()
+            spill = fused(table, db.cols + pcols, db.valids + pvalids,
+                          db.row_mask)
+            hs["n_dispatch"] += 1
+            hs["task_times"].append((db.shard_index, db.n_rows, clock() - t0))
+            bb = (sum(c.nbytes for c in hb.cols)
+                  + sum(v.nbytes for v in hb.valids) + hb.row_mask.nbytes)
+            hs["nbytes"] += bb
+            hs["task_bytes"].append((db.shard_index, bb))
+            pending.append((hb, spill))
+            window_bytes += bb
+            hs["window_peak"] = max(hs["window_peak"], window_bytes)
+            since_sync += 1
+            if since_sync >= depth:
+                _block_ready(device)
+                _drain()
+                since_sync = 0
+                window_bytes = 0
+            pstats.device_s += clock() - t_dev
+            ctx = _trace.current()
+            if ctx is not None:
+                tr, parent = ctx
+                tr.add_closed("device_round", parent.span_id, t_dev, clock(),
+                              {"shard_index": int(hb.shard_index),
+                               "rows": int(hb.n_rows)})
+    finally:
+        host_iter.close()
+    _drain()
+
+
+def _run_hash_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
+                     params, acc, penv, device):
+    """Device half of a hash_host plan: stream every shard batch into ONE
+    device-resident hash table, draining spills into ``acc`` exactly.
+    Every shard is local (the remote half is ROADMAP.md A13).  Returns
+    the fetched (key_tables, partials, rows) host arrays."""
+    import torch
+    from citus_tpu_torch.executor.pipeline import PipelineStats
+    from citus_tpu_torch.ops.hash_agg import (
+        build_fused_hash_worker, empty_hash_state,
+    )
+    from citus_tpu_torch.ops.xp_torch import TorchNamespace
+    from citus_tpu_torch.planner.bound import compile_expr
+
+    if device is None:
+        raise ExecutionError("the gpu backend needs the Cluster's device")
+    device = torch.device(device)
+    xp = TorchNamespace(device)
+    pstats = PipelineStats()
+    _trace.set_phase("device")
+    S = _hash_slots(cat, plan, settings)
+    key_dtypes = _hash_key_dtypes(plan, penv)
+    fused = get_kernel(
+        plan, f"hash_fused:{device}",
+        lambda: build_fused_hash_worker(plan, xp, key_dtypes),
+        extra=(str(device),))
+    hs = {"n_dispatch": 0, "window_peak": 0, "nbytes": 0, "spilled": 0,
+          "drain_s": 0.0, "task_times": [], "task_bytes": [],
+          "key_fns_np": [compile_expr(k, np) for k in plan.bound.group_keys],
+          "arg_fns_np": [compile_expr(a, np) for a in plan.agg_args]}
+    table = empty_hash_state(plan, S, key_dtypes, device)
+    pcols, pvalids = _device_params(xp, *params)
+    _stream_hash_batches(cat, plan, settings, fused, table, pcols, pvalids,
+                         acc, penv, pstats, hs, device)
+    t_dev = clock()
+    h_keys, h_partials, h_rows = table.to_host()
+    pstats.device_s += clock() - t_dev
+    GLOBAL_COUNTERS.bump("bytes_scanned", hs["nbytes"])
+    GLOBAL_COUNTERS.bump("device_hbm_touched_bytes", hs["nbytes"])
+    GLOBAL_COUNTERS.bump("hash_fused_dispatches", hs["n_dispatch"])
+    pstats.h2d_bytes = hs["nbytes"]
+    pstats.publish(plan)
+    pl = plan.runtime_cache.setdefault("pipeline", {})
+    pl["fused_dispatches"] = hs["n_dispatch"]
+    pl["stream_window_peak_bytes"] = hs["window_peak"]
+    pl["hash_slots"] = S
+    pl["hash_occupancy_pct"] = round(100.0 * int((h_rows > 0).sum()) / S, 1)
+    pl["hash_spilled_rows"] = hs["spilled"]
+    pl["hash_spill_merge_ms"] = round(hs["drain_s"] * 1e3, 3)
+    plan.runtime_cache["task_times"] = hs["task_times"]
+    plan.runtime_cache["task_bytes"] = hs["task_bytes"]
+    return h_keys, h_partials, h_rows
+
+
+def _run_agg_hash_host(cat: Catalog, plan: PhysicalPlan, settings: Settings,
+                       params=((), ()), device=None) -> list[tuple]:
+    """Unbounded GROUP BY cardinality.
+
+    gpu backend: streaming device hash aggregation (ops/hash_agg.py) —
+    one device-resident table, one ``hash_agg_insert`` per batch, exact
+    host merge of the final table and of spilled rows.  cpu backend (and
+    exact value-set or sketch partials): full host grouping."""
+    from citus_tpu_torch.executor.host_agg import HostGroupAccumulator
+    from citus_tpu_torch.executor.pipeline import dispatch_remote_tasks
+
+    backend = settings.executor.task_executor_backend
+    acc = HostGroupAccumulator(len(plan.bound.group_keys), plan.partial_ops)
+    pcols, pvalids = params
+    penv = _params_env(plan, params)
+    dispatch_remote_tasks(cat, plan, settings, params)
+
+    if backend != "cpu" and not _hash_has_exact(plan):
+        from citus_tpu_torch.ops.hash_agg import merge_hash_tables_into
+        h_keys, h_partials, h_rows = _run_hash_device(
+            cat, plan, settings, params, acc, penv, device)
+        t0 = clock()
+        merge_hash_tables_into(acc, plan, h_keys, h_partials, h_rows)
+        key_arrays, partials = acc.finalize(
+            [k.type for k in plan.bound.group_keys],
+            scalar=not plan.bound.group_keys)
+        plan.runtime_cache["pipeline"]["host_merge_ms"] = round(
+            (clock() - t0) * 1e3, 3)
+        if partials is None:
+            return []
+        return finalize_groups(plan, cat, key_arrays, partials,
+                               params_env=penv)
+
+    # exact value-set partials (or the cpu oracle backend) stay host-only
+    worker = build_worker_fn(plan, np)
+    for cols, valids, n in _host_batches(cat, plan):
+        mask, keys, args = worker(cols + pcols, valids + pvalids,
+                                  np.ones(n, bool))
+        acc.add_batch(np.asarray(mask),
+                      [(np.asarray(v), m if isinstance(m, bool)
+                        else np.asarray(m)) for v, m in keys],
+                      [(np.asarray(v), m if isinstance(m, bool)
+                        else np.asarray(m)) for v, m in args])
+    key_arrays, partials = acc.finalize([k.type for k in plan.bound.group_keys],
+                                        scalar=not plan.bound.group_keys)
+    if partials is None:
+        return []
+    return finalize_groups(plan, cat, key_arrays, partials, params_env=penv)
+
+
+# ----------------------------------------------------------- projection
+
+
+def _build_filter_mask(plan: PhysicalPlan, params):
+    """The plan's WHERE as a ``FilterProgram`` over the device dtypes of
+    its columns and parameters."""
+    from citus_tpu_torch.ops.filter_mask import FilterProgram
+    from citus_tpu_torch.planner.bound import param_env_names
+    schema = plan.bound.table.schema
+    pcols, _ = params
+    return FilterProgram(
+        plan.bound.filter,
+        {c: schema.scan_dtype(c, device=True) for c in plan.scan_columns},
+        {n: np.asarray(v).dtype for n, v in
+         zip(param_env_names(plan.bound.param_specs), pcols)})
+
+
+def _run_projection(cat: Catalog, plan: PhysicalPlan, settings: Settings,
+                    params=((), ()), device=None) -> list[tuple]:
+    """SELECT without aggregates: scan every shard, mask its rows by the
+    WHERE clause — on the gpu backend one generated ``filter_mask``
+    launch per shard batch over only the predicate's columns, read back
+    to the host — and project the kept rows on the host."""
+    from citus_tpu_torch.executor.finalize import project_rows
+    from citus_tpu_torch.executor.pipeline import dispatch_remote_tasks
+    from citus_tpu_torch.planner.bound import compile_expr, predicate_mask
+
+    backend = settings.executor.task_executor_backend
+    if backend not in ("cpu", "gpu"):
+        raise ExecutionError(
+            f"unknown task_executor_backend {backend!r} (cpu | gpu)")
+    penv = _params_env(plan, params)
+    prog = None
+    if backend == "gpu" and plan.bound.filter is not None:
+        import torch
+        from citus_tpu_torch.ops.filter_mask import filter_mask
+        if device is None:
+            raise ExecutionError("the gpu backend needs the Cluster's device")
+        device = torch.device(device)
+        prog = get_kernel(plan, f"filter:{device}",
+                          lambda: _build_filter_mask(plan, params),
+                          extra=(str(device),))
+    dispatch_remote_tasks(cat, plan, settings, params)
+    env_batches = []
+    n_dispatch = 0
+    for cols, valids, n in _host_batches(cat, plan):
+        env = dict(zip(plan.scan_columns, zip(cols, valids)))
+        env.update(penv)
+        if prog is not None:
+            dcols = {c: tuple(torch.from_numpy(np.ascontiguousarray(a))
+                              .to(device) for a in env[c])
+                     for c in prog.columns}
+            row_mask = torch.ones(n, dtype=torch.bool, device=device)
+            mask = filter_mask(prog, dcols, penv, row_mask).cpu().numpy()
+            n_dispatch += 1
+        elif plan.bound.filter is not None:
+            cfn_np = plan.runtime_cache.get("np_filter")
+            if cfn_np is None:
+                cfn_np = compile_expr(plan.bound.filter, np)
+                plan.runtime_cache["np_filter"] = cfn_np
+            mask = np.asarray(predicate_mask(np, cfn_np, env,
+                                             np.ones(n, bool)))
+            mask = mask & np.ones(n, bool)
+        else:
+            mask = np.ones(n, bool)
+        env_batches.append((env, mask))
+    plan.runtime_cache["pipeline"]["filter_dispatches"] = n_dispatch
+    return project_rows(plan, cat, env_batches)
 
 
 # ---------------------------------------------------------------- entry
@@ -455,13 +762,9 @@ def execute_select(cat: Catalog, bound: BoundSelect, settings: Settings,
                    plan: Optional[PhysicalPlan] = None,
                    param_values: Optional[list] = None,
                    device=None) -> Result:
-    """Run one bound SELECT with aggregates.  ``device`` is the torch
-    device of the ``gpu`` backend (the Cluster's)."""
+    """Run one bound SELECT.  ``device`` is the torch device of the
+    ``gpu`` backend (the Cluster's)."""
     t0 = clock()
-    if not bound.has_aggs:
-        raise UnsupportedFeatureError(
-            "SELECT without aggregates (projection) is not ported yet "
-            "(ROADMAP.md A7-A8, queue B B4)")
     if settings.executor.megabatch_window_ms != 0:
         raise UnsupportedFeatureError(
             "citus.megabatch_window_ms is not ported yet (ROADMAP.md B5)")
@@ -496,7 +799,9 @@ def execute_select(cat: Catalog, bound: BoundSelect, settings: Settings,
                     direct_limit=settings.planner.direct_gid_limit)
                 if bound.param_specs:
                     run_plan = _bind_time_prune(run_plan, params)
-            return _run_agg(cat, run_plan, settings, params, device)
+            if bound.has_aggs:
+                return _run_agg(cat, run_plan, settings, params, device)
+            return _run_projection(cat, run_plan, settings, params, device)
         rows = snapshot_read(cat.data_dir, bound.table, _attempt,
                              timeout=settings.executor.lock_timeout_s)
         return _finish_select(bound, run_plan, rows, t0, exec_span)
@@ -514,8 +819,9 @@ def _finish_select(bound: BoundSelect, plan: PhysicalPlan, rows: list[tuple],
             rows = [r[:keep] for r in rows]
     GLOBAL_COUNTERS.bump("rows_returned", len(rows))
     elapsed = clock() - t0
+    strategy = plan.group_mode.kind if bound.has_aggs else "projection"
     if exec_span.recording:
-        exec_span.set(strategy=plan.group_mode.kind,
+        exec_span.set(strategy=strategy,
                       shards=len(plan.shard_indexes),
                       router=bool(plan.is_router), rows=len(rows))
         pipe = plan.runtime_cache.get("pipeline") or {}
@@ -527,7 +833,7 @@ def _finish_select(bound: BoundSelect, plan: PhysicalPlan, rows: list[tuple],
     task_times = plan.runtime_cache.pop("task_times", [])
     plan.runtime_cache.pop("task_bytes", None)
     explain = {
-        "strategy": plan.group_mode.kind,
+        "strategy": strategy,
         "shards": len(plan.shard_indexes),
         "router": plan.is_router,
         "intervals": [c.column for c in plan.intervals],

@@ -5,7 +5,13 @@ Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for Hopper
 with ``ctypes``: a build takes seconds, where one that includes
 PyTorch's headers takes minutes.  The library lands under
 ``build/citus_tpu_torch/cuda/<hash of source and flags>/`` at first use.
-``build_all`` starts one ``nvcc`` per source together.
+``build_all`` starts one ``nvcc`` per source together.  Every
+``csrc/*.cuh`` header is part of each build's hash.
+
+Generated sources (the predicate kernels of ``ops/expr_codegen.py``)
+build the same way through ``load_generated``: the source is written
+into its own build directory, named by the digest of the source, the
+headers and the flags, so one predicate family builds once.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises, and
 the caller that wanted the kernel fails with it.
@@ -14,6 +20,7 @@ the caller that wanted the kernel fails with it.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -22,10 +29,13 @@ import threading
 from citus_tpu_torch.utils.build import PACKAGE_DIR, build_dir, sources_digest
 
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
+#: --fmad=false: no fused multiply-add contraction, so float expressions
+#: round as the reference's (XLA on the CPU) do
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.RLock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -44,20 +54,29 @@ def nvcc_path() -> str:
                            "citus_tpu_torch need the CUDA toolkit")
 
 
+def _headers() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith(".cuh"))
+
+
+def _flags() -> list[str]:
+    return [*NVCC_FLAGS, "-I", CSRC]
+
+
 def _paths(name: str) -> tuple[str, str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    digest = sources_digest([src], extra=" ".join(NVCC_FLAGS))
+    digest = sources_digest([src, *_headers()], extra=" ".join(NVCC_FLAGS))
     d = build_dir("cuda", digest)
     return src, os.path.join(d, f"lib{name}.so"), os.path.join(d, "build.log")
 
 
-def _start(name: str):
+def _start(name: str, paths=None):
     """-> (so path, running nvcc or None when already built)."""
-    src, so, log = _paths(name)
+    src, so, log = paths or _paths(name)
     if os.path.exists(so):
         return so, None
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [nvcc_path(), *_flags(), "-o", tmp, src]
     fh = open(log, "w")
     proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
     return so, (proc, fh, tmp, log)
@@ -73,6 +92,46 @@ def _finish(name: str, so: str, job) -> None:
         with open(log) as f:
             raise KernelBuildError(f"nvcc failed for {name}.cu:\n{f.read()}")
     os.replace(tmp, so)
+
+
+def _generated_paths(name: str, source: str) -> tuple[str, str, str]:
+    h = hashlib.sha256(source.encode())
+    h.update(sources_digest(_headers(), extra=" ".join(NVCC_FLAGS)).encode())
+    d = build_dir("cuda", f"{name}-{h.hexdigest()[:16]}")
+    src = os.path.join(d, f"{name}.cu")
+    if not os.path.exists(src):
+        tmp = f"{src}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            f.write(source)
+        os.replace(tmp, src)
+    return src, os.path.join(d, f"lib{name}.so"), os.path.join(d, "build.log")
+
+
+def start_generated(name: str, source: str):
+    """Start building a generated source; -> a handle for
+    ``finish_generated`` (several builds can run at once)."""
+    paths = _generated_paths(name, source)
+    so, job = _start(name, paths)
+    return name, so, job
+
+
+def finish_generated(handle) -> ctypes.CDLL:
+    """Wait for a build from ``start_generated``; -> its loaded library."""
+    name, so, job = handle
+    with _lock:
+        lib = _libs.get(so)
+        if lib is None:
+            _finish(name, so, job)
+            lib = ctypes.CDLL(so)
+            _libs[so] = lib
+    return lib
+
+
+def load_generated(name: str, source: str) -> ctypes.CDLL:
+    """The loaded library of a generated CUDA source, built at first use
+    under a directory named by its digest."""
+    with _lock:
+        return finish_generated(start_generated(name, source))
 
 
 def build_all(names) -> dict[str, str]:

@@ -285,6 +285,21 @@ def _build_device_fold(plan: PhysicalPlan, xp) -> Callable:
     return fold
 
 
+def _vec(xp, v):
+    """A kernel input vector: contiguous [N], or [1] for a constant."""
+    v = xp.asarray(v)
+    return (v.reshape(1) if v.dim() == 0 else v).contiguous()
+
+
+def _validity(xp, valid):
+    """A kernel validity input: None when every row is valid."""
+    if valid is True:
+        return None
+    if valid is False:
+        return xp.const(False, np.bool_)
+    return _vec(xp, valid)
+
+
 def build_fold_inputs(plan: PhysicalPlan, xp) -> Callable:
     """``inputs(acc, cols, valids, row_mask)`` -> the argument tuple of
     ``scan_agg_fold`` for one batch: (registers, group-row counts or
@@ -319,17 +334,6 @@ def build_fold_inputs(plan: PhysicalPlan, xp) -> Callable:
     G = mode.n_groups if direct else 1
     domains = list(zip(mode.domains, mode.strides)) if direct else []
 
-    def vec(v):
-        v = xp.asarray(v)
-        return (v.reshape(1) if v.dim() == 0 else v).contiguous()
-
-    def validity(valid):
-        if valid is True:
-            return None
-        if valid is False:
-            return xp.const(False, np.bool_)
-        return vec(valid)
-
     def inputs(acc, cols, valids, row_mask):
         env = {n: (c, v) for n, c, v in zip(names, cols, valids)}
         mask = row_mask
@@ -338,16 +342,16 @@ def build_fold_inputs(plan: PhysicalPlan, xp) -> Callable:
         keys = []
         for kf, (d, stride) in zip(key_fns, domains):
             kv, kvalid = kf(env)
-            keys.append(FoldKey(vec(kv), validity(kvalid), d.lo, d.step,
+            keys.append(FoldKey(_vec(xp, kv), _validity(xp, kvalid), d.lo, d.step,
                                 stride))
         args = []
         for af in arg_fns:
             v, valid = af(env)
-            args.append((vec(v), validity(valid)))
+            args.append((_vec(xp, v), _validity(xp, valid)))
         # scalar mode keeps 0-d registers; the kernel sees [1] views
         regs = list(acc[:n_ops]) if direct \
             else [a.view(1) for a in acc[:n_ops]]
-        return (regs, acc[n_ops] if direct else None, vec(mask), keys,
+        return (regs, acc[n_ops] if direct else None, _vec(xp, mask), keys,
                 args, ops, G)
 
     return inputs

@@ -20,6 +20,9 @@ differs from torch's own rules in two places:
 - true division of two integer tensors is float64 in JAX and numpy,
   but torch's default float type (float32); ``truediv`` divides in
   float64 when neither side is a float tensor.
+
+``astype`` from a float to an integer type saturates and maps NaN to 0,
+as XLA does; torch on the CPU (like numpy) gives the type's minimum.
 """
 
 from __future__ import annotations
@@ -85,7 +88,11 @@ class TorchNamespace:
                             device=self.device)
 
     def astype(self, v, dt):
-        return self.asarray(v).to(torch_dtype(dt))
+        v, t = self.asarray(v), torch_dtype(dt)
+        if v.is_floating_point() and not t.is_floating_point \
+                and t != torch.bool:
+            return _float_to_int(v, t)
+        return v.to(t)
 
     def truediv(self, a, b):
         a, b = self._operand(a), self._operand(b)
@@ -170,6 +177,19 @@ class TorchNamespace:
             shape = (shape,)
         return torch.zeros(tuple(shape), dtype=torch_dtype(dtype),
                            device=self.device)
+
+
+def _float_to_int(v: torch.Tensor, t: torch.dtype) -> torch.Tensor:
+    """Float -> integer conversion as XLA does it (and the card's
+    ``cvt.rzi``): truncation, saturating at the type's bounds, NaN -> 0.
+    torch on the CPU gives the type's minimum for NaN and out-of-range
+    values instead."""
+    info = torch.iinfo(t)
+    w = v.to(torch.float64)
+    hi = 2.0 ** (info.bits - 1)
+    out = torch.where((w >= -hi) & (w < hi), w, 0.0).to(t)
+    out = torch.where(w >= hi, info.max, out)
+    return torch.where(w < -hi, info.min, out)
 
 
 def _is_float_tensor(x) -> bool:

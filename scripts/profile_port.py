@@ -1,14 +1,17 @@
-"""Where the warm Q1/Q6 time goes in citus_tpu_torch on one CUDA card.
+"""Where the warm time of chip_smoke.py's queries goes in citus_tpu_torch
+on one CUDA card.
 
     python3 scripts/profile_port.py [--rows N] [--reps R]
 
 Loads bench.py's lineitem (chip_smoke.py's copy of its generator, 4
-shards) on the card, warms Q1 and Q6 (the second run is served from the
-device cache), then runs each R more times under ``torch.profiler`` and
-prints, per query: the wall time per run, the device time per run
-summed over CUDA kernels and copies, the device's busy share of the
-wall time, and the kernels that took most of the device time.  Fails
-without a CUDA device.
+shards) on the card, runs each of Q1, Q6, H1, H2 and P1 twice (for Q1
+and Q6 the second run is served from the device cache; the hash GROUP
+BY and the projection read the stripes on every run, as their executor
+paths do, with citus.hash_agg_slots = auto), then R more times under
+``torch.profiler`` and prints, per query: the wall time per run, the
+device time per run summed over CUDA kernels and copies, the device's
+busy share of the wall time, and the kernels that took most of the
+device time.  Fails without a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,9 +48,11 @@ def main() -> int:
     cl.execute(f"SELECT create_distributed_table('lineitem', 'l_orderkey', {cs.SHARDS})")
     for c in cs.lineitem_chunks(args.rows):
         cl.copy_from("lineitem", columns=cs.copy_columns(c))
-    for name, sql in (("Q1", cs.Q1), ("Q6", cs.Q6)):
+    cl.execute("SET citus.hash_agg_slots = auto")
+    for name, sql in (("Q1", cs.Q1), ("Q6", cs.Q6), ("H1", cs.H1),
+                      ("H2", cs.H2), ("P1", cs.P1)):
         cl.execute(sql)
-        cl.execute(sql)  # warm: plan cached, batches in the device cache
+        cl.execute(sql)  # warm: plan cached (Q1/Q6: batches cached too)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

@@ -205,3 +205,18 @@ def test_int32_date_against_int64_parameter_promotes_like_numpy():
     assert (d < big).tolist() == [True, True, True]
     assert (d * xp.const(2**31, np.int64)).dtype == torch.int64
     assert xp.truediv(torch.tensor([1, 2]), 4).dtype == torch.float64
+
+
+@pytest.mark.parametrize("src", [np.float64, np.float32])
+@pytest.mark.parametrize("dst", [np.int64, np.int32])
+def test_float_to_int_cast_saturates_like_jax(src, dst):
+    """CAST of a float to an integer: NaN, infinities and out-of-range
+    values convert as XLA converts them (saturate, NaN -> 0), on the CPU
+    too, where torch alone would give the type's minimum."""
+    from citus_tpu_torch.ops.xp_torch import TorchNamespace
+    x = np.array([np.nan, np.inf, -np.inf, 1e20, -1e20, 3.7, -3.7, 0.0,
+                  -0.0, 2.0 ** 63, -2.0 ** 63, 2.0 ** 31, -2.0 ** 31,
+                  -2.0 ** 31 - 0.5, 2.0 ** 31 - 1, 123456.9], src)
+    want = np.asarray(jnp.asarray(x).astype(dst))
+    got = TorchNamespace("cpu").astype(torch.from_numpy(x), dst).numpy()
+    np.testing.assert_array_equal(got, want)

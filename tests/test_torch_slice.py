@@ -198,10 +198,10 @@ def test_opens_reference_data_directory(tmp_path):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT id, qty FROM events WHERE id = 777",
-    "SELECT DISTINCT kind FROM events ORDER BY kind NULLS LAST",
+    "SELECT id, row_number() OVER (ORDER BY id) FROM events",
+    "WITH w AS (SELECT id FROM events) SELECT count(*) FROM w",
     "SELECT e.id FROM events e JOIN events f ON e.id = f.id",
-    "SELECT kind, count(DISTINCT device) FROM events GROUP BY kind",
+    "SET citus.megabatch_window_ms = 5",
     "BEGIN",
     "DELETE FROM events WHERE id = 1",
     "UPDATE events SET qty = 1 WHERE id = 1",
@@ -228,13 +228,20 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import sys, tempfile\n"
         "import citus_tpu_torch as ctt\n"
         "from citus_tpu_torch.ops import scan_agg_fold, xp_torch, cuda_build\n"
+        "from citus_tpu_torch.ops import hash_agg, hash_agg_insert\n"
+        "from citus_tpu_torch.ops import expr_codegen, filter_mask\n"
+        "from citus_tpu_torch.executor import host_agg\n"
         "from citus_tpu_torch.commands import loader\n"
+        "import chip_smoke\n"
         "loader.ensure_loaded()\n"
         "cl = ctt.Cluster(tempfile.mkdtemp(), device='cpu')\n"
         "cl.execute('CREATE TABLE t (k bigint, v decimal(10,2))')\n"
         "cl.execute(\"SELECT create_distributed_table('t', 'k', 2)\")\n"
         "cl.execute('INSERT INTO t VALUES (1, 2.5), (2, -1.25)')\n"
         "assert cl.execute('SELECT sum(v) FROM t').rows[0][0] == 1.25\n"
+        "cl.execute('SET citus.direct_gid_limit = 1')\n"
+        "assert len(cl.execute('SELECT k, sum(v) FROM t GROUP BY k').rows) == 2\n"
+        "assert cl.execute('SELECT k FROM t WHERE v > 0').rows == [(1,)]\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'citus_tpu' "
         "or m.startswith('citus_tpu.'))\n"
