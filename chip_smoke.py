@@ -10,9 +10,9 @@ result line:
 1. the card (``nvidia-smi`` name and power limit) and the torch, CUDA
    and nvcc versions;
 2. build of every CUDA kernel of the port from ``citus_tpu_torch/csrc``
-   and of the predicate kernels generated for Q6 and P1 (one nvcc per
-   source, all started together), then one more generated predicate
-   alone, for the cold build time of one predicate;
+   and of the predicate kernels generated for Q6, P1 and the phase-5
+   families (one nvcc per source, all started together), then one more
+   generated predicate alone, for the cold build time of one predicate;
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes:
    - ``scan_agg_fold`` for TPC-H Q6 (scalar mode) and Q1 (direct mode,
@@ -31,7 +31,18 @@ result line:
      one slot with placed + spilled rows = masked rows;
    - ``filter_mask``, the predicate kernels generated from Q6's and P1's
      WHERE and from a synthetic predicate with nulls, NaN, zero divisors
-     and three-valued AND/OR, on 2^21 rows: identical masks.
+     and three-valued AND/OR, on 2^21 rows: identical masks;
+   - the batched kernels of the megabatch path at Q = 8 on one padded
+     2^21-row batch: ``filter_mask_batched`` for the predicate of each
+     phase-5 family under its 8 parameter sets (identical [Q, N] masks),
+     ``scan_agg_fold_batched`` for the Q6 (scalar) and Q1 (direct)
+     families (and Q1 at Q = 32, whose shared-memory table passes the
+     48 KB default, and a G = 65,536 fold of 3 queries in the
+     global-atomics regime), ``hash_agg_insert_batched`` for the H
+     family on the first
+     SF1 shard batch into 8 tables of 2^20 slots and of 1,000 slots
+     (most rows spill): per query the merged groups agree, each key sits
+     in at most one slot, placed + spilled = masked rows.
    int64 registers, keys, counts, min/max and NaN positions must be
    identical, float64 sums within rel 1e-12 (atomics add in another
    order).  Each kernel is timed (CUDA events, median) beside its bound,
@@ -51,7 +62,18 @@ result line:
    and warm on 5,000,000 rows, the largest round scale the guard admits.
    Rows must equal those computed straight from the generated numpy
    arrays (exact int64 cents grouped with np.unique), each query's
-   kernel must launch once per batch and no other kernel may launch.
+   kernel must launch once per batch and no other kernel may launch;
+5. literal families through ``Cluster.execute``: 8 variants of one
+   query, first one after another (``citus.megabatch_window_ms = 0``,
+   cold then warm), then from 8 threads at once with
+   ``citus.megabatch_window_ms = 1000`` and ``megabatch_max_size = 8``
+   (cold then warm): Q6 with 8 of TPC-H's substitution parameter sets,
+   H2's shape over one 1995 ship month each and P1 over one ship day
+   each at SF1, Q1 with DELTA 60-120 at 5,000,000 rows.  Every query's
+   rows must equal the numpy oracle, the coalesced queries must ride
+   batches of occupancy above 1, each of the family's batched kernels
+   must launch once per shard batch per group and no other kernel.
+   Wall time and queries per second of the serial and coalesced runs.
 
 Then a JSON line of the kernels, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -112,6 +134,67 @@ GROUP BY l_orderkey ORDER BY revenue DESC, l_orderkey LIMIT 10"""
 P1 = """SELECT l_orderkey, l_quantity, l_extendedprice FROM lineitem
 WHERE l_shipdate = date '1994-06-01' AND l_discount >= 0.09
 ORDER BY l_orderkey, l_quantity, l_extendedprice"""
+
+# phase 5: Q_BATCH literal variants of one query, the way dashboard and
+# multi-tenant sessions send them: TPC-H Q6's substitution parameters
+# (DATE = Jan 1 of 1993-1997, DISCOUNT 0.02-0.09, QUANTITY 24-25), Q1's
+# DELTA, H2's shape over one ship month of 1995 each, P1 over one ship
+# day each
+Q_BATCH = 8
+Q1_DELTAS = (60, 69, 78, 87, 96, 105, 114, 120)
+
+
+def q6_variant(year: int, disc: int, qty: int) -> str:
+    """Q6 with DATE = Jan 1 of ``year``, DISCOUNT ``disc`` cents."""
+    return ("SELECT sum(l_extendedprice * l_discount) AS revenue\n"
+            "FROM lineitem\n"
+            f"WHERE l_shipdate >= date '{year}-01-01'\n"
+            f"  AND l_shipdate < date '{year + 1}-01-01'\n"
+            f"  AND l_discount BETWEEN 0.{disc - 1:02d} AND 0.{disc + 1:02d}"
+            f" AND l_quantity < {qty}")
+
+
+def q1_variant(delta: int) -> str:
+    return Q1.replace("interval '90' day", f"interval '{delta}' day")
+
+
+def h_variant(month: int) -> str:
+    return ("SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) "
+            "AS revenue\nFROM lineitem\n"
+            f"WHERE l_shipdate >= date '1995-{month:02d}-01' AND l_shipdate "
+            f"< date '1995-{month:02d}-01' + interval '1' month\n"
+            "GROUP BY l_orderkey ORDER BY revenue DESC, l_orderkey LIMIT 10")
+
+
+def p_variant(day: int) -> str:
+    return P1.replace("1994-06-01", f"1994-06-{day:02d}")
+
+
+def families() -> dict:
+    """name -> (kind, [(sql, oracle(cols) -> rows)]) of phase 5."""
+    def q6(i):
+        year, disc, qty = 1993 + i % 5, 2 + i, 24 + i % 2
+        return (q6_variant(year, disc, qty),
+                lambda c: oracle_q6(c, year, disc, qty))
+
+    def q1(i):
+        delta = Q1_DELTAS[i]
+        return q1_variant(delta), lambda c: oracle_q1(c, delta)
+
+    def h(i):
+        m = i + 1
+        lo = _day(1995, m, 1)
+        hi = _day(1995 + m // 12, m % 12 + 1, 1)
+        return h_variant(m), lambda c: oracle_h2(c, lo, hi)
+
+    def p(i):
+        return p_variant(i + 1), lambda c: oracle_p1(c, i + 1)
+    return {name: (kind, [make(i) for i in range(Q_BATCH)])
+            for name, kind, make in (("Q6", "scalar", q6),
+                                     ("H", "hash_host", h),
+                                     ("P", "projection", p),
+                                     ("Q1", "direct", q1))}
+
 
 LINEITEM_DDL = """CREATE TABLE lineitem (
         l_orderkey bigint NOT NULL, l_quantity decimal(12,2),
@@ -181,8 +264,9 @@ def _avg(total: int, count: int, scale: int) -> decimal.Decimal:
                 scale + 6)
 
 
-def oracle_q1(cols: dict) -> list[tuple]:
-    keep = cols["ship"] <= _day(1998, 9, 2)
+def oracle_q1(cols: dict, delta: int = 90) -> list[tuple]:
+    """Q1 with ``date '1998-12-01' - interval 'delta' day``."""
+    keep = cols["ship"] <= _day(1998, 12, 1) - delta
     gid = (cols["rf"] * 2 + cols["ls"])[keep]
     groups, inv = np.unique(gid, return_inverse=True)
     qty, price = cols["qty"][keep], cols["price"][keep]
@@ -207,11 +291,14 @@ def oracle_q1(cols: dict) -> list[tuple]:
     return sorted(rows, key=lambda r: (r[0], r[1]))
 
 
-def oracle_q6(cols: dict) -> list[tuple]:
-    keep = ((cols["ship"] >= _day(1994, 1, 1))
-            & (cols["ship"] < _day(1995, 1, 1))
-            & (cols["disc"] >= 5) & (cols["disc"] <= 7)
-            & (cols["qty"] < 2400))
+def oracle_q6(cols: dict, year: int = 1994, disc: int = 6,
+              qty: int = 24) -> list[tuple]:
+    """Q6 with its substitution parameters: ship year, discount in
+    cents, quantity."""
+    keep = ((cols["ship"] >= _day(year, 1, 1))
+            & (cols["ship"] < _day(year + 1, 1, 1))
+            & (cols["disc"] >= disc - 1) & (cols["disc"] <= disc + 1)
+            & (cols["qty"] < qty * 100))
     rev = int((cols["price"][keep].astype(np.int64)
                * cols["disc"][keep]).sum())
     return [(_dec(rev, 4),)]
@@ -226,10 +313,12 @@ def oracle_h1(cols: dict, threshold: int = 300) -> list[tuple]:
     return [(int(k), _dec(q, 2)) for k, q in zip(keys[keep], qty[keep])]
 
 
-def oracle_h2(cols: dict) -> list[tuple]:
-    """H2: the ten largest per-order revenues of 1994 ship dates."""
-    keep = ((cols["ship"] >= _day(1994, 1, 1))
-            & (cols["ship"] < _day(1995, 1, 1)))
+def oracle_h2(cols: dict, lo: int = None, hi: int = None) -> list[tuple]:
+    """H2: the ten largest per-order revenues of ship days [lo, hi)
+    (default: 1994)."""
+    lo = _day(1994, 1, 1) if lo is None else lo
+    hi = _day(1995, 1, 1) if hi is None else hi
+    keep = (cols["ship"] >= lo) & (cols["ship"] < hi)
     keys, inv = np.unique(cols["orderkey"][keep], return_inverse=True)
     rev = np.zeros(len(keys), np.int64)
     np.add.at(rev, inv, cols["price"][keep].astype(np.int64)
@@ -238,9 +327,10 @@ def oracle_h2(cols: dict) -> list[tuple]:
     return [(int(keys[i]), _dec(rev[i], 4)) for i in order]
 
 
-def oracle_p1(cols: dict) -> list[tuple]:
-    """P1: the lines shipped on 1994-06-01 with a discount of 9 % or more."""
-    keep = (cols["ship"] == _day(1994, 6, 1)) & (cols["disc"] >= 9)
+def oracle_p1(cols: dict, day: int = 1) -> list[tuple]:
+    """P1: the lines shipped on 1994-06-<day> with a discount of 9 % or
+    more."""
+    keep = (cols["ship"] == _day(1994, 6, day)) & (cols["disc"] >= 9)
     rows = sorted(zip(cols["orderkey"][keep].tolist(),
                       cols["qty"][keep].tolist(),
                       cols["price"][keep].tolist()))
@@ -313,7 +403,8 @@ def compare_fold(name: str, call, kernel, plain) -> float:
     kc, pc = clone_call(call), clone_call(call)
     kernel(*kc)
     plain(*pc)
-    torch.cuda.synchronize()
+    if call[2].is_cuda:
+        torch.cuda.synchronize()
     max_err = 0.0
     for i, (op, k, p) in enumerate(zip(call[5], kc[0], pc[0])):
         k, p = k.cpu().numpy(), p.cpu().numpy()
@@ -483,8 +574,25 @@ def smoke_plans(device, tmp: str, n: int = FOLD_N):
         "p1": filter_program(cl, P1),
         "syn": filter_program(cl, f"SELECT k FROM syn WHERE {SYN_WHERE}"),
     }
+    fams = family_plans(cl)
     cl.close()
-    return {"fold_calls": calls, "physical": physical, "filters": filters}
+    return {"fold_calls": calls, "physical": physical, "filters": filters,
+            "families": fams}
+
+
+def family_plans(cl) -> dict:
+    """name -> (plan of the first variant, encoded parameters of every
+    variant) of each phase-5 family; every variant must share the plan
+    family (one ``plan_fingerprint``), or the family cannot coalesce."""
+    from citus_tpu_torch.executor.kernel_cache import plan_fingerprint
+    out = {}
+    for name, (_kind, variants) in families().items():
+        planned = [plan_as_cluster_does(cl, sql) for sql, _ in variants]
+        fps = {plan_fingerprint(plan) for plan, _ in planned}
+        if len(fps) != 1:
+            raise AssertionError(f"family {name}: {len(fps)} plan families")
+        out[name] = (planned[0][0], [p for _, p in planned])
+    return out
 
 
 def syn_columns(n: int, seed: int) -> dict:
@@ -636,9 +744,12 @@ def check_hash_invariants(name: str, table, spill, mask) -> None:
         raise AssertionError(f"{name}: a key sits in more than one slot")
 
 
-def hash_bytes(call) -> int:
-    """Bytes one insert must move: each input read once, the spill mask
-    written once, the table read and written once."""
+def hash_bytes(call, occupied: int) -> int:
+    """Bytes one insert into a fresh table must move: each input read
+    once, the spill mask written once, and each of the ``occupied``
+    slots it fills read and written once (claim word, keys, flags,
+    partials, rows).  A row that spills only probes slots already
+    occupied, so no other slot needs to be touched."""
     table, mask, keys, args, _ops = call
     seen, total = set(), mask.numel()
     for t in [mask] + [t for kv in keys for t in kv] \
@@ -646,10 +757,9 @@ def hash_bytes(call) -> int:
         if t is not None and t.data_ptr() not in seen:
             seen.add(t.data_ptr())
             total += t.numel() * t.element_size()
-    for t in table.key_values + table.key_flags + table.partials \
-            + [table.rows, table.state]:
-        total += 2 * t.numel() * t.element_size()
-    return total
+    slot = sum(t.element_size() for t in table.key_values + table.key_flags
+               + table.partials + [table.rows, table.state])
+    return total + 2 * occupied * slot
 
 
 def main_path_hash_call(cl, device):
@@ -807,11 +917,147 @@ def load_lineitem(ctt, path: str, n_rows: int):
 
 def launch_counters() -> dict:
     """The launch counter of every kernel of the port, by name."""
-    from citus_tpu_torch.ops.filter_mask import filter_mask
-    from citus_tpu_torch.ops.hash_agg_insert import hash_agg_insert
-    from citus_tpu_torch.ops.scan_agg_fold import scan_agg_fold
+    from citus_tpu_torch.ops.filter_mask import (
+        filter_mask, filter_mask_batched,
+    )
+    from citus_tpu_torch.ops.hash_agg_insert import (
+        hash_agg_insert, hash_agg_insert_batched,
+    )
+    from citus_tpu_torch.ops.scan_agg_fold import (
+        scan_agg_fold, scan_agg_fold_batched,
+    )
     return {"scan_agg_fold": scan_agg_fold,
-            "hash_agg_insert": hash_agg_insert, "filter_mask": filter_mask}
+            "hash_agg_insert": hash_agg_insert, "filter_mask": filter_mask,
+            "filter_mask_batched": filter_mask_batched,
+            "scan_agg_fold_batched": scan_agg_fold_batched,
+            "hash_agg_insert_batched": hash_agg_insert_batched}
+
+
+#: the batched kernels each phase-5 family's coalesced run must launch,
+#: once per shard batch of its one group
+FAMILY_KERNELS = {
+    "scalar": ("filter_mask_batched", "scan_agg_fold_batched"),
+    "direct": ("filter_mask_batched", "scan_agg_fold_batched"),
+    "hash_host": ("filter_mask_batched", "hash_agg_insert_batched"),
+    "projection": ("filter_mask_batched",),
+}
+
+
+def fanout(cl, sqls) -> tuple[dict, dict]:
+    """Run one SQL per thread, all released together by a barrier so they
+    land inside one coalescing window.  -> (results, errors)."""
+    import threading
+    results, errors = {}, {}
+    bar = threading.Barrier(len(sqls))
+
+    def run(i, sql):
+        bar.wait()
+        try:
+            results[i] = cl.execute(sql)
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            errors[i] = e
+    ts = [threading.Thread(target=run, args=(i, q)) for i, q in
+          enumerate(sqls)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in ts):
+        raise AssertionError("a coalesced query did not finish in 600 s")
+    return results, errors
+
+
+def run_family(cl, name: str, kind: str, variants: list, cols: dict,
+               n_rows: int, card: str = "") -> dict:
+    """Phase 5 for one family: its Q_BATCH variants run serially (window
+    0, one after another) and then coalesced (8 threads at once with
+    citus.megabatch_window_ms = 1000, megabatch_max_size = 8), cold and
+    warm.  Every query's rows must equal the numpy oracle; the coalesced
+    runs must ride batches with occupancy above 1, launch each of the
+    family's batched kernels once per shard batch per group and no other
+    kernel.  -> the batched kernels' launches of the coalesced runs."""
+    import torch
+    from citus_tpu_torch.executor.megabatch import GLOBAL_MEGABATCH
+    on_card = cl.device.type == "cuda"
+    sqls = [sql for sql, _ in variants]
+    wants = [oracle(cols) for _, oracle in variants]
+    counters = launch_counters()
+    cl.execute("SET citus.megabatch_window_ms = 0")
+    serial_s = {}
+    for run_kind in ("cold", "warm"):
+        t0 = time.perf_counter()
+        for sql, want in zip(sqls, wants):
+            r = cl.execute(sql)
+            if r.rows != want:
+                raise AssertionError(
+                    f"phase 5 {name} serial: rows differ from the numpy "
+                    f"oracle:\n{r.rows[:5]}\n{want[:5]}")
+        if on_card:
+            torch.cuda.synchronize()
+        serial_s[run_kind] = time.perf_counter() - t0
+        say(f"phase 5 {name} serial {run_kind} (window 0, one query after "
+            f"another): {len(sqls)} queries in {serial_s[run_kind]:.4f} s, "
+            f"{len(sqls) / serial_s[run_kind]:.3f} queries/s, "
+            f"{len(sqls) * n_rows / serial_s[run_kind]:.1f} rows/s ({card})")
+    cl.execute("SET citus.megabatch_window_ms = 1000")
+    cl.execute(f"SET citus.megabatch_max_size = {Q_BATCH}")
+    launched = dict.fromkeys(counters, 0)
+    try:
+        for run_kind in ("cold", "warm"):
+            for f in counters.values():
+                f.launches = 0
+            s0 = GLOBAL_MEGABATCH.stats()
+            t0 = time.perf_counter()
+            results, errors = fanout(cl, sqls)
+            if on_card:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = {k: f.launches for k, f in counters.items()}
+            s1 = GLOBAL_MEGABATCH.stats()
+            if errors:
+                raise AssertionError(f"phase 5 {name} {run_kind}: {errors}")
+            for i, want in enumerate(wants):
+                if results[i].rows != want:
+                    raise AssertionError(
+                        f"phase 5 {name} {run_kind}: query {i} rows differ "
+                        f"from the numpy oracle:\n{results[i].rows[:5]}\n"
+                        f"{want[:5]}")
+                if results[i].explain["strategy"] != kind:
+                    raise AssertionError(
+                        f"phase 5 {name}: strategy "
+                        f"{results[i].explain['strategy']}, not {kind}")
+            queries = s1["queries"] - s0["queries"]
+            batches = s1["batches"] - s0["batches"]
+            dispatches = s1["dispatches"] - s0["dispatches"]
+            if queries != len(sqls) or not 1 <= batches < queries:
+                raise AssertionError(
+                    f"phase 5 {name} {run_kind}: {queries} queries rode "
+                    f"{batches} batches (occupancy must be above 1)")
+            if dispatches == 0:
+                raise AssertionError(f"phase 5 {name}: no shard batch")
+            if on_card:
+                for k, v in got.items():
+                    want_n = dispatches if k in FAMILY_KERNELS[kind] else 0
+                    if v != want_n:
+                        raise AssertionError(
+                            f"phase 5 {name} {run_kind}: {k} launched {v} "
+                            f"times for {dispatches} shard batches of "
+                            f"{batches} groups")
+            for k in launched:
+                launched[k] += got[k]
+            occ = sorted({r.explain["megabatch"]["occupancy"]
+                          for r in results.values()})
+            say(f"phase 5 {name} coalesced {run_kind}: {queries} queries in "
+                f"{batches} batches (occupancy {occ}), {dispatches} shard "
+                f"batches, launches "
+                f"{ {k: v for k, v in got.items() if v} }, rows equal the "
+                f"numpy oracle; {dt:.4f} s, {queries / dt:.3f} queries/s, "
+                f"{queries * n_rows / dt:.1f} rows/s, "
+                f"{serial_s[run_kind] / dt:.3f}x the serial {run_kind} rate "
+                f"({card})")
+    finally:
+        cl.execute("SET citus.megabatch_window_ms = 0")
+    return launched
 
 
 def run_checked(cl, qname: str, sql: str, want: list, n_rows: int,
@@ -938,7 +1184,8 @@ def phase3_hash(device, cl, rows: list) -> None:
         spill = hash_agg_insert(work, mask, keys, args, ops)
         torch.cuda.synchronize()
         placed = int(work.rows.sum())
-        nbytes = hash_bytes(call)
+        occupied = int((work.rows > 0).sum())
+        nbytes = hash_bytes(call, occupied)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         # slot traffic: every placed row touches its claim word, each key
         # and flag, every partial register and rows[slot] at random
@@ -955,9 +1202,10 @@ def phase3_hash(device, cl, rows: list) -> None:
             f"keys={len(keys)} ops={len(ops)} agrees (merged groups of "
             f"table and spill; max abs err of float sums {err!r}); placed "
             f"{placed}, spilled {int(spill.sum())}, occupied "
-            f"{int((work.rows > 0).sum())} slots; kernel {ms:.4f} ms, plain "
+            f"{occupied} slots; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at "
-            f"3.35 TB/s); slot traffic {placed * sectors * 32} B in 32-byte "
+            f"3.35 TB/s: inputs once, the spill mask, each occupied slot "
+            f"read and written once); slot traffic {placed * sectors * 32} B in 32-byte "
             f"sectors ({sectors} a placed row); library yardstick (one int64 "
             f"index_add_ into S slots, one op) {lib_ms:.4f} ms")
     rows.append({"name": "hash_agg_insert", "route": "cuda",
@@ -1005,6 +1253,295 @@ def phase3_filter(device, plans, rows: list) -> None:
                  "library_ms": None})
 
 
+# ------------------------------------------------------------- phase 3, B5
+
+
+def family_filter(device, plan, params):
+    """-> (FilterProgram, StackedParams) of one family's WHERE, as the
+    megabatch path builds them."""
+    from citus_tpu_torch.executor.executor import _build_filter_mask, _params_env
+    from citus_tpu_torch.ops.filter_mask import stack_params
+    prog = _build_filter_mask(plan, params[0])
+    return prog, stack_params(prog, [_params_env(plan, p) for p in params],
+                              device)
+
+
+def padded_batch(device, plan, physical: dict):
+    """One batch of the generated rows (FOLD_N on the card) in the plan's
+    scan columns on ``device``: (cols, valids, row_mask)."""
+    import torch
+    from citus_tpu_torch.executor.batches import pad_to_batch
+    n = len(physical["l_orderkey"])
+    values = {k: physical[k] for k in plan.scan_columns}
+    masks = {k: np.ones(n, bool) for k in plan.scan_columns}
+    hb = pad_to_batch(plan.bound.table, plan, values, masks, n, n, 0)
+    return (tuple(torch.from_numpy(a).to(device) for a in hb.cols),
+            tuple(torch.from_numpy(a).to(device) for a in hb.valids),
+            torch.from_numpy(hb.row_mask).to(device))
+
+
+def predicate_columns(plan, prog, cols, valids) -> dict:
+    env = dict(zip(plan.scan_columns, zip(cols, valids)))
+    return {c: env[c] for c in prog.columns}
+
+
+def batched_fold_call(device, plans, name: str, repeat: int = 1):
+    """The batched fold's main-path inputs for family ``name`` (Q6 or Q1)
+    on one FOLD_N-row batch: every variant's mask from the
+    batched predicate kernel, the shared keys and arguments, fresh
+    [Q, G] registers.  ``repeat`` > 1 sends each variant that many
+    times (Q = 8 * repeat)."""
+    from citus_tpu_torch.executor.megabatch import _empty_stacked_partials
+    from citus_tpu_torch.ops.filter_mask import filter_mask_batched
+    from citus_tpu_torch.ops.scan_agg import build_shared_fold_inputs
+    from citus_tpu_torch.ops.xp_torch import TorchNamespace
+    plan, params = plans["families"][name]
+    params = params * repeat
+    cols, valids, row_mask = padded_batch(device, plan, plans["physical"])
+    prog, stacked = family_filter(device, plan, params)
+    masks = filter_mask_batched(
+        prog, predicate_columns(plan, prog, cols, valids), stacked, row_mask)
+    shared, ops, G = build_shared_fold_inputs(plan, TorchNamespace(device))
+    keys, args = shared(cols, valids)
+    regs, rows = _empty_stacked_partials(plan, len(params), device)
+    return (regs, rows, masks, keys, args, ops, G)
+
+
+def phase3_batched_filter(device, plans, rows: list) -> None:
+    """filter_mask_batched against its plain version: each phase-5
+    family's predicate under its Q_BATCH parameter sets over FOLD_N
+    generated lineitem rows; appends its JSON row."""
+    import torch
+    from citus_tpu_torch.ops.filter_mask import (
+        filter_mask_batched, filter_mask_batched_plain,
+    )
+    main = None
+    for name in ("Q6", "Q1", "H", "P"):
+        plan, params = plans["families"][name]
+        cols, valids, row_mask = padded_batch(device, plan,
+                                              plans["physical"])
+        prog, stacked = family_filter(device, plan, params)
+        fcols = predicate_columns(plan, prog, cols, valids)
+        got = filter_mask_batched(prog, fcols, stacked, row_mask)
+        want = filter_mask_batched_plain(prog, fcols, stacked, row_mask)
+        if not torch.equal(got, want):
+            raise AssertionError(f"filter_mask_batched [{name}]: masks "
+                                 f"differ in {int((got != want).sum())} "
+                                 "places")
+        ms = time_cuda(lambda: filter_mask_batched(prog, fcols, stacked,
+                                                   row_mask))
+        plain_ms = time_cuda(lambda: filter_mask_batched_plain(
+            prog, fcols, stacked, row_mask), reps=3)
+        q, n = got.shape
+        # the predicate's columns and the row mask read once, Q masks out
+        nbytes = filter_bytes(fcols, row_mask) - n + q * n
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        first = next(iter(fcols.values()))[0]
+        thr = torch.arange(q, device=device, dtype=first.dtype)
+        lib_ms = time_cuda(lambda: torch.ge(first.unsqueeze(0),
+                                            thr.unsqueeze(1)))
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        say(f"phase 3 filter_mask_batched [{name} family]: Q={q} N={n} "
+            f"columns {list(prog.columns)}: masks identical "
+            f"({got.sum(dim=1).tolist()} rows pass); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B "
+            f"at 3.35 TB/s), library yardstick (one broadcast torch.ge of "
+            f"one column against Q thresholds, [Q, N] out) {lib_ms:.4f} ms")
+    rows.append({"name": "filter_mask_batched", "route": "cuda",
+                 "source": "citus_tpu_torch/ops/expr_codegen.py",
+                 "replaces": "citus_tpu/executor/megabatch.py:518",
+                 "max_abs_err": 0.0, **main, "bound_by": "bytes",
+                 "library_ms": None})
+
+
+def synthetic_batched_global_case(device, q: int = 3):
+    """The G = 65,536 fold of ``synthetic_global_case`` for ``q``
+    queries with different masks: the batched fold's global-atomics
+    regime."""
+    import torch
+    regs, rows, mask, keys, args, ops, G = synthetic_global_case(
+        device, FOLD_N + 3, 65536, 21, False)
+    masks = torch.stack([mask, ~mask] + [mask] * (q - 2)).contiguous()
+    return ([r.unsqueeze(0).repeat(q, 1).contiguous() for r in regs],
+            rows.unsqueeze(0).repeat(q, 1).contiguous(), masks, keys, args,
+            ops, G)
+
+
+def phase3_batched_fold(device, plans, rows: list) -> None:
+    """scan_agg_fold_batched against its plain version: the Q6 (scalar)
+    and Q1 (direct, G = 12) families at Q = Q_BATCH on one padded
+    FOLD_N-row batch, the Q1 family at Q = 32 (a 52 KB shared-memory
+    table, past the 48 KB default), and a G = 65,536 fold of 3 queries
+    (global atomics); appends its JSON row."""
+    import torch
+    from citus_tpu_torch.ops.scan_agg_fold import (
+        scan_agg_fold_batched, scan_agg_fold_batched_plain,
+    )
+    max_err, main = 0.0, None
+    cases = [("Q6 family", lambda: batched_fold_call(device, plans, "Q6"), 1),
+             ("Q1 family", lambda: batched_fold_call(device, plans, "Q1"), 1),
+             ("Q1 family x4 (Q=32)",
+              lambda: batched_fold_call(device, plans, "Q1", repeat=4), 1),
+             ("synthetic direct G=65536",
+              lambda: synthetic_batched_global_case(device), 0)]
+    for name, make, want_regime in cases:
+        call = make()
+        err = compare_fold(f"{name} batched", call, scan_agg_fold_batched,
+                           scan_agg_fold_batched_plain)
+        max_err = max(max_err, err)
+        if scan_agg_fold_batched.last_regime != want_regime:
+            raise AssertionError(
+                f"scan_agg_fold_batched [{name}]: regime "
+                f"{scan_agg_fold_batched.last_regime}, not {want_regime}")
+        regime = {1: "shared-memory table", 0: "global atomics"}.get(
+            scan_agg_fold_batched.last_regime, "none")
+        kc = clone_call(call)
+        ms = time_cuda(lambda: scan_agg_fold_batched(*kc))
+        pc = clone_call(call)
+        plain_ms = time_cuda(lambda: scan_agg_fold_batched_plain(*pc),
+                             reps=3)
+        nbytes = fold_bytes(call)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        masks, G = call[2], call[6]
+        q, n = masks.shape
+        acc = torch.zeros(q * G, dtype=torch.int64, device=device)
+        gid = torch.randint(0, q * G, (n,), device=device)
+        val = torch.randint(0, 1000, (n,), device=device)
+        lib_ms = time_cuda(lambda: acc.index_add_(0, gid, val))
+        if name == "Q1 family":
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        say(f"phase 3 scan_agg_fold_batched [{name}]: Q={q} N={n} "
+            f"G={G} ops={len(call[5])} regime={regime} agrees (max abs err "
+            f"of float sums {err!r}); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at "
+            f"3.35 TB/s: shared columns once, Q x N masks, registers), "
+            f"library yardstick (one int64 index_add_ into Q x G slots, one "
+            f"op) {lib_ms:.4f} ms")
+    rows.append({"name": "scan_agg_fold_batched", "route": "cuda",
+                 "source": "citus_tpu_torch/csrc/scan_agg_fold_batched.cu",
+                 "replaces": "citus_tpu/executor/megabatch.py:343",
+                 "max_abs_err": max_err, **main, "bound_by": "bytes",
+                 "library_ms": None})
+
+
+def batched_hash_call(cl, device):
+    """The batched insert's main-path inputs for the H family: the first
+    padded SF1 shard batch, every variant's mask from the batched
+    predicate kernel, the shared keys and arguments, Q_BATCH fresh
+    tables of the size citus.hash_agg_slots = auto gives."""
+    import torch
+    from citus_tpu_torch.executor.executor import (
+        _hash_key_dtypes, _hash_slots, _iter_padded_batches,
+    )
+    from citus_tpu_torch.ops.filter_mask import filter_mask_batched
+    from citus_tpu_torch.ops.hash_agg import (
+        build_shared_hash_inputs, empty_hash_state,
+    )
+    from citus_tpu_torch.ops.xp_torch import TorchNamespace
+    cl.execute("SET citus.hash_agg_slots = auto")
+    planned = [plan_as_cluster_does(cl, sql) for sql, _ in
+               families()["H"][1]]
+    plan, params = planned[0][0], [p for _, p in planned]
+    if plan.group_mode.kind != "hash_host":
+        raise AssertionError(f"H family plans to {plan.group_mode.kind}")
+    S = _hash_slots(cl.catalog, plan, cl.settings)
+    key_dtypes = _hash_key_dtypes(plan, {})
+    batches = _iter_padded_batches(cl.catalog, plan, cl.settings)
+    hb = next(batches)
+    batches.close()
+    cols = tuple(torch.from_numpy(a).to(device) for a in hb.cols)
+    valids = tuple(torch.from_numpy(a).to(device) for a in hb.valids)
+    row_mask = torch.from_numpy(hb.row_mask).to(device)
+    prog, stacked = family_filter(device, plan, params)
+    masks = filter_mask_batched(
+        prog, predicate_columns(plan, prog, cols, valids), stacked, row_mask)
+    shared, ops = build_shared_hash_inputs(plan, TorchNamespace(device),
+                                           key_dtypes)
+    keys, args = shared(cols, valids, row_mask)
+    table = empty_hash_state(plan, S, key_dtypes, device,
+                             n_queries=len(params))
+    return (table, masks, keys, args, ops), hb.n_rows
+
+
+def phase3_batched_hash(device, cl, rows: list) -> None:
+    """hash_agg_insert_batched against its plain version: the H family
+    at Q = Q_BATCH on the first SF1 shard batch into Q tables of 2^20
+    slots.  Per query: the merged groups of table and spill agree, each
+    key sits in at most one slot, placed + spilled = masked rows.
+    Appends its JSON row."""
+    import torch
+    from citus_tpu_torch.ops.hash_agg_insert import (
+        hash_agg_insert_batched, hash_agg_insert_batched_plain,
+    )
+    from citus_tpu_torch.ops.hash_agg import HashTable
+    call, n_real = batched_hash_call(cl, device)
+    table, masks, keys, args, ops = call
+    q = masks.shape[0]
+    # and the same inputs into Q tables of 1,000 slots: most rows spill
+    small = HashTable([v[:, :1000].contiguous() for v in table.key_values],
+                      [f[:, :1000].contiguous() for f in table.key_flags],
+                      [p[:, :1000].contiguous() for p in table.partials],
+                      table.rows[:, :1000].contiguous(),
+                      table.state[:, :1000].contiguous())
+    pops = hash_partial_ops(table, ops)
+    max_err = 0.0
+    for case, tab in (("S=2^20", table), ("S=1000", small)):
+        kt, pt = clone_table(tab), clone_table(tab)
+        ks = hash_agg_insert_batched(kt, masks, keys, args, ops)
+        ps = hash_agg_insert_batched_plain(pt, masks, keys, args, ops)
+        torch.cuda.synchronize()
+        for qi in range(q):
+            for what, t, sp in (("kernel", kt, ks), ("plain", pt, ps)):
+                check_hash_invariants(f"H family {case} q{qi} {what}",
+                                      t.query(qi), sp[qi], masks[qi])
+            max_err = max(max_err, compare_groups(
+                f"H family {case} q{qi}",
+                host_groups(kt.query(qi), ks[qi], masks[qi], keys, args,
+                            ops),
+                host_groups(pt.query(qi), ps[qi], masks[qi], keys, args,
+                            ops), pops))
+        say(f"phase 3 hash_agg_insert_batched [H family, {case}]: per query "
+            f"placed {kt.rows.sum(dim=1).tolist()}, spilled "
+            f"{ks.sum(dim=1).tolist()}, masked "
+            f"{masks.sum(dim=1).tolist()}: agrees with the plain version")
+        del kt, pt
+    work = clone_table(table)
+    ms = time_cuda_fresh(
+        lambda: hash_agg_insert_batched(work, masks, keys, args, ops),
+        lambda: copy_table_(work, table))
+    plain_ms = time_cuda_fresh(
+        lambda: hash_agg_insert_batched_plain(work, masks, keys, args, ops),
+        lambda: copy_table_(work, table), reps=3)
+    copy_table_(work, table)
+    hash_agg_insert_batched(work, masks, keys, args, ops)
+    occupied = int((work.rows > 0).sum())
+    nbytes = hash_bytes(call, occupied)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    S = table.slots
+    n = masks.shape[1]
+    acc = torch.zeros(q * S, dtype=torch.int64, device=device)
+    slot = torch.randint(0, q * S, (n,), device=device)
+    val = torch.randint(0, 1000, (n,), device=device)
+    lib_ms = time_cuda(lambda: acc.index_add_(0, slot, val))
+    say(f"phase 3 hash_agg_insert_batched [H family, one SF1 shard batch "
+        f"({n_real} rows)]: Q={q} N={n} S={S} keys={len(keys)} "
+        f"ops={len(ops)} agrees per query (merged groups of table and "
+        f"spill; max abs err of float sums {max_err!r}); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s: keys and "
+        f"arguments once, Q masks and Q spill masks, each of the "
+        f"{occupied} occupied slots of the Q tables read and written "
+        f"once), kernel at {ms / bound_ms:.1f}x its bound, library yardstick (one int64 index_add_ into Q x S "
+        f"slots, one op) {lib_ms:.4f} ms")
+    rows.append({"name": "hash_agg_insert_batched", "route": "cuda",
+                 "source": "citus_tpu_torch/csrc/hash_agg_insert_batched.cu",
+                 "replaces": "citus_tpu/executor/megabatch.py:435",
+                 "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": "bytes",
+                 "library_ms": None})
+
+
 def run(args) -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -1032,10 +1569,19 @@ def run(args) -> dict:
         # ---- phase 2: build every kernel, all nvcc processes at once;
         # then one more generated predicate alone, for its cold build time
         t0 = time.perf_counter()
-        kernels = ["scan_agg_fold", "hash_agg_insert"]
-        jobs = [cuda_build.start_generated("filter_mask",
-                                           plans["filters"][q][0].predicate.source)
-                for q in ("q6", "p1")]
+        kernels = ["scan_agg_fold", "hash_agg_insert", "scan_agg_fold_batched",
+                   "hash_agg_insert_batched"]
+        # the predicates of Q6 and P1 and of the phase-5 families (each
+        # generated source holds the one-query and the batched kernel);
+        # Q6's and P's families share Q6's and P1's sources
+        sources = [plans["filters"][q][0].predicate.source
+                   for q in ("q6", "p1")]
+        for name, (fplan, fparams) in plans["families"].items():
+            src = family_filter("cpu", fplan, fparams)[0].predicate.source
+            if src not in sources:
+                sources.append(src)
+        jobs = [cuda_build.start_generated("filter_mask", src)
+                for src in sources]
         cuda_build.build_all(kernels)
         for job in jobs:
             cuda_build.finish_generated(job)
@@ -1061,7 +1607,17 @@ def run(args) -> dict:
         phase3_fold(device, plans, kernel_rows)
         phase3_hash(device, cl, kernel_rows)
         phase3_filter(device, plans, kernel_rows)
+        phase3_batched_filter(device, plans, kernel_rows)
+        phase3_batched_fold(device, plans, kernel_rows)
+        phase3_batched_hash(device, cl, kernel_rows)
         launches = dict.fromkeys(launch_counters(), 0)
+        fams = families()
+
+        def phase5(cl, name, cols, n_rows):
+            kind, variants = fams[name]
+            for k, v in run_family(cl, name, kind, variants, cols,
+                                   n_rows, card).items():
+                launches[k] += v
 
         # ---- phase 4: the main path through the port's entry points
         for run_kind in ("cold", "warm"):
@@ -1078,6 +1634,9 @@ def run(args) -> dict:
         for run_kind in ("cold", "warm"):
             launches["filter_mask"] += run_checked(
                 cl, "P1", P1, want_p1, n_rows, run_kind, "filter_mask")
+        # ---- phase 5: literal families coalesced, on the SF1 lineitem
+        for name in ("Q6", "H", "P"):
+            phase5(cl, name, cols, n_rows)
         q1_rows = n_rows
         if q1_guard_fires(cols):
             # the engine's int64 overflow guard (executor/finalize.py
@@ -1107,6 +1666,7 @@ def run(args) -> dict:
         for run_kind in ("cold", "warm"):
             launches["scan_agg_fold"] += run_checked(
                 cl, "Q1", Q1, oracle_q1(cols), q1_rows, run_kind)
+        phase5(cl, "Q1", cols, q1_rows)
         cl.close()
         say(f"phase 4 device cache hits {GLOBAL_CACHE.hits - hits0}, "
             f"peak device memory {torch.cuda.max_memory_allocated(device)} B")

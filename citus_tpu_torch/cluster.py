@@ -87,6 +87,11 @@ class Cluster:
         GLOBAL_KERNELS.set_capacity(self.settings.executor.kernel_cache_size)
         self.counters = GLOBAL_COUNTERS
         self.locks = LockManager()
+        # per-statement attribution behind citus_stat_statements() and
+        # citus_stat_tenants()
+        from citus_tpu_torch.stats import QueryStats, TenantStats
+        self.query_stats = QueryStats()
+        self.tenant_stats = TenantStats()
 
     def close(self) -> None:
         # release the transaction-log owner marker: our undecided
@@ -165,14 +170,45 @@ class Cluster:
 
     # -------------------------------------------------------------- SQL
     def execute(self, sql: str, params: Optional[Sequence[Any]] = None) -> Result:
+        """Run one SQL string.  Safe to call from several threads at
+        once: the plan cache, the counters, the device cache, the kernel
+        builds and the launch counters are locked, and each statement
+        keeps its own scan state.  Concurrent literal variants of one
+        query coalesce into one scan when ``citus.megabatch_window_ms``
+        is set (executor/megabatch.py)."""
         if params:
             _unported("parameterized execute()", "queue A")
         result = Result(columns=[], rows=[])
         with _trace.span("parse"):
             stmts = parse_sql(sql)
+        t0 = _trace.clock()
         for stmt in stmts:
             result = self._execute_stmt(stmt, sql if len(stmts) == 1 else None)
+        self._record_statement(sql, result, _trace.clock() - t0)
         return result
+
+    def _record_statement(self, sql: str, result: Result,
+                          elapsed: float) -> None:
+        """Per-statement attribution: citus_stat_statements, the tenant
+        window, the scheduler's latency histogram (router queries under
+        their key, analytics under "*") and, for a query that rode a
+        megabatch, its occupancy."""
+        explain = result.explain or {}
+        rkey = explain.get("router_key")
+        self.query_stats.record(sql, elapsed, result.rowcount,
+                                str(explain.get("strategy", "utility")),
+                                partition_key="" if rkey is None
+                                else str(rkey))
+        if rkey is not None:
+            self.tenant_stats.record(str(rkey), elapsed)
+        if "strategy" in explain:
+            from citus_tpu_torch.workload import GLOBAL_SCHEDULER, tenant_key
+            GLOBAL_SCHEDULER.record_latency(tenant_key(rkey),
+                                            elapsed * 1000.0)
+        mb = explain.get("megabatch")
+        if mb:
+            from citus_tpu_torch.executor.megabatch import GLOBAL_MEGABATCH
+            GLOBAL_MEGABATCH.note_query_occupancy(int(mb.get("occupancy", 1)))
 
     def _cached_select_plan(self, stmt: A.Select, key):
         """Bind + plan a single-table SELECT through the plan cache,

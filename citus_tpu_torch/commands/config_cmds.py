@@ -1,7 +1,7 @@
 """SET/SHOW (GUC analog) for the settings the port's slice reads.
 
 Reference: the ~139 citus.* GUCs (shared_library_init.c:980+).  The
-port accepts the GUCs its first slice reads; the others of the JAX
+port accepts the GUCs its slices read; the others of the JAX
 package's table are not ported yet (ROADMAP.md queue A).  Settings
 apply to this Cluster handle.
 """
@@ -53,6 +53,13 @@ def _hash_slots(v) -> int:
     return n
 
 
+def _window_ms(v) -> float:
+    """citus.megabatch_window_ms = <ms> | auto (stored as -1)."""
+    if str(v).lower() == "auto":
+        return -1.0
+    return float(v)
+
+
 #: GUC name -> (settings section, field, coercion)
 _GUCS = {
     "citus.task_executor_backend": ("executor", "task_executor_backend", _backend),
@@ -63,6 +70,19 @@ _GUCS = {
     "citus.plan_cache_mode": ("planner", "plan_cache_mode", _plan_cache_mode),
     "citus.direct_gid_limit": ("planner", "direct_gid_limit", int),
     "citus.hash_agg_slots": ("planner", "hash_agg_slots", _hash_slots),
+    "citus.max_shared_pool_size": ("executor", "max_shared_pool_size", int),
+    # same-family query coalescing (executor/megabatch.py): dispatch
+    # window in ms (0 = off, auto = sized from the family's arrival
+    # rate) and the most queries one dispatch carries
+    "citus.megabatch_window_ms": ("executor", "megabatch_window_ms", _window_ms),
+    "citus.megabatch_max_size": ("executor", "megabatch_max_size", int),
+    # tenant-aware admission defaults (workload/scheduler.py)
+    "citus.tenant_default_weight": ("workload", "tenant_default_weight", float),
+    "citus.tenant_queue_depth": ("workload", "tenant_queue_depth", int),
+    "citus.tenant_rate_limit_qps": ("workload", "tenant_rate_limit_qps", float),
+    "citus.tenant_default_priority_class": ("workload",
+                                            "tenant_default_priority_class",
+                                            str),
     "citus.shard_count": ("sharding", "shard_count", int),
     "citus.shard_replication_factor": ("sharding", "shard_replication_factor", int),
     "lock_timeout": ("executor", "lock_timeout_s", _ms_duration),

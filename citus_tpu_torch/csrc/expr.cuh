@@ -1,13 +1,17 @@
 // Shared helpers of the predicate kernels that ops/expr_codegen.py
 // generates from a bound expression tree.
 //
-// A generated source includes this header, defines
-//     __host__ __device__ bool fm_predicate(const FmParams& p, int64_t i)
-// for row i, and (under __CUDACC__) the kernel that writes
-// out[i] = row_mask[i] && fm_predicate(p, i) and its C launcher.  The
-// helpers below are __host__ __device__, so the same predicate also
-// compiles with a host C++ compiler: the tests hold it against the JAX
-// package on the CPU through that route.
+// A generated source includes this header and defines, for row i,
+//     FmRow fm_load(const FmParams& p, int64_t i)       the row's columns
+//     bool fm_eval(p, const FmRow& r, prm, pvl)         the predicate under
+//                                                       one set of parameters
+//     bool fm_predicate(const FmParams& p, int64_t i)   one query
+//     void fm_batched_row(p, const FmBatch& b, int64_t i)  Q queries
+// and (under __CUDACC__) the kernels that write out[i] = row_mask[i] &&
+// fm_predicate(p, i) and, for Q queries at once, out[q][i], with their C
+// launchers.  The helpers below are __host__ __device__, so the same
+// predicate also compiles with a host C++ compiler: the tests hold it
+// against the JAX package on the CPU through that route.
 //
 // Integer arithmetic goes through unsigned types: signed overflow is
 // undefined in C++ but wraps in numpy and XLA.  Float comparisons follow
@@ -45,6 +49,18 @@ struct FmParams {
     // bits of their float64 value
     int64_t params[FM_MAX_PARAMS];
     uint8_t param_valid[FM_MAX_PARAMS];
+};
+
+// The parameters of Q queries of one predicate family, for the batched
+// kernel: row q of params / param_valid holds query q's values in the
+// parameter block's encoding.  Mirrored by ctypes in
+// citus_tpu_torch/ops/filter_mask.py (_FmBatch); change both together.
+struct FmBatch {
+    int64_t n_q;
+    int64_t n_params;              // the row stride of params / param_valid
+    const int64_t* params;         // [n_q, n_params]
+    const uint8_t* param_valid;    // [n_q, n_params]
+    uint8_t* out;                  // [n_q, n] bool
 };
 
 FM_HD double fm_f64(uint64_t bits) {

@@ -43,6 +43,11 @@ class ExecutionError(CitusTpuError):
     """Runtime failure while executing a plan."""
 
 
+class AdmissionTimeoutError(ExecutionError):
+    """No device dispatch slot came free within the lock timeout
+    (citus.max_shared_pool_size slots busy)."""
+
+
 class AdmissionShedError(ExecutionError):
     """A query was load-shed by the workload scheduler before taking a
     slot (tenant queue depth or QPS rate limit exceeded).  Distinct and

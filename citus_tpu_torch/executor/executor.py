@@ -11,7 +11,9 @@ Maps a PhysicalPlan onto the available backend:
   small key domain streams into one device hash table instead (one
   ``hash_agg_insert`` per batch, spills merged exactly on the host),
   and a projection's WHERE runs as one generated ``filter_mask``
-  kernel per batch
+  kernel per batch; with ``citus.megabatch_window_ms`` != 0, literal
+  variants of one query arriving together share one scan and one launch
+  of each batched kernel per batch (executor/megabatch.py)
 
 Partial states from multiple rounds merge on the host, exactly like the
 reference merges per-task tuples on the coordinator.  The multi-device
@@ -29,7 +31,7 @@ import numpy as np
 from citus_tpu_torch import types as T
 from citus_tpu_torch.catalog import Catalog
 from citus_tpu_torch.config import Settings
-from citus_tpu_torch.errors import ExecutionError, UnsupportedFeatureError
+from citus_tpu_torch.errors import ExecutionError
 from citus_tpu_torch.executor.batches import (
     ShardBatch, bucket_rows, load_shard_batches, pad_to_batch,
 )
@@ -272,17 +274,125 @@ def _device_params(xp, pcols, pvalids):
             tuple(xp.asarray(v) for v in pvalids))
 
 
+@dataclass
+class _StreamStats:
+    """What one ``_stream_device_batches`` pass did: launches, streamed
+    bytes, the un-synced window's peak and per-task times."""
+    cached: bool = False
+    n_dispatch: int = 0
+    nbytes: int = 0
+    window_peak: int = 0
+    task_times: list = field(default_factory=list)
+    task_bytes: list = field(default_factory=list)
+
+    def publish(self, plan: PhysicalPlan, pstats) -> None:
+        """Into the plan's EXPLAIN surface: pipeline stats of a streamed
+        pass, launches, window peak and per-task times."""
+        if not self.cached:
+            pstats.h2d_bytes = self.nbytes
+            pstats.publish(plan)
+        pl = plan.runtime_cache.setdefault("pipeline", {})
+        pl["fused_dispatches"] = self.n_dispatch
+        pl["stream_window_peak_bytes"] = self.window_peak
+        plan.runtime_cache["task_times"] = self.task_times
+        plan.runtime_cache["task_bytes"] = self.task_bytes
+
+
+def _stream_device_batches(cat: Catalog, plan: PhysicalPlan,
+                           settings: Settings, device, launch, pstats, *,
+                           cache_key: Optional[tuple] = None,
+                           cache_tenant: Optional[str] = None,
+                           on_sync=None) -> _StreamStats:
+    """Call ``launch(db, hb)`` once for each padded shard batch of the
+    plan: ``db`` on ``device``, ``hb`` its host batch.
+
+    With ``cache_key`` the device cache's entry is replayed when it
+    holds one (``hb`` is None then), and a streamed scan is kept for the
+    cache while its working set fits.  Otherwise the decode thread
+    prepares batch i+1 on the host while batch i copies and launches;
+    pinned staging keeps the copies asynchronous.  Past the cache,
+    throughput degrades to the pipeline rate instead of collapsing: at
+    most ``depth`` batches stay un-synced, then the stream waits for the
+    device (the launches are ordered on one stream, so that retires all
+    of them) and calls ``on_sync()`` — and once more after the last
+    batch.  Each streamed batch is one ``device_round`` span."""
+    from citus_tpu_torch.executor.device_cache import GLOBAL_CACHE
+    from citus_tpu_torch.executor.pipeline import (
+        prefetch_batches, read_ahead_depth,
+    )
+    from citus_tpu_torch.testing.faults import FAULTS
+
+    st = _StreamStats()
+    cached = None if cache_key is None else GLOBAL_CACHE.get(cache_key)
+    if cached is not None:
+        st.cached = True
+        for b in cached:
+            t0 = clock()
+            launch(b, None)
+            st.n_dispatch += 1
+            st.task_times.append((b.shard_index, b.n_rows, clock() - t0))
+        return st
+    collect: Optional[list] = [] if cache_key is not None else None
+    depth = _prefetch_depth(settings)
+    window_bytes = 0       # un-synced streamed bytes on device
+    since_sync = 0
+    staging = _Staging(device, depth + 1)
+    host_iter = prefetch_batches(_iter_padded_batches(cat, plan, settings),
+                                 read_ahead_depth(settings), pstats)
+    try:
+        for hb in host_iter:
+            t_dev = clock()
+            FAULTS.hit("device_round", plan.bound.table.name)
+            db = staging.to_device(hb)
+            t0 = clock()
+            launch(db, hb)
+            st.n_dispatch += 1
+            st.task_times.append((db.shard_index, db.n_rows, clock() - t0))
+            bb = (sum(c.nbytes for c in hb.cols)
+                  + sum(v.nbytes for v in hb.valids) + hb.row_mask.nbytes)
+            st.nbytes += bb
+            st.task_bytes.append((db.shard_index, bb))
+            if collect is not None:
+                collect.append(db)
+                if st.nbytes > GLOBAL_CACHE.capacity:
+                    collect = None  # working set exceeds the cache
+            if collect is None:
+                window_bytes += bb
+                st.window_peak = max(st.window_peak, window_bytes)
+                since_sync += 1
+                if since_sync >= depth:
+                    _block_ready(device)
+                    if on_sync is not None:
+                        on_sync()
+                    since_sync = 0
+                    window_bytes = 0
+            pstats.device_s += clock() - t_dev
+            ctx = _trace.current()
+            if ctx is not None:
+                tr, parent = ctx
+                tr.add_closed("device_round", parent.span_id, t_dev, clock(),
+                              {"shard_index": int(hb.shard_index),
+                               "rows": int(hb.n_rows)})
+    finally:
+        host_iter.close()
+    if on_sync is not None:
+        on_sync()
+    if st.n_dispatch:
+        if collect:
+            GLOBAL_CACHE.put(cache_key, collect, st.nbytes,
+                             tenant=cache_tenant)
+        GLOBAL_COUNTERS.bump("bytes_scanned", st.nbytes)
+        GLOBAL_COUNTERS.bump("device_hbm_touched_bytes", st.nbytes)
+    return st
+
+
 def _run_partials_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
                          params=((), ()), device=None):
     import torch
-    from citus_tpu_torch.executor.device_cache import (
-        GLOBAL_CACHE, plan_cache_key,
-    )
-    from citus_tpu_torch.executor.pipeline import (
-        PipelineStats, prefetch_batches, read_ahead_depth,
-    )
+    from citus_tpu_torch.executor.device_cache import plan_cache_key
+    from citus_tpu_torch.executor.pipeline import PipelineStats
     from citus_tpu_torch.ops.xp_torch import TorchNamespace
-    from citus_tpu_torch.testing.faults import FAULTS
+    from citus_tpu_torch.workload import tenant_key
 
     if device is None:
         raise ExecutionError("the gpu backend needs the Cluster's device")
@@ -290,8 +400,6 @@ def _run_partials_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
     xp = TorchNamespace(device)
     pstats = PipelineStats()
     _trace.set_phase("device")
-    key = plan_cache_key(plan, cat.data_dir) + (str(device),)
-    cached = GLOBAL_CACHE.get(key)
     # one fold per batch into device-resident registers, updated in
     # place (the port's donate_argnums): one scan_agg_fold launch per
     # batch, no merge dispatch, no host round-trip until the end
@@ -300,90 +408,21 @@ def _run_partials_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
                        extra=(str(device),))
     pcols, pvalids = _device_params(xp, *params)
     acc = empty_device_partials(plan, device)
-    task_times: list = []
-    task_bytes: list = []
-    n_dispatch = 0
-    window_peak = 0
-    if cached is not None:
-        for b in cached:
-            t0 = clock()
-            fused(acc, b.cols + pcols, b.valids + pvalids, b.row_mask)
-            n_dispatch += 1
-            task_times.append((b.shard_index, b.n_rows, clock() - t0))
-    else:
-        # stream: the decode thread prepares batch i+1 on the host while
-        # batch i copies and folds; pinned staging keeps the copies
-        # asynchronous.  Device batches are kept for the cache only if
-        # the whole working set fits it — past capacity, throughput
-        # degrades to the pipeline rate instead of collapsing
-        collect: Optional[list] = []
-        nbytes = 0
-        depth = _prefetch_depth(settings)
-        window_bytes = 0       # un-synced streamed bytes on device
-        since_sync = 0
-        staging = _Staging(device, depth + 1)
-        host_iter = prefetch_batches(
-            _iter_padded_batches(cat, plan, settings),
-            read_ahead_depth(settings), pstats)
-        try:
-            for hb in host_iter:
-                t_dev = clock()
-                FAULTS.hit("device_round", plan.bound.table.name)
-                db = staging.to_device(hb)
-                t0 = clock()
-                fused(acc, db.cols + pcols, db.valids + pvalids,
-                      db.row_mask)
-                n_dispatch += 1
-                task_times.append((db.shard_index, db.n_rows,
-                                   clock() - t0))
-                bb = (sum(c.nbytes for c in hb.cols)
-                      + sum(v.nbytes for v in hb.valids)
-                      + hb.row_mask.nbytes)
-                nbytes += bb
-                task_bytes.append((db.shard_index, bb))
-                if collect is not None:
-                    collect.append(db)
-                    if nbytes > GLOBAL_CACHE.capacity:
-                        collect = None  # working set exceeds the cache
-                if collect is None:
-                    # bound in-flight device memory: the registers order
-                    # every fold, so waiting for the stream retires all
-                    # admitted batches — at most `depth` are un-synced
-                    window_bytes += bb
-                    window_peak = max(window_peak, window_bytes)
-                    since_sync += 1
-                    if since_sync >= depth:
-                        _block_ready(device)
-                        since_sync = 0
-                        window_bytes = 0
-                pstats.device_s += clock() - t_dev
-                ctx = _trace.current()
-                if ctx is not None:
-                    tr, parent = ctx
-                    tr.add_closed(
-                        "device_round", parent.span_id, t_dev, clock(),
-                        {"shard_index": int(hb.shard_index),
-                         "rows": int(hb.n_rows)})
-        finally:
-            host_iter.close()
-        if n_dispatch == 0:
-            return combine_partials_host(plan, [_empty_partials(plan, np)])
-        if collect is not None:
-            GLOBAL_CACHE.put(key, collect, nbytes)
-        pstats.h2d_bytes = nbytes
-        GLOBAL_COUNTERS.bump("bytes_scanned", nbytes)
-        GLOBAL_COUNTERS.bump("device_hbm_touched_bytes", nbytes)
+    # a cache entry is charged to the tenant whose query pinned it (the
+    # shared bucket for non-router scans)
+    st = _stream_device_batches(
+        cat, plan, settings, device,
+        lambda db, hb: fused(acc, db.cols + pcols, db.valids + pvalids,
+                             db.row_mask),
+        pstats, cache_key=plan_cache_key(plan, cat.data_dir) + (str(device),),
+        cache_tenant=tenant_key(plan.router_key))
+    if st.n_dispatch == 0:
+        return combine_partials_host(plan, [_empty_partials(plan, np)])
     t_dev = clock()
     partials = tuple(a.cpu().numpy() for a in acc)
     pstats.device_s += clock() - t_dev
-    if cached is None:
-        pstats.publish(plan)
-    GLOBAL_COUNTERS.bump("fused_dispatches", n_dispatch)
-    pl = plan.runtime_cache.setdefault("pipeline", {})
-    pl["fused_dispatches"] = n_dispatch
-    pl["stream_window_peak_bytes"] = window_peak
-    plan.runtime_cache["task_times"] = task_times
-    plan.runtime_cache["task_bytes"] = task_bytes
+    GLOBAL_COUNTERS.bump("fused_dispatches", st.n_dispatch)
+    st.publish(plan, pstats)
     return partials
 
 
@@ -481,96 +520,64 @@ def _hash_key_dtypes(plan: PhysicalPlan, penv: dict) -> tuple:
     return tuple(dts)
 
 
-def _stream_hash_batches(cat: Catalog, plan: PhysicalPlan, settings: Settings,
-                         fused, table, pcols, pvalids, acc, penv, pstats, hs,
-                         device):
-    """Stream the plan's shards through the fused hash insert.
+class _SpillDrain:
+    """Spill masks of launched hash inserts, drained into host
+    accumulators at the stream's sync points (per prefetch window, not
+    per batch), so the device holds O(slots) plus depth x batch bytes
+    and the host never materializes the scan.  A mask is [N] for one
+    accumulator or [Q, N] for Q of them.  A spilled row's keys and
+    arguments are evaluated again with numpy from its host batch, which
+    is kept until its spill is drained."""
 
-    One ``hash_agg_insert`` per batch into the running device ``table``
-    (updated in place); spill masks are read back and drained into
-    ``acc`` per prefetch window (not per batch), at the same sync points
-    that bound the un-synced H2D window — so the device holds O(slots)
-    plus depth x batch bytes and the host never materializes the scan.
-    A spilled row's keys and arguments are evaluated again with numpy
-    from its host batch, which is kept until its spill is drained.
-    ``hs`` accumulates dispatch / window / spill bookkeeping."""
-    from citus_tpu_torch.executor.pipeline import (
-        prefetch_batches, read_ahead_depth,
-    )
-    from citus_tpu_torch.testing.faults import FAULTS
-    depth = _prefetch_depth(settings)
-    pending: list = []   # (host batch, device spill mask) awaiting drain
+    def __init__(self, plan: PhysicalPlan, accs: list, penv: dict):
+        from citus_tpu_torch.planner.bound import compile_expr
+        self.plan = plan
+        self.accs = accs
+        self.penv = penv
+        self.key_fns = [compile_expr(k, np) for k in plan.bound.group_keys]
+        self.arg_fns = [compile_expr(a, np) for a in plan.agg_args]
+        self.pending: list = []   # (host batch, device spill mask)
+        self.rows = 0
+        self.seconds = 0.0
 
-    def _drain():
-        t_drain = clock()
-        for hb, sp in pending:
-            sp = sp.cpu().numpy()
-            if sp.any():
-                n_sp = int(sp.sum())
-                GLOBAL_COUNTERS.bump("hash_spill_rows", n_sp)
-                hs["spilled"] += n_sp
-                env = {n: (np.asarray(c), np.asarray(v))
-                       for n, c, v in zip(plan.scan_columns, hb.cols,
-                                          hb.valids)}
-                env.update(penv)
-                acc.add_batch(sp, [f(env) for f in hs["key_fns_np"]],
-                              [f(env) for f in hs["arg_fns_np"]])
-        pending.clear()
-        hs["drain_s"] += clock() - t_drain
+    def add(self, hb: ShardBatch, spill) -> None:
+        self.pending.append((hb, spill))
 
-    window_bytes = 0
-    since_sync = 0
-    staging = _Staging(device, depth + 1)
-    host_iter = prefetch_batches(_iter_padded_batches(cat, plan, settings),
-                                 read_ahead_depth(settings), pstats)
-    try:
-        for hb in host_iter:
-            t_dev = clock()
-            FAULTS.hit("device_round", plan.bound.table.name)
-            db = staging.to_device(hb)
-            t0 = clock()
-            spill = fused(table, db.cols + pcols, db.valids + pvalids,
-                          db.row_mask)
-            hs["n_dispatch"] += 1
-            hs["task_times"].append((db.shard_index, db.n_rows, clock() - t0))
-            bb = (sum(c.nbytes for c in hb.cols)
-                  + sum(v.nbytes for v in hb.valids) + hb.row_mask.nbytes)
-            hs["nbytes"] += bb
-            hs["task_bytes"].append((db.shard_index, bb))
-            pending.append((hb, spill))
-            window_bytes += bb
-            hs["window_peak"] = max(hs["window_peak"], window_bytes)
-            since_sync += 1
-            if since_sync >= depth:
-                _block_ready(device)
-                _drain()
-                since_sync = 0
-                window_bytes = 0
-            pstats.device_s += clock() - t_dev
-            ctx = _trace.current()
-            if ctx is not None:
-                tr, parent = ctx
-                tr.add_closed("device_round", parent.span_id, t_dev, clock(),
-                              {"shard_index": int(hb.shard_index),
-                               "rows": int(hb.n_rows)})
-    finally:
-        host_iter.close()
-    _drain()
+    def __call__(self) -> None:
+        t0 = clock()
+        for hb, sp in self.pending:
+            sp = sp.cpu().numpy().reshape(len(self.accs), -1)
+            if not sp.any():
+                continue
+            env = {n: (np.asarray(c), np.asarray(v))
+                   for n, c, v in zip(self.plan.scan_columns, hb.cols,
+                                      hb.valids)}
+            env.update(self.penv)
+            keys = [f(env) for f in self.key_fns]
+            args = [f(env) for f in self.arg_fns]
+            for acc, m in zip(self.accs, sp):
+                if m.any():
+                    n_sp = int(m.sum())
+                    GLOBAL_COUNTERS.bump("hash_spill_rows", n_sp)
+                    self.rows += n_sp
+                    acc.add_batch(m, keys, args)
+        self.pending.clear()
+        self.seconds += clock() - t0
 
 
 def _run_hash_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
                      params, acc, penv, device):
     """Device half of a hash_host plan: stream every shard batch into ONE
-    device-resident hash table, draining spills into ``acc`` exactly.
-    Every shard is local (the remote half is ROADMAP.md A13).  Returns
-    the fetched (key_tables, partials, rows) host arrays."""
+    device-resident hash table (one ``hash_agg_insert`` per batch,
+    updated in place), draining spills into ``acc`` exactly.  Every
+    shard is local (the remote half is ROADMAP.md A13).  Returns the
+    fetched (key_tables, partials, rows) host arrays."""
     import torch
     from citus_tpu_torch.executor.pipeline import PipelineStats
     from citus_tpu_torch.ops.hash_agg import (
         build_fused_hash_worker, empty_hash_state,
     )
     from citus_tpu_torch.ops.xp_torch import TorchNamespace
-    from citus_tpu_torch.planner.bound import compile_expr
 
     if device is None:
         raise ExecutionError("the gpu backend needs the Cluster's device")
@@ -584,31 +591,24 @@ def _run_hash_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
         plan, f"hash_fused:{device}",
         lambda: build_fused_hash_worker(plan, xp, key_dtypes),
         extra=(str(device),))
-    hs = {"n_dispatch": 0, "window_peak": 0, "nbytes": 0, "spilled": 0,
-          "drain_s": 0.0, "task_times": [], "task_bytes": [],
-          "key_fns_np": [compile_expr(k, np) for k in plan.bound.group_keys],
-          "arg_fns_np": [compile_expr(a, np) for a in plan.agg_args]}
+    drain = _SpillDrain(plan, [acc], penv)
     table = empty_hash_state(plan, S, key_dtypes, device)
     pcols, pvalids = _device_params(xp, *params)
-    _stream_hash_batches(cat, plan, settings, fused, table, pcols, pvalids,
-                         acc, penv, pstats, hs, device)
+    st = _stream_device_batches(
+        cat, plan, settings, device,
+        lambda db, hb: drain.add(hb, fused(table, db.cols + pcols,
+                                           db.valids + pvalids, db.row_mask)),
+        pstats, on_sync=drain)
     t_dev = clock()
     h_keys, h_partials, h_rows = table.to_host()
     pstats.device_s += clock() - t_dev
-    GLOBAL_COUNTERS.bump("bytes_scanned", hs["nbytes"])
-    GLOBAL_COUNTERS.bump("device_hbm_touched_bytes", hs["nbytes"])
-    GLOBAL_COUNTERS.bump("hash_fused_dispatches", hs["n_dispatch"])
-    pstats.h2d_bytes = hs["nbytes"]
-    pstats.publish(plan)
-    pl = plan.runtime_cache.setdefault("pipeline", {})
-    pl["fused_dispatches"] = hs["n_dispatch"]
-    pl["stream_window_peak_bytes"] = hs["window_peak"]
+    GLOBAL_COUNTERS.bump("hash_fused_dispatches", st.n_dispatch)
+    st.publish(plan, pstats)
+    pl = plan.runtime_cache["pipeline"]
     pl["hash_slots"] = S
     pl["hash_occupancy_pct"] = round(100.0 * int((h_rows > 0).sum()) / S, 1)
-    pl["hash_spilled_rows"] = hs["spilled"]
-    pl["hash_spill_merge_ms"] = round(hs["drain_s"] * 1e3, 3)
-    plan.runtime_cache["task_times"] = hs["task_times"]
-    plan.runtime_cache["task_bytes"] = hs["task_bytes"]
+    pl["hash_spilled_rows"] = drain.rows
+    pl["hash_spill_merge_ms"] = round(drain.seconds * 1e3, 3)
     return h_keys, h_partials, h_rows
 
 
@@ -765,9 +765,6 @@ def execute_select(cat: Catalog, bound: BoundSelect, settings: Settings,
     """Run one bound SELECT.  ``device`` is the torch device of the
     ``gpu`` backend (the Cluster's)."""
     t0 = clock()
-    if settings.executor.megabatch_window_ms != 0:
-        raise UnsupportedFeatureError(
-            "citus.megabatch_window_ms is not ported yet (ROADMAP.md B5)")
     if plan is None:
         plan = plan_select(cat, bound, direct_limit=settings.planner.direct_gid_limit)
     params = encode_params(cat, bound, param_values)
@@ -777,15 +774,42 @@ def execute_select(cat: Catalog, bound: BoundSelect, settings: Settings,
             # cached generic plan for THESE parameter values
             with _trace.span("prune"):
                 plan = _bind_time_prune(plan, params)
-        GLOBAL_COUNTERS.bump("queries_executed")
-        if plan.is_router:
-            GLOBAL_COUNTERS.bump("router_queries")
-        elif len(plan.shard_indexes) > 1:
-            GLOBAL_COUNTERS.bump("multi_shard_queries")
+            # window != 0 opts parameterized queries into same-family
+            # coalescing (negative = auto-sized from the plan family's
+            # arrival rate); at 0 (default) the module is never imported
+            # and the serial path below is byte-identical to before
+            if settings.executor.megabatch_window_ms != 0:
+                from citus_tpu_torch.executor.megabatch import (
+                    maybe_megabatch,
+                )
+                r = maybe_megabatch(cat, bound, settings, plan, params, t0,
+                                    exec_span, device)
+                if r is not None:
+                    return r
+        return _execute_select_serial(cat, bound, settings, plan, params,
+                                      t0, exec_span, device)
+
+
+def _execute_select_serial(cat: Catalog, bound: BoundSelect,
+                           settings: Settings, plan: PhysicalPlan, params,
+                           t0: float, exec_span, device) -> Result:
+    GLOBAL_COUNTERS.bump("queries_executed")
+    if plan.is_router:
+        GLOBAL_COUNTERS.bump("router_queries")
+    elif len(plan.shard_indexes) > 1:
+        GLOBAL_COUNTERS.bump("multi_shard_queries")
+    # admission control: one device-dispatch slot per executing query
+    # (the citus.max_shared_pool_size analog; 0 = unlimited), granted
+    # through the tenant-aware fair-share scheduler — router queries
+    # are charged to their distribution-key tenant, multi-shard
+    # analytics to the shared "*" tenant
+    from citus_tpu_torch.transaction.snapshot import snapshot_read
+    from citus_tpu_torch.workload import GLOBAL_SCHEDULER, tenant_key
+    with GLOBAL_SCHEDULER.slot(settings, tenant_key(plan.router_key),
+                               timeout=settings.executor.lock_timeout_s):
         # snapshot read: never blocks behind writers — the scan is
         # validated against the table's flip generation and retried if
         # a multi-file metadata flip overlapped (transaction/snapshot.py)
-        from citus_tpu_torch.transaction.snapshot import snapshot_read
         run_plan = plan
 
         def _attempt():
@@ -804,13 +828,16 @@ def execute_select(cat: Catalog, bound: BoundSelect, settings: Settings,
             return _run_projection(cat, run_plan, settings, params, device)
         rows = snapshot_read(cat.data_dir, bound.table, _attempt,
                              timeout=settings.executor.lock_timeout_s)
-        return _finish_select(bound, run_plan, rows, t0, exec_span)
+    return _finish_select(bound, run_plan, rows, t0, exec_span)
 
 
 def _finish_select(bound: BoundSelect, plan: PhysicalPlan, rows: list[tuple],
-                   t0: float, exec_span) -> Result:
-    """ORDER/LIMIT + hidden-output trim, result-shape counters, span
-    attrs and the explain dict."""
+                   t0: float, exec_span, megabatch: Optional[dict] = None
+                   ) -> Result:
+    """Shared tail of the serial and megabatched paths: ORDER/LIMIT +
+    hidden-output trim, result-shape counters, span attrs and the
+    explain dict.  Runs on the issuing caller's own thread either way
+    (``megabatch`` adds the occupancy attrs)."""
     _trace.set_phase("finalize")
     with _trace.span("finalize"):
         rows = order_and_limit(plan, rows)
@@ -827,6 +854,8 @@ def _finish_select(bound: BoundSelect, plan: PhysicalPlan, rows: list[tuple],
         pipe = plan.runtime_cache.get("pipeline") or {}
         if pipe:
             exec_span.attrs["pipeline"] = dict(pipe)
+        if megabatch:
+            exec_span.attrs["megabatch"] = dict(megabatch)
     visible = list(bound.output_names)
     if bound.hidden_outputs:
         visible = visible[:len(visible) - bound.hidden_outputs]
@@ -843,6 +872,8 @@ def _finish_select(bound: BoundSelect, plan: PhysicalPlan, rows: list[tuple],
         "pipeline": plan.runtime_cache.get("pipeline", {}),
         "router_key": plan.router_key,
     }
+    if megabatch:
+        explain["megabatch"] = dict(megabatch)
     return Result(
         columns=visible,
         rows=rows,

@@ -37,6 +37,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.RLock()
 _libs: dict[str, ctypes.CDLL] = {}
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock: several threads
+    (``Cluster.execute`` callers, a megabatch leader) launch kernels at
+    once, and ``+=`` on an attribute is not atomic."""
+    with _launch_lock:
+        wrapper.launches += 1
 
 
 class KernelBuildError(RuntimeError):

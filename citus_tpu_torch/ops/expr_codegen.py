@@ -2,11 +2,15 @@
 
 ``generate_predicate(expr, col_dtypes, param_dtypes)`` turns a bound
 predicate (``planner/bound.py``) into the source of a predicate kernel:
-a ``__host__ __device__`` function ``fm_predicate(p, i)`` that evaluates
-every node of the tree as a (value, valid) pair for row ``i`` with the
+a ``__host__ __device__`` function ``fm_eval(p, r, prm, pvl)`` that
+evaluates every node of the tree as a (value, valid) pair over the
+loaded columns ``r`` of one row and one query's parameters, with the
 semantics of the reference's ``compile_expr``/``predicate_mask`` under
-JAX, and, under ``__CUDACC__``, the kernel that writes
-``out[i] = row_mask[i] && fm_predicate(p, i)`` with its C launcher.
+JAX; ``fm_predicate(p, i)`` for one query and ``fm_batched_row`` for Q
+queries of one family (the columns loaded once); and, under
+``__CUDACC__``, the kernels that write ``out[i] = row_mask[i] &&
+fm_predicate(p, i)`` and ``out[q, i]`` for every query q, with their C
+launchers.
 ``csrc/expr.cuh`` holds the helpers and the parameter block.
 
 Semantics kept from the reference:
@@ -119,6 +123,7 @@ class _Gen:
         self.param_dtypes = param_dtypes
         self.lines: list[str] = []
         self.columns: list[str] = []
+        self.column_types: list[np.dtype] = []
         self.params: list[str] = []
         self.tables: list[tuple] = []
         self.n = 0
@@ -176,20 +181,20 @@ class _Gen:
             dt = _dtype(self.col_dtypes[e.name])
             if e.name not in self.columns:
                 self.columns.append(e.name)
+                self.column_types.append(dt)
             j = self.columns.index(e.name)
-            v = self.value(dt, f"((const {_C_TYPES[dt]}*)p.cols[{j}])[i]")
-            return v, self.valid(f"fm_valid(p.valids[{j}], i)"), dt
+            return f"r.c{j}", f"r.v{j}", dt
         if isinstance(e, BParam):
             name = e.env_name
             dt = _dtype(self.param_dtypes[name])
             if name not in self.params:
                 self.params.append(name)
             j = self.params.index(name)
-            raw = (f"fm_f64((uint64_t)p.params[{j}])" if dt.kind == "f"
-                   else f"p.params[{j}]")
+            raw = (f"fm_f64((uint64_t)prm[{j}])" if dt.kind == "f"
+                   else f"prm[{j}]")
             src = _F64 if dt.kind == "f" else _I64
             v = self.value(dt, cast(raw, src, dt))
-            return v, self.valid(f"(p.param_valid[{j}] != 0)"), dt
+            return v, self.valid(f"(pvl[{j}] != 0)"), dt
         if isinstance(e, BLiteral):
             dt = _dtype(e.type.device_dtype)
             if e.value is None:
@@ -316,6 +321,28 @@ class _Gen:
 
 
 _KERNEL = """
+// one query, row i, with the parameters of the parameter block
+__host__ __device__ inline bool fm_predicate(const FmParams& p, int64_t i) {
+    return fm_eval(p, fm_load(p, i), p.params, p.param_valid);
+}
+
+// Q queries, row i: the row's columns are loaded once, then the
+// predicate runs once per query with that query's parameters
+__host__ __device__ inline void fm_batched_row(const FmParams& p, const FmBatch& b,
+                                               int64_t i) {
+    const bool keep = p.row_mask == nullptr || p.row_mask[i] != 0;
+    if (!keep) {
+        for (int64_t q = 0; q < b.n_q; ++q) b.out[q * p.n + i] = 0;
+        return;
+    }
+    const FmRow r = fm_load(p, i);
+    for (int64_t q = 0; q < b.n_q; ++q) {
+        const int64_t* prm = b.params + q * b.n_params;
+        const uint8_t* pvl = b.param_valid + q * b.n_params;
+        b.out[q * p.n + i] = fm_eval(p, r, prm, pvl) ? 1 : 0;
+    }
+}
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
@@ -326,6 +353,11 @@ __global__ void fm_kernel(const FmParams p) {
     p.out[i] = (keep && fm_predicate(p, i)) ? 1 : 0;
 }
 
+__global__ void fm_batched_kernel(const FmParams p, const FmBatch b) {
+    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < p.n) fm_batched_row(p, b, i);
+}
+
 extern "C" int filter_mask_launch(const FmParams* p, void* stream) {
     if (p->n <= 0) return 0;
     const int threads = 256;
@@ -334,7 +366,17 @@ extern "C" int filter_mask_launch(const FmParams* p, void* stream) {
     return (int)cudaGetLastError();
 }
 
+extern "C" int filter_mask_batched_launch(const FmParams* p, const FmBatch* b,
+                                          void* stream) {
+    if (p->n <= 0 || b->n_q <= 0) return 0;
+    const int threads = 256;
+    long long blocks = (p->n + threads - 1) / threads;
+    fm_batched_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(*p, *b);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int filter_mask_params_size(void) { return (int)sizeof(FmParams); }
+extern "C" int filter_mask_batch_size(void) { return (int)sizeof(FmBatch); }
 #endif
 """
 
@@ -343,17 +385,39 @@ def generate_predicate(expr, col_dtypes: dict, param_dtypes: dict
                        ) -> Predicate:
     """-> the CUDA C++ source of ``expr`` as a row predicate.
     ``col_dtypes`` maps column names, ``param_dtypes`` parameter env
-    names (``BParam.env_name``) to their device dtypes."""
+    names (``BParam.env_name``) to their device dtypes.
+
+    The source defines ``FmRow`` (the row's loaded columns),
+    ``fm_load(p, i)`` (loads them), ``fm_eval(p, r, prm, pvl)`` (the
+    predicate over a loaded row and one query's parameter values and
+    validity), ``fm_predicate(p, i)`` (one query, the parameter block's
+    parameters) and ``fm_batched_row(p, b, i)`` (Q queries, the columns
+    loaded once), and, under ``__CUDACC__``, the one-query and the
+    batched kernel with their C launchers."""
     g = _Gen(col_dtypes, param_dtypes)
     v, k, dt = g.gen(expr)
     b = v if dt == _BOOL else f"({v} != 0)"
     body = "\n".join(g.lines)
+    fields = "".join(f"    {_C_TYPES[t]} c{j};\n    bool v{j};\n"
+                     for j, t in enumerate(g.column_types)) \
+        or "    bool unused;\n"
+    loads = "".join(
+        f"    r.c{j} = ((const {_C_TYPES[t]}*)p.cols[{j}])[i];\n"
+        f"    r.v{j} = fm_valid(p.valids[{j}], i);\n"
+        for j, t in enumerate(g.column_types))
     source = (
         "// generated by citus_tpu_torch/ops/expr_codegen.py from:\n"
         f"// {_one_line(expr)}\n"
         "#include \"expr.cuh\"\n\n"
-        "__host__ __device__ inline bool fm_predicate(const FmParams& p, "
+        f"struct FmRow {{\n{fields}}};\n\n"
+        "__host__ __device__ inline FmRow fm_load(const FmParams& p, "
         "int64_t i) {\n"
+        "    FmRow r{};\n"
+        f"{loads}"
+        "    return r;\n"
+        "}\n\n"
+        "__host__ __device__ inline bool fm_eval(const FmParams& p, "
+        "const FmRow& r, const int64_t* prm, const uint8_t* pvl) {\n"
         f"{body}\n"
         f"    return {g.both(b, k)};\n"
         "}\n" + _KERNEL)

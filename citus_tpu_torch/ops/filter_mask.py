@@ -16,6 +16,14 @@ and launches it (one launch per call, counted in
 does not know raises ``UnsupportedFeatureError``.  On CPU tensors it
 runs ``filter_mask_plain``: ``compile_expr`` on the torch namespace and
 ``predicate_mask``.  There is no fallback between the two.
+
+``filter_mask_batched(prog, cols, params, row_mask)`` is the same mask
+for Q queries of one literal family at once, bool [Q, N] (the
+reference's ``batched:jit_filter``, ``citus_tpu/executor/megabatch.py``
+:518-527): ``params`` are the queries' parameters stacked on the device
+(``stack_params``), and the generated source's batched kernel loads each
+row's columns once and evaluates the predicate once per query.  Its
+plain version runs ``filter_mask_plain`` once per query.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from citus_tpu_torch.ops.cuda_build import count_launch
 from citus_tpu_torch.ops.expr_codegen import Predicate, generate_predicate
 from citus_tpu_torch.planner.bound import (
     BColumn, compile_expr, predicate_mask, walk,
@@ -67,7 +76,14 @@ class FilterProgram:
                                                ctypes.c_void_p]
             lib.filter_mask_params_size.restype = ctypes.c_int
             lib.filter_mask_params_size.argtypes = []
-            if lib.filter_mask_params_size() != ctypes.sizeof(_FmParams):
+            lib.filter_mask_batched_launch.restype = ctypes.c_int
+            lib.filter_mask_batched_launch.argtypes = [
+                ctypes.POINTER(_FmParams), ctypes.POINTER(_FmBatch),
+                ctypes.c_void_p]
+            lib.filter_mask_batch_size.restype = ctypes.c_int
+            lib.filter_mask_batch_size.argtypes = []
+            if lib.filter_mask_params_size() != ctypes.sizeof(_FmParams) \
+                    or lib.filter_mask_batch_size() != ctypes.sizeof(_FmBatch):
                 raise RuntimeError("filter_mask: parameter block layout "
                                    "differs between Python and CUDA")
             self._lib = lib
@@ -119,14 +135,30 @@ class _FmParams(ctypes.Structure):
                 ("param_valid", ctypes.c_uint8 * _MAX_PARAMS)]
 
 
+class _FmBatch(ctypes.Structure):
+    _fields_ = [("n_q", ctypes.c_int64), ("n_params", ctypes.c_int64),
+                ("params", ctypes.c_void_p), ("param_valid", ctypes.c_void_p),
+                ("out", ctypes.c_void_p)]
+
+
 def _param_bits(v, dt: np.dtype) -> int:
     if dt.kind == "f":
         return int(np.asarray(v, np.float64).view(np.int64))
     return int(np.asarray(v).astype(np.int64))
 
 
-def _launch(prog: FilterProgram, cols: dict, params: dict,
-            row_mask: torch.Tensor) -> torch.Tensor:
+def _param_value(bits: int, dt: np.dtype):
+    """The inverse of ``_param_bits``: a value of ``dt``."""
+    b = np.asarray(bits, np.int64)
+    if dt.kind == "f":
+        return b.view(np.float64).astype(dt)
+    return b.astype(dt)
+
+
+def _block(prog: FilterProgram, cols: dict, row_mask: torch.Tensor,
+           out: torch.Tensor) -> "_FmParams":
+    """The parameter block of one launch over ``cols`` (parameters
+    left at 0)."""
     from citus_tpu_torch.ops.xp_torch import torch_dtype
     dev = row_mask.device
     n = row_mask.shape[0]
@@ -135,8 +167,6 @@ def _launch(prog: FilterProgram, cols: dict, params: dict,
         raise ValueError("filter_mask: row_mask must be a contiguous bool "
                          "vector")
     pred = prog.predicate
-    lib = prog.library()
-    out = torch.empty(n, dtype=torch.bool, device=dev)
     p = _FmParams()
     p.n = n
     p.row_mask = row_mask.data_ptr()
@@ -158,14 +188,24 @@ def _launch(prog: FilterProgram, cols: dict, params: dict,
                                  f"be a contiguous [{n}] bool tensor on "
                                  f"{dev}")
             p.valids[j] = valid.data_ptr()
-    for j, name in enumerate(pred.params):
-        v, valid = params[name]
-        p.params[j] = _param_bits(v, prog.param_dtypes[name])
-        p.param_valid[j] = 1 if bool(valid) else 0
     tables = prog.tables(dev)
     for j, t in enumerate(tables):
         p.tables[j] = t.data_ptr()
         p.table_len[j] = t.numel()
+    return p
+
+
+def _launch(prog: FilterProgram, cols: dict, params: dict,
+            row_mask: torch.Tensor) -> torch.Tensor:
+    lib = prog.library()
+    out = torch.empty(row_mask.shape[0], dtype=torch.bool,
+                      device=row_mask.device)
+    p = _block(prog, cols, row_mask, out)
+    dev = row_mask.device
+    for j, name in enumerate(prog.predicate.params):
+        v, valid = params[name]
+        p.params[j] = _param_bits(v, prog.param_dtypes[name])
+        p.param_valid[j] = 1 if bool(valid) else 0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.filter_mask_launch(ctypes.byref(p), stream)
@@ -180,7 +220,7 @@ def filter_mask(prog: FilterProgram, cols: dict, params: dict,
     launch the generated kernel, CPU tensors run the plain version."""
     if row_mask.device.type == "cuda":
         out = _launch(prog, cols, params, row_mask)
-        filter_mask.launches += 1
+        count_launch(filter_mask)
         return out
     if row_mask.device.type != "cpu":
         raise ValueError(f"filter_mask: no kernel for {row_mask.device}")
@@ -189,3 +229,111 @@ def filter_mask(prog: FilterProgram, cols: dict, params: dict,
 
 #: kernel launches since the counter was last set to 0
 filter_mask.launches = 0
+
+
+# --------------------------------------------------- Q queries at once
+
+
+class StackedParams:
+    """The parameters of Q queries of one predicate family, as the
+    batched kernel reads them: ``bits`` int64 [Q, P] (integers
+    sign-extended, floats as the bits of their float64 value) and
+    ``valid`` uint8 [Q, P], column j holding parameter ``names[j]``, in
+    the predicate's slot order."""
+
+    def __init__(self, names: tuple, bits: torch.Tensor,
+                 valid: torch.Tensor):
+        self.names, self.bits, self.valid = names, bits, valid
+
+    @property
+    def n_queries(self) -> int:
+        return int(self.bits.shape[0])
+
+
+def stack_params(prog: FilterProgram, params: list, device) -> StackedParams:
+    """``params``: one host parameter env (name -> (value, valid)) per
+    query -> their ``StackedParams`` on ``device`` (one copy for the
+    whole family, reused by every batch of its scan)."""
+    names = prog.predicate.params
+    q, n_p = len(params), max(1, len(names))
+    bits = np.zeros((q, n_p), np.int64)
+    valid = np.zeros((q, n_p), np.uint8)
+    for qi, env in enumerate(params):
+        for j, name in enumerate(names):
+            v, ok = env[name]
+            bits[qi, j] = _param_bits(v, prog.param_dtypes[name])
+            valid[qi, j] = 1 if bool(ok) else 0
+    return StackedParams(names, torch.from_numpy(bits).to(device),
+                         torch.from_numpy(valid).to(device))
+
+
+def filter_mask_batched_plain(prog: FilterProgram, cols: dict,
+                              params: StackedParams,
+                              row_mask: torch.Tensor) -> torch.Tensor:
+    """The same masks in eager tensor ops on any device: one
+    ``filter_mask_plain`` per query, with its parameters decoded from
+    the stacked bits.  -> bool [Q, N]."""
+    bits = params.bits.cpu().numpy()
+    valid = params.valid.cpu().numpy()
+    outs = []
+    for qi in range(params.n_queries):
+        env = {name: (_param_value(bits[qi, j], prog.param_dtypes[name]),
+                      bool(valid[qi, j]))
+               for j, name in enumerate(params.names)}
+        outs.append(filter_mask_plain(prog, cols, env, row_mask))
+    return torch.stack(outs)
+
+
+def _launch_batched(prog: FilterProgram, cols: dict, params: StackedParams,
+                    row_mask: torch.Tensor) -> torch.Tensor:
+    dev = row_mask.device
+    n, q = row_mask.shape[0], params.n_queries
+    if params.names != prog.predicate.params:
+        raise ValueError("filter_mask_batched: parameters stacked for "
+                         "another predicate")
+    for t, dt in ((params.bits, torch.int64), (params.valid, torch.uint8)):
+        if t.device != dev or t.dtype != dt or t.dim() != 2 \
+                or t.shape[0] != q or not t.is_contiguous():
+            raise ValueError(f"filter_mask_batched: stacked parameters must "
+                             f"be contiguous [Q, P] {dt} tensors on {dev}")
+    lib = prog.library()
+    out = torch.empty((q, n), dtype=torch.bool, device=dev)
+    p = _block(prog, cols, row_mask, out)
+    b = _FmBatch()
+    b.n_q, b.n_params = q, params.bits.shape[1]
+    b.params, b.param_valid = params.bits.data_ptr(), params.valid.data_ptr()
+    b.out = out.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.filter_mask_batched_launch(ctypes.byref(p), ctypes.byref(b),
+                                             stream)
+    if err != 0:
+        raise RuntimeError(f"filter_mask_batched launch failed: CUDA error "
+                           f"{err}")
+    return out
+
+
+def filter_mask_batched(prog: FilterProgram, cols: dict,
+                        params: StackedParams,
+                        row_mask: torch.Tensor) -> torch.Tensor:
+    """-> bool [Q, N]: row q is ``row_mask & predicate`` under query q's
+    parameters, for Q queries of one family over one batch (the
+    reference's ``batched:jit_filter``, a ``jax.vmap`` of the
+    predicate over the stacked parameters).  CUDA tensors launch the
+    generated batched kernel, which loads each row's columns once and
+    evaluates the predicate once per query (one launch per call,
+    counted in ``filter_mask_batched.launches``); CPU tensors run
+    ``filter_mask_batched_plain``.  There is no fallback between the
+    two."""
+    if row_mask.device.type == "cuda":
+        out = _launch_batched(prog, cols, params, row_mask)
+        count_launch(filter_mask_batched)
+        return out
+    if row_mask.device.type != "cpu":
+        raise ValueError(f"filter_mask_batched: no kernel for "
+                         f"{row_mask.device}")
+    return filter_mask_batched_plain(prog, cols, params, row_mask)
+
+
+#: kernel launches since the counter was last set to 0
+filter_mask_batched.launches = 0

@@ -31,7 +31,7 @@ reference's uint64 arithmetic.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -148,7 +148,10 @@ class HashTable:
     ``rows`` [S] int64 the rows placed in each slot (occupied ⇔
     ``rows > 0``).  ``state`` [S] int32 is the kernel's claim word per
     slot (0 empty, 1 publishing, 2 published), kept equal to
-    ``2 * (rows > 0)`` between launches."""
+    ``2 * (rows > 0)`` between launches.
+
+    Stacked for Q queries of one plan family (the megabatch path), every
+    tensor is [Q, S] and ``query(q)`` is query q's own [S] table."""
     key_values: list
     key_flags: list
     partials: list
@@ -157,7 +160,14 @@ class HashTable:
 
     @property
     def slots(self) -> int:
-        return int(self.rows.shape[0])
+        return int(self.rows.shape[-1])
+
+    def query(self, q: int) -> "HashTable":
+        """Query q's table of a stacked table, as [S] views."""
+        return HashTable([v[q] for v in self.key_values],
+                         [f[q] for f in self.key_flags],
+                         [p[q] for p in self.partials], self.rows[q],
+                         self.state[q])
 
     def to_host(self):
         """-> (key_tables [(values, flags)], partials, rows) as numpy,
@@ -169,34 +179,45 @@ class HashTable:
 
 
 def empty_hash_state(plan: PhysicalPlan, slots: int, key_dtypes: tuple,
-                     device) -> HashTable:
+                     device, n_queries: Optional[int] = None) -> HashTable:
     """Empty table on ``device``: key value tables filled with their
     dtype minimum, flag tables at 0, partial tables at their op's
-    identity/sentinel, rows and claim words at 0."""
+    identity/sentinel, rows and claim words at 0.  With ``n_queries``,
+    Q stacked tables ([Q, S] tensors)."""
     S = int(slots)
     if S <= 0:
         raise ValueError(f"hash table needs a positive slot count, got {S}")
+    shape = (S,) if n_queries is None else (int(n_queries), S)
 
     def t(a):
         return torch.from_numpy(a).to(device)
     key_values, key_flags = [], []
     for kdt in key_dtypes:
         kdt = np.dtype(kdt)
-        key_values.append(t(np.full((S,), _key_sentinel(kdt), kdt)))
-        key_flags.append(t(np.zeros((S,), np.int8)))
+        key_values.append(t(np.full(shape, _key_sentinel(kdt), kdt)))
+        key_flags.append(t(np.zeros(shape, np.int8)))
     partials = []
     for op in plan.partial_ops:
         dt = np.dtype(op.dtype)
         if op.kind == "count" or op.arg_index < 0:
-            partials.append(t(np.zeros((S,), np.int64)))
+            partials.append(t(np.zeros(shape, np.int64)))
         elif op.kind == "sum":
-            partials.append(t(np.zeros((S,), dt)))
+            partials.append(t(np.zeros(shape, dt)))
         else:
-            partials.append(t(np.full((S,), dt.type(_sentinel(op.kind, dt)),
+            partials.append(t(np.full(shape, dt.type(_sentinel(op.kind, dt)),
                                       dt)))
     return HashTable(key_values, key_flags, partials,
-                     t(np.zeros((S,), np.int64)),
-                     t(np.zeros((S,), np.int32)))
+                     t(np.zeros(shape, np.int64)),
+                     t(np.zeros(shape, np.int32)))
+
+
+def hash_slot_bytes(plan: PhysicalPlan, key_dtypes: tuple) -> int:
+    """Device bytes of one slot of a table: key values and flags,
+    partials, rows and the claim word."""
+    return (sum(np.dtype(k).itemsize + 1 for k in key_dtypes)
+            + sum(8 if op.kind == "count" or op.arg_index < 0
+                  else np.dtype(op.dtype).itemsize
+                  for op in plan.partial_ops) + 8 + 4)
 
 
 def build_hash_insert_inputs(plan: PhysicalPlan, xp,
@@ -206,9 +227,28 @@ def build_hash_insert_inputs(plan: PhysicalPlan, xp,
     ops).  The fused worker calls the kernel with it; a caller that
     holds the kernel against its plain version gets the main path's
     exact kernel inputs from it."""
-    from citus_tpu_torch.ops.scan_agg_fold import FoldOp
     filter_fn = compile_expr(plan.bound.filter, xp) \
         if plan.bound.filter is not None else None
+    shared, ops = build_shared_hash_inputs(plan, xp, key_dtypes)
+    names = plan.scan_columns + param_env_names(plan.bound.param_specs)
+
+    def inputs(table, cols, valids, row_mask):
+        env = {n: (c, v) for n, c, v in zip(names, cols, valids)}
+        mask = row_mask
+        if filter_fn is not None:
+            mask = row_mask & predicate_mask(xp, filter_fn, env, row_mask)
+        keys, args = shared(cols, valids, row_mask)
+        return table, _vec(xp, mask), keys, args, ops
+
+    return inputs
+
+
+def build_shared_hash_inputs(plan: PhysicalPlan, xp, key_dtypes: tuple):
+    """The part of an insert's inputs that no parameter changes: ->
+    (``shared(cols, valids, row_mask)`` -> (keys, arguments) of one
+    batch, ops).  The megabatch path computes it once per batch for
+    every query of a family; each query contributes only its mask."""
+    from citus_tpu_torch.ops.scan_agg_fold import FoldOp
     key_fns = [compile_expr(k, xp) for k in plan.bound.group_keys]
     used = sorted({op.arg_index for op in plan.partial_ops
                    if op.arg_index >= 0})
@@ -220,20 +260,17 @@ def build_hash_insert_inputs(plan: PhysicalPlan, xp,
     names = plan.scan_columns + param_env_names(plan.bound.param_specs)
     key_dtypes = tuple(np.dtype(d) for d in key_dtypes)
 
-    def inputs(table, cols, valids, row_mask):
+    def shared(cols, valids, row_mask):
         env = {n: (c, v) for n, c, v in zip(names, cols, valids)}
-        mask = row_mask
-        if filter_fn is not None:
-            mask = row_mask & predicate_mask(xp, filter_fn, env, row_mask)
         keys = [(kv.contiguous(), kvm.contiguous()) for kv, kvm in
                 _eval_keys(xp, key_fns, key_dtypes, env, row_mask.shape)]
         args = []
         for af in arg_fns:
             v, valid = af(env)
             args.append((_vec(xp, v), _validity(xp, valid)))
-        return table, _vec(xp, mask), keys, args, ops
+        return keys, args
 
-    return inputs
+    return shared, ops
 
 
 def build_fused_hash_worker(plan: PhysicalPlan, xp,

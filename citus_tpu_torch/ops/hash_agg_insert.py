@@ -22,6 +22,11 @@ pairs of [N] vectors; ``args`` and ``ops`` are as in ``scan_agg_fold``.
 On CUDA tensors it launches the kernel (one launch per call, counted in
 ``hash_agg_insert.launches``) or raises; on CPU tensors it runs
 ``hash_agg_insert_plain``.  There is no fallback between the two.
+
+``hash_agg_insert_batched`` inserts one batch into the Q tables of a
+stacked ``HashTable`` ([Q, S] tensors) for Q queries of one literal
+family at once (``csrc/hash_agg_insert_batched.cu``): masks and spill
+masks [Q, N], the keys fingerprinted once per row and shared.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Sequence
 
 import torch
 
+from citus_tpu_torch.ops.cuda_build import count_launch
 from citus_tpu_torch.ops.hash_agg import (
     _GOLD, _INT64_MIN, _canon_keys, _fingerprint, _mix, _umod,
 )
@@ -193,23 +199,27 @@ def _library():
     return _lib
 
 
-def _check_table_vector(t, what: str, S: int, dtypes, dev) -> None:
-    if t.device != dev or t.dtype not in dtypes or t.shape != (S,) \
+def _check_table_vector(t, what: str, shape: tuple, dtypes, dev) -> None:
+    if t.device != dev or t.dtype not in dtypes or t.shape != shape \
             or not t.is_contiguous():
         raise ValueError(
-            f"hash_agg_insert: {what} must be a contiguous [{S}] tensor of "
-            f"{dtypes} on {dev}, got {t.dtype} {tuple(t.shape)} on "
-            f"{t.device}")
+            f"hash_agg_insert: {what} must be a contiguous {list(shape)} "
+            f"tensor of {dtypes} on {dev}, got {t.dtype} {tuple(t.shape)} "
+            f"on {t.device}")
 
 
-def _launch(table, mask, keys, args, ops) -> torch.Tensor:
+def _block(table, mask, spill, keys, args, ops, n_q=None) -> _Params:
+    """The parameter block of one launch: one [S] table and [N] masks,
+    or ``n_q`` stacked [n_q, S] tables and [n_q, N] masks."""
     dev = mask.device
-    n = mask.shape[0]
+    n = mask.shape[-1]
     S = table.slots
-    if mask.dtype != torch.bool or mask.dim() != 1 \
+    want_dim = 1 if n_q is None else 2
+    if mask.dtype != torch.bool or mask.dim() != want_dim \
+            or (n_q is not None and mask.shape[0] != n_q) \
             or not mask.is_contiguous():
         raise ValueError("hash_agg_insert: mask must be a contiguous bool "
-                         "vector")
+                         + ("vector" if n_q is None else f"[{n_q}, N] tensor"))
     if not 0 < len(keys) <= _MAX_KEYS or len(args) > _MAX_ARGS \
             or len(ops) > _MAX_OPS:
         raise ValueError(
@@ -219,9 +229,9 @@ def _launch(table, mask, keys, args, ops) -> torch.Tensor:
             or len(ops) != len(table.partials):
         raise ValueError("hash_agg_insert: one key table per key and one "
                          "partial table per op")
-    if S <= 0 or S >= 1 << 62:
+    if S <= 0 or S >= 1 << 62 or (n_q or 1) * S >= 1 << 62:
         raise ValueError(f"hash_agg_insert: bad slot count {S}")
-    spill = torch.empty(n, dtype=torch.bool, device=dev)
+    shape = (S,) if n_q is None else (n_q, S)
     p = _Params()
     p.n, p.slots = n, S
     p.mask, p.spill = mask.data_ptr(), spill.data_ptr()
@@ -229,9 +239,9 @@ def _launch(table, mask, keys, args, ops) -> torch.Tensor:
     for i, ((kv, kvm), kvt, kft) in enumerate(zip(keys, table.key_values,
                                                   table.key_flags)):
         c = _col(kv, kvm, f"key {i}", n, dev)
-        _check_table_vector(kvt, f"key table {i}", S, (kv.dtype,), dev)
-        _check_table_vector(kft, f"key flag table {i}", S, (torch.int8,),
-                            dev)
+        _check_table_vector(kvt, f"key table {i}", shape, (kv.dtype,), dev)
+        _check_table_vector(kft, f"key flag table {i}", shape,
+                            (torch.int8,), dev)
         p.keys[i] = c
         p.key_values[i] = kvt.data_ptr()
         p.key_flags[i] = kft.data_ptr()
@@ -240,7 +250,7 @@ def _launch(table, mask, keys, args, ops) -> torch.Tensor:
     for i, (a, op) in enumerate(zip(table.partials, ops)):
         if op.kind not in _KIND_CODES:
             raise ValueError(f"hash_agg_insert: unknown op kind {op.kind!r}")
-        _check_table_vector(a, f"partial table {i} ({op.kind})", S,
+        _check_table_vector(a, f"partial table {i} ({op.kind})", shape,
                             _ACC_DTYPES[op.kind], dev)
         if op.kind != "count_star" and not 0 <= op.arg < len(args):
             raise ValueError(f"hash_agg_insert: op {i} argument out of "
@@ -249,9 +259,16 @@ def _launch(table, mask, keys, args, ops) -> torch.Tensor:
         p.op_arg[i] = max(op.arg, 0)
         p.op_dtype[i] = _DTYPE_CODES[a.dtype]
         p.acc[i] = a.data_ptr()
-    _check_table_vector(table.rows, "rows", S, (torch.int64,), dev)
-    _check_table_vector(table.state, "state", S, (torch.int32,), dev)
+    _check_table_vector(table.rows, "rows", shape, (torch.int64,), dev)
+    _check_table_vector(table.state, "state", shape, (torch.int32,), dev)
     p.rows, p.state = table.rows.data_ptr(), table.state.data_ptr()
+    return p
+
+
+def _launch(table, mask, keys, args, ops) -> torch.Tensor:
+    dev = mask.device
+    spill = torch.empty(mask.shape[-1], dtype=torch.bool, device=dev)
+    p = _block(table, mask, spill, keys, args, ops)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _library().hash_agg_insert_launch(ctypes.byref(p), stream)
@@ -268,7 +285,7 @@ def hash_agg_insert(table, mask: torch.Tensor, keys: Sequence[tuple],
     CUDA tensors launch the kernel, CPU tensors run the plain version."""
     if mask.device.type == "cuda":
         spill = _launch(table, mask, keys, args, ops)
-        hash_agg_insert.launches += 1
+        count_launch(hash_agg_insert)
         return spill
     if mask.device.type != "cpu":
         raise ValueError(f"hash_agg_insert: no kernel for {mask.device}")
@@ -277,3 +294,84 @@ def hash_agg_insert(table, mask: torch.Tensor, keys: Sequence[tuple],
 
 #: kernel launches since the counter was last set to 0
 hash_agg_insert.launches = 0
+
+
+# --------------------------------------------------- Q queries at once
+
+
+def hash_agg_insert_batched_plain(table, masks: torch.Tensor,
+                                  keys: Sequence[tuple],
+                                  args: Sequence[tuple],
+                                  ops: Sequence[FoldOp]) -> torch.Tensor:
+    """The same batched insert in plain tensor ops: one
+    ``hash_agg_insert_plain`` per query into its own table.  -> spill
+    masks [Q, N]."""
+    return torch.stack([
+        hash_agg_insert_plain(table.query(q), masks[q], keys, args, ops)
+        for q in range(masks.shape[0])])
+
+
+_lib_batched = None
+
+
+def _library_batched():
+    global _lib_batched
+    if _lib_batched is None:
+        from citus_tpu_torch.ops.cuda_build import load
+        lib = load("hash_agg_insert_batched")
+        lib.hash_agg_insert_batched_launch.restype = ctypes.c_int
+        lib.hash_agg_insert_batched_launch.argtypes = [
+            ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
+        lib.hash_agg_insert_batched_params_size.restype = ctypes.c_int
+        lib.hash_agg_insert_batched_params_size.argtypes = []
+        if lib.hash_agg_insert_batched_params_size() \
+                != ctypes.sizeof(_Params):
+            raise RuntimeError("hash_agg_insert_batched: parameter block "
+                               "layout differs between Python and CUDA")
+        _lib_batched = lib
+    return _lib_batched
+
+
+def _launch_batched(table, masks, keys, args, ops) -> torch.Tensor:
+    n_q = masks.shape[0] if masks.dim() == 2 else 0
+    if n_q <= 0:
+        raise ValueError("hash_agg_insert_batched: masks must be [Q, N], "
+                         "Q > 0")
+    dev = masks.device
+    spill = torch.empty(masks.shape, dtype=torch.bool, device=dev)
+    p = _block(table, masks, spill, keys, args, ops, n_q)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library_batched().hash_agg_insert_batched_launch(
+            ctypes.byref(p), n_q, stream)
+    if err != 0:
+        raise RuntimeError(f"hash_agg_insert_batched launch failed: CUDA "
+                           f"error {err}")
+    return spill
+
+
+def hash_agg_insert_batched(table, masks: torch.Tensor, keys: Sequence[tuple],
+                            args: Sequence[tuple], ops: Sequence[FoldOp]
+                            ) -> torch.Tensor:
+    """Insert one batch into the Q tables of ``table`` (a ``HashTable``
+    whose tensors are [Q, S]) at once, in place: table q takes the rows
+    that pass ``masks[q]`` (bool [Q, N]).  The keys are canonicalized
+    and fingerprinted once per row; ``keys`` and ``args`` are shared by
+    every query.  It is the reference's ``batched:jit_hash_fused`` (a
+    ``jax.vmap`` of the fused hash worker over the query axis).
+    -> spill masks [Q, N].  CUDA tensors launch
+    ``csrc/hash_agg_insert_batched.cu`` (one launch per call, counted in
+    ``hash_agg_insert_batched.launches``), CPU tensors run the plain
+    version."""
+    if masks.device.type == "cuda":
+        spill = _launch_batched(table, masks, keys, args, ops)
+        count_launch(hash_agg_insert_batched)
+        return spill
+    if masks.device.type != "cpu":
+        raise ValueError(f"hash_agg_insert_batched: no kernel for "
+                         f"{masks.device}")
+    return hash_agg_insert_batched_plain(table, masks, keys, args, ops)
+
+
+#: kernel launches since the counter was last set to 0
+hash_agg_insert_batched.launches = 0

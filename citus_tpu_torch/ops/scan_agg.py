@@ -306,6 +306,33 @@ def build_fold_inputs(plan: PhysicalPlan, xp) -> Callable:
     None, mask, keys, arguments, ops, G).  The device fold calls the
     kernel with it; a caller that holds the kernel against its plain
     version gets the main path's exact kernel inputs from it."""
+    filter_fn = compile_expr(plan.bound.filter, xp) \
+        if plan.bound.filter is not None else None
+    shared, ops, G = build_shared_fold_inputs(plan, xp)
+    names = plan.scan_columns + param_env_names(plan.bound.param_specs)
+    n_ops = len(ops)
+    direct = plan.group_mode.kind == "direct"
+
+    def inputs(acc, cols, valids, row_mask):
+        env = {n: (c, v) for n, c, v in zip(names, cols, valids)}
+        mask = row_mask
+        if filter_fn is not None:
+            mask = row_mask & predicate_mask(xp, filter_fn, env, row_mask)
+        keys, args = shared(cols, valids)
+        # scalar mode keeps 0-d registers; the kernel sees [1] views
+        regs = list(acc[:n_ops]) if direct \
+            else [a.view(1) for a in acc[:n_ops]]
+        return (regs, acc[n_ops] if direct else None, _vec(xp, mask), keys,
+                args, ops, G)
+
+    return inputs
+
+
+def build_shared_fold_inputs(plan: PhysicalPlan, xp):
+    """The part of a fold's inputs that no parameter changes: ->
+    (``shared(cols, valids)`` -> (keys, arguments) of one batch, ops,
+    G).  The megabatch path computes it once per batch for every query
+    of a family; each query contributes only its mask."""
     from citus_tpu_torch.ops.scan_agg_fold import FoldKey, FoldOp
     mode = plan.group_mode
     if mode.kind not in ("scalar", "direct"):
@@ -318,8 +345,6 @@ def build_fold_inputs(plan: PhysicalPlan, xp) -> Callable:
             f"sketch aggregates ({', '.join(sketches)}) do not run on the "
             "device yet (ROADMAP.md B1-sketch); "
             "SET citus.task_executor_backend = 'cpu' runs them on the host")
-    filter_fn = compile_expr(plan.bound.filter, xp) \
-        if plan.bound.filter is not None else None
     key_fns = [compile_expr(k, xp) for k in plan.bound.group_keys]
     used = sorted({op.arg_index for op in plan.partial_ops
                    if op.arg_index >= 0})
@@ -328,33 +353,25 @@ def build_fold_inputs(plan: PhysicalPlan, xp) -> Callable:
     ops = [FoldOp("count_star") if op.arg_index < 0
            else FoldOp(op.kind, slot[op.arg_index])
            for op in plan.partial_ops]
-    n_ops = len(ops)
     names = plan.scan_columns + param_env_names(plan.bound.param_specs)
     direct = mode.kind == "direct"
     G = mode.n_groups if direct else 1
     domains = list(zip(mode.domains, mode.strides)) if direct else []
 
-    def inputs(acc, cols, valids, row_mask):
+    def shared(cols, valids):
         env = {n: (c, v) for n, c, v in zip(names, cols, valids)}
-        mask = row_mask
-        if filter_fn is not None:
-            mask = row_mask & predicate_mask(xp, filter_fn, env, row_mask)
         keys = []
         for kf, (d, stride) in zip(key_fns, domains):
             kv, kvalid = kf(env)
-            keys.append(FoldKey(_vec(xp, kv), _validity(xp, kvalid), d.lo, d.step,
-                                stride))
+            keys.append(FoldKey(_vec(xp, kv), _validity(xp, kvalid), d.lo,
+                                d.step, stride))
         args = []
         for af in arg_fns:
             v, valid = af(env)
             args.append((_vec(xp, v), _validity(xp, valid)))
-        # scalar mode keeps 0-d registers; the kernel sees [1] views
-        regs = list(acc[:n_ops]) if direct \
-            else [a.view(1) for a in acc[:n_ops]]
-        return (regs, acc[n_ops] if direct else None, _vec(xp, mask), keys,
-                args, ops, G)
+        return keys, args
 
-    return inputs
+    return shared, ops, G
 
 
 def combine_partials_host(plan: PhysicalPlan, shard_partials: list[tuple]) -> tuple:

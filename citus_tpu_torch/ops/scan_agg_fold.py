@@ -11,6 +11,10 @@ the cast to the accumulator type and count/sum/min/max.
 On CUDA tensors it launches the kernel (one launch per call, counted
 in ``scan_agg_fold.launches``) or raises; on CPU tensors it runs
 ``scan_agg_fold_plain``.  There is no fallback between the two.
+
+``scan_agg_fold_batched`` folds one batch for Q queries of one literal
+family at once (``csrc/scan_agg_fold_batched.cu``): masks [Q, N],
+registers [Q, G], the keys and arguments shared.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from citus_tpu_torch.ops.cuda_build import count_launch
 _MAX_KEYS, _MAX_ARGS, _MAX_OPS = 8, 32, 32
 #: partial sums per group of a float sum in the plain version
 _SUM_LANES = 1024
@@ -197,13 +202,17 @@ def _col(t: torch.Tensor, valid: Optional[torch.Tensor], what: str,
     return c
 
 
-def _launch(acc, rows, mask, keys, args, ops, n_groups) -> int:
+def _block(acc, rows, mask, keys, args, ops, n_groups, n_q=None) -> _Params:
+    """The parameter block of one launch; registers are [G] (one query)
+    or [n_q, G] (``n_q`` queries, ``mask`` [n_q, N])."""
     dev = mask.device
-    n = mask.shape[0]
-    if mask.dtype != torch.bool or mask.dim() != 1 \
+    n = mask.shape[-1]
+    want_dim = 1 if n_q is None else 2
+    if mask.dtype != torch.bool or mask.dim() != want_dim \
+            or (n_q is not None and mask.shape[0] != n_q) \
             or not mask.is_contiguous():
         raise ValueError("scan_agg_fold: mask must be a contiguous bool "
-                         "vector")
+                         + ("vector" if n_q is None else f"[{n_q}, N] tensor"))
     if len(keys) > _MAX_KEYS or len(args) > _MAX_ARGS \
             or len(ops) > _MAX_OPS:
         raise ValueError(
@@ -211,6 +220,7 @@ def _launch(acc, rows, mask, keys, args, ops, n_groups) -> int:
             f"arguments and {_MAX_OPS} partial ops")
     if len(acc) != len(ops):
         raise ValueError("scan_agg_fold: one accumulator per partial op")
+    reg_shape = (n_groups,) if n_q is None else (n_q, n_groups)
     p = _Params()
     p.n = n
     p.n_groups = n_groups
@@ -230,10 +240,10 @@ def _launch(acc, rows, mask, keys, args, ops, n_groups) -> int:
         if op.kind not in _KIND_CODES:
             raise ValueError(f"scan_agg_fold: unknown op kind {op.kind!r}")
         if a.device != dev or a.dtype not in _ACC_DTYPES[op.kind] \
-                or a.shape != (n_groups,) or not a.is_contiguous():
+                or a.shape != reg_shape or not a.is_contiguous():
             raise ValueError(
                 f"scan_agg_fold: accumulator {i} ({op.kind}) must be a "
-                f"contiguous [{n_groups}] tensor of "
+                f"contiguous {list(reg_shape)} tensor of "
                 f"{_ACC_DTYPES[op.kind]} on {dev}, got {a.dtype} "
                 f"{tuple(a.shape)} on {a.device}")
         if op.kind != "count_star" and not 0 <= op.arg < len(args):
@@ -244,11 +254,17 @@ def _launch(acc, rows, mask, keys, args, ops, n_groups) -> int:
         p.acc[i] = a.data_ptr()
     if rows is not None:
         if rows.device != dev or rows.dtype != torch.int64 \
-                or rows.shape != (n_groups,) or not rows.is_contiguous():
+                or rows.shape != reg_shape or not rows.is_contiguous():
             raise ValueError("scan_agg_fold: rows must be a contiguous "
-                             f"[{n_groups}] int64 tensor on {dev}")
+                             f"{list(reg_shape)} int64 tensor on {dev}")
         p.rows = rows.data_ptr()
+    return p
+
+
+def _launch(acc, rows, mask, keys, args, ops, n_groups) -> int:
+    p = _block(acc, rows, mask, keys, args, ops, n_groups)
     regime = ctypes.c_int(-1)
+    dev = mask.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _library().scan_agg_fold_launch(ctypes.byref(p), stream,
@@ -273,7 +289,7 @@ def scan_agg_fold(acc: Sequence[torch.Tensor], rows: Optional[torch.Tensor],
     if mask.device.type == "cuda":
         scan_agg_fold.last_regime = _launch(acc, rows, mask, keys, args,
                                             ops, n_groups)
-        scan_agg_fold.launches += 1
+        count_launch(scan_agg_fold)
         return
     if mask.device.type != "cpu":
         raise ValueError(f"scan_agg_fold: no kernel for {mask.device}")
@@ -284,3 +300,87 @@ def scan_agg_fold(acc: Sequence[torch.Tensor], rows: Optional[torch.Tensor],
 scan_agg_fold.launches = 0
 #: 1 = shared-memory group table, 0 = global atomics (last launch)
 scan_agg_fold.last_regime = -1
+
+
+# --------------------------------------------------- Q queries at once
+
+
+def scan_agg_fold_batched_plain(acc: Sequence[torch.Tensor],
+                                rows: Optional[torch.Tensor],
+                                masks: torch.Tensor, keys: Sequence[FoldKey],
+                                args: Sequence[tuple], ops: Sequence[FoldOp],
+                                n_groups: int) -> None:
+    """The same batched fold in plain tensor ops: one
+    ``scan_agg_fold_plain`` per query into row q of its registers."""
+    for q in range(masks.shape[0]):
+        scan_agg_fold_plain([a[q] for a in acc],
+                            None if rows is None else rows[q], masks[q],
+                            keys, args, ops, n_groups)
+
+
+_lib_batched = None
+
+
+def _library_batched():
+    global _lib_batched
+    if _lib_batched is None:
+        from citus_tpu_torch.ops.cuda_build import load
+        lib = load("scan_agg_fold_batched")
+        lib.scan_agg_fold_batched_launch.restype = ctypes.c_int
+        lib.scan_agg_fold_batched_launch.argtypes = [
+            ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int)]
+        lib.scan_agg_fold_batched_params_size.restype = ctypes.c_int
+        lib.scan_agg_fold_batched_params_size.argtypes = []
+        if lib.scan_agg_fold_batched_params_size() != ctypes.sizeof(_Params):
+            raise RuntimeError("scan_agg_fold_batched: parameter block "
+                               "layout differs between Python and CUDA")
+        _lib_batched = lib
+    return _lib_batched
+
+
+def _launch_batched(acc, rows, masks, keys, args, ops, n_groups) -> int:
+    n_q = masks.shape[0] if masks.dim() == 2 else 0
+    if n_q <= 0:
+        raise ValueError("scan_agg_fold_batched: masks must be [Q, N], Q > 0")
+    p = _block(acc, rows, masks, keys, args, ops, n_groups, n_q)
+    regime = ctypes.c_int(-1)
+    dev = masks.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library_batched().scan_agg_fold_batched_launch(
+            ctypes.byref(p), n_q, stream, ctypes.byref(regime))
+    if err != 0:
+        raise RuntimeError(f"scan_agg_fold_batched launch failed: CUDA "
+                           f"error {err}")
+    return regime.value
+
+
+def scan_agg_fold_batched(acc: Sequence[torch.Tensor],
+                          rows: Optional[torch.Tensor], masks: torch.Tensor,
+                          keys: Sequence[FoldKey], args: Sequence[tuple],
+                          ops: Sequence[FoldOp], n_groups: int) -> None:
+    """Fold one batch into the registers of Q queries at once, in place:
+    row q of every register (``acc[i]`` [Q, G], ``rows`` [Q, G] or None
+    in scalar mode, G = 1) takes the rows that pass ``masks[q]`` (bool
+    [Q, N]).  ``keys`` and ``args`` are shared by every query: they
+    reference no parameter.  It is the reference's ``batched:jit_fused``
+    (a ``jax.vmap`` of the fused worker over the query axis).  CUDA
+    tensors launch ``csrc/scan_agg_fold_batched.cu`` (one launch per
+    call, counted in ``scan_agg_fold_batched.launches``), CPU tensors
+    run the plain version."""
+    if masks.device.type == "cuda":
+        scan_agg_fold_batched.last_regime = _launch_batched(
+            acc, rows, masks, keys, args, ops, n_groups)
+        count_launch(scan_agg_fold_batched)
+        return
+    if masks.device.type != "cpu":
+        raise ValueError(f"scan_agg_fold_batched: no kernel for "
+                         f"{masks.device}")
+    scan_agg_fold_batched_plain(acc, rows, masks, keys, args, ops, n_groups)
+
+
+#: kernel launches since the counter was last set to 0
+scan_agg_fold_batched.launches = 0
+#: 1 = shared-memory group table, 0 = global atomics (last launch)
+scan_agg_fold_batched.last_regime = -1

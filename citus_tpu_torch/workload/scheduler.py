@@ -1,0 +1,410 @@
+"""Tenant-aware admission scheduler: weighted fair-share slot dispatch.
+
+Reference: admission control in the reference is a bare shared-memory
+counter (connection/shared_connection_stats.c) — first woken, first
+served.  At multi-tenant scale that is exactly wrong: one tenant
+flooding queries monopolizes every freed slot.  This module is the
+single choke point every query path flows through instead of raw
+``SharedTaskPool`` acquisition (cituslint CONF01 confines
+``GLOBAL_POOL.acquire``/``release`` to this package):
+
+- per-tenant FIFO queues, drained by **stride scheduling over a
+  two-level tree**: each tenant belongs to a priority class (its
+  catalog-persisted quota's ``priority_class``, else
+  citus.tenant_default_priority_class).  A grant first picks the
+  minimum-pass class (class pass advances by ``STRIDE1/class_weight``),
+  then the minimum-pass runnable tenant inside it (tenant pass advances
+  by ``STRIDE1/weight``).  Class weights split the slot supply between
+  classes, tenant weights split a class's share; one class degenerates
+  to the flat ring.  Equal weights converge to equal slot share; a
+  waiter can never be barged by a new arrival (arrivals enqueue behind
+  their tenant's tail and only queue heads are grant candidates).  Ties
+  break by name, so two coordinators with the same replicated quotas
+  make the same decision sequence.
+- queue-depth-bounded **load shedding**: a tenant whose queue is full
+  (or whose QPS token bucket is empty) fast-fails with the retryable
+  ``AdmissionShedError`` instead of piling up blocked threads.
+- per-tenant concurrency caps and live accounting (running / queued /
+  granted / shed / coalesced + a LatencyHistogram for p50/p99), the
+  data half of SELECT citus_stat_tenants().
+
+The degenerate case — no registered quotas, one tenant class — reduces
+to the pool's own ticket-ordered FIFO: same grant order, same timeout
+error, same counters.  The pool stays the slot ledger (its in_use /
+granted / coalesced counters still feed citus_stat_pool); the scheduler
+mirrors it one-for-one (``_held``) and decides *who* gets each slot.
+
+Lock order: scheduler._cv -> GLOBAL_POOL._cv (the pool never calls
+back); pool acquisition for a granted required slot happens OUTSIDE the
+scheduler lock so a stall there never blocks dispatch.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Optional
+
+from citus_tpu_torch.errors import AdmissionShedError, AdmissionTimeoutError
+from citus_tpu_torch.stats import LatencyHistogram, begin_wait, end_wait
+from citus_tpu_torch.utils.clock import now as wall_now
+from citus_tpu_torch.workload.registry import (
+    GLOBAL_TENANTS, SHARED_TENANT, tenant_key,
+)
+
+__all__ = ["TenantScheduler", "GLOBAL_SCHEDULER", "tenant_key",
+           "SHARED_TENANT"]
+
+#: stride numerator: pass advance per grant at weight 1.0
+STRIDE1 = float(1 << 20)
+
+
+def _counters():
+    from citus_tpu_torch.executor.executor import GLOBAL_COUNTERS
+    return GLOBAL_COUNTERS
+
+
+def _pool():
+    from citus_tpu_torch.executor.admission import GLOBAL_POOL
+    return GLOBAL_POOL
+
+
+def _advisory_saturated() -> bool:
+    """Health-engine advisory (observability/flight_recorder.py): True
+    while a pool_saturation event is active on this process.  A plain
+    bool read — never a lock — so checking it under scheduler._cv is
+    deadlock-free by construction."""
+    from citus_tpu_torch.observability.flight_recorder import ADVISORY
+    return ADVISORY.pool_saturated
+
+
+class _Ticket:
+    __slots__ = ("granted",)
+
+    def __init__(self):
+        self.granted = False
+
+
+class _ClassState:
+    """Upper-level node of the stride tree: one per priority class with
+    a runnable tenant (created lazily, joins at the class-level virtual
+    time like tenants do)."""
+
+    __slots__ = ("name", "pass_")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.pass_ = 0.0
+
+
+class _TenantState:
+    __slots__ = ("name", "queue", "running", "extra", "granted", "shed",
+                 "coalesced", "timeouts", "pass_", "weight", "pclass",
+                 "max_concurrency", "queue_depth", "rate_limit_qps",
+                 "tokens", "t_tokens", "hist", "remote_tasks")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.pclass = "default"
+        self.queue: deque = deque()   # _Tickets, arrival order
+        self.running = 0
+        self.extra = 0                # optional intra-query slots held
+        self.granted = 0
+        self.shed = 0
+        self.coalesced = 0
+        self.timeouts = 0
+        self.pass_ = 0.0
+        self.weight = 1.0
+        self.max_concurrency = 0
+        self.queue_depth = 0
+        self.rate_limit_qps = 0.0
+        self.tokens = 0.0
+        self.t_tokens = 0.0
+        self.hist = LatencyHistogram()
+        self.remote_tasks = 0         # worker-half tasks run for us
+
+
+class TenantScheduler:
+    MAX_TENANTS = 1000  # bounded like TenantStats: evict the idlest
+
+    def __init__(self, pool=None):
+        self._cv = threading.Condition()
+        self._t: dict[str, _TenantState] = {}
+        self._classes: dict[str, _ClassState] = {}
+        self._held = 0          # mirrors GLOBAL_POOL.in_use for our grants
+        self._last_limit = 0    # limit seen by the most recent acquire
+        self._global_pass = 0.0
+        self._global_class_pass = 0.0
+        # tests pass a private SharedTaskPool; the real scheduler ledgers
+        # into the process-wide pool so citus_stat_pool stays truthful
+        self._pool_override = pool
+
+    def _ledger(self):
+        return self._pool_override if self._pool_override is not None \
+            else _pool()
+
+    # ------------------------------------------------------- tenant state
+
+    def _state_locked(self, tenant: str, wl) -> _TenantState:
+        st = self._t.get(tenant)
+        if st is None:
+            if len(self._t) >= self.MAX_TENANTS:
+                self._evict_locked()
+            st = self._t[tenant] = _TenantState(tenant)
+            # join at the current virtual time: a brand-new tenant gets
+            # fair share from now on, not credit for its absent past
+            st.pass_ = self._global_pass
+        q = GLOBAL_TENANTS.get(tenant)
+        st.weight = (q.weight if q and q.weight > 0
+                     else max(wl.tenant_default_weight, 1e-6))
+        st.max_concurrency = q.max_concurrency if q else 0
+        st.queue_depth = (q.queue_depth if q and q.queue_depth > 0
+                          else wl.tenant_queue_depth)
+        st.rate_limit_qps = (q.rate_limit_qps if q and q.rate_limit_qps > 0
+                             else wl.tenant_rate_limit_qps)
+        st.pclass = (q.priority_class if q and q.priority_class
+                     else wl.tenant_default_priority_class)
+        return st
+
+    def _class_locked(self, name: str) -> _ClassState:
+        cs = self._classes.get(name)
+        if cs is None:
+            cs = self._classes[name] = _ClassState(name)
+            cs.pass_ = self._global_class_pass
+        return cs
+
+    def _evict_locked(self) -> None:
+        idle = [t for t, s in self._t.items()
+                if not s.queue and not s.running and not s.extra]
+        if idle:
+            victim = min(idle, key=lambda t: self._t[t].granted)
+            del self._t[victim]
+
+    # ------------------------------------------------------------ admission
+
+    def acquire(self, settings, tenant: str, *,
+                timeout: Optional[float] = None) -> None:
+        """Admit one required device-dispatch slot for ``tenant``.
+        Blocks under fair-share dispatch; sheds fast (AdmissionShedError)
+        on queue-depth or rate-limit pressure; times out with the same
+        error the raw pool raises."""
+        ex = settings.executor
+        limit = ex.max_shared_pool_size
+        if timeout is None:
+            timeout = ex.lock_timeout_s
+        with self._cv:
+            self._last_limit = limit
+            st = self._state_locked(tenant, settings.workload)
+            self._shed_check_locked(st, limit)
+            w = _Ticket()
+            st.queue.append(w)
+            depth = sum(len(s.queue) for s in self._t.values())
+            _counters().bump_max("admission_queue_depth_peak", depth)
+            self._dispatch_locked(limit)
+            if not w.granted:
+                wtok = begin_wait("admission_wait")
+                deadline = time.monotonic() + timeout
+                try:
+                    while not w.granted:
+                        rem = deadline - time.monotonic()
+                        if rem <= 0:
+                            st.queue.remove(w)
+                            st.timeouts += 1
+                            self._dispatch_locked(limit)
+                            raise AdmissionTimeoutError(
+                                f"task admission timed out: {limit} device "
+                                "dispatch slots busy (max_shared_pool_size)")
+                        self._cv.wait(rem)
+                finally:
+                    end_wait(wtok)
+        # mirror the grant into the pool ledger OUTSIDE our lock: the
+        # scheduler kept _held == pool.in_use for every slot it manages,
+        # so this only ever waits behind pool users outside the
+        # scheduler (tests driving GLOBAL_POOL directly)
+        self._ledger().acquire(limit, timeout=timeout)
+
+    def _shed_check_locked(self, st: _TenantState, limit: int) -> None:
+        if st.rate_limit_qps > 0:
+            now = wall_now()
+            if st.t_tokens <= 0:
+                st.t_tokens = now
+                st.tokens = max(1.0, st.rate_limit_qps)
+            st.tokens = min(max(1.0, st.rate_limit_qps),
+                            st.tokens + (now - st.t_tokens) * st.rate_limit_qps)
+            st.t_tokens = now
+            if st.tokens < 1.0:
+                self._shed_locked(st, f"tenant {st.name!r} exceeded "
+                                      f"{st.rate_limit_qps:g} qps "
+                                      "(citus.tenant_rate_limit_qps)")
+            st.tokens -= 1.0
+        depth = st.queue_depth
+        if depth > 0 and _advisory_saturated():
+            # the flight recorder's health engine flagged sustained
+            # admission-pool saturation: shed at half the configured
+            # depth so queues drain instead of timing out under load
+            depth = max(1, depth // 2)
+        if depth > 0 and len(st.queue) >= depth:
+            self._shed_locked(st, f"tenant {st.name!r} admission queue full "
+                                  f"({depth} waiters, "
+                                  "citus.tenant_queue_depth)")
+
+    def _shed_locked(self, st: _TenantState, why: str) -> None:
+        st.shed += 1
+        _counters().bump("tenant_shed")
+        raise AdmissionShedError(f"query shed by workload scheduler: {why}; "
+                                 "retry after backoff")
+
+    def _dispatch_locked(self, limit: int) -> None:
+        """Grant queued tickets while slots are free: two-level
+        minimum-pass stride dispatch — minimum-pass class first, then
+        the minimum-pass runnable tenant within it.  Name tiebreaks at
+        both levels keep the decision sequence identical across
+        coordinators sharing the replicated quota catalog."""
+        while True:
+            if limit and limit > 0 and self._held >= limit:
+                return
+            # min-pass runnable tenant per class (a tenant is runnable
+            # when its queue head exists and its cap has headroom)
+            heads: dict[str, _TenantState] = {}
+            for s in self._t.values():
+                if not s.queue:
+                    continue
+                if s.max_concurrency and s.running >= s.max_concurrency:
+                    continue
+                cur = heads.get(s.pclass)
+                if cur is None or (s.pass_, s.name) < (cur.pass_, cur.name):
+                    heads[s.pclass] = s
+            if not heads:
+                return
+            cname = min(heads,
+                        key=lambda c: (self._class_locked(c).pass_, c))
+            best = heads[cname]
+            cs = self._class_locked(cname)
+            w = best.queue.popleft()
+            w.granted = True
+            best.running += 1
+            best.granted += 1
+            self._held += 1
+            self._global_pass = max(self._global_pass, best.pass_)
+            best.pass_ += STRIDE1 / best.weight
+            self._global_class_pass = max(self._global_class_pass, cs.pass_)
+            cs.pass_ += STRIDE1 / GLOBAL_TENANTS.class_weight(cname)
+            self._cv.notify_all()
+
+    def release(self, tenant: str) -> None:
+        with self._cv:
+            self._ledger().release()
+            self._held -= 1
+            st = self._t.get(tenant)
+            if st is not None and st.running > 0:
+                st.running -= 1
+            self._dispatch_locked(self._last_limit)
+
+    def slot(self, settings, tenant: str, *,
+             timeout: Optional[float] = None):
+        """Context manager for one required slot under ``tenant``."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def _ctx():
+            self.acquire(settings, tenant, timeout=timeout)
+            try:
+                yield
+            finally:
+                self.release(tenant)
+        return _ctx()
+
+    # ------------------------------------------- optional intra-query slots
+
+    def try_extra(self, limit: Optional[int],
+                  tenant: str = SHARED_TENANT) -> bool:
+        """Optional extra slot for intra-query parallelism (the
+        pipeline's concurrent remote-task RPCs).  Never waits, never
+        barges queued required waiters."""
+        with self._cv:
+            if any(s.queue for s in self._t.values()):
+                # a required waiter exists: denying here is what keeps
+                # freed capacity flowing to the fair-share queue
+                return False
+            ok = self._ledger().acquire(limit, optional=True)
+            if ok:
+                self._held += 1
+                if tenant in self._t:
+                    self._t[tenant].extra += 1
+            return ok
+
+    def release_extra(self, tenant: str = SHARED_TENANT) -> None:
+        with self._cv:
+            self._ledger().release()
+            self._held -= 1
+            st = self._t.get(tenant)
+            if st is not None and st.extra > 0:
+                st.extra -= 1
+            self._dispatch_locked(self._last_limit)
+
+    # ------------------------------------------------------------- megabatch
+
+    def note_coalesced(self, tenants: list[str]) -> None:
+        """Book megabatch followers riding a leader's single slot: the
+        pool counts them in aggregate, each follower's own tenant gets
+        the per-tenant credit (its query ran without a slot)."""
+        if not tenants:
+            return
+        self._ledger().note_coalesced(len(tenants))
+        with self._cv:
+            for t in tenants:
+                st = self._t.get(t)
+                if st is None and len(self._t) < self.MAX_TENANTS:
+                    st = self._t[t] = _TenantState(t)
+                    st.pass_ = self._global_pass
+                if st is not None:
+                    st.coalesced += 1
+
+    # ------------------------------------------------------------- stats
+
+    def record_latency(self, tenant: str, elapsed_ms: float) -> None:
+        """Per-query latency attribution (cluster.execute tail) feeding
+        the live citus_stat_tenants() p50/p99 columns."""
+        with self._cv:
+            st = self._t.get(tenant)
+            if st is None:
+                if len(self._t) >= self.MAX_TENANTS:
+                    self._evict_locked()
+                st = self._t[tenant] = _TenantState(tenant)
+                st.pass_ = self._global_pass
+            st.hist.record(elapsed_ms)
+
+    def note_remote_task(self, tenant: str) -> None:
+        """Worker-half accounting: a pushed execute_task ran here on
+        behalf of ``tenant`` (rides the task payload)."""
+        with self._cv:
+            st = self._t.get(tenant)
+            if st is None and len(self._t) < self.MAX_TENANTS:
+                st = self._t[tenant] = _TenantState(tenant)
+                st.pass_ = self._global_pass
+            if st is not None:
+                st.remote_tasks += 1
+
+    def rows_view(self) -> list[tuple]:
+        """Live per-tenant scheduler rows for citus_stat_tenants()."""
+        with self._cv:
+            return [(t, s.running, len(s.queue), s.granted, s.shed,
+                     s.coalesced, s.remote_tasks,
+                     round(s.hist.percentile(0.50), 3),
+                     round(s.hist.percentile(0.99), 3))
+                    for t, s in sorted(self._t.items(),
+                                       key=lambda kv: -kv[1].granted)]
+
+    def reset(self) -> None:
+        """Drop all tenant accounting (tests); in-flight holders keep
+        their pool slots — only the per-tenant view resets."""
+        with self._cv:
+            self._t.clear()
+            self._classes.clear()
+            self._global_pass = 0.0
+            self._global_class_pass = 0.0
+
+
+#: the process-wide scheduler every query path admits through
+GLOBAL_SCHEDULER = TenantScheduler()

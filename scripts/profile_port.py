@@ -11,7 +11,10 @@ paths do, with citus.hash_agg_slots = auto), then R more times under
 ``torch.profiler`` and prints, per query: the wall time per run, the
 device time per run summed over CUDA kernels and copies, the device's
 busy share of the wall time, and the kernels that took most of the
-device time.  Fails without a CUDA device.
+device time.  Then the same for chip_smoke.py's phase-5 literal families
+(8 variants each of Q6, H2, P1 and Q1, sent from 8 threads at once with
+citus.megabatch_window_ms = 1000 and megabatch_max_size = 8, so they
+coalesce): per round of 8 queries.  Fails without a CUDA device.
 """
 
 from __future__ import annotations
@@ -49,16 +52,15 @@ def main() -> int:
     for c in cs.lineitem_chunks(args.rows):
         cl.copy_from("lineitem", columns=cs.copy_columns(c))
     cl.execute("SET citus.hash_agg_slots = auto")
-    for name, sql in (("Q1", cs.Q1), ("Q6", cs.Q6), ("H1", cs.H1),
-                      ("H2", cs.H2), ("P1", cs.P1)):
-        cl.execute(sql)
-        cl.execute(sql)  # warm: plan cached (Q1/Q6: batches cached too)
+    def profiled(name, run):
+        run()
+        run()  # warm: plan cached (Q1/Q6: batches cached too)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(args.reps):
-                cl.execute(sql)
+                run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / args.reps
         events = [e for e in prof.key_averages()
@@ -72,6 +74,21 @@ def main() -> int:
             print(f"  {e.self_device_time_total / args.reps / 1e3:9.4f} ms/run "
                   f"{e.count // args.reps:5d} calls/run  {e.key[:90]}",
                   flush=True)
+
+    for name, sql in (("Q1", cs.Q1), ("Q6", cs.Q6), ("H1", cs.H1),
+                      ("H2", cs.H2), ("P1", cs.P1)):
+        profiled(name, lambda: cl.execute(sql))
+    cl.execute(f"SET citus.megabatch_max_size = {cs.Q_BATCH}")
+    for name, (_kind, variants) in cs.families().items():
+        sqls = [sql for sql, _ in variants]
+
+        def coalesced():
+            cl.execute("SET citus.megabatch_window_ms = 1000")
+            _, errors = cs.fanout(cl, sqls)
+            cl.execute("SET citus.megabatch_window_ms = 0")
+            if errors:
+                raise SystemExit(f"profile_port: {name} family: {errors}")
+        profiled(f"{name} family, {len(sqls)} coalesced queries", coalesced)
     cl.close()
     return 0
 

@@ -572,7 +572,12 @@ def test_chip_smoke_phase3_helpers_rehearse_on_cpu(tmp_path):
         err = chip_smoke.compare_hash("rehearsal", case, hash_agg_insert,
                                       hash_agg_insert_plain)
         assert err == 0.0  # same plain version on both sides
-    assert chip_smoke.hash_bytes(call) > 0
+    table = call[0]
+    slot = sum(t.element_size() for t in table.key_values + table.key_flags
+               + table.partials + [table.rows, table.state])
+    inputs = chip_smoke.hash_bytes(call, 0)
+    assert inputs > 2 * call[1].numel()   # the mask in, the spill mask out
+    assert chip_smoke.hash_bytes(call, 5) == inputs + 10 * slot
     port.close()
     plans = chip_smoke.smoke_plans("cpu", str(tmp_path), n=4096)
     line = chip_smoke.lineitem_filter_columns(plans["physical"])

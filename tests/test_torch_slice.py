@@ -201,7 +201,7 @@ def test_opens_reference_data_directory(tmp_path):
     "SELECT id, row_number() OVER (ORDER BY id) FROM events",
     "WITH w AS (SELECT id FROM events) SELECT count(*) FROM w",
     "SELECT e.id FROM events e JOIN events f ON e.id = f.id",
-    "SET citus.megabatch_window_ms = 5",
+    "SET citus.enable_metadata_sync = off",
     "BEGIN",
     "DELETE FROM events WHERE id = 1",
     "UPDATE events SET qty = 1 WHERE id = 1",
@@ -230,6 +230,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         "from citus_tpu_torch.ops import scan_agg_fold, xp_torch, cuda_build\n"
         "from citus_tpu_torch.ops import hash_agg, hash_agg_insert\n"
         "from citus_tpu_torch.ops import expr_codegen, filter_mask\n"
+        "from citus_tpu_torch.executor import megabatch, admission\n"
+        "from citus_tpu_torch import workload\n"
+        "from citus_tpu_torch.observability import flight_recorder\n"
         "from citus_tpu_torch.executor import host_agg\n"
         "from citus_tpu_torch.commands import loader\n"
         "import chip_smoke\n"
@@ -242,6 +245,11 @@ def test_port_imports_no_jax_and_no_reference_package():
         "cl.execute('SET citus.direct_gid_limit = 1')\n"
         "assert len(cl.execute('SELECT k, sum(v) FROM t GROUP BY k').rows) == 2\n"
         "assert cl.execute('SELECT k FROM t WHERE v > 0').rows == [(1,)]\n"
+        "cl.execute('SET citus.megabatch_window_ms = 5')\n"
+        "assert cl.execute('SELECT count(*) FROM t WHERE v > 0').rows "
+        "== [(1,)]\n"
+        "assert cl.execute('SELECT citus_megabatch_stats()').rows[0][3] "
+        "== 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'citus_tpu' "
         "or m.startswith('citus_tpu.'))\n"
