@@ -10,9 +10,11 @@ result line:
 1. the card (``nvidia-smi`` name and power limit) and the torch, CUDA
    and nvcc versions;
 2. build of every CUDA kernel of the port from ``citus_tpu_torch/csrc``
-   and of the predicate kernels generated for Q6, P1 and the phase-5
-   families (one nvcc per source, all started together), then one more
-   generated predicate alone, for the cold build time of one predicate;
+   (the fold kernels with their sketch registers, the hash inserts and
+   ``rollup_delta``) and of the predicate kernels generated for Q6, P1
+   and the phase-5 families (one nvcc per source, all started together),
+   then one more generated predicate alone, for the cold build time of
+   one predicate;
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes:
    - ``scan_agg_fold`` for TPC-H Q6 (scalar mode) and Q1 (direct mode,
@@ -43,6 +45,15 @@ result line:
      SF1 shard batch into 8 tables of 2^20 slots and of 1,000 slots
      (most rows spill): per query the merged groups agree, each key sits
      in at most one slot, placed + spilled = masked rows.
+   - the sketch registers (approx_count_distinct, approx_percentile,
+     approx_top_k) of ``scan_agg_fold`` for S1's ops on one padded
+     2^21-row batch of the generated sketch table, and an adversarial
+     case (NaN, +-inf, +-0.0, 1e-300, a subnormal, every DDSketch bucket
+     edge and its neighbours, INT64_MIN/MAX, nulls, an all-false mask,
+     N not a multiple of the block); of ``scan_agg_fold_batched`` for
+     the S family at Q = 8 (global atomics) and Q = 6 (shared memory);
+   - ``rollup_delta`` for all six kinds at n = 65,536 (one refresh
+     batch) and n = 2^23 (SF1's backfill, padded) into 10,000 groups.
    int64 registers, keys, counts, min/max and NaN positions must be
    identical, float64 sums within rel 1e-12 (atomics add in another
    order).  Each kernel is timed (CUDA events, median) beside its bound,
@@ -74,6 +85,22 @@ result line:
    batches of occupancy above 1, each of the family's batched kernels
    must launch once per shard batch per group and no other kernel.
    Wall time and queries per second of the serial and coalesced runs.
+   Then, on a second SF1 table of TPC-H's sketch columns (l_orderkey,
+   l_partkey, l_suppkey, l_quantity, l_extendedprice, l_shipdate; 10,000
+   suppliers; distributed by l_suppkey, as a rollup by supplier needs):
+   phase 4's S1 (count, approx_count_distinct, approx_percentile and
+   approx_top_k over one ship year) cold and warm, one sketch fold per
+   shard batch and no other kernel, rows equal to a numpy oracle built
+   with the port's numpy bucket functions; phase 5's S family (S1 over
+   each ship year 1992-1998 and 1995-H2), serial and coalesced;
+6. rollups with change data capture on: ``citus_create_rollup`` by
+   l_suppkey of count(*), sum(l_quantity), approx_count_distinct
+   (l_partkey), approx_percentile(l_extendedprice) and approx_top_k
+   (l_partkey) (its backfill timed), 262,144 more generated rows by COPY
+   in 4 batches, ``citus_refresh_rollups()`` to the CDC head: the stored
+   counts, sums and sketch registers must equal numpy's over every
+   generated row, the routed dashboard query must return the oracle's
+   rows, and ``rollup_delta`` must launch once per aggregate per fold.
 
 Then a JSON line of the kernels, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -926,11 +953,13 @@ def launch_counters() -> dict:
     from citus_tpu_torch.ops.scan_agg_fold import (
         scan_agg_fold, scan_agg_fold_batched,
     )
+    from citus_tpu_torch.rollup.kernels import rollup_delta
     return {"scan_agg_fold": scan_agg_fold,
             "hash_agg_insert": hash_agg_insert, "filter_mask": filter_mask,
             "filter_mask_batched": filter_mask_batched,
             "scan_agg_fold_batched": scan_agg_fold_batched,
-            "hash_agg_insert_batched": hash_agg_insert_batched}
+            "hash_agg_insert_batched": hash_agg_insert_batched,
+            "rollup_delta": rollup_delta}
 
 
 #: the batched kernels each phase-5 family's coalesced run must launch,
@@ -1542,6 +1571,562 @@ def phase3_batched_hash(device, cl, rows: list) -> None:
                  "library_ms": None})
 
 
+# ------------------------------------------- sketch aggregates and rollups
+
+#: TPC-H: S = SF * 10,000 suppliers, P = SF * 200,000 parts
+SUPPLIERS, PARTS = 10_000, 200_000
+#: the sketch table: TPC-H lineitem's columns of the sketch queries and
+#: the rollup, distributed by l_suppkey (a rollup's group columns must
+#: hold the source's distribution column); l_quantity holds TPC-H's
+#: integral quantities as bigint, the type a rollup sum takes
+S_DDL = """CREATE TABLE lineitem (
+        l_orderkey bigint NOT NULL, l_partkey bigint,
+        l_suppkey bigint NOT NULL, l_quantity bigint,
+        l_extendedprice decimal(12,2), l_shipdate date)"""
+
+S1 = """SELECT count(*), approx_count_distinct(l_orderkey),
+       approx_percentile(0.5) WITHIN GROUP (ORDER BY l_extendedprice),
+       approx_top_k(l_suppkey, 10)
+FROM lineitem
+WHERE l_shipdate >= date '1995-01-01' AND l_shipdate < date '1996-01-01'"""
+
+#: phase 5's S family: S1 over one ship year each, 1992-1998, and 1995-H2
+S_RANGES = [((y, 1, 1), (y + 1, 1, 1)) for y in range(1992, 1999)] \
+    + [((1995, 7, 1), (1996, 1, 1))]
+
+ROLLUP_AGGS = ("count(*), sum(l_quantity), approx_count_distinct(l_partkey), "
+               "approx_percentile(l_extendedprice), approx_top_k(l_partkey)")
+DASHBOARD = ("SELECT l_suppkey, count(*), approx_count_distinct(l_partkey) "
+             "FROM lineitem GROUP BY l_suppkey")
+#: rows COPYed after the backfill, in DELTA_BATCHES batches of the
+#: default citus.rollup_max_batch_rows
+DELTA_ROWS, DELTA_BATCHES = 262_144, 4
+I64_MIN = np.iinfo(np.int64).min
+
+
+def s_variant(lo: tuple, hi: tuple) -> str:
+    head, _ = S1.split("WHERE")
+    return (f"{head}WHERE l_shipdate >= date '{'%d-%02d-%02d' % lo}' "
+            f"AND l_shipdate < date '{'%d-%02d-%02d' % hi}'")
+
+
+def sketch_chunks(n_rows: int, seed: int, key_rows: int):
+    """TPC-H dbgen's rules for these columns (spec 4.2.3): L_PARTKEY
+    uniform in [1, P]; L_SUPPKEY one of the part's 4 suppliers,
+    (partkey + i * (S/4 + (partkey - 1) / S)) mod S + 1; L_QUANTITY
+    1..50; L_EXTENDEDPRICE = quantity * P_RETAILPRICE (cents:
+    90000 + (partkey / 10) mod 20001 + 100 * (partkey mod 1000)); ship
+    date = order date (1992-01-01 .. 1998-08-02) + 1..121 days; order
+    keys as bench.py draws them.  Integer arrays, 1M-row chunks."""
+    rng = np.random.default_rng(seed)
+    lo, hi = _day(1992, 1, 1), _day(1998, 8, 2)
+    for start in range(0, n_rows, 1_000_000):
+        n = min(1_000_000, n_rows - start)
+        pk = rng.integers(1, PARTS + 1, n)
+        i = rng.integers(0, 4, n)
+        sk = (pk + i * (SUPPLIERS // 4 + (pk - 1) // SUPPLIERS)) \
+            % SUPPLIERS + 1
+        qty = rng.integers(1, 51, n)
+        retail = 90_000 + (pk // 10) % 20_001 + 100 * (pk % 1000)
+        order = rng.integers(lo, hi + 1, n)
+        yield {"orderkey": rng.integers(0, max(key_rows // 4, 1), n),
+               "partkey": pk, "suppkey": sk, "qty": qty,
+               "price": qty * retail,
+               "ship": (order + rng.integers(1, 122, n)).astype(np.int32)}
+
+
+def sketch_copy_columns(c: dict) -> dict:
+    return {"l_orderkey": c["orderkey"], "l_partkey": c["partkey"],
+            "l_suppkey": c["suppkey"], "l_quantity": c["qty"],
+            "l_extendedprice": c["price"] / 100.0, "l_shipdate": c["ship"]}
+
+
+def sketch_physical(c: dict) -> dict:
+    """The engine's encoding of the generated rows (cents, days)."""
+    return {"l_orderkey": c["orderkey"], "l_partkey": c["partkey"],
+            "l_suppkey": c["suppkey"], "l_quantity": c["qty"],
+            "l_extendedprice": c["price"], "l_shipdate": c["ship"]}
+
+
+def load_sketch_table(ctt, path: str, n_rows: int):
+    t0 = time.perf_counter()
+    cl = ctt.Cluster(path)
+    cl.execute(S_DDL)
+    cl.execute("SELECT create_distributed_table('lineitem', 'l_suppkey', "
+               f"{SHARDS})")
+    chunks = []
+    for c in sketch_chunks(n_rows, 11, n_rows):
+        cl.copy_from("lineitem", columns=sketch_copy_columns(c))
+        chunks.append(c)
+    cols = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+    say(f"phase 4 load of the sketch table: {n_rows} rows (TPC-H "
+        f"l_orderkey, l_partkey, l_suppkey, l_quantity, l_extendedprice, "
+        f"l_shipdate; {SUPPLIERS} suppliers) in {SHARDS} shards by "
+        f"l_suppkey in {time.perf_counter() - t0:.3f} s")
+    return cl, cols
+
+
+def _hll_regs(bits, ok, flat_base=None, groups=1):
+    from citus_tpu_torch.planner import aggregates as agg
+    b, rho = agg.hll_rho_buckets(np, bits.astype(np.int64), ok)
+    regs = np.zeros(groups * agg.HLL_M, np.int32)
+    np.maximum.at(regs, b if flat_base is None else flat_base * agg.HLL_M + b,
+                  rho)
+    return regs.reshape(groups, agg.HLL_M)
+
+
+def oracle_s1(cols: dict, lo: tuple = (1995, 1, 1),
+              hi: tuple = (1996, 1, 1)) -> list[tuple]:
+    """S1's row from the generated arrays with the port's numpy bucket
+    functions (planner/aggregates.py, the cpu backend's oracle)."""
+    import math
+    from citus_tpu_torch.planner import aggregates as agg
+    m = (cols["ship"] >= _day(*lo)) & (cols["ship"] < _day(*hi))
+    n = int(m.sum())
+    if n == 0:
+        return [(0, 0, None, None)]
+    acd = agg.hll_estimate(_hll_regs(cols["orderkey"][m], np.ones(n, bool))[0])
+    counts = np.bincount(agg.ddsk_bucket_indexes(np, cols["price"][m] / 100.0),
+                         minlength=agg.DDSK_M)
+    cum = np.cumsum(counts)
+    pct = float(agg.ddsk_bucket_values()[int(np.searchsorted(
+        cum, int(math.floor(0.5 * (n - 1))) + 1, side="left"))])
+    sk = cols["suppkey"][m].astype(np.int64)
+    tb = agg.topk_buckets(np, sk)
+    tc = np.bincount(tb, minlength=agg.TOPK_M)
+    tv = np.full(agg.TOPK_M, I64_MIN)
+    np.maximum.at(tv, tb, sk)
+    order = sorted(np.nonzero(tc)[0], key=lambda b: (-int(tc[b]), int(tv[b])))
+    topk = json.dumps([{"value": int(tv[b]), "count": int(tc[b])}
+                       for b in order[:10]])
+    return [(n, acd, pct, topk)]
+
+
+def sketch_families() -> dict:
+    return {"S": ("scalar", [
+        (s_variant(lo, hi), lambda c, lo=lo, hi=hi: oracle_s1(c, lo, hi))
+        for lo, hi in S_RANGES])}
+
+
+def sketch_plans(device, tmp: str, n: int = FOLD_N) -> dict:
+    """The S1 plan over a small sketch table, its fold inputs on one
+    padded batch of ``n`` generated rows (the main path's shapes: one
+    SF1 shard of four pads to 2^21), and the S family's plan and
+    parameters.  -> dict."""
+    import torch
+    import citus_tpu_torch as ctt
+    from citus_tpu_torch.executor.batches import pad_to_batch
+    from citus_tpu_torch.executor.kernel_cache import plan_fingerprint
+    from citus_tpu_torch.ops.scan_agg import (
+        build_fold_inputs, empty_device_partials,
+    )
+    from citus_tpu_torch.ops.xp_torch import TorchNamespace
+    from citus_tpu_torch.planner import parse_sql
+    from citus_tpu_torch.planner.bind import bind_select
+    from citus_tpu_torch.planner.physical import plan_select
+    cl = ctt.Cluster(os.path.join(tmp, "sketch_plans"), device=device)
+    cl.execute(S_DDL)
+    cl.execute("SELECT create_distributed_table('lineitem', 'l_suppkey', "
+               f"{SHARDS})")
+    cl.copy_from("lineitem", columns=sketch_copy_columns(
+        next(sketch_chunks(20_000, 3, 20_000))))
+    chunks = list(sketch_chunks(n, 5, SF1_ROWS))
+    physical = sketch_physical(
+        {k: np.concatenate([ch[k] for ch in chunks]) for k in chunks[0]})
+    plan = plan_select(cl.catalog, bind_select(cl.catalog, parse_sql(S1)[0]))
+    if plan.group_mode.kind != "scalar":
+        raise AssertionError(f"S1 plans to {plan.group_mode.kind}")
+    values = {k: physical[k] for k in plan.scan_columns}
+    masks = {k: np.ones(n, bool) for k in plan.scan_columns}
+    hb = pad_to_batch(plan.bound.table, plan, values, masks, n, n, 0)
+    call = build_fold_inputs(plan, TorchNamespace(device))(
+        empty_device_partials(plan, device),
+        tuple(torch.from_numpy(a).to(device) for a in hb.cols),
+        tuple(torch.from_numpy(a).to(device) for a in hb.valids),
+        torch.from_numpy(hb.row_mask).to(device))
+    planned = [plan_as_cluster_does(cl, sql)
+               for sql, _ in sketch_families()["S"][1]]
+    if len({plan_fingerprint(p) for p, _ in planned}) != 1:
+        raise AssertionError("the S family spans several plan families")
+    cl.close()
+    return {"s1_call": call, "physical": physical,
+            "family": (planned[0][0], [p for _, p in planned])}
+
+
+def adversarial_sketch_call(device, n: int, q=None, all_false=False):
+    """Every sketch op (and count/sum) over a float argument holding NaN,
+    +-inf, +-0.0, 1e-300, the smallest subnormal, every DDSketch bucket
+    edge and its neighbours, and nulls, and an int argument holding
+    INT64_MIN/MAX, 0 and -1; n not a multiple of the block.  Registers
+    [M] (one query) or [q, M]."""
+    import torch
+    from citus_tpu_torch.ops.scan_agg_fold import SKETCH_M, FoldOp
+    from citus_tpu_torch.planner import aggregates as agg
+    rng = np.random.default_rng(23)
+    e = np.exp(agg.DDSK_LOG_MIN + np.arange(-2, 1030) * agg.DDSK_LNG)
+    edges = np.concatenate([e, np.nextafter(e, 0), np.nextafter(e, np.inf)])
+    special = np.concatenate([[np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-300,
+                               5e-324], edges, -edges])
+    f = rng.standard_normal(n) * 10.0 ** rng.integers(-12, 12, n)
+    f[:special.size] = special
+    i = rng.integers(I64_MIN, np.iinfo(np.int64).max, n)
+    i[:4] = [I64_MIN, np.iinfo(np.int64).max, 0, -1]
+
+    def to(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    args = [(to(f), to(rng.random(n) > 0.05)), (to(i), None)]
+    ops = [FoldOp("count_star"), FoldOp("hll", 0), FoldOp("ddsk", 0),
+           FoldOp("hll", 1), FoldOp("topk", 1), FoldOp("topkv", 1),
+           FoldOp("count", 0), FoldOp("sum", 1)]
+    pre = () if q is None else (q,)
+    regs = []
+    for op in ops:
+        if op.kind in SKETCH_M:
+            regs.append(torch.full(
+                pre + (SKETCH_M[op.kind],), I64_MIN if op.kind == "topkv"
+                else 0, dtype=torch.int32 if op.kind == "hll"
+                else torch.int64, device=device))
+        else:
+            regs.append(torch.zeros(pre + (1,), dtype=torch.int64,
+                                    device=device))
+    shape = (n,) if q is None else (q, n)
+    mask = to((rng.random(shape) > 0.3) & (not all_false))
+    return (regs, None, mask, [], args, ops, 1)
+
+
+def sketch_fold_ops(call) -> int:
+    """Operations of a sketch fold on this call's data: one to read each
+    mask entry, and per (query, row) the mask passes a few for a count or
+    sum and ~40 for a sketch (splitmix64, the leading-zero count or a
+    float64 log, the bucket and its atomic)."""
+    from citus_tpu_torch.ops.scan_agg_fold import SKETCH_M
+    _regs, _rows, mask, _keys, _args, ops, _g = call
+    per_row = sum(40 if op.kind in SKETCH_M else 2 for op in ops)
+    return mask.numel() + int(mask.sum()) * per_row
+
+
+def phase3_sketch_folds(device, splans, rows: list) -> None:
+    """scan_agg_fold and scan_agg_fold_batched with the sketch ops against
+    their plain versions: S1's ops on one padded 2^21-row batch of the
+    generated sketch table, the adversarial case (and an all-false
+    mask), the S family at Q = 8 (global atomics: ~264 KB of registers)
+    and at Q = 6 (the shared-memory table).  Registers identical, float
+    sums within rel 1e-12.  Appends the two sketch rows of the JSON."""
+    import torch
+    from citus_tpu_torch.executor.megabatch import _empty_stacked_partials
+    from citus_tpu_torch.ops.filter_mask import filter_mask_batched
+    from citus_tpu_torch.ops.scan_agg import build_shared_fold_inputs
+    from citus_tpu_torch.ops.scan_agg_fold import (
+        scan_agg_fold, scan_agg_fold_batched, scan_agg_fold_batched_plain,
+        scan_agg_fold_plain,
+    )
+    from citus_tpu_torch.ops.xp_torch import TorchNamespace
+    plan, params = splans["family"]
+    cols, valids, row_mask = padded_batch(device, plan, splans["physical"])
+    prog, stacked = family_filter(device, plan, params)
+    masks = filter_mask_batched(
+        prog, predicate_columns(plan, prog, cols, valids), stacked, row_mask)
+    shared, ops, G = build_shared_fold_inputs(plan, TorchNamespace(device))
+    keys, args = shared(cols, valids)
+
+    def family_call(q):
+        regs, rr = _empty_stacked_partials(plan, q, device)
+        return (regs, rr, masks[:q].contiguous(), keys, args, ops, G)
+    n = FOLD_N + 3
+    for batched, cases in (
+            (False, [("S1", lambda: splans["s1_call"], 1),
+                     ("adversarial", lambda: adversarial_sketch_call(
+                         device, n), 1),
+                     ("adversarial all-false mask",
+                      lambda: adversarial_sketch_call(device, n,
+                                                      all_false=True), 1)]),
+            (True, [("S family Q=8", lambda: family_call(8), 0),
+                    ("S family Q=6", lambda: family_call(6), 1),
+                    ("adversarial Q=2", lambda: adversarial_sketch_call(
+                        device, n, q=2), 1)])):
+        kernel = scan_agg_fold_batched if batched else scan_agg_fold
+        plain = scan_agg_fold_batched_plain if batched \
+            else scan_agg_fold_plain
+        name = "scan_agg_fold_batched" if batched else "scan_agg_fold"
+        max_err, main = 0.0, None
+        for case, make, want_regime in cases:
+            call = make()
+            err = compare_fold(f"{name} [{case}]", call, kernel, plain)
+            max_err = max(max_err, err)
+            if kernel.last_regime != want_regime:
+                raise AssertionError(f"{name} [{case}]: regime "
+                                     f"{kernel.last_regime}, not "
+                                     f"{want_regime}")
+            kc, pc = clone_call(call), clone_call(call)
+            ms = time_cuda(lambda: kernel(*kc))
+            plain_ms = time_cuda(lambda: plain(*pc), reps=3)
+            nbytes, nops = fold_bytes(call), sketch_fold_ops(call)
+            by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
+                nops / SIMT_OPS_PER_S else "operations"
+            bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                           nops / SIMT_OPS_PER_S) * 1e3
+            if main is None:
+                main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=by)
+            mask = call[2]
+            # yardstick: ONE index_add_ of the passing (query, row) pairs
+            # into the DDSketch registers, buckets drawn beforehand
+            ddsk = next(r for r, op in zip(call[0], call[5])
+                        if op.kind == "ddsk")
+            flat = torch.zeros(ddsk.numel(), dtype=torch.int64,
+                               device=device)
+            hits = int(mask.sum())
+            idx = torch.randint(0, flat.numel(), (hits,), device=device)
+            ones = torch.ones(hits, dtype=torch.int64, device=device)
+            lib_ms = time_cuda(lambda: flat.index_add_(0, idx, ones))
+            say(f"phase 3 {name} [{case}, sketch ops]: N={mask.shape[-1]}"
+                f"{f' Q={mask.shape[0]}' if batched else ''} "
+                f"ops={[op.kind for op in call[5]]} regime="
+                f"{'shared-memory table' if kernel.last_regime else 'global atomics'}: "
+                f"registers identical (max abs err of float sums {err!r}); "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s, {nops} "
+                f"operations at 67 TFLOP/s: {by}), library yardstick (one "
+                f"int64 index_add_ of the {hits} passing rows into the "
+                f"DDSketch registers, one op) {lib_ms:.4f} ms")
+        rows.append({"name": f"{name}[sketch]", "route": "cuda",
+                     "source": f"citus_tpu_torch/csrc/{name}.cu",
+                     "replaces": "citus_tpu/ops/scan_agg.py:84",
+                     "max_abs_err": max_err, **main, "library_ms": None})
+
+
+def phase3_rollup_delta(device, rows: list) -> None:
+    """rollup_delta against its plain version for all six kinds, one
+    delta batch of the default citus.rollup_max_batch_rows (65,536) and
+    one of SF1's backfill (2^23 padded) into 10,000 groups (16,384
+    padded), times beside the bytes bound and a one-op yardstick into
+    the same tables.  Appends its JSON row: one 65,536-row refresh batch
+    of phase 6's five aggregates (count, sum_int, hll, ddsk, topk)."""
+    import torch
+    from citus_tpu_torch.rollup import kernels as K
+    rng = np.random.default_rng(31)
+    G = K._pad_to(SUPPLIERS)
+    main = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    max_err = 0.0
+    for n in (65_536, 1 << 23):
+        g = torch.from_numpy(rng.integers(0, SUPPLIERS, n).astype(np.int32)
+                             ).to(device)
+        ok = torch.from_numpy(rng.random(n) > 0.01).to(device)
+        prices = rng.integers(90_000, 10_500_000, n) / 100.0
+        prices[:7] = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-300, 5e-324]
+        fvals = torch.from_numpy(prices).to(device)
+        ivals = torch.from_numpy(rng.integers(1, PARTS + 1, n)).to(device)
+        for kind in K.KINDS:
+            vals = None if kind == "count" else \
+                fvals if kind in ("sum_float", "ddsk") else ivals
+            got = K.rollup_delta(kind, vals, g, ok, G)
+            want = K._tables(kind, G, device)
+            K.rollup_delta_plain(kind, vals, g, ok, *want)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            for k, p in zip(got, want):
+                if kind == "sum_float":
+                    fin = torch.isfinite(p)
+                    if not torch.equal(torch.isnan(k), torch.isnan(p)) \
+                            or not torch.equal(k[~fin & ~torch.isnan(p)],
+                                               p[~fin & ~torch.isnan(p)]):
+                        raise AssertionError("rollup_delta sum_float: "
+                                             "non-finite sums differ")
+                    err = (k[fin] - p[fin]).abs()
+                    if (err > 1e-12 * p[fin].abs()).any():
+                        raise AssertionError("rollup_delta sum_float beyond "
+                                             "rel 1e-12")
+                    max_err = max(max_err, float(err.max()))
+                elif not torch.equal(k, p):
+                    raise AssertionError(f"rollup_delta {kind} n={n}: "
+                                         "tables differ")
+            ms = time_cuda(lambda: K.rollup_delta(kind, vals, g, ok, G),
+                           reps=5)
+            plain_ms = time_cuda(lambda: K.rollup_delta_plain(
+                kind, vals, g, ok, *K._tables(kind, G, device)), reps=2)
+            out_bytes = sum(t.numel() * t.element_size() for t in want
+                            if t is not None)
+            in_bytes = g.numel() * 4 + ok.numel() + (
+                0 if vals is None else vals.numel() * 8)
+            bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+            # yardstick: one index_add_ (scatter_reduce amax for hll) of
+            # the rows into a table of the same size
+            flat = torch.zeros(want[0].numel(), dtype=want[0].dtype,
+                               device=device)
+            idx = (g.to(torch.int64) * (flat.numel() // G)
+                   + (ivals % (flat.numel() // G)))
+            src = ok.to(flat.dtype)
+            if kind == "hll":
+                lib_ms = time_cuda(lambda: flat.scatter_reduce_(
+                    0, idx, src, "amax"), reps=5)
+            else:
+                lib_ms = time_cuda(lambda: flat.index_add_(0, idx, src),
+                                   reps=5)
+            if n == 65_536 and kind != "sum_float":
+                main["ms"] += ms
+                main["plain_ms"] += plain_ms
+                main["bound_ms"] += bound_ms
+            say(f"phase 3 rollup_delta [{kind}, n={n}, G={SUPPLIERS} "
+                f"({G} padded)]: tables identical"
+                f"{' (sum within rel 1e-12)' if kind == 'sum_float' else ''}; "
+                f"kernel {ms:.4f} ms (tables allocated and filled, then the "
+                f"fold), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({in_bytes} B in, {out_bytes} B of tables out, at 3.35 "
+                f"TB/s), library yardstick (one "
+                f"{'scatter_reduce_ amax' if kind == 'hll' else 'index_add_'}"
+                f" into a table of the same size, one op) {lib_ms:.4f} ms")
+    rows.append({"name": "rollup_delta", "route": "cuda",
+                 "source": "citus_tpu_torch/csrc/rollup_delta.cu",
+                 "replaces": "citus_tpu/rollup/kernels.py:47",
+                 "max_abs_err": max_err, **main, "bound_by": "bytes",
+                 "library_ms": None})
+
+
+def run_sketch_phases(ctt, tmp: str, n_rows: int, launches: dict,
+                      card: str) -> None:
+    """Phases 4 (S1), 5 (the S family) and 6 (rollups) on the sketch
+    table; adds the main path's launches of the sketch fold, the
+    batched sketch fold, the batched predicate and the rollup kernel."""
+    import torch
+    from citus_tpu_torch.ops.scan_agg_fold import (
+        scan_agg_fold, scan_agg_fold_batched,
+    )
+    from citus_tpu_torch.rollup import kernels as K
+    cl, cols = load_sketch_table(ctt, os.path.join(tmp, "sketch"), n_rows)
+    try:
+        # ---- phase 4: S1, cold then warm
+        want = oracle_s1(cols)
+        for run_kind in ("cold", "warm"):
+            launches["scan_agg_fold[sketch]"] += run_checked(
+                cl, "S1", S1, want, n_rows, run_kind)
+        # ---- phase 5: the S family, serial and coalesced
+        kind, variants = sketch_families()["S"]
+        got = run_family(cl, "S", kind, variants, cols, n_rows, card)
+        launches["scan_agg_fold_batched[sketch]"] += \
+            got.pop("scan_agg_fold_batched")
+        for k, v in got.items():
+            launches[k] += v
+        run_rollup_phase(cl, cols, n_rows, launches)
+    finally:
+        cl.close()
+
+
+def rollup_oracle(cols: dict) -> dict:
+    """Per supplier: count, sum(l_quantity) and the HLL, DDSketch and
+    top-k registers over all generated rows, with the port's numpy
+    bucket functions.  -> {name: [S + 1, ...] arrays}."""
+    from citus_tpu_torch.planner import aggregates as agg
+    sk = cols["suppkey"].astype(np.int64)
+    G = SUPPLIERS + 1
+    n = sk.size
+    out = {"count": np.bincount(sk, minlength=G),
+           "sum": np.bincount(sk, weights=cols["qty"], minlength=G
+                              ).astype(np.int64)}
+    pk = cols["partkey"].astype(np.int64)
+    out["hll"] = _hll_regs(pk, np.ones(n, bool), sk, G)
+    out["ddsk"] = np.bincount(
+        sk * agg.DDSK_M + agg.ddsk_bucket_indexes(np, cols["price"] / 100.0),
+        minlength=G * agg.DDSK_M).reshape(G, agg.DDSK_M)
+    flat = sk * agg.TOPK_M + agg.topk_buckets(np, pk)
+    out["topk"] = np.bincount(flat, minlength=G * agg.TOPK_M
+                              ).reshape(G, agg.TOPK_M)
+    tv = np.full(G * agg.TOPK_M, I64_MIN)
+    np.maximum.at(tv, flat, pk)
+    out["topkv"] = tv.reshape(G, agg.TOPK_M)
+    return out
+
+
+def run_rollup_phase(cl, cols: dict, n_rows: int, launches: dict) -> None:
+    """Phase 6: a CDC-fed rollup of the sketch table by l_suppkey, its
+    backfill, DELTA_ROWS more rows by COPY and a refresh to the CDC
+    head; the stored registers and the routed dashboard must equal the
+    numpy oracle over every generated row, and rollup_delta must launch
+    once per aggregate per fold."""
+    import torch
+    from citus_tpu_torch.rollup import kernels as K
+    n_aggs = len(ROLLUP_AGGS.split(","))
+    cl.execute("SET citus.enable_change_data_capture = on")
+    K.rollup_delta.launches = 0
+    t0 = time.perf_counter()
+    cl.execute(f"SELECT citus_create_rollup('li_r', 'lineitem', 'l_suppkey',"
+               f" '{ROLLUP_AGGS}')")
+    torch.cuda.synchronize()
+    backfill_s = time.perf_counter() - t0
+    if K.rollup_delta.launches != n_aggs:
+        raise AssertionError(f"backfill: {K.rollup_delta.launches} "
+                             f"rollup_delta launches for {n_aggs} aggregates")
+    launches["rollup_delta"] += K.rollup_delta.launches
+    say(f"phase 6 backfill of li_r over {n_rows} rows: {backfill_s:.3f} s, "
+        f"{n_rows / backfill_s:.1f} rows folded/s, rollup_delta launches "
+        f"{K.rollup_delta.launches}")
+    t0 = time.perf_counter()
+    delta = list(sketch_chunks(DELTA_ROWS, 12, n_rows))
+    dcols = {k: np.concatenate([c[k] for c in delta]) for k in delta[0]}
+    per = DELTA_ROWS // DELTA_BATCHES
+    for b in range(DELTA_BATCHES):
+        cl.copy_from("lineitem", columns=sketch_copy_columns(
+            {k: v[b * per:(b + 1) * per] for k, v in dcols.items()}))
+    say(f"phase 6 COPY of {DELTA_ROWS} more rows in {DELTA_BATCHES} batches "
+        f"with change data capture on: {time.perf_counter() - t0:.3f} s")
+    K.rollup_delta.launches = 0
+    t0 = time.perf_counter()
+    folded = cl.execute("SELECT citus_refresh_rollups()").rows[0][0]
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    folds = -(-DELTA_ROWS // cl.settings.rollup.rollup_max_batch_rows)
+    if folded != DELTA_ROWS or K.rollup_delta.launches != n_aggs * folds:
+        raise AssertionError(f"refresh folded {folded} rows with "
+                             f"{K.rollup_delta.launches} rollup_delta "
+                             f"launches ({folds} folds of {n_aggs})")
+    launches["rollup_delta"] += K.rollup_delta.launches
+    view = cl.execute("SELECT citus_rollups()").rows[0]
+    if view[4] != view[5] or view[6] != 0:
+        raise AssertionError(f"refresh stopped short of the CDC head: {view}")
+    say(f"phase 6 refresh to the CDC head: {folded} rows in {folds} folds, "
+        f"{refresh_s:.3f} s, {folded / refresh_s:.1f} rows folded/s, "
+        f"rollup_delta launches {K.rollup_delta.launches}")
+    allc = {k: np.concatenate([cols[k], dcols[k]]) for k in cols}
+    n_groups, n_dash = check_rollup_state(cl, allc)
+    say(f"phase 6 li_r: {n_groups} groups (count, sum, and the HLL, "
+        f"DDSketch and top-k registers decoded from the sketch words) "
+        f"equal the numpy oracle over all {allc['suppkey'].size} rows; the "
+        f"routed dashboard ({n_dash} rows) equals it too")
+
+
+def check_rollup_state(cl, allc: dict) -> tuple[int, int]:
+    """li_r's stored counts, sums and sketch registers, and the routed
+    dashboard's rows, against the numpy oracle over ``allc`` (every
+    generated row).  -> (groups, dashboard rows)."""
+    from citus_tpu_torch.planner.aggregates import TOPK_M, hll_estimate
+    from citus_tpu_torch.rollup.sketches import decode_sketch
+    want = rollup_oracle(allc)
+    got = cl.execute("SELECT l_suppkey, n_rows, sum_l_quantity, "
+                     "acd_l_partkey, apct_l_extendedprice, atopk_l_partkey "
+                     "FROM li_r").rows
+    present = np.nonzero(want["count"])[0]
+    if sorted(r[0] for r in got) != present.tolist():
+        raise AssertionError("li_r holds other suppliers than the oracle")
+    for sk, n, s, hll, ddsk, topk in got:
+        state = decode_sketch(topk)[1]
+        if n != want["count"][sk] or s != want["sum"][sk] \
+                or not np.array_equal(decode_sketch(hll)[1], want["hll"][sk]) \
+                or not np.array_equal(decode_sketch(ddsk)[1],
+                                      want["ddsk"][sk]) \
+                or not np.array_equal(state[:TOPK_M], want["topk"][sk]) \
+                or not np.array_equal(state[TOPK_M:], want["topkv"][sk]):
+            raise AssertionError(f"li_r row of supplier {sk} differs from "
+                                 "the numpy oracle")
+    r = cl.execute(DASHBOARD)
+    if r.explain.get("strategy") != "rollup":
+        raise AssertionError(f"the dashboard query was not routed: "
+                             f"{r.explain.get('strategy')}")
+    oracle_rows = [(int(sk), int(want["count"][sk]),
+                    hll_estimate(want["hll"][sk])) for sk in present]
+    if sorted(r.rows) != oracle_rows:
+        raise AssertionError("the routed dashboard differs from the oracle")
+    return len(got), len(r.rows)
+
+
 def run(args) -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -1566,17 +2151,19 @@ def run(args) -> dict:
     tmp = tempfile.mkdtemp(prefix="citus_tpu_torch_smoke_")
     try:
         plans = smoke_plans(device, tmp)
+        splans = sketch_plans(device, tmp)
         # ---- phase 2: build every kernel, all nvcc processes at once;
         # then one more generated predicate alone, for its cold build time
         t0 = time.perf_counter()
         kernels = ["scan_agg_fold", "hash_agg_insert", "scan_agg_fold_batched",
-                   "hash_agg_insert_batched"]
+                   "hash_agg_insert_batched", "rollup_delta"]
         # the predicates of Q6 and P1 and of the phase-5 families (each
         # generated source holds the one-query and the batched kernel);
         # Q6's and P's families share Q6's and P1's sources
         sources = [plans["filters"][q][0].predicate.source
                    for q in ("q6", "p1")]
-        for name, (fplan, fparams) in plans["families"].items():
+        for fplan, fparams in list(plans["families"].values()) \
+                + [splans["family"]]:
             src = family_filter("cpu", fplan, fparams)[0].predicate.source
             if src not in sources:
                 sources.append(src)
@@ -1610,7 +2197,11 @@ def run(args) -> dict:
         phase3_batched_filter(device, plans, kernel_rows)
         phase3_batched_fold(device, plans, kernel_rows)
         phase3_batched_hash(device, cl, kernel_rows)
+        phase3_sketch_folds(device, splans, kernel_rows)
+        phase3_rollup_delta(device, kernel_rows)
         launches = dict.fromkeys(launch_counters(), 0)
+        launches.update({"scan_agg_fold[sketch]": 0,
+                         "scan_agg_fold_batched[sketch]": 0})
         fams = families()
 
         def phase5(cl, name, cols, n_rows):
@@ -1668,6 +2259,8 @@ def run(args) -> dict:
                 cl, "Q1", Q1, oracle_q1(cols), q1_rows, run_kind)
         phase5(cl, "Q1", cols, q1_rows)
         cl.close()
+        # ---- phases 4-6 of the sketch aggregates and rollups
+        run_sketch_phases(ctt, tmp, n_rows, launches, card)
         say(f"phase 4 device cache hits {GLOBAL_CACHE.hits - hits0}, "
             f"peak device memory {torch.cuda.max_memory_allocated(device)} B")
     finally:

@@ -53,6 +53,27 @@ def _hash_slots(v) -> int:
     return n
 
 
+def _bool(v) -> bool:
+    """PostgreSQL boolean spellings."""
+    if isinstance(v, bool):
+        return v
+    s = str(v).lower()
+    if s in ("true", "on", "1", "yes"):
+        return True
+    if s in ("false", "off", "0", "no"):
+        return False
+    raise ValueError(s)
+
+
+def _percentile_backend(v) -> str:
+    """citus.percentile_backend = ddsketch | tdigest (the sketch kind
+    approx_percentile rollup columns store, rollup/sketches.py)."""
+    s = str(v).lower()
+    if s not in ("ddsketch", "tdigest"):
+        raise ValueError(s)
+    return s
+
+
 def _window_ms(v) -> float:
     """citus.megabatch_window_ms = <ms> | auto (stored as -1)."""
     if str(v).lower() == "auto":
@@ -83,6 +104,22 @@ _GUCS = {
     "citus.tenant_default_priority_class": ("workload",
                                             "tenant_default_priority_class",
                                             str),
+    # continuous aggregation (rollup/): refresh-loop cadence (ms; 0 =
+    # loop off, refresh via citus_refresh_rollups()), percentile sketch
+    # backend for NEW rollups, the per-batch source-row bound, routing
+    "citus.rollup_refresh_interval_ms": ("rollup",
+                                         "rollup_refresh_interval_ms",
+                                         float),
+    "citus.percentile_backend": ("rollup", "percentile_backend",
+                                 _percentile_backend),
+    "citus.rollup_max_batch_rows": ("rollup", "rollup_max_batch_rows",
+                                    int),
+    "citus.enable_rollup_routing": ("rollup", "enable_rollup_routing",
+                                    _bool),
+    # change data capture (cdc.py): every table's changes go to its
+    # stream (publications cover single tables)
+    "citus.enable_change_data_capture": (None, "enable_change_data_capture",
+                                         _bool),
     "citus.shard_count": ("sharding", "shard_count", int),
     "citus.shard_replication_factor": ("sharding", "shard_replication_factor", int),
     "lock_timeout": ("executor", "lock_timeout_s", _ms_duration),
@@ -101,9 +138,12 @@ def _guc_key(name: str) -> str:
 
 def _guc_value(cl, key: str) -> str:
     section, field_, coerce = _GUCS[key]
-    v = getattr(getattr(cl.settings, section), field_)
+    v = getattr(cl.settings, field_) if section is None \
+        else getattr(getattr(cl.settings, section), field_)
     if coerce is _ms_duration:
         return f"{v * 1000:g}ms"
+    if isinstance(v, bool):
+        return "on" if v else "off"  # PostgreSQL boolean rendering
     return str(v)
 
 
@@ -116,11 +156,30 @@ def execute_set(cl, stmt: A.SetConfig) -> Result:
     except (TypeError, ValueError):
         raise CatalogError(
             f'invalid value for parameter "{stmt.name}": {stmt.value!r}')
-    sec = dataclasses.replace(getattr(cl.settings, section), **{field_: v})
-    cl.settings = dataclasses.replace(cl.settings, **{section: sec})
+    from citus_tpu_torch.storage.overlay import current_overlay
+    txn = current_overlay()
+    if txn is not None:
+        # PostgreSQL: a non-LOCAL SET is undone if the transaction aborts
+        prev_settings, prev_cdc = cl.settings, cl.cdc.enabled
+
+        def _restore(prev_settings=prev_settings, prev_cdc=prev_cdc):
+            cl.settings = prev_settings
+            cl.cdc.enabled = prev_cdc
+            cl._plan_cache.clear()
+        txn.on_rollback.append(_restore)
+    if section is None:
+        cl.settings = dataclasses.replace(cl.settings, **{field_: v})
+    else:
+        sec = dataclasses.replace(getattr(cl.settings, section),
+                                  **{field_: v})
+        cl.settings = dataclasses.replace(cl.settings, **{section: sec})
     if key == "citus.kernel_cache_size":
         from citus_tpu_torch.executor.kernel_cache import GLOBAL_KERNELS
         GLOBAL_KERNELS.set_capacity(int(v))
+    elif key == "citus.enable_change_data_capture":
+        cl.cdc.enabled = bool(v)
+    elif key == "citus.rollup_refresh_interval_ms":
+        cl.rollup_manager.apply()  # start/stop the refresh loop
     cl._plan_cache.clear()  # backend/knob changes invalidate plans
     return Result(columns=[], rows=[])
 

@@ -16,6 +16,6 @@ def ensure_loaded() -> None:
     if _loaded:
         return
     from citus_tpu_torch.commands import (  # noqa: F401
-        config_cmds, explain, insert, tables, utility,
+        config_cmds, dml, explain, insert, tables, utility,
     )
     _loaded = True

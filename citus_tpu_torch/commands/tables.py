@@ -1,4 +1,4 @@
-"""Table DDL handlers: CREATE TABLE.
+"""Table DDL handlers: CREATE TABLE, DROP TABLE.
 
 Reference: commands/table.c dispatched through DistributeObjectOps.
 The port creates plain columnar tables; constraints, serial columns,
@@ -47,4 +47,10 @@ def create_table(cl, stmt):
         raise CatalogError(f'relation "{stmt.name}" already exists')
     opts = {k: v for k, v in stmt.options.items() if k != "access_method"}
     cl.create_table(stmt.name, Schema(cols), **opts)
+    return Result(columns=[], rows=[])
+
+
+@handles(A.DropTable)
+def drop_table(cl, stmt):
+    cl.drop_table(stmt.name, if_exists=stmt.if_exists)
     return Result(columns=[], rows=[])

@@ -1,7 +1,8 @@
 """UDF-style admin calls (``SELECT create_distributed_table(...)``).
 
 Reference: the UDFs under src/backend/distributed/sql/udfs/.  The port
-carries create_distributed_table and the stat views of its slices
+carries create_distributed_table, the rollup calls (create, drop,
+refresh, the citus_rollups() view) and the stat views of its slices
 (counters, statements, tenants, the admission pool, megabatching); the
 other utilities are not ported yet (ROADMAP.md queue A).
 """
@@ -115,3 +116,45 @@ def _citus_stat_tenants(cl, name, args):
                            "coalesced", "remote_tasks", "p50_ms",
                            "p99_ms"],
                   rows=rows)
+
+
+# -------------------------------------------------- continuous aggregation
+
+
+@utility("citus_create_rollup")
+def _citus_create_rollup(cl, name, args):
+    """SELECT citus_create_rollup(name, source, 'g1, g2',
+    'count(*), sum(x), approx_count_distinct(y)') — register a
+    re-mergeable rollup table colocated with its source and backfill it
+    from the current contents (rollup/manager.py)."""
+    if len(args) != 4:
+        raise UnsupportedFeatureError(
+            "citus_create_rollup(name, source, group_cols, aggs)")
+    cl.rollup_manager.create_rollup(str(args[0]), str(args[1]),
+                                    str(args[2]), str(args[3]))
+    return Result(columns=[name], rows=[(None,)])
+
+
+@utility("citus_drop_rollup")
+def _citus_drop_rollup(cl, name, args):
+    cl.rollup_manager.drop_rollup(str(args[0]))
+    return Result(columns=[name], rows=[(None,)])
+
+
+@utility("citus_refresh_rollups")
+def _citus_refresh_rollups(cl, name, args):
+    """Synchronously drain every rollup to its CDC head (the manual
+    door; the background loop does the same on a cadence)."""
+    folded = cl.rollup_manager.run_once()
+    return Result(columns=["rows_folded"], rows=[(folded,)],
+                  explain={"rollup_rows_folded": folded})
+
+
+@utility("citus_rollups")
+def _citus_rollups(cl, name, args):
+    """One row per registered rollup with its durable watermark, the
+    source's CDC head, and the refresh lag in pending change records."""
+    return Result(
+        columns=["name", "source", "rollup_table", "backend",
+                 "watermark", "head_lsn", "pending_changes"],
+        rows=[tuple(r) for r in cl.rollup_manager.rollup_rows()])

@@ -408,13 +408,19 @@ def _run_partials_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
                        extra=(str(device),))
     pcols, pvalids = _device_params(xp, *params)
     acc = empty_device_partials(plan, device)
-    # a cache entry is charged to the tenant whose query pinned it (the
-    # shared bucket for non-router scans)
+    # an open transaction's staged writes change what a scan sees
+    # without bumping table.version: bypass the device cache for the
+    # tables it touched.  A cache entry is charged to the tenant whose
+    # query pinned it (the shared bucket for non-router scans)
+    from citus_tpu_torch.storage.overlay import current_overlay
+    txn = current_overlay()
+    overlaid = txn is not None and plan.bound.table.name in txn.tables
     st = _stream_device_batches(
         cat, plan, settings, device,
         lambda db, hb: fused(acc, db.cols + pcols, db.valids + pvalids,
                              db.row_mask),
-        pstats, cache_key=plan_cache_key(plan, cat.data_dir) + (str(device),),
+        pstats, cache_key=None if overlaid
+        else plan_cache_key(plan, cat.data_dir) + (str(device),),
         cache_tenant=tenant_key(plan.router_key))
     if st.n_dispatch == 0:
         return combine_partials_host(plan, [_empty_partials(plan, np)])

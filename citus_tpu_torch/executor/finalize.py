@@ -296,12 +296,42 @@ def project_rows(plan: PhysicalPlan, cat: Catalog, env_batches: list[dict],
             elif valid is False:
                 valid = np.zeros(idx.size, bool)
             cols.append((v, np.broadcast_to(np.asarray(valid), (idx.size,)), e.type))
-        for ri in range(idx.size):
-            row = []
-            for (v, valid, t), src in zip(cols, text_cols):
-                row.append(decode_qualified(cat, t, src, v[ri], bool(valid[ri])))
-            rows.append(tuple(row))
+        rows.extend(zip(*(decode_column(cat, t, src, v, valid)
+                          for (v, valid, t), src in zip(cols, text_cols))))
     return rows
+
+
+def decode_column(cat: Catalog, expr_type: T.ColumnType,
+                  source: "Optional[tuple[str, str]]", raw, valid) -> list:
+    """``decode_qualified`` over a whole column at once: one dictionary
+    lookup for text and one ``tolist`` for bool/integer/float values,
+    whose Python values are those ``from_physical`` gives."""
+    raw = np.asarray(raw)
+    valid = np.asarray(valid, bool)
+    if raw.dtype == object or raw.ndim != 1:
+        return [decode_qualified(cat, expr_type, source, x, bool(ok))
+                for x, ok in zip(raw, valid)]
+    k = expr_type.kind
+    if expr_type.is_text:
+        if source is None:
+            vals = raw.astype(np.int64).tolist()
+        else:
+            vals = cat.decode_strings(source[0], source[1],
+                                      raw.astype(np.int64).tolist())
+            if k != "text":
+                vals = [None if w is None else expr_type.render_word(w)
+                        for w in vals]
+    elif k == T.BOOL:
+        vals = raw.astype(bool).tolist()
+    elif k in (T.INT16, T.INT32, T.INT64):
+        vals = raw.astype(np.int64).tolist()
+    elif k in (T.FLOAT32, T.FLOAT64):
+        vals = raw.astype(np.float64).tolist()
+    else:
+        vals = [expr_type.from_physical(x) for x in raw.tolist()]
+    if valid.all():
+        return vals
+    return [x if ok else None for x, ok in zip(vals, valid.tolist())]
 
 
 def order_and_limit(plan: PhysicalPlan, rows: list[tuple]) -> list[tuple]:

@@ -391,7 +391,8 @@ def _batch_masks(plan, prog, stacked, cols, valids, row_mask):
 
 def _empty_stacked_partials(plan, q: int, device):
     """[Q, G] registers seeded like ``_empty_partials`` (scalar mode:
-    G = 1), and the [Q, G] group-row counts in direct mode."""
+    G = 1; a sketch's [Q, M]), and the [Q, G] group-row counts in direct
+    mode."""
     import torch
     from citus_tpu_torch.executor.executor import _empty_partials
     seeds = _empty_partials(plan, np)
@@ -457,9 +458,13 @@ def _batched_agg(cat, plan, settings, group: list[_Waiter], device):
         _counters().bump("fused_dispatches", st.n_dispatch)
     st.publish(plan, pstats)
     payloads = []
+    from citus_tpu_torch.ops.scan_agg_fold import SKETCH_M
+    sketch = [op.kind in SKETCH_M for op in plan.partial_ops]
     for qi in range(q):
         if rows is None:
-            parts = tuple(np.asarray(h[qi, 0]) for h in host)
+            # scalar mode: 0-d registers, a sketch's [M]
+            parts = tuple(h[qi] if sk else np.asarray(h[qi, 0])
+                          for h, sk in zip(host, sketch))
         else:
             parts = tuple(h[qi] for h in host) + (host_rows[qi],)
         payloads.append(("agg", [parts]))
@@ -619,7 +624,6 @@ def megabatch_eligible(cat, bound, settings, plan, params, device) -> bool:
         return _ineligible("no_parameters_or_shards")
     if bound.has_aggs:
         from citus_tpu_torch.executor.executor import _hash_has_exact
-        from citus_tpu_torch.ops.scan_agg import DEVICE_KINDS
         if plan.group_mode.kind == "hash_host":
             # exact value sets / sketches accumulate on the host per
             # query and gain nothing from a shared dispatch
@@ -627,8 +631,6 @@ def megabatch_eligible(cat, bound, settings, plan, params, device) -> bool:
                 return _ineligible("host_partials")
         elif plan.group_mode.kind not in ("scalar", "direct"):
             return _ineligible("group_mode")
-        elif any(op.kind not in DEVICE_KINDS for op in plan.partial_ops):
-            return _ineligible("sketch_partials")
         if _references_param(list(bound.group_keys) + list(plan.agg_args)):
             raise UnsupportedFeatureError(
                 "megabatching a query whose group keys or aggregate "

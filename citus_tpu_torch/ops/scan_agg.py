@@ -5,7 +5,8 @@ family (executor/kernel_cache.py).  Two namespaces build it: numpy, the
 host oracle (the reference's own body, unchanged), and the torch
 namespace of ``ops/xp_torch.py``, where the filter and argument
 expressions run as tensor code on the Cluster's device and the
-group-id/count/sum/min/max reduction with the running merge runs in
+group-id/count/sum/min/max reduction (and scalar mode's sketch
+registers) with the running merge runs in
 ONE ``scan_agg_fold`` call per batch: the hand-written CUDA kernel on
 a card, its plain PyTorch version on the CPU.  Its structure mirrors the per-shard half of the
 reference's split aggregation (multi_logical_optimizer.c
@@ -34,15 +35,17 @@ from typing import Callable
 
 import numpy as np
 
-from citus_tpu_torch.errors import UnsupportedFeatureError
 from citus_tpu_torch.planner.bound import (
     _as_mask, compile_expr, param_env_names, predicate_mask,
 )
 from citus_tpu_torch.planner.physical import PhysicalPlan
 
-#: partial-op kinds the device fold computes; the sketch kinds (hll,
-#: ddsk, topk, topkv) run on the numpy oracle only: ROADMAP.md B1-sketch
-DEVICE_KINDS = ("count", "sum", "min", "max")
+#: partial-op kinds the device fold computes: count/sum/min/max and, in
+#: scalar mode, the sketch registers of approx_count_distinct (hll),
+#: approx_percentile (ddsk) and approx_top_k (topk, topkv).  A GROUP BY
+#: with a sketch plans to hash_host and groups on the host, as in the
+#: reference (executor._hash_has_exact).
+DEVICE_KINDS = ("count", "sum", "min", "max", "hll", "ddsk", "topk", "topkv")
 
 
 def _sentinel(kind: str, dtype: np.dtype):
@@ -319,9 +322,10 @@ def build_fold_inputs(plan: PhysicalPlan, xp) -> Callable:
         if filter_fn is not None:
             mask = row_mask & predicate_mask(xp, filter_fn, env, row_mask)
         keys, args = shared(cols, valids)
-        # scalar mode keeps 0-d registers; the kernel sees [1] views
+        # scalar mode keeps 0-d registers (a sketch's are [M]); the
+        # kernel sees [1] views
         regs = list(acc[:n_ops]) if direct \
-            else [a.view(1) for a in acc[:n_ops]]
+            else [a.view(1) if a.dim() == 0 else a for a in acc[:n_ops]]
         return (regs, acc[n_ops] if direct else None, _vec(xp, mask), keys,
                 args, ops, G)
 
@@ -338,13 +342,11 @@ def build_shared_fold_inputs(plan: PhysicalPlan, xp):
     if mode.kind not in ("scalar", "direct"):
         raise ValueError("the device fold needs device-combinable "
                          "partials (scalar/direct group modes)")
-    sketches = sorted({op.kind for op in plan.partial_ops
-                       if op.kind not in DEVICE_KINDS})
-    if sketches:
-        raise UnsupportedFeatureError(
-            f"sketch aggregates ({', '.join(sketches)}) do not run on the "
-            "device yet (ROADMAP.md B1-sketch); "
-            "SET citus.task_executor_backend = 'cpu' runs them on the host")
+    other = sorted({op.kind for op in plan.partial_ops
+                    if op.kind not in DEVICE_KINDS})
+    if other:
+        raise ValueError(f"the device fold has no partial op kind "
+                         f"{', '.join(other)}")
     key_fns = [compile_expr(k, xp) for k in plan.bound.group_keys]
     used = sorted({op.arg_index for op in plan.partial_ops
                    if op.arg_index >= 0})

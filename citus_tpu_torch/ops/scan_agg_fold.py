@@ -6,7 +6,9 @@ running per-group registers, in place: ``acc[op][gid]`` for every
 partial op and ``rows[gid]`` (direct mode).  It is what remains of the
 reference's fused worker (``citus_tpu/ops/scan_agg.py``) once the
 filter and argument expressions are evaluated: group id, validity,
-the cast to the accumulator type and count/sum/min/max.
+the cast to the accumulator type and count/sum/min/max, and in scalar
+mode the sketch registers of approx_count_distinct (hll),
+approx_percentile (ddsk) and approx_top_k (topk, topkv).
 
 On CUDA tensors it launches the kernel (one launch per call, counted
 in ``scan_agg_fold.launches``) or raises; on CPU tensors it runs
@@ -32,20 +34,29 @@ _SUM_LANES = 1024
 
 _DTYPE_CODES = {torch.bool: 0, torch.uint8: 0, torch.int32: 1,
                 torch.int64: 2, torch.float32: 3, torch.float64: 4}
-_KIND_CODES = {"count_star": 0, "count": 1, "sum": 2, "min": 3, "max": 4}
+_KIND_CODES = {"count_star": 0, "count": 1, "sum": 2, "min": 3, "max": 4,
+               "hll": 5, "ddsk": 6, "topk": 7, "topkv": 8}
+#: registers per group of a sketch op (planner/aggregates.py HLL_M,
+#: DDSK_M, TOPK_M); every other op has one
+SKETCH_M = {"hll": 128, "ddsk": 2048, "topk": 1024, "topkv": 1024}
 _ACC_DTYPES = {
     "count_star": (torch.int64,),
     "count": (torch.int64,),
     "sum": (torch.int64, torch.float64, torch.int32, torch.float32),
     "min": (torch.int32, torch.int64, torch.float32, torch.float64),
     "max": (torch.int32, torch.int64, torch.float32, torch.float64),
+    "hll": (torch.int32,),
+    "ddsk": (torch.int64,),
+    "topk": (torch.int64,),
+    "topkv": (torch.int64,),
 }
 
 
 @dataclass(frozen=True)
 class FoldOp:
-    """One partial op: ``kind`` in count_star/count/sum/min/max, ``arg``
-    the index of its argument column (-1 for count_star)."""
+    """One partial op: ``kind`` in count_star/count/sum/min/max or a
+    sketch kind (hll/ddsk/topk/topkv), ``arg`` the index of its argument
+    column (-1 for count_star)."""
     kind: str
     arg: int = -1
 
@@ -104,7 +115,10 @@ def scan_agg_fold_plain(acc: Sequence[torch.Tensor],
             continue
         v, valid = args[op.arg]
         ok = mask if valid is None else mask & _full(valid, n)
-        if op.kind == "count":
+        if op.kind in SKETCH_M:
+            _fold_sketch_plain(a.view(-1), gid * SKETCH_M[op.kind], ok,
+                               _full(v, n), op.kind)
+        elif op.kind == "count":
             a.index_add_(0, gid, ok.to(torch.int64))
         elif op.kind == "sum" and a.dtype.is_floating_point:
             lanes = max(1, min(_SUM_LANES, _SUM_LANES * 1024 // n_groups))
@@ -123,6 +137,27 @@ def scan_agg_fold_plain(acc: Sequence[torch.Tensor],
                               include_self=True)
     if rows is not None:
         rows.index_add_(0, gid, mask.to(torch.int64))
+
+
+def _fold_sketch_plain(flat: torch.Tensor, base: torch.Tensor,
+                       ok: torch.Tensor, v: torch.Tensor, kind: str) -> None:
+    """Fold the ``ok`` rows of one sketch op into ``flat`` (its [G * M]
+    registers); ``base`` is each row's group offset g * M."""
+    from citus_tpu_torch.ops import sketch_buckets as sb
+    if kind == "hll":
+        bucket, rho = sb.hll_rho_buckets(sb.value_bits(v), ok)
+        flat.scatter_reduce_(0, base + bucket, rho, "amax", include_self=True)
+    elif kind == "ddsk":
+        flat.index_add_(0, base + sb.ddsk_bucket_indexes(v),
+                        ok.to(torch.int64))
+    elif kind == "topk":
+        flat.index_add_(0, base + sb.topk_buckets(v.to(torch.int64)),
+                        ok.to(torch.int64))
+    else:  # topkv: the largest value seen per bucket
+        v64 = v.to(torch.int64)
+        flat.scatter_reduce_(0, base + sb.topk_buckets(v64),
+                             torch.where(ok, v64, torch.iinfo(torch.int64).min),
+                             "amax", include_self=True)
 
 
 # ------------------------------------------------------------- kernel
@@ -148,6 +183,8 @@ class _Params(ctypes.Structure):
                 ("op_kind", ctypes.c_int32 * _MAX_OPS),
                 ("op_arg", ctypes.c_int32 * _MAX_OPS),
                 ("op_dtype", ctypes.c_int32 * _MAX_OPS),
+                ("op_m", ctypes.c_int32 * _MAX_OPS),
+                ("op_soff", ctypes.c_int64 * (_MAX_OPS + 1)),
                 ("acc", ctypes.c_void_p * _MAX_OPS),
                 ("rows", ctypes.c_void_p)]
 
@@ -202,9 +239,18 @@ def _col(t: torch.Tensor, valid: Optional[torch.Tensor], what: str,
     return c
 
 
+def _reg_shape(kind: str, n_groups: int, n_q) -> tuple:
+    """An op's register shape: [G] (one query) or [n_q, G] (``n_q``
+    queries); a sketch op's are [M], [G, M], [n_q, M] or [n_q, G, M]."""
+    shape = () if n_q is None else (n_q,)
+    if kind not in SKETCH_M:
+        return shape + (n_groups,)
+    return shape + (() if n_groups == 1 else (n_groups,)) + (SKETCH_M[kind],)
+
+
 def _block(acc, rows, mask, keys, args, ops, n_groups, n_q=None) -> _Params:
-    """The parameter block of one launch; registers are [G] (one query)
-    or [n_q, G] (``n_q`` queries, ``mask`` [n_q, N])."""
+    """The parameter block of one launch; registers as ``_reg_shape``,
+    ``mask`` [N] (one query) or [n_q, N] (``n_q`` queries)."""
     dev = mask.device
     n = mask.shape[-1]
     want_dim = 1 if n_q is None else 2
@@ -239,11 +285,12 @@ def _block(acc, rows, mask, keys, args, ops, n_groups, n_q=None) -> _Params:
     for i, (a, op) in enumerate(zip(acc, ops)):
         if op.kind not in _KIND_CODES:
             raise ValueError(f"scan_agg_fold: unknown op kind {op.kind!r}")
+        want = _reg_shape(op.kind, n_groups, n_q)
         if a.device != dev or a.dtype not in _ACC_DTYPES[op.kind] \
-                or a.shape != reg_shape or not a.is_contiguous():
+                or a.shape != want or not a.is_contiguous():
             raise ValueError(
                 f"scan_agg_fold: accumulator {i} ({op.kind}) must be a "
-                f"contiguous {list(reg_shape)} tensor of "
+                f"contiguous {list(want)} tensor of "
                 f"{_ACC_DTYPES[op.kind]} on {dev}, got {a.dtype} "
                 f"{tuple(a.shape)} on {a.device}")
         if op.kind != "count_star" and not 0 <= op.arg < len(args):
@@ -251,6 +298,7 @@ def _block(acc, rows, mask, keys, args, ops, n_groups, n_q=None) -> _Params:
         p.op_kind[i] = _KIND_CODES[op.kind]
         p.op_arg[i] = max(op.arg, 0)
         p.op_dtype[i] = _DTYPE_CODES[a.dtype]
+        p.op_m[i] = SKETCH_M.get(op.kind, 1)
         p.acc[i] = a.data_ptr()
     if rows is not None:
         if rows.device != dev or rows.dtype != torch.int64 \
@@ -282,6 +330,7 @@ def scan_agg_fold(acc: Sequence[torch.Tensor], rows: Optional[torch.Tensor],
 
     ``acc[i]`` is op ``i``'s [G] register of its accumulator type,
     ``rows`` the [G] int64 group-row counts (None in scalar mode, G=1),
+    a sketch op's registers [M] (scalar mode; [G, M] for G > 1),
     ``mask`` the bool [N] rows that pass the filter, ``keys`` the
     direct-mode group keys, ``args`` (values, validity or None) pairs of
     [N] or broadcast [1] vectors.  CUDA tensors launch the kernel, CPU
@@ -361,8 +410,9 @@ def scan_agg_fold_batched(acc: Sequence[torch.Tensor],
                           keys: Sequence[FoldKey], args: Sequence[tuple],
                           ops: Sequence[FoldOp], n_groups: int) -> None:
     """Fold one batch into the registers of Q queries at once, in place:
-    row q of every register (``acc[i]`` [Q, G], ``rows`` [Q, G] or None
-    in scalar mode, G = 1) takes the rows that pass ``masks[q]`` (bool
+    row q of every register (``acc[i]`` [Q, G], a sketch op's [Q, M] in
+    scalar mode, ``rows`` [Q, G] or None in scalar mode, G = 1) takes the
+    rows that pass ``masks[q]`` (bool
     [Q, N]).  ``keys`` and ``args`` are shared by every query: they
     reference no parameter.  It is the reference's ``batched:jit_fused``
     (a ``jax.vmap`` of the fused worker over the query axis).  CUDA

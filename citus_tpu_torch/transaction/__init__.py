@@ -15,7 +15,7 @@ against workers' pg_prepared_xacts.
 
 from citus_tpu_torch.transaction.manager import TransactionLog, TxState
 from citus_tpu_torch.transaction.locks import LockManager, DeadlockDetected, LockTimeout
+from citus_tpu_torch.transaction.session import InFailedTransaction, Session
 
-# sessions (BEGIN/COMMIT blocks) are not ported yet: ROADMAP.md queue A
 __all__ = ["TransactionLog", "TxState", "LockManager", "DeadlockDetected",
-           "LockTimeout"]
+           "LockTimeout", "Session", "InFailedTransaction"]

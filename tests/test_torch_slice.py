@@ -202,9 +202,9 @@ def test_opens_reference_data_directory(tmp_path):
     "WITH w AS (SELECT id FROM events) SELECT count(*) FROM w",
     "SELECT e.id FROM events e JOIN events f ON e.id = f.id",
     "SET citus.enable_metadata_sync = off",
-    "BEGIN",
-    "DELETE FROM events WHERE id = 1",
-    "UPDATE events SET qty = 1 WHERE id = 1",
+    "VACUUM events",
+    "DELETE FROM events WHERE id = 1 RETURNING id",
+    "UPDATE events SET qty = 1 WHERE id = 1 RETURNING id",
     "CREATE TABLE p (a bigint PRIMARY KEY)",
 ])
 def test_unported_statement_raises(pair, sql):
