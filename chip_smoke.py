@@ -10,8 +10,8 @@ result line:
 1. the card (``nvidia-smi`` name and power limit) and the torch, CUDA
    and nvcc versions;
 2. build of every CUDA kernel of the port from ``citus_tpu_torch/csrc``
-   (the fold kernels with their sketch registers, the hash inserts and
-   ``rollup_delta``) and of the predicate kernels generated for Q6, P1
+   (the fold kernels with their sketch registers, the hash inserts,
+   ``rollup_delta`` and ``hash_agg_merge``) and of the predicate kernels generated for Q6, P1
    and the phase-5 families (one nvcc per source, all started together),
    then one more generated predicate alone, for the cold build time of
    one predicate;
@@ -100,7 +100,23 @@ result line:
    in 4 batches, ``citus_refresh_rollups()`` to the CDC head: the stored
    counts, sums and sketch registers must equal numpy's over every
    generated row, the routed dashboard query must return the oracle's
-   rows, and ``rollup_delta`` must launch once per aggregate per fold.
+   rows, and ``rollup_delta`` must launch once per aggregate per fold;
+7. two coordinators on the card, in one process: A is the metadata
+   authority and serves its placements, B attaches to A and serves its
+   own; each hosts one node.  The sketch table of phase 4 is loaded
+   through A (4 shards by l_suppkey over the two nodes: the rows of B's
+   shards ship to B as CTFR batches).  R1 (TPC-H Q17's per-part
+   quantity aggregate, GROUP BY l_partkey, 200,000 groups), S1 and R3 (a
+   filtered projection) run cold and warm, first pushed
+   (``citus.remote_task_execution = auto``: B runs the worker half of
+   each query on its shards through the port's kernels and ships back
+   partial states, its hash table, or rows) and then pulled (A mirrors
+   B's placement files and scans them itself).  Rows must equal the
+   numpy oracle; pushed, each query sends one task per remote shard
+   with no fallback, and R1 merges each returned table through one
+   ``hash_agg_merge`` launch.  Then 262,144 more rows by COPY through A,
+   and R1 and R3 warm again, pushed and pulled, against the new oracle.
+   Wall time of each run, bytes shipped and the data plane's totals.
 
 Then a JSON line of the kernels, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -113,6 +129,7 @@ import argparse
 import datetime
 import decimal
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -751,11 +768,17 @@ def compare_groups(name: str, got: dict, want: dict, pops) -> float:
 def check_hash_invariants(name: str, table, spill, mask) -> None:
     """Each key sits in at most one slot; every masked row is placed or
     spilled exactly once; the claim words mirror the occupancy."""
-    import torch
     placed, spilled = int(table.rows.sum()), int(spill.sum())
     if placed + spilled != int(mask.sum()):
         raise AssertionError(f"{name}: {placed} placed + {spilled} spilled "
                              f"!= {int(mask.sum())} masked rows")
+    check_table(name, table)
+
+
+def check_table(name: str, table) -> None:
+    """The claim words mirror the occupancy, and each key sits in at most
+    one slot."""
+    import torch
     if not torch.equal(table.state, 2 * (table.rows > 0).to(torch.int32)):
         raise AssertionError(f"{name}: claim words disagree with rows")
     occ = (table.rows > 0).cpu().numpy()
@@ -903,6 +926,232 @@ def time_cuda_fresh(fn, reset, reps: int = 10) -> float:
     return float(np.median(times))
 
 
+# ------------------------------------------------------- merge phase (B3)
+
+#: phase 7's pushed hash GROUP BY: TPC-H Q17's per-part quantity
+#: aggregate, decorrelated (its subquery's GROUP BY l_partkey), 200,000
+#: groups at SF1, present on both coordinators
+R1 = """SELECT l_partkey, count(*), sum(l_quantity), avg(l_quantity),
+       min(l_extendedprice), max(l_extendedprice)
+FROM lineitem GROUP BY l_partkey ORDER BY l_partkey"""
+
+
+def r1_plan(device, tmp: str):
+    """R1's plan over a small sketch table (20,000 rows; the key domain
+    of l_partkey is wider than direct_gid_limit, so it plans to the hash
+    mode).  -> (plan, key dtypes)."""
+    import citus_tpu_torch as ctt
+    from citus_tpu_torch.executor.executor import _hash_key_dtypes
+    cl = ctt.Cluster(os.path.join(tmp, "merge_plans"), device=device)
+    try:
+        cl.execute(S_DDL)
+        cl.execute("SELECT create_distributed_table('lineitem', "
+                   f"'l_suppkey', {SHARDS})")
+        cl.copy_from("lineitem", columns=sketch_copy_columns(
+            next(sketch_chunks(20_000, 3, 20_000))))
+        plan, _ = plan_as_cluster_does(cl, R1)
+    finally:
+        cl.close()
+    if plan.group_mode.kind != "hash_host":
+        raise AssertionError(f"R1 plans to {plan.group_mode.kind}")
+    return plan, _hash_key_dtypes(plan, {})
+
+
+def r1_table(device, plan, key_dtypes, n: int, slots: int, seed: int):
+    """The hash table one shard's insert leaves for R1: ``n`` generated
+    sketch-table rows (padded to a power of two, as a shard batch is)
+    through ``hash_agg_insert`` into ``slots`` slots."""
+    import torch
+    from citus_tpu_torch.executor.batches import pad_to_batch
+    from citus_tpu_torch.ops.hash_agg import (
+        build_hash_insert_inputs, empty_hash_state,
+    )
+    from citus_tpu_torch.ops.hash_agg_insert import hash_agg_insert
+    from citus_tpu_torch.ops.xp_torch import TorchNamespace
+    chunks = list(sketch_chunks(n, seed, SF1_ROWS))
+    physical = sketch_physical(
+        {k: np.concatenate([ch[k] for ch in chunks]) for k in chunks[0]})
+    values = {k: physical[k] for k in plan.scan_columns}
+    masks = {k: np.ones(n, bool) for k in plan.scan_columns}
+    hb = pad_to_batch(plan.bound.table, plan, values, masks, n,
+                      1 << (n - 1).bit_length(), 0)
+    table = empty_hash_state(plan, slots, key_dtypes, device)
+    hash_agg_insert(*build_hash_insert_inputs(
+        plan, TorchNamespace(device), key_dtypes)(
+        table, tuple(torch.from_numpy(a).to(device) for a in hb.cols),
+        tuple(torch.from_numpy(a).to(device) for a in hb.valids),
+        torch.from_numpy(hb.row_mask).to(device)))
+    return table
+
+
+def main_path_merge_call(device, tmp: str, n: int = SF1_ROWS // SHARDS,
+                         slots: int = 1 << 20):
+    """The merge R1 makes on the main path: into the table one padded
+    shard batch of the sketch table left (2^20 slots: what
+    citus.hash_agg_slots = auto gives at SF1), the table of another
+    shard batch, as a peer ships it.  Both hold nearly all 200,000 parts,
+    so most entries match.  -> ((table, keys, partials, rows, kinds), n)."""
+    plan, key_dtypes = r1_plan(device, tmp)
+    table = r1_table(device, plan, key_dtypes, n, slots, 21)
+    peer = r1_table(device, plan, key_dtypes, n, slots, 22)
+    return ((table, list(zip(peer.key_values, peer.key_flags)),
+             peer.partials, peer.rows, [op.kind for op in plan.partial_ops]),
+            n)
+
+
+def adversarial_merge_call(device, n: int, S: int, S_peer: int, seed: int,
+                           empty: bool = False):
+    """phase 3's adversarial insert (three keys: int64; float64 with
+    +-0.0, NaN payloads and NULLs; int32; NaN and +-inf arguments) twice
+    over the same rows: the coordinator's table of S slots holds the
+    first eighth of them, the peer's of S_peer slots (not a multiple of
+    the block) all of them, so its entries match, claim and spill.  Half
+    of the peer's empty entries get garbage keys under flag 0 (a
+    citus_tpu peer keeps the dtype minimum there): the merge must never
+    read them.  With ``empty``, every entry is empty."""
+    import torch
+    from citus_tpu_torch.ops.hash_agg_insert import hash_agg_insert_plain
+    table, mask, keys, args, ops = adversarial_hash_call(device, n, S, seed,
+                                                         False)
+    first = torch.arange(n, device=device) < n // 8
+    hash_agg_insert_plain(table, mask & first, keys, args, ops)
+    peer, _m, _k, _a, _o = adversarial_hash_call(device, n, S_peer, seed,
+                                                 False)
+    hash_agg_insert_plain(peer, mask, keys, args, ops)
+    rng = np.random.default_rng(seed)
+    if empty:
+        peer.rows.zero_()
+        peer.key_flags = [torch.zeros_like(f) for f in peer.key_flags]
+    holes = ((peer.rows == 0).cpu().numpy()
+             & (rng.random(S_peer) < 0.5))
+    for kv in peer.key_values:
+        junk = rng.normal(0, 1e6, S_peer) if kv.is_floating_point() \
+            else rng.integers(-1000, 1000, S_peer)
+        host = kv.cpu().numpy().copy()
+        host[holes] = junk[holes].astype(host.dtype)
+        kv.copy_(torch.from_numpy(host))
+    kinds = ["count" if op.kind == "count_star" else op.kind for op in ops]
+    return (table, list(zip(peer.key_values, peer.key_flags)), peer.partials,
+            peer.rows, kinds)
+
+
+def compare_merge(name: str, call, kernel, plain) -> float:
+    """Kernel vs plain on fresh copies of the coordinator's table with
+    the same entries; both must keep the table invariants, conserve the
+    rows, and give the same merged groups.  -> max abs error of float
+    sums."""
+    import torch
+    table, keys, parts, rows, kinds = call
+    kt, pt = clone_table(table), clone_table(table)
+    ks = kernel(kt, keys, parts, rows, kinds)
+    ps = plain(pt, keys, parts, rows, kinds)
+    if rows.is_cuda:
+        torch.cuda.synchronize()
+    before, shipped = int(table.rows.sum()), int(rows.sum())
+    for who, t, sp in (("kernel", kt, ks), ("plain", pt, ps)):
+        check_table(f"{name} {who}", t)
+        if int(t.rows.sum()) + int(rows[sp].sum()) != before + shipped:
+            raise AssertionError(f"{name} {who}: rows not conserved")
+    got, want = (group_merge(t, sp, keys, parts, rows, kinds)
+                 for t, sp in ((kt, ks), (pt, ps)))
+    if got.keys() != want.keys():
+        raise AssertionError(
+            f"{name}: {len(got)} groups, the plain version {len(want)}; "
+            f"{len(got.keys() ^ want.keys())} differ")
+    max_err = 0.0
+    for kb, w in want.items():
+        for kind, a, b in zip(kinds + ["rows"], got[kb], w):
+            if kind == "sum" and isinstance(b, float):
+                if math.isnan(a) != math.isnan(b) or (
+                        math.isinf(b) and a != b):
+                    raise AssertionError(f"{name}: sum {a} vs {b}")
+                if math.isfinite(b):
+                    err = abs(a - b)
+                    if err > 1e-12 * abs(b):
+                        raise AssertionError(
+                            f"{name}: float sum {a} vs {b} beyond rel 1e-12")
+                    max_err = max(max_err, err)
+            elif not (a == b or (isinstance(b, float) and math.isnan(a)
+                                 and math.isnan(b))):
+                raise AssertionError(f"{name}: {kind} {a} vs {b}")
+    return max_err
+
+
+def group_merge(table, spill, keys, parts, rows, kinds) -> dict:
+    """The groups of a merge: the table's occupied slots and the spilled
+    entries, reduced by canonical key (count and sum add, min and max
+    keep the NaN-propagating extremum, as the device merge does; the
+    host accumulator's merge_partials would keep the first of a NaN and
+    a number).  -> {key: (partials..., rows)}."""
+    def host(t):
+        return t.cpu().numpy()
+    occ = host(table.rows) > 0
+    sp = host(spill).astype(bool)
+    kcols = []
+    for (tv, tf), (ev, ef) in zip(zip(table.key_values, table.key_flags),
+                                  keys):
+        v = np.concatenate([host(tv)[occ], host(ev)[sp]])
+        f = np.concatenate([host(tf)[occ], host(ef)[sp]])
+        kcols.append((v, f))
+    vals = [np.concatenate([host(tp)[occ], host(ep)[sp]])
+            for tp, ep in zip(list(table.partials) + [table.rows],
+                              list(parts) + [rows])]
+    out: dict = {}
+    for r in range(vals[-1].shape[0]):
+        key = []
+        for v, f in kcols:
+            x = v[r].item()
+            if f[r] != 2:
+                key.append(None)
+            elif isinstance(x, float) and math.isnan(x):
+                key.append("nan")
+            else:
+                key.append(0.0 if x == 0 else x)
+        key = tuple(key)
+        cur = out.get(key)
+        new = [v[r].item() for v in vals]
+        if cur is None:
+            out[key] = new
+            continue
+        for i, kind in enumerate(kinds + ["rows"]):
+            a, b = cur[i], new[i]
+            if kind in ("min", "max") and isinstance(a, float) and (
+                    math.isnan(a) or math.isnan(b)):
+                cur[i] = math.nan
+            elif kind == "min":
+                cur[i] = min(a, b)
+            elif kind == "max":
+                cur[i] = max(a, b)
+            else:
+                cur[i] = a + b
+    return out
+
+
+def merge_bytes(call, claims: int, matches: int) -> int:
+    """Bytes one merge must move for this run's entries.  Every entry's
+    spill flag is written, and its emptiness read from one byte, the
+    first key's flag, where this run's entries have flag 0 exactly when
+    they hold no rows (both packages' layouts), else from its row count.
+    An occupied entry's keys, flags, partial states and row count are
+    read once.  A match reads its slot's claim word, keys and flags and
+    reads and writes its partials and row count; a claim reads and
+    writes the whole slot.  A spilled entry is charged nothing more."""
+    table, keys, parts, rows, _kinds = call
+    m = rows.numel()
+    occ = rows > 0
+    occupied = int(occ.sum())
+    by_flag = (keys[0][1] != 0).equal(occ)
+    marker = 1 if by_flag else rows.element_size()
+    entry = sum(t.element_size() for kv in keys for t in kv) \
+        + sum(p.element_size() for p in parts) + rows.element_size() \
+        - marker
+    probe = table.state.element_size() + sum(
+        t.element_size() for t in table.key_values + table.key_flags)
+    state = sum(t.element_size() for t in table.partials + [table.rows])
+    return m * (marker + 1) + occupied * entry \
+        + matches * (probe + 2 * state) + claims * 2 * (probe + state)
+
+
 # ------------------------------------------------------------- phase 4
 
 
@@ -950,6 +1199,7 @@ def launch_counters() -> dict:
     from citus_tpu_torch.ops.hash_agg_insert import (
         hash_agg_insert, hash_agg_insert_batched,
     )
+    from citus_tpu_torch.ops.hash_agg_merge import hash_agg_merge
     from citus_tpu_torch.ops.scan_agg_fold import (
         scan_agg_fold, scan_agg_fold_batched,
     )
@@ -959,7 +1209,7 @@ def launch_counters() -> dict:
             "filter_mask_batched": filter_mask_batched,
             "scan_agg_fold_batched": scan_agg_fold_batched,
             "hash_agg_insert_batched": hash_agg_insert_batched,
-            "rollup_delta": rollup_delta}
+            "rollup_delta": rollup_delta, "hash_agg_merge": hash_agg_merge}
 
 
 #: the batched kernels each phase-5 family's coalesced run must launch,
@@ -1240,6 +1490,69 @@ def phase3_hash(device, cl, rows: list) -> None:
     rows.append({"name": "hash_agg_insert", "route": "cuda",
                  "source": "citus_tpu_torch/csrc/hash_agg_insert.cu",
                  "replaces": "citus_tpu/ops/hash_agg.py:179",
+                 "max_abs_err": max_err, **main, "bound_by": "bytes",
+                 "library_ms": None})
+
+
+def phase3_merge(device, tmp: str, rows: list) -> None:
+    """hash_agg_merge against its plain version: R1's merge of one SF1
+    shard batch's table into another's (2^20 slots each), and the
+    adversarial cases; appends its JSON row."""
+    import torch
+    from citus_tpu_torch.ops.hash_agg_merge import (
+        hash_agg_merge, hash_agg_merge_plain,
+    )
+    main_call, n_real = main_path_merge_call(device, tmp)
+    cases = [(f"R1 GROUP BY l_partkey, a shard's table into another's "
+              f"({n_real} rows each)", main_call),
+             ("adversarial 3 keys S=1000, M=1003",
+              adversarial_merge_call(device, FOLD_N + 3, 1000, 1003, 37)),
+             ("adversarial all-empty entries, M=1003",
+              adversarial_merge_call(device, FOLD_N + 3, 1000, 1003, 37,
+                                     empty=True))]
+    max_err, main = 0.0, None
+    for name, call in cases:
+        err = compare_merge(name, call, hash_agg_merge, hash_agg_merge_plain)
+        max_err = max(max_err, err)
+        table, keys, parts, erows, kinds = call
+        work = clone_table(table)
+        reset = lambda: copy_table_(work, table)  # noqa: E731
+        ms = time_cuda_fresh(
+            lambda: hash_agg_merge(work, keys, parts, erows, kinds), reset)
+        plain_ms = time_cuda_fresh(
+            lambda: hash_agg_merge_plain(work, keys, parts, erows, kinds),
+            reset, reps=3)
+        copy_table_(work, table)
+        spill = hash_agg_merge(work, keys, parts, erows, kinds)
+        torch.cuda.synchronize()
+        occupied = int((erows > 0).sum())
+        spilled = int(spill.sum())
+        claims = int((work.rows > 0).sum()) - int((table.rows > 0).sum())
+        matches = occupied - spilled - claims
+        nbytes = merge_bytes(call, claims, matches)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        S, M = table.slots, erows.numel()
+        acc = torch.zeros(S, dtype=torch.int64, device=device)
+        slot = torch.randint(0, S, (M,), device=device)
+        val = torch.randint(0, 1000, (M,), device=device)
+        lib_ms = time_cuda(lambda: acc.index_add_(0, slot, val))
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        say(f"phase 3 hash_agg_merge [{name}]: M={M} S={S} keys={len(keys)} "
+            f"ops={len(kinds)} agrees (merged groups of table and spilled "
+            f"entries; max abs err of float sums {err!r}); occupied entries "
+            f"{occupied}: {matches} matched, {claims} claimed, {spilled} "
+            f"spilled; kernel {ms:.4f} ms (its wrapper's call), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({nbytes} B at 3.35 TB/s: every entry's emptiness marker and "
+            f"spill flag, an occupied entry once, a match's claim word and "
+            f"keys read and its states read and written, a claim's slot "
+            f"read and written); library yardstick (one "
+            f"int64 index_add_ of the M entries into S slots) {lib_ms:.4f} ms")
+    rows.append({"name": "hash_agg_merge", "route": "cuda",
+                 "source": "citus_tpu_torch/csrc/hash_agg_merge.cu",
+                 "replaces": "citus_tpu/ops/hash_agg.py:239 "
+                             "build_fused_entry_merge (jit_hash_merge)",
                  "max_abs_err": max_err, **main, "bound_by": "bytes",
                  "library_ms": None})
 
@@ -2127,6 +2440,209 @@ def check_rollup_state(cl, allc: dict) -> tuple[int, int]:
     return len(got), len(r.rows)
 
 
+# ------------------------------------------------------------- phase 7
+
+#: phase 7's pushed projection: one ship day's lines of the first 500
+#: suppliers
+R3 = """SELECT l_orderkey, l_partkey, l_quantity FROM lineitem
+WHERE l_shipdate = date '1994-06-01' AND l_suppkey < 500
+ORDER BY l_orderkey, l_partkey"""
+#: rows COPYed through coordinator A after the first queries
+PAIR_DELTA_ROWS = 262_144
+
+
+def oracle_r1(cols: dict) -> list[tuple]:
+    """R1 per part: count, sum and exact avg of l_quantity, min and max
+    of l_extendedprice."""
+    keys, inv = np.unique(cols["partkey"], return_inverse=True)
+    cnt = np.bincount(inv)
+    qsum = np.zeros(keys.size, np.int64)
+    np.add.at(qsum, inv, cols["qty"])
+    pmin = np.full(keys.size, np.iinfo(np.int64).max)
+    pmax = np.full(keys.size, np.iinfo(np.int64).min)
+    np.minimum.at(pmin, inv, cols["price"])
+    np.maximum.at(pmax, inv, cols["price"])
+    return [(int(k), int(c), int(q), _avg(q, c, 0), _dec(lo, 2), _dec(hi, 2))
+            for k, c, q, lo, hi in zip(keys, cnt, qsum, pmin, pmax)]
+
+
+def oracle_r3(cols: dict) -> list[tuple]:
+    m = (cols["ship"] == _day(1994, 6, 1)) & (cols["suppkey"] < 500)
+    return sorted(zip(cols["orderkey"][m].tolist(),
+                      cols["partkey"][m].tolist(), cols["qty"][m].tolist()))
+
+
+def open_pair(ctt, tmp: str, device=None):
+    """Coordinator A (metadata authority, data plane) and B (attached to
+    A, data plane), each hosting one node of the cluster, both on
+    ``device`` (None: the card).  -> (a, b)."""
+    a = ctt.Cluster(os.path.join(tmp, "pair_a"), serve_port=0, data_port=0,
+                    hosted_nodes=set(), n_nodes=0, device=device)
+    try:
+        a.register_node()
+        b = ctt.Cluster(os.path.join(tmp, "pair_b"), data_port=0,
+                        hosted_nodes=set(), n_nodes=0, device=device,
+                        coordinator=("127.0.0.1", a.control_port))
+    except BaseException:
+        a.close()
+        raise
+    try:
+        b.register_node()
+        a._maybe_reload_catalog(force_sync=True)
+    except BaseException:
+        b.close()
+        a.close()
+        raise
+    return a, b
+
+
+def remote_stats(a) -> dict:
+    r = a.execute("SELECT citus_remote_stats()")
+    return dict(zip(r.columns, r.rows[0]))
+
+
+def run_pair_query(a, qname: str, sql: str, want: list, mode: str,
+                   run_kind: str, n_remote: int, launches: dict) -> float:
+    """One query on coordinator A; its rows must equal the oracle.
+    Pushed: one task per remote shard, no fallback, and for R1 one hash
+    partial table and one hash_agg_merge launch per remote shard.
+    Pulled: nothing pushed, nothing merged.  Adds the kernels' launches
+    to ``launches``.  -> wall seconds."""
+    import torch
+    from citus_tpu_torch.executor.device_cache import GLOBAL_CACHE
+    from citus_tpu_torch.executor.executor import GLOBAL_COUNTERS
+    counters = launch_counters()
+    if run_kind == "cold":
+        GLOBAL_CACHE.clear()
+    for f in counters.values():
+        f.launches = 0
+    c0 = GLOBAL_COUNTERS.snapshot()
+    st0 = remote_stats(a)
+    t0 = time.perf_counter()
+    r = a.execute(sql)
+    if a.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c1 = GLOBAL_COUNTERS.snapshot()
+    st1 = remote_stats(a)
+    got = {k: f.launches for k, f in counters.items()}
+    for k, v in got.items():
+        # S1's folds carry its sketch registers
+        launches[f"{k}[sketch]" if qname == "S1" and k == "scan_agg_fold"
+                 else k] += v
+
+    def delta(name):
+        return c1.get(name, 0) - c0.get(name, 0)
+    rows = sorted(r.rows) if qname == "R3" else r.rows
+    if rows != want:
+        raise AssertionError(f"phase 7 {qname} {mode} {run_kind}: rows "
+                             f"differ from the numpy oracle:\n{rows[:10]}\n"
+                             f"{want[:10]}")
+    pushed, fallbacks = delta("remote_tasks_pushed"), \
+        delta("remote_task_fallbacks")
+    partials, merges = delta("hash_partials_pushed"), got["hash_agg_merge"]
+    want_pushed = n_remote if mode == "push" else 0
+    want_merges = want_pushed if qname == "R1" else 0
+    # on the CPU (the tests' rehearsal) the merge runs its plain version
+    want_launches = want_merges if a.device.type == "cuda" else 0
+    if (pushed, fallbacks, partials, merges) != (
+            want_pushed, 0, want_merges, want_launches):
+        raise AssertionError(
+            f"phase 7 {qname} {mode} {run_kind}: remote_tasks_pushed "
+            f"{pushed}, remote_task_fallbacks {fallbacks}, "
+            f"hash_partials_pushed {partials}, hash_agg_merge launches "
+            f"{merges}; expected {want_pushed}, 0, {want_merges}, "
+            f"{want_merges}")
+    pipe = r.explain["pipeline"]
+    say(f"phase 7 {qname} {mode} {run_kind}: {len(r.rows)} rows equal the "
+        f"numpy oracle in {dt:.4f} s; remote_tasks_pushed {pushed}, "
+        f"remote_task_fallbacks {fallbacks}, hash_partials_pushed "
+        f"{partials}; pushed result bytes "
+        f"{delta('remote_task_result_bytes')}, placement sync bytes "
+        f"{delta('placement_sync_bytes')} (files fetched "
+        f"{st1['files_fetched'] - st0['files_fetched']}, bytes fetched "
+        f"{st1['bytes_fetched'] - st0['bytes_fetched']}); remote wait "
+        f"{pipe.get('remote_wait_ms', 0)} ms, overlapped "
+        f"{pipe.get('remote_overlapped_ms', 0)} ms, remote merge "
+        f"{pipe.get('hash_remote_merge_ms', 0)} ms, host merge "
+        f"{pipe.get('host_merge_ms', 0)} ms; kernel launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    return dt
+
+
+def run_pair_phase(ctt, tmp: str, n_rows: int, launches: dict,
+                   card: str, device=None) -> None:
+    """Phase 7: two coordinators on the card.  The sketch table of phase
+    4 loaded through A (4 shards by l_suppkey over A's and B's nodes:
+    the rows of B's shards ship over the data plane); R1 (hash GROUP BY,
+    pushed as a hash task whose tables merge through hash_agg_merge),
+    S1 (pushed as an agg task with sketch registers) and R3 (pushed as a
+    projection task), each cold and warm, pushed and then pulled; then
+    PAIR_DELTA_ROWS more rows by COPY through A, and R1 and R3 warm
+    again, pushed and pulled, against the new oracle."""
+    from citus_tpu_torch.executor.executor import GLOBAL_COUNTERS
+    a, b = open_pair(ctt, tmp, device)
+    try:
+        # the hash table sized from the row counts, as phase 4 sizes it:
+        # each coordinator sizes the tables of the tasks it runs
+        for cl in (a, b):
+            cl.execute("SET citus.hash_agg_slots = auto")
+        t0 = time.perf_counter()
+        c0 = GLOBAL_COUNTERS.snapshot()
+        a.execute(S_DDL)
+        a.execute("SELECT create_distributed_table('lineitem', 'l_suppkey', "
+                  f"{SHARDS})")
+        chunks = []
+        for c in sketch_chunks(n_rows, 11, n_rows):
+            a.copy_from("lineitem", columns=sketch_copy_columns(c))
+            chunks.append(c)
+        cols = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+        c1 = GLOBAL_COUNTERS.snapshot()
+        remote_rows = c1.get("rows_ingested_remote", 0) \
+            - c0.get("rows_ingested_remote", 0)
+        t = a.catalog.table("lineitem")
+        n_remote = sum(a.catalog.is_remote_node(s.placements[0])
+                       for s in t.shards)
+        if not 0 < remote_rows < n_rows or n_remote != SHARDS // 2:
+            raise AssertionError(f"phase 7 load: {remote_rows} rows reached "
+                                 f"B, {n_remote} of {SHARDS} shards remote")
+        st = remote_stats(a)
+        say(f"phase 7 load through A: {n_rows} rows of the sketch table in "
+            f"{time.perf_counter() - t0:.3f} s; {remote_rows} rows of B's "
+            f"{n_remote} shards shipped to B in {st['batches_shipped']} "
+            f"CTFR batches ({card})")
+        queries = [("R1", R1, oracle_r1(cols)), ("S1", S1, oracle_s1(cols)),
+                   ("R3", R3, oracle_r3(cols))]
+        for mode in ("push", "pull"):
+            a.execute("SET citus.remote_task_execution = "
+                      + ("auto" if mode == "push" else "pull"))
+            for qname, sql, want in queries:
+                for run_kind in ("cold", "warm"):
+                    run_pair_query(a, qname, sql, want, mode, run_kind,
+                                   n_remote, launches)
+        a.execute("SET citus.remote_task_execution = auto")
+        t0 = time.perf_counter()
+        delta = list(sketch_chunks(PAIR_DELTA_ROWS, 13, n_rows))
+        for c in delta:
+            a.copy_from("lineitem", columns=sketch_copy_columns(c))
+        say(f"phase 7 COPY of {PAIR_DELTA_ROWS} more rows through A: "
+            f"{time.perf_counter() - t0:.3f} s")
+        cols = {k: np.concatenate([cols[k]] + [c[k] for c in delta])
+                for k in cols}
+        for mode in ("push", "pull"):
+            a.execute("SET citus.remote_task_execution = "
+                      + ("auto" if mode == "push" else "pull"))
+            for qname, sql, want in (("R1", R1, oracle_r1(cols)),
+                                     ("R3", R3, oracle_r3(cols))):
+                run_pair_query(a, qname, sql, want, mode, "warm",
+                               n_remote, launches)
+        st = remote_stats(a)
+        say(f"phase 7 data plane totals (citus_remote_stats on A): {st}")
+    finally:
+        b.close()
+        a.close()
+
+
 def run(args) -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -2156,7 +2672,7 @@ def run(args) -> dict:
         # then one more generated predicate alone, for its cold build time
         t0 = time.perf_counter()
         kernels = ["scan_agg_fold", "hash_agg_insert", "scan_agg_fold_batched",
-                   "hash_agg_insert_batched", "rollup_delta"]
+                   "hash_agg_insert_batched", "rollup_delta", "hash_agg_merge"]
         # the predicates of Q6 and P1 and of the phase-5 families (each
         # generated source holds the one-query and the batched kernel);
         # Q6's and P's families share Q6's and P1's sources
@@ -2193,6 +2709,7 @@ def run(args) -> dict:
         kernel_rows: list = []
         phase3_fold(device, plans, kernel_rows)
         phase3_hash(device, cl, kernel_rows)
+        phase3_merge(device, tmp, kernel_rows)
         phase3_filter(device, plans, kernel_rows)
         phase3_batched_filter(device, plans, kernel_rows)
         phase3_batched_fold(device, plans, kernel_rows)
@@ -2261,6 +2778,8 @@ def run(args) -> dict:
         cl.close()
         # ---- phases 4-6 of the sketch aggregates and rollups
         run_sketch_phases(ctt, tmp, n_rows, launches, card)
+        # ---- phase 7: two coordinators on the card
+        run_pair_phase(ctt, tmp, n_rows, launches, card)
         say(f"phase 4 device cache hits {GLOBAL_CACHE.hits - hits0}, "
             f"peak device memory {torch.cuda.max_memory_allocated(device)} B")
     finally:

@@ -13,8 +13,12 @@ BEGIN/COMMIT/ROLLBACK and savepoints (``session()``), single-table
 SELECT with aggregates in every group mode (scalar, direct and hash,
 sketch aggregates included) and without them (filtered projections,
 DISTINCT), with ORDER BY / LIMIT on the result, EXPLAIN, change data
-capture and CDC-fed rollups (``rollup/``).  Everything else raises
-UnsupportedFeatureError naming its ROADMAP.md item.  A data
+capture and CDC-fed rollups (``rollup/``), and several coordinators
+over RPC (``serve_port``/``coordinator``/``data_port``/``hosted_nodes``:
+a query pushes its worker half to the coordinator owning each remote
+shard, COPY routes rows to their owners, DDL goes through the metadata
+authority).  Everything else raises UnsupportedFeatureError naming its
+ROADMAP.md item.  A data
 directory written by ``citus_tpu`` opens here unchanged: the catalog
 document, the columnar stripe files and the shard hash are the same.
 """
@@ -330,21 +334,56 @@ def _unported(what: str, item: str):
 
 class Cluster:
     def __init__(self, data_dir: str, *, n_nodes: Optional[int] = None,
-                 settings: Optional[Settings] = None, device=None):
+                 settings: Optional[Settings] = None, device=None,
+                 serve_port: Optional[int] = None,
+                 coordinator: Optional[tuple] = None,
+                 data_port: Optional[int] = None,
+                 hosted_nodes: Optional[set] = None,
+                 secret: Optional[bytes] = None,
+                 data_bind_host: str = "127.0.0.1"):
         """``device``: the torch device the ``gpu`` backend runs on;
         None = CUDA (raises when there is none).  ``n_nodes`` defaults to
         the number of CUDA devices (1 on the CPU), as the reference
-        defaults to its JAX device count."""
+        defaults to its JAX device count, and to 0 when
+        ``hosted_nodes`` is given.
+
+        Several coordinators make one cluster, as in the reference:
+        ``serve_port`` makes this one the metadata authority (the
+        control plane, net/control_plane.py), ``coordinator=(host,
+        port)`` attaches it to one; ``data_port`` serves this process's
+        shard placements and pushed worker tasks to its peers
+        (net/data_plane.py); ``hosted_nodes`` names the node ids whose
+        placements live in THIS data dir (None = all: single-host
+        mode); ``secret`` is the shared HMAC secret of every RPC
+        (reference: pg_dist_authinfo)."""
         import torch
+        if isinstance(secret, str):
+            secret = secret.encode()
+        self._secret = secret
         self.device = resolve_device(device)
         self.settings = settings or current_settings()
         self.catalog = Catalog(data_dir)
+        if hosted_nodes is not None:
+            self.catalog.hosted_nodes = set(hosted_nodes)
         if n_nodes is None:
-            n_nodes = max(torch.cuda.device_count(), 1) \
-                if self.device.type == "cuda" else 1
+            if hosted_nodes is not None:
+                n_nodes = 0
+            else:
+                n_nodes = max(torch.cuda.device_count(), 1) \
+                    if self.device.type == "cuda" else 1
         if n_nodes:
             self.catalog.ensure_nodes(n_nodes)
         self.catalog.commit()
+        self._data_server = None
+        if data_port is not None:
+            from citus_tpu_torch.net.data_plane import DataPlaneServer
+            self._data_server = DataPlaneServer(self, port=data_port,
+                                                secret=secret,
+                                                bind_host=data_bind_host)
+        if hosted_nodes is not None:
+            from citus_tpu_torch.net.data_plane import DataPlaneClient
+            self.catalog.remote_data = DataPlaneClient(self.catalog,
+                                                       secret=secret)
         # transaction log + recovery on open (reference: 2PC recovery at
         # maintenance-daemon startup, transaction_recovery.c)
         from citus_tpu_torch.transaction import LockManager, TransactionLog
@@ -365,6 +404,13 @@ class Cluster:
         from citus_tpu_torch.stats import QueryStats, TenantStats
         self.query_stats = QueryStats()
         self.tenant_stats = TenantStats()
+        # per-placement load attribution re-zeros with the counters so
+        # the ledger-balance invariant survives stat resets; the hook is
+        # removed in close(): GLOBAL_COUNTERS outlives this handle
+        from citus_tpu_torch.observability.load_attribution import (
+            GLOBAL_ATTRIBUTION,
+        )
+        self.counters.add_reset_hook(GLOBAL_ATTRIBUTION.reset)
         # change data capture: one stream per table, written at commit
         from citus_tpu_torch.cdc import ChangeDataCapture
         from citus_tpu_torch.utils.clock import CausalClock
@@ -373,15 +419,89 @@ class Cluster:
             data_dir, self.settings.enable_change_data_capture)
         # per-thread implicit sessions: {thread ident: (Thread, Session)}
         self._default_sessions: dict = {}
-        # mtime-poll baseline: our own open-time commit; a newer catalog
-        # file is another process's change
-        self._catalog_mtime = getattr(self.catalog, "self_mtime", None)
         # continuous aggregation (rollup/manager.py): the CDC-fed
         # incremental refresh loop only runs while
         # citus.rollup_refresh_interval_ms > 0
         from citus_tpu_torch.rollup import RollupManager
         self.rollup_manager = RollupManager(self)
         self.rollup_manager.apply()
+        # control plane (reference: metadata sync + 2PC votes over libpq;
+        # net/control_plane.py).  serve_port=N makes this coordinator the
+        # metadata authority; coordinator=(host, port) joins one.
+        # Without either, multi-coordinator invalidation falls back to
+        # catalog-file mtime polling.
+        self._catalog_dirty = False
+        self._control = None
+        if serve_port is not None or coordinator is not None:
+            from citus_tpu_torch.net.control_plane import ControlPlane
+            self._control = ControlPlane(self, serve_port=serve_port,
+                                         coordinator=coordinator,
+                                         secret=secret)
+            # catalog commits serialize through the authority's DDL
+            # lease and ship the document over RPC (push_catalog)
+            self.catalog.commit_transport = self._control
+            # placement-mirror sync elision trusts the data_changed
+            # invalidation stream only while it is attached
+            if self.catalog.remote_data is not None:
+                self.catalog.remote_data.invalidation_fresh = (
+                    lambda: self._control is not None
+                    and self._control.connected)
+        self.catalog.on_commit = self._on_catalog_commit
+        # metadata sync engine (metadata/sync.py): per-object
+        # pull-on-mismatch convergence against the authority; the
+        # interval loop only runs while attached and
+        # citus.metadata_sync_interval_ms > 0
+        from citus_tpu_torch.metadata import (
+            MetadataSync, hydrate_tenant_registry,
+        )
+        self.metadata_sync = MetadataSync(self)
+        self.metadata_sync.apply()
+        # mirror the catalog-persisted tenant quotas into the
+        # process-local registry, so this coordinator admits identically
+        # to every other holder of the same document
+        hydrate_tenant_registry(self.catalog)
+        # mtime-poll baseline: our own open-time commit; a newer catalog
+        # file is another process's change
+        self._catalog_mtime = getattr(self.catalog, "self_mtime", None)
+
+    def _peer_inflight(self) -> set:
+        """In-flight xids of the other coordinators (2PC recovery spares
+        them)."""
+        if self._control is not None:
+            return self._control.peer_inflight_xids()
+        return set()
+
+    def _gxid_outcome(self, gxid: str):
+        """Resolve a cross-host branch against the authority's outcome
+        store ('commit'/'abort'/None while undecided or unreachable)."""
+        if self._control is not None:
+            return self._control.txn_outcome(gxid)
+        return None
+
+    def _on_catalog_commit(self) -> None:
+        if self._control is not None:
+            self._control.publish_catalog_change()
+
+    def _on_foreign_catalog_applied(self) -> None:
+        """A pushed catalog document was just stored into our live
+        catalog (authority side): drop cached plans keyed on the old
+        metadata and re-mirror the replicated tenant sections."""
+        self._plan_cache.clear()
+        from citus_tpu_torch.metadata import hydrate_tenant_registry
+        hydrate_tenant_registry(self.catalog)
+
+    @property
+    def control_port(self) -> Optional[int]:
+        """Port of this coordinator's control-plane server (the metadata
+        authority's), or None."""
+        if self._control is not None and self._control.server is not None:
+            return self._control.server.port
+        return None
+
+    @property
+    def data_port(self) -> Optional[int]:
+        """Port of this coordinator's bulk data-plane server, or None."""
+        return self._data_server.port if self._data_server else None
 
     def close(self) -> None:
         # open transactions on the per-thread default sessions roll back
@@ -390,9 +510,70 @@ class Cluster:
             if ds.txn is not None:
                 self._rollback_txn(ds)
         self.rollup_manager.stop()
+        self.metadata_sync.stop()
+        from citus_tpu_torch.observability.load_attribution import (
+            GLOBAL_ATTRIBUTION,
+        )
+        self.counters.remove_reset_hook(GLOBAL_ATTRIBUTION.reset)
+        if self._control is not None:
+            self._control.close()
+        if self._data_server is not None:
+            self._data_server.stop()
+        if self.catalog.remote_data is not None:
+            self.catalog.remote_data.close()
         # release the transaction-log owner marker: our undecided
         # transactions become recoverable by other coordinators
         self.txlog.close()
+
+    # ------------------------------------------------ cross-host topology
+    def register_node(self, host: str = "127.0.0.1") -> int:
+        """Join the cluster as a shard-hosting worker: add a node whose
+        placements live in THIS coordinator's data dir, advertising our
+        data-plane endpoint so peers can read/write them over the wire
+        (reference: citus_add_node(nodename, nodeport) +
+        metadata/node_metadata.c ActivateNode)."""
+        if self._data_server is None:
+            raise AnalysisError(
+                "register_node requires data_port= (no data-plane server)")
+        from citus_tpu_torch.catalog.catalog import NodeMeta
+        # adopt the authority's current node map BEFORE allocating an id
+        # (an attached coordinator's local file lags the authority)
+        self._reload_catalog()
+        nid = max(self.catalog.nodes, default=-1) + 1
+        self.catalog.nodes[nid] = NodeMeta(nid, True, host,
+                                           self._data_server.port)
+        if self.catalog.hosted_nodes is None:
+            self.catalog.hosted_nodes = set()
+        self.catalog.hosted_nodes.add(nid)
+        self.catalog.ddl_epoch += 1
+        self.catalog.commit()
+        return nid
+
+    def _ingest_local_batch(self, table_name: str, values: dict,
+                            validity: dict) -> int:
+        """Data-plane server entry: write a physical-encoded batch whose
+        rows hash to shards hosted HERE (the receiving half of a
+        cross-host COPY; reference: the worker side of per-shard COPY
+        streams).  Runs this coordinator's own 2PC."""
+        self._maybe_reload_catalog()
+        if not self.catalog.has_table(table_name):
+            # the batch and the DDL's invalidation travel on two sockets:
+            # a COPY right after CREATE can arrive first
+            self._reload_catalog()
+        t = self.catalog.table(table_name)
+        from citus_tpu_torch.transaction.locks import SHARED
+        with self._write_lock(t, SHARED):
+            t = self.catalog.table(table_name)
+            ing = TableIngestor(self.catalog, t, txlog=self.txlog)
+            try:
+                ing.append(values, validity)
+            except BaseException:
+                ing.abort()
+                raise
+            ing.finish()
+        n = len(next(iter(values.values()))) if values else 0
+        self.counters.bump("rows_ingested_remote", n)
+        return n
 
     def _write_lock(self, table_meta, mode: str):
         """Serialize writers on a table's colocation group (the analog of
@@ -415,19 +596,62 @@ class Cluster:
             from citus_tpu_torch.transaction.write_locks import (
                 group_write_lock,
             )
-            with group_write_lock(self.catalog, table_meta, mode,
-                                  lock_manager=self.locks,
-                                  timeout=self.settings.executor.lock_timeout_s):
-                self._maybe_reload_catalog(force_sync=True)
-                yield
+            try:
+                with group_write_lock(
+                        self.catalog, table_meta, mode,
+                        lock_manager=self.locks,
+                        timeout=self.settings.executor.lock_timeout_s):
+                    # force_sync: an RPC invalidation push may not have
+                    # arrived yet; a writer must check staleness
+                    # synchronously before touching placements
+                    self._maybe_reload_catalog(force_sync=True)
+                    yield
+            finally:
+                # every auto-commit write funnels through here: expire
+                # placement-mirror elision tokens cluster-wide (spurious
+                # on a failed write — costs one RTT, never staleness)
+                self._publish_data_changed(table_meta.name)
         return _ctx()
 
+    def _publish_data_changed(self, table_name: str) -> None:
+        """A committed write touched ``table_name``: expire our own
+        placement-mirror elision tokens (our mirrors of its remote
+        placements may now trail their sources) and broadcast the
+        data_changed event so every peer coordinator expires theirs."""
+        rd = self.catalog.remote_data
+        if rd is not None:
+            rd.note_data_changed(table_name)
+        if self._control is not None:
+            self._control.publish_data_change(table_name)
+
     def _maybe_reload_catalog(self, force_sync: bool = False) -> None:
-        """Pick up metadata another process sharing this data directory
-        committed (catalog-file mtime polling; the reference also takes
-        invalidations from its control plane, ROADMAP.md A13).  Our own
-        commits never trigger a reload."""
+        """Pick up metadata other coordinators committed (the
+        query-from-any-node analog; reference: metadata/metadata_sync.c).
+        With a control plane attached, invalidation arrives as an RPC
+        push; otherwise fall back to catalog-file mtime polling.  Writes
+        made by THIS process never trigger a reload: concurrent sessions
+        hold references into the live catalog."""
         import os
+        if self._control is not None and self._control.connected:
+            if self._catalog_dirty:
+                self._catalog_dirty = False
+                # this statement would have planned against stale
+                # metadata had the invalidation not been honored
+                self.counters.bump("metadata_stale_reads")
+                # incremental first: pull exactly the divergent objects
+                # (metadata/sync.py); fall back to the full document
+                if not self.metadata_sync.pull_on_mismatch():
+                    self._reload_catalog()
+                try:
+                    self._catalog_mtime = os.path.getmtime(
+                        self.catalog._path())
+                except OSError:
+                    pass
+                return
+            if not force_sync:
+                return
+            # fall through to the synchronous mtime check: write paths
+            # cannot rely on the asynchronous push having arrived
         try:
             mtime = os.path.getmtime(self.catalog._path())
         except OSError:
@@ -444,19 +668,32 @@ class Cluster:
 
     def _reload_catalog(self) -> None:
         import os
+        # with an authority attached, the catalog document itself comes
+        # over RPC (fetch_catalog) — the file is only the fallback
+        doc = None
+        if self._control is not None and self._control.connected:
+            try:
+                doc = self._control.fetch_catalog_doc()
+            except Exception:  # noqa: BLE001 -- authority unreachable: the file is the fallback
+                doc = None
         with self.catalog._lock:
             # swap, never clear-then-refill: concurrent readers see the
             # old or the new document
             self.catalog._dicts = {}
             self.catalog._dict_index = {}
             self.catalog._dict_sig = {}
-            if os.path.exists(self.catalog._path()):
+            if doc is not None:
+                self.catalog.load_document(doc)
+            elif os.path.exists(self.catalog._path()):
                 self.catalog._load()
             else:
                 self.catalog.tables = {}
                 self.catalog.nodes = {}
             self.catalog.ddl_epoch += 1  # invalidate cached plans
         self._plan_cache.clear()
+        # replicated tenant sections may have changed with the document
+        from citus_tpu_torch.metadata import hydrate_tenant_registry
+        hydrate_tenant_registry(self.catalog)
 
     # ------------------------------------------------------------- DDL
     def create_table(self, name: str, schema: Schema, *,
@@ -587,6 +824,15 @@ class Cluster:
         if t.foreign_keys or t.unique_indexes or t.check_constraints:
             _unported("constraint checks on ingest", "queue A")
         values, validity = encode_columns(self.catalog, t, columns)
+        remote_n = 0
+        if self.catalog.remote_data is not None \
+                and not getattr(self._remote_exec_guard, "v", False):
+            values, validity, remote_n = self._route_remote_batch(
+                t, values, validity)
+            if not values or len(next(iter(values.values()))) == 0:
+                # every row went to remote hosts
+                self.counters.bump("rows_ingested", remote_n)
+                return remote_n
         from citus_tpu_torch.transaction.locks import SHARED
         txn = current_overlay()
         with self._write_lock(t, SHARED):
@@ -613,12 +859,86 @@ class Cluster:
                     raise
                 ing.finish()
         n = len(next(iter(values.values()))) if values else 0
-        self.counters.bump("rows_ingested", n)
+        self.counters.bump("rows_ingested", n + remote_n)
         if self._cdc_captures(t.name) and n:
             self._emit_cdc(t.name, "insert",
                            rows=self._decode_rows(t, values, validity),
                            columns=t.schema.names)
-        return n
+        return n + remote_n
+
+    def _route_remote_batch(self, t, values, validity):
+        """Split a physical ingest batch by shard ownership: rows whose
+        shard another coordinator hosts ship over the data plane
+        (reference: distributed COPY forwarding per-shard streams to the
+        owning worker, commands/multi_copy.c); the local remainder
+        continues through the normal path.  Returns (local_values,
+        local_validity, rows_shipped)."""
+        import numpy as np
+
+        from citus_tpu_torch.catalog.hashing import hash_int64
+        from citus_tpu_torch.storage.overlay import current_overlay
+        cat = self.catalog
+        wire = self.settings.executor.wire_format
+        if not t.is_distributed:
+            # reference/local tables: every remote host with a placement
+            # receives the FULL batch; rows counted once, from the local
+            # copy when one exists
+            eps = {cat.node_endpoint(nd) for s in t.shards
+                   for nd in s.placements if cat.is_remote_node(nd)}
+            if not eps:
+                return values, validity, 0
+            if current_overlay() is not None:
+                _unported("writes to remote-hosted placements inside an "
+                          "explicit transaction", "A11")
+            shipped = 0
+            for ep in eps:
+                shipped = cat.remote_data.ship_batch(ep, t.name, values,
+                                                     validity, wire=wire)
+            if any(not cat.is_remote_node(nd)
+                   for s in t.shards for nd in s.placements):
+                return values, validity, 0  # local ingest counts them
+            return {}, {}, shipped
+        # replicated shards spanning hosts: routing writes the primary
+        # placement only, so a replica on another host would diverge —
+        # fail closed, as the reference does
+        if any(len(s.placements) > 1
+               and any(cat.is_remote_node(nd) for nd in s.placements)
+               for s in t.shards):
+            raise UnsupportedFeatureError(
+                "writing to a distributed table whose replicated shard "
+                "placements span hosts is not supported yet (only one "
+                "placement would receive the rows, diverging replicas)")
+        owners = [t.shards[si].placements[0] for si in range(t.shard_count)]
+        if not any(cat.is_remote_node(o) for o in owners):
+            return values, validity, 0
+        if current_overlay() is not None:
+            _unported("writes to remote-hosted shards inside an explicit "
+                      "transaction (cross-host 2PC)", "A11")
+        dist = values[t.dist_column].astype(np.int64)
+        idx = t.route_hashes(hash_int64(dist))
+        # one batch per owning host
+        by_endpoint: dict = {}
+        remote_rows = np.zeros(len(dist), bool)
+        for si, owner in enumerate(owners):
+            if not cat.is_remote_node(owner):
+                continue
+            sel = idx == si
+            if not sel.any():
+                continue
+            m = by_endpoint.setdefault(cat.node_endpoint(owner),
+                                       np.zeros(len(dist), bool))
+            m |= sel
+            remote_rows |= sel
+        shipped = 0
+        for ep, m in by_endpoint.items():
+            shipped += cat.remote_data.ship_batch(
+                ep, t.name, {c: v[m] for c, v in values.items()},
+                {c: x[m] for c, x in validity.items()}, wire=wire)
+        if not remote_rows.any():
+            return values, validity, 0
+        keep = ~remote_rows
+        return ({c: v[keep] for c, v in values.items()},
+                {c: x[keep] for c, x in validity.items()}, shipped)
 
     # ------------------------------------------------ change data capture
     def _cdc_captures(self, table: str) -> bool:
@@ -977,6 +1297,10 @@ class Cluster:
                                  values=values)
             self.counters.bump("plan_cache_misses")
         return bound, plan, values
+
+    # set while executing a task a PEER pushed to us: such a task
+    # operates on OUR placements only and must never push again
+    _remote_exec_guard = __import__("threading").local()
 
     def _execute_stmt(self, stmt: A.Statement,
                       sql_text: Optional[str] = None) -> Result:

@@ -74,6 +74,25 @@ def _percentile_backend(v) -> str:
     return s
 
 
+def _remote_task_mode(v) -> str:
+    """citus.remote_task_execution = push | pull | auto: whether the
+    worker half of a query runs where a remote-only placement lives
+    (push, executor/worker_tasks.py) or the placement's files are
+    mirrored here (pull)."""
+    s = str(v).lower()
+    if s not in ("push", "pull", "auto"):
+        raise ValueError(s)
+    return s
+
+
+def _wire_format(v) -> str:
+    """citus.wire_format = frame | npz (net/data_plane.py codecs)."""
+    s = str(v).lower()
+    if s not in ("frame", "npz"):
+        raise ValueError(s)
+    return s
+
+
 def _window_ms(v) -> float:
     """citus.megabatch_window_ms = <ms> | auto (stored as -1)."""
     if str(v).lower() == "auto":
@@ -120,6 +139,11 @@ _GUCS = {
     # stream (publications cover single tables)
     "citus.enable_change_data_capture": (None, "enable_change_data_capture",
                                          _bool),
+    # several coordinators (net/, executor/worker_tasks.py): push or
+    # pull remote-only placements, and the wire codec of pushed results
+    "citus.remote_task_execution": ("executor", "remote_task_execution",
+                                    _remote_task_mode),
+    "citus.wire_format": ("executor", "wire_format", _wire_format),
     "citus.shard_count": ("sharding", "shard_count", int),
     "citus.shard_replication_factor": ("sharding", "shard_replication_factor", int),
     "lock_timeout": ("executor", "lock_timeout_s", _ms_duration),

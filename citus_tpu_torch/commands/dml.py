@@ -5,8 +5,8 @@ Reference: the modify paths of multi_router_planner.c
 columnar DML executors (executor/dml.py) under the colocation-group
 write lock, invalidates the table's cached plans and emits its change
 to the CDC stream.  This is the local half of citus_tpu/commands/dml.py:
-every shard is local here, so the forwarding of a modify to a remote
-shard owner and its cross-host 2PC stay with ROADMAP.md A13; RETURNING,
+a modify of a table that another coordinator hosts shards of (its
+forwarding and cross-host 2PC) raises, naming ROADMAP.md A11; RETURNING,
 foreign-key actions, partitioned tables, CHECK/domain constraints and
 MERGE are not ported yet (ROADMAP.md A11).
 """
@@ -21,7 +21,22 @@ from citus_tpu_torch.executor import Result
 from citus_tpu_torch.planner import ast as A
 
 
+def refuse_remote_placements(cl, t, what: str) -> None:
+    """A modify of a table some of whose placements another coordinator
+    hosts would be forwarded there and committed by cross-host 2PC
+    (the reference's ``_forward_remote_dml``/``_two_phase_remote_dml``):
+    not ported yet."""
+    cat = cl.catalog
+    if cat.remote_data is not None and any(
+            cat.is_remote_node(nd) for s in t.shards for nd in s.placements):
+        raise UnsupportedFeatureError(
+            f"{what} of a table with shards hosted by another coordinator "
+            "(cross-host DML and its two-phase commit) is not ported yet "
+            "(ROADMAP.md A11)")
+
+
 def _refuse_unported(cl, stmt, t) -> None:
+    refuse_remote_placements(cl, t, type(stmt).__name__.upper())
     if getattr(stmt, "returning", None):
         raise UnsupportedFeatureError(
             "RETURNING is not ported yet (ROADMAP.md A11)")
@@ -139,6 +154,7 @@ def truncate(cl, stmt):
             raise UnsupportedFeatureError(
                 "TRUNCATE of a table other tables reference by foreign "
                 "key is not ported yet (ROADMAP.md A11)")
+        refuse_remote_placements(cl, t0, "TRUNCATE")
         metas.setdefault(group_resource(t0), t0)
     # every relation's EXCLUSIVE lock (sorted: no lock-order inversion)
     # before the first irreversible flip, so TRUNCATE a, b is

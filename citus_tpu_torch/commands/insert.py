@@ -120,7 +120,12 @@ def _execute_upsert(cl, t, stmt: A.Insert, rows: list, names: list) -> Result:
     within one shard group — multi_router_planner.c rejects others).
     Runs under the colocation group's EXCLUSIVE write lock so probe and
     write are atomic against concurrent writers."""
+    from citus_tpu_torch.commands.dml import refuse_remote_placements
     from citus_tpu_torch.transaction.locks import EXCLUSIVE
+    # the upsert probes and rewrites placements in place: remote-hosted
+    # target shards would need cross-host DML (the reference's
+    # remote-target guard, citus_tpu/commands/insert.py:357)
+    refuse_remote_placements(cl, t, "INSERT ... ON CONFLICT")
     oc = stmt.on_conflict
     if not oc.targets:
         raise UnsupportedFeatureError(

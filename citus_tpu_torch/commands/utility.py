@@ -2,9 +2,11 @@
 
 Reference: the UDFs under src/backend/distributed/sql/udfs/.  The port
 carries create_distributed_table, the rollup calls (create, drop,
-refresh, the citus_rollups() view) and the stat views of its slices
-(counters, statements, tenants, the admission pool, megabatching); the
-other utilities are not ported yet (ROADMAP.md queue A).
+refresh, the citus_rollups() view), the stat views of its slices
+(counters, statements, tenants, the admission pool, megabatching, the
+data plane's transfers), node topology (citus_add_node,
+citus_remove_node) and the replicated tenant quotas; the other
+utilities are not ported yet (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -158,3 +160,102 @@ def _citus_rollups(cl, name, args):
         columns=["name", "source", "rollup_table", "backend",
                  "watermark", "head_lsn", "pending_changes"],
         rows=[tuple(r) for r in cl.rollup_manager.rollup_rows()])
+
+
+# ------------------------------------------------- cluster topology
+
+@utility("citus_add_node")
+def _citus_add_node(cl, name, args):
+    """citus_add_node([nodename, nodeport]): with arguments, the node
+    advertises a data-plane endpoint (pg_dist_node nodename/nodeport);
+    without, a local-placement node."""
+    from citus_tpu_torch.catalog.catalog import NodeMeta
+    nid = max(cl.catalog.nodes, default=-1) + 1
+    host = str(args[0]) if len(args) > 0 else None
+    port = int(args[1]) if len(args) > 1 else None
+    cl.catalog.nodes[nid] = NodeMeta(nid, True, host, port)
+    cl.catalog.ddl_epoch += 1
+    cl.catalog.commit()
+    return Result(columns=["citus_add_node"], rows=[(nid,)])
+
+
+@utility("citus_remote_stats")
+def _citus_remote_stats(cl, name, args):
+    """Data-plane transfer counters (files/bytes fetched, batches
+    shipped, placement syncs) — the cross-host analog of the
+    connection-level stats views."""
+    rd = cl.catalog.remote_data
+    st = dict(rd.stats) if rd is not None else {}
+    cols = ["files_fetched", "bytes_fetched", "batches_shipped",
+            "remote_syncs"]
+    return Result(columns=cols,
+                  rows=[tuple(st.get(c, 0) for c in cols)])
+
+
+@utility("citus_remove_node")
+def _citus_remove_node(cl, name, args):
+    from citus_tpu_torch.errors import CatalogError
+    nid = int(args[0]) if args else None
+    if nid is None or nid not in cl.catalog.nodes:
+        raise CatalogError(f"node {nid} does not exist")
+    for t in cl.catalog.tables.values():
+        for s in t.shards:
+            if nid in s.placements:
+                raise CatalogError(
+                    f"cannot remove node {nid}: it still has shard placements")
+    del cl.catalog.nodes[nid]
+    cl.catalog.ddl_epoch += 1
+    cl.catalog.commit()
+    return Result(columns=["citus_remove_node"], rows=[(None,)])
+
+
+# --------------------------------------------- replicated tenant quotas
+
+@utility("citus_add_tenant_quota")
+def _citus_add_tenant_quota(cl, name, args):
+    # SELECT citus_add_tenant_quota(tenant, weight [, max_concurrency
+    # [, rate_limit_qps [, queue_depth [, priority_class]]]]) — a
+    # replicated catalog write (metadata/quotas.py): every coordinator's
+    # registry mirrors it, so admission decisions match cluster-wide
+    from citus_tpu_torch.metadata import replicated_set_quota
+    replicated_set_quota(
+        cl, str(args[0]),
+        weight=float(args[1]) if len(args) > 1 else 0.0,
+        max_concurrency=int(args[2]) if len(args) > 2 else 0,
+        rate_limit_qps=float(args[3]) if len(args) > 3 else 0.0,
+        queue_depth=int(args[4]) if len(args) > 4 else 0,
+        priority_class=str(args[5]) if len(args) > 5 else "")
+    return Result(columns=[name], rows=[(str(args[0]),)])
+
+
+@utility("citus_remove_tenant_quota")
+def _citus_remove_tenant_quota(cl, name, args):
+    from citus_tpu_torch.metadata import replicated_remove_quota
+    return Result(columns=[name],
+                  rows=[(replicated_remove_quota(cl, str(args[0])),)])
+
+
+@utility("citus_tenant_quotas")
+def _citus_tenant_quotas(cl, name, args):
+    from citus_tpu_torch.workload import GLOBAL_TENANTS
+    return Result(columns=["tenant", "weight", "max_concurrency",
+                           "rate_limit_qps", "queue_depth", "pinned_node",
+                           "priority_class"],
+                  rows=GLOBAL_TENANTS.rows_view())
+
+
+@utility("citus_add_priority_class")
+def _citus_add_priority_class(cl, name, args):
+    # a class node in the scheduler's two-level stride tree, replicated
+    # like a quota
+    from citus_tpu_torch.metadata import replicated_set_class
+    replicated_set_class(cl, str(args[0]),
+                         float(args[1]) if len(args) > 1 else 1.0)
+    return Result(columns=[name], rows=[(str(args[0]),)])
+
+
+@utility("citus_priority_classes")
+def _citus_priority_classes(cl, name, args):
+    from citus_tpu_torch.workload import GLOBAL_TENANTS
+    return Result(columns=["class", "weight"],
+                  rows=GLOBAL_TENANTS.classes_view())

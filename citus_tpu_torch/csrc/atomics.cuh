@@ -1,6 +1,6 @@
 // Atomic folds of one operand into a register, shared by the port's
-// fold kernels (scan_agg_fold.cu, hash_agg_insert.cu): count/sum/min/max
-// by accumulator type.  int64 sums wrap in two's complement as XLA's do;
+// fold kernels (scan_agg_fold.cu, hash_agg_insert.cu, hash_agg_merge.cu):
+// count/sum/min/max by accumulator type.  int64 sums wrap in two's complement as XLA's do;
 // float min/max propagate NaN as jnp.minimum / jnp.maximum do.
 
 #pragma once
@@ -91,6 +91,18 @@ __device__ __forceinline__ void combine_f32(int kind, float* p, float v) {
     else atomicAdd(p, v);
 }
 
+// add, min or max the value of row `i` of column `a` into the register at
+// `slot` of an op of `kind` with accumulator dtype `dt`
+__device__ __forceinline__ void combine_value(int kind, int dt, void* slot,
+                                              const SafCol& a, int64_t i) {
+    switch (dt) {
+        case SAF_I64: combine_i64(kind, (long long*)slot, load_i64(a, i)); break;
+        case SAF_I32: combine_i32(kind, (int*)slot, (int)load_i64(a, i)); break;
+        case SAF_F32: combine_f32(kind, (float*)slot, load_f32(a, i)); break;
+        default: combine_f64(kind, (double*)slot, load_f64(a, i)); break;
+    }
+}
+
 // fold one valid row `i` of column `a` into the register at `slot` of an
 // op of `kind` with accumulator dtype `dt` (8-byte count registers)
 __device__ __forceinline__ void fold_value(int kind, int dt, void* slot,
@@ -99,10 +111,17 @@ __device__ __forceinline__ void fold_value(int kind, int dt, void* slot,
         atomicAdd((unsigned long long*)slot, 1ull);
         return;
     }
-    switch (dt) {
-        case SAF_I64: combine_i64(kind, (long long*)slot, load_i64(a, i)); break;
-        case SAF_I32: combine_i32(kind, (int*)slot, (int)load_i64(a, i)); break;
-        case SAF_F32: combine_f32(kind, (float*)slot, load_f32(a, i)); break;
-        default: combine_f64(kind, (double*)slot, load_f64(a, i)); break;
+    combine_value(kind, dt, slot, a, i);
+}
+
+// merge entry `i` of a partial-state column `a` (a peer's register, of
+// the accumulator dtype) into the register at `slot`: a count adds the
+// entry's count, a sum its sum, min/max keep the extremum
+__device__ __forceinline__ void merge_value(int kind, int dt, void* slot,
+                                            const SafCol& a, int64_t i) {
+    if (kind == SAF_COUNT_STAR || kind == SAF_COUNT) {
+        atomicAdd((unsigned long long*)slot, (unsigned long long)load_i64(a, i));
+        return;
     }
+    combine_value(kind, dt, slot, a, i);
 }

@@ -1,6 +1,7 @@
 // The match-or-claim insert of one row into a device hash table, shared
-// by the port's hash-insert kernels (hash_agg_insert.cu, one table;
-// hash_agg_insert_batched.cu, Q tables over one batch): the parameter
+// by the port's hash kernels (hash_agg_insert.cu, one table;
+// hash_agg_insert_batched.cu, Q tables over one batch; hash_agg_merge.cu,
+// a peer's table entries into one table): the parameter
 // block, the canonical key bits and fingerprint of a row, and the probe
 // of one slot.  See hash_agg_insert.cu for the claim protocol.  The layout
 // of HaiParams is mirrored by ctypes in
@@ -166,15 +167,20 @@ __device__ __forceinline__ bool probe(const HaiParams& p, const KeyBits* keys, i
     return slot_matches(p, keys, s);
 }
 
-// the canonical keys of row i into keys[], -> the row's 64-bit fingerprint
-__device__ __forceinline__ uint64_t row_fingerprint(const HaiParams& p, int64_t i, KeyBits* keys) {
+// the 64-bit fingerprint of n_keys canonical keys
+__device__ __forceinline__ uint64_t keys_fingerprint(int n_keys, const KeyBits* keys) {
     uint64_t h = HAI_FNV;
-    for (int k = 0; k < p.n_keys; ++k) {
-        keys[k] = load_key(p.keys[k], i);
+    for (int k = 0; k < n_keys; ++k) {
         uint64_t bits = keys[k].valid ? keys[k].fp : HAI_GOLD;
         h = mix64(h, bits + (keys[k].valid ? 1ull : 0ull));
     }
     return h;
+}
+
+// the canonical keys of row i into keys[], -> the row's 64-bit fingerprint
+__device__ __forceinline__ uint64_t row_fingerprint(const HaiParams& p, int64_t i, KeyBits* keys) {
+    for (int k = 0; k < p.n_keys; ++k) keys[k] = load_key(p.keys[k], i);
+    return keys_fingerprint(p.n_keys, keys);
 }
 
 // fold the ops of row i into slot `slot` of the partial tables, and count it

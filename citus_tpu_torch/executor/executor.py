@@ -16,7 +16,13 @@ Maps a PhysicalPlan onto the available backend:
   of each batched kernel per batch (executor/megabatch.py)
 
 Partial states from multiple rounds merge on the host, exactly like the
-reference merges per-task tuples on the coordinator.  The multi-device
+reference merges per-task tuples on the coordinator.  Shards hosted only
+by another coordinator run there: the worker half of the plan ships as
+an ``execute_task`` RPC (executor/worker_tasks.py, executor/pipeline.py)
+while the local shards scan here, and the returned partial states,
+hash tables (re-inserted through one ``hash_agg_merge`` each) or
+filtered rows join the local ones; a task that fails falls back to
+pulling the placement's files.  The multi-device
 mesh path of the reference (shard_map + psum) is not ported: it needs
 more than one device (ROADMAP.md queue B, B6).
 """
@@ -285,6 +291,15 @@ class _StreamStats:
     task_times: list = field(default_factory=list)
     task_bytes: list = field(default_factory=list)
 
+    def extend(self, other: "_StreamStats") -> None:
+        """Add a second pass over other shards (push fallbacks)."""
+        self.cached = self.cached and other.cached
+        self.n_dispatch += other.n_dispatch
+        self.nbytes += other.nbytes
+        self.window_peak = max(self.window_peak, other.window_peak)
+        self.task_times += other.task_times
+        self.task_bytes += other.task_bytes
+
     def publish(self, plan: PhysicalPlan, pstats) -> None:
         """Into the plan's EXPLAIN surface: pipeline stats of a streamed
         pass, launches, window peak and per-task times."""
@@ -458,10 +473,34 @@ def _run_agg(cat: Catalog, plan: PhysicalPlan, settings: Settings,
         # host_agg span
         with _trace.span("host_agg", shards=len(plan.shard_indexes)):
             return _run_agg_hash_host(cat, plan, settings, params, device)
+    # push the worker half to the coordinators OWNING remote-only
+    # placements (ship partial-agg states, not stripe files) and overlap
+    # the remote waits with the local shard scan: dispatch first, scan
+    # while the RPCs fly, collect as they complete.  Push fallbacks scan
+    # locally in a second pass; combine is associative, so the split
+    # changes nothing in the result.
     from citus_tpu_torch.executor.pipeline import dispatch_remote_tasks
     run = _run_partials_cpu if backend == "cpu" else _run_partials_device
-    local, _dispatch = dispatch_remote_tasks(cat, plan, settings, params)
-    partials = run(cat, plan, settings, params, device)
+    local, dispatch = dispatch_remote_tasks(cat, plan, settings, params)
+    try:
+        partials = run(cat, _with_shards(plan, local), settings, params,
+                       device)
+    except BaseException:
+        dispatch.abort()  # no RPC thread outlives the attempt
+        raise
+    fallback, remote_partials = dispatch.collect()
+    if fallback:
+        tt = list(plan.runtime_cache.get("task_times", []))
+        tb = list(plan.runtime_cache.get("task_bytes", []))
+        remote_partials = [*remote_partials,
+                           run(cat, _with_shards(plan, fallback), settings,
+                               params, device)]
+        plan.runtime_cache["task_times"] = (
+            tt + list(plan.runtime_cache.get("task_times", [])))
+        plan.runtime_cache["task_bytes"] = (
+            tb + list(plan.runtime_cache.get("task_bytes", [])))
+    if remote_partials:
+        partials = combine_partials_host(plan, [partials, *remote_partials])
     if mode == "scalar":
         # one group: scalars become length-1 arrays; vector partials
         # (HLL registers) gain a leading group axis
@@ -475,6 +514,15 @@ def _run_agg(cat: Catalog, plan: PhysicalPlan, settings: Settings,
         return []
     sel_parts = tuple(np.asarray(p)[occupied] for p in parts)
     return finalize_groups(plan, cat, keys, sel_parts, params_env=penv)
+
+
+def _with_shards(plan: PhysicalPlan, shard_indexes) -> PhysicalPlan:
+    """``plan`` restricted to ``shard_indexes`` (sharing its
+    runtime_cache), or ``plan`` itself when that is all of them."""
+    if list(shard_indexes) == list(plan.shard_indexes):
+        return plan
+    import dataclasses
+    return dataclasses.replace(plan, shard_indexes=list(shard_indexes))
 
 
 def _params_env(plan, params) -> dict:
@@ -571,17 +619,60 @@ class _SpillDrain:
         self.seconds += clock() - t0
 
 
+def _stage_to_device(arrays, device) -> list:
+    """Host arrays (possibly read-only views into a received frame) ->
+    tensors on ``device``.  On a card each goes through a page-locked
+    buffer and an asynchronous copy on the current stream (the caching
+    host allocator keeps the buffer until the copy is done); on the CPU
+    each is copied once, since a tensor must not alias a read-only
+    frame."""
+    import torch
+    from citus_tpu_torch.ops.xp_torch import torch_dtype
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        if device.type != "cuda":
+            out.append(torch.from_numpy(np.array(a)))
+            continue
+        buf = torch.empty(a.shape, dtype=torch_dtype(a.dtype),
+                          pin_memory=True)
+        buf.numpy()[...] = a
+        out.append(buf.to(device, non_blocking=True))
+    return out
+
+
+def _merge_remote_table(table, plan: PhysicalPlan, entries, device):
+    """Re-insert a peer's shipped hash table (``entries`` = (key
+    tables, partial tables, rows) as host arrays) into ``table`` through
+    one ``hash_agg_merge``; -> the host mask of entries that lost both
+    probes."""
+    from citus_tpu_torch.ops.hash_agg_merge import hash_agg_merge
+    key_e, part_e, row_e = entries
+    flat = [a for kv, kf in key_e for a in (kv, kf)] + list(part_e) + [row_e]
+    dev = _stage_to_device(flat, device)
+    k = 2 * len(key_e)
+    keys = [(dev[i].to(table.key_values[i // 2].dtype), dev[i + 1])
+            for i in range(0, k, 2)]
+    parts = [t.to(p.dtype) for t, p in zip(dev[k:-1], table.partials)]
+    spill = hash_agg_merge(table, keys, parts, dev[-1],
+                           [op.kind for op in plan.partial_ops])
+    return spill.cpu().numpy()
+
+
 def _run_hash_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
-                     params, acc, penv, device):
-    """Device half of a hash_host plan: stream every shard batch into ONE
-    device-resident hash table (one ``hash_agg_insert`` per batch,
-    updated in place), draining spills into ``acc`` exactly.  Every
-    shard is local (the remote half is ROADMAP.md A13).  Returns the
-    fetched (key_tables, partials, rows) host arrays."""
+                     params, acc, penv, device, push_remote: bool = False):
+    """Device half of a hash_host plan: stream every local shard batch
+    into ONE device-resident hash table (one ``hash_agg_insert`` per
+    batch, updated in place), draining spills into ``acc`` exactly.
+    With ``push_remote``, remote-only shards ship as hash tasks first;
+    each table a peer returns re-inserts into this one through one
+    ``hash_agg_merge`` launch (its losers and the peer's host-exact
+    spill merge on the host), and push fallbacks re-stream locally.
+    Returns the fetched (key_tables, partials, rows) host arrays."""
     import torch
     from citus_tpu_torch.executor.pipeline import PipelineStats
     from citus_tpu_torch.ops.hash_agg import (
-        build_fused_hash_worker, empty_hash_state,
+        build_fused_hash_worker, empty_hash_state, merge_hash_tables_into,
     )
     from citus_tpu_torch.ops.xp_torch import TorchNamespace
 
@@ -600,11 +691,42 @@ def _run_hash_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
     drain = _SpillDrain(plan, [acc], penv)
     table = empty_hash_state(plan, S, key_dtypes, device)
     pcols, pvalids = _device_params(xp, *params)
-    st = _stream_device_batches(
-        cat, plan, settings, device,
-        lambda db, hb: drain.add(hb, fused(table, db.cols + pcols,
-                                           db.valids + pvalids, db.row_mask)),
-        pstats, on_sync=drain)
+
+    def stream(shards) -> _StreamStats:
+        return _stream_device_batches(
+            cat, _with_shards(plan, shards), settings, device,
+            lambda db, hb: drain.add(hb, fused(
+                table, db.cols + pcols, db.valids + pvalids, db.row_mask)),
+            pstats, on_sync=drain)
+
+    local, dispatch = plan.shard_indexes, None
+    if push_remote:
+        from citus_tpu_torch.executor.pipeline import dispatch_remote_tasks
+        local, dispatch = dispatch_remote_tasks(cat, plan, settings, params)
+    try:
+        st = stream(local)
+    except BaseException:
+        if dispatch is not None:
+            dispatch.abort()  # no RPC thread outlives the attempt
+        raise
+    merge_s = 0.0
+    if dispatch is not None:
+        fallback, remote = dispatch.collect()
+        if fallback:
+            st.extend(stream(fallback))
+        t0 = clock()
+        for entries, spilled in remote:
+            if entries is not None:
+                espill = _merge_remote_table(table, plan, entries, device)
+                if espill.any():
+                    # fingerprint-collision losers among the peer's
+                    # entries: merge exactly on the host
+                    merge_hash_tables_into(acc, plan, *entries,
+                                           entry_mask=espill)
+            if spilled is not None:
+                merge_hash_tables_into(acc, plan, *spilled)
+            GLOBAL_COUNTERS.bump("hash_partials_pushed")
+        merge_s = clock() - t0
     t_dev = clock()
     h_keys, h_partials, h_rows = table.to_host()
     pstats.device_s += clock() - t_dev
@@ -615,7 +737,55 @@ def _run_hash_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
     pl["hash_occupancy_pct"] = round(100.0 * int((h_rows > 0).sum()) / S, 1)
     pl["hash_spilled_rows"] = drain.rows
     pl["hash_spill_merge_ms"] = round(drain.seconds * 1e3, 3)
+    if dispatch is not None:
+        pl["hash_remote_merge_ms"] = round(merge_s * 1e3, 3)
     return h_keys, h_partials, h_rows
+
+
+def _run_hash_partial_state(cat: Catalog, plan: PhysicalPlan,
+                            settings: Settings, params=((), ()),
+                            device=None):
+    """Worker half of a pushed hash task: -> (table | None, spilled |
+    None) where ``table`` is the merged device hash table's host arrays
+    and ``spilled`` re-renders the host accumulator's exact groups as
+    entry arrays (key values, int8 flags [valid+1], partial values, one
+    synthetic row per group).  cpu-backend workers ship spill-only."""
+    from citus_tpu_torch.executor.host_agg import HostGroupAccumulator
+
+    acc = HostGroupAccumulator(len(plan.bound.group_keys), plan.partial_ops)
+    penv = _params_env(plan, params)
+    table = None
+    if settings.executor.task_executor_backend != "cpu":
+        table = _run_hash_device(cat, plan, settings, params, acc, penv,
+                                 device)
+    else:
+        _host_group(cat, plan, params, acc)
+    key_arrays, partials = acc.finalize(
+        [k.type for k in plan.bound.group_keys])
+    spilled = None
+    if key_arrays:
+        G = int(np.asarray(key_arrays[0][0]).shape[0])
+        keys_w = [(np.asarray(vals),
+                   np.asarray(valid).astype(np.int8) + 1)
+                  for vals, valid in key_arrays]
+        spilled = (keys_w, tuple(np.asarray(p) for p in partials or ()),
+                   np.ones(G, np.int64))
+    return table, spilled
+
+
+def _host_group(cat: Catalog, plan: PhysicalPlan, params, acc) -> None:
+    """Every shard's rows grouped on the host into ``acc`` (the cpu
+    backend, and partials only the host accumulates)."""
+    pcols, pvalids = params
+    worker = build_worker_fn(plan, np)
+    for cols, valids, n in _host_batches(cat, plan):
+        mask, keys, args = worker(cols + pcols, valids + pvalids,
+                                  np.ones(n, bool))
+        acc.add_batch(np.asarray(mask),
+                      [(np.asarray(v), m if isinstance(m, bool)
+                        else np.asarray(m)) for v, m in keys],
+                      [(np.asarray(v), m if isinstance(m, bool)
+                        else np.asarray(m)) for v, m in args])
 
 
 def _run_agg_hash_host(cat: Catalog, plan: PhysicalPlan, settings: Settings,
@@ -624,21 +794,22 @@ def _run_agg_hash_host(cat: Catalog, plan: PhysicalPlan, settings: Settings,
 
     gpu backend: streaming device hash aggregation (ops/hash_agg.py) —
     one device-resident table, one ``hash_agg_insert`` per batch, exact
-    host merge of the final table and of spilled rows.  cpu backend (and
-    exact value-set or sketch partials): full host grouping."""
+    host merge of the final table and of spilled rows; remote-only
+    shards push hash tasks and their tables merge in through
+    ``hash_agg_merge``.  cpu backend (and exact value-set or sketch
+    partials): full host grouping over the pull path."""
     from citus_tpu_torch.executor.host_agg import HostGroupAccumulator
-    from citus_tpu_torch.executor.pipeline import dispatch_remote_tasks
+    from citus_tpu_torch.executor.worker_tasks import note_inexpressible
 
     backend = settings.executor.task_executor_backend
     acc = HostGroupAccumulator(len(plan.bound.group_keys), plan.partial_ops)
-    pcols, pvalids = params
     penv = _params_env(plan, params)
-    dispatch_remote_tasks(cat, plan, settings, params)
 
     if backend != "cpu" and not _hash_has_exact(plan):
         from citus_tpu_torch.ops.hash_agg import merge_hash_tables_into
         h_keys, h_partials, h_rows = _run_hash_device(
-            cat, plan, settings, params, acc, penv, device)
+            cat, plan, settings, params, acc, penv, device,
+            push_remote=True)
         t0 = clock()
         merge_hash_tables_into(acc, plan, h_keys, h_partials, h_rows)
         key_arrays, partials = acc.finalize(
@@ -652,15 +823,9 @@ def _run_agg_hash_host(cat: Catalog, plan: PhysicalPlan, settings: Settings,
                                params_env=penv)
 
     # exact value-set partials (or the cpu oracle backend) stay host-only
-    worker = build_worker_fn(plan, np)
-    for cols, valids, n in _host_batches(cat, plan):
-        mask, keys, args = worker(cols + pcols, valids + pvalids,
-                                  np.ones(n, bool))
-        acc.add_batch(np.asarray(mask),
-                      [(np.asarray(v), m if isinstance(m, bool)
-                        else np.asarray(m)) for v, m in keys],
-                      [(np.asarray(v), m if isinstance(m, bool)
-                        else np.asarray(m)) for v, m in args])
+    # and are not elementwise-combinable — remote-only shards pull
+    note_inexpressible(cat, plan, settings)
+    _host_group(cat, plan, params, acc)
     key_arrays, partials = acc.finalize([k.type for k in plan.bound.group_keys],
                                         scalar=not plan.bound.group_keys)
     if partials is None:
@@ -685,60 +850,124 @@ def _build_filter_mask(plan: PhysicalPlan, params):
          zip(param_env_names(plan.bound.param_specs), pcols)})
 
 
+class _ProjectionMask:
+    """The WHERE of a projection as the row mask of one host batch: on
+    the gpu backend one generated ``filter_mask`` launch over only the
+    predicate's columns, read back to the host; on the cpu backend the
+    numpy predicate.  ``launches`` counts the kernel launches."""
+
+    def __init__(self, plan: PhysicalPlan, settings: Settings, params,
+                 device):
+        backend = settings.executor.task_executor_backend
+        if backend not in ("cpu", "gpu"):
+            raise ExecutionError(
+                f"unknown task_executor_backend {backend!r} (cpu | gpu)")
+        self.plan = plan
+        self.penv = _params_env(plan, params)
+        self.prog = None
+        self.launches = 0
+        if backend == "gpu" and plan.bound.filter is not None:
+            import torch
+            if device is None:
+                raise ExecutionError(
+                    "the gpu backend needs the Cluster's device")
+            self.device = torch.device(device)
+            self.prog = get_kernel(
+                plan, f"filter:{self.device}",
+                lambda: _build_filter_mask(plan, params),
+                extra=(str(self.device),))
+
+    def __call__(self, env: dict, n: int) -> np.ndarray:
+        plan = self.plan
+        if self.prog is not None:
+            import torch
+            from citus_tpu_torch.ops.filter_mask import filter_mask
+            dcols = {c: tuple(torch.from_numpy(np.ascontiguousarray(a))
+                              .to(self.device) for a in env[c])
+                     for c in self.prog.columns}
+            row_mask = torch.ones(n, dtype=torch.bool, device=self.device)
+            self.launches += 1
+            return filter_mask(self.prog, dcols, self.penv,
+                               row_mask).cpu().numpy()
+        if plan.bound.filter is None:
+            return np.ones(n, bool)
+        from citus_tpu_torch.planner.bound import compile_expr, predicate_mask
+        cfn_np = plan.runtime_cache.get("np_filter")
+        if cfn_np is None:
+            cfn_np = compile_expr(plan.bound.filter, np)
+            plan.runtime_cache["np_filter"] = cfn_np
+        return np.asarray(predicate_mask(np, cfn_np, env, np.ones(n, bool))) \
+            & np.ones(n, bool)
+
+
 def _run_projection(cat: Catalog, plan: PhysicalPlan, settings: Settings,
                     params=((), ()), device=None) -> list[tuple]:
-    """SELECT without aggregates: scan every shard, mask its rows by the
-    WHERE clause — on the gpu backend one generated ``filter_mask``
-    launch per shard batch over only the predicate's columns, read back
-    to the host — and project the kept rows on the host."""
+    """SELECT without aggregates: scan every local shard, mask its rows
+    by the WHERE clause (``_ProjectionMask``) and project the kept rows
+    on the host.  Remote-only placements run scan and filter where the
+    data lives and return compacted rows; the local shards stream here
+    while those RPCs are in flight."""
     from citus_tpu_torch.executor.finalize import project_rows
     from citus_tpu_torch.executor.pipeline import dispatch_remote_tasks
-    from citus_tpu_torch.planner.bound import compile_expr, predicate_mask
 
-    backend = settings.executor.task_executor_backend
-    if backend not in ("cpu", "gpu"):
-        raise ExecutionError(
-            f"unknown task_executor_backend {backend!r} (cpu | gpu)")
-    penv = _params_env(plan, params)
-    prog = None
-    if backend == "gpu" and plan.bound.filter is not None:
-        import torch
-        from citus_tpu_torch.ops.filter_mask import filter_mask
-        if device is None:
-            raise ExecutionError("the gpu backend needs the Cluster's device")
-        device = torch.device(device)
-        prog = get_kernel(plan, f"filter:{device}",
-                          lambda: _build_filter_mask(plan, params),
-                          extra=(str(device),))
-    dispatch_remote_tasks(cat, plan, settings, params)
+    masker = _ProjectionMask(plan, settings, params, device)
+    penv = masker.penv
+
+    def scan(shards, out: list) -> None:
+        for cols, valids, n in _host_batches(cat, _with_shards(plan, shards)):
+            env = dict(zip(plan.scan_columns, zip(cols, valids)))
+            env.update(penv)
+            out.append((env, masker(env, n)))
+
+    local, dispatch = dispatch_remote_tasks(cat, plan, settings, params)
+    local_batches: list = []
+    try:
+        scan(local, local_batches)
+    except BaseException:
+        dispatch.abort()  # no RPC thread outlives the attempt
+        raise
+    fallback, remote_batches = dispatch.collect()
     env_batches = []
-    n_dispatch = 0
-    for cols, valids, n in _host_batches(cat, plan):
-        env = dict(zip(plan.scan_columns, zip(cols, valids)))
+    schema = plan.bound.table.schema
+    for values, validity in remote_batches:
+        if not plan.scan_columns:
+            continue
+        n = len(values[plan.scan_columns[0]])
+        if n == 0:
+            continue
+        env = {c: (values[c].astype(schema.scan_dtype(c, device=True),
+                                    copy=False), validity[c])
+               for c in plan.scan_columns}
         env.update(penv)
-        if prog is not None:
-            dcols = {c: tuple(torch.from_numpy(np.ascontiguousarray(a))
-                              .to(device) for a in env[c])
-                     for c in prog.columns}
-            row_mask = torch.ones(n, dtype=torch.bool, device=device)
-            mask = filter_mask(prog, dcols, penv, row_mask).cpu().numpy()
-            n_dispatch += 1
-        elif plan.bound.filter is not None:
-            cfn_np = plan.runtime_cache.get("np_filter")
-            if cfn_np is None:
-                cfn_np = compile_expr(plan.bound.filter, np)
-                plan.runtime_cache["np_filter"] = cfn_np
-            mask = np.asarray(predicate_mask(np, cfn_np, env,
-                                             np.ones(n, bool)))
-            mask = mask & np.ones(n, bool)
-        else:
-            mask = np.ones(n, bool)
-        env_batches.append((env, mask))
-    plan.runtime_cache["pipeline"]["filter_dispatches"] = n_dispatch
+        env_batches.append((env, np.ones(n, bool)))
+    env_batches.extend(local_batches)
+    if fallback:
+        scan(fallback, env_batches)
+    plan.runtime_cache["pipeline"]["filter_dispatches"] = masker.launches
     return project_rows(plan, cat, env_batches)
 
 
 # ---------------------------------------------------------------- entry
+
+
+def _guard_remote_written(cat, table_names) -> None:
+    """Refuse reads of tables whose REMOTE shards this transaction
+    wrote: the staged state would live in branch sessions on other
+    hosts, invisible to local scans.  Cross-host DML is not ported
+    (ROADMAP.md A11), so no transaction of this package records such
+    writes today; the check stays at the executor door, as in the
+    reference, for when it is."""
+    from citus_tpu_torch.storage.overlay import current_overlay
+    txn = current_overlay()
+    if txn is None or not getattr(txn, "remote_written_tables", None):
+        return
+    hit = set(table_names) & txn.remote_written_tables
+    if hit:
+        from citus_tpu_torch.errors import UnsupportedFeatureError
+        raise UnsupportedFeatureError(
+            f"cannot read {sorted(hit)[0]!r} in this transaction after "
+            "writing its remote-hosted shards (remote staged state is "
+            "not visible here); COMMIT first")
 
 
 def _bind_time_prune(plan: PhysicalPlan, params) -> PhysicalPlan:
@@ -771,6 +1000,7 @@ def execute_select(cat: Catalog, bound: BoundSelect, settings: Settings,
     """Run one bound SELECT.  ``device`` is the torch device of the
     ``gpu`` backend (the Cluster's)."""
     t0 = clock()
+    _guard_remote_written(cat, [bound.table.name])
     if plan is None:
         plan = plan_select(cat, bound, direct_limit=settings.planner.direct_gid_limit)
     params = encode_params(cat, bound, param_values)
@@ -865,8 +1095,20 @@ def _finish_select(bound: BoundSelect, plan: PhysicalPlan, rows: list[tuple],
     visible = list(bound.output_names)
     if bound.hidden_outputs:
         visible = visible[:len(visible) - bound.hidden_outputs]
+    # attribution books the per-execution task logs exactly once (pop,
+    # not get): a later execution of this cached plan served from the
+    # device cache re-books nothing stale
     task_times = plan.runtime_cache.pop("task_times", [])
-    plan.runtime_cache.pop("task_bytes", None)
+    task_bytes = plan.runtime_cache.pop("task_bytes", [])
+    remote_tasks = plan.runtime_cache.pop("remote_tasks", [])
+    from citus_tpu_torch.observability.load_attribution import (
+        GLOBAL_ATTRIBUTION,
+    )
+    from citus_tpu_torch.workload import tenant_key
+    GLOBAL_ATTRIBUTION.book_query(
+        bound.table, tenant_key(plan.router_key), task_times, task_bytes,
+        len(rows), remote_tasks,
+        head_si=plan.shard_indexes[0] if plan.shard_indexes else None)
     explain = {
         "strategy": strategy,
         "shards": len(plan.shard_indexes),
@@ -874,7 +1116,7 @@ def _finish_select(bound: BoundSelect, plan: PhysicalPlan, rows: list[tuple],
         "intervals": [c.column for c in plan.intervals],
         "elapsed_s": elapsed,
         "tasks": task_times,
-        "remote_tasks": [],
+        "remote_tasks": remote_tasks,
         "pipeline": plan.runtime_cache.get("pipeline", {}),
         "router_key": plan.router_key,
     }

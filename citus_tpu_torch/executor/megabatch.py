@@ -610,7 +610,8 @@ def megabatch_eligible(cat, bound, settings, plan, params, device) -> bool:
     serial result exactly: parameterized single-table plan, scalar /
     direct-gid / hash_host aggregation or projection, no open
     transaction overlay (staged writes are per-session state the shared
-    scan must not see), and a WHERE the predicate generator takes.  Each
+    scan must not see), no shard that only another coordinator hosts,
+    and a WHERE the predicate generator takes.  Each
     refusal is counted by reason (``megabatch_ineligible``).  Keys or
     aggregate arguments that reference a parameter raise: the batched
     kernels share them across riders, and such a query must not slip
@@ -639,6 +640,12 @@ def megabatch_eligible(cat, bound, settings, plan, params, device) -> bool:
     from citus_tpu_torch.storage.overlay import current_overlay
     if current_overlay() is not None:
         return _ineligible("transaction_overlay")
+    from citus_tpu_torch.executor.worker_tasks import split_pushable
+    _local, remote = split_pushable(cat, plan, settings)
+    if remote:
+        # shards hosted by another coordinator run there as pushed
+        # tasks: the serial path owns that fan-out
+        return _ineligible("remote_shards")
     if bound.filter is None:
         # parameters come from hoisted WHERE literals; without a WHERE
         # there is nothing per query to batch

@@ -10,8 +10,7 @@ per-host times, not the sum.  SURVEY §2.4 maps "intra-node multi-core
 parallelism / pipelined ingest" to XLA async streams; this module is
 the host half of that lowering.
 
-Two pieces in the reference; the first is stubbed here to "all shards
-local" until ROADMAP.md A13:
+Two pieces, as in the reference (``citus_tpu/executor/pipeline.py``):
 
 - ``dispatch_remote_tasks`` / ``RemoteTaskDispatch``: fan out
   ``execute_task`` RPCs through the coordinator's single event loop
@@ -38,9 +37,11 @@ from __future__ import annotations
 
 import queue
 import threading
+from collections import deque
 from typing import Iterator, Optional
 
 from citus_tpu_torch.errors import ExecutionError
+from citus_tpu_torch.observability import trace as _trace
 from citus_tpu_torch.observability.trace import clock as _perf
 from citus_tpu_torch.stats import begin_wait, end_wait
 
@@ -241,22 +242,293 @@ def prefetch_batches(source: Iterator, depth: int,
 # ------------------------------------------------ remote task dispatch
 
 
-class LocalOnlyDispatch:
-    """The remote fan-out of the reference (``execute_task`` RPCs to the
-    coordinators owning remote-only placements) is not ported yet
-    (ROADMAP.md A13): every shard scans locally, and ``collect()``
-    returns no fallbacks and no remote results."""
+class _NodePool:
+    """Per-worker-node dispatch window (the WorkerPool analog): starts
+    at one in-flight RPC and ramps by one per success toward the
+    citus.max_adaptive_executor_pool_size cap — slow start."""
 
+    __slots__ = ("window", "inflight", "pending")
+
+    def __init__(self):
+        self.window = 1
+        self.inflight = 0
+        self.pending: deque = deque()
+
+
+class RemoteTaskDispatch:
+    """In-flight remote execute_task fan-out.  Construction starts the
+    RPCs; ``collect()`` blocks until every task settled and returns
+    ``(fallback_shard_indexes, results)`` — failed tasks fall back to
+    the local pull path, successes carry decoded partials/batches.
+    ``abort()`` (error path) drops undispatched tasks and waits out the
+    in-flight ones so no thread outlives the query attempt."""
+
+    def __init__(self, cat, plan, settings, tasks, payload_kind: str):
+        self.cat = cat
+        self.plan = plan
+        self.cap = max(1, settings.executor.max_adaptive_pool_size)
+        self.shared_limit = settings.executor.max_shared_pool_size
+        self.wire = settings.executor.wire_format
+        self._mu = threading.Lock()
+        self._cv = threading.Condition(self._mu)
+        self._nodes: dict[int, _NodePool] = {}
+        # "agg" -> decode_partials, "hash" -> decode_hash_partials,
+        # anything else -> decode_batch (projection rows)
+        self._payload_kind = payload_kind
+        # si -> (node, meta, blob, rpc_s, rspan): raw response frames,
+        # decoded on the COLLECTING thread so the event loop never
+        # serializes decode work behind socket readiness
+        self._raw: dict[int, tuple] = {}
+        self._fallback: list[int] = []
+        self._total = len(tasks)
+        self._settled = 0
+        self._inflight_total = 0
+        self._inflight_peak = 0
+        self._aborted = False
+        # ONE dispatcher drives the whole fan-out (started lazily; a
+        # local-only query never spins it up)
+        self._loop = cat.remote_data.event_loop() if tasks else None
+        # trace context captured BEFORE the RPCs start: spans opened
+        # for them attach to the dispatching query's tree, and the
+        # (trace_id, parent span_id) pair rides in each task payload
+        self._trace_ctx = _trace.capture()
+        self._t_start = _perf()
+        self._t_last_done = self._t_start
+        for si, node, ep, task in tasks:
+            pool = self._nodes.setdefault(int(node), _NodePool())
+            pool.pending.append((si, node, ep, task))
+        self._launch()
+
+    # ---- scheduling (caller holds self._mu) ----
+    def _plan_locked(self) -> list:
+        """Pick every launchable task and bump the in-flight
+        accounting; returns fully-built submit descriptors.  The
+        actual ``submit`` (JSON encode + wake) happens OUTSIDE the
+        lock in ``_launch`` — under the old hold-``_mu``-across-submit
+        shape, the event-loop thread's completion callback blocked on
+        ``_mu`` for as long as a submitting caller spent encoding,
+        stalling every other in-flight RPC behind one thread's CPU
+        work (the citussan BLK01 loop-thread hazard)."""
+        from citus_tpu_torch.workload import GLOBAL_SCHEDULER
+        batch = []
+        progress = True
+        while progress:
+            progress = False
+            for pool in self._nodes.values():
+                if not pool.pending or pool.inflight >= pool.window:
+                    continue
+                if self._inflight_total == 0:
+                    holds_slot = False  # rides the query's required slot
+                elif GLOBAL_SCHEDULER.try_extra(self.shared_limit):
+                    holds_slot = True
+                else:
+                    return batch  # pool saturated; retry on completion
+                si, node, ep, task = pool.pending.popleft()
+                pool.inflight += 1
+                self._inflight_total += 1
+                self._inflight_peak = max(self._inflight_peak,
+                                          self._inflight_total)
+                rspan = None
+                if self._trace_ctx is not None:
+                    tr, parent = self._trace_ctx
+                    rspan = tr.open_span(
+                        "remote_task", parent.span_id,
+                        {"shard_index": int(si), "node": int(node)})
+                    # span context rides in the payload; the worker
+                    # records its half against the same trace_id and
+                    # returns it in the meta
+                    task = dict(task, trace={
+                        "trace_id": tr.trace_id,
+                        "parent_span_id": rspan.span_id})
+                batch.append((ep, task, pool, si, node, rspan,
+                              holds_slot))
+                progress = True
+        return batch
+
+    def _launch(self) -> None:
+        """Launch until no pool can accept more work: plan under the
+        (bookkeeping-only) lock, submit outside it.  Safe concurrently
+        from callers and the loop-thread done_cb: the accounting a plan
+        bumps is committed before ``_mu`` is released, so a racing plan
+        never double-launches a task."""
+        while True:
+            # lint: disable=BLK01 -- bookkeeping-only microsection: planning never encodes, submits, or blocks
+            with self._mu:
+                batch = self._plan_locked()
+            if not batch:
+                return
+            for ep, task, pool, si, node, rspan, holds_slot in batch:
+                t0 = _perf()
+                # done_cb runs ON the loop thread (never inline here),
+                # so a caller may hold its own locks across _launch
+                self._loop.submit(
+                    ep, "execute_task", task,
+                    done_cb=lambda fut, pool=pool, si=si, node=node,
+                    rspan=rspan, holds_slot=holds_slot, t0=t0:
+                    # lint: disable=BLK01 -- done_cb fires post-settle; _on_done's result()/lock never block the loop
+                    self._on_done(fut, pool, si, node, rspan,
+                                  holds_slot, t0))
+
+    # ---- one RPC settled (event-loop thread) ----
+    def _on_done(self, fut, pool, si, node, rspan, holds_slot,
+                 t0) -> None:
+        from citus_tpu_torch.executor.executor import GLOBAL_COUNTERS
+        from citus_tpu_torch.workload import GLOBAL_SCHEDULER
+        rpc_s = _perf() - t0
+        meta = blob = None
+        ok = True
+        try:
+            # lint: disable=BLK01 -- done_cb fires after the future settles; result() returns immediately
+            meta, blob = fut.result()
+        # lint: disable=SWL01 -- failure is counted below as remote_task_fallbacks; shard rescans locally
+        except Exception:
+            # worker dead, version skew, codec refused server-side:
+            # this shard scans locally through the pull path instead
+            ok = False
+        if blob is None:
+            ok = False  # a pushed task must return a binary frame
+        nbytes = len(blob) if blob is not None else 0
+        if rspan is not None:
+            tr, _parent = self._trace_ctx
+            # dec_ms lands later, from the collecting thread's decode
+            rspan.set(ok=ok, bytes=int(nbytes),
+                      rpc_ms=round(rpc_s * 1000, 3), dec_ms=0.0)
+            tr.close_span(rspan)
+            if ok and isinstance(meta, dict) and meta.get("spans"):
+                tr.graft(meta["spans"], rspan)
+        if holds_slot:
+            GLOBAL_SCHEDULER.release_extra()
+        # lint: disable=BLK01 -- bookkeeping-only microsection on the loop thread; no holder blocks inside it
+        with self._mu:
+            pool.inflight -= 1
+            self._inflight_total -= 1
+            if ok:
+                pool.window = min(self.cap, pool.window + 1)  # slow start
+                self._raw[si] = (int(node), meta, blob, rpc_s, rspan)
+                GLOBAL_COUNTERS.bump("remote_tasks_pushed")
+                GLOBAL_COUNTERS.bump("remote_task_result_bytes", nbytes)
+            else:
+                self._fallback.append(si)
+                GLOBAL_COUNTERS.bump("remote_task_fallbacks")
+            self._settled += 1
+            self._t_last_done = _perf()
+            relaunch = not self._aborted
+            if self._settled >= self._total and self._inflight_total == 0:
+                self._cv.notify_all()
+        if relaunch:
+            self._launch()
+
+    # ---- caller side ----
     def collect(self) -> tuple[list[int], list]:
-        return [], []
+        """Wait for every in-flight task; returns (fallback shard
+        indexes, successful results in shard-index order) and publishes
+        the overlap/peak stats.  Decode runs here, on the caller — the
+        event loop only moves bytes."""
+        from citus_tpu_torch.executor.executor import GLOBAL_COUNTERS
+        from citus_tpu_torch.net.data_plane import (decode_batch,
+                                              decode_hash_partials,
+                                              decode_partials)
+        if self._total:
+            _trace.set_phase("remote-wait")
+        t_enter = _perf()
+        with self._cv:
+            if self._settled < self._total or self._inflight_total:
+                # only a real block opens a wait bracket: a fan-out that
+                # finished behind local work must not book phantom ms
+                wtok = begin_wait("remote_rpc")
+                try:
+                    while self._settled < self._total or self._inflight_total:
+                        self._cv.wait(0.5)
+                finally:
+                    end_wait(wtok)
+            fallback = list(self._fallback)
+            raw = dict(self._raw)
+            peak = self._inflight_peak
+            t_last = self._t_last_done
+        wait_s = _perf() - t_enter
+        results, tlog = [], []
+        for si in sorted(raw):
+            node, meta, blob, rpc_s, rspan = raw[si]
+            t1 = _perf()
+            try:
+                if self._payload_kind == "agg":
+                    payload = decode_partials(blob)
+                elif self._payload_kind == "hash":
+                    payload = decode_hash_partials(blob)
+                else:
+                    payload = decode_batch(blob)
+            # lint: disable=SWL01 -- counted as remote_task_fallbacks below; shard rescans locally
+            except Exception:
+                # decode failed after a successful RPC (codec skew):
+                # the shard rescans locally.  remote_tasks_pushed was
+                # already bumped when the frame landed — an accepted
+                # asymmetry for this rare path.
+                fallback.append(si)
+                GLOBAL_COUNTERS.bump("remote_task_fallbacks")
+                continue
+            dec_s = _perf() - t1
+            if rspan is not None:
+                rspan.set(dec_ms=round(dec_s * 1000, 3))
+            results.append(payload)
+            tlog.append((si, node, len(blob), rpc_s, dec_s))
+        fallback = sorted(fallback)
+        # the stretch of remote in-flight time the caller spent doing
+        # local work instead of blocking — the overlap win itself
+        overlapped_s = max(0.0, min(t_enter, t_last) - self._t_start)
+        self.plan.runtime_cache["remote_tasks"] = tlog
+        if self._total:
+            pl = self.plan.runtime_cache.setdefault("pipeline", {})
+            pl["remote_wait_ms"] = round(wait_s * 1000, 3)
+            pl["remote_overlapped_ms"] = round(overlapped_s * 1000, 3)
+            pl["remote_inflight_peak"] = peak
+            pl["wire_format"] = self.wire
+            GLOBAL_COUNTERS.bump_max("remote_tasks_inflight_peak", peak)
+            GLOBAL_COUNTERS.bump("remote_task_wait_overlapped_ms",
+                                 int(overlapped_s * 1000))
+        return fallback, results
 
     def abort(self) -> None:
-        pass
+        """Error path: stop launching, count nothing, wait out the
+        in-flight RPCs so no worker thread outlives the attempt."""
+        with self._cv:
+            self._aborted = True
+            for pool in self._nodes.values():
+                self._settled += len(pool.pending)
+                pool.pending.clear()
+            while self._inflight_total:
+                self._cv.wait(0.5)
 
 
 def dispatch_remote_tasks(cat, plan, settings, params=((), ())
-                          ) -> tuple[list[int], LocalOnlyDispatch]:
-    """-> ``(local_shard_indexes, dispatch)``: all shards local."""
+                          ) -> tuple[list[int], RemoteTaskDispatch]:
+    """Start the remote fan-out for every remote-only placement of
+    ``plan`` and return immediately: ``(local_shard_indexes,
+    dispatch)``.  The caller scans the local shards while the RPCs are
+    in flight, then ``dispatch.collect()``s.  Inexpressible plans (or
+    policy "pull") push nothing — everything stays local."""
+    from citus_tpu_torch.executor.executor import GLOBAL_COUNTERS
+    from citus_tpu_torch.executor.worker_tasks import encode_task, split_pushable
     plan.runtime_cache["pipeline"] = {}
-    plan.runtime_cache["remote_tasks"] = []
-    return list(plan.shard_indexes), LocalOnlyDispatch()
+    local, remote = split_pushable(cat, plan, settings)
+    if not remote:
+        plan.runtime_cache["remote_tasks"] = []
+        return list(local), RemoteTaskDispatch(cat, plan, settings, [], "")
+    template = encode_task(plan, params)
+    if template is not None:
+        # the coordinator's citus.wire_format decides how the WORKER
+        # encodes its result; a worker that predates the key defaults
+        # to npz, and decode always sniffs the magic — either way the
+        # response decodes
+        template = dict(template, wire=settings.executor.wire_format)
+    if template is None:
+        GLOBAL_COUNTERS.bump("remote_task_fallbacks", len(remote))
+        plan.runtime_cache["remote_tasks"] = []
+        return (sorted(local + [si for si, _, _ in remote]),
+                RemoteTaskDispatch(cat, plan, settings, [], ""))
+    tasks = [(si, node,
+              ep, dict(template,
+                       shard_id=plan.bound.table.shards[si].shard_id,
+                       node=node))
+             for si, node, ep in remote]
+    return list(local), RemoteTaskDispatch(
+        cat, plan, settings, tasks, template["kind"])
