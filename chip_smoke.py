@@ -11,8 +11,10 @@ result line:
    and nvcc versions;
 2. build of every CUDA kernel of the port from ``citus_tpu_torch/csrc``
    (the fold kernels with their sketch registers, the hash inserts,
-   ``rollup_delta`` and ``hash_agg_merge``) and of the predicate kernels generated for Q6, P1
-   and the phase-5 families (one nvcc per source, all started together),
+   ``rollup_delta``, ``hash_agg_merge``, ``partition_pack`` and
+   ``sorted_join``) and of the predicate kernels generated for Q6, P1,
+   the predicate over every C1 node, C1's five WHEREs and the phase-5
+   and phase-8 families (one nvcc per source, all started together),
    then one more generated predicate alone, for the cold build time of
    one predicate;
 3. each kernel against its plain PyTorch version on the card, at the
@@ -32,11 +34,17 @@ result line:
      HostGroupAccumulator) must agree, and each key must sit in at most
      one slot with placed + spilled rows = masked rows;
    - ``filter_mask``, the predicate kernels generated from Q6's and P1's
-     WHERE and from a synthetic predicate with nulls, NaN, zero divisors
-     and three-valued AND/OR, on 2^21 rows: identical masks;
+     WHERE, from a synthetic predicate with nulls, NaN, zero divisors
+     and three-valued AND/OR, and from one predicate over every node
+     kind of ROADMAP.md C1's repair (EXTRACT, CASE and abs, upper,
+     length, date_trunc by week and by month, + interval '1 month', and
+     sqrt, ln, power, round, floor, greatest, sign, exp) on 2^21
+     generated events rows with nulls: identical masks;
    - the batched kernels of the megabatch path at Q = 8 on one padded
      2^21-row batch: ``filter_mask_batched`` for the predicate of each
-     phase-5 family under its 8 parameter sets (identical [Q, N] masks),
+     phase-5 family, of phase 8's C1 family and of a family over the
+     predicate over every C1 node under its 8 parameter sets (identical
+     [Q, N] masks),
      ``scan_agg_fold_batched`` for the Q6 (scalar) and Q1 (direct)
      families (and Q1 at Q = 32, whose shared-memory table passes the
      48 KB default, and a G = 65,536 fold of 3 queries in the
@@ -53,7 +61,17 @@ result line:
      N not a multiple of the block); of ``scan_agg_fold_batched`` for
      the S family at Q = 8 (global atomics) and Q = 6 (shared memory);
    - ``rollup_delta`` for all six kinds at n = 65,536 (one refresh
-     batch) and n = 2^23 (SF1's backfill, padded) into 10,000 groups.
+     batch) and n = 2^23 (SF1's backfill, padded) into 10,000 groups;
+   - ``partition_pack`` (B7) on both sides of QJOIN's device join at
+     SF1 (gid, l_orderkey, l_quantity with their validity; the flagged
+     orders_b rows), n_dev = 1, and on the lineitem side to 8
+     destinations with a capacity that overflows: blocks, validity and
+     overflow identical;
+   - ``sorted_join`` (B8) on QJOIN's join at SF1 (join_cap = its
+     pairs, as the device join sizes it), a
+     many-to-many join, an all-invalid side and invalid rows on both
+     sides: l_idx, r_idx, out_valid, total and every gathered column
+     identical.
    int64 registers, keys, counts, min/max and NaN positions must be
    identical, float64 sums within rel 1e-12 (atomics add in another
    order).  Each kernel is timed (CUDA events, median) beside its bound,
@@ -116,7 +134,22 @@ result line:
    with no fallback, and R1 merges each returned table through one
    ``hash_agg_merge`` launch.  Then 262,144 more rows by COPY through A,
    and R1 and R3 warm again, pushed and pulled, against the new oracle.
-   Wall time of each run, bytes shipped and the data plane's totals.
+   Wall time of each run, bytes shipped and the data plane's totals;
+8. joins and C1 on the SF1 lineitem of phase 4 (run right after phase
+   5's SF1 families): bench.py's orders_b (schema, generator, seed 11,
+   SF1 // 4 rows, 4 shards by o_custkey); bench.py's QJOIN cold and warm
+   through the device join (EXPLAIN join:repartition with devjoin,
+   ``partition_pack`` twice and ``sorted_join`` once per run), its LEFT
+   JOIN through the bucket path (``partition_pack`` twice), rows equal to
+   an oracle from the generated arrays, with the wall time, rows/s
+   ((lineitem + orders_b rows) / s) and the device join step's host
+   group-id time, copies and time on the card; then an events table of
+   SF1's row count (tests/test_torch_slice.py's schema and
+   distributions, vectorized, plus a timestamp) and C1's five WHEREs as
+   projections (one ``filter_mask`` launch per batch, rows equal to
+   numpy's), a literal family over C1's nodes coalesced (one
+   ``filter_mask_batched`` launch per shard batch), and the five pushed
+   between two coordinators over 262,144 events rows.
 
 Then a JSON line of the kernels, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -587,6 +620,10 @@ def smoke_plans(device, tmp: str, n: int = FOLD_N):
     cl.copy_from("lineitem", columns=copy_columns(next(lineitem_chunks(20_000))))
     cl.execute(SYN_DDL)
     cl.execute("SELECT create_distributed_table('syn', 'k', 2)")
+    cl.execute(EV_DDL)
+    cl.execute(f"SELECT create_distributed_table('events', 'id', {SHARDS})")
+    cl.copy_from("events", columns=events_copy_columns(
+        next(events_chunks(20_000))))
 
     def ids(col, words):
         return np.array([cl.catalog.lookup_string_id("lineitem", col, w)
@@ -617,20 +654,31 @@ def smoke_plans(device, tmp: str, n: int = FOLD_N):
         "q6": filter_program(cl, Q6),
         "p1": filter_program(cl, P1),
         "syn": filter_program(cl, f"SELECT k FROM syn WHERE {SYN_WHERE}"),
+        "c1_all": filter_program(
+            cl, f"SELECT id FROM events WHERE {ALL_NODES_WHERE}"),
     }
-    fams = family_plans(cl)
+    # the programs phase 8's C1 projections run (built in phase 2)
+    c1_programs = {
+        w: filter_program(cl, f"SELECT id FROM events WHERE {w} "
+                              "ORDER BY id")[0] for w in C1_WHERES}
+    fams = family_plans(cl, {
+        **families(), **c1_families(),
+        "C1all": ("projection", [(all_nodes_variant(i), None)
+                                 for i in range(Q_BATCH)])})
+    events = events_columns(cl, n, 41)
     cl.close()
     return {"fold_calls": calls, "physical": physical, "filters": filters,
-            "families": fams}
+            "families": fams, "events": events, "c1_programs": c1_programs}
 
 
-def family_plans(cl) -> dict:
+def family_plans(cl, fams: dict = None) -> dict:
     """name -> (plan of the first variant, encoded parameters of every
-    variant) of each phase-5 family; every variant must share the plan
-    family (one ``plan_fingerprint``), or the family cannot coalesce."""
+    variant) of each family of ``fams`` (phase 5's and phase 8's); every
+    variant must share the plan family (one ``plan_fingerprint``), or
+    the family cannot coalesce."""
     from citus_tpu_torch.executor.kernel_cache import plan_fingerprint
     out = {}
-    for name, (_kind, variants) in families().items():
+    for name, (_kind, variants) in (fams or families()).items():
         planned = [plan_as_cluster_does(cl, sql) for sql, _ in variants]
         fps = {plan_fingerprint(plan) for plan, _ in planned}
         if len(fps) != 1:
@@ -1203,13 +1251,15 @@ def launch_counters() -> dict:
     from citus_tpu_torch.ops.scan_agg_fold import (
         scan_agg_fold, scan_agg_fold_batched,
     )
+    from citus_tpu_torch.parallel.shuffle import pack_blocks, sorted_join
     from citus_tpu_torch.rollup.kernels import rollup_delta
     return {"scan_agg_fold": scan_agg_fold,
             "hash_agg_insert": hash_agg_insert, "filter_mask": filter_mask,
             "filter_mask_batched": filter_mask_batched,
             "scan_agg_fold_batched": scan_agg_fold_batched,
             "hash_agg_insert_batched": hash_agg_insert_batched,
-            "rollup_delta": rollup_delta, "hash_agg_merge": hash_agg_merge}
+            "rollup_delta": rollup_delta, "hash_agg_merge": hash_agg_merge,
+            "partition_pack": pack_blocks, "sorted_join": sorted_join}
 
 
 #: the batched kernels each phase-5 family's coalesced run must launch,
@@ -1566,7 +1616,8 @@ def phase3_filter(device, plans, rows: list) -> None:
     line = lineitem_filter_columns(plans["physical"])
     syn = syn_columns(FOLD_N, 41)
     main = None
-    for name, cols in (("p1", line), ("q6", line), ("syn", syn)):
+    for name, cols in (("p1", line), ("q6", line), ("syn", syn),
+                       ("c1_all", plans["events"])):
         prog, params = plans["filters"][name]
         call = filter_call(prog, cols, params, device, FOLD_N)
         got = filter_mask(prog, *call)
@@ -1608,14 +1659,16 @@ def family_filter(device, plan, params):
                               device)
 
 
-def padded_batch(device, plan, physical: dict):
+def padded_batch(device, plan, physical: dict, valids=None):
     """One batch of the generated rows (FOLD_N on the card) in the plan's
-    scan columns on ``device``: (cols, valids, row_mask)."""
+    scan columns on ``device``: (cols, valids, row_mask).  ``valids``:
+    the columns' validity (default: no nulls)."""
     import torch
     from citus_tpu_torch.executor.batches import pad_to_batch
-    n = len(physical["l_orderkey"])
+    n = len(next(iter(physical.values())))
     values = {k: physical[k] for k in plan.scan_columns}
-    masks = {k: np.ones(n, bool) for k in plan.scan_columns}
+    masks = {k: np.ones(n, bool) if valids is None else valids[k]
+             for k in plan.scan_columns}
     hb = pad_to_batch(plan.bound.table, plan, values, masks, n, n, 0)
     return (tuple(torch.from_numpy(a).to(device) for a in hb.cols),
             tuple(torch.from_numpy(a).to(device) for a in hb.valids),
@@ -1658,10 +1711,16 @@ def phase3_batched_filter(device, plans, rows: list) -> None:
         filter_mask_batched, filter_mask_batched_plain,
     )
     main = None
-    for name in ("Q6", "Q1", "H", "P"):
+    ev = plans["events"]
+    for name in ("Q6", "Q1", "H", "P", "C1", "C1all"):
         plan, params = plans["families"][name]
-        cols, valids, row_mask = padded_batch(device, plan,
-                                              plans["physical"])
+        if name.startswith("C1"):
+            cols, valids, row_mask = padded_batch(
+                device, plan, {k: v for k, (v, _) in ev.items()},
+                {k: m for k, (_, m) in ev.items()})
+        else:
+            cols, valids, row_mask = padded_batch(device, plan,
+                                                  plans["physical"])
         prog, stacked = family_filter(device, plan, params)
         fcols = predicate_columns(plan, prog, cols, valids)
         got = filter_mask_batched(prog, fcols, stacked, row_mask)
@@ -2643,6 +2702,542 @@ def run_pair_phase(ctt, tmp: str, n_rows: int, launches: dict,
         a.close()
 
 
+# ------------------------------------------------- joins and C1 (phase 8)
+
+#: bench.py's QJOIN (BASELINE.json config 5), verbatim
+#: (tests/test_torch_join.py runs bench.py's own through both packages)
+QJOIN = """SELECT count(*), sum(l.l_quantity)
+FROM lineitem l JOIN orders_b o ON l.l_orderkey = o.o_orderkey
+WHERE o.o_flag = 'H'"""
+#: the device join refuses an outer join: the bucket path (B7 and the
+#: host join) answers it
+QJOIN_LEFT = ("SELECT count(*), sum(l.l_quantity), count(o.o_orderkey), "
+              "count(o.o_flag) FROM lineitem l LEFT JOIN orders_b o "
+              "ON l.l_orderkey = o.o_orderkey")
+ORDERS_B_DDL = """CREATE TABLE orders_b (
+        o_orderkey bigint NOT NULL, o_custkey bigint NOT NULL,
+        o_flag text)"""
+FLAGS = np.array(["H", "L", "M"])
+
+EV_DDL = """CREATE TABLE events (
+        id bigint NOT NULL, device bigint, kind text, qty decimal(12,2),
+        score double, d date, ts timestamp)"""
+EV_KINDS = np.array(["click", "view", "buy"])
+#: ROADMAP.md C1's five WHEREs (tests/test_torch_projection.py C1_WHERES)
+C1_WHERES = (
+    "extract(year FROM d) = 2021",
+    "abs(score - 50) < 3",
+    "CASE WHEN qty > 5 THEN score ELSE 0 END > 40",
+    "upper(kind) = 'BUY'",
+    "date_trunc('month', d) = date '2021-03-01'",
+)
+#: one predicate over every node kind the generator gained for C1:
+#: BExtract, BCase (CASE and abs), BDictRemap (upper), BDictLookup
+#: (length), BMathFunc (sqrt, ln, power, round, floor, greatest, sign,
+#: exp), BDateTrunc (week), BDateTruncCivil (month), BAddMonths
+ALL_NODES_WHERE = (
+    "(extract(year FROM d) = 2021 AND extract(dow FROM ts) < 3 "
+    "AND extract(hour FROM ts) > 11) "
+    "OR abs(score - 50) < 1 "
+    "OR CASE WHEN qty > 5 THEN score WHEN qty IS NULL THEN 0 "
+    "ELSE -1 END > 99.5 "
+    "OR (upper(kind) = 'BUY' AND length(kind) = 3 AND device = 7) "
+    "OR date_trunc('month', d) = date '2021-03-01' "
+    "OR date_trunc('week', ts) = timestamp '2022-05-02 00:00:00' "
+    "OR d + interval '1 month' = date '2023-02-28' "
+    "OR (sqrt(score) > 9.99 AND ln(score) > 4.6 AND power(score, 0.5) > 9.99) "
+    "OR (round(qty, 1) = 50.5 AND floor(score) = 50) "
+    "OR (greatest(device, 48) > 48 AND sign(qty - 50) = -1 "
+    "AND exp(score / 50) > 7)")
+
+
+def all_nodes_variant(i: int) -> str:
+    """Variant i of a literal family over ALL_NODES_WHERE (phase 3's
+    batched predicate)."""
+    return (f"SELECT id FROM events WHERE device <> {i} AND "
+            f"({ALL_NODES_WHERE})")
+
+
+def c1_family_variant(i: int) -> str:
+    """Variant i of a literal family over C1's nodes: one device's rows
+    among those C1's five WHEREs keep (the literals inside the CASE and
+    abs are not hoisted by either package, the others are)."""
+    return (f"SELECT id FROM events WHERE device = {i} AND ("
+            "extract(year FROM d) = 2021 OR abs(score - 50) < 3 "
+            "OR CASE WHEN qty > 5 THEN score ELSE 0 END > 99 "
+            "OR (upper(kind) = 'BUY' AND id < 1000000) "
+            "OR date_trunc('month', d) = date '2021-03-01') ORDER BY id")
+
+
+def events_chunks(n_rows: int, seed: int = 11):
+    """The events table's generator, vectorized (the schema and
+    distributions of tests/test_torch_slice.py's _events_rows, seed
+    11): kinds click/view/buy and NULL, quantities in cents, scores to
+    6 places, dates 202[0-3]-0[1-9]-1[0-9], timestamps on those days."""
+    rng = np.random.default_rng(seed)
+    table = np.array([_day(2020 + y, 1 + m, 10 + d) for y in range(4)
+                      for m in range(9) for d in range(10)], np.int32)
+    chunk = 1_000_000
+    for start in range(0, n_rows, chunk):
+        n = min(chunk, n_rows - start)
+        d = table[rng.integers(0, len(table), n)]
+        yield {
+            "id": np.arange(start, start + n, dtype=np.int64),
+            "device": rng.integers(0, 50, n),
+            "kind": rng.integers(0, 4, n),          # 3: NULL
+            "qty": rng.integers(0, 10_000, n),      # cents
+            "score": np.round(rng.random(n) * 100, 6),
+            "d": d,
+            "ts": d.astype(np.int64) * 86_400_000_000
+            + rng.integers(0, 86_400_000_000, n),
+        }
+
+
+def events_copy_columns(c: dict) -> dict:
+    kinds = np.append(EV_KINDS, None).astype(object)
+    return {"id": c["id"], "device": c["device"],
+            "kind": kinds[c["kind"]].tolist(), "qty": c["qty"] / 100.0,
+            "score": c["score"], "d": c["d"], "ts": c["ts"]}
+
+
+def events_columns(cl, n: int, seed: int) -> dict:
+    """Generated events rows in the engine's encoding (dictionary ids of
+    ``cl``'s catalog, cents, days, microseconds) with nulls in every
+    column: {name: (values, valid)}."""
+    c = {k: np.concatenate([ch[k] for ch in events_chunks(n, seed)])
+         for k in next(events_chunks(1, seed))}
+    rng = np.random.default_rng(seed + 1)
+    ids = np.array([cl.catalog.lookup_string_id("events", "kind", w)
+                    for w in EV_KINDS] + [0], np.int32)
+    cols = {"id": c["id"], "device": c["device"], "kind": ids[c["kind"]],
+            "qty": c["qty"], "score": c["score"], "d": c["d"],
+            "ts": c["ts"]}
+    out = {}
+    for k, v in cols.items():
+        valid = rng.random(n) > 0.05
+        if k == "kind":
+            valid &= c["kind"] != 3
+        out[k] = (v, valid)
+    return out
+
+
+def c1_oracle(cols: dict, where: str) -> list[tuple]:
+    """Rows (id,) in id order of ``SELECT id FROM events WHERE <where>``
+    for one of C1_WHERES, straight from the generated arrays."""
+    d = cols["d"].astype("datetime64[D]")
+    year = d.astype("datetime64[Y]").astype(np.int64) + 1970
+    month = d.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    keep = {
+        C1_WHERES[0]: year == 2021,
+        C1_WHERES[1]: np.abs(cols["score"] - 50) < 3,
+        C1_WHERES[2]: (cols["qty"] > 500) & (cols["score"] > 40),
+        C1_WHERES[3]: cols["kind"] == 2,
+        C1_WHERES[4]: (year == 2021) & (month == 3),
+    }[where]
+    return [(int(i),) for i in cols["id"][keep]]
+
+
+def c1_family_oracle(cols: dict, i: int) -> list[tuple]:
+    d = cols["d"].astype("datetime64[D]")
+    year = d.astype("datetime64[Y]").astype(np.int64) + 1970
+    month = d.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    score = cols["score"]
+    keep = (cols["device"] == i) & (
+        (year == 2021) | (np.abs(score - 50) < 3)
+        | (np.where(cols["qty"] > 500, score, 0.0) > 99)
+        | ((cols["kind"] == 2) & (cols["id"] < 1_000_000))
+        | ((year == 2021) & (month == 3)))
+    return [(int(x),) for x in cols["id"][keep]]
+
+
+def c1_families() -> dict:
+    """name -> (kind, variants) of phase 8's coalesced C1 family."""
+    return {"C1": ("projection",
+                   [(c1_family_variant(i),
+                     (lambda c, i=i: c1_family_oracle(c, i)))
+                    for i in range(Q_BATCH)])}
+
+
+def load_events(cl, n_rows: int) -> dict:
+    """Create and fill ``events`` through ``cl``; -> generated columns."""
+    t0 = time.perf_counter()
+    cl.execute(EV_DDL)
+    cl.execute(f"SELECT create_distributed_table('events', 'id', {SHARDS})")
+    chunks = []
+    for c in events_chunks(n_rows):
+        cl.copy_from("events", columns=events_copy_columns(c))
+        chunks.append(c)
+    cols = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+    say(f"phase 8 load of events: {n_rows} rows in {SHARDS} shards in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return cols
+
+
+def orders_b_chunks(n_orders: int):
+    """bench.py's ensure_join_data generator (seed 11, 1M-row chunks)."""
+    rng = np.random.default_rng(11)
+    chunk = 1_000_000
+    for start in range(0, n_orders, chunk):
+        n = min(chunk, n_orders - start)
+        yield {"o_orderkey": np.arange(start, start + n, dtype=np.int64),
+               "o_custkey": rng.integers(0, n_orders // 8 + 1, n),
+               "flag": rng.integers(0, 3, n)}
+
+
+def load_orders_b(cl, n_orders: int) -> np.ndarray:
+    """bench.py's orders_b through ``cl``; -> the flag index per order."""
+    t0 = time.perf_counter()
+    cl.execute(ORDERS_B_DDL)
+    cl.execute(f"SELECT create_distributed_table('orders_b', 'o_custkey', "
+               f"{SHARDS})")
+    flags = []
+    for c in orders_b_chunks(n_orders):
+        cl.copy_from("orders_b", columns={
+            "o_orderkey": c["o_orderkey"], "o_custkey": c["o_custkey"],
+            "o_flag": FLAGS[c["flag"]].tolist()})
+        flags.append(c["flag"])
+    say(f"phase 8 load of orders_b: {n_orders} rows in {SHARDS} shards by "
+        f"o_custkey in {time.perf_counter() - t0:.3f} s")
+    return np.concatenate(flags)
+
+
+def oracle_qjoin(cols: dict, flag: np.ndarray) -> list[tuple]:
+    """QJOIN's row: every l_orderkey has exactly one order (keys below
+    n_orders = n_rows // 4), flagged 'H' when its flag index is 0."""
+    hit = flag[cols["orderkey"]] == 0
+    return [(int(hit.sum()), _dec(int(cols["qty"][hit].sum()), 2))]
+
+
+def oracle_qjoin_left(cols: dict) -> list[tuple]:
+    n = len(cols["orderkey"])
+    return [(n, _dec(int(cols["qty"].sum()), 2), n, n)]
+
+
+def pack_bytes(values, n: int, n_dev: int, capacity: int) -> int:
+    """Bytes one partition must move: each column, the target and the
+    mask read once; each block, the packed validity and the overflow
+    written once."""
+    slots = n_dev * capacity
+    return (sum(v.numel() * v.element_size() for v in values) + 5 * n
+            + sum(slots * v.element_size() for v in values) + slots + 8)
+
+
+def join_bytes(lvalid, rvalid, J: int, lcols, rcols, l_idx, r_idx,
+               out_valid) -> int:
+    """Bytes one sort join must move on this run's data: both sides'
+    validity read once and the gids of their valid rows; of every
+    gathered column, the distinct rows its side's index reaches in the
+    valid slots; l_idx, r_idx, out_valid, total and every gathered
+    output written once."""
+    import torch
+    valid = int(lvalid.sum()) + int(rvalid.sum())
+    reach_l = torch.unique(l_idx[out_valid]).numel()
+    reach_r = torch.unique(r_idx[out_valid]).numel()
+    return (lvalid.numel() + rvalid.numel() + 8 * valid
+            + sum(reach_l * c.element_size() for c in lcols)
+            + sum(reach_r * c.element_size() for c in rcols)
+            + 17 * J + 8
+            + sum(J * c.element_size() for c in list(lcols) + list(rcols)))
+
+
+def qjoin_sides(n_rows: int, device):
+    """QJOIN's device join inputs at ``n_rows`` lineitem rows, as
+    ``_device_join_step`` builds them: the group ids of l_orderkey and of
+    the flagged o_orderkey (np.unique's inverse over both), and each
+    side's frame columns with validity (lineitem: l_orderkey,
+    l_quantity; orders_b: o_flag's dictionary id, o_orderkey).
+    -> (left, right, U); a side is (gid, columns, capacity)."""
+    import torch
+    n_orders = n_rows // 4
+    lkey = np.concatenate([c["orderkey"] for c in lineitem_chunks(n_rows)])
+    qty = np.concatenate([c["qty"] for c in lineitem_chunks(n_rows)])
+    flag = np.concatenate([c["flag"] for c in orders_b_chunks(n_orders)])
+    rkey = np.nonzero(flag == 0)[0].astype(np.int64)
+    _, inv = np.unique(np.concatenate([lkey, rkey]), return_inverse=True)
+    U = int(inv.max()) + 1
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    ones = lambda n: t(np.ones(n, bool))  # noqa: E731
+    left = (t(inv[:len(lkey)].astype(np.int64)),
+            (t(lkey), ones(len(lkey)), t(qty), ones(len(lkey))),
+            len(lkey))
+    right = (t(inv[len(lkey):].astype(np.int64)),
+             (t(np.zeros(len(rkey), np.int32)), ones(len(rkey)), t(rkey),
+              ones(len(rkey))), len(rkey))
+    return left, right, U
+
+
+def compare_exact(name: str, got, want) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape \
+                or not bool((g == w).all()):
+            raise AssertionError(f"{name}: output {i} differs from the "
+                                 "plain version")
+
+
+def phase3_partition_pack(device, n_rows: int, rows: list, sides) -> None:
+    """partition_pack (B7) against its plain version, outputs identical:
+    both sides of QJOIN's device join at SF1 (n_dev = 1, the one card's
+    mesh) and the lineitem side to 8 destinations with a capacity that
+    overflows; appends its JSON row."""
+    import torch
+    from citus_tpu_torch.parallel.shuffle import (
+        pack_blocks, pack_blocks_plain,
+    )
+    (lgid, lcols, cap_l), (rgid, rcols, cap_r), _U = sides
+    cases = []
+    for side, gid, cols, cap in (("lineitem", lgid, lcols, cap_l),
+                                 ("orders_b", rgid, rcols, cap_r)):
+        n = gid.numel()
+        cases.append((f"QJOIN {side} n_dev=1", (gid,) + cols,
+                      torch.zeros(n, dtype=torch.int32, device=device),
+                      torch.ones(n, dtype=torch.bool, device=device), 1, cap))
+    tgt8 = (lgid % 8).to(torch.int32)
+    need = int(torch.bincount(tgt8.long(), minlength=8).max())
+    mask8 = torch.rand(lgid.numel(), device=device) > 0.01
+    cases.append(("lineitem n_dev=8 overflowing", (lgid,) + lcols, tgt8,
+                  mask8, 8, need // 2))
+    main = None
+    for name, values, target, mask, n_dev, cap in cases:
+        got = pack_blocks(values, target, mask, n_dev, cap)
+        want = pack_blocks_plain(values, target, mask, n_dev, cap)
+        compare_exact(f"partition_pack [{name}]",
+                      got[0] + (got[1], got[2]), want[0] + (want[1], want[2]))
+        ms = time_cuda(lambda: pack_blocks(values, target, mask, n_dev, cap),
+                       reps=10)
+        plain_ms = time_cuda(lambda: pack_blocks_plain(values, target, mask,
+                                                       n_dev, cap), reps=3)
+        n = target.numel()
+        nbytes = pack_bytes(values, n, n_dev, cap)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        lib_ms = time_cuda(lambda: torch.argsort(target, stable=True), reps=5)
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        say(f"phase 3 partition_pack [{name}]: N={n} columns {len(values)} "
+            f"capacity {cap}: blocks, validity and overflow identical "
+            f"(overflow {int(got[2])}); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at "
+            f"3.35 TB/s); for scale, one stable torch.argsort of the "
+            f"targets (the order alone, not the partition) {lib_ms:.4f} ms")
+    rows.append({"name": "partition_pack", "route": "cuda",
+                 "source": "citus_tpu_torch/csrc/partition_pack.cu",
+                 "replaces": "citus_tpu/parallel/shuffle.py:32",
+                 "max_abs_err": 0.0, **main, "bound_by": "bytes",
+                 "library_ms": None})
+
+
+def phase3_sorted_join(device, rows: list, sides, n: int = 1 << 20) -> None:
+    """sorted_join (B8) against its plain version, every output
+    identical: QJOIN's join at SF1 (both sides packed by B7, join_cap
+    its pairs), a many-to-many join (``n`` x n / 4 rows over n / 10 gids),
+    an empty (all-invalid) side, and invalid rows on both sides;
+    appends its JSON row."""
+    import torch
+    from citus_tpu_torch.parallel.shuffle import (
+        pack_blocks, sorted_join, sorted_join_plain,
+    )
+    (lgid, lcols, cap_l), (rgid, rcols, cap_r), U = sides
+    packed = []
+    for gid, cols, cap in ((lgid, lcols, cap_l), (rgid, rcols, cap_r)):
+        n = gid.numel()
+        p, pv, _ = pack_blocks((gid,) + cols,
+                               torch.zeros(n, dtype=torch.int32,
+                                           device=device),
+                               torch.ones(n, dtype=torch.bool, device=device),
+                               1, cap)
+        packed.append((p[0][0], pv[0], tuple(c[0] for c in p[1:])))
+    (lg, lv, lc), (rg, rv, rc) = packed
+    lcnt = torch.bincount(lg[lv], minlength=U)
+    pairs = int(lcnt[rg[rv]].sum())
+    cases = [("QJOIN SF1", (lg, lv, rg, rv, lc, rc, U, pairs))]
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    for name, L, R, u, lmiss, rmiss in (("many-to-many", n, n // 4,
+                                         n // 10, 0.0, 0.0),
+                                        ("empty right side", n // 16,
+                                         n // 256, 300, 0.0, 1.1),
+                                        ("invalid rows both sides", n, n,
+                                         n // 2, 0.3, 0.3)):
+        g1 = rng.integers(0, u, L).astype(np.int64)
+        g2 = rng.integers(0, u, R).astype(np.int64)
+        v1, v2 = rng.random(L) >= lmiss, rng.random(R) >= rmiss
+        c = np.bincount(g1[v1], minlength=u)
+        total = int(c[g2[v2]].sum())
+        cases.append((name, (t(g1), t(v1), t(g2), t(v2),
+                             (t(rng.integers(0, 10**9, L)), t(v1)),
+                             (t(rng.random(R)),), u, total + 1000)))
+    main = None
+    for name, args in cases:
+        got = sorted_join(*args)
+        want = sorted_join_plain(*args)
+        compare_exact(f"sorted_join [{name}]",
+                      got[:4] + got[4] + got[5], want[:4] + want[4] + want[5])
+        ms = time_cuda(lambda: sorted_join(*args), reps=10)
+        plain_ms = time_cuda(lambda: sorted_join_plain(*args), reps=3)
+        L, R, J = args[0].numel(), args[2].numel(), args[7]
+        nbytes = join_bytes(args[1], args[3], J, args[4], args[5], *got[:3])
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        say(f"phase 3 sorted_join [{name}]: L={L} R={R} U={args[6]} "
+            f"join_cap={J} pairs {int(got[3])}: l_idx, r_idx, out_valid, "
+            f"total and {len(args[4]) + len(args[5])} gathered columns "
+            f"identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s)")
+    rows.append({"name": "sorted_join", "route": "cuda",
+                 "source": "citus_tpu_torch/csrc/sorted_join.cu",
+                 "replaces": "citus_tpu/parallel/shuffle.py:95",
+                 "max_abs_err": 0.0, **main, "bound_by": "bytes",
+                 "library_ms": None})
+
+
+def run_join_query(cl, qname: str, sql: str, want: list, run_kind: str,
+                   n_rows: int, n_orders: int, launches: dict,
+                   devjoin: bool, card: str) -> None:
+    """One join on ``cl``: rows equal to the oracle, EXPLAIN's strategy
+    join:repartition and (``devjoin``) the device join, and on the card
+    partition_pack launched twice and sorted_join once (devjoin) or not
+    at all, no other kernel."""
+    import torch
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    r = cl.execute(sql)
+    if cl.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {k: f.launches for k, f in counters.items()}
+    for k, v in got.items():
+        launches[k] += v
+    if r.rows != want:
+        raise AssertionError(f"phase 8 {qname} {run_kind}: rows differ from "
+                             f"the numpy oracle: {r.rows} != {want}")
+    shuffle = r.explain.get("shuffle", "")
+    if r.explain["strategy"] != "join:repartition" \
+            or ("devjoin" in shuffle) != devjoin:
+        raise AssertionError(f"phase 8 {qname}: EXPLAIN {r.explain}")
+    if cl.device.type == "cuda":
+        want_l = {"partition_pack": 2, "sorted_join": 1 if devjoin else 0}
+        if {k: v for k, v in got.items() if v} != \
+                {k: v for k, v in want_l.items() if v}:
+            raise AssertionError(f"phase 8 {qname} {run_kind}: launches "
+                                 f"{got}, expected {want_l}")
+    steps = r.explain.get("device_join_steps", [])
+    detail = "; ".join(
+        f"device join step: {s['rows_left']} x {s['rows_right']} rows, "
+        f"{s['groups']} groups, capacities {s['capacity_left']} / "
+        f"{s['capacity_right']}, join_cap {s['join_cap']}; host group ids "
+        f"(keys, np.unique, counts, stacking) {s['gid_host_ms']:.3f} ms, "
+        f"H2D {s['h2d_ms']:.3f} ms, on the card (launch to overflow read) "
+        f"{s['device_ms']:.3f} ms, D2H {s['d2h_ms']:.3f} ms"
+        for s in steps)
+    say(f"phase 8 {qname} {run_kind}: rows {r.rows} equal the numpy oracle "
+        f"in {dt:.4f} s, {(n_rows + n_orders) / dt:.1f} rows/s "
+        f"((lineitem + orders_b rows) / s); EXPLAIN {r.explain['strategy']} "
+        f"{shuffle}; kernel launches {({k: v for k, v in got.items() if v})}"
+        f"{'; ' + detail if detail else ''} ({card})")
+
+
+def run_c1_projections(cl, cols: dict, n_rows: int, launches: dict,
+                       card: str, phase: str = "phase 8",
+                       remote_batches: int = 0) -> None:
+    """C1's five WHEREs as projections over ``events``: rows equal to
+    numpy's, one generated filter_mask launch per scanned batch on the
+    card (``remote_batches`` more where a second coordinator in this
+    process scans its shards for pushed tasks) and no other kernel."""
+    import torch
+    for where in C1_WHERES:
+        counters = launch_counters()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        r = cl.execute(f"SELECT id FROM events WHERE {where} ORDER BY id")
+        if cl.device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {k: f.launches for k, f in counters.items()}
+        for k, v in got.items():
+            launches[k] += v
+        want = c1_oracle(cols, where)
+        if r.rows != want:
+            raise AssertionError(f"{phase} C1 [{where}]: {len(r.rows)} rows, "
+                                 f"the numpy oracle {len(want)}")
+        batches = r.explain["pipeline"]["filter_dispatches"]
+        if cl.device.type == "cuda" and (
+                got["filter_mask"] != batches + remote_batches
+                or batches == 0
+                or any(v for k, v in got.items() if k != "filter_mask")):
+            raise AssertionError(f"{phase} C1 [{where}]: launches {got} for "
+                                 f"{batches} batches")
+        say(f"{phase} C1 [{where}]: {len(r.rows)} rows equal the numpy oracle "
+            f"in {dt:.4f} s ({n_rows / dt:.1f} rows/s), filter_mask launches "
+            f"{got['filter_mask']} for {batches} batches ({card})")
+
+
+#: events rows of the two-coordinator C1 check
+PAIR_C1_ROWS = 262_144
+
+
+def run_c1_pushed(ctt, tmp: str, launches: dict, card: str,
+                  device=None) -> None:
+    """C1's five WHEREs pushed: two coordinators, events loaded through
+    A with half its shards on B; each projection pushes one task per
+    remote shard (B filters its shards through its own generated
+    predicate) with no fallback, and its rows equal numpy's."""
+    from citus_tpu_torch.executor.executor import GLOBAL_COUNTERS
+    a, b = open_pair(ctt, os.path.join(tmp, "c1pair"), device)
+    try:
+        cols = load_events(a, PAIR_C1_ROWS)
+        t = a.catalog.table("events")
+        n_remote = sum(a.catalog.is_remote_node(s.placements[0])
+                       for s in t.shards)
+        a.execute("SET citus.remote_task_execution = auto")
+        c0 = GLOBAL_COUNTERS.snapshot()
+        # each of B's shards holds one batch at this size
+        run_c1_projections(a, cols, PAIR_C1_ROWS, launches, card,
+                           "phase 8 pushed", remote_batches=n_remote)
+        c1 = GLOBAL_COUNTERS.snapshot()
+        pushed = c1.get("remote_tasks_pushed", 0) \
+            - c0.get("remote_tasks_pushed", 0)
+        fallbacks = c1.get("remote_task_fallbacks", 0) \
+            - c0.get("remote_task_fallbacks", 0)
+        if n_remote != SHARDS // 2 or pushed != n_remote * len(C1_WHERES) \
+                or fallbacks:
+            raise AssertionError(f"phase 8 pushed C1: {pushed} tasks pushed, "
+                                 f"{fallbacks} fallbacks, {n_remote} remote "
+                                 "shards")
+        say(f"phase 8 pushed C1: {pushed} tasks pushed to B "
+            f"({n_remote} remote shards x {len(C1_WHERES)} queries), no "
+            f"fallback ({card})")
+    finally:
+        b.close()
+        a.close()
+
+
+def run_join_phase(ctt, cl, cols: dict, tmp: str, n_rows: int,
+                   launches: dict, card: str) -> None:
+    """Phase 8 on the SF1 lineitem of ``cl``: bench.py's orders_b,
+    QJOIN cold and warm through the device join (B7 twice, B8 once),
+    its LEFT JOIN through the bucket path (B7 twice), then an events
+    table of the same scale for C1's five projections, serial and
+    coalesced, and pushed between two coordinators."""
+    n_orders = n_rows // 4
+    flag = load_orders_b(cl, n_orders)
+    want = oracle_qjoin(cols, flag)
+    for run_kind in ("cold", "warm"):
+        run_join_query(cl, "QJOIN", QJOIN, want, run_kind, n_rows, n_orders,
+                       launches, True, card)
+    run_join_query(cl, "QJOIN LEFT JOIN", QJOIN_LEFT, oracle_qjoin_left(cols),
+                   "cold", n_rows, n_orders, launches, False, card)
+    ev = load_events(cl, n_rows)
+    run_c1_projections(cl, ev, n_rows, launches, card)
+    kind, variants = c1_families()["C1"]
+    for k, v in run_family(cl, "C1", kind, variants, ev, n_rows,
+                           card).items():
+        launches[k] += v
+    run_c1_pushed(ctt, tmp, launches, card, cl.device)
+
+
 def run(args) -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -2672,12 +3267,15 @@ def run(args) -> dict:
         # then one more generated predicate alone, for its cold build time
         t0 = time.perf_counter()
         kernels = ["scan_agg_fold", "hash_agg_insert", "scan_agg_fold_batched",
-                   "hash_agg_insert_batched", "rollup_delta", "hash_agg_merge"]
+                   "hash_agg_insert_batched", "rollup_delta", "hash_agg_merge",
+                   "partition_pack", "sorted_join"]
         # the predicates of Q6 and P1 and of the phase-5 families (each
         # generated source holds the one-query and the batched kernel);
         # Q6's and P's families share Q6's and P1's sources
         sources = [plans["filters"][q][0].predicate.source
-                   for q in ("q6", "p1")]
+                   for q in ("q6", "p1", "c1_all")]
+        for where in C1_WHERES:
+            sources.append(plans["c1_programs"][where].predicate.source)
         for fplan, fparams in list(plans["families"].values()) \
                 + [splans["family"]]:
             src = family_filter("cpu", fplan, fparams)[0].predicate.source
@@ -2716,6 +3314,10 @@ def run(args) -> dict:
         phase3_batched_hash(device, cl, kernel_rows)
         phase3_sketch_folds(device, splans, kernel_rows)
         phase3_rollup_delta(device, kernel_rows)
+        sides = qjoin_sides(n_rows, device)
+        phase3_partition_pack(device, n_rows, kernel_rows, sides)
+        phase3_sorted_join(device, kernel_rows, sides)
+        del sides
         launches = dict.fromkeys(launch_counters(), 0)
         launches.update({"scan_agg_fold[sketch]": 0,
                          "scan_agg_fold_batched[sketch]": 0})
@@ -2745,6 +3347,8 @@ def run(args) -> dict:
         # ---- phase 5: literal families coalesced, on the SF1 lineitem
         for name in ("Q6", "H", "P"):
             phase5(cl, name, cols, n_rows)
+        # ---- phase 8: joins on the SF1 lineitem, and C1's projections
+        run_join_phase(ctt, cl, cols, tmp, n_rows, launches, card)
         q1_rows = n_rows
         if q1_guard_fires(cols):
             # the engine's int64 overflow guard (executor/finalize.py

@@ -730,6 +730,21 @@ class Cluster:
             replication_factor=self.settings.sharding.shard_replication_factor)
         self.catalog.commit()
 
+    def create_reference_table(self, name: str) -> None:
+        """reference: create_reference_table UDF (one shard, replicated
+        to every active node).  Foreign keys are not ported (ROADMAP.md
+        A11), so there is no distribution of them to validate."""
+        t = self.catalog.table(name)
+        if t.is_partitioned:
+            _unported("partitioned tables", "queue A")
+        from citus_tpu_torch.catalog.stats import table_row_count
+        if table_row_count(self.catalog, t) > 0:
+            raise UnsupportedFeatureError(
+                "converting a non-empty table is not supported yet")
+        self.catalog.make_reference_table(name,
+                                          self.catalog.active_node_ids())
+        self.catalog.commit()
+
     def drop_table(self, name: str, *, if_exists: bool = False) -> None:
         """DROP TABLE (reference: citus_drop_all_shards): the catalog
         entry and, at once or at COMMIT inside a transaction, its files.
@@ -1321,7 +1336,13 @@ class Cluster:
         if stmt.from_ is None:
             _unported("SELECT without FROM", "queue A")
         if isinstance(stmt.from_, A.Join):
-            _unported("joins", "queue A and B7/B8")
+            from citus_tpu_torch.executor.join_executor import (
+                execute_join_select,
+            )
+            from citus_tpu_torch.planner.join_planner import bind_join_select
+            bj = bind_join_select(self.catalog, stmt)
+            return execute_join_select(self.catalog, bj, self.settings,
+                                       device=self.device)
         if not isinstance(stmt.from_, A.TableRef):
             _unported("subqueries in FROM", "queue A")
         if stmt.distinct_on or stmt.windows or any(

@@ -146,6 +146,12 @@ _GUCS = {
     "citus.wire_format": ("executor", "wire_format", _wire_format),
     "citus.shard_count": ("sharding", "shard_count", int),
     "citus.shard_replication_factor": ("sharding", "shard_replication_factor", int),
+    # joins (executor/join_executor.py): repartition or pull, and the
+    # host buckets of the cpu backend's shuffle
+    "citus.enable_repartition_joins": ("planner", "enable_repartition_joins",
+                                       _bool),
+    "citus.repartition_bucket_count_per_device": (
+        "planner", "repartition_bucket_count_per_device", int),
     "lock_timeout": ("executor", "lock_timeout_s", _ms_duration),
 }
 

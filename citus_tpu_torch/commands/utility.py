@@ -31,6 +31,12 @@ def _create_distributed_table(cl, name, args):
     return Result(columns=[name], rows=[(None,)])
 
 
+@utility("create_reference_table")
+def _create_reference_table(cl, name, args):
+    cl.create_reference_table(args[0])
+    return Result(columns=[name], rows=[(None,)])
+
+
 # ------------------------------------------------------- stats/monitoring
 
 @utility("citus_stat_pool")

@@ -43,7 +43,9 @@ struct FmParams {
     uint8_t* out;                        // [n] bool
     const void* cols[FM_MAX_COLS];       // [n] values of the column's dtype
     const uint8_t* valids[FM_MAX_COLS];  // [n] bool, or null = all valid
-    const uint8_t* tables[FM_MAX_TABLES];  // dictionary-mask tables
+    // dictionary tables: bool masks as uint8, remaps as int32, lookups
+    // as int64 (the generated source casts each to its own type)
+    const void* tables[FM_MAX_TABLES];
     int64_t table_len[FM_MAX_TABLES];
     // parameter values: integers sign-extended to int64, floats as the
     // bits of their float64 value
@@ -123,4 +125,87 @@ FM_HD int32_t fm_f2i32(double x) {
     if (x >= 2147483648.0) return (int32_t)2147483647;
     if (x <= -2147483649.0) return (int32_t)(-2147483647 - 1);
     return (int32_t)x;
+}
+
+// numpy's % on integers (the result takes the divisor's sign)
+FM_HD int32_t fm_floormod32(int32_t a, int32_t b) {
+    return fm_sub32(a, fm_mul32(fm_floordiv32(a, b), b));
+}
+
+FM_HD int64_t fm_floormod64(int64_t a, int64_t b) {
+    return fm_sub64(a, fm_mul64(fm_floordiv64(a, b), b));
+}
+
+// ---- civil date math on days since 1970-01-01 (proleptic Gregorian),
+// the reference's civil_from_days / days_from_civil (Hinnant's
+// algorithms), every division a floor division as numpy's //.  Days
+// come from int32 dates or from int64 microseconds // 86,400,000,000,
+// so no intermediate here can overflow int64.
+
+#define FM_US_DAY 86400000000LL
+
+struct FmCivil {
+    int64_t y, m, d;
+};
+
+FM_HD FmCivil fm_civil_from_days(int64_t z) {
+    z = z + 719468;
+    const int64_t era = fm_floordiv64(z, 146097);
+    const int64_t doe = z - era * 146097;
+    const int64_t yoe = fm_floordiv64(doe - fm_floordiv64(doe, 1460)
+                                      + fm_floordiv64(doe, 36524)
+                                      - fm_floordiv64(doe, 146096), 365);
+    const int64_t doy = doe - (365 * yoe + fm_floordiv64(yoe, 4)
+                               - fm_floordiv64(yoe, 100));
+    const int64_t mp = fm_floordiv64(5 * doy + 2, 153);
+    FmCivil c;
+    c.d = doy - fm_floordiv64(153 * mp + 2, 5) + 1;
+    c.m = mp + (mp < 10 ? 3 : -9);
+    c.y = yoe + era * 400 + (c.m <= 2 ? 1 : 0);
+    return c;
+}
+
+FM_HD int64_t fm_days_from_civil(int64_t y, int64_t m, int64_t d) {
+    y = y - (m <= 2 ? 1 : 0);
+    const int64_t era = fm_floordiv64(y, 400);
+    const int64_t yoe = y - era * 400;
+    const int64_t doy = fm_floordiv64(153 * (m + (m > 2 ? -3 : 9)) + 2, 5) + d - 1;
+    const int64_t doe = yoe * 365 + fm_floordiv64(yoe, 4) - fm_floordiv64(yoe, 100) + doy;
+    return era * 146097 + doe - 719468;
+}
+
+// EXTRACT of a calendar field from a day number: 0 year, 1 month,
+// 2 quarter, 3 day, 4 doy (the reference's run_extract)
+FM_HD int64_t fm_extract_civil(int64_t days, int field) {
+    const FmCivil c = fm_civil_from_days(days);
+    switch (field) {
+        case 0: return c.y;
+        case 1: return c.m;
+        case 2: return fm_floordiv64(c.m - 1, 3) + 1;
+        case 3: return c.d;
+        default: return days - fm_days_from_civil(c.y, 1, 1) + 1;
+    }
+}
+
+// date_trunc to a calendar unit: 0 month, 1 quarter, 2 year -> the day
+// number of the unit's first day (run_trunc_civil)
+FM_HD int64_t fm_trunc_civil(int64_t days, int unit) {
+    const FmCivil c = fm_civil_from_days(days);
+    int64_t m = c.m;
+    if (unit == 2) m = 1;
+    else if (unit == 1) m = fm_floordiv64(m - 1, 3) * 3 + 1;
+    return fm_days_from_civil(c.y, m, 1);
+}
+
+// day number + N months with the day of month clamped to the target
+// month's length (PostgreSQL's timestamp_pl_interval; run_add_months)
+FM_HD int64_t fm_add_months(int64_t days, int64_t months) {
+    const FmCivil c = fm_civil_from_days(days);
+    const int64_t mt = (c.m - 1) + months;
+    const int64_t y = c.y + fm_floordiv64(mt, 12);
+    const int64_t m = fm_floormod64(mt, 12) + 1;
+    const int64_t nm_y = y + (m == 12 ? 1 : 0);
+    const int64_t nm_m = m == 12 ? 1 : m + 1;
+    const int64_t len = fm_days_from_civil(nm_y, nm_m, 1) - fm_days_from_civil(y, m, 1);
+    return fm_days_from_civil(y, m, c.d < len ? c.d : len);
 }

@@ -38,10 +38,12 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from citus_tpu_torch import types as T
 from citus_tpu_torch.errors import UnsupportedFeatureError
 from citus_tpu_torch.planner.bound import (
-    BBinOp, BCast, BColumn, BDictMask, BIsNull, BLiteral, BParam, BScale,
-    BUnOp,
+    BAddMonths, BBinOp, BCase, BCast, BColumn, BDateTrunc, BDateTruncCivil,
+    BDictLookup, BDictMask, BDictRemap, BExtract, BIsNull, BLiteral,
+    BMathFunc, BParam, BScale, BUnOp,
 )
 
 _BOOL, _I32, _I64 = np.dtype(bool), np.dtype(np.int32), np.dtype(np.int64)
@@ -50,6 +52,18 @@ _C_TYPES = {_BOOL: "bool", _I32: "int32_t", _I64: "int64_t",
             _F32: "float", _F64: "double"}
 _CMP = {"=": "==", "<>": "!=", "<": "<", "<=": "<=", ">": ">", ">=": ">="}
 _ARITH = {"+": "add", "-": "sub", "*": "mul"}
+_TS_KINDS = (T.TIMESTAMP, T.TIMESTAMPTZ)
+_US = {"minute": 60_000_000, "hour": 3_600_000_000,
+       "day": 86_400_000_000, "week": 7 * 86_400_000_000}
+_CIVIL_FIELDS = {"year": 0, "month": 1, "quarter": 2, "day": 3, "doy": 4}
+_TRUNC_UNITS = {"month": 0, "quarter": 1, "year": 2}
+#: float functions of one float64 argument and the domain outside which
+#: the reference's _compile_math gives NULL
+_UNARY_MATH = {"sqrt": ("sqrt", ">= 0"), "exp": ("exp", None),
+               "ln": ("log", "> 0"), "log10": ("log10", "> 0"),
+               "log2": ("log2", "> 0")}
+_ROUNDING = {"floor": "floor", "ceil": "ceil", "round": "rint",
+             "trunc": "trunc"}
 
 
 @dataclass(frozen=True)
@@ -59,7 +73,8 @@ class Predicate:
     source: str
     columns: tuple       # column names -> FmParams.cols / valids
     params: tuple        # parameter env names -> FmParams.params
-    tables: tuple        # dictionary-mask tables (bool tuples)
+    tables: tuple        # dictionary tables (numpy arrays: bool masks as
+    #                      uint8, remaps int32, lookups int64)
 
 
 def _unsupported(what: str):
@@ -142,6 +157,22 @@ class _Gen:
             return expr
         return self.tmp("bool", expr)
 
+    def lookup(self, operand, values: np.ndarray):
+        """``values[clip(ids, 0, n - 1)]`` of a dictionary table (never
+        empty), added to the parameter block (the reference's dictionary
+        gathers); -> (C expression, validity)."""
+        v, k, dt = self.gen(operand)
+        if dt.kind != "i":
+            _unsupported(f"dictionary ids of dtype {dt}")
+        j = len(self.tables)
+        self.tables.append(np.ascontiguousarray(values))
+        ctype = "uint8_t" if values.dtype == np.uint8 else _C_TYPES[values.dtype]
+        # the table's length is a launch argument, so a dictionary that
+        # grows keeps its predicate's source (and build)
+        last = f"(p.table_len[{j}] - 1)"
+        safe = f"({v} < 0 ? 0 : ({v} > {last} ? {last} : {v}))"
+        return f"((const {ctype}*)p.tables[{j}])[{safe}]", k
+
     # -- validity algebra on C expressions ("true"/"false" constants fold)
     @staticmethod
     def both(a: str, b: str) -> str:
@@ -152,6 +183,19 @@ class _Gen:
         if b == "true":
             return a
         return f"({a} && {b})"
+
+    @staticmethod
+    def pick(c: str, a: str, b: str) -> str:
+        """``c ? a : b`` over validity expressions."""
+        if c == "true" or a == b:
+            return a
+        if c == "false":
+            return b
+        return f"({c} ? {a} : {b})"
+
+    @staticmethod
+    def as_bool(v: str, dt: np.dtype) -> str:
+        return v if dt == _BOOL else f"({v} != 0)"
 
     def arith(self, op: str, a: str, b: str, ct: np.dtype) -> str:
         """Wrapping ``a op b`` in ``ct`` (both already of type ``ct``)."""
@@ -231,17 +275,218 @@ class _Gen:
             return self.value(_BOOL, k if e.negated else f"(!{k})"), \
                 "true", _BOOL
         if isinstance(e, BDictMask):
-            v, k, dt = self.gen(e.operand)
-            if dt.kind != "i":
-                _unsupported(f"dictionary ids of dtype {dt}")
-            n = len(e.mask)
-            if n == 0:
+            if not e.mask:
+                _, k, dt = self.gen(e.operand)
+                if dt.kind != "i":
+                    _unsupported(f"dictionary ids of dtype {dt}")
                 return "false", k, _BOOL
-            j = len(self.tables)
-            self.tables.append(tuple(bool(b) for b in e.mask))
-            safe = f"({v} < 0 ? 0 : ({v} > {n - 1} ? {n - 1} : {v}))"
-            return self.value(_BOOL, f"(p.tables[{j}][{safe}] != 0)"), k, _BOOL
+            g, k = self.lookup(e.operand, np.array(e.mask, np.uint8))
+            return self.value(_BOOL, f"({g} != 0)"), k, _BOOL
+        if isinstance(e, BDictRemap):
+            g, k = self.lookup(e.operand, np.array(e.mapping or (-1,),
+                                                   np.int32))
+            return self.value(_I32, g), k, _I32
+        if isinstance(e, BDictLookup):
+            g, k = self.lookup(e.operand, np.array(e.table or (0,),
+                                                   np.int64))
+            return self.value(_I64, g), k, _I64
+        if isinstance(e, BCase):
+            return self.case(e)
+        if isinstance(e, BMathFunc):
+            return self.math(e)
+        if isinstance(e, (BExtract, BDateTrunc, BDateTruncCivil,
+                          BAddMonths)):
+            return self.datetime(e)
         _unsupported(type(e).__name__)
+
+    def case(self, e: BCase):
+        """The reference's run_case: every branch is evaluated, a NULL
+        condition is a branch not taken, the first true WHEN wins."""
+        dt = _dtype(e.type.device_dtype)
+        result = valid = taken = None
+        for c, v in e.whens:
+            cv, ck, cdt = self.gen(c)
+            cond = self.valid(self.both(self.as_bool(cv, cdt), ck))
+            vv, vk, vdt = self.gen(v)
+            vv = cast(vv, vdt, dt)
+            if result is None:
+                result = self.value(dt, f"({cond} ? {vv} : "
+                                        f"{_bits_literal(0, dt)})")
+                valid = self.valid(self.both(cond, vk))
+                taken = cond
+            else:
+                take = self.valid(self.both(cond, f"!{taken}"))
+                result = self.value(dt, f"({take} ? {vv} : {result})")
+                valid = self.valid(self.pick(take, vk, valid))
+                taken = self.valid(f"({taken} || {cond})")
+        if e.else_ is not None:
+            ev, ek, edt = self.gen(e.else_)
+            result = self.value(dt, f"({taken} ? {result} : "
+                                    f"{cast(ev, edt, dt)})")
+            valid = self.valid(self.pick(taken, valid, ek))
+        else:
+            valid = self.valid(self.both(valid, taken))
+        return result, valid, dt
+
+    def math(self, e: BMathFunc):
+        """The reference's _compile_math; domain violations are NULL."""
+        name = e.name
+        if name in _UNARY_MATH:
+            fn, dom = _UNARY_MATH[name]
+            v, k, dt = self.gen(e.operands[0])
+            x = self.value(_F64, cast(v, dt, _F64))
+            if dom is None:
+                return self.value(_F64, f"{fn}({x})"), k, _F64
+            ok = self.valid(f"({x} {dom})")
+            out = self.value(_F64, f"{fn}({ok} ? {x} : 1.0)")
+            return out, self.valid(self.both(k, ok)), _F64
+        if name == "power":
+            (av, ak, adt), (bv, bk, bdt) = (self.gen(o) for o in e.operands)
+            a = self.value(_F64, cast(av, adt, _F64))
+            b = self.value(_F64, cast(bv, bdt, _F64))
+            ok = self.valid(f"(!({a} == 0.0 && {b} < 0.0) && "
+                            f"!({a} < 0.0 && {b} != floor({b})))")
+            out = self.value(_F64, f"pow({ok} ? {a} : 1.0, "
+                                   f"{ok} ? {b} : 1.0)")
+            return out, self.valid(self.both(self.both(ak, bk), ok)), _F64
+        if name in _ROUNDING:
+            return self.rounding(e)
+        if name == "sign":
+            v, k, dt = self.gen(e.operands[0])
+            out_dt = _dtype(e.type.device_dtype)
+            if dt.kind == "f":
+                one = _bits_literal(1, dt)
+                s_ = (f"({v} > 0 ? {one} : ({v} < 0 ? "
+                      f"{_bits_literal(-1, dt)} : {v}))")
+            elif dt in (_I32, _I64):
+                s_ = f"fm_sign{dt.itemsize * 8}({v})"
+            else:
+                _unsupported(f"sign() of dtype {dt}")
+            return self.value(out_dt, cast(s_, dt, out_dt)), k, out_dt
+        if name in ("greatest", "least"):
+            dt = _dtype(e.type.device_dtype)
+            op = ">" if name == "greatest" else "<"
+            acc, acc_k = None, None
+            for o in e.operands:
+                v, k, vdt = self.gen(o)
+                v = self.value(dt, cast(v, vdt, dt))
+                if acc is None:
+                    acc, acc_k = v, k
+                    continue
+                # NULLs are ignored: take the other side when one is null
+                pick = self.valid(self.both(k, f"(!{acc_k} || "
+                                               f"{v} {op} {acc})"))
+                acc = self.value(dt, f"({pick} ? {v} : {acc})")
+                acc_k = self.valid(f"({acc_k} || {k})")
+            return acc, acc_k, dt
+        _unsupported(f"math function {name}()")
+
+    def rounding(self, e: BMathFunc):
+        name = e.name
+        v, k, dt = self.gen(e.operands[0])
+        src_scale, digits = e.param
+        if e.operands[0].type.is_float:
+            fn = _ROUNDING[name]
+            if digits:
+                factor = _bits_literal(10.0 ** digits, _F64)
+                x = cast(v, dt, _F64)
+                return self.value(_F64, f"({fn}({x} * {factor}) / "
+                                        f"{factor})"), k, _F64
+            if dt.kind != "f":
+                _unsupported(f"{name}() of dtype {dt}")
+            return self.value(dt, f"{fn}{'f' if dt == _F32 else ''}({v})"), \
+                k, dt
+        # decimal (scaled int64): exact integer arithmetic
+        drop = src_scale - max(digits, 0)
+        if drop <= 0 or dt.kind != "i":
+            _unsupported(f"{name}() of a decimal without digits to drop")
+        ct = promote(dt, _I64)
+        x = self.value(ct, cast(v, dt, ct))
+        p = _bits_literal(10 ** drop, ct)
+        q = self.value(ct, f"fm_floordiv64({x}, {p})")
+        r = self.value(ct, f"fm_sub64({x}, fm_mul64({q}, {p}))")
+        up = f"fm_add64({q}, ({r} > 0 ? 1 : 0))"
+        if name == "floor":
+            out = q
+        elif name == "ceil":
+            out = self.value(ct, up)
+        else:
+            qt = self.value(ct, f"({x} >= 0 ? {q} : {up})")
+            if name == "trunc":
+                out = qt
+            else:  # round half away from zero
+                rt = self.value(ct, f"fm_sub64({x}, fm_mul64({qt}, {p}))")
+                out = self.value(ct, f"fm_add64({qt}, fm_sign64({rt}) * "
+                                     f"(2 * fm_abs64({rt}) >= {p} ? 1 : 0))")
+        out_dt = _dtype(e.type.device_dtype)
+        return self.value(out_dt, cast(out, ct, out_dt)), k, out_dt
+
+    def datetime(self, e):
+        """EXTRACT, date_trunc and + N months on the day (int32) and
+        microsecond (int64) encodings, as the reference's run_extract,
+        run_trunc_civil, run_add_months and BDateTrunc do."""
+        v, k, dt = self.gen(e.operand)
+        if dt.kind != "i":
+            _unsupported(f"{type(e).__name__} of dtype {dt}")
+        is_ts = e.operand.type.kind in _TS_KINDS
+        if isinstance(e, BDateTrunc):
+            if e.operand.type.kind == T.DATE:
+                units = {"day": 1, "week": 7}
+                ct = promote(dt, _I32)
+                off_v = 3 if e.unit == "week" else 0
+            else:
+                units = _US
+                ct = promote(dt, _I64)
+                off_v = 3 * _US["day"] if e.unit == "week" else 0
+            if e.unit not in units:
+                _unsupported(f"date_trunc({e.unit!r})")
+            w = ct.itemsize * 8
+            step = _bits_literal(units[e.unit], ct)
+            off = _bits_literal(off_v, ct)
+            x = cast(v, dt, ct)
+            out = (f"fm_sub{w}(fm_mul{w}(fm_floordiv{w}(fm_add{w}({x}, "
+                   f"{off}), {step}), {step}), {off})")
+            return self.value(ct, out), k, ct
+        x = self.value(_I64, cast(v, dt, _I64))
+        days = self.value(_I64, f"fm_floordiv64({x}, FM_US_DAY)") if is_ts \
+            else x
+        if isinstance(e, BExtract):
+            f = e.field
+            if f == "epoch":
+                out = (f"fm_floordiv64({x}, 1000000LL)" if is_ts
+                       else f"fm_mul64({days}, 86400LL)")
+            elif f in ("hour", "minute", "second"):
+                if not is_ts:
+                    out = "((int64_t)0)"
+                else:
+                    rem = self.value(_I64, f"fm_sub64({x}, fm_mul64({days}, "
+                                           "FM_US_DAY))")
+                    out = {"hour": f"fm_floordiv64({rem}, 3600000000LL)",
+                           "minute": f"fm_floormod64(fm_floordiv64({rem}, "
+                                     "60000000LL), 60)",
+                           "second": f"fm_floormod64(fm_floordiv64({rem}, "
+                                     "1000000LL), 60)"}[f]
+            elif f == "dow":  # 0 = Sunday, as PostgreSQL
+                out = f"fm_floormod64(fm_add64({days}, 4), 7)"
+            elif f in _CIVIL_FIELDS:
+                out = f"fm_extract_civil({days}, {_CIVIL_FIELDS[f]})"
+            else:
+                _unsupported(f"EXTRACT field {f!r}")
+            return self.value(_I64, out), k, _I64
+        if isinstance(e, BDateTruncCivil):
+            if e.unit not in _TRUNC_UNITS:
+                _unsupported(f"date_trunc({e.unit!r})")
+            out = f"fm_trunc_civil({days}, {_TRUNC_UNITS[e.unit]})"
+        else:  # BAddMonths
+            out = f"fm_add_months({days}, {int(e.months)}LL)"
+        out = self.value(_I64, out)
+        if is_ts:
+            rem = f"fm_sub64({x}, fm_mul64({days}, FM_US_DAY))"
+            tail = (f"fm_add64(fm_mul64({out}, FM_US_DAY), {rem})"
+                    if isinstance(e, BAddMonths)
+                    else f"fm_mul64({out}, FM_US_DAY)")
+            return self.value(_I64, tail), k, _I64
+        return self.value(_I32, f"((int32_t){out})"), k, _I32
 
     def binop(self, e: BBinOp):
         lv, lk, ldt = self.gen(e.left)

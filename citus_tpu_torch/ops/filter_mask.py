@@ -93,7 +93,7 @@ class FilterProgram:
         key = str(device)
         t = self._tables.get(key)
         if t is None:
-            t = [torch.tensor(m, dtype=torch.uint8, device=device)
+            t = [torch.from_numpy(m).to(device)
                  for m in self.predicate.tables]
             self._tables[key] = t
         return t

@@ -369,8 +369,10 @@ def test_dispatch_failure_reaches_riders_or_falls_back(
 
 def test_refused_predicate_is_counted_and_runs_serially(clusters):
     ref, port = clusters
-    # abs() has no CUDA code generator yet (ROADMAP.md B10)
-    sql = "SELECT count(*) FROM t WHERE abs(v) > 40"
+    # every node kind is generated; a predicate over more dictionary
+    # tables than the parameter block holds (16) is still refused
+    sql = "SELECT count(*) FROM t WHERE v > 40 AND (" + " OR ".join(
+        f"s LIKE 'n{i % 5}%'" for i in range(17)) + ")"
     want = ref.execute(sql).rows
     port.execute("SET citus.megabatch_window_ms = 30")
     s0 = GLOBAL_MEGABATCH.stats()

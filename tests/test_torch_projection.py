@@ -167,15 +167,89 @@ PREDICATES = [
     "a > 5 AND b = NULL",                         # NULL literal
     "a > 5 OR b = NULL",
     "s <> s",                                     # NaN <> NaN
+    # BExtract: every field, pre-1970 dates, leap days, timestamps
+    "extract(year FROM d2) = 2020",
+    "extract(month FROM d2) = 2 AND extract(day FROM d2) = 29",
+    "extract(quarter FROM d2) = 4 OR extract(year FROM d2) < 1900",
+    "extract(dow FROM d2) = 0",
+    "extract(doy FROM d2) > 365",
+    "extract(epoch FROM d2) < 0",
+    "extract(hour FROM d2) = 0 AND extract(day FROM d2) = 31",
+    "extract(hour FROM ts) = 13 OR extract(minute FROM ts) < 3",
+    "extract(second FROM ts) >= 57",
+    "extract(epoch FROM ts) > 1000000000",
+    "extract(year FROM ts) < 1970 AND extract(month FROM ts) = 12",
+    "extract(doy FROM ts) = 60",
+    # BDateTrunc (fixed-width units) and BDateTruncCivil
+    "date_trunc('week', d2) = d2",
+    "date_trunc('day', d2) = d2 AND d2 < '1960-01-01'",
+    "date_trunc('day', ts) < ts",
+    "date_trunc('hour', ts) = date_trunc('minute', ts)",
+    "date_trunc('week', ts) < '1969-12-29'",
+    "date_trunc('month', d2) = date '2020-02-01'",
+    "date_trunc('quarter', d2) < date '1960-01-01'",
+    "date_trunc('year', d2) = date '1900-01-01' OR d2 IS NULL",
+    "date_trunc('month', ts) < '1950-01-01'",
+    "date_trunc('year', ts) > '2000-01-01'",
+    # BAddMonths: PostgreSQL's end-of-month clamp
+    "extract(day FROM d2 + interval '1 month') = 29",
+    "d2 - interval '13 months' < date '1969-02-28'",
+    "extract(day FROM d2 + interval '12 months') = 28 AND "
+    "extract(month FROM d2) = 2",
+    "ts + interval '1 month' > '2020-03-31'",
+    "extract(day FROM ts - interval '1 month') = 30",
+    # BCase: three-valued WHEN, no ELSE, abs/coalesce/nullif
+    "CASE WHEN a > 5 THEN s ELSE 0 END > 0.5",
+    "CASE WHEN a > 5 THEN b WHEN a < -5 THEN -b END = 1",
+    "CASE WHEN s > 0 THEN 1 WHEN s IS NULL THEN 2 ELSE 3 END = 2",
+    "CASE WHEN b = NULL THEN 1 ELSE 0 END = 0",
+    "CASE WHEN a > 0 THEN p ELSE 1.5 END > 10",
+    "abs(a - 3) < 10",
+    "abs(s) > 1",
+    "coalesce(b, a) > 2",
+    "nullif(a, 5) IS NULL",
+    # BDictRemap and BDictLookup
+    "upper(txt) = 'Y'",
+    "lower(upper(txt)) = 'yy' OR upper(txt) = 'Q'",
+    "length(txt) = 2",
+    "strpos(txt, 'y') = 1",
+    # BMathFunc: transcendentals with domain violations, rounding,
+    # sign, greatest/least
+    "sqrt(s) > 0.5",
+    "exp(s) > 2",
+    "ln(u) < 1",
+    "log10(u) > 0.2",
+    "log2(u) < 2",
+    "log(2, u) > 1",
+    "power(u, b) > 3",
+    "power(s, 0.5) > 0.5",
+    "floor(s) = 0",
+    "ceil(u) = 3",
+    "round(u) = 2",
+    "round(u, 1) > 2.3",
+    "trunc(s) = 0 AND s < 0",
+    "floor(f) = -1",
+    "round(p, 1) > 10",
+    "floor(p) = 3",
+    "ceil(p) > 5 AND p < 6",
+    "trunc(p, 1) = -2.5",
+    "round(p) = -3",
+    "sign(a) = -1",
+    "sign(s) < 0",
+    "sign(p) = 1",
+    "greatest(a, b, 3) > 10",
+    "least(s, u) < 0",
+    "greatest(p, 10) = 10",
 ]
 
 
 def _predicate_table(cl, rows=N):
     cl.execute("CREATE TABLE t (k bigint NOT NULL, a bigint, b int, "
                "p decimal(12,2), s double, f real, u double, txt text, "
-               "d date, flag boolean)")
+               "d date, flag boolean, d2 date, ts timestamp)")
     cl.execute("SELECT create_distributed_table('t', 'k', 2)")
-    cl.execute("INSERT INTO t VALUES (0, 1, 2, 3.5, 0.5, 0.25, 1.5, 'x', "
+    cl.execute("INSERT INTO t (k, a, b, p, s, f, u, txt, d, flag) "
+               "VALUES (0, 1, 2, 3.5, 0.5, 0.25, 1.5, 'x', "
                "'2021-01-02', true), (1, NULL, NULL, NULL, NULL, NULL, NULL, "
                "NULL, NULL, NULL), (2, 5, 0, 1.0, 0.0, 0.0, 0.0, 'y', "
                "'2021-04-04', false), (3, 7, 1, 2.0, 1.0, 1.0, 2.0, 'z', "
@@ -216,6 +290,19 @@ def predicate_env(tmp_path_factory):
     }
     cols["a"][:4] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max, 0, -1]
     valids = {c: rng.random(n) > 0.1 for c in cols}
+    # dates from 1800 to 2200 with month ends, leap days (2000, 2020,
+    # and 1900, which has none) and the days around 1970-01-01 planted;
+    # timestamps on those days at any microsecond
+    d2 = rng.integers(-62000, 84000, n).astype(np.int32)
+    special = np.array([-25509, -25508, -25447, -1, 0, 1, -365, 11016,
+                        11017, 10956, 18321, 18322, 18262, 18627, 18658,
+                        18686, 18717, -3653, -3654, 47541], np.int32)
+    d2[rng.integers(0, n, 400)] = rng.choice(special, 400)
+    cols["d2"] = d2
+    cols["ts"] = (d2.astype(np.int64) * 86_400_000_000
+                  + rng.integers(0, 86_400_000_000, n))
+    for c in ("d2", "ts"):
+        valids[c] = rng.random(n) > 0.1
     yield ref, port, cols, valids
     port.close()
     ref.close()
@@ -304,7 +391,7 @@ def _host_params(prog, cols, valids, params, row_mask, out, keep):
         p.params[j] = _param_bits(v, prog.param_dtypes[name])
         p.param_valid[j] = 1 if bool(m) else 0
     for j, t in enumerate(pred.tables):
-        arr = np.asarray(t, np.uint8)
+        arr = np.ascontiguousarray(t)
         keep.append(arr)
         p.tables[j] = arr.ctypes.data
         p.table_len[j] = arr.size
@@ -363,11 +450,15 @@ def test_generated_predicate_on_host_matches_jax(predicate_env, host_harness,
 
 
 def test_unsupported_node_raises_naming_b10(predicate_env):
-    """A node the generator does not know raises on the card's path: the
-    predicate never falls back to eager tensor code there."""
+    """What the generator does not take raises on the card's path: the
+    predicate never falls back to eager tensor code there.  Every bound
+    node kind is generated; a column of a dtype outside the generator's
+    C types (a uint8 column) is still refused."""
     from citus_tpu_torch.errors import UnsupportedFeatureError
     _, port, _, _ = predicate_env
     prog, _ = _port_program(port, "extract(year from d) = 2021", False)
+    assert "fm_extract_civil" in prog.predicate.source
+    prog = FilterProgram(prog.expr, {"d": np.uint8}, {})
     with pytest.raises(UnsupportedFeatureError, match="B10"):
         prog.predicate
 
@@ -403,3 +494,204 @@ def test_filter_kernel_matches_plain_on_card(predicate_env):
             assert filter_mask.launches == launches + 1
             want = filter_mask_plain(prog, tcols, params, row_mask)
             assert torch.equal(got, want), pred
+
+
+# ------------------------------------------------------------------ C1
+# ROADMAP.md C1: on the card a projection whose WHERE held one of these
+# nodes raised, where the reference answers.  Each WHERE (over
+# _load_events, seed 11) with the reference's row count.
+
+C1_WHERES = [
+    ("extract(year FROM d) = 2021", 489),                 # BExtract
+    ("abs(score - 50) < 3", 103),                         # BCase (abs)
+    ("CASE WHEN qty > 5 THEN score ELSE 0 END > 40", 1023),  # BCase
+    ("upper(kind) = 'BUY'", 507),                         # BDictRemap
+    ("date_trunc('month', d) = date '2021-03-01'", 56),   # BDateTruncCivil
+]
+C1_IDS = ["extract", "abs", "case", "upper", "date_trunc"]
+
+
+def _c1_sql(where):
+    return f"SELECT id FROM events WHERE {where} ORDER BY id"
+
+
+@pytest.fixture(scope="module")
+def c1_recorded(pair):
+    """Each C1 projection through both packages, every ``filter_mask``
+    call of the port's projection path recorded: -> {where: (reference
+    rows, port result, [(program, columns, parameters, row mask, mask)])}."""
+    from citus_tpu_torch.ops import filter_mask as fm_mod
+    ref, port = pair
+    real = fm_mod.filter_mask
+    out = {}
+    for where, _ in C1_WHERES:
+        calls = []
+
+        def record(prog, cols, params, row_mask, _calls=calls):
+            got = real(prog, cols, params, row_mask)
+            _calls.append((prog, cols, params, row_mask, got))
+            return got
+        fm_mod.filter_mask = record
+        try:
+            r = port.execute(_c1_sql(where))
+        finally:
+            fm_mod.filter_mask = real
+        out[where] = (ref.execute(_c1_sql(where)).rows, r, calls)
+    return out
+
+
+@pytest.mark.parametrize("where,count", C1_WHERES, ids=C1_IDS)
+def test_c1_projection_rows_identical_to_reference(c1_recorded, where,
+                                                   count):
+    """The serial projection path answers with the reference's rows,
+    through ``filter_mask`` on every scanned batch, and the predicate
+    generator takes the WHERE (it raised before)."""
+    want, r, calls = c1_recorded[where]
+    assert len(want) == count
+    assert r.rows == want
+    assert r.explain["strategy"] == "projection"
+    assert calls and r.explain["pipeline"]["filter_dispatches"] == len(calls)
+    assert "fm_eval" in calls[0][0].predicate.source
+
+
+@pytest.fixture(scope="module")
+def c1_harness(c1_recorded, tmp_path_factory):
+    """The generated sources of the five C1 predicates compiled by g++
+    into one host library: -> (library, {where: symbol})."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ (the native codec's compiler) on this machine")
+    d = tmp_path_factory.mktemp("c1")
+    parts = ['#include "expr.cuh"']
+    names = {}
+    for i, (where, _) in enumerate(C1_WHERES):
+        prog = c1_recorded[where][2][0][0]
+        q = f"c1_{i}"
+        names[where] = q
+        (d / f"{q}.inc").write_text(prog.predicate.source)
+        parts.append(
+            f"namespace {q} {{\n#include \"{q}.inc\"\n}}\n"
+            f"extern \"C\" void run_{q}(const FmParams* p) {{\n"
+            "    for (int64_t i = 0; i < p->n; ++i)\n"
+            "        p->out[i] = (p->row_mask == nullptr || p->row_mask[i])"
+            f" && {q}::fm_predicate(*p, i);\n}}\n")
+    (d / "harness.cpp").write_text("\n".join(parts))
+    so = d / "libc1.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-I", cuda_build.CSRC, "-I", str(d),
+                    "-o", str(so), str(d / "harness.cpp")],
+                   check=True, timeout=300)
+    return ctypes.CDLL(str(so)), names
+
+
+@pytest.mark.parametrize("where,count", C1_WHERES, ids=C1_IDS)
+def test_c1_generated_predicate_on_scan_batches(c1_recorded, c1_harness,
+                                                where, count):
+    """The generated predicate, compiled for the host, gives the plain
+    version's mask on every batch the projection path scanned (the
+    columns as the scan decoded them: dictionary ids, int32 days,
+    scaled decimals)."""
+    lib, names = c1_harness
+    fn = getattr(lib, f"run_{names[where]}")
+    fn.argtypes = [ctypes.POINTER(_FmParams)]
+    fn.restype = None
+    kept = 0
+    for prog, cols, params, row_mask, want in c1_recorded[where][2]:
+        ncols = {c: v.numpy() for c, (v, _) in cols.items()}
+        nvalid = {c: (np.ones(len(v), bool) if m is None else m.numpy())
+                  for c, (v, m) in cols.items()}
+        rm = row_mask.numpy()
+        out = np.zeros(rm.shape[0], np.uint8)
+        keep: list = []
+        p = _host_params(prog, ncols, nvalid, params, rm, out, keep)
+        fn(ctypes.byref(p))
+        np.testing.assert_array_equal(out.astype(bool), want.numpy())
+        kept += int(out.sum())
+    assert kept == count
+
+
+@pytest.fixture(scope="module")
+def c1_pair(tmp_path_factory):
+    """Two port coordinators (A the authority, B attached; 2 of the 4
+    events shards on B) over _load_events, loaded through A."""
+    from test_torch_net import _open_pair
+    a, b = _open_pair(tmp_path_factory.mktemp("c1pair"))
+    try:
+        _load_events(a)
+        yield a, b
+    finally:
+        b.close()
+        a.close()
+
+
+@pytest.mark.parametrize("where,count", C1_WHERES, ids=C1_IDS)
+def test_c1_pushed_projection_rows(c1_pair, c1_recorded, where, count):
+    """A pushed projection task filters on B through the same
+    ``_ProjectionMask``: the rows are the reference's, with both remote
+    shards pushed and no fallback."""
+    from citus_tpu_torch.executor.executor import GLOBAL_COUNTERS
+    a, _ = c1_pair
+    a.execute("SET citus.remote_task_execution = auto")
+    c0 = GLOBAL_COUNTERS.snapshot()
+    rows = a.execute(_c1_sql(where)).rows
+    c1 = GLOBAL_COUNTERS.snapshot()
+    assert c1.get("remote_tasks_pushed", 0) - \
+        c0.get("remote_tasks_pushed", 0) == 2
+    assert c1.get("remote_task_fallbacks", 0) == \
+        c0.get("remote_task_fallbacks", 0)
+    assert rows == c1_recorded[where][0] and len(rows) == count
+
+
+#: literal families of C1's WHEREs (query i of a family binds literal
+#: i).  Neither package hoists a literal inside a CASE (or abs), so the
+#: CASE families vary the literal outside it
+C1_FAMILIES = [
+    [f"extract(year FROM d) = {2020 + i}" for i in range(4)],
+    [f"abs(score - 50) < {3 + i}" for i in range(4)],
+    [f"CASE WHEN qty > 5 THEN score ELSE 0 END > {40 + i}"
+     for i in range(4)],
+    [f"upper(kind) = 'BUY' AND id > {100 * i}" for i in range(4)],
+    [f"date_trunc('month', d) = date '2021-0{3 + i}-01'" for i in range(4)],
+]
+
+
+@pytest.fixture(scope="module")
+def c1_family_pair(tmp_path_factory):
+    ref = ct.Cluster(str(tmp_path_factory.mktemp("c1fam_ref")))
+    port = ctt.Cluster(str(tmp_path_factory.mktemp("c1fam_port")),
+                       device="cpu")
+    for cl in (ref, port):
+        _load_events(cl)
+        cl.execute("SET citus.megabatch_window_ms = 1000")
+        cl.execute("SET citus.megabatch_max_size = 4")
+    yield ref, port
+    port.close()
+    ref.close()
+
+
+@pytest.mark.parametrize("family", C1_FAMILIES, ids=C1_IDS)
+def test_c1_family_coalesces_with_reference_rows(c1_family_pair, family):
+    """Literal variants of each C1 WHERE coalesce into shared scans in
+    both packages (the port's eligibility check generates the
+    predicate), with the reference's rows and batch count."""
+    from citus_tpu.executor.megabatch import GLOBAL_MEGABATCH as REF_MB
+    from citus_tpu_torch.executor.megabatch import GLOBAL_MEGABATCH
+    from test_torch_megabatch import _fanout
+    ref, port = c1_family_pair
+    sqls = [_c1_sql(w) for w in family]
+    r0 = REF_MB.stats()["batches"]
+    want, ref_err = _fanout(ref, sqls)
+    ref_batches = REF_MB.stats()["batches"] - r0
+    assert ref_err == {}
+    c0, s0 = port.counters.snapshot(), GLOBAL_MEGABATCH.stats()
+    got, errors = _fanout(port, sqls)
+    c1, s1 = port.counters.snapshot(), GLOBAL_MEGABATCH.stats()
+    assert errors == {}
+    batches = s1["batches"] - s0["batches"]
+    assert batches == ref_batches
+    assert 1 <= batches < 4     # occupancy above 1
+    assert [got[i] for i in range(4)] == [want[i] for i in range(4)]
+    assert c1.get("megabatch_queries", 0) - \
+        c0.get("megabatch_queries", 0) == 4
+    assert c1.get("megabatch_fallbacks", 0) == \
+        c0.get("megabatch_fallbacks", 0)

@@ -1,0 +1,520 @@
+"""The repartition kernels of the port (B7 partition, B8 sort join), held
+against the JAX package's jitted bodies.
+
+- ``pack_blocks`` (``citus_tpu_torch/parallel/shuffle.py``, B7) on CPU
+  tensors runs its plain version; on the same numpy-seeded columns it
+  must give ``citus_tpu/parallel/shuffle.py _pack_blocks``'s packed
+  values, validity and overflow, for n_dev 1, 2 and 8, capacities under
+  and over the need, all rows masked, and no rows.  One difference is
+  deliberate and pinned (ROADMAP.md C8): the reference clips a dropped
+  row's slot into its block's last slot and scatters it there, so an
+  overflowing block, and a full last block followed by masked rows,
+  lose their last row; the port keeps it.
+- ``sorted_join`` (B8) on CPU tensors must give
+  ``_sorted_join_indexes``'s l_idx, r_idx, out_valid and total slot for
+  slot (the slots past the last pair too) and the gathers of
+  ``build_repartition_join``.
+- A numpy model of each CUDA kernel's algorithm (counting passes, the
+  radix sort by dense gid, the run expansion and the tail of clipped
+  slots; ``csrc/partition_pack.cu``, ``csrc/sorted_join.cu``) gives the
+  same outputs: the kernels' design is checked here, their code on a
+  card.
+- ``test_*_kernel_matches_plain_on_card`` hold the CUDA kernels against
+  the plain versions; they need a card and skip here.
+"""
+
+import numpy as np
+import pytest
+
+import citus_tpu  # noqa: F401  (x64 on before any JAX array)
+import jax.numpy as jnp
+import torch
+
+from citus_tpu.parallel.shuffle import _pack_blocks, _sorted_join_indexes
+from citus_tpu_torch.parallel import shuffle
+from citus_tpu_torch.parallel.mesh import DeviceMesh
+from citus_tpu_torch.parallel.shuffle import (
+    build_repartition, build_repartition_join, pack_blocks, pack_blocks_plain,
+    repartition_host, sorted_join, sorted_join_indexes_plain,
+    sorted_join_plain,
+)
+
+# ------------------------------------------------------------------ B7
+
+
+def _pack_case(n, n_dev, seed, masked=0.2, all_masked=False):
+    rng = np.random.default_rng(seed)
+    target = rng.integers(0, n_dev, n).astype(np.int32)
+    mask = rng.random(n) >= masked
+    if all_masked:
+        mask[:] = False
+    values = (np.arange(n, dtype=np.int64) * 7 - 3,
+              rng.integers(-1000, 1000, n).astype(np.int32),
+              rng.normal(0, 1, n),
+              rng.random(n) > 0.5)
+    return values, target, mask
+
+
+def _need(target, mask, n_dev):
+    counts = np.bincount(target[mask], minlength=n_dev) if mask.any() \
+        else np.zeros(n_dev, np.int64)
+    return int(counts.max()) if n_dev else 0
+
+
+def _pack_oracle(values, target, mask, n_dev, capacity):
+    """A stable partition straight from its definition."""
+    packed = [np.zeros((n_dev, capacity), v.dtype) for v in values]
+    pvalid = np.zeros((n_dev, capacity), bool)
+    overflow = 0
+    for d in range(n_dev):
+        rows = np.nonzero(mask & (target == d))[0]
+        overflow += max(len(rows) - capacity, 0)
+        rows = rows[:capacity]
+        for p, v in zip(packed, values):
+            p[d, :len(rows)] = v[rows]
+        pvalid[d, :len(rows)] = True
+    return packed, pvalid, overflow
+
+
+def _c8_slots(target, mask, n_dev, capacity):
+    """The reference's clobbered slots: a dropped row's slot is clipped
+    into its block's last slot (a masked row's into the last block's),
+    so the last row of every overflowing block and, when masked rows
+    exist, of a full last block can be overwritten."""
+    counts = np.bincount(target[mask], minlength=n_dev) if mask.any() \
+        else np.zeros(n_dev, np.int64)
+    out = [(d, capacity - 1) for d in range(n_dev) if counts[d] > capacity]
+    if counts[n_dev - 1] == capacity and (~mask).any():
+        out.append((n_dev - 1, capacity - 1))
+    return out
+
+
+def _run_port_pack(values, target, mask, n_dev, capacity):
+    packed, pvalid, ov = pack_blocks(
+        tuple(torch.from_numpy(v) for v in values), torch.from_numpy(target),
+        torch.from_numpy(mask), n_dev, capacity)
+    return [p.numpy() for p in packed], pvalid.numpy(), int(ov)
+
+
+def _run_ref_pack(values, target, mask, n_dev, capacity):
+    packed, pvalid, ov = _pack_blocks(
+        tuple(jnp.asarray(v) for v in values), jnp.asarray(target),
+        jnp.asarray(mask), n_dev, capacity)
+    return [np.asarray(p) for p in packed], np.asarray(pvalid), int(ov)
+
+
+PACK_CASES = [
+    # (n, masked share, all masked)
+    (3000, 0.2, False),
+    (1, 0.0, False),
+    (257, 0.0, False),
+    (500, 1.0, True),
+    (0, 0.0, False),
+]
+
+
+@pytest.mark.parametrize("fit", ["over", "exact", "under"])
+@pytest.mark.parametrize("n_dev", [1, 2, 8])
+@pytest.mark.parametrize("n,masked,all_masked", PACK_CASES,
+                         ids=["mixed", "one_row", "unmasked", "all_masked",
+                              "empty"])
+def test_pack_blocks_plain_matches_reference(n, masked, all_masked, n_dev,
+                                             fit):
+    values, target, mask = _pack_case(n, n_dev, seed=n + n_dev,
+                                      masked=masked, all_masked=all_masked)
+    need = _need(target, mask, n_dev)
+    capacity = {"over": need + 3, "exact": max(need, 1),
+                "under": max(need // 2, 1)}[fit]
+    got = _run_port_pack(values, target, mask, n_dev, capacity)
+    want = _run_ref_pack(values, target, mask, n_dev, capacity)
+    oracle = _pack_oracle(values, target, mask, n_dev, capacity)
+    assert got[2] == want[2] == oracle[2]
+    c8 = _c8_slots(target, mask, n_dev, capacity)
+    for g, w, o in zip(got[0] + [got[1]], want[0] + [want[1]],
+                       oracle[0] + [oracle[1]]):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, o)
+        # ROADMAP.md C8: only those slots of the reference may differ
+        w, o = w.copy(), o.copy()
+        for slot in c8:
+            w[slot] = o[slot] = 0
+        np.testing.assert_array_equal(w, o)
+
+
+def test_reference_pack_blocks_loses_a_full_last_block_row_c8():
+    """ROADMAP.md C8, pinned: two valid rows fill the one block of
+    capacity 2 and two masked rows follow; the reference reports no
+    overflow but its packed validity holds one row, the port's both."""
+    values = (np.array([10, 11, 12, 13], np.int64),)
+    target = np.zeros(4, np.int32)
+    mask = np.array([True, True, False, False])
+    ref = _run_ref_pack(values, target, mask, 1, 2)
+    port = _run_port_pack(values, target, mask, 1, 2)
+    assert ref[2] == port[2] == 0
+    assert ref[1].tolist() == [[True, False]]
+    assert ref[0][0].tolist() == [[10, 0]]
+    assert port[1].tolist() == [[True, True]]
+    assert port[0][0].tolist() == [[10, 11]]
+
+
+def _pack_kernel_model(values, target, mask, n_dev, capacity, tile=2048):
+    """partition_pack.cu step by step: per-tile destination histograms
+    (digit-major), their exclusive scan, each row's position from its
+    tile's offset plus its rank among the tile's earlier rows of its
+    digit, rows of rank under capacity placed, the rest of every block
+    zero, and the overflow from the scanned counts."""
+    n = len(target)
+    digit = np.where(mask & (target >= 0) & (target < n_dev), target, n_dev)
+    nt = -(-n // tile)
+    hist = np.zeros((n_dev + 1, nt), np.int64)
+    for t in range(nt):
+        hist[:, t] = np.bincount(digit[t * tile:(t + 1) * tile],
+                                 minlength=n_dev + 1)
+    flat = hist.reshape(-1)
+    offs = (np.cumsum(flat) - flat).reshape(n_dev + 1, nt)
+    packed = [np.full((n_dev, capacity), 99, v.dtype) for v in values]
+    pvalid = np.full((n_dev, capacity), 7, np.uint8)
+    for t in range(nt):
+        running = offs[:, t].copy()
+        for i in range(t * tile, min(n, (t + 1) * tile)):
+            d = digit[i]
+            pos = running[d]
+            running[d] += 1
+            if d < n_dev and pos - offs[d, 0] < capacity:
+                for p, v in zip(packed, values):
+                    p[d, pos - offs[d, 0]] = v[i]
+                pvalid[d, pos - offs[d, 0]] = 1
+    count = (offs[1:, 0] - offs[:-1, 0]) if nt else np.zeros(n_dev + 1)
+    for d in range(n_dev):
+        for r in range(int(count[d]) if nt else 0, capacity):
+            for p in packed:
+                p[d, r] = 0
+            pvalid[d, r] = 0
+    overflow = int(np.maximum(count[:n_dev] - capacity, 0).sum()) if nt else 0
+    return packed, pvalid.astype(bool), overflow
+
+
+@pytest.mark.parametrize("n,n_dev,fit", [(5000, 1, "exact"),
+                                         (5000, 8, "under"),
+                                         (4097, 3, "over"), (0, 2, "over")])
+def test_pack_kernel_model_matches_plain(n, n_dev, fit):
+    """The CUDA kernel's algorithm (a numpy model with a small tile, so
+    rows cross tiles) gives the plain version's blocks."""
+    values, target, mask = _pack_case(n, n_dev, seed=3)
+    need = _need(target, mask, n_dev)
+    capacity = {"over": need + 1, "exact": max(need, 1),
+                "under": max(need // 3, 1)}[fit]
+    got = _pack_kernel_model(values, target, mask, n_dev, capacity, tile=512)
+    want = _run_port_pack(values, target, mask, n_dev, capacity)
+    assert got[2] == want[2]
+    for g, w in zip(got[0] + [got[1]], want[0] + [want[1]]):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_pack_blocks_on_cpu_runs_the_plain_version():
+    values, target, mask = _pack_case(100, 2, seed=1)
+    before = pack_blocks.launches
+    _run_port_pack(values, target, mask, 2, 64)
+    assert pack_blocks.launches == before
+
+
+# ------------------------------------------------------------------ B8
+
+
+def _join_case(L, R, U, seed, lmasked=0.1, rmasked=0.1):
+    rng = np.random.default_rng(seed)
+    lgid = rng.integers(0, U, L).astype(np.int64)
+    rgid = rng.integers(0, U, R).astype(np.int64)
+    lvalid = rng.random(L) >= lmasked
+    rvalid = rng.random(R) >= rmasked
+    # an invalid row's gid is whatever its slot held (0 padding, stale
+    # ids): keep some in range and some not
+    lgid[~lvalid & (rng.random(L) < 0.5)] = 0
+    rgid[~rvalid & (rng.random(R) < 0.5)] = U + 5
+    return lgid, lvalid, rgid, rvalid
+
+
+def _pairs_needed(lgid, lvalid, rgid, rvalid):
+    lc = np.bincount(lgid[lvalid], minlength=1)
+    n = 0
+    for g, v in zip(rgid, rvalid):
+        if v and 0 <= g < len(lc):
+            n += int(lc[g])
+    return n
+
+
+def _run_ref_join(lgid, lvalid, rgid, rvalid, J):
+    out = _sorted_join_indexes(jnp.asarray(lgid), jnp.asarray(lvalid),
+                               jnp.asarray(rgid), jnp.asarray(rvalid), J)
+    return [np.asarray(o).astype(np.int64) if np.asarray(o).dtype != bool
+            else np.asarray(o) for o in out]
+
+
+def _run_port_join(lgid, lvalid, rgid, rvalid, U, J, lcols=(), rcols=()):
+    out = sorted_join(torch.from_numpy(lgid), torch.from_numpy(lvalid),
+                      torch.from_numpy(rgid), torch.from_numpy(rvalid),
+                      tuple(torch.from_numpy(c) for c in lcols),
+                      tuple(torch.from_numpy(c) for c in rcols), U, J)
+    li, ri, ov, total, ol, orr = out
+    return ([li.numpy(), ri.numpy(), ov.numpy(), np.int64(total)],
+            [o.numpy() for o in ol], [o.numpy() for o in orr])
+
+
+#: device_join's unit case (tests/test_device_join.py:114): gids not
+#: dense, an invalid left row, a right row with no match
+UNIT = (np.array([5, 2, 2, 9, 2, 7], np.int64),
+        np.array([True, True, True, False, True, True]),
+        np.array([2, 7, 7, 3, 9], np.int64),
+        np.array([True] * 5))
+
+
+def _join_cases():
+    cases = {"unit": UNIT + (10,)}
+    cases["many_to_many"] = _join_case(3000, 5000, 400, seed=11) + (400,)
+    cases["one_group"] = _join_case(40, 30, 1, seed=2, lmasked=0.0,
+                                    rmasked=0.0) + (1,)
+    cases["left_empty"] = _join_case(64, 100, 50, seed=4, lmasked=1.1) + (50,)
+    cases["right_empty"] = _join_case(64, 100, 50, seed=5, rmasked=1.1) + (50,)
+    cases["invalid_both"] = _join_case(2048, 1024, 700, seed=6, lmasked=0.5,
+                                       rmasked=0.5) + (700,)
+    cases["one_row_each"] = (np.array([0], np.int64), np.array([True]),
+                             np.array([0], np.int64), np.array([True]), 1)
+    return cases
+
+
+JOIN_CASES = _join_cases()
+
+
+@pytest.mark.parametrize("cap", ["exact", "over", "under"])
+@pytest.mark.parametrize("case", list(JOIN_CASES))
+def test_sorted_join_indexes_plain_matches_reference(case, cap):
+    lgid, lvalid, rgid, rvalid, U = JOIN_CASES[case]
+    total = _pairs_needed(lgid, lvalid, rgid, rvalid)
+    J = {"exact": total, "over": total + 37, "under": total // 2}[cap]
+    want = _run_ref_join(lgid, lvalid, rgid, rvalid, J)
+    got, _, _ = _run_port_join(lgid, lvalid, rgid, rvalid, U, J)
+    assert int(got[3]) == int(want[3]) == total
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_sorted_join_gathers_every_column():
+    lgid, lvalid, rgid, rvalid, U = JOIN_CASES["many_to_many"]
+    rng = np.random.default_rng(8)
+    lcols = (rng.integers(0, 10**9, len(lgid)), rng.random(len(lgid)) > 0.3,
+             rng.normal(0, 1, len(lgid)),
+             rng.integers(0, 99, len(lgid)).astype(np.int32))
+    rcols = (rng.integers(0, 10**9, len(rgid)), rng.random(len(rgid)) > 0.3)
+    J = _pairs_needed(lgid, lvalid, rgid, rvalid) + 5
+    idx, ol, orr = _run_port_join(lgid, lvalid, rgid, rvalid, U, J, lcols,
+                                  rcols)
+    ref = _run_ref_join(lgid, lvalid, rgid, rvalid, J)
+    for c, o in zip(lcols, ol):
+        np.testing.assert_array_equal(o, np.asarray(jnp.asarray(c)[ref[0]]))
+    for c, o in zip(rcols, orr):
+        np.testing.assert_array_equal(o, np.asarray(jnp.asarray(c)[ref[1]]))
+    assert sorted_join.launches == 0
+
+
+def test_sorted_join_refuses_an_empty_side():
+    """The reference's searches need a row on each side (its device join
+    never sends fewer: capacities are at least 1); so do both versions
+    here."""
+    e = torch.zeros(0, dtype=torch.int64)
+    one = torch.zeros(1, dtype=torch.int64)
+    for lg, rg in ((e, one), (one, e)):
+        with pytest.raises(ValueError, match="at least one row"):
+            sorted_join(lg, lg > 0, rg, rg > 0, (), (), 1, 4)
+
+
+def _join_kernel_model(lgid, lvalid, rgid, rvalid, U, J, tile=512):
+    """sorted_join.cu step by step: valid left gids counted and scanned
+    into starts, a least-significant-digit radix sort of (key, row) 8
+    bits a pass with the counting passes of partition.cuh, each right
+    row's lo and run length from starts, the runs scanned, expanded one
+    right row at a time, and the tail of clipped slots."""
+    L, R = len(lgid), len(rgid)
+    ok = lvalid & (lgid >= 0) & (lgid < U)
+    key = np.where(ok, lgid, U).astype(np.int64)
+    idx = np.arange(L)
+    starts = np.zeros(U + 1, np.int64)
+    np.add.at(starts, lgid[ok], 1)
+    cnt = starts[:U].copy()
+    starts[:U] = np.cumsum(cnt) - cnt
+    starts[U] = cnt.sum()
+    shift = 0
+    while shift < 31 and (U >> shift) > 0:
+        digit = (key >> shift) & 255
+        nt = -(-L // tile)
+        hist = np.zeros((256, nt), np.int64)
+        for t in range(nt):
+            hist[:, t] = np.bincount(digit[t * tile:(t + 1) * tile],
+                                     minlength=256)
+        flat = hist.reshape(-1)
+        offs = (np.cumsum(flat) - flat).reshape(256, nt)
+        nkey, nidx = np.empty_like(key), np.empty_like(idx)
+        for t in range(nt):
+            running = offs[:, t].copy()
+            for i in range(t * tile, min(L, (t + 1) * tile)):
+                pos = running[digit[i]]
+                running[digit[i]] += 1
+                nkey[pos], nidx[pos] = key[i], idx[i]
+        key, idx, shift = nkey, nidx, shift + 8
+    order = idx
+    nvl = starts[U]
+    lo = np.zeros(R, np.int64)
+    run = np.zeros(R, np.int64)
+    for r in range(R):
+        g = rgid[r]
+        if g < 0:
+            a = b = 0
+        elif g >= U:
+            a, b = nvl, (L if g == np.iinfo(np.int64).max else nvl)
+        else:
+            a, b = starts[g], starts[g + 1]
+        lo[r], run[r] = a, (b - a if rvalid[r] else 0)
+    total = int(run.sum())
+    run = np.cumsum(run) - run
+    l_idx = np.full(J, -1, np.int64)
+    r_idx = np.full(J, -1, np.int64)
+    out_valid = np.zeros(J, bool)
+    for r in range(R):
+        end = run[r + 1] if r + 1 < R else total
+        for j in range(run[r], min(end, J)):
+            l_idx[j], r_idx[j], out_valid[j] = order[lo[r] + j - run[r]], r, True
+    for j in range(total, J):
+        pos = min(max(lo[R - 1] - run[R - 1] + j, 0), L - 1)
+        l_idx[j], r_idx[j] = order[pos], R - 1
+    return [l_idx, r_idx, out_valid, np.int64(total)]
+
+
+@pytest.mark.parametrize("case", ["unit", "many_to_many", "one_group",
+                                  "left_empty", "invalid_both",
+                                  "one_row_each"])
+def test_sorted_join_kernel_model_matches_plain(case):
+    """The CUDA kernel's algorithm (a numpy model, small tiles so rows
+    cross tiles) gives the plain version's slots, the clipped ones
+    included; a gid range over 256 takes two radix passes."""
+    lgid, lvalid, rgid, rvalid, U = JOIN_CASES[case]
+    J = _pairs_needed(lgid, lvalid, rgid, rvalid) + 9
+    got = _join_kernel_model(lgid, lvalid, rgid, rvalid, U, J)
+    want, _, _ = _run_port_join(lgid, lvalid, rgid, rvalid, U, J)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_out_of_range_left_gids_join_as_invalid_rows():
+    """A valid left gid outside [0, U) joins as an invalid row in the
+    plain version, as in the kernel (its numpy model): the slots equal
+    those of the same input with those rows marked invalid, right gids
+    outside [0, U) (the int64 maximum among them) included."""
+    lgid, lvalid, rgid, rvalid, U = JOIN_CASES["invalid_both"]
+    lgid, rgid = lgid.copy(), rgid.copy()
+    lvalid = lvalid.copy()
+    lvalid[:8] = True
+    lgid[:8] = [-3, U, U + 5, np.iinfo(np.int64).max, -1, U, 2 * U, U + 1]
+    rgid[:4] = [np.iinfo(np.int64).max, U + 5, -3, U]
+    out = ~((lgid >= 0) & (lgid < U))
+    J = _pairs_needed(lgid, lvalid & ~out, rgid, rvalid) + 9
+    got, _, _ = _run_port_join(lgid, lvalid, rgid, rvalid, U, J)
+    masked, _, _ = _run_port_join(lgid, lvalid & ~out, rgid, rvalid, U, J)
+    model = _join_kernel_model(lgid, lvalid, rgid, rvalid, U, J)
+    for g, m, k in zip(got, masked, model):
+        np.testing.assert_array_equal(g, m)
+        np.testing.assert_array_equal(g, k)
+
+
+# ------------------------------------------------------- over the mesh
+
+
+def test_build_repartition_join_on_one_device_matches_host_join():
+    """The one-card mesh: both sides packed (B7, the exchange an
+    identity) and joined (B8); the joined rows are those of a host hash
+    join, and the overflow is 0 with exact capacities."""
+    lgid, lvalid, rgid, rvalid, U = JOIN_CASES["many_to_many"]
+    mesh = DeviceMesh([torch.device("cpu")])
+    lv = (np.arange(len(lgid), dtype=np.int64), lvalid.copy())
+    rv = (np.arange(len(rgid), dtype=np.int64) + 10**6, rvalid.copy())
+    J = _pairs_needed(lgid, lvalid, rgid, rvalid)
+    cap_l, cap_r = int(lvalid.sum()), int(rvalid.sum())
+    fn = build_repartition_join(mesh, 2, 2, cap_l, cap_r, J, U)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))[None]  # noqa
+    out_l, out_r, ovalid, overflow = fn(
+        tuple(t(v) for v in lv), t(lgid), t(np.zeros(len(lgid), np.int32)),
+        t(lvalid), tuple(t(v) for v in rv), t(rgid),
+        t(np.zeros(len(rgid), np.int32)), t(rvalid))
+    assert int(overflow) == 0
+    sel = ovalid[0].numpy()
+    got = sorted(zip(out_l[0][0].numpy()[sel].tolist(),
+                     out_r[0][0].numpy()[sel].tolist()))
+    want = sorted((i, j + 10**6) for j in range(len(rgid)) if rvalid[j]
+                  for i in range(len(lgid))
+                  if lvalid[i] and lgid[i] == rgid[j])
+    assert got == want
+
+
+def test_build_repartition_packs_into_the_one_bucket():
+    mesh = DeviceMesh([torch.device("cpu")])
+    values, target, mask = _pack_case(300, 1, seed=9)
+    fn = build_repartition(mesh, 2, 512)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))[None]  # noqa
+    out, ovalid, overflow = fn((t(values[0]), t(values[1])), t(target),
+                               t(mask))
+    assert int(overflow) == 0
+    sel = ovalid[0].numpy()
+    np.testing.assert_array_equal(out[0][0].numpy()[sel], values[0][mask])
+    host = repartition_host(values[:2], target, mask, 1)
+    np.testing.assert_array_equal(out[1][0].numpy()[sel], host[0][1])
+
+
+def test_a_mesh_of_more_than_one_card_is_refused_naming_a9b():
+    with pytest.raises(NotImplementedError, match="A9b"):
+        DeviceMesh([torch.device("cpu"), torch.device("cpu")])
+
+
+# ------------------------------------------------------------- on a card
+
+
+@pytest.mark.cuda
+def test_pack_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    for n, n_dev in ((100_000, 1), (100_000, 8), (0, 2)):
+        values, target, mask = _pack_case(n, n_dev, seed=n_dev)
+        cap = max(_need(target, mask, n_dev) - 5, 1)
+        args = (tuple(torch.from_numpy(v).cuda() for v in values),
+                torch.from_numpy(target).cuda(), torch.from_numpy(mask).cuda(),
+                n_dev, cap)
+        got = pack_blocks(*args)
+        want = pack_blocks_plain(*args)
+        for g, w in zip(got[0] + (got[1], got[2]), want[0] + (want[1], want[2])):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_sorted_join_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    for case, (lgid, lvalid, rgid, rvalid, U) in JOIN_CASES.items():
+        J = _pairs_needed(lgid, lvalid, rgid, rvalid) + 9
+        c = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+        args = (c(lgid), c(lvalid), c(rgid), c(rvalid), (c(lgid),),
+                (c(rvalid),), U, J)
+        got = sorted_join(*args)
+        want = sorted_join_plain(*args)
+        for g, w in zip(got[:4], want[:4]):
+            assert torch.equal(g, w), case
+        assert torch.equal(got[4][0], want[4][0]), case
+        assert torch.equal(got[5][0], want[5][0]), case
+
+
+def test_plain_versions_are_what_the_wrappers_run_on_cpu():
+    """The wrappers' CPU path is the module's plain versions (no other
+    code between them)."""
+    lgid, lvalid, rgid, rvalid, U = JOIN_CASES["unit"]
+    t = torch.from_numpy
+    a = sorted_join(t(lgid), t(lvalid), t(rgid), t(rvalid), (), (), U, 8)
+    b = sorted_join_indexes_plain(t(lgid), t(lvalid), t(rgid), t(rvalid), 8)
+    for x, y in zip(a[:4], b):
+        assert torch.equal(x, y)
+    assert shuffle.sorted_join.launches == 0

@@ -200,7 +200,7 @@ def test_opens_reference_data_directory(tmp_path):
 @pytest.mark.parametrize("sql", [
     "SELECT id, row_number() OVER (ORDER BY id) FROM events",
     "WITH w AS (SELECT id FROM events) SELECT count(*) FROM w",
-    "SELECT e.id FROM events e JOIN events f ON e.id = f.id",
+    "SELECT count(*) FROM (SELECT id FROM events) s",
     "SET citus.enable_metadata_sync = off",
     "VACUUM events",
     "DELETE FROM events WHERE id = 1 RETURNING id",
@@ -235,6 +235,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         "from citus_tpu_torch.observability import flight_recorder\n"
         "from citus_tpu_torch.executor import host_agg\n"
         "from citus_tpu_torch.commands import loader\n"
+        "from citus_tpu_torch.executor import join_executor\n"
+        "from citus_tpu_torch.planner import join_planner\n"
+        "from citus_tpu_torch.parallel import mesh, shuffle\n"
         "import chip_smoke\n"
         "loader.ensure_loaded()\n"
         "cl = ctt.Cluster(tempfile.mkdtemp(), device='cpu')\n"
@@ -250,6 +253,11 @@ def test_port_imports_no_jax_and_no_reference_package():
         "== [(1,)]\n"
         "assert cl.execute('SELECT citus_megabatch_stats()').rows[0][3] "
         "== 1\n"
+        "cl.execute('CREATE TABLE u (j bigint, k bigint)')\n"
+        "cl.execute(\"SELECT create_distributed_table('u', 'j', 2)\")\n"
+        "cl.execute('INSERT INTO u VALUES (7, 1), (8, 1), (9, 3)')\n"
+        "r = cl.execute('SELECT count(*) FROM t JOIN u ON t.k = u.k')\n"
+        "assert r.rows == [(2,)] and 'devjoin' in r.explain['shuffle']\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'citus_tpu' "
         "or m.startswith('citus_tpu.'))\n"
