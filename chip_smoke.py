@@ -10,20 +10,27 @@ result line:
 1. the card (``nvidia-smi`` name and power limit) and the torch, CUDA
    and nvcc versions;
 2. build of every CUDA kernel of the port from ``citus_tpu_torch/csrc``
-   (the fold kernels with their sketch registers, the hash inserts,
-   ``rollup_delta``, ``hash_agg_merge``, ``partition_pack`` and
-   ``sorted_join``) and of the predicate kernels generated for Q6, P1,
-   the predicate over every C1 node, C1's five WHEREs and the phase-5
-   and phase-8 families (one nvcc per source, all started together),
-   then one more generated predicate alone, for the cold build time of
-   one predicate;
+   (``rollup_delta``, ``hash_agg_merge``, ``partition_pack`` and
+   ``sorted_join``), of the predicate kernels generated for Q6, P1, the
+   predicate over every C1 node, C1's five WHEREs and the phase-5 and
+   phase-8 families, and of the fold and insert kernels generated for
+   each plan phases 3-7 run (``ops/expr_codegen.py generate_fold_row``:
+   the plan's WHERE, keys and arguments instantiating the serial and
+   batched fold of ``csrc/fold.cuh`` with its sketch registers, or the
+   serial and batched insert of ``csrc/hash_probe.cuh``); one nvcc per
+   source, all started together; then one more generated predicate
+   alone and Q1's generated fold alone, for their cold build times;
 3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes:
+   main path's shapes (a generated kernel's plain version evaluates the
+   plan's expressions as eager tensor code):
    - ``scan_agg_fold`` for TPC-H Q6 (scalar mode) and Q1 (direct mode,
      G = 12, the shared-memory regime) on 2^21 generated lineitem rows
-     (the padded batch of one SF1 shard of four), and a direct
-     G = 65,536 fold (the global-atomics regime) with nulls, NaN, +-inf,
-     +-0.0, an all-false mask and N not a multiple of the block;
+     (the padded batch of one SF1 shard of four, parameters in the
+     launch's block), a direct G = 65,536 fold (the global-atomics
+     regime) with nulls, NaN, +-inf, +-0.0, an all-false mask and N not
+     a multiple of the block, and signed float64 sums near cancellation
+     (G = 4,097), each held to 1e-12 times its group's sum of
+     magnitudes, which the plain version sums in the same pass;
    - ``hash_agg_insert`` for bench.py's ``GROUP BY l_orderkey`` (count
      and an int64 sum) on the first padded shard batch of the loaded
      lineitem into 2^20 slots (what citus.hash_agg_slots = auto gives at
@@ -74,8 +81,10 @@ result line:
      identical.
    int64 registers, keys, counts, min/max and NaN positions must be
    identical, float64 sums within rel 1e-12 (atomics add in another
-   order).  Each kernel is timed (CUDA events, median) beside its bound,
-   its plain version and a one-op library yardstick;
+   order; the sums near cancellation as above).  Each kernel is timed
+   (CUDA events, median) beside its bound (the bytes it must read: the
+   scan columns, their validity and the row mask, and the registers or
+   table), its plain version and a one-op library yardstick;
 4. the main path through the port's entry points: ``Cluster(tmpdir)``
    on CUDA, bench.py's lineitem (schema, generator, seed 7) at TPC-H SF1
    (6,001,215 rows) in 4 shards, each query cold and then a second
@@ -92,6 +101,10 @@ result line:
    Rows must equal those computed straight from the generated numpy
    arrays (exact int64 cents grouped with np.unique), each query's
    kernel must launch once per batch and no other kernel may launch;
+   a warm Q1, Q6, S1, H1 and H2 runs once more under torch.profiler
+   (CUDA activity), which must see one kernel of the port per batch and
+   no other kernel (no PyTorch elementwise kernel); each run prints the
+   nvcc builds it waited for;
 5. literal families through ``Cluster.execute``: 8 variants of one
    query, first one after another (``citus.megabatch_window_ms = 0``,
    cold then warm), then from 8 threads at once with
@@ -447,13 +460,21 @@ def time_cuda(fn, reps: int = 25, rounds: int = 3) -> float:
     return float(np.median(times))
 
 
+def fold_masks(call):
+    """The [N] row mask of a fold call (``scan_agg_fold``'s arguments) or
+    the [Q, N] masks of a batched one (``scan_agg_fold_batched``'s)."""
+    return call[-1]
+
+
 def fold_bytes(call) -> int:
-    """Bytes one fold must move: each distinct input read once, each
-    register read and written once."""
-    regs, rows, mask, keys, args, _ops, _g = call
+    """Bytes one fold must move: the row mask (or the Q masks) and each
+    scan column the generated row reads, with its validity, read once;
+    each register read and written once.  The expressions' intermediate
+    values stay in registers and are not counted."""
+    prog, regs, rows, cols = call[:4]
     seen, total = set(), 0
-    tensors = [mask] + [t for k in keys for t in (k.values, k.valid)] \
-        + [t for a in args for t in a]
+    tensors = [fold_masks(call)] + [t for c in prog.row.columns
+                                    for t in cols[c]]
     for t in tensors:
         if t is not None and t.data_ptr() not in seen:
             seen.add(t.data_ptr())
@@ -464,26 +485,44 @@ def fold_bytes(call) -> int:
 
 
 def fold_ops(call) -> int:
-    regs, _rows, mask, keys, _args, ops, _g = call
-    return mask.numel() * (len(ops) + 4 * len(keys) + 1)
+    """Operations of a fold: per (query, row) mask entry one for each
+    bound node of the WHERE, keys and arguments, one per partial op,
+    four per key for the group id, and one to read the mask."""
+    from citus_tpu_torch.planner.bound import walk
+    prog = call[0]
+    e = prog.exprs
+    nodes = sum(1 for x in (e.filter, *e.keys, *e.args) if x is not None
+                for _ in walk(x))
+    return fold_masks(call).numel() * (
+        len(prog.ops) + 4 * len(e.keys) + 1 + nodes)
 
 
 def clone_call(call):
-    regs, rows, mask, keys, args, ops, g = call
-    return ([r.clone() for r in regs],
-            None if rows is None else rows.clone(), mask, keys, args, ops, g)
+    """The call with fresh copies of its registers and group-row counts."""
+    prog, regs, rows = call[:3]
+    return (prog, [r.clone() for r in regs],
+            None if rows is None else rows.clone()) + tuple(call[3:])
 
 
-def compare_fold(name: str, call, kernel, plain) -> float:
-    """Kernel vs plain on one input; -> max abs error of float sums."""
+def compare_fold(name: str, call, kernel, plain, abs_sums=None) -> float:
+    """Kernel vs plain on one input; -> max abs error of float sums.
+
+    int64 registers, counts, min/max and NaN positions identical; a
+    float64 sum within rel 1e-12 of the plain version's (atomics add in
+    another order).  ``abs_sums`` maps the index of a sum over signed
+    data to the index of the op that sums the magnitudes of the same
+    argument: near cancellation a bound relative to the sum itself is
+    wrong, so that sum is held to 1e-12 times the plain version's sum
+    of magnitudes of its group."""
     import torch
     kc, pc = clone_call(call), clone_call(call)
     kernel(*kc)
     plain(*pc)
-    if call[2].is_cuda:
+    if fold_masks(call).is_cuda:
         torch.cuda.synchronize()
     max_err = 0.0
-    for i, (op, k, p) in enumerate(zip(call[5], kc[0], pc[0])):
+    abs_sums = abs_sums or {}
+    for i, (op, k, p) in enumerate(zip(call[0].ops, kc[1], pc[1])):
         k, p = k.cpu().numpy(), p.cpu().numpy()
         if op.kind == "sum" and np.issubdtype(k.dtype, np.floating):
             if not np.array_equal(np.isnan(k), np.isnan(p)):
@@ -493,26 +532,50 @@ def compare_fold(name: str, call, kernel, plain) -> float:
                                   p[~fin & ~np.isnan(p)]):
                 raise AssertionError(f"{name}: op {i} infinities differ")
             err = np.abs(k[fin] - p[fin])
-            tol = 1e-12 * np.abs(p[fin])
+            scale = np.abs(p) if i not in abs_sums \
+                else pc[1][abs_sums[i]].cpu().numpy()
+            tol = 1e-12 * scale[fin]
             if (err > tol).any():
                 raise AssertionError(
-                    f"{name}: op {i} float sum beyond rel 1e-12: "
-                    f"max err {err.max()}")
+                    f"{name}: op {i} float sum beyond 1e-12 x "
+                    f"{'its sum of magnitudes' if i in abs_sums else 'itself'}"
+                    f": max err {err.max()}")
             if err.size:
                 max_err = max(max_err, float(err.max()))
         elif not np.array_equal(k, p, equal_nan=np.issubdtype(
                 k.dtype, np.floating)):
             raise AssertionError(f"{name}: op {i} ({op.kind}) differs")
-    if kc[1] is not None and not torch.equal(kc[1], pc[1]):
+    if kc[2] is not None and not torch.equal(kc[2], pc[2]):
         raise AssertionError(f"{name}: group row counts differ")
     return max_err
 
 
+def column_program(filter_, keys: list, args: list, ops, col_types: dict,
+                   cols: dict, **kw):
+    """A ``FoldProgram`` over synthetic columns: ``keys`` and ``args``
+    are column names (or bound expressions), ``col_types`` their SQL
+    types, ``cols`` their (values, validity) tensors."""
+    import torch
+    from citus_tpu_torch.ops.expr_codegen import FoldExprs
+    from citus_tpu_torch.ops.scan_agg_fold import FoldProgram
+    from citus_tpu_torch.planner.bound import BColumn
+
+    def expr(x):
+        return BColumn(x, col_types[x]) if isinstance(x, str) else x
+    return FoldProgram(
+        FoldExprs(filter_, tuple(expr(k) for k in keys),
+                  tuple(expr(a) for a in args)), ops,
+        {c: torch.empty(0, dtype=v.dtype).numpy().dtype
+         for c, (v, _) in cols.items()}, {}, **kw)
+
+
 def synthetic_global_case(device, n: int, G: int, seed: int, all_false: bool):
     """A direct fold past the shared-memory table: G groups, every op
-    kind and register type, nulls, NaN, +-inf, +-0.0."""
+    kind and register type, nulls, NaN, +-inf, +-0.0.  -> the arguments
+    of ``scan_agg_fold``."""
     import torch
-    from citus_tpu_torch.ops.scan_agg_fold import FoldKey, FoldOp
+    from citus_tpu_torch import types as T
+    from citus_tpu_torch.ops.scan_agg_fold import FoldOp
     g = torch.Generator().manual_seed(seed)
     mask = (torch.rand(n, generator=g) < 0.8) & (not all_false)
     key = torch.randint(0, G - 1, (n,), generator=g)
@@ -531,8 +594,11 @@ def synthetic_global_case(device, n: int, G: int, seed: int, all_false: bool):
                         dtype=torch.int32)
     f32 = mixed.to(torch.float32)
     valid = torch.rand(n, generator=g) < 0.9
-    args = [(ints, valid), (pos, valid), (mixed, None), (i32, valid),
-            (f32, None)]
+    cols = {"key": (key, key_valid), "ints": (ints, valid),
+            "pos": (pos, valid), "mixed": (mixed, None), "i32": (i32, valid),
+            "f32": (f32, None)}
+    types = {"key": T.INT64_T, "ints": T.INT64_T, "pos": T.FLOAT64_T,
+             "mixed": T.FLOAT64_T, "i32": T.INT32_T, "f32": T.FLOAT32_T}
     ops = [FoldOp("count_star"), FoldOp("count", 0), FoldOp("sum", 0),
            FoldOp("sum", 1), FoldOp("min", 0), FoldOp("max", 0),
            FoldOp("min", 2), FoldOp("max", 2), FoldOp("min", 3),
@@ -542,6 +608,9 @@ def synthetic_global_case(device, n: int, G: int, seed: int, all_false: bool):
            torch.int64, torch.int64, torch.float64, torch.float64,
            torch.int32, torch.int32, torch.float32, torch.float32,
            torch.int64]
+    prog = column_program(None, ["key"], ["ints", "pos", "mixed", "i32",
+                                          "f32"], ops, types, cols,
+                          domains=[(0, 1, 1)], n_groups=G)
     regs = []
     for op, dt in zip(ops, dts):
         fill = 0
@@ -553,10 +622,39 @@ def synthetic_global_case(device, n: int, G: int, seed: int, all_false: bool):
                 fill = info.max if op.kind == "min" else info.min
         regs.append(torch.full((G,), fill, dtype=dt, device=device))
     rows = torch.zeros(G, dtype=torch.int64, device=device)
-    keys = [FoldKey(key.to(device), key_valid.to(device), 0, 1, 1)]
-    dargs = [(v.to(device), None if m is None else m.to(device))
-             for v, m in args]
-    return (regs, rows, mask.to(device), keys, dargs, ops, G)
+    dcols = {c: (v.to(device), None if m is None else m.to(device))
+             for c, (v, m) in cols.items()}
+    return (prog, regs, rows, dcols, {}, mask.to(device))
+
+
+def cancellation_case(device, n: int, G: int, seed: int):
+    """A direct fold of signed float64 values whose group sums nearly
+    cancel (each group's values drawn around 0 with magnitudes up to
+    1e9), beside the sum of their magnitudes.  -> (the arguments of
+    ``scan_agg_fold``, {index of sum(x): index of sum(|x|)})."""
+    import torch
+    from citus_tpu_torch import types as T
+    from citus_tpu_torch.ops.scan_agg_fold import FoldOp
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, G, n)
+    x = rng.standard_normal(n) * 10.0 ** rng.integers(0, 10, n)
+    # pull each group's sum to (nearly) zero: subtract its mean
+    sums = np.bincount(key, weights=x, minlength=G)
+    counts = np.maximum(np.bincount(key, minlength=G), 1)
+    x = x - (sums / counts)[key]
+    types = {"key": T.INT64_T, "x": T.FLOAT64_T, "ax": T.FLOAT64_T}
+    ops = [FoldOp("count_star"), FoldOp("sum", 0), FoldOp("sum", 1)]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    cols = {"key": (t(key), None), "x": (t(x), None), "ax": (t(np.abs(x)), None)}
+    prog = column_program(None, ["key"], ["x", "ax"], ops, types, cols,
+                          domains=[(0, 1, 1)], n_groups=G + 1)
+    regs = [torch.zeros(G + 1, dtype=torch.int64, device=device),
+            torch.zeros(G + 1, dtype=torch.float64, device=device),
+            torch.zeros(G + 1, dtype=torch.float64, device=device)]
+    rows = torch.zeros(G + 1, dtype=torch.int64, device=device)
+    return (prog, regs, rows, cols, {}, t(np.ones(n, bool))), {1: 2}
 
 
 SYN_DDL = """CREATE TABLE syn (k bigint NOT NULL, a bigint, b int,
@@ -607,13 +705,13 @@ def smoke_plans(device, tmp: str, n: int = FOLD_N):
     import torch
     import citus_tpu_torch as ctt
     from citus_tpu_torch.executor.batches import pad_to_batch
+    from citus_tpu_torch.executor.executor import (
+        _hash_key_dtypes, _param_dtypes, _params_env,
+    )
     from citus_tpu_torch.ops.scan_agg import (
         build_fold_inputs, empty_device_partials,
     )
-    from citus_tpu_torch.ops.xp_torch import TorchNamespace
-    from citus_tpu_torch.planner import parse_sql
-    from citus_tpu_torch.planner.bind import bind_select
-    from citus_tpu_torch.planner.physical import plan_select
+    from citus_tpu_torch.ops.scan_agg_fold import FoldProgram
     cl = ctt.Cluster(os.path.join(tmp, "plans"), device=device)
     cl.execute(LINEITEM_DDL)
     cl.execute(f"SELECT create_distributed_table('lineitem', 'l_orderkey', {SHARDS})")
@@ -637,11 +735,9 @@ def smoke_plans(device, tmp: str, n: int = FOLD_N):
         "l_linestatus": ids("l_linestatus", LS)[c["ls"]],
         "l_shipdate": c["ship"],
     }
-    xp = TorchNamespace(device)
     calls = {}
     for name, sql in (("q6", Q6), ("q1", Q1)):
-        plan = plan_select(cl.catalog,
-                           bind_select(cl.catalog, parse_sql(sql)[0]))
+        plan, params = plan_as_cluster_does(cl, sql)
         values = {k: physical[k] for k in plan.scan_columns}
         masks = {k: np.ones(n, bool) for k in plan.scan_columns}
         hb = pad_to_batch(plan.bound.table, plan, values, masks, n, n, 0)
@@ -649,7 +745,8 @@ def smoke_plans(device, tmp: str, n: int = FOLD_N):
         dvalids = tuple(torch.from_numpy(a).to(device) for a in hb.valids)
         dmask = torch.from_numpy(hb.row_mask).to(device)
         acc = empty_device_partials(plan, device)
-        calls[name] = build_fold_inputs(plan, xp)(acc, dcols, dvalids, dmask)
+        calls[name] = build_fold_inputs(plan, _param_dtypes(plan, params))(
+            acc, dcols, dvalids, dmask, _params_env(plan, params))
     filters = {
         "q6": filter_program(cl, Q6),
         "p1": filter_program(cl, P1),
@@ -666,9 +763,46 @@ def smoke_plans(device, tmp: str, n: int = FOLD_N):
         "C1all": ("projection", [(all_nodes_variant(i), None)
                                  for i in range(Q_BATCH)])})
     events = events_columns(cl, n, 41)
+    # the hash inserts phase 4 and the H family run (SF1 plans them to the
+    # hash mode; here the key domain is small, so cut direct_gid_limit)
+    cl.execute("SET citus.direct_gid_limit = 100")
+    hash_programs = {}
+    for name, sql in (("bench", BENCH_HASH), ("H1", H1), ("H2", H2)):
+        plan, params = plan_as_cluster_does(cl, sql)
+        hash_programs[name] = FoldProgram.of_plan(
+            plan, _param_dtypes(plan, params),
+            _hash_key_dtypes(plan, _params_env(plan, params)))
+    hfam = family_plans(cl, {"H": families()["H"]})["H"]
     cl.close()
     return {"fold_calls": calls, "physical": physical, "filters": filters,
-            "families": fams, "events": events, "c1_programs": c1_programs}
+            "families": fams, "events": events, "c1_programs": c1_programs,
+            "hash_programs": hash_programs, "h_family": hfam}
+
+
+def generated_programs(plans, splans, tmp: str) -> list:
+    """The fold and insert programs phases 3-7 launch: phase 3's cases
+    (their main-path plans and the synthetic ones), phase 4's Q1, Q6,
+    H1, H2 and S1, phase 5's families, phase 7's R1 and S1."""
+    from citus_tpu_torch.executor.executor import _hash_key_dtypes, _params_env
+    from citus_tpu_torch.executor.megabatch import _fold_program
+    from citus_tpu_torch.ops.scan_agg_fold import FoldProgram
+    progs = [plans["fold_calls"]["q6"][0], plans["fold_calls"]["q1"][0],
+             synthetic_global_case("cpu", 16, 4, 1, False)[0],
+             cancellation_case("cpu", 16, 4, 1)[0][0],
+             adversarial_sketch_call("cpu", 8192)[0],
+             adversarial_hash_call("cpu", 16, 8, 1, False)[0],
+             splans["s1_call"][0], *plans["hash_programs"].values()]
+    for name in ("Q6", "Q1"):
+        plan, params = plans["families"][name]
+        progs.append(_fold_program(plan, params[0], "cpu"))
+    plan, params = splans["family"]
+    progs.append(_fold_program(plan, params[0], "cpu"))
+    hplan, hparams = plans["h_family"]
+    progs.append(_fold_program(hplan, hparams[0], "cpu", _hash_key_dtypes(
+        hplan, _params_env(hplan, hparams[0]))))
+    rplan, rkd = r1_plan("cpu", os.path.join(tmp, "phase2"))
+    progs.append(FoldProgram.of_plan(rplan, {}, rkd))
+    return progs
 
 
 def family_plans(cl, fams: dict = None) -> dict:
@@ -843,15 +977,16 @@ def check_table(name: str, table) -> None:
 
 
 def hash_bytes(call, occupied: int) -> int:
-    """Bytes one insert into a fresh table must move: each input read
-    once, the spill mask written once, and each of the ``occupied``
-    slots it fills read and written once (claim word, keys, flags,
-    partials, rows).  A row that spills only probes slots already
+    """Bytes one insert into a fresh table must move: the row mask (or
+    the Q masks) and each scan column the generated row reads, with its
+    validity, read once, the spill mask(s) written once, and each of the
+    ``occupied`` slots it fills read and written once (claim word, keys,
+    flags, partials, rows).  A row that spills only probes slots already
     occupied, so no other slot needs to be touched."""
-    table, mask, keys, args, _ops = call
+    prog, table, cols = call[:3]
+    mask = call[-1]
     seen, total = set(), mask.numel()
-    for t in [mask] + [t for kv in keys for t in kv] \
-            + [t for a in args for t in a]:
+    for t in [mask] + [t for c in prog.row.columns for t in cols[c]]:
         if t is not None and t.data_ptr() not in seen:
             seen.add(t.data_ptr())
             total += t.numel() * t.element_size()
@@ -871,7 +1006,6 @@ def main_path_hash_call(cl, device):
     from citus_tpu_torch.ops.hash_agg import (
         build_hash_insert_inputs, empty_hash_state,
     )
-    from citus_tpu_torch.ops.xp_torch import TorchNamespace
     cl.execute("SET citus.hash_agg_slots = auto")
     plan, _ = plan_as_cluster_does(cl, BENCH_HASH)
     if plan.group_mode.kind != "hash_host":
@@ -882,7 +1016,7 @@ def main_path_hash_call(cl, device):
     hb = next(batches)
     batches.close()
     table = empty_hash_state(plan, S, key_dtypes, device)
-    call = build_hash_insert_inputs(plan, TorchNamespace(device), key_dtypes)(
+    call = build_hash_insert_inputs(plan, key_dtypes)(
         table, tuple(torch.from_numpy(a).to(device) for a in hb.cols),
         tuple(torch.from_numpy(a).to(device) for a in hb.valids),
         torch.from_numpy(hb.row_mask).to(device))
@@ -893,8 +1027,10 @@ def adversarial_hash_call(device, n: int, S: int, seed: int,
                           all_false: bool):
     """Three keys (int64; float64 with +-0.0, NaN payloads, +-inf; int32),
     each 5 % NULL, a float64 sum, min and max with NaN and +-inf, on S
-    slots (S = 1000: most rows spill)."""
+    slots (S = 1000: most rows spill).  -> the arguments of
+    ``hash_agg_insert``."""
     import torch
+    from citus_tpu_torch import types as T
     from citus_tpu_torch.ops.hash_agg import HashTable
     from citus_tpu_torch.ops.scan_agg_fold import FoldOp
     rng = np.random.default_rng(seed)
@@ -916,10 +1052,15 @@ def adversarial_hash_call(device, n: int, S: int, seed: int,
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    keys = [(t(k), t(rng.random(n) > 0.05)) for k in (k1, k2, k3)]
-    args = [(t(v), t(rng.random(n) > 0.1))]
+    cols = {c: (t(k), t(rng.random(n) > 0.05))
+            for c, k in (("k1", k1), ("k2", k2), ("k3", k3))}
+    cols["v"] = (t(v), t(rng.random(n) > 0.1))
     ops = [FoldOp("count_star"), FoldOp("count", 0), FoldOp("sum", 0),
            FoldOp("min", 0), FoldOp("max", 0)]
+    types = {"k1": T.INT64_T, "k2": T.FLOAT64_T, "k3": T.INT32_T,
+             "v": T.FLOAT64_T}
+    prog = column_program(None, ["k1", "k2", "k3"], ["v"], ops, types, cols,
+                          key_dtypes=(np.int64, np.float64, np.int32))
     i64 = torch.int64
     table = HashTable(
         [torch.full((S,), -2**63, dtype=i64, device=device),
@@ -934,24 +1075,28 @@ def adversarial_hash_call(device, n: int, S: int, seed: int,
                     device=device)],
         torch.zeros(S, dtype=i64, device=device),
         torch.zeros(S, dtype=torch.int32, device=device))
-    return table, t(mask), keys, args, ops
+    return prog, table, cols, {}, t(mask)
 
 
 def compare_hash(name: str, call, kernel, plain) -> float:
-    """Kernel vs plain on fresh copies of one insert's table; -> max abs
-    error of float sums in the merged groups."""
+    """Kernel vs plain (``hash_agg_insert``'s arguments) on fresh copies
+    of one insert's table; -> max abs error of float sums in the merged
+    groups."""
     import torch
-    table, mask, keys, args, ops = call
+    from citus_tpu_torch.ops.hash_agg_insert import plain_insert_inputs
+    prog, table, cols, params, row_mask = call
     kt, pt = clone_table(table), clone_table(table)
-    ks = kernel(kt, mask, keys, args, ops)
-    ps = plain(pt, mask, keys, args, ops)
-    if mask.is_cuda:
+    ks = kernel(prog, kt, cols, params, row_mask)
+    ps = plain(prog, pt, cols, params, row_mask)
+    if row_mask.is_cuda:
         torch.cuda.synchronize()
+    mask, keys, args = plain_insert_inputs(prog, cols, params, row_mask)
     check_hash_invariants(f"{name} kernel", kt, ks, mask)
     check_hash_invariants(f"{name} plain", pt, ps, mask)
-    pops = hash_partial_ops(table, ops)
-    return compare_groups(name, host_groups(kt, ks, mask, keys, args, ops),
-                          host_groups(pt, ps, mask, keys, args, ops), pops)
+    pops = hash_partial_ops(table, prog.ops)
+    return compare_groups(
+        name, host_groups(kt, ks, mask, keys, args, prog.ops),
+        host_groups(pt, ps, mask, keys, args, prog.ops), pops)
 
 
 def time_cuda_fresh(fn, reset, reps: int = 10) -> float:
@@ -1015,7 +1160,6 @@ def r1_table(device, plan, key_dtypes, n: int, slots: int, seed: int):
         build_hash_insert_inputs, empty_hash_state,
     )
     from citus_tpu_torch.ops.hash_agg_insert import hash_agg_insert
-    from citus_tpu_torch.ops.xp_torch import TorchNamespace
     chunks = list(sketch_chunks(n, seed, SF1_ROWS))
     physical = sketch_physical(
         {k: np.concatenate([ch[k] for ch in chunks]) for k in chunks[0]})
@@ -1024,8 +1168,7 @@ def r1_table(device, plan, key_dtypes, n: int, slots: int, seed: int):
     hb = pad_to_batch(plan.bound.table, plan, values, masks, n,
                       1 << (n - 1).bit_length(), 0)
     table = empty_hash_state(plan, slots, key_dtypes, device)
-    hash_agg_insert(*build_hash_insert_inputs(
-        plan, TorchNamespace(device), key_dtypes)(
+    hash_agg_insert(*build_hash_insert_inputs(plan, key_dtypes)(
         table, tuple(torch.from_numpy(a).to(device) for a in hb.cols),
         tuple(torch.from_numpy(a).to(device) for a in hb.valids),
         torch.from_numpy(hb.row_mask).to(device)))
@@ -1058,13 +1201,16 @@ def adversarial_merge_call(device, n: int, S: int, S_peer: int, seed: int,
     citus_tpu peer keeps the dtype minimum there): the merge must never
     read them.  With ``empty``, every entry is empty."""
     import torch
-    from citus_tpu_torch.ops.hash_agg_insert import hash_agg_insert_plain
-    table, mask, keys, args, ops = adversarial_hash_call(device, n, S, seed,
-                                                         False)
+    from citus_tpu_torch.ops.hash_agg_insert import (
+        hash_agg_insert_plain, plain_insert_inputs,
+    )
+    prog, table, cols, params, row_mask = adversarial_hash_call(
+        device, n, S, seed, False)
+    mask, keys, args = plain_insert_inputs(prog, cols, params, row_mask)
+    ops = prog.ops
     first = torch.arange(n, device=device) < n // 8
     hash_agg_insert_plain(table, mask & first, keys, args, ops)
-    peer, _m, _k, _a, _o = adversarial_hash_call(device, n, S_peer, seed,
-                                                 False)
+    peer = adversarial_hash_call(device, n, S_peer, seed, False)[1]
     hash_agg_insert_plain(peer, mask, keys, args, ops)
     rng = np.random.default_rng(seed)
     if empty:
@@ -1389,15 +1535,60 @@ def run_family(cl, name: str, kind: str, variants: list, cols: dict,
     return launched
 
 
+#: name fragments of the port's kernels as the profiler reports them
+PORT_KERNELS = ("fold_shared_q", "fold_global_q", "hash_insert", "fm_kernel",
+                "fm_batched_kernel", "hash_merge", "rollup_delta",
+                "partition", "sorted_join")
+
+
+def device_kernels(cl, sql: str) -> tuple:
+    """The card's work for one more run of ``sql``, from torch.profiler's
+    CUDA activity: -> (the port's kernels, other kernels, copies and
+    sets, {name: count} of the other kernels, the port's launches the
+    wrappers counted in that run).  ``None`` when the profiler recorded
+    no device activity at all."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    counters = launch_counters()
+    before = sum(f.launches for f in counters.values())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cl.execute(sql)
+        torch.cuda.synchronize()
+    launched = sum(f.launches for f in counters.values()) - before
+    port = other = copies = 0
+    names = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n = e.name
+        if n.lower().startswith(("memcpy", "memset")):
+            copies += 1
+        elif any(k in n for k in PORT_KERNELS):
+            port += 1
+        else:
+            other += 1
+            names[n] += 1
+    if port + other + copies == 0:
+        return None
+    return port, other, copies, dict(names), launched
+
+
 def run_checked(cl, qname: str, sql: str, want: list, n_rows: int,
                 run_kind: str, kernel: str = "scan_agg_fold") -> int:
     """Run one query; its rows must equal the oracle's, ``kernel`` must
     launch once per batch of the query and no other kernel may launch.
-    -> kernel launches."""
+    A warm fold or insert runs once more under torch.profiler: the card
+    must run exactly one kernel of the port per batch and no other
+    kernel (no PyTorch elementwise kernel).  -> kernel launches."""
     import torch
+    from citus_tpu_torch.ops import cuda_build
     counters = launch_counters()
     for f in counters.values():
         f.launches = 0
+    builds0 = dict(cuda_build.BUILDS)
     t0 = time.perf_counter()
     r = cl.execute(sql)
     torch.cuda.synchronize()
@@ -1416,9 +1607,33 @@ def run_checked(cl, qname: str, sql: str, want: list, n_rows: int,
     if r.rows != want:
         raise AssertionError(f"{qname} {run_kind}: rows differ from the "
                              f"numpy oracle:\n{r.rows[:20]}\n{want[:20]}")
-    extra = ""
+    extra = (f", nvcc builds during the run "
+             f"{cuda_build.BUILDS['count'] - builds0['count']} "
+             f"({cuda_build.BUILDS['seconds'] - builds0['seconds']:.3f} s)")
+    if run_kind == "warm" and kernel != "filter_mask":
+        # the profiler has been seen to drop a run's kernel records (the
+        # copies recorded, no kernel at all): such a run is tried again
+        for _ in range(3):
+            seen = device_kernels(cl, sql)
+            if seen is not None and seen[0] + seen[1] > 0:
+                break
+        if seen is None or seen[0] + seen[1] == 0:
+            extra += (", device kernels per query: not measured (the "
+                      "profiler recorded no kernel in 3 runs; the last "
+                      f"launched {seen[4] if seen else '?'} kernels of the "
+                      f"port and recorded {seen[2] if seen else 0} copies)")
+        else:
+            port, other, copies, names, _ = seen
+            if port != batches or other:
+                raise AssertionError(
+                    f"{qname} warm: the profiler saw {port} kernels of the "
+                    f"port for {batches} batches and {other} others "
+                    f"{names}")
+            extra += (f", device kernels per query (torch.profiler): "
+                      f"{port} of the port ({port / batches:g} a batch), "
+                      f"{other} other, {copies} copies and sets")
     if kernel == "hash_agg_insert":
-        extra = (f", hash_slots {pipe['hash_slots']}, hash_occupancy_pct "
+        extra += (f", hash_slots {pipe['hash_slots']}, hash_occupancy_pct "
                  f"{pipe['hash_occupancy_pct']}, hash_spilled_rows "
                  f"{pipe['hash_spilled_rows']}, host merge of the table "
                  f"{pipe['host_merge_ms']} ms, host merge of spilled rows "
@@ -1436,44 +1651,54 @@ def run_checked(cl, qname: str, sql: str, want: list, n_rows: int,
 
 
 def phase3_fold(device, plans, rows: list) -> None:
-    """scan_agg_fold against its plain version; appends its JSON row."""
+    """scan_agg_fold (the kernel generated for each plan) against its
+    plain version; appends its JSON row."""
     import torch
-    from citus_tpu_torch.ops.scan_agg_fold import (
-        scan_agg_fold, scan_agg_fold_plain,
-    )
+    from citus_tpu_torch.ops.scan_agg_fold import fold_plain, scan_agg_fold
     calls = plans["fold_calls"]
-    cases = [("q6 scalar G=1", calls["q6"]), ("q1 direct G=12", calls["q1"])]
+    cases = [("q6 scalar G=1", calls["q6"], None),
+             ("q1 direct G=12", calls["q1"], None)]
     for all_false in (False, True):
         cases.append((f"direct G=65536{' all-false mask' if all_false else ''}",
                       synthetic_global_case(device, FOLD_N + 3, 65536, 21,
-                                            all_false)))
-    max_err, main = 0.0, None
-    for name, call in cases:
-        err = compare_fold(name, call, scan_agg_fold, scan_agg_fold_plain)
+                                            all_false), None))
+    cancel, abs_sums = cancellation_case(device, FOLD_N + 3, 4096, 27)
+    cases.append(("signed float64 sums near cancellation, G=4097", cancel,
+                  abs_sums))
+    max_err, main, q6 = 0.0, None, None
+    for name, call, abs_of in cases:
+        err = compare_fold(name, call, scan_agg_fold, fold_plain, abs_of)
         max_err = max(max_err, err)
         regime = {1: "shared-memory table", 0: "global atomics"}.get(
             scan_agg_fold.last_regime, "none")
         kc = clone_call(call)
         ms = time_cuda(lambda: scan_agg_fold(*kc))
         pc = clone_call(call)
-        plain_ms = time_cuda(lambda: scan_agg_fold_plain(*pc))
+        plain_ms = time_cuda(lambda: fold_plain(*pc), reps=3)
         nbytes, nops = fold_bytes(call), fold_ops(call)
         bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / SIMT_OPS_PER_S) * 1e3
         # yardstick: ONE index_add_ of one int64 sum at the same N, G
-        G = call[6]
+        G = call[0].n_groups
         acc = torch.zeros(G, dtype=torch.int64, device=device)
-        n = call[2].numel()
+        n = fold_masks(call).numel()
         gid = torch.randint(0, G, (n,), device=device)
         val = torch.randint(0, 1000, (n,), device=device)
         lib_ms = time_cuda(lambda: acc.index_add_(0, gid, val))
         if name.startswith("q1"):
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        if name.startswith("q6"):
+            q6 = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
         say(f"phase 3 scan_agg_fold [{name}]: N={n} G={G} "
-            f"ops={len(call[5])} regime={regime} agrees "
-            f"(max abs err of float sums {err!r}); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({nbytes} B at 3.35 TB/s), library yardstick "
+            f"ops={len(call[0].ops)} columns {list(call[0].row.columns)} "
+            f"regime={regime} agrees (max abs err of float sums "
+            f"{err!r}{'; sums held to 1e-12 x their sum of magnitudes' if abs_of else ''}); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s: scan columns, "
+            f"validity and row mask once, registers), library yardstick "
             f"(one int64 index_add_, one op) {lib_ms:.4f} ms")
+    say(f"phase 3 scan_agg_fold: Q1 {main['ms']:.4f} ms (bound "
+        f"{main['bound_ms']:.4f}), Q6 {q6['ms']:.4f} ms (bound "
+        f"{q6['bound_ms']:.4f}, plain {q6['plain_ms']:.4f})")
     rows.append({"name": "scan_agg_fold", "route": "cuda",
                  "source": "citus_tpu_torch/csrc/scan_agg_fold.cu",
                  "replaces": "citus_tpu/ops/scan_agg.py:277",
@@ -1487,7 +1712,7 @@ def phase3_hash(device, cl, rows: list) -> None:
     adversarial case; appends its JSON row."""
     import torch
     from citus_tpu_torch.ops.hash_agg_insert import (
-        hash_agg_insert, hash_agg_insert_plain,
+        hash_agg_insert, insert_plain,
     )
     main_call, n_real = main_path_hash_call(cl, device)
     cases = [(f"bench hash GROUP BY l_orderkey, one shard ({n_real} rows)",
@@ -1499,18 +1724,19 @@ def phase3_hash(device, cl, rows: list) -> None:
                                             all_false)))
     max_err, main = 0.0, None
     for name, call in cases:
-        err = compare_hash(name, call, hash_agg_insert, hash_agg_insert_plain)
+        err = compare_hash(name, call, hash_agg_insert, insert_plain)
         max_err = max(max_err, err)
-        table, mask, keys, args, ops = call
+        prog, table, cols, params, mask = call
+        n_keys, ops = len(prog.exprs.keys), prog.ops
         work = clone_table(table)
         ms = time_cuda_fresh(
-            lambda: hash_agg_insert(work, mask, keys, args, ops),
+            lambda: hash_agg_insert(prog, work, cols, params, mask),
             lambda: copy_table_(work, table))
         plain_ms = time_cuda_fresh(
-            lambda: hash_agg_insert_plain(work, mask, keys, args, ops),
+            lambda: insert_plain(prog, work, cols, params, mask),
             lambda: copy_table_(work, table), reps=3)
         copy_table_(work, table)
-        spill = hash_agg_insert(work, mask, keys, args, ops)
+        spill = hash_agg_insert(prog, work, cols, params, mask)
         torch.cuda.synchronize()
         placed = int(work.rows.sum())
         occupied = int((work.rows > 0).sum())
@@ -1518,7 +1744,7 @@ def phase3_hash(device, cl, rows: list) -> None:
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         # slot traffic: every placed row touches its claim word, each key
         # and flag, every partial register and rows[slot] at random
-        sectors = 2 + 2 * len(keys) + len(ops)
+        sectors = 2 + 2 * n_keys + len(ops)
         S = table.slots
         acc = torch.zeros(S, dtype=torch.int64, device=device)
         n = mask.numel()
@@ -1528,12 +1754,13 @@ def phase3_hash(device, cl, rows: list) -> None:
         if main is None:
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
         say(f"phase 3 hash_agg_insert [{name}]: N={n} S={S} "
-            f"keys={len(keys)} ops={len(ops)} agrees (merged groups of "
+            f"keys={n_keys} ops={len(ops)} agrees (merged groups of "
             f"table and spill; max abs err of float sums {err!r}); placed "
             f"{placed}, spilled {int(spill.sum())}, occupied "
             f"{occupied} slots; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at "
-            f"3.35 TB/s: inputs once, the spill mask, each occupied slot "
+            f"3.35 TB/s: scan columns, validity and row mask once, the "
+            f"spill mask, each occupied slot "
             f"read and written once); slot traffic {placed * sectors * 32} B in 32-byte "
             f"sectors ({sectors} a placed row); library yardstick (one int64 "
             f"index_add_ into S slots, one op) {lib_ms:.4f} ms")
@@ -1682,24 +1909,24 @@ def predicate_columns(plan, prog, cols, valids) -> dict:
 
 def batched_fold_call(device, plans, name: str, repeat: int = 1):
     """The batched fold's main-path inputs for family ``name`` (Q6 or Q1)
-    on one FOLD_N-row batch: every variant's mask from the
-    batched predicate kernel, the shared keys and arguments, fresh
-    [Q, G] registers.  ``repeat`` > 1 sends each variant that many
-    times (Q = 8 * repeat)."""
-    from citus_tpu_torch.executor.megabatch import _empty_stacked_partials
+    on one FOLD_N-row batch: the family's fold program, fresh [Q, G]
+    registers, the scan columns and every variant's mask from the
+    batched predicate kernel.  ``repeat`` > 1 sends each variant that
+    many times (Q = 8 * repeat).  -> the arguments of
+    ``scan_agg_fold_batched``."""
+    from citus_tpu_torch.executor.megabatch import (
+        _empty_stacked_partials, _fold_program,
+    )
     from citus_tpu_torch.ops.filter_mask import filter_mask_batched
-    from citus_tpu_torch.ops.scan_agg import build_shared_fold_inputs
-    from citus_tpu_torch.ops.xp_torch import TorchNamespace
     plan, params = plans["families"][name]
     params = params * repeat
     cols, valids, row_mask = padded_batch(device, plan, plans["physical"])
     prog, stacked = family_filter(device, plan, params)
     masks = filter_mask_batched(
         prog, predicate_columns(plan, prog, cols, valids), stacked, row_mask)
-    shared, ops, G = build_shared_fold_inputs(plan, TorchNamespace(device))
-    keys, args = shared(cols, valids)
     regs, rows = _empty_stacked_partials(plan, len(params), device)
-    return (regs, rows, masks, keys, args, ops, G)
+    return (_fold_program(plan, params[0], device), regs, rows,
+            dict(zip(plan.scan_columns, zip(cols, valids))), masks)
 
 
 def phase3_batched_filter(device, plans, rows: list) -> None:
@@ -1761,12 +1988,11 @@ def synthetic_batched_global_case(device, q: int = 3):
     queries with different masks: the batched fold's global-atomics
     regime."""
     import torch
-    regs, rows, mask, keys, args, ops, G = synthetic_global_case(
+    prog, regs, rows, cols, _params, mask = synthetic_global_case(
         device, FOLD_N + 3, 65536, 21, False)
     masks = torch.stack([mask, ~mask] + [mask] * (q - 2)).contiguous()
-    return ([r.unsqueeze(0).repeat(q, 1).contiguous() for r in regs],
-            rows.unsqueeze(0).repeat(q, 1).contiguous(), masks, keys, args,
-            ops, G)
+    return (prog, [r.unsqueeze(0).repeat(q, 1).contiguous() for r in regs],
+            rows.unsqueeze(0).repeat(q, 1).contiguous(), cols, masks)
 
 
 def phase3_batched_fold(device, plans, rows: list) -> None:
@@ -1777,7 +2003,7 @@ def phase3_batched_fold(device, plans, rows: list) -> None:
     (global atomics); appends its JSON row."""
     import torch
     from citus_tpu_torch.ops.scan_agg_fold import (
-        scan_agg_fold_batched, scan_agg_fold_batched_plain,
+        fold_batched_plain, scan_agg_fold_batched,
     )
     max_err, main = 0.0, None
     cases = [("Q6 family", lambda: batched_fold_call(device, plans, "Q6"), 1),
@@ -1789,7 +2015,7 @@ def phase3_batched_fold(device, plans, rows: list) -> None:
     for name, make, want_regime in cases:
         call = make()
         err = compare_fold(f"{name} batched", call, scan_agg_fold_batched,
-                           scan_agg_fold_batched_plain)
+                           fold_batched_plain)
         max_err = max(max_err, err)
         if scan_agg_fold_batched.last_regime != want_regime:
             raise AssertionError(
@@ -1800,11 +2026,10 @@ def phase3_batched_fold(device, plans, rows: list) -> None:
         kc = clone_call(call)
         ms = time_cuda(lambda: scan_agg_fold_batched(*kc))
         pc = clone_call(call)
-        plain_ms = time_cuda(lambda: scan_agg_fold_batched_plain(*pc),
-                             reps=3)
+        plain_ms = time_cuda(lambda: fold_batched_plain(*pc), reps=3)
         nbytes = fold_bytes(call)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        masks, G = call[2], call[6]
+        masks, G = fold_masks(call), call[0].n_groups
         q, n = masks.shape
         acc = torch.zeros(q * G, dtype=torch.int64, device=device)
         gid = torch.randint(0, q * G, (n,), device=device)
@@ -1813,10 +2038,11 @@ def phase3_batched_fold(device, plans, rows: list) -> None:
         if name == "Q1 family":
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
         say(f"phase 3 scan_agg_fold_batched [{name}]: Q={q} N={n} "
-            f"G={G} ops={len(call[5])} regime={regime} agrees (max abs err "
-            f"of float sums {err!r}); kernel {ms:.4f} ms, plain "
+            f"G={G} ops={len(call[0].ops)} regime={regime} agrees (max abs "
+            f"err of float sums {err!r}); kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at "
-            f"3.35 TB/s: shared columns once, Q x N masks, registers), "
+            f"3.35 TB/s: the row's scan columns once, Q x N masks, "
+            f"registers), "
             f"library yardstick (one int64 index_add_ into Q x G slots, one "
             f"op) {lib_ms:.4f} ms")
     rows.append({"name": "scan_agg_fold_batched", "route": "cuda",
@@ -1827,19 +2053,18 @@ def phase3_batched_fold(device, plans, rows: list) -> None:
 
 
 def batched_hash_call(cl, device):
-    """The batched insert's main-path inputs for the H family: the first
-    padded SF1 shard batch, every variant's mask from the batched
-    predicate kernel, the shared keys and arguments, Q_BATCH fresh
-    tables of the size citus.hash_agg_slots = auto gives."""
+    """The batched insert's main-path inputs for the H family: the
+    family's insert program, Q_BATCH fresh tables of the size
+    citus.hash_agg_slots = auto gives, the first padded SF1 shard
+    batch's scan columns and every variant's mask from the batched
+    predicate kernel: the arguments of ``hash_agg_insert_batched``."""
     import torch
     from citus_tpu_torch.executor.executor import (
         _hash_key_dtypes, _hash_slots, _iter_padded_batches,
     )
+    from citus_tpu_torch.executor.megabatch import _fold_program
     from citus_tpu_torch.ops.filter_mask import filter_mask_batched
-    from citus_tpu_torch.ops.hash_agg import (
-        build_shared_hash_inputs, empty_hash_state,
-    )
-    from citus_tpu_torch.ops.xp_torch import TorchNamespace
+    from citus_tpu_torch.ops.hash_agg import empty_hash_state
     cl.execute("SET citus.hash_agg_slots = auto")
     planned = [plan_as_cluster_does(cl, sql) for sql, _ in
                families()["H"][1]]
@@ -1857,12 +2082,10 @@ def batched_hash_call(cl, device):
     prog, stacked = family_filter(device, plan, params)
     masks = filter_mask_batched(
         prog, predicate_columns(plan, prog, cols, valids), stacked, row_mask)
-    shared, ops = build_shared_hash_inputs(plan, TorchNamespace(device),
-                                           key_dtypes)
-    keys, args = shared(cols, valids, row_mask)
     table = empty_hash_state(plan, S, key_dtypes, device,
                              n_queries=len(params))
-    return (table, masks, keys, args, ops), hb.n_rows
+    return (_fold_program(plan, params[0], device, key_dtypes), table,
+            dict(zip(plan.scan_columns, zip(cols, valids))), masks), hb.n_rows
 
 
 def phase3_batched_hash(device, cl, rows: list) -> None:
@@ -1873,11 +2096,14 @@ def phase3_batched_hash(device, cl, rows: list) -> None:
     Appends its JSON row."""
     import torch
     from citus_tpu_torch.ops.hash_agg_insert import (
-        hash_agg_insert_batched, hash_agg_insert_batched_plain,
+        hash_agg_insert_batched, insert_batched_plain, plain_insert_inputs,
     )
     from citus_tpu_torch.ops.hash_agg import HashTable
     call, n_real = batched_hash_call(cl, device)
-    table, masks, keys, args, ops = call
+    prog, table, cols, masks = call
+    ops = prog.ops
+    _, keys, args = plain_insert_inputs(prog, cols, {}, masks[0],
+                                        with_filter=False)
     q = masks.shape[0]
     # and the same inputs into Q tables of 1,000 slots: most rows spill
     small = HashTable([v[:, :1000].contiguous() for v in table.key_values],
@@ -1889,8 +2115,8 @@ def phase3_batched_hash(device, cl, rows: list) -> None:
     max_err = 0.0
     for case, tab in (("S=2^20", table), ("S=1000", small)):
         kt, pt = clone_table(tab), clone_table(tab)
-        ks = hash_agg_insert_batched(kt, masks, keys, args, ops)
-        ps = hash_agg_insert_batched_plain(pt, masks, keys, args, ops)
+        ks = hash_agg_insert_batched(prog, kt, cols, masks)
+        ps = insert_batched_plain(prog, pt, cols, masks)
         torch.cuda.synchronize()
         for qi in range(q):
             for what, t, sp in (("kernel", kt, ks), ("plain", pt, ps)):
@@ -1909,13 +2135,13 @@ def phase3_batched_hash(device, cl, rows: list) -> None:
         del kt, pt
     work = clone_table(table)
     ms = time_cuda_fresh(
-        lambda: hash_agg_insert_batched(work, masks, keys, args, ops),
+        lambda: hash_agg_insert_batched(prog, work, cols, masks),
         lambda: copy_table_(work, table))
     plain_ms = time_cuda_fresh(
-        lambda: hash_agg_insert_batched_plain(work, masks, keys, args, ops),
+        lambda: insert_batched_plain(prog, work, cols, masks),
         lambda: copy_table_(work, table), reps=3)
     copy_table_(work, table)
-    hash_agg_insert_batched(work, masks, keys, args, ops)
+    hash_agg_insert_batched(prog, work, cols, masks)
     occupied = int((work.rows > 0).sum())
     nbytes = hash_bytes(call, occupied)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1930,8 +2156,8 @@ def phase3_batched_hash(device, cl, rows: list) -> None:
         f"ops={len(ops)} agrees per query (merged groups of table and "
         f"spill; max abs err of float sums {max_err!r}); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s: keys and "
-        f"arguments once, Q masks and Q spill masks, each of the "
+        f"bound {bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s: the row's "
+        f"scan columns once, Q masks and Q spill masks, each of the "
         f"{occupied} occupied slots of the Q tables read and written "
         f"once), kernel at {ms / bound_ms:.1f}x its bound, library yardstick (one int64 index_add_ into Q x S "
         f"slots, one op) {lib_ms:.4f} ms")
@@ -2089,13 +2315,10 @@ def sketch_plans(device, tmp: str, n: int = FOLD_N) -> dict:
     import citus_tpu_torch as ctt
     from citus_tpu_torch.executor.batches import pad_to_batch
     from citus_tpu_torch.executor.kernel_cache import plan_fingerprint
+    from citus_tpu_torch.executor.executor import _param_dtypes, _params_env
     from citus_tpu_torch.ops.scan_agg import (
         build_fold_inputs, empty_device_partials,
     )
-    from citus_tpu_torch.ops.xp_torch import TorchNamespace
-    from citus_tpu_torch.planner import parse_sql
-    from citus_tpu_torch.planner.bind import bind_select
-    from citus_tpu_torch.planner.physical import plan_select
     cl = ctt.Cluster(os.path.join(tmp, "sketch_plans"), device=device)
     cl.execute(S_DDL)
     cl.execute("SELECT create_distributed_table('lineitem', 'l_suppkey', "
@@ -2105,17 +2328,17 @@ def sketch_plans(device, tmp: str, n: int = FOLD_N) -> dict:
     chunks = list(sketch_chunks(n, 5, SF1_ROWS))
     physical = sketch_physical(
         {k: np.concatenate([ch[k] for ch in chunks]) for k in chunks[0]})
-    plan = plan_select(cl.catalog, bind_select(cl.catalog, parse_sql(S1)[0]))
+    plan, params = plan_as_cluster_does(cl, S1)
     if plan.group_mode.kind != "scalar":
         raise AssertionError(f"S1 plans to {plan.group_mode.kind}")
     values = {k: physical[k] for k in plan.scan_columns}
     masks = {k: np.ones(n, bool) for k in plan.scan_columns}
     hb = pad_to_batch(plan.bound.table, plan, values, masks, n, n, 0)
-    call = build_fold_inputs(plan, TorchNamespace(device))(
+    call = build_fold_inputs(plan, _param_dtypes(plan, params))(
         empty_device_partials(plan, device),
         tuple(torch.from_numpy(a).to(device) for a in hb.cols),
         tuple(torch.from_numpy(a).to(device) for a in hb.valids),
-        torch.from_numpy(hb.row_mask).to(device))
+        torch.from_numpy(hb.row_mask).to(device), _params_env(plan, params))
     planned = [plan_as_cluster_does(cl, sql)
                for sql, _ in sketch_families()["S"][1]]
     if len({plan_fingerprint(p) for p, _ in planned}) != 1:
@@ -2130,8 +2353,10 @@ def adversarial_sketch_call(device, n: int, q=None, all_false=False):
     +-inf, +-0.0, 1e-300, the smallest subnormal, every DDSketch bucket
     edge and its neighbours, and nulls, and an int argument holding
     INT64_MIN/MAX, 0 and -1; n not a multiple of the block.  Registers
-    [M] (one query) or [q, M]."""
+    [M] (one query) or [q, M].  -> the arguments of ``scan_agg_fold``
+    (``scan_agg_fold_batched`` with ``q``)."""
     import torch
+    from citus_tpu_torch import types as T
     from citus_tpu_torch.ops.scan_agg_fold import SKETCH_M, FoldOp
     from citus_tpu_torch.planner import aggregates as agg
     rng = np.random.default_rng(23)
@@ -2146,10 +2371,12 @@ def adversarial_sketch_call(device, n: int, q=None, all_false=False):
 
     def to(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    args = [(to(f), to(rng.random(n) > 0.05)), (to(i), None)]
+    cols = {"f": (to(f), to(rng.random(n) > 0.05)), "i": (to(i), None)}
     ops = [FoldOp("count_star"), FoldOp("hll", 0), FoldOp("ddsk", 0),
            FoldOp("hll", 1), FoldOp("topk", 1), FoldOp("topkv", 1),
            FoldOp("count", 0), FoldOp("sum", 1)]
+    prog = column_program(None, [], ["f", "i"], ops,
+                          {"f": T.FLOAT64_T, "i": T.INT64_T}, cols)
     pre = () if q is None else (q,)
     regs = []
     for op in ops:
@@ -2163,18 +2390,27 @@ def adversarial_sketch_call(device, n: int, q=None, all_false=False):
                                     device=device))
     shape = (n,) if q is None else (q, n)
     mask = to((rng.random(shape) > 0.3) & (not all_false))
-    return (regs, None, mask, [], args, ops, 1)
+    if q is None:
+        return (prog, regs, None, cols, {}, mask)
+    return (prog, regs, None, cols, mask)
 
 
 def sketch_fold_ops(call) -> int:
     """Operations of a sketch fold on this call's data: one to read each
-    mask entry, and per (query, row) the mask passes a few for a count or
-    sum and ~40 for a sketch (splitmix64, the leading-zero count or a
-    float64 log, the bucket and its atomic)."""
+    mask entry and one per bound node of its expressions for each row,
+    and per (query, row) that passes a few for a count or sum and ~40 for
+    a sketch (splitmix64, the leading-zero count or a float64 log, the
+    bucket and its atomic)."""
     from citus_tpu_torch.ops.scan_agg_fold import SKETCH_M
-    _regs, _rows, mask, _keys, _args, ops, _g = call
-    per_row = sum(40 if op.kind in SKETCH_M else 2 for op in ops)
-    return mask.numel() + int(mask.sum()) * per_row
+    from citus_tpu_torch.planner.bound import walk
+    prog, masks = call[0], fold_masks(call)
+    if masks.dim() == 1:  # one query: the rows its WHERE passes
+        masks = prog.plain_eval(call[3], call[4], masks)[0]
+    e = prog.exprs
+    nodes = sum(1 for x in (e.filter, *e.keys, *e.args) if x is not None
+                for _ in walk(x))
+    per_row = sum(40 if op.kind in SKETCH_M else 2 for op in prog.ops)
+    return masks.numel() * (1 + nodes) + int(masks.sum()) * per_row
 
 
 def phase3_sketch_folds(device, splans, rows: list) -> None:
@@ -2185,25 +2421,24 @@ def phase3_sketch_folds(device, splans, rows: list) -> None:
     and at Q = 6 (the shared-memory table).  Registers identical, float
     sums within rel 1e-12.  Appends the two sketch rows of the JSON."""
     import torch
-    from citus_tpu_torch.executor.megabatch import _empty_stacked_partials
-    from citus_tpu_torch.ops.filter_mask import filter_mask_batched
-    from citus_tpu_torch.ops.scan_agg import build_shared_fold_inputs
-    from citus_tpu_torch.ops.scan_agg_fold import (
-        scan_agg_fold, scan_agg_fold_batched, scan_agg_fold_batched_plain,
-        scan_agg_fold_plain,
+    from citus_tpu_torch.executor.megabatch import (
+        _empty_stacked_partials, _fold_program,
     )
-    from citus_tpu_torch.ops.xp_torch import TorchNamespace
+    from citus_tpu_torch.ops.filter_mask import filter_mask_batched
+    from citus_tpu_torch.ops.scan_agg_fold import (
+        fold_batched_plain, fold_plain, scan_agg_fold, scan_agg_fold_batched,
+    )
     plan, params = splans["family"]
     cols, valids, row_mask = padded_batch(device, plan, splans["physical"])
     prog, stacked = family_filter(device, plan, params)
     masks = filter_mask_batched(
         prog, predicate_columns(plan, prog, cols, valids), stacked, row_mask)
-    shared, ops, G = build_shared_fold_inputs(plan, TorchNamespace(device))
-    keys, args = shared(cols, valids)
+    fold = _fold_program(plan, params[0], device)
+    by_name = dict(zip(plan.scan_columns, zip(cols, valids)))
 
     def family_call(q):
         regs, rr = _empty_stacked_partials(plan, q, device)
-        return (regs, rr, masks[:q].contiguous(), keys, args, ops, G)
+        return (fold, regs, rr, by_name, masks[:q].contiguous())
     n = FOLD_N + 3
     for batched, cases in (
             (False, [("S1", lambda: splans["s1_call"], 1),
@@ -2217,8 +2452,7 @@ def phase3_sketch_folds(device, splans, rows: list) -> None:
                     ("adversarial Q=2", lambda: adversarial_sketch_call(
                         device, n, q=2), 1)])):
         kernel = scan_agg_fold_batched if batched else scan_agg_fold
-        plain = scan_agg_fold_batched_plain if batched \
-            else scan_agg_fold_plain
+        plain = fold_batched_plain if batched else fold_plain
         name = "scan_agg_fold_batched" if batched else "scan_agg_fold"
         max_err, main = 0.0, None
         for case, make, want_regime in cases:
@@ -2240,10 +2474,10 @@ def phase3_sketch_folds(device, splans, rows: list) -> None:
             if main is None:
                 main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=by)
-            mask = call[2]
+            mask = fold_masks(call)
             # yardstick: ONE index_add_ of the passing (query, row) pairs
             # into the DDSketch registers, buckets drawn beforehand
-            ddsk = next(r for r, op in zip(call[0], call[5])
+            ddsk = next(r for r, op in zip(call[1], call[0].ops)
                         if op.kind == "ddsk")
             flat = torch.zeros(ddsk.numel(), dtype=torch.int64,
                                device=device)
@@ -2253,7 +2487,7 @@ def phase3_sketch_folds(device, splans, rows: list) -> None:
             lib_ms = time_cuda(lambda: flat.index_add_(0, idx, ones))
             say(f"phase 3 {name} [{case}, sketch ops]: N={mask.shape[-1]}"
                 f"{f' Q={mask.shape[0]}' if batched else ''} "
-                f"ops={[op.kind for op in call[5]]} regime="
+                f"ops={[op.kind for op in call[0].ops]} regime="
                 f"{'shared-memory table' if kernel.last_regime else 'global atomics'}: "
                 f"registers identical (max abs err of float sums {err!r}); "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -3264,11 +3498,11 @@ def run(args) -> dict:
         plans = smoke_plans(device, tmp)
         splans = sketch_plans(device, tmp)
         # ---- phase 2: build every kernel, all nvcc processes at once;
-        # then one more generated predicate alone, for its cold build time
+        # then one more generated predicate alone, and Q1's generated
+        # fold alone, for their cold build times
         t0 = time.perf_counter()
-        kernels = ["scan_agg_fold", "hash_agg_insert", "scan_agg_fold_batched",
-                   "hash_agg_insert_batched", "rollup_delta", "hash_agg_merge",
-                   "partition_pack", "sorted_join"]
+        kernels = ["rollup_delta", "hash_agg_merge", "partition_pack",
+                   "sorted_join"]
         # the predicates of Q6 and P1 and of the phase-5 families (each
         # generated source holds the one-query and the batched kernel);
         # Q6's and P's families share Q6's and P1's sources
@@ -3283,11 +3517,22 @@ def run(args) -> dict:
                 sources.append(src)
         jobs = [cuda_build.start_generated("filter_mask", src)
                 for src in sources]
+        # the generated folds and inserts of phases 3-7 (each source holds
+        # the one-query and the batched kernel), but Q1's
+        q1_fold = plans["fold_calls"]["q1"][0]
+        folds = [p for p in generated_programs(plans, splans, tmp)
+                 if p.row.source != q1_fold.row.source]
+        fold_sources = list(dict.fromkeys((p.build_name, p.row.source)
+                                          for p in folds))
+        jobs += [cuda_build.start_generated(name, src)
+                 for name, src in fold_sources]
         cuda_build.build_all(kernels)
         for job in jobs:
             cuda_build.finish_generated(job)
-        say(f"phase 2 build: {len(kernels)} kernels and {len(jobs)} "
-            f"generated predicates in {time.perf_counter() - t0:.3f} s")
+        say(f"phase 2 build: {len(kernels)} kernels, "
+            f"{len(jobs) - len(fold_sources)} generated predicates and "
+            f"{len(fold_sources)} generated folds and inserts in "
+            f"{time.perf_counter() - t0:.3f} s")
         for k in kernels:
             for line in cuda_build.build_log(k).splitlines():
                 if "registers" in line or "spill" in line or "error" in line:
@@ -3296,6 +3541,16 @@ def run(args) -> dict:
         plans["filters"]["syn"][0].library()
         say(f"phase 2 cold nvcc build of one generated predicate (the "
             f"synthetic one) alone: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        q1_fold.library()
+        say(f"phase 2 cold nvcc build of one generated fold (Q1's: "
+            f"{len(q1_fold.row.columns)} columns, {len(q1_fold.exprs.args)} "
+            f"arguments, {len(q1_fold.ops)} ops; the one-query and the "
+            f"batched kernel) alone: {time.perf_counter() - t0:.3f} s")
+        for line in cuda_build.build_log(
+                q1_fold.build_name, q1_fold.row.source).splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                say(f"phase 2 ptxas Q1 fold: {line.strip()}")
 
         # ---- phase 3: kernel vs plain version at the main path's shapes
         n_rows = args.rows

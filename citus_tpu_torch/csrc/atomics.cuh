@@ -1,5 +1,5 @@
 // Atomic folds of one operand into a register, shared by the port's
-// fold kernels (scan_agg_fold.cu, hash_agg_insert.cu, hash_agg_merge.cu):
+// fold kernels (fold.cuh, hash_probe.cuh, hash_agg_merge.cu):
 // count/sum/min/max by accumulator type.  int64 sums wrap in two's complement as XLA's do;
 // float min/max propagate NaN as jnp.minimum / jnp.maximum do.
 
@@ -91,27 +91,25 @@ __device__ __forceinline__ void combine_f32(int kind, float* p, float v) {
     else atomicAdd(p, v);
 }
 
-// add, min or max the value of row `i` of column `a` into the register at
-// `slot` of an op of `kind` with accumulator dtype `dt`
-__device__ __forceinline__ void combine_value(int kind, int dt, void* slot,
-                                              const SafCol& a, int64_t i) {
+// add, min or max value `v` into the register at `slot` of an op of
+// `kind` with accumulator dtype `dt`
+__device__ __forceinline__ void combine_value(int kind, int dt, void* slot, const SafVal& v) {
     switch (dt) {
-        case SAF_I64: combine_i64(kind, (long long*)slot, load_i64(a, i)); break;
-        case SAF_I32: combine_i32(kind, (int*)slot, (int)load_i64(a, i)); break;
-        case SAF_F32: combine_f32(kind, (float*)slot, load_f32(a, i)); break;
-        default: combine_f64(kind, (double*)slot, load_f64(a, i)); break;
+        case SAF_I64: combine_i64(kind, (long long*)slot, val_i64(v)); break;
+        case SAF_I32: combine_i32(kind, (int*)slot, (int)val_i64(v)); break;
+        case SAF_F32: combine_f32(kind, (float*)slot, val_f32(v)); break;
+        default: combine_f64(kind, (double*)slot, val_f64(v)); break;
     }
 }
 
-// fold one valid row `i` of column `a` into the register at `slot` of an
-// op of `kind` with accumulator dtype `dt` (8-byte count registers)
-__device__ __forceinline__ void fold_value(int kind, int dt, void* slot,
-                                           const SafCol& a, int64_t i) {
+// fold one valid row's value `v` into the register at `slot` of an op of
+// `kind` with accumulator dtype `dt` (8-byte count registers)
+__device__ __forceinline__ void fold_value(int kind, int dt, void* slot, const SafVal& v) {
     if (kind == SAF_COUNT_STAR || kind == SAF_COUNT) {
         atomicAdd((unsigned long long*)slot, 1ull);
         return;
     }
-    combine_value(kind, dt, slot, a, i);
+    combine_value(kind, dt, slot, v);
 }
 
 // merge entry `i` of a partial-state column `a` (a peer's register, of
@@ -119,9 +117,10 @@ __device__ __forceinline__ void fold_value(int kind, int dt, void* slot,
 // entry's count, a sum its sum, min/max keep the extremum
 __device__ __forceinline__ void merge_value(int kind, int dt, void* slot,
                                             const SafCol& a, int64_t i) {
+    const SafVal v = col_val(a, i);
     if (kind == SAF_COUNT_STAR || kind == SAF_COUNT) {
-        atomicAdd((unsigned long long*)slot, (unsigned long long)load_i64(a, i));
+        atomicAdd((unsigned long long*)slot, (unsigned long long)val_i64(v));
         return;
     }
-    combine_value(kind, dt, slot, a, i);
+    combine_value(kind, dt, slot, v);
 }

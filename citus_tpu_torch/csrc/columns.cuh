@@ -1,8 +1,10 @@
-// Column inputs of the port's fold kernels (scan_agg_fold.cu,
-// hash_agg_insert.cu): one value vector with an optional validity
-// vector, either of them [n] or a broadcast [1] constant.  The layout of
-// SafCol is mirrored by ctypes in citus_tpu_torch/ops/scan_agg_fold.py
-// (_Col); change both together.
+// Operands of the port's fold kernels.  SafVal is one value of a row as
+// the generated row source (ops/expr_codegen.py generate_fold_row) gives
+// it to the fold and insert kernels (fold.cuh, hash_probe.cuh); SafCol is
+// a column of entries that hash_agg_merge.cu reads: one value vector with
+// an optional validity vector, either of them [n] or a broadcast [1]
+// constant.  The layout of SafCol is mirrored by ctypes in
+// citus_tpu_torch/ops/hash_agg_merge.py (_Col); change both together.
 
 #pragma once
 
@@ -24,36 +26,42 @@ struct SafCol {
     int32_t pad;
 };
 
-__device__ __forceinline__ long long load_i64(const SafCol& c, int64_t i) {
-    int64_t j = i * c.data_stride;
-    switch (c.dtype) {
-        case SAF_U8: return (long long)((const uint8_t*)c.data)[j];
-        case SAF_I32: return (long long)((const int32_t*)c.data)[j];
-        case SAF_I64: return ((const long long*)c.data)[j];
-        case SAF_F32: return (long long)((const float*)c.data)[j];
-        default: return (long long)((const double*)c.data)[j];
-    }
+// One value of a row: an integer or bool in `i`, a float (a float32
+// widened exactly) in `d`.  val_i64 / val_f64 / val_f32 read it as an
+// accumulator type with C's casts, as a load of its column would.
+struct SafVal {
+    long long i;
+    double d;
+    bool is_float;
+};
+
+__host__ __device__ __forceinline__ SafVal saf_val(bool v) { return SafVal{(long long)v, 0.0, false}; }
+__host__ __device__ __forceinline__ SafVal saf_val(int32_t v) { return SafVal{(long long)v, 0.0, false}; }
+__host__ __device__ __forceinline__ SafVal saf_val(int64_t v) { return SafVal{(long long)v, 0.0, false}; }
+__host__ __device__ __forceinline__ SafVal saf_val(float v) { return SafVal{0, (double)v, true}; }
+__host__ __device__ __forceinline__ SafVal saf_val(double v) { return SafVal{0, v, true}; }
+
+__device__ __forceinline__ long long val_i64(const SafVal& v) {
+    return v.is_float ? (long long)v.d : v.i;
 }
 
-__device__ __forceinline__ double load_f64(const SafCol& c, int64_t i) {
-    int64_t j = i * c.data_stride;
-    switch (c.dtype) {
-        case SAF_U8: return (double)((const uint8_t*)c.data)[j];
-        case SAF_I32: return (double)((const int32_t*)c.data)[j];
-        case SAF_I64: return (double)((const long long*)c.data)[j];
-        case SAF_F32: return (double)((const float*)c.data)[j];
-        default: return ((const double*)c.data)[j];
-    }
+__device__ __forceinline__ double val_f64(const SafVal& v) {
+    return v.is_float ? v.d : (double)v.i;
 }
 
-__device__ __forceinline__ float load_f32(const SafCol& c, int64_t i) {
+__device__ __forceinline__ float val_f32(const SafVal& v) {
+    return v.is_float ? (float)v.d : (float)v.i;
+}
+
+// entry i of column c
+__device__ __forceinline__ SafVal col_val(const SafCol& c, int64_t i) {
     int64_t j = i * c.data_stride;
     switch (c.dtype) {
-        case SAF_U8: return (float)((const uint8_t*)c.data)[j];
-        case SAF_I32: return (float)((const int32_t*)c.data)[j];
-        case SAF_I64: return (float)((const long long*)c.data)[j];
-        case SAF_F32: return ((const float*)c.data)[j];
-        default: return (float)((const double*)c.data)[j];
+        case SAF_U8: return saf_val((int32_t)((const uint8_t*)c.data)[j]);
+        case SAF_I32: return saf_val(((const int32_t*)c.data)[j]);
+        case SAF_I64: return saf_val((int64_t)((const long long*)c.data)[j]);
+        case SAF_F32: return saf_val(((const float*)c.data)[j]);
+        default: return saf_val(((const double*)c.data)[j]);
     }
 }
 

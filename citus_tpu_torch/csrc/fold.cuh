@@ -6,6 +6,23 @@
 // The layout of SafParams is mirrored by ctypes in
 // citus_tpu_torch/ops/scan_agg_fold.py (_Params); change both together.
 //
+// Rows.  The kernels and the launcher are templates over a row source
+// `Row`, which ops/expr_codegen.py generate_fold_row writes for each plan
+// (the struct FoldRow of a generated source, which then includes
+// scan_agg_fold.cu and scan_agg_fold_batched.cu).  Over the plan's scan
+// columns and parameters (an FmParams block, expr.cuh) it gives:
+//     Row::Vals                       one row's evaluated keys and arguments
+//     Row::pass(rp, i)                row i's WHERE (NULL is false), from
+//                                     the columns the WHERE reads
+//     Row::values(rp, i, v)           row i's keys and arguments, from the
+//                                     columns they read
+//     Row::key(v, k, &x) -> valid     key k as int64
+//     Row::arg(v, a, &x) -> valid     argument a as a SafVal
+// With kFilter the kernel folds rows with mask[i] && Row::pass (one
+// query); without it, masks[q][i] alone selects the rows of query q (the
+// batched predicate kernel evaluated each query's WHERE), and a row's
+// keys and arguments are evaluated once for all Q queries.
+//
 // Registers.  Op o's register for query q and group g is element
 // (q * G + g) * M_o + j of acc[o]: M_o = 1 for count/sum/min/max, and for
 // the sketch ops (scalar mode only, G = 1) M = 128 int32 HLL registers
@@ -29,6 +46,7 @@
 
 #include "atomics.cuh"
 #include "columns.cuh"
+#include "expr.cuh"
 #include "sketch.cuh"
 
 #define SAF_MAX_KEYS 8
@@ -49,11 +67,9 @@ struct SafParams {
     int32_t n_args;
     int32_t n_ops;
     int32_t pad;
-    SafCol keys[SAF_MAX_KEYS];
     int64_t key_lo[SAF_MAX_KEYS];
     int64_t key_step[SAF_MAX_KEYS];
     int64_t key_stride[SAF_MAX_KEYS];
-    SafCol args[SAF_MAX_ARGS];
     int32_t op_kind[SAF_MAX_OPS];
     int32_t op_arg[SAF_MAX_OPS];
     int32_t op_dtype[SAF_MAX_OPS];   // accumulator dtype
@@ -92,31 +108,29 @@ __device__ __forceinline__ int op_width(const SafParams& p, int o) {
     return (dt == SAF_I32 || dt == SAF_F32) ? 4 : 8;
 }
 
-// fold valid row `i` of op `o` into register `gq` of the region at
-// `base`: a plain op's slot is `plain_stride` bytes wide (8 in the shared
-// table, the accumulator's width in the registers), a sketch op's region
-// holds M registers per group in its own type
+// fold the valid value `a` of op `o` of a row into register `gq` of the
+// region at `base`: a plain op's slot is `plain_stride` bytes wide (8 in
+// the shared table, the accumulator's width in the registers), a sketch
+// op's region holds M registers per group in its own type
 __device__ __forceinline__ void fold_op(const SafParams& p, int o, char* base, int64_t gq,
-                                        int plain_stride, int64_t i) {
+                                        int plain_stride, const SafVal& a) {
     const int kind = p.op_kind[o];
     if (!is_sketch(kind)) {
-        fold_value(kind, p.op_dtype[o], base + gq * plain_stride, p.args[p.op_arg[o]], i);
+        fold_value(kind, p.op_dtype[o], base + gq * plain_stride, a);
         return;
     }
-    const SafCol& a = p.args[p.op_arg[o]];
     const int64_t at = gq * (int64_t)p.op_m[o];
     if (kind == SAF_HLL) {
-        long long bits = (a.dtype == SAF_F32 || a.dtype == SAF_F64)
-                             ? __double_as_longlong(load_f64(a, i)) : load_i64(a, i);
+        long long bits = a.is_float ? __double_as_longlong(val_f64(a)) : val_i64(a);
         int b, rho;
         hll_bucket_rho(bits, &b, &rho);
         atomicMax((int*)base + at + b, rho);
     } else if (kind == SAF_DDSK) {
-        atomicAdd((unsigned long long*)base + at + ddsk_bucket(load_f64(a, i)), 1ull);
+        atomicAdd((unsigned long long*)base + at + ddsk_bucket(val_f64(a)), 1ull);
     } else if (kind == SAF_TOPK) {
-        atomicAdd((unsigned long long*)base + at + topk_bucket(load_i64(a, i)), 1ull);
+        atomicAdd((unsigned long long*)base + at + topk_bucket(val_i64(a)), 1ull);
     } else {
-        long long v = load_i64(a, i);
+        long long v = val_i64(a);
         atomicMax((long long*)base + at + topk_bucket(v), v);
     }
 }
@@ -156,15 +170,14 @@ __device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
     return q;
 }
 
-__device__ __forceinline__ int64_t group_of(const SafParams& p, int64_t i) {
+template <class Row>
+__device__ __forceinline__ int64_t group_of(const SafParams& p, const typename Row::Vals& v) {
     // unsigned arithmetic: wraps like the reference's int64 lanes
     unsigned long long gid = 0;
     for (int k = 0; k < p.n_keys; ++k) {
-        const SafCol& c = p.keys[k];
-        long long code = 0;
-        if (is_valid(c, i)) {
-            long long d = (long long)((unsigned long long)load_i64(c, i)
-                                      - (unsigned long long)p.key_lo[k]);
+        long long x = 0, code = 0;
+        if (Row::key(v, k, &x)) {
+            long long d = (long long)((unsigned long long)x - (unsigned long long)p.key_lo[k]);
             code = floor_div(d, p.key_step[k]) + 1;
             if (code < 0) code = 0;
         }
@@ -176,13 +189,16 @@ __device__ __forceinline__ int64_t group_of(const SafParams& p, int64_t i) {
     return g;
 }
 
-// fold row i, known to pass query q's mask, into register gq of every op
-__device__ __forceinline__ void fold_query_row(const SafParams& p, int64_t i, int64_t gq,
-                                               char* table, bool shared) {
+// fold a row that passes query q's mask, with evaluated values `v`, into
+// register gq of every op
+template <class Row>
+__device__ __forceinline__ void fold_query_row(const SafParams& p, const typename Row::Vals& v,
+                                               int64_t gq, char* table, bool shared) {
     for (int o = 0; o < p.n_ops; ++o) {
-        if (p.op_kind[o] != SAF_COUNT_STAR && !is_valid(p.args[p.op_arg[o]], i)) continue;
-        if (shared) fold_op(p, o, table + p.op_soff[o], gq, 8, i);
-        else fold_op(p, o, (char*)p.acc[o], gq, op_width(p, o), i);
+        SafVal a = saf_val((int64_t)0);
+        if (p.op_kind[o] != SAF_COUNT_STAR && !Row::arg(v, p.op_arg[o], &a)) continue;
+        if (shared) fold_op(p, o, table + p.op_soff[o], gq, 8, a);
+        else fold_op(p, o, (char*)p.acc[o], gq, op_width(p, o), a);
     }
     if (p.rows != nullptr) {
         unsigned long long* r = shared ? (unsigned long long*)(table + p.op_soff[p.n_ops])
@@ -191,9 +207,29 @@ __device__ __forceinline__ void fold_query_row(const SafParams& p, int64_t i, in
     }
 }
 
+// row i for every query whose mask it passes: the row's columns, keys,
+// arguments and group id are evaluated once, at its first passing query
+template <class Row, bool kFilter>
+__device__ __forceinline__ void fold_row(const SafParams& p, const FmParams& rp, int n_q,
+                                         int64_t i, char* table, bool shared) {
+    const int64_t G = p.n_groups;
+    int64_t g = -1;
+    typename Row::Vals v;
+    for (int q = 0; q < n_q; ++q) {
+        if (!p.mask[(int64_t)q * p.n + i]) continue;
+        if (g < 0) {
+            if (kFilter && !Row::pass(rp, i)) return;
+            Row::values(rp, i, v);
+            g = group_of<Row>(p, v);
+        }
+        fold_query_row<Row>(p, v, (int64_t)q * G + g, table, shared);
+    }
+}
+
 // shared-memory regime: a block-private table of every op's registers
 // for the n_q * G groups
-__global__ void fold_shared_q(const SafParams p, const int n_q) {
+template <class Row, bool kFilter>
+__global__ void fold_shared_q(const SafParams p, const FmParams rp, const int n_q) {
     extern __shared__ __align__(8) char table[];
     const int64_t G = p.n_groups;
     const int64_t QG = (int64_t)n_q * G;
@@ -215,14 +251,8 @@ __global__ void fold_shared_q(const SafParams p, const int n_q) {
     }
     __syncthreads();
     const int64_t step = (int64_t)gridDim.x * blockDim.x;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < p.n; i += step) {
-        int64_t g = -1;
-        for (int q = 0; q < n_q; ++q) {
-            if (!p.mask[(int64_t)q * p.n + i]) continue;
-            if (g < 0) g = group_of(p, i);
-            fold_query_row(p, i, (int64_t)q * G + g, table, true);
-        }
-    }
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < p.n; i += step)
+        fold_row<Row, kFilter>(p, rp, n_q, i, table, true);
     __syncthreads();
     for (int o = 0; o < p.n_ops; ++o) {
         const int64_t count = QG * p.op_m[o];
@@ -237,27 +267,24 @@ __global__ void fold_shared_q(const SafParams p, const int n_q) {
 }
 
 // global regime: every (query, valid row) updates the registers directly
-__global__ void fold_global_q(const SafParams p, const int n_q) {
-    const int64_t G = p.n_groups;
+template <class Row, bool kFilter>
+__global__ void fold_global_q(const SafParams p, const FmParams rp, const int n_q) {
     const int64_t step = (int64_t)gridDim.x * blockDim.x;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < p.n; i += step) {
-        int64_t g = -1;
-        for (int q = 0; q < n_q; ++q) {
-            if (!p.mask[(int64_t)q * p.n + i]) continue;
-            if (g < 0) g = group_of(p, i);
-            fold_query_row(p, i, (int64_t)q * G + g, nullptr, false);
-        }
-    }
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < p.n; i += step)
+        fold_row<Row, kFilter>(p, rp, n_q, i, nullptr, false);
 }
 
 static const int kFoldThreads = 256;
 
-// Launches one fold of `p0` for `n_q` queries on `stream`: p0->mask points
-// at the [n_q, n] masks, every p0->acc[o] at [n_q * G * M_o] registers and
+// Launches one fold of `p0` for `n_q` queries on `stream`, the rows from
+// `Row` over the columns and parameters of `rp`: p0->mask points at the
+// [n_q, n] masks, every p0->acc[o] at [n_q * G * M_o] registers and
 // p0->rows at [n_q * G] (or null).  *regime is set to 1 for the
 // shared-memory table, 0 for global atomics.  Returns the CUDA error of
 // the launch (0 = cudaSuccess); the kernel runs asynchronously.
-static int launch_fold(const SafParams* p0, int n_q, void* stream, int* regime) {
+template <class Row, bool kFilter>
+static int launch_fold(const SafParams* p0, const FmParams* rp, int n_q, void* stream,
+                       int* regime) {
     if (p0->n <= 0 || n_q <= 0) { *regime = -1; return 0; }
     SafParams p = *p0;
     int dev = 0;
@@ -281,10 +308,11 @@ static int launch_fold(const SafParams* p0, int n_q, void* stream, int* regime) 
     cudaStream_t s = (cudaStream_t)stream;
     if (table_bytes <= smem_optin) {
         int bytes = (int)table_bytes;
-        err = cudaFuncSetAttribute(fold_shared_q, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        auto kernel = fold_shared_q<Row, kFilter>;
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
         if (err != cudaSuccess) return (int)err;
         int per_sm = 0;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fold_shared_q, kFoldThreads, bytes);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFoldThreads, bytes);
         if (err != cudaSuccess) return (int)err;
         if (per_sm < 1) per_sm = 1;
         // a sketch table's end-of-block merge costs thousands of global
@@ -293,12 +321,12 @@ static int launch_fold(const SafParams* p0, int n_q, void* stream, int* regime) 
         long long blocks = (long long)sms * per_sm;
         if (blocks > want_blocks) blocks = want_blocks;
         *regime = 1;
-        fold_shared_q<<<(unsigned)blocks, kFoldThreads, bytes, s>>>(p, n_q);
+        kernel<<<(unsigned)blocks, kFoldThreads, bytes, s>>>(p, *rp, n_q);
     } else {
         long long blocks = (long long)sms * 8;
         if (blocks > want_blocks) blocks = want_blocks;
         *regime = 0;
-        fold_global_q<<<(unsigned)blocks, kFoldThreads, 0, s>>>(p, n_q);
+        fold_global_q<Row, kFilter><<<(unsigned)blocks, kFoldThreads, 0, s>>>(p, *rp, n_q);
     }
     return (int)cudaGetLastError();
 }

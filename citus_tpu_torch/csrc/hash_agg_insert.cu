@@ -4,11 +4,19 @@
 // Replaces: the JAX package's fused streaming hash worker,
 // citus_tpu/ops/hash_agg.py:179 build_fused_hash_worker (with _insert_keys
 // :119 and _stored_eq :109), jitted under the executor's `jit_hash_fused`
-// slot with the table donated.  The filter, the group keys and the
-// aggregate arguments stay plain tensor code in this slice; the kernel
-// takes their results.
+// slot with the table donated, and the filter, group key and argument
+// expressions inlined there (planner/bound.py compile_expr, B10).
 //
-// What it computes, per row i with mask[i] set:
+// This file is not built on its own: the source that
+// ops/expr_codegen.py generate_fold_row writes for a hash plan defines
+// the plan's row source (struct FoldRow: its WHERE, its keys cast to the
+// table's key types as _eval_keys :165 casts them, and its arguments, as
+// one __host__ __device__ row function over the scan columns and the
+// parameter block) and then includes this file.  One build serves every
+// literal variant of the plan: parameters are launch arguments.
+//
+// What it computes, per row i with mask[i] set (the padding mask) that
+// passes the WHERE (NULL is false; every other row gets spill[i] = 0):
 //   - the canonical keys (_canon_keys :90): -0.0 -> 0.0, every NaN -> the
 //     canonical quiet NaN, a NULL key's value -> 0;
 //   - the 64-bit fingerprint h of _fingerprint :63, bit for bit (an FNV
@@ -37,8 +45,8 @@
 // Key comparison is on the canonical bits, which is the NaN-aware
 // equality of _stored_eq.
 //
-// What bounds it on an H100: the slot traffic.  Each row reads its mask,
-// keys and arguments once (about 27 B a row for bench.py's
+// What bounds it on an H100: the slot traffic.  Each row reads its mask
+// and scan columns once (about 27 B a row for bench.py's
 // `GROUP BY l_orderkey` with a count and an int64 sum, whose plan adds a
 // float64 overflow shadow), but then makes dependent random accesses to
 // its slot: the state word, the key and flag, and one atomic per partial
@@ -55,15 +63,23 @@
 
 #include "hash_probe.cuh"
 
-__global__ void hash_insert(const HaiParams p) {
+template <class Row>
+__global__ void hash_insert(const HaiParams p, const FmParams rp) {
     int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= p.n) return;
     if (!p.mask[i]) {
         p.spill[i] = 0;
         return;
     }
+    if (!Row::pass(rp, i)) {
+        p.spill[i] = 0;
+        return;
+    }
+    typename Row::Vals v;
+    Row::values(rp, i, v);
     KeyBits keys[HAI_MAX_KEYS];
-    const uint64_t h = row_fingerprint(p, i, keys);
+    for (int k = 0; k < p.n_keys; ++k) keys[k] = Row::key_bits(v, k);
+    const uint64_t h = keys_fingerprint(p.n_keys, keys);
     const uint64_t S = (uint64_t)p.slots;
     int64_t slot = (int64_t)(h % S);
     bool placed = probe(p, keys, slot);
@@ -72,19 +88,21 @@ __global__ void hash_insert(const HaiParams p) {
         placed = probe(p, keys, slot);
     }
     p.spill[i] = placed ? 0 : 1;
-    if (placed) fold_slot(p, i, slot);
+    if (placed) fold_slot<Row>(p, v, slot);
 }
 
 static const int kThreads = 256;
 
-// Launches one insert of `p` on `stream`.  Returns the CUDA error of the
-// launch (0 = cudaSuccess); the kernel runs asynchronously.
-extern "C" int hash_agg_insert_launch(const HaiParams* p, void* stream) {
+// Launches one insert of `p` on `stream`, the rows from FoldRow over the
+// columns and parameters of `r`.  Returns the CUDA error of the launch
+// (0 = cudaSuccess); the kernel runs asynchronously.
+extern "C" int hash_agg_insert_launch(const HaiParams* p, const FmParams* r, void* stream) {
     if (p->n <= 0) return 0;
     if (p->slots <= 0) return (int)cudaErrorInvalidValue;
     long long blocks = (p->n + kThreads - 1) / kThreads;
-    hash_insert<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(*p);
+    hash_insert<FoldRow><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(*p, *r);
     return (int)cudaGetLastError();
 }
 
 extern "C" int hash_agg_insert_params_size(void) { return (int)sizeof(HaiParams); }
+extern "C" int fold_row_params_size(void) { return (int)sizeof(FmParams); }

@@ -9,11 +9,14 @@
 // broadcast, $N parameters mapped, a [Q, N] spill mask out.  Here each
 // query's filter arrives as row q of a bool [Q, N] mask from the batched
 // predicate kernel; the group keys and aggregate arguments reference no
-// parameter and are shared by every query.
+// parameter: the generated row source (FoldRow, ops/expr_codegen.py
+// generate_fold_row) evaluates them once per row and every query shares
+// them.  Like hash_agg_insert.cu, this file is included by the generated
+// source of a plan, after its FoldRow.
 //
 // What it computes, per row i: if no query's mask is set, spill[q][i] = 0
-// for every q and nothing else.  Otherwise the canonical keys and the
-// 64-bit fingerprint h are computed ONCE, then for every query q whose
+// for every q and nothing else.  Otherwise the keys and arguments, the
+// canonical key bits and the 64-bit fingerprint h are computed ONCE, then for every query q whose
 // mask is set the row is probed into table q exactly as hash_agg_insert
 // probes its one table (slot h % S, then mix(h, GOLD) % S, match or
 // claim through the per-slot claim word), its ops folded into the slot
@@ -34,7 +37,8 @@
 
 #include "hash_probe.cuh"
 
-__global__ void hash_insert_q(const HaiParams p, const int n_q) {
+template <class Row>
+__global__ void hash_insert_q(const HaiParams p, const FmParams rp, const int n_q) {
     int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= p.n) return;
     bool any = false;
@@ -43,8 +47,11 @@ __global__ void hash_insert_q(const HaiParams p, const int n_q) {
         for (int q = 0; q < n_q; ++q) p.spill[(int64_t)q * p.n + i] = 0;
         return;
     }
+    typename Row::Vals v;
+    Row::values(rp, i, v);
     KeyBits keys[HAI_MAX_KEYS];
-    const uint64_t h = row_fingerprint(p, i, keys);
+    for (int k = 0; k < p.n_keys; ++k) keys[k] = Row::key_bits(v, k);
+    const uint64_t h = keys_fingerprint(p.n_keys, keys);
     const uint64_t S = (uint64_t)p.slots;
     const int64_t s1 = (int64_t)(h % S);
     const int64_t s2 = (int64_t)(mix64(h, HAI_GOLD) % S);
@@ -62,22 +69,22 @@ __global__ void hash_insert_q(const HaiParams p, const int n_q) {
             placed = probe(p, keys, slot);
         }
         p.spill[at] = placed ? 0 : 1;
-        if (placed) fold_slot(p, i, slot);
+        if (placed) fold_slot<Row>(p, v, slot);
     }
 }
 
-static const int kThreads = 256;
+static const int kThreadsQ = 256;
 
-// Launches one batched insert of `p` for `n_q` queries on `stream`:
-// p->mask and p->spill point at [n_q, n] bool masks, every table of p at
+// Launches one batched insert of `p` for `n_q` queries on `stream`, the
+// keys and arguments from FoldRow over the columns of `r`: p->mask and
+// p->spill point at [n_q, n] bool masks, every table of p at
 // [n_q, p->slots] storage.  Returns the CUDA error of the launch
 // (0 = cudaSuccess); the kernel runs asynchronously.
-extern "C" int hash_agg_insert_batched_launch(const HaiParams* p, int n_q, void* stream) {
+extern "C" int hash_agg_insert_batched_launch(const HaiParams* p, const FmParams* r, int n_q,
+                                              void* stream) {
     if (p->n <= 0 || n_q <= 0) return 0;
     if (p->slots <= 0) return (int)cudaErrorInvalidValue;
-    long long blocks = (p->n + kThreads - 1) / kThreads;
-    hash_insert_q<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(*p, n_q);
+    long long blocks = (p->n + kThreadsQ - 1) / kThreadsQ;
+    hash_insert_q<FoldRow><<<(unsigned)blocks, kThreadsQ, 0, (cudaStream_t)stream>>>(*p, *r, n_q);
     return (int)cudaGetLastError();
 }
-
-extern "C" int hash_agg_insert_batched_params_size(void) { return (int)sizeof(HaiParams); }

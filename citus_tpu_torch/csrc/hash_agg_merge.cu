@@ -25,9 +25,9 @@
 //     exactly on the host (merge_hash_tables_into with entry_mask).
 //
 // Parameters: the insert's HaiParams describe the table side (slots, key
-// tables, partial tables, rows, state) and the entries (keys[k]: the
-// entries' key values, args[o]: the entries' partial column of op o); the
-// merge adds the entries' key flags and row counts.
+// tables, partial tables, rows, state); the merge adds the entries: keys[k]
+// the entries' key values, args[o] the entries' partial column of op o,
+// their key flags and row counts.
 //
 // What bounds it on an H100: bytes.  Each entry's keys, flags, partial
 // states and row count are read once (M entries, mostly empty: a shipped
@@ -43,7 +43,9 @@
 #include "hash_probe.cuh"
 
 struct HamParams {
-    HaiParams t;                              // table side + entry columns
+    HaiParams t;                              // the table side
+    SafCol keys[HAI_MAX_KEYS];                // [M] entry key values
+    SafCol args[HAI_MAX_OPS];                 // [M] entry partials of op o
     const int8_t* entry_flags[HAI_MAX_KEYS];  // [M] 0 empty, 1 NULL, 2 valid
     const long long* entry_rows;              // [M] int64, 0 = empty entry
 };
@@ -60,7 +62,7 @@ __global__ void hash_merge(const HamParams m) {
     KeyBits keys[HAI_MAX_KEYS];
     for (int k = 0; k < p.n_keys; ++k) {
         if (m.entry_flags[k][e] == 2) {
-            keys[k] = load_key(p.keys[k], e);
+            keys[k] = load_key(m.keys[k], e);
         } else {
             keys[k].raw = 0;
             keys[k].fp = 0;
@@ -82,7 +84,7 @@ __global__ void hash_merge(const HamParams m) {
         int dt = p.op_dtype[o];
         int w = (kind == SAF_COUNT_STAR || kind == SAF_COUNT
                  || dt == SAF_I64 || dt == SAF_F64) ? 8 : 4;
-        merge_value(kind, dt, (char*)p.acc[o] + slot * w, p.args[o], e);
+        merge_value(kind, dt, (char*)p.acc[o] + slot * w, m.args[o], e);
     }
     atomicAdd((unsigned long long*)p.rows + slot, (unsigned long long)r);
 }

@@ -2,9 +2,12 @@
 // by the port's hash kernels (hash_agg_insert.cu, one table;
 // hash_agg_insert_batched.cu, Q tables over one batch; hash_agg_merge.cu,
 // a peer's table entries into one table): the parameter
-// block, the canonical key bits and fingerprint of a row, and the probe
-// of one slot.  See hash_agg_insert.cu for the claim protocol.  The layout
-// of HaiParams is mirrored by ctypes in
+// block, the canonical key bits and fingerprint of a row, the probe
+// of one slot and the fold of a placed row.  See hash_agg_insert.cu for
+// the claim protocol.  The inserts take their rows from a generated row
+// source (ops/expr_codegen.py generate_fold_row; the interface is
+// fold.cuh's, with Row::key_bits(v, k) giving key k's KeyBits in place
+// of Row::key).  The layout of HaiParams is mirrored by ctypes in
 // citus_tpu_torch/ops/hash_agg_insert.py (_Params); change both together.
 
 #pragma once
@@ -14,9 +17,9 @@
 
 #include "atomics.cuh"
 #include "columns.cuh"
+#include "expr.cuh"
 
 #define HAI_MAX_KEYS 8
-#define HAI_MAX_ARGS 32
 #define HAI_MAX_OPS 32
 
 struct HaiParams {
@@ -25,13 +28,10 @@ struct HaiParams {
     const uint8_t* mask;              // [n] bool
     uint8_t* spill;                   // [n] bool, written for every row
     int32_t n_keys;
-    int32_t n_args;
     int32_t n_ops;
-    int32_t pad;
-    SafCol keys[HAI_MAX_KEYS];        // values of the table's key dtype
+    int32_t key_dtype[HAI_MAX_KEYS];  // SAF_* dtype of each key table
     void* key_values[HAI_MAX_KEYS];   // [S] stored canonical key values
     int8_t* key_flags[HAI_MAX_KEYS];  // [S] 0 empty, 1 NULL, 2 valid
-    SafCol args[HAI_MAX_ARGS];
     int32_t op_kind[HAI_MAX_OPS];
     int32_t op_arg[HAI_MAX_OPS];
     int32_t op_dtype[HAI_MAX_OPS];    // accumulator dtype
@@ -62,48 +62,52 @@ struct KeyBits {
     bool valid;
 };
 
+// a key's canonical bits (-0.0 -> 0.0, every NaN -> the canonical quiet
+// NaN, a NULL key's value -> 0), by the key table's type
+__device__ __forceinline__ KeyBits key_bits_u8(uint8_t x, bool valid) {
+    if (!valid) x = 0;
+    return KeyBits{x, x, valid};
+}
+
+__device__ __forceinline__ KeyBits key_bits(bool v, bool valid) {
+    return key_bits_u8((uint8_t)v, valid);
+}
+
+__device__ __forceinline__ KeyBits key_bits(int32_t v, bool valid) {
+    if (!valid) v = 0;
+    return KeyBits{(uint32_t)v, (uint64_t)(int64_t)v, valid};
+}
+
+__device__ __forceinline__ KeyBits key_bits(int64_t v, bool valid) {
+    if (!valid) v = 0;
+    return KeyBits{(uint64_t)v, (uint64_t)v, valid};
+}
+
+__device__ __forceinline__ KeyBits key_bits(float v, bool valid) {
+    if (!valid) v = 0.0f;
+    if (v == 0.0f) v = 0.0f;                            // -0.0 -> 0.0
+    uint32_t b = v != v ? 0x7fc00000u : __float_as_uint(v);
+    return KeyBits{b, (uint64_t)__double_as_longlong((double)__uint_as_float(b)), valid};
+}
+
+__device__ __forceinline__ KeyBits key_bits(double v, bool valid) {
+    if (!valid) v = 0.0;
+    if (v == 0.0) v = 0.0;
+    uint64_t b = v != v ? 0x7ff8000000000000ull : (uint64_t)__double_as_longlong(v);
+    return KeyBits{b, b, valid};
+}
+
+// entry i of a key column
 __device__ __forceinline__ KeyBits load_key(const SafCol& c, int64_t i) {
-    KeyBits k;
-    k.valid = is_valid(c, i);
-    int64_t j = i * c.data_stride;
+    const bool valid = is_valid(c, i);
+    const int64_t j = i * c.data_stride;
     switch (c.dtype) {
-        case SAF_U8: {
-            uint8_t v = k.valid ? ((const uint8_t*)c.data)[j] : 0;
-            k.raw = v;
-            k.fp = v;
-            break;
-        }
-        case SAF_I32: {
-            int32_t v = k.valid ? ((const int32_t*)c.data)[j] : 0;
-            k.raw = (uint32_t)v;
-            k.fp = (uint64_t)(int64_t)v;
-            break;
-        }
-        case SAF_I64: {
-            long long v = k.valid ? ((const long long*)c.data)[j] : 0;
-            k.raw = (uint64_t)v;
-            k.fp = (uint64_t)v;
-            break;
-        }
-        case SAF_F32: {
-            float v = k.valid ? ((const float*)c.data)[j] : 0.0f;
-            if (v == 0.0f) v = 0.0f;                            // -0.0 -> 0.0
-            uint32_t b = v != v ? 0x7fc00000u : __float_as_uint(v);
-            k.raw = b;
-            k.fp = (uint64_t)__double_as_longlong((double)__uint_as_float(b));
-            break;
-        }
-        default: {
-            double v = k.valid ? ((const double*)c.data)[j] : 0.0;
-            if (v == 0.0) v = 0.0;
-            uint64_t b = v != v ? 0x7ff8000000000000ull
-                                : (uint64_t)__double_as_longlong(v);
-            k.raw = b;
-            k.fp = b;
-            break;
-        }
+        case SAF_U8: return key_bits_u8(((const uint8_t*)c.data)[j], valid);
+        case SAF_I32: return key_bits(((const int32_t*)c.data)[j], valid);
+        case SAF_I64: return key_bits((int64_t)((const long long*)c.data)[j], valid);
+        case SAF_F32: return key_bits(((const float*)c.data)[j], valid);
+        default: return key_bits(((const double*)c.data)[j], valid);
     }
-    return k;
 }
 
 __device__ __forceinline__ int load_acquire(const int* p) {
@@ -118,7 +122,7 @@ __device__ __forceinline__ void store_release(int* p, int v) {
 
 // the stored key of slot s, as raw bits, read past L1
 __device__ __forceinline__ uint64_t stored_raw(const HaiParams& p, int k, int64_t s) {
-    switch (p.keys[k].dtype) {
+    switch (p.key_dtype[k]) {
         case SAF_U8: return (uint8_t)__ldcg((const unsigned char*)p.key_values[k] + s);
         case SAF_I32:
         case SAF_F32: return (uint32_t)__ldcg((const unsigned int*)p.key_values[k] + s);
@@ -127,7 +131,7 @@ __device__ __forceinline__ uint64_t stored_raw(const HaiParams& p, int k, int64_
 }
 
 __device__ __forceinline__ void store_raw(const HaiParams& p, int k, int64_t s, uint64_t raw) {
-    switch (p.keys[k].dtype) {
+    switch (p.key_dtype[k]) {
         case SAF_U8: ((uint8_t*)p.key_values[k])[s] = (uint8_t)raw; break;
         case SAF_I32:
         case SAF_F32: ((uint32_t*)p.key_values[k])[s] = (uint32_t)raw; break;
@@ -177,21 +181,19 @@ __device__ __forceinline__ uint64_t keys_fingerprint(int n_keys, const KeyBits* 
     return h;
 }
 
-// the canonical keys of row i into keys[], -> the row's 64-bit fingerprint
-__device__ __forceinline__ uint64_t row_fingerprint(const HaiParams& p, int64_t i, KeyBits* keys) {
-    for (int k = 0; k < p.n_keys; ++k) keys[k] = load_key(p.keys[k], i);
-    return keys_fingerprint(p.n_keys, keys);
-}
-
-// fold the ops of row i into slot `slot` of the partial tables, and count it
-__device__ __forceinline__ void fold_slot(const HaiParams& p, int64_t i, int64_t slot) {
+// fold the ops of a placed row (evaluated values `v`) into slot `slot` of
+// the partial tables, and count it
+template <class Row>
+__device__ __forceinline__ void fold_slot(const HaiParams& p, const typename Row::Vals& v,
+                                          int64_t slot) {
     for (int o = 0; o < p.n_ops; ++o) {
         int kind = p.op_kind[o];
-        if (kind != SAF_COUNT_STAR && !is_valid(p.args[p.op_arg[o]], i)) continue;
+        SafVal a = saf_val((int64_t)0);
+        if (kind != SAF_COUNT_STAR && !Row::arg(v, p.op_arg[o], &a)) continue;
         int dt = p.op_dtype[o];
         int w = (kind == SAF_COUNT_STAR || kind == SAF_COUNT
                  || dt == SAF_I64 || dt == SAF_F64) ? 8 : 4;
-        fold_value(kind, dt, (char*)p.acc[o] + slot * w, p.args[p.op_arg[o]], i);
+        fold_value(kind, dt, (char*)p.acc[o] + slot * w, a);
     }
     atomicAdd((unsigned long long*)p.rows + slot, 1ull);
 }

@@ -9,7 +9,11 @@
 // query's filter, with its own parameters, is evaluated by the batched
 // predicate kernel (filter_mask_batched) into row q of a bool [Q, N]
 // mask.  The group keys and aggregate arguments reference no parameter,
-// so they are computed once and shared by every query.
+// so the generated row source (FoldRow, ops/expr_codegen.py
+// generate_fold_row) evaluates them once per row, at the first query
+// whose mask the row passes, and every query shares them.  Like
+// scan_agg_fold.cu, this file is included by the generated source of a
+// plan, after its FoldRow.
 //
 // What it computes, for every query q and row i with masks[q][i] set:
 //   g = the row's group id as in scan_agg_fold (computed once per row),
@@ -37,14 +41,13 @@
 
 #include "fold.cuh"
 
-// Launches one batched fold of `p` for `n_q` queries on `stream`: p->mask
-// points at the [n_q, n] masks, every p->acc[o] at [n_q, G * M] registers
-// and p->rows at [n_q, G] (or null).  *regime is set to 1 for the
+// Launches one batched fold of `p` for `n_q` queries on `stream`, the
+// keys and arguments from FoldRow over the columns of `r`: p->mask points
+// at the [n_q, n] masks, every p->acc[o] at [n_q, G * M] registers and
+// p->rows at [n_q, G] (or null).  *regime is set to 1 for the
 // shared-memory table, 0 for global atomics.  Returns the CUDA error of
 // the launch (0 = cudaSuccess); the kernel runs asynchronously.
-extern "C" int scan_agg_fold_batched_launch(const SafParams* p, int n_q, void* stream,
-                                            int* regime) {
-    return launch_fold(p, n_q, stream, regime);
+extern "C" int scan_agg_fold_batched_launch(const SafParams* p, const FmParams* r, int n_q,
+                                            void* stream, int* regime) {
+    return launch_fold<FoldRow, false>(p, r, n_q, stream, regime);
 }
-
-extern "C" int scan_agg_fold_batched_params_size(void) { return (int)sizeof(SafParams); }

@@ -274,10 +274,12 @@ class _Staging:
         return event, bufs
 
 
-def _device_params(xp, pcols, pvalids):
-    """0-d parameter arrays -> strongly typed [1] device constants."""
-    return (tuple(xp.asarray(p) for p in pcols),
-            tuple(xp.asarray(v) for v in pvalids))
+def _param_dtypes(plan: PhysicalPlan, params) -> dict:
+    """Parameter env name -> dtype of a query's encoded parameters: the
+    generated kernels take them in their parameter block."""
+    from citus_tpu_torch.planner.bound import param_env_names
+    return {n: np.asarray(v).dtype for n, v in
+            zip(param_env_names(plan.bound.param_specs), params[0])}
 
 
 @dataclass
@@ -417,11 +419,14 @@ def _run_partials_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
     _trace.set_phase("device")
     # one fold per batch into device-resident registers, updated in
     # place (the port's donate_argnums): one scan_agg_fold launch per
-    # batch, no merge dispatch, no host round-trip until the end
+    # batch -- the plan's WHERE, keys and arguments generated into it,
+    # its parameters in the launch's parameter block -- no merge
+    # dispatch, no host round-trip until the end
     fused = get_kernel(plan, f"fused:{device}",
-                       lambda: build_fused_worker_fn(plan, xp),
+                       lambda: build_fused_worker_fn(
+                           plan, xp, _param_dtypes(plan, params)),
                        extra=(str(device),))
-    pcols, pvalids = _device_params(xp, *params)
+    penv = _params_env(plan, params)
     acc = empty_device_partials(plan, device)
     # an open transaction's staged writes change what a scan sees
     # without bumping table.version: bypass the device cache for the
@@ -432,8 +437,7 @@ def _run_partials_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
     overlaid = txn is not None and plan.bound.table.name in txn.tables
     st = _stream_device_batches(
         cat, plan, settings, device,
-        lambda db, hb: fused(acc, db.cols + pcols, db.valids + pvalids,
-                             db.row_mask),
+        lambda db, hb: fused(acc, db.cols, db.valids, db.row_mask, penv),
         pstats, cache_key=None if overlaid
         else plan_cache_key(plan, cat.data_dir) + (str(device),),
         cache_tenant=tenant_key(plan.router_key))
@@ -674,29 +678,27 @@ def _run_hash_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
     from citus_tpu_torch.ops.hash_agg import (
         build_fused_hash_worker, empty_hash_state, merge_hash_tables_into,
     )
-    from citus_tpu_torch.ops.xp_torch import TorchNamespace
 
     if device is None:
         raise ExecutionError("the gpu backend needs the Cluster's device")
     device = torch.device(device)
-    xp = TorchNamespace(device)
     pstats = PipelineStats()
     _trace.set_phase("device")
     S = _hash_slots(cat, plan, settings)
     key_dtypes = _hash_key_dtypes(plan, penv)
     fused = get_kernel(
         plan, f"hash_fused:{device}",
-        lambda: build_fused_hash_worker(plan, xp, key_dtypes),
+        lambda: build_fused_hash_worker(plan, key_dtypes,
+                                        _param_dtypes(plan, params)),
         extra=(str(device),))
     drain = _SpillDrain(plan, [acc], penv)
     table = empty_hash_state(plan, S, key_dtypes, device)
-    pcols, pvalids = _device_params(xp, *params)
 
     def stream(shards) -> _StreamStats:
         return _stream_device_batches(
             cat, _with_shards(plan, shards), settings, device,
             lambda db, hb: drain.add(hb, fused(
-                table, db.cols + pcols, db.valids + pvalids, db.row_mask)),
+                table, db.cols, db.valids, db.row_mask, penv)),
             pstats, on_sync=drain)
 
     local, dispatch = plan.shard_indexes, None
@@ -840,14 +842,11 @@ def _build_filter_mask(plan: PhysicalPlan, params):
     """The plan's WHERE as a ``FilterProgram`` over the device dtypes of
     its columns and parameters."""
     from citus_tpu_torch.ops.filter_mask import FilterProgram
-    from citus_tpu_torch.planner.bound import param_env_names
     schema = plan.bound.table.schema
-    pcols, _ = params
     return FilterProgram(
         plan.bound.filter,
         {c: schema.scan_dtype(c, device=True) for c in plan.scan_columns},
-        {n: np.asarray(v).dtype for n, v in
-         zip(param_env_names(plan.bound.param_specs), pcols)})
+        _param_dtypes(plan, params))
 
 
 class _ProjectionMask:

@@ -370,6 +370,21 @@ def _filter_program(plan, params, device):
                       extra=(str(device),))
 
 
+def _fold_program(plan, params, device, key_dtypes=None):
+    """The family's ``FoldProgram`` (its fold, or with ``key_dtypes`` its
+    hash insert): its keys and arguments reference no parameter, so one
+    generated source serves every rider."""
+    from citus_tpu_torch.executor.executor import _param_dtypes
+    from citus_tpu_torch.executor.kernel_cache import get_kernel
+    from citus_tpu_torch.ops.scan_agg_fold import FoldProgram
+    slot = "batched_fold" if key_dtypes is None else "batched_hash"
+    return get_kernel(
+        plan, f"{slot}:{device}",
+        lambda: FoldProgram.of_plan(plan, _param_dtypes(plan, params),
+                                    key_dtypes),
+        extra=(str(device),) + tuple(str(d) for d in key_dtypes or ()))
+
+
 def _stacked_params(plan, group: list[_Waiter], prog):
     """Each rider's parameter values, stacked for the batched predicate
     (one [Q, P] copy to the device for the whole scan)."""
@@ -403,8 +418,8 @@ def _empty_stacked_partials(plan, q: int, device):
             for p in seeds[:n_ops]]
     rows = None
     if direct:
-        rows = torch.zeros((q, seeds[n_ops].size), dtype=torch.int64,
-                           device=device)
+        rows = torch.from_numpy(np.zeros((q, seeds[n_ops].size),
+                                         np.int64)).to(device)
     return regs, rows
 
 
@@ -418,21 +433,15 @@ def _batched_agg(cat, plan, settings, group: list[_Waiter], device):
     from citus_tpu_torch.executor.executor import (
         _block_ready, _stream_device_batches,
     )
-    from citus_tpu_torch.executor.kernel_cache import get_kernel
     from citus_tpu_torch.executor.pipeline import PipelineStats
-    from citus_tpu_torch.ops.scan_agg import build_shared_fold_inputs
     from citus_tpu_torch.ops.scan_agg_fold import scan_agg_fold_batched
-    from citus_tpu_torch.ops.xp_torch import TorchNamespace
     import torch
 
     device = torch.device(device)
     q = len(group)
     prog = _filter_program(plan, group[0].params, device)
     stacked = _stacked_params(plan, group, prog)
-    shared, ops, G = get_kernel(
-        plan, f"batched_fold:{device}",
-        lambda: build_shared_fold_inputs(plan, TorchNamespace(device)),
-        extra=(str(device),))
+    fold = _fold_program(plan, group[0].params, device)
     regs, rows = _empty_stacked_partials(plan, q, device)
     pstats = PipelineStats()
     _trace.set_phase("device")
@@ -440,8 +449,9 @@ def _batched_agg(cat, plan, settings, group: list[_Waiter], device):
     def _launch(db, hb):
         masks = _batch_masks(plan, prog, stacked, db.cols, db.valids,
                              db.row_mask)
-        keys, args = shared(db.cols, db.valids)
-        scan_agg_fold_batched(regs, rows, masks, keys, args, ops, G)
+        scan_agg_fold_batched(fold, regs, rows,
+                              dict(zip(plan.scan_columns,
+                                       zip(db.cols, db.valids))), masks)
 
     # the family-wide cache entry is shared across every literal
     # variant: charged to the shared tenant bucket, not one rider
@@ -505,23 +515,15 @@ def _batched_hash_chunk(cat, plan, settings, group: list[_Waiter], device,
         _SpillDrain, _stream_device_batches,
     )
     from citus_tpu_torch.executor.host_agg import HostGroupAccumulator
-    from citus_tpu_torch.executor.kernel_cache import get_kernel
     from citus_tpu_torch.executor.pipeline import PipelineStats
-    from citus_tpu_torch.ops.hash_agg import (
-        build_shared_hash_inputs, empty_hash_state,
-    )
+    from citus_tpu_torch.ops.hash_agg import empty_hash_state
     from citus_tpu_torch.ops.hash_agg_insert import hash_agg_insert_batched
-    from citus_tpu_torch.ops.xp_torch import TorchNamespace
 
     device = torch.device(device)
     q = len(group)
     prog = _filter_program(plan, group[0].params, device)
     stacked = _stacked_params(plan, group, prog)
-    shared, ops = get_kernel(
-        plan, f"batched_hash:{device}",
-        lambda: build_shared_hash_inputs(plan, TorchNamespace(device),
-                                         key_dtypes),
-        extra=(str(device),) + tuple(str(d) for d in key_dtypes))
+    insert = _fold_program(plan, group[0].params, device, key_dtypes)
     # keys and arguments reference no parameter: one numpy evaluation of
     # a spilled batch serves every rider
     accs = [HostGroupAccumulator(len(plan.bound.group_keys),
@@ -534,8 +536,9 @@ def _batched_hash_chunk(cat, plan, settings, group: list[_Waiter], device,
     def _launch(db, hb):
         masks = _batch_masks(plan, prog, stacked, db.cols, db.valids,
                              db.row_mask)
-        keys, args = shared(db.cols, db.valids, db.row_mask)
-        drain.add(hb, hash_agg_insert_batched(table, masks, keys, args, ops))
+        drain.add(hb, hash_agg_insert_batched(
+            insert, table, dict(zip(plan.scan_columns,
+                                    zip(db.cols, db.valids))), masks))
 
     st = _stream_device_batches(cat, plan, settings, device, _launch, pstats,
                                 on_sync=drain)

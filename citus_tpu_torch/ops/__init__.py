@@ -3,10 +3,10 @@
 The per-shard scan→filter→partial-aggregate programs that replace the
 reference's row-at-a-time ColumnarScanNext hot loop
 (src/backend/columnar/columnar_customscan.c:1855 →
-columnar_reader.c:323) with whole-batch tensor code around the
-hand-written CUDA kernels of ``csrc/`` (``scan_agg_fold``,
-``hash_agg_insert``) and the predicate kernels that
-``expr_codegen`` generates (``filter_mask``).
+columnar_reader.c:323) with whole-batch CUDA kernels that
+``expr_codegen`` generates from each plan: the fold and hash insert
+(``scan_agg_fold``, ``hash_agg_insert``: the plan's expressions over the
+``csrc/`` kernels) and the predicate kernels (``filter_mask``).
 """
 
 from citus_tpu_torch.ops.scan_agg import (

@@ -8,10 +8,13 @@ PyTorch's headers takes minutes.  The library lands under
 ``build_all`` starts one ``nvcc`` per source together.  Every
 ``csrc/*.cuh`` header is part of each build's hash.
 
-Generated sources (the predicate kernels of ``ops/expr_codegen.py``)
-build the same way through ``load_generated``: the source is written
-into its own build directory, named by the digest of the source, the
-headers and the flags, so one predicate family builds once.
+Generated sources (the predicate kernels and the fold and hash-insert
+kernels of ``ops/expr_codegen.py``) build the same way through
+``load_generated``: the source is written into its own build directory,
+named by the digest of the source, every file of ``csrc`` (a generated
+fold includes ``csrc/scan_agg_fold.cu``, an insert
+``csrc/hash_agg_insert.cu``, with their batched twins) and the flags, so
+one plan family builds once.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises, and
 the caller that wanted the kernel fails with it.
@@ -25,6 +28,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 from citus_tpu_torch.utils.build import PACKAGE_DIR, build_dir, sources_digest
 
@@ -38,6 +42,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.RLock()
 _libs: dict[str, ctypes.CDLL] = {}
 _launch_lock = threading.Lock()
+#: nvcc runs this process waited for, and their seconds from start to
+#: finish (a cold query that meets an unbuilt plan shape pays them)
+BUILDS = {"count": 0, "seconds": 0.0}
 
 
 def count_launch(wrapper) -> None:
@@ -68,6 +75,11 @@ def _headers() -> list[str]:
                   if f.endswith(".cuh"))
 
 
+def _csrc_files() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
 def _flags() -> list[str]:
     return [*NVCC_FLAGS, "-I", CSRC]
 
@@ -88,15 +100,17 @@ def _start(name: str, paths=None):
     cmd = [nvcc_path(), *_flags(), "-o", tmp, src]
     fh = open(log, "w")
     proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
-    return so, (proc, fh, tmp, log)
+    return so, (proc, fh, tmp, log, time.perf_counter())
 
 
 def _finish(name: str, so: str, job) -> None:
     if job is None:
         return
-    proc, fh, tmp, log = job
+    proc, fh, tmp, log, t0 = job
     rc = proc.wait()
     fh.close()
+    BUILDS["count"] += 1
+    BUILDS["seconds"] += time.perf_counter() - t0
     if rc != 0:
         with open(log) as f:
             raise KernelBuildError(f"nvcc failed for {name}.cu:\n{f.read()}")
@@ -105,7 +119,8 @@ def _finish(name: str, so: str, job) -> None:
 
 def _generated_paths(name: str, source: str) -> tuple[str, str, str]:
     h = hashlib.sha256(source.encode())
-    h.update(sources_digest(_headers(), extra=" ".join(NVCC_FLAGS)).encode())
+    h.update(sources_digest(_csrc_files(),
+                            extra=" ".join(NVCC_FLAGS)).encode())
     d = build_dir("cuda", f"{name}-{h.hexdigest()[:16]}")
     src = os.path.join(d, f"{name}.cu")
     if not os.path.exists(src):
@@ -152,9 +167,11 @@ def build_all(names) -> dict[str, str]:
     return {n: so for n, (so, _) in jobs.items()}
 
 
-def build_log(name: str) -> str:
-    """The compiler's output (``-Xptxas -v``) of the last build."""
-    _, _, log = _paths(name)
+def build_log(name: str, source: str = None) -> str:
+    """The compiler's output (``-Xptxas -v``) of the last build of
+    ``csrc/<name>.cu``, or of the generated ``source``."""
+    log = (_paths(name) if source is None
+           else _generated_paths(name, source))[2]
     if not os.path.exists(log):
         return ""
     with open(log) as f:

@@ -1,4 +1,4 @@
-"""CUDA C++ source from a bound expression tree (ROADMAP.md B10).
+"""CUDA C++ source from bound expression trees (ROADMAP.md B10).
 
 ``generate_predicate(expr, col_dtypes, param_dtypes)`` turns a bound
 predicate (``planner/bound.py``) into the source of a predicate kernel:
@@ -12,6 +12,20 @@ queries of one family (the columns loaded once); and, under
 fm_predicate(p, i)`` and ``out[q, i]`` for every query q, with their C
 launchers.
 ``csrc/expr.cuh`` holds the helpers and the parameter block.
+
+``generate_fold_row(plan, col_dtypes, param_dtypes, key_dtypes)`` turns
+the WHERE, the group keys and the used aggregate arguments of a plan
+into the row source of the fold (``csrc/fold.cuh``) or hash-insert
+(``csrc/hash_probe.cuh``) kernels: for row ``i``, the filter's pass bit
+and each key's and argument's (value, valid), evaluated in registers
+with the same semantics, then the fold or insert instantiated over it.
+A direct-mode key is its value as int64 (``astype(np.int64)`` of the
+reference's group id); a hash key is cast to its key dtype and made
+canonical (-0.0 -> 0.0, one quiet NaN, NULL -> 0), as the reference's
+``_eval_keys`` and ``_canon_keys`` do.  Outside ``__CUDACC__`` the
+source instead has a host C entry, ``fold_row_host``, that writes those
+outputs for ``n`` rows: the tests compile it with g++ and hold it
+against the reference.
 
 Semantics kept from the reference:
 - SQL three-valued logic: ``and``/``or`` exactly as ``run_logic``, NULL
@@ -79,7 +93,7 @@ class Predicate:
 
 def _unsupported(what: str):
     raise UnsupportedFeatureError(
-        f"{what} in a predicate has no CUDA code generator yet "
+        f"{what} in an expression has no CUDA code generator yet "
         "(ROADMAP.md B10)")
 
 
@@ -141,6 +155,7 @@ class _Gen:
         self.column_types: list[np.dtype] = []
         self.params: list[str] = []
         self.tables: list[tuple] = []
+        self.used: set = set()   # column slots the current part reads
         self.n = 0
 
     def tmp(self, ctype: str, expr: str) -> str:
@@ -227,6 +242,7 @@ class _Gen:
                 self.columns.append(e.name)
                 self.column_types.append(dt)
             j = self.columns.index(e.name)
+            self.used.add(j)
             return f"r.c{j}", f"r.v{j}", dt
         if isinstance(e, BParam):
             name = e.env_name
@@ -643,22 +659,15 @@ def generate_predicate(expr, col_dtypes: dict, param_dtypes: dict
     v, k, dt = g.gen(expr)
     b = v if dt == _BOOL else f"({v} != 0)"
     body = "\n".join(g.lines)
-    fields = "".join(f"    {_C_TYPES[t]} c{j};\n    bool v{j};\n"
-                     for j, t in enumerate(g.column_types)) \
-        or "    bool unused;\n"
-    loads = "".join(
-        f"    r.c{j} = ((const {_C_TYPES[t]}*)p.cols[{j}])[i];\n"
-        f"    r.v{j} = fm_valid(p.valids[{j}], i);\n"
-        for j, t in enumerate(g.column_types))
     source = (
         "// generated by citus_tpu_torch/ops/expr_codegen.py from:\n"
         f"// {_one_line(expr)}\n"
         "#include \"expr.cuh\"\n\n"
-        f"struct FmRow {{\n{fields}}};\n\n"
+        f"{_row_struct(g)}"
         "__host__ __device__ inline FmRow fm_load(const FmParams& p, "
         "int64_t i) {\n"
         "    FmRow r{};\n"
-        f"{loads}"
+        f"{_loads(g, range(len(g.columns)))}"
         "    return r;\n"
         "}\n\n"
         "__host__ __device__ inline bool fm_eval(const FmParams& p, "
@@ -666,12 +675,214 @@ def generate_predicate(expr, col_dtypes: dict, param_dtypes: dict
         f"{body}\n"
         f"    return {g.both(b, k)};\n"
         "}\n" + _KERNEL)
+    _check_limits(g)
+    return Predicate(source, tuple(g.columns), tuple(g.params),
+                     tuple(g.tables))
+
+
+def _row_struct(g: _Gen) -> str:
+    """``FmRow``: the loaded columns of one row."""
+    fields = "".join(f"    {_C_TYPES[t]} c{j};\n    bool v{j};\n"
+                     for j, t in enumerate(g.column_types)) \
+        or "    bool unused;\n"
+    return f"struct FmRow {{\n{fields}}};\n\n"
+
+
+def _loads(g: _Gen, slots) -> str:
+    """C statements loading column slots ``slots`` of row ``i`` into ``r``."""
+    return "".join(
+        f"    r.c{j} = ((const {_C_TYPES[g.column_types[j]]}*)p.cols[{j}])[i];\n"
+        f"    r.v{j} = fm_valid(p.valids[{j}], i);\n" for j in sorted(slots))
+
+
+def _check_limits(g: _Gen) -> None:
     for used, limit in ((g.columns, 64), (g.params, 64), (g.tables, 16)):
         if len(used) > limit:
             _unsupported(f"more than {limit} columns, parameters or "
                          "dictionary masks")
-    return Predicate(source, tuple(g.columns), tuple(g.params),
-                     tuple(g.tables))
+
+
+# ------------------------------------------------ fold and insert rows
+
+
+@dataclass(frozen=True)
+class FoldExprs:
+    """What a fold or hash insert evaluates for each row: the WHERE (or
+    None), the group keys, and the aggregate arguments that partial ops
+    read, in the order of their argument slots."""
+    filter: object
+    keys: tuple
+    args: tuple
+
+
+def fold_exprs(plan) -> FoldExprs:
+    """A physical plan's ``FoldExprs``: argument slot j is the j-th
+    smallest ``agg_args`` index a partial op reads."""
+    used = sorted({op.arg_index for op in plan.partial_ops
+                   if op.arg_index >= 0})
+    return FoldExprs(plan.bound.filter, tuple(plan.bound.group_keys),
+                     tuple(plan.agg_args[i] for i in used))
+
+
+@dataclass(frozen=True)
+class FoldRow:
+    """Generated row source of one plan's fold or hash insert and the
+    inputs it reads, in the order of the parameter block's slots; the
+    dtypes of its key and argument outputs."""
+    source: str
+    columns: tuple
+    params: tuple
+    tables: tuple
+    key_dtypes: tuple
+    arg_dtypes: tuple
+    hashed: bool
+
+
+_FOLD_INCLUDES = ('#include "fold.cuh"\n', '#include "scan_agg_fold.cu"\n'
+                  '#include "scan_agg_fold_batched.cu"\n')
+_HASH_INCLUDES = ('#include "hash_probe.cuh"\n',
+                  '#include "hash_agg_insert.cu"\n'
+                  '#include "hash_agg_insert_batched.cu"\n')
+
+
+def generate_fold_row(plan, col_dtypes: dict, param_dtypes: dict,
+                      key_dtypes=None) -> FoldRow:
+    """-> the CUDA C++ source of the fold (``key_dtypes`` None: scalar
+    and direct modes) or the hash insert (``key_dtypes``: the table's key
+    dtypes) of ``plan``, a ``PhysicalPlan`` or its ``FoldExprs``.
+
+    The source defines ``FmRow``/``fm_load`` as a predicate's do,
+    ``fr_filter`` (the WHERE's pass bit, NULL is false; ``true`` without
+    a WHERE), ``FrVals`` and ``fr_values`` (keys ``k<j>``/``kv<j>`` and
+    arguments ``a<j>``/``av<j>``).  Under ``__CUDACC__`` it wraps them as
+    the row source ``FoldRow`` and includes the kernels; otherwise it
+    defines ``fold_row_host``.  Literal keys, arguments and validities
+    are constants of the source."""
+    e = plan if isinstance(plan, FoldExprs) else fold_exprs(plan)
+    hashed = key_dtypes is not None
+    if hashed and len(key_dtypes) != len(e.keys):
+        raise ValueError("one key dtype per group key")
+    g = _Gen(col_dtypes, param_dtypes)
+    filt = "true"
+    if e.filter is not None:
+        v, k, dt = g.gen(e.filter)
+        filt = g.both(g.as_bool(v, dt), k)
+    filter_body, g.lines = g.lines, []
+    filter_cols, g.used = g.used, set()
+    fields, outs, key_dts, arg_dts = [], [], [], []
+    for j, ke in enumerate(e.keys):
+        v, k, dt = g.gen(ke)
+        kdt = _dtype(key_dtypes[j]) if hashed else _I64
+        val = cast(v, dt, kdt)
+        if hashed:
+            if kdt.kind == "f":
+                val = f"fm_canon_f{kdt.itemsize * 8}({val}, {k})"
+            elif k != "true":
+                val = f"({k} ? {val} : {_bits_literal(0, kdt)})"
+        fields.append(f"    {_C_TYPES[kdt]} k{j};\n    bool kv{j};\n")
+        outs.append(f"    o.k{j} = {val};\n    o.kv{j} = {k};\n")
+        key_dts.append(kdt)
+    for j, ae in enumerate(e.args):
+        v, k, dt = g.gen(ae)
+        fields.append(f"    {_C_TYPES[dt]} a{j};\n    bool av{j};\n")
+        outs.append(f"    o.a{j} = {v};\n    o.av{j} = {k};\n")
+        arg_dts.append(dt)
+    _check_limits(g)
+    source = (
+        "// generated by citus_tpu_torch/ops/expr_codegen.py "
+        "(generate_fold_row) from:\n"
+        f"// filter: {_one_line(e.filter)}\n"
+        + "".join(f"// key {j}: {_one_line(x)}\n"
+                  for j, x in enumerate(e.keys))
+        + "".join(f"// argument {j}: {_one_line(x)}\n"
+                  for j, x in enumerate(e.args))
+        + "#include \"expr.cuh\"\n\n"
+        + _row_struct(g)
+        + "// the columns the WHERE reads, and those the keys and arguments "
+          "read\n"
+        "__host__ __device__ inline void fr_load_filter(const FmParams& p, "
+        "int64_t i, FmRow& r) {\n" + _loads(g, filter_cols) + "}\n\n"
+        "__host__ __device__ inline void fr_load_values(const FmParams& p, "
+        "int64_t i, FmRow& r) {\n" + _loads(g, g.used) + "}\n\n"
+        "__host__ __device__ inline bool fr_filter(const FmParams& p, "
+        "const FmRow& r, const int64_t* prm, const uint8_t* pvl) {\n"
+        + "".join(line + "\n" for line in filter_body)
+        + f"    return {filt};\n}}\n\n"
+        + "struct FrVals {\n" + ("".join(fields) or "    bool unused;\n")
+        + "};\n\n"
+        "__host__ __device__ inline void fr_values(const FmParams& p, "
+        "const FmRow& r, const int64_t* prm, const uint8_t* pvl, "
+        "FrVals& o) {\n"
+        + "".join(line + "\n" for line in g.lines) + "".join(outs)
+        + "}\n\n"
+        + _fold_row_tail(len(e.keys), len(e.args), key_dts, arg_dts, hashed))
+    return FoldRow(source, tuple(g.columns), tuple(g.params),
+                   tuple(g.tables), tuple(key_dts), tuple(arg_dts), hashed)
+
+
+def _switch(n: int, case, default: str) -> str:
+    return ("        switch (k) {\n"
+            + "".join(f"            case {j}: {case(j)}\n" for j in range(n))
+            + f"        }}\n        {default}\n")
+
+
+def _fold_row_tail(n_keys, n_args, key_dts, arg_dts, hashed) -> str:
+    """The ``FoldRow`` row source and the kernels under ``__CUDACC__``;
+    ``fold_row_host`` otherwise."""
+    head, kernels = _HASH_INCLUDES if hashed else _FOLD_INCLUDES
+    if hashed:
+        key = ("    static __device__ __forceinline__ KeyBits key_bits("
+               "const Vals& v, int k) {\n"
+               + _switch(n_keys, lambda j: f"return ::key_bits(v.k{j}, v.kv{j});",
+                         "return KeyBits{0, 0, false};") + "    }\n")
+    else:
+        key = ("    static __device__ __forceinline__ bool key("
+               "const Vals& v, int k, long long* out) {\n"
+               + _switch(n_keys, lambda j: f"*out = (long long)v.k{j}; "
+                         f"return v.kv{j};", "return false;") + "    }\n")
+    arg = ("    static __device__ __forceinline__ bool arg(const Vals& v, "
+           "int k, SafVal* out) {\n"
+           + _switch(n_args, lambda j: f"*out = saf_val(v.a{j}); "
+                     f"return v.av{j};", "return false;") + "    }\n")
+    host_outs = "".join(
+        f"        ((({_C_TYPES[t]}*)keys[{j}]))[i] = o.k{j};\n"
+        f"        key_valid[{j}][i] = o.kv{j} ? 1 : 0;\n"
+        for j, t in enumerate(key_dts)) + "".join(
+        f"        ((({_C_TYPES[t]}*)args[{j}]))[i] = o.a{j};\n"
+        f"        arg_valid[{j}][i] = o.av{j} ? 1 : 0;\n"
+        for j, t in enumerate(arg_dts))
+    return (
+        "#ifdef __CUDACC__\n" + head +
+        "\n// the row source of the kernels included below\n"
+        "struct FoldRow {\n"
+        "    typedef FrVals Vals;\n"
+        "    static __device__ __forceinline__ bool pass(const FmParams& p, "
+        "int64_t i) {\n"
+        "        FmRow r{};\n"
+        "        fr_load_filter(p, i, r);\n"
+        "        return fr_filter(p, r, p.params, p.param_valid);\n    }\n"
+        "    static __device__ __forceinline__ void values(const FmParams& p, "
+        "int64_t i, Vals& v) {\n"
+        "        FmRow r{};\n"
+        "        fr_load_values(p, i, r);\n"
+        "        fr_values(p, r, p.params, p.param_valid, v);\n    }\n"
+        + key + arg + "};\n\n" + kernels +
+        "#else\n"
+        "// rows [0, p->n): pass[i] = row_mask[i] && the WHERE, and each key's\n"
+        "// and argument's value and validity\n"
+        "extern \"C\" void fold_row_host(const FmParams* p, uint8_t* pass, "
+        "void* const* keys, uint8_t* const* key_valid, void* const* args, "
+        "uint8_t* const* arg_valid) {\n"
+        "    for (int64_t i = 0; i < p->n; ++i) {\n"
+        "        FmRow r{};\n"
+        "        fr_load_filter(*p, i, r);\n"
+        "        fr_load_values(*p, i, r);\n"
+        "        pass[i] = ((p->row_mask == nullptr || p->row_mask[i] != 0) "
+        "&& fr_filter(*p, r, p->params, p->param_valid)) ? 1 : 0;\n"
+        "        FrVals o;\n"
+        "        fr_values(*p, r, p->params, p->param_valid, o);\n"
+        f"{host_outs}"
+        "    }\n}\n#endif\n")
 
 
 def _one_line(expr) -> str:

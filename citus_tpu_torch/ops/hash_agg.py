@@ -3,12 +3,12 @@
 When the key domain can't be proven small (no direct-gid mode), the
 executor aggregates on the device into ONE fixed-size open-addressed
 hash table that lives on the card for the whole scan.  Each batch goes
-through ``build_fused_hash_worker``: the filter, the group keys and the
-aggregate arguments evaluate as tensor code, then one
-``hash_agg_insert`` (``ops/hash_agg_insert.py``: the hand-written CUDA
-kernel on a card, its plain PyTorch version on the CPU) canonicalizes
-and fingerprints the keys, places each row in its group's slot or
-reports it in a spill mask, and folds the partial states in place —
+through ``build_fused_hash_worker``: one ``hash_agg_insert``
+(``ops/hash_agg_insert.py``: on a card the CUDA kernel generated from
+the plan's filter, group keys and aggregate arguments, on the CPU its
+plain PyTorch version) evaluates them, canonicalizes and fingerprints
+the keys, places each row in its group's slot or reports it in a spill
+mask, and folds the partial states in place —
 the port's counterpart of the reference's ``donate_argnums=0``.  Rows
 that lose both probes are re-aggregated exactly on the host
 (``executor/host_agg.py HostGroupAccumulator``); occupancy only grows
@@ -36,10 +36,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from citus_tpu_torch.ops.scan_agg import _sentinel, _validity, _vec
-from citus_tpu_torch.planner.bound import (
-    _as_mask, compile_expr, param_env_names, predicate_mask,
-)
+from citus_tpu_torch.ops.scan_agg import _sentinel
 from citus_tpu_torch.planner.physical import PhysicalPlan
 
 
@@ -116,26 +113,6 @@ def _canon_keys(keys):
                                               device=kv.device))
         out.append((kv, kvm))
     return out
-
-
-def _eval_keys(xp, key_fns, key_dtypes, env, shape):
-    """Group-key values cast to their key dtypes, with validity masks,
-    each [N].  Unlike the reference's ``_eval_keys`` they are not yet
-    canonical: ``hash_agg_insert`` canonicalizes them (the kernel in its
-    key loads, the plain version with ``_canon_keys``)."""
-    from citus_tpu_torch.ops.xp_torch import torch_dtype
-    keys = []
-    for kf, kdt in zip(key_fns, key_dtypes):
-        kv, kvalid = kf(env)
-        kv = xp.asarray(kv).to(torch_dtype(kdt))
-        if kv.dim() == 0 or kv.shape != tuple(shape):
-            kv = kv.reshape(-1).expand(tuple(shape))
-        kvm = _as_mask(xp, kvalid, kv)
-        kvm = xp.asarray(kvm)
-        if kvm.dim() == 0 or kvm.shape != tuple(shape):
-            kvm = kvm.reshape(-1).expand(tuple(shape))
-        keys.append((kv, kvm))
-    return keys
 
 
 @dataclass
@@ -220,71 +197,38 @@ def hash_slot_bytes(plan: PhysicalPlan, key_dtypes: tuple) -> int:
                   for op in plan.partial_ops) + 8 + 4)
 
 
-def build_hash_insert_inputs(plan: PhysicalPlan, xp,
-                             key_dtypes: tuple) -> Callable:
-    """``inputs(table, cols, valids, row_mask)`` -> the argument tuple of
-    ``hash_agg_insert`` for one batch: (table, mask, keys, arguments,
-    ops).  The fused worker calls the kernel with it; a caller that
+def build_hash_insert_inputs(plan: PhysicalPlan, key_dtypes: tuple,
+                             param_dtypes=None) -> Callable:
+    """``inputs(table, cols, valids, row_mask, params=None)`` -> the
+    argument tuple of ``hash_agg_insert`` for one batch: (the plan's
+    hash ``FoldProgram``, table, scan columns by name, parameters, row
+    mask).  The fused worker calls the kernel with it; a caller that
     holds the kernel against its plain version gets the main path's
     exact kernel inputs from it."""
-    filter_fn = compile_expr(plan.bound.filter, xp) \
-        if plan.bound.filter is not None else None
-    shared, ops = build_shared_hash_inputs(plan, xp, key_dtypes)
-    names = plan.scan_columns + param_env_names(plan.bound.param_specs)
+    from citus_tpu_torch.ops.scan_agg_fold import FoldProgram
+    prog = FoldProgram.of_plan(plan, param_dtypes or {}, key_dtypes)
+    names = plan.scan_columns
 
-    def inputs(table, cols, valids, row_mask):
-        env = {n: (c, v) for n, c, v in zip(names, cols, valids)}
-        mask = row_mask
-        if filter_fn is not None:
-            mask = row_mask & predicate_mask(xp, filter_fn, env, row_mask)
-        keys, args = shared(cols, valids, row_mask)
-        return table, _vec(xp, mask), keys, args, ops
+    def inputs(table, cols, valids, row_mask, params=None):
+        return (prog, table, dict(zip(names, zip(cols, valids))),
+                params or {}, row_mask)
 
     return inputs
 
 
-def build_shared_hash_inputs(plan: PhysicalPlan, xp, key_dtypes: tuple):
-    """The part of an insert's inputs that no parameter changes: ->
-    (``shared(cols, valids, row_mask)`` -> (keys, arguments) of one
-    batch, ops).  The megabatch path computes it once per batch for
-    every query of a family; each query contributes only its mask."""
-    from citus_tpu_torch.ops.scan_agg_fold import FoldOp
-    key_fns = [compile_expr(k, xp) for k in plan.bound.group_keys]
-    used = sorted({op.arg_index for op in plan.partial_ops
-                   if op.arg_index >= 0})
-    arg_fns = [compile_expr(plan.agg_args[i], xp) for i in used]
-    slot = {ai: j for j, ai in enumerate(used)}
-    ops = [FoldOp("count_star") if op.arg_index < 0
-           else FoldOp(op.kind, slot[op.arg_index])
-           for op in plan.partial_ops]
-    names = plan.scan_columns + param_env_names(plan.bound.param_specs)
-    key_dtypes = tuple(np.dtype(d) for d in key_dtypes)
-
-    def shared(cols, valids, row_mask):
-        env = {n: (c, v) for n, c, v in zip(names, cols, valids)}
-        keys = [(kv.contiguous(), kvm.contiguous()) for kv, kvm in
-                _eval_keys(xp, key_fns, key_dtypes, env, row_mask.shape)]
-        args = []
-        for af in arg_fns:
-            v, valid = af(env)
-            args.append((_vec(xp, v), _validity(xp, valid)))
-        return keys, args
-
-    return shared, ops
-
-
-def build_fused_hash_worker(plan: PhysicalPlan, xp,
-                            key_dtypes: tuple) -> Callable:
-    """Fused streaming insert: ``fused(table, cols, valids, row_mask)``
-    -> spill mask [N] bool, with ``table`` (a ``HashTable``) updated in
-    place — one ``hash_agg_insert`` per batch.  The slot count is read
-    off the table, so one built worker serves any
+def build_fused_hash_worker(plan: PhysicalPlan, key_dtypes: tuple,
+                            param_dtypes=None) -> Callable:
+    """Fused streaming insert: ``fused(table, cols, valids, row_mask,
+    params=None)`` -> spill mask [N] bool, with ``table`` (a
+    ``HashTable``) updated in place — one ``hash_agg_insert`` per batch.
+    The slot count is read off the table, so one built worker serves any
     ``citus.hash_agg_slots`` setting."""
     from citus_tpu_torch.ops.hash_agg_insert import hash_agg_insert
-    inputs = build_hash_insert_inputs(plan, xp, key_dtypes)
+    inputs = build_hash_insert_inputs(plan, key_dtypes, param_dtypes)
 
-    def fused(table, cols, valids, row_mask):
-        return hash_agg_insert(*inputs(table, cols, valids, row_mask))
+    def fused(table, cols, valids, row_mask, params=None):
+        return hash_agg_insert(*inputs(table, cols, valids, row_mask,
+                                       params))
     return fused
 
 

@@ -1,32 +1,37 @@
 """One batch of a hash GROUP BY into the running device hash table: the
-hand-written CUDA kernel ``csrc/hash_agg_insert.cu`` and its plain
-PyTorch version.
+CUDA kernel generated for each plan (``ops/expr_codegen.py
+generate_fold_row``, instantiating ``csrc/hash_agg_insert.cu``) and its
+plain PyTorch version.
 
-``hash_agg_insert(table, mask, keys, args, ops)`` places every row with
-``mask`` set into its group's slot of ``table`` (an
+``hash_agg_insert(prog, table, cols, params, row_mask)`` evaluates a
+plan's WHERE, group keys (cast to the table's key dtypes) and aggregate
+arguments (a hash ``FoldProgram``) over one batch's scan columns,
+places every row that passes into its group's slot of ``table`` (an
 ``ops/hash_agg.HashTable``), folds count/sum/min/max of its arguments
 into that slot's partial registers and ``rows``, all in place, and
 returns the spill mask: the rows that lost both probes, which the
 caller merges exactly on the host.  It is the reference's
-``citus_tpu/ops/hash_agg.py`` ``build_fused_hash_worker`` once the
-filter, keys and arguments are evaluated.
+``citus_tpu/ops/hash_agg.py`` ``build_fused_hash_worker``.
 
 The kernel and the plain version may lay the groups out in different
 slots and spill different rows: the reference's claim (the minimum
 fingerprint wins a slot, the stored keys verify it) and the kernel's
 (the first atomic claim of an empty slot publishes its keys) are both
 exact, so the groups after the host merge of table and spill are the
-same.  ``keys`` are (values of the table's key dtype, bool validity)
-pairs of [N] vectors; ``args`` and ``ops`` are as in ``scan_agg_fold``.
+same.
 
-On CUDA tensors it launches the kernel (one launch per call, counted in
-``hash_agg_insert.launches``) or raises; on CPU tensors it runs
-``hash_agg_insert_plain``.  There is no fallback between the two.
+On CUDA tensors it launches the program's generated kernel (one launch
+per call, counted in ``hash_agg_insert.launches``) or raises; on CPU
+tensors it runs ``insert_plain``: the expressions as eager tensor code,
+then ``hash_agg_insert_plain`` over (values of the table's key dtype,
+bool validity) key pairs and ``scan_agg_fold``'s (values, validity)
+arguments.  There is no fallback between the two.
 
 ``hash_agg_insert_batched`` inserts one batch into the Q tables of a
 stacked ``HashTable`` ([Q, S] tensors) for Q queries of one literal
 family at once (``csrc/hash_agg_insert_batched.cu``): masks and spill
-masks [Q, N], the keys fingerprinted once per row and shared.
+masks [Q, N], the keys and arguments evaluated and fingerprinted once
+per row and shared.
 """
 
 from __future__ import annotations
@@ -41,8 +46,8 @@ from citus_tpu_torch.ops.hash_agg import (
     _GOLD, _INT64_MIN, _canon_keys, _fingerprint, _mix, _umod,
 )
 from citus_tpu_torch.ops.scan_agg_fold import (
-    _ACC_DTYPES, _DTYPE_CODES, _KIND_CODES, _Col, _col, _full, _sentinel,
-    FoldOp,
+    _ACC_DTYPES, _DTYPE_CODES, _KIND_CODES, _full, _sentinel, _validity,
+    _vec, FoldOp, FoldProgram, row_block,
 )
 
 _MAX_KEYS, _MAX_ARGS, _MAX_OPS = 8, 32, 32
@@ -160,18 +165,44 @@ def hash_agg_insert_plain(table, mask: torch.Tensor, keys: Sequence[tuple],
     return mask & ~placed
 
 
+def plain_insert_inputs(prog: FoldProgram, cols: dict, params: dict,
+                        row_mask: torch.Tensor, with_filter: bool = True):
+    """-> (mask, keys, args) of ``hash_agg_insert_plain`` for one batch:
+    the program's expressions in eager tensor ops, each key cast to its
+    table's key dtype as the reference's ``_eval_keys`` casts it (not yet
+    canonical: the insert canonicalizes)."""
+    from citus_tpu_torch.ops.xp_torch import torch_dtype
+    mask, keys, args = prog.plain_eval(cols, params, row_mask, with_filter)
+    n = row_mask.shape[-1]
+    dev = row_mask.device
+    tkeys = []
+    for (kv, kvalid), kdt in zip(keys, prog.key_dtypes):
+        kv = torch.as_tensor(kv).to(torch_dtype(kdt)).reshape(-1)
+        kvm = torch.as_tensor(kvalid, device=dev).reshape(-1)
+        tkeys.append((kv.expand(n).contiguous(), kvm.expand(n).contiguous()))
+    return mask, tkeys, [(_vec(v), _validity(k, dev)) for v, k in args]
+
+
+def insert_plain(prog: FoldProgram, table, cols: dict, params: dict,
+                 row_mask: torch.Tensor) -> torch.Tensor:
+    """The plain version of the generated insert, on any device: the
+    expressions as eager tensor code, then ``hash_agg_insert_plain``.
+    -> spill mask."""
+    mask, keys, args = plain_insert_inputs(prog, cols, params, row_mask)
+    return hash_agg_insert_plain(table, mask.contiguous(), keys, args,
+                                 prog.ops)
+
+
 # ------------------------------------------------------------- kernel
 
 
 class _Params(ctypes.Structure):
     _fields_ = [("n", ctypes.c_int64), ("slots", ctypes.c_int64),
                 ("mask", ctypes.c_void_p), ("spill", ctypes.c_void_p),
-                ("n_keys", ctypes.c_int32), ("n_args", ctypes.c_int32),
-                ("n_ops", ctypes.c_int32), ("pad", ctypes.c_int32),
-                ("keys", _Col * _MAX_KEYS),
+                ("n_keys", ctypes.c_int32), ("n_ops", ctypes.c_int32),
+                ("key_dtype", ctypes.c_int32 * _MAX_KEYS),
                 ("key_values", ctypes.c_void_p * _MAX_KEYS),
                 ("key_flags", ctypes.c_void_p * _MAX_KEYS),
-                ("args", _Col * _MAX_ARGS),
                 ("op_kind", ctypes.c_int32 * _MAX_OPS),
                 ("op_arg", ctypes.c_int32 * _MAX_OPS),
                 ("op_dtype", ctypes.c_int32 * _MAX_OPS),
@@ -179,24 +210,24 @@ class _Params(ctypes.Structure):
                 ("rows", ctypes.c_void_p), ("state", ctypes.c_void_p)]
 
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from citus_tpu_torch.ops.cuda_build import load
-        lib = load("hash_agg_insert")
-        lib.hash_agg_insert_launch.restype = ctypes.c_int
-        lib.hash_agg_insert_launch.argtypes = [ctypes.POINTER(_Params),
-                                               ctypes.c_void_p]
-        lib.hash_agg_insert_params_size.restype = ctypes.c_int
-        lib.hash_agg_insert_params_size.argtypes = []
-        if lib.hash_agg_insert_params_size() != ctypes.sizeof(_Params):
-            raise RuntimeError("hash_agg_insert: parameter block layout "
-                               "differs between Python and CUDA")
-        _lib = lib
-    return _lib
+def _bind_library(lib):
+    """Declare a generated insert library's entry points and check its
+    parameter blocks' layouts."""
+    from citus_tpu_torch.ops.filter_mask import _FmParams
+    P, R = ctypes.POINTER(_Params), ctypes.POINTER(_FmParams)
+    lib.hash_agg_insert_launch.restype = ctypes.c_int
+    lib.hash_agg_insert_launch.argtypes = [P, R, ctypes.c_void_p]
+    lib.hash_agg_insert_batched_launch.restype = ctypes.c_int
+    lib.hash_agg_insert_batched_launch.argtypes = [P, R, ctypes.c_int,
+                                                   ctypes.c_void_p]
+    for fn in (lib.hash_agg_insert_params_size, lib.fold_row_params_size):
+        fn.restype = ctypes.c_int
+        fn.argtypes = []
+    if lib.hash_agg_insert_params_size() != ctypes.sizeof(_Params) \
+            or lib.fold_row_params_size() != ctypes.sizeof(_FmParams):
+        raise RuntimeError("hash_agg_insert: parameter block layout "
+                           "differs between Python and CUDA")
+    return lib
 
 
 def _check_table_vector(t, what: str, shape: tuple, dtypes, dev) -> None:
@@ -208,88 +239,117 @@ def _check_table_vector(t, what: str, shape: tuple, dtypes, dev) -> None:
             f"on {t.device}")
 
 
-def _block(table, mask, spill, keys, args, ops, n_q=None) -> _Params:
+def _check_table(table, shape: tuple, kinds, dev) -> None:
+    """Every tensor of ``table`` is a contiguous ``shape`` tensor of its
+    kind's dtypes on ``dev``; the key tables' dtypes are their own."""
+    for i, (kvt, kft) in enumerate(zip(table.key_values, table.key_flags)):
+        if kvt.dtype not in _DTYPE_CODES:
+            raise TypeError(f"hash_agg_insert: key table {i} has dtype "
+                            f"{kvt.dtype}")
+        _check_table_vector(kvt, f"key table {i}", shape, (kvt.dtype,), dev)
+        _check_table_vector(kft, f"key flag table {i}", shape,
+                            (torch.int8,), dev)
+    for i, (a, kind) in enumerate(zip(table.partials, kinds)):
+        _check_table_vector(a, f"partial table {i} ({kind})", shape,
+                            _ACC_DTYPES[kind], dev)
+    _check_table_vector(table.rows, "rows", shape, (torch.int64,), dev)
+    _check_table_vector(table.state, "state", shape, (torch.int32,), dev)
+
+
+def table_block(table, kinds, shape: tuple, dev, n: int, n_q=None):
+    """The table side of a hash kernel's parameter block (``HaiParams``):
+    slots, key, partial, row and claim-word tables, op kinds and
+    accumulator dtypes; ``n`` rows, ``n_q`` stacked tables or None."""
+    S = table.slots
+    if not 0 < len(table.key_values) <= _MAX_KEYS \
+            or len(table.partials) > _MAX_OPS:
+        raise ValueError(f"hash_agg_insert takes 1 to {_MAX_KEYS} keys and "
+                         f"at most {_MAX_OPS} partial ops")
+    if len(kinds) != len(table.partials):
+        raise ValueError("hash_agg_insert: one partial table per op")
+    if S <= 0 or S >= 1 << 62 or (n_q or 1) * S >= 1 << 62:
+        raise ValueError(f"hash_agg_insert: bad slot count {S}")
+    _check_table(table, shape, kinds, dev)
+    p = _Params()
+    p.n, p.slots = n, S
+    p.n_keys, p.n_ops = len(table.key_values), len(kinds)
+    for i, (kvt, kft) in enumerate(zip(table.key_values, table.key_flags)):
+        p.key_dtype[i] = _DTYPE_CODES[kvt.dtype]
+        p.key_values[i] = kvt.data_ptr()
+        p.key_flags[i] = kft.data_ptr()
+    for i, (a, kind) in enumerate(zip(table.partials, kinds)):
+        if kind not in _KIND_CODES:
+            raise ValueError(f"hash_agg_insert: unknown op kind {kind!r}")
+        p.op_kind[i] = _KIND_CODES[kind]
+        p.op_dtype[i] = _DTYPE_CODES[a.dtype]
+        p.acc[i] = a.data_ptr()
+    p.rows, p.state = table.rows.data_ptr(), table.state.data_ptr()
+    return p
+
+
+def _block(prog: FoldProgram, table, mask, spill, n_q=None) -> _Params:
     """The parameter block of one launch: one [S] table and [N] masks,
     or ``n_q`` stacked [n_q, S] tables and [n_q, N] masks."""
+    from citus_tpu_torch.ops.xp_torch import torch_dtype
     dev = mask.device
     n = mask.shape[-1]
-    S = table.slots
+    ops = prog.ops
     want_dim = 1 if n_q is None else 2
     if mask.dtype != torch.bool or mask.dim() != want_dim \
             or (n_q is not None and mask.shape[0] != n_q) \
             or not mask.is_contiguous():
         raise ValueError("hash_agg_insert: mask must be a contiguous bool "
                          + ("vector" if n_q is None else f"[{n_q}, N] tensor"))
-    if not 0 < len(keys) <= _MAX_KEYS or len(args) > _MAX_ARGS \
-            or len(ops) > _MAX_OPS:
-        raise ValueError(
-            f"hash_agg_insert takes 1 to {_MAX_KEYS} keys, at most "
-            f"{_MAX_ARGS} arguments and {_MAX_OPS} partial ops")
-    if len(keys) != len(table.key_values) \
-            or len(ops) != len(table.partials):
-        raise ValueError("hash_agg_insert: one key table per key and one "
-                         "partial table per op")
-    if S <= 0 or S >= 1 << 62 or (n_q or 1) * S >= 1 << 62:
-        raise ValueError(f"hash_agg_insert: bad slot count {S}")
-    shape = (S,) if n_q is None else (n_q, S)
-    p = _Params()
-    p.n, p.slots = n, S
+    n_args = len(prog.exprs.args)
+    if len(prog.exprs.keys) != len(table.key_values) or n_args > _MAX_ARGS:
+        raise ValueError(f"hash_agg_insert: one key table per key, at most "
+                         f"{_MAX_ARGS} arguments")
+    for i, (kvt, kdt) in enumerate(zip(table.key_values, prog.key_dtypes)):
+        if kvt.dtype != torch_dtype(kdt):
+            raise ValueError(f"hash_agg_insert: key table {i} is "
+                             f"{kvt.dtype}, the program's key {kdt}")
+    shape = (table.slots,) if n_q is None else (n_q, table.slots)
+    p = table_block(table, [op.kind for op in ops], shape, dev, n, n_q)
     p.mask, p.spill = mask.data_ptr(), spill.data_ptr()
-    p.n_keys, p.n_args, p.n_ops = len(keys), len(args), len(ops)
-    for i, ((kv, kvm), kvt, kft) in enumerate(zip(keys, table.key_values,
-                                                  table.key_flags)):
-        c = _col(kv, kvm, f"key {i}", n, dev)
-        _check_table_vector(kvt, f"key table {i}", shape, (kv.dtype,), dev)
-        _check_table_vector(kft, f"key flag table {i}", shape,
-                            (torch.int8,), dev)
-        p.keys[i] = c
-        p.key_values[i] = kvt.data_ptr()
-        p.key_flags[i] = kft.data_ptr()
-    for i, (v, valid) in enumerate(args):
-        p.args[i] = _col(v, valid, f"argument {i}", n, dev)
-    for i, (a, op) in enumerate(zip(table.partials, ops)):
-        if op.kind not in _KIND_CODES:
-            raise ValueError(f"hash_agg_insert: unknown op kind {op.kind!r}")
-        _check_table_vector(a, f"partial table {i} ({op.kind})", shape,
-                            _ACC_DTYPES[op.kind], dev)
-        if op.kind != "count_star" and not 0 <= op.arg < len(args):
+    for i, op in enumerate(ops):
+        if op.kind != "count_star" and not 0 <= op.arg < n_args:
             raise ValueError(f"hash_agg_insert: op {i} argument out of "
                              "range")
-        p.op_kind[i] = _KIND_CODES[op.kind]
         p.op_arg[i] = max(op.arg, 0)
-        p.op_dtype[i] = _DTYPE_CODES[a.dtype]
-        p.acc[i] = a.data_ptr()
-    _check_table_vector(table.rows, "rows", shape, (torch.int64,), dev)
-    _check_table_vector(table.state, "state", shape, (torch.int32,), dev)
-    p.rows, p.state = table.rows.data_ptr(), table.state.data_ptr()
     return p
 
 
-def _launch(table, mask, keys, args, ops) -> torch.Tensor:
-    dev = mask.device
-    spill = torch.empty(mask.shape[-1], dtype=torch.bool, device=dev)
-    p = _block(table, mask, spill, keys, args, ops)
+def _launch(prog, table, cols, params, row_mask) -> torch.Tensor:
+    lib = prog.library()
+    dev = row_mask.device
+    spill = torch.empty(row_mask.shape[-1], dtype=torch.bool, device=dev)
+    p = _block(prog, table, row_mask, spill)
+    r = row_block(prog, cols, params, row_mask.shape[0], dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().hash_agg_insert_launch(ctypes.byref(p), stream)
+        err = lib.hash_agg_insert_launch(ctypes.byref(p), ctypes.byref(r),
+                                         stream)
     if err != 0:
         raise RuntimeError(f"hash_agg_insert launch failed: CUDA error {err}")
     return spill
 
 
-def hash_agg_insert(table, mask: torch.Tensor, keys: Sequence[tuple],
-                    args: Sequence[tuple], ops: Sequence[FoldOp]
-                    ) -> torch.Tensor:
+def hash_agg_insert(prog: FoldProgram, table, cols: dict, params: dict,
+                    row_mask: torch.Tensor) -> torch.Tensor:
     """Insert one batch into ``table`` in place; -> spill mask [N] bool.
 
-    CUDA tensors launch the kernel, CPU tensors run the plain version."""
-    if mask.device.type == "cuda":
-        spill = _launch(table, mask, keys, args, ops)
+    ``prog`` is the plan's hash ``FoldProgram``, ``cols`` maps the scan
+    columns to (values, validity or None) [N] tensors, ``params`` the
+    parameter env names to host (value, valid) scalars, ``row_mask`` the
+    bool [N] real rows.  CUDA tensors launch the generated kernel, CPU
+    tensors run ``insert_plain``."""
+    if row_mask.device.type == "cuda":
+        spill = _launch(prog, table, cols, params, row_mask)
         count_launch(hash_agg_insert)
         return spill
-    if mask.device.type != "cpu":
-        raise ValueError(f"hash_agg_insert: no kernel for {mask.device}")
-    return hash_agg_insert_plain(table, mask, keys, args, ops)
+    if row_mask.device.type != "cpu":
+        raise ValueError(f"hash_agg_insert: no kernel for {row_mask.device}")
+    return insert_plain(prog, table, cols, params, row_mask)
 
 
 #: kernel launches since the counter was last set to 0
@@ -311,66 +371,56 @@ def hash_agg_insert_batched_plain(table, masks: torch.Tensor,
         for q in range(masks.shape[0])])
 
 
-_lib_batched = None
+def insert_batched_plain(prog: FoldProgram, table, cols: dict,
+                         masks: torch.Tensor) -> torch.Tensor:
+    """The plain version of the generated batched insert: the keys and
+    arguments once, then ``hash_agg_insert_batched_plain``."""
+    _, keys, args = plain_insert_inputs(prog, cols, {}, masks[0],
+                                        with_filter=False)
+    return hash_agg_insert_batched_plain(table, masks, keys, args, prog.ops)
 
 
-def _library_batched():
-    global _lib_batched
-    if _lib_batched is None:
-        from citus_tpu_torch.ops.cuda_build import load
-        lib = load("hash_agg_insert_batched")
-        lib.hash_agg_insert_batched_launch.restype = ctypes.c_int
-        lib.hash_agg_insert_batched_launch.argtypes = [
-            ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
-        lib.hash_agg_insert_batched_params_size.restype = ctypes.c_int
-        lib.hash_agg_insert_batched_params_size.argtypes = []
-        if lib.hash_agg_insert_batched_params_size() \
-                != ctypes.sizeof(_Params):
-            raise RuntimeError("hash_agg_insert_batched: parameter block "
-                               "layout differs between Python and CUDA")
-        _lib_batched = lib
-    return _lib_batched
-
-
-def _launch_batched(table, masks, keys, args, ops) -> torch.Tensor:
+def _launch_batched(prog, table, cols, masks) -> torch.Tensor:
     n_q = masks.shape[0] if masks.dim() == 2 else 0
     if n_q <= 0:
         raise ValueError("hash_agg_insert_batched: masks must be [Q, N], "
                          "Q > 0")
+    lib = prog.library()
     dev = masks.device
     spill = torch.empty(masks.shape, dtype=torch.bool, device=dev)
-    p = _block(table, masks, spill, keys, args, ops, n_q)
+    p = _block(prog, table, masks, spill, n_q)
+    r = row_block(prog, cols, None, masks.shape[1], dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library_batched().hash_agg_insert_batched_launch(
-            ctypes.byref(p), n_q, stream)
+        err = lib.hash_agg_insert_batched_launch(
+            ctypes.byref(p), ctypes.byref(r), n_q, stream)
     if err != 0:
         raise RuntimeError(f"hash_agg_insert_batched launch failed: CUDA "
                            f"error {err}")
     return spill
 
 
-def hash_agg_insert_batched(table, masks: torch.Tensor, keys: Sequence[tuple],
-                            args: Sequence[tuple], ops: Sequence[FoldOp]
-                            ) -> torch.Tensor:
+def hash_agg_insert_batched(prog: FoldProgram, table, cols: dict,
+                            masks: torch.Tensor) -> torch.Tensor:
     """Insert one batch into the Q tables of ``table`` (a ``HashTable``
     whose tensors are [Q, S]) at once, in place: table q takes the rows
-    that pass ``masks[q]`` (bool [Q, N]).  The keys are canonicalized
-    and fingerprinted once per row; ``keys`` and ``args`` are shared by
-    every query.  It is the reference's ``batched:jit_hash_fused`` (a
-    ``jax.vmap`` of the fused hash worker over the query axis).
-    -> spill masks [Q, N].  CUDA tensors launch
-    ``csrc/hash_agg_insert_batched.cu`` (one launch per call, counted in
-    ``hash_agg_insert_batched.launches``), CPU tensors run the plain
-    version."""
+    that pass ``masks[q]`` (bool [Q, N]: each query's WHERE, with the
+    padding).  The program's keys and arguments reference no parameter:
+    they are evaluated, canonicalized and fingerprinted once per row and
+    shared by every query.  It is the reference's
+    ``batched:jit_hash_fused`` (a ``jax.vmap`` of the fused hash worker
+    over the query axis).  -> spill masks [Q, N].  CUDA tensors launch
+    the generated batched kernel (one launch per call, counted in
+    ``hash_agg_insert_batched.launches``), CPU tensors run
+    ``insert_batched_plain``."""
     if masks.device.type == "cuda":
-        spill = _launch_batched(table, masks, keys, args, ops)
+        spill = _launch_batched(prog, table, cols, masks)
         count_launch(hash_agg_insert_batched)
         return spill
     if masks.device.type != "cpu":
         raise ValueError(f"hash_agg_insert_batched: no kernel for "
                          f"{masks.device}")
-    return hash_agg_insert_batched_plain(table, masks, keys, args, ops)
+    return insert_batched_plain(prog, table, cols, masks)
 
 
 #: kernel launches since the counter was last set to 0

@@ -38,11 +38,9 @@ import torch
 from citus_tpu_torch.ops.cuda_build import count_launch
 from citus_tpu_torch.ops.hash_agg import _canon_keys, _fingerprint
 from citus_tpu_torch.ops.hash_agg_insert import (
-    _MAX_KEYS, _MAX_OPS, _Params, _check_table_vector, _insert_keys,
+    _MAX_KEYS, _MAX_OPS, _Params, _insert_keys, table_block,
 )
-from citus_tpu_torch.ops.scan_agg_fold import (
-    _ACC_DTYPES, _DTYPE_CODES, _KIND_CODES, _Col, _sentinel,
-)
+from citus_tpu_torch.ops.scan_agg_fold import _DTYPE_CODES, _sentinel
 
 #: partial kinds a slot can merge (the reference's _HASH_MERGE_KINDS)
 MERGE_KINDS = ("count", "sum", "min", "max")
@@ -79,8 +77,18 @@ def hash_agg_merge_plain(table, keys: Sequence[tuple],
 # ------------------------------------------------------------- kernel
 
 
+class _Col(ctypes.Structure):
+    """A column of entries (``SafCol``, ``csrc/columns.cuh``)."""
+    _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("data_stride", ctypes.c_int64),
+                ("valid_stride", ctypes.c_int64),
+                ("dtype", ctypes.c_int32), ("pad", ctypes.c_int32)]
+
+
 class _MergeParams(ctypes.Structure):
     _fields_ = [("t", _Params),
+                ("keys", _Col * _MAX_KEYS),
+                ("args", _Col * _MAX_OPS),
                 ("entry_flags", ctypes.c_void_p * _MAX_KEYS),
                 ("entry_rows", ctypes.c_void_p)]
 
@@ -126,7 +134,6 @@ def _entry_col(t: torch.Tensor, what: str, m: int, dtypes, dev) -> _Col:
 def _block(table, keys, partials, rows, kinds, spill) -> _MergeParams:
     dev = rows.device
     m = rows.shape[0] if rows.dim() == 1 else -1
-    S = table.slots
     if m < 0 or rows.dtype != torch.int64 or not rows.is_contiguous():
         raise ValueError("hash_agg_merge: rows must be a contiguous int64 "
                          "vector")
@@ -138,38 +145,24 @@ def _block(table, keys, partials, rows, kinds, spill) -> _MergeParams:
         raise ValueError("hash_agg_merge: one key and flag entry column "
                          "per key table, one partial column and kind per "
                          "partial table")
-    if S <= 0 or S >= 1 << 62:
-        raise ValueError(f"hash_agg_merge: bad slot count {S}")
-    mp = _MergeParams()
-    p = mp.t
-    p.n, p.slots = m, S
-    p.spill = spill.data_ptr()
-    p.n_keys, p.n_args, p.n_ops = len(keys), len(partials), len(partials)
-    for i, ((kv, kf), kvt, kft) in enumerate(zip(keys, table.key_values,
-                                                 table.key_flags)):
-        _check_table_vector(kvt, f"key table {i}", (S,), (kvt.dtype,), dev)
-        _check_table_vector(kft, f"key flag table {i}", (S,), (torch.int8,),
-                            dev)
-        p.keys[i] = _entry_col(kv, f"key entries {i}", m, (kvt.dtype,), dev)
-        _check_entries(kf, f"key flag entries {i}", m, (torch.int8,), dev)
-        p.key_values[i] = kvt.data_ptr()
-        p.key_flags[i] = kft.data_ptr()
-        mp.entry_flags[i] = kf.data_ptr()
-    for o, (a, e, kind) in enumerate(zip(table.partials, partials, kinds)):
+    for kind in kinds:
         if kind not in MERGE_KINDS:
             raise ValueError(f"hash_agg_merge: cannot merge partial kind "
                              f"{kind!r}")
-        _check_table_vector(a, f"partial table {o} ({kind})", (S,),
-                            _ACC_DTYPES[kind], dev)
-        p.args[o] = _entry_col(e, f"partial entries {o} ({kind})", m,
-                               (a.dtype,), dev)
-        p.op_kind[o] = _KIND_CODES[kind]
-        p.op_arg[o] = o
-        p.op_dtype[o] = _DTYPE_CODES[a.dtype]
-        p.acc[o] = a.data_ptr()
-    _check_table_vector(table.rows, "rows", (S,), (torch.int64,), dev)
-    _check_table_vector(table.state, "state", (S,), (torch.int32,), dev)
-    p.rows, p.state = table.rows.data_ptr(), table.state.data_ptr()
+    S = table.slots
+    if S <= 0 or S >= 1 << 62:
+        raise ValueError(f"hash_agg_merge: bad slot count {S}")
+    mp = _MergeParams()
+    mp.t = table_block(table, kinds, (S,), dev, m)
+    mp.t.spill = spill.data_ptr()
+    for i, ((kv, kf), kvt) in enumerate(zip(keys, table.key_values)):
+        mp.keys[i] = _entry_col(kv, f"key entries {i}", m, (kvt.dtype,), dev)
+        _check_entries(kf, f"key flag entries {i}", m, (torch.int8,), dev)
+        mp.entry_flags[i] = kf.data_ptr()
+    for o, (a, e, kind) in enumerate(zip(table.partials, partials, kinds)):
+        mp.args[o] = _entry_col(e, f"partial entries {o} ({kind})", m,
+                                (a.dtype,), dev)
+        mp.t.op_arg[o] = o
     mp.entry_rows = rows.data_ptr()
     return mp
 

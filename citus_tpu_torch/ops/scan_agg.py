@@ -3,12 +3,12 @@
 One worker function is built per physical plan and cached per plan
 family (executor/kernel_cache.py).  Two namespaces build it: numpy, the
 host oracle (the reference's own body, unchanged), and the torch
-namespace of ``ops/xp_torch.py``, where the filter and argument
-expressions run as tensor code on the Cluster's device and the
-group-id/count/sum/min/max reduction (and scalar mode's sketch
-registers) with the running merge runs in
-ONE ``scan_agg_fold`` call per batch: the hand-written CUDA kernel on
-a card, its plain PyTorch version on the CPU.  Its structure mirrors the per-shard half of the
+namespace of ``ops/xp_torch.py``, where the whole batch -- the filter,
+group key and argument expressions, the group-id/count/sum/min/max
+reduction (and scalar mode's sketch registers) with the running merge
+-- runs in ONE ``scan_agg_fold`` call per batch: on a card the CUDA
+kernel generated from the plan (``FoldProgram``), on the CPU its plain
+PyTorch version.  Its structure mirrors the per-shard half of the
 reference's split aggregation (multi_logical_optimizer.c
 WorkerExtendedOpNode): evaluate quals, compute group ids, accumulate
 combinable partial states.  All partial states are chosen so that the
@@ -40,14 +40,6 @@ from citus_tpu_torch.planner.bound import (
 )
 from citus_tpu_torch.planner.physical import PhysicalPlan
 
-#: partial-op kinds the device fold computes: count/sum/min/max and, in
-#: scalar mode, the sketch registers of approx_count_distinct (hll),
-#: approx_percentile (ddsk) and approx_top_k (topk, topkv).  A GROUP BY
-#: with a sketch plans to hash_host and groups on the host, as in the
-#: reference (executor._hash_has_exact).
-DEVICE_KINDS = ("count", "sum", "min", "max", "hll", "ddsk", "topk", "topkv")
-
-
 def _sentinel(kind: str, dtype: np.dtype):
     if kind == "min":
         return np.inf if np.issubdtype(dtype, np.floating) else np.iinfo(dtype).max
@@ -56,16 +48,17 @@ def _sentinel(kind: str, dtype: np.dtype):
     return 0
 
 
-def build_worker_fn(plan: PhysicalPlan, xp) -> Callable:
+def build_worker_fn(plan: PhysicalPlan, xp, param_dtypes=None) -> Callable:
     """Build the per-shard worker function: ``worker(cols, valids,
     row_mask)`` -> the batch's partial states (pure under numpy; on a
-    torch namespace, fresh device registers folded once)."""
+    torch namespace, fresh device registers folded once, with
+    ``params`` the host parameter env)."""
     if xp is not np:
-        fold = _build_device_fold(plan, xp)
+        fold = _build_device_fold(plan, param_dtypes)
 
-        def worker_device(cols, valids, row_mask):
+        def worker_device(cols, valids, row_mask, params=None):
             return fold(empty_device_partials(plan, xp.device), cols,
-                        valids, row_mask)
+                        valids, row_mask, params)
         return worker_device
     filter_fn = compile_expr(plan.bound.filter, xp) if plan.bound.filter is not None else None
     key_fns = [compile_expr(k, xp) for k in plan.bound.group_keys]
@@ -244,25 +237,28 @@ def _np_scatter_max(acc, idx, upd):
     return acc
 
 
-def build_fused_worker_fn(plan: PhysicalPlan, xp) -> Callable:
+def build_fused_worker_fn(plan: PhysicalPlan, xp,
+                          param_dtypes=None) -> Callable:
     """Fused hot loop: filter→partial-agg AND the running cross-batch
     merge in one fold.
 
-    ``fused(acc, cols, valids, row_mask) -> acc`` folds one batch into
-    the running partial-agg registers.  On a torch namespace the
-    registers are updated IN PLACE (the port's counterpart of the
-    reference's ``donate_argnums=0``): they stay device-resident across
-    the whole scan, one ``scan_agg_fold`` launch per batch, no separate
-    merge, no host round-trip until the final copy back.  Each
-    accumulator has the shape/dtype of the matching ``_empty_partials``
-    seed.  The numpy oracle has no fused loop: it combines per-batch
-    partials with ``combine_partials_host``."""
+    ``fused(acc, cols, valids, row_mask, params=None) -> acc`` folds one
+    batch (``cols``/``valids`` in ``plan.scan_columns`` order,
+    ``params`` the host parameter env: name -> (value, valid), of
+    ``param_dtypes``) into the running partial-agg registers.  On a
+    torch namespace the registers are updated IN PLACE (the port's
+    counterpart of the reference's ``donate_argnums=0``): they stay
+    device-resident across the whole scan, one ``scan_agg_fold`` launch
+    per batch, no separate merge, no host round-trip until the final
+    copy back.  Each accumulator has the shape/dtype of the matching
+    ``_empty_partials`` seed.  The numpy oracle has no fused loop: it
+    combines per-batch partials with ``combine_partials_host``."""
     if plan.group_mode.kind == "hash_host":
         raise ValueError("fused accumulation needs device-combinable "
                          "partials (scalar/direct group modes)")
     if xp is np:
         raise ValueError("the fused fold runs on a torch namespace")
-    return _build_device_fold(plan, xp)
+    return _build_device_fold(plan, param_dtypes)
 
 
 def empty_device_partials(plan: PhysicalPlan, device) -> tuple:
@@ -274,106 +270,43 @@ def empty_device_partials(plan: PhysicalPlan, device) -> tuple:
                  for p in _empty_partials(plan, np))
 
 
-def _build_device_fold(plan: PhysicalPlan, xp) -> Callable:
-    """``fold(acc, cols, valids, row_mask) -> acc`` on a torch namespace:
-    the filter, group keys and arguments evaluate as tensor code, then
-    one ``scan_agg_fold`` folds the batch into ``acc`` in place."""
+def _build_device_fold(plan: PhysicalPlan, param_dtypes) -> Callable:
+    """``fold(acc, cols, valids, row_mask, params=None) -> acc``: one
+    ``scan_agg_fold`` of the plan's ``FoldProgram`` folds the batch into
+    ``acc`` in place."""
     from citus_tpu_torch.ops.scan_agg_fold import scan_agg_fold
-    inputs = build_fold_inputs(plan, xp)
+    inputs = build_fold_inputs(plan, param_dtypes)
 
-    def fold(acc, cols, valids, row_mask):
-        scan_agg_fold(*inputs(acc, cols, valids, row_mask))
+    def fold(acc, cols, valids, row_mask, params=None):
+        scan_agg_fold(*inputs(acc, cols, valids, row_mask, params))
         return acc
 
     return fold
 
 
-def _vec(xp, v):
-    """A kernel input vector: contiguous [N], or [1] for a constant."""
-    v = xp.asarray(v)
-    return (v.reshape(1) if v.dim() == 0 else v).contiguous()
-
-
-def _validity(xp, valid):
-    """A kernel validity input: None when every row is valid."""
-    if valid is True:
-        return None
-    if valid is False:
-        return xp.const(False, np.bool_)
-    return _vec(xp, valid)
-
-
-def build_fold_inputs(plan: PhysicalPlan, xp) -> Callable:
-    """``inputs(acc, cols, valids, row_mask)`` -> the argument tuple of
-    ``scan_agg_fold`` for one batch: (registers, group-row counts or
-    None, mask, keys, arguments, ops, G).  The device fold calls the
-    kernel with it; a caller that holds the kernel against its plain
+def build_fold_inputs(plan: PhysicalPlan, param_dtypes=None) -> Callable:
+    """``inputs(acc, cols, valids, row_mask, params=None)`` -> the
+    argument tuple of ``scan_agg_fold`` for one batch: (the plan's
+    ``FoldProgram``, registers, group-row counts or None, scan columns
+    by name, parameters, row mask).  On a card the program is generated
+    and built at its first launch; on the CPU its plain version
+    evaluates it.  A caller that holds the kernel against its plain
     version gets the main path's exact kernel inputs from it."""
-    filter_fn = compile_expr(plan.bound.filter, xp) \
-        if plan.bound.filter is not None else None
-    shared, ops, G = build_shared_fold_inputs(plan, xp)
-    names = plan.scan_columns + param_env_names(plan.bound.param_specs)
-    n_ops = len(ops)
+    from citus_tpu_torch.ops.scan_agg_fold import FoldProgram
+    prog = FoldProgram.of_plan(plan, param_dtypes or {})
+    names = plan.scan_columns
+    n_ops = len(prog.ops)
     direct = plan.group_mode.kind == "direct"
 
-    def inputs(acc, cols, valids, row_mask):
-        env = {n: (c, v) for n, c, v in zip(names, cols, valids)}
-        mask = row_mask
-        if filter_fn is not None:
-            mask = row_mask & predicate_mask(xp, filter_fn, env, row_mask)
-        keys, args = shared(cols, valids)
+    def inputs(acc, cols, valids, row_mask, params=None):
         # scalar mode keeps 0-d registers (a sketch's are [M]); the
         # kernel sees [1] views
         regs = list(acc[:n_ops]) if direct \
             else [a.view(1) if a.dim() == 0 else a for a in acc[:n_ops]]
-        return (regs, acc[n_ops] if direct else None, _vec(xp, mask), keys,
-                args, ops, G)
+        return (prog, regs, acc[n_ops] if direct else None,
+                dict(zip(names, zip(cols, valids))), params or {}, row_mask)
 
     return inputs
-
-
-def build_shared_fold_inputs(plan: PhysicalPlan, xp):
-    """The part of a fold's inputs that no parameter changes: ->
-    (``shared(cols, valids)`` -> (keys, arguments) of one batch, ops,
-    G).  The megabatch path computes it once per batch for every query
-    of a family; each query contributes only its mask."""
-    from citus_tpu_torch.ops.scan_agg_fold import FoldKey, FoldOp
-    mode = plan.group_mode
-    if mode.kind not in ("scalar", "direct"):
-        raise ValueError("the device fold needs device-combinable "
-                         "partials (scalar/direct group modes)")
-    other = sorted({op.kind for op in plan.partial_ops
-                    if op.kind not in DEVICE_KINDS})
-    if other:
-        raise ValueError(f"the device fold has no partial op kind "
-                         f"{', '.join(other)}")
-    key_fns = [compile_expr(k, xp) for k in plan.bound.group_keys]
-    used = sorted({op.arg_index for op in plan.partial_ops
-                   if op.arg_index >= 0})
-    arg_fns = [compile_expr(plan.agg_args[i], xp) for i in used]
-    slot = {ai: j for j, ai in enumerate(used)}
-    ops = [FoldOp("count_star") if op.arg_index < 0
-           else FoldOp(op.kind, slot[op.arg_index])
-           for op in plan.partial_ops]
-    names = plan.scan_columns + param_env_names(plan.bound.param_specs)
-    direct = mode.kind == "direct"
-    G = mode.n_groups if direct else 1
-    domains = list(zip(mode.domains, mode.strides)) if direct else []
-
-    def shared(cols, valids):
-        env = {n: (c, v) for n, c, v in zip(names, cols, valids)}
-        keys = []
-        for kf, (d, stride) in zip(key_fns, domains):
-            kv, kvalid = kf(env)
-            keys.append(FoldKey(_vec(xp, kv), _validity(xp, kvalid), d.lo,
-                                d.step, stride))
-        args = []
-        for af in arg_fns:
-            v, valid = af(env)
-            args.append((_vec(xp, v), _validity(xp, valid)))
-        return keys, args
-
-    return shared, ops, G
 
 
 def combine_partials_host(plan: PhysicalPlan, shard_partials: list[tuple]) -> tuple:

@@ -1,22 +1,28 @@
-"""The partial-aggregate fold of one scan batch: the hand-written CUDA
-kernel ``csrc/scan_agg_fold.cu`` and its plain PyTorch version.
+"""The partial-aggregate fold of one scan batch: the CUDA kernel
+generated for each plan (``ops/expr_codegen.py generate_fold_row``,
+instantiating ``csrc/scan_agg_fold.cu``) and its plain PyTorch version.
 
-``scan_agg_fold`` folds the rows of one batch that pass ``mask`` into
-running per-group registers, in place: ``acc[op][gid]`` for every
-partial op and ``rows[gid]`` (direct mode).  It is what remains of the
-reference's fused worker (``citus_tpu/ops/scan_agg.py``) once the
-filter and argument expressions are evaluated: group id, validity,
-the cast to the accumulator type and count/sum/min/max, and in scalar
-mode the sketch registers of approx_count_distinct (hll),
+``scan_agg_fold(prog, acc, rows, cols, params, row_mask)`` evaluates a
+plan's WHERE, group keys and aggregate arguments (a ``FoldProgram``)
+over one batch's scan columns and folds the rows that pass into running
+per-group registers, in place: ``acc[op][gid]`` for every partial op
+and ``rows[gid]`` (direct mode).  It is the reference's fused worker
+(``citus_tpu/ops/scan_agg.py``): the expressions, the group id,
+validity, the cast to the accumulator type and count/sum/min/max, and
+in scalar mode the sketch registers of approx_count_distinct (hll),
 approx_percentile (ddsk) and approx_top_k (topk, topkv).
 
-On CUDA tensors it launches the kernel (one launch per call, counted
-in ``scan_agg_fold.launches``) or raises; on CPU tensors it runs
-``scan_agg_fold_plain``.  There is no fallback between the two.
+On CUDA tensors it launches the program's generated kernel (one launch
+per call, counted in ``scan_agg_fold.launches``; parameters ride the
+launch's parameter block) or raises; on CPU tensors it runs
+``fold_plain``: the expressions as eager tensor code
+(``compile_expr`` on the torch namespace) and ``scan_agg_fold_plain``.
+There is no fallback between the two.
 
 ``scan_agg_fold_batched`` folds one batch for Q queries of one literal
-family at once (``csrc/scan_agg_fold_batched.cu``): masks [Q, N],
-registers [Q, G], the keys and arguments shared.
+family at once (``csrc/scan_agg_fold_batched.cu``): masks [Q, N] (each
+query's WHERE, from ``filter_mask_batched``), registers [Q, G], the keys
+and arguments evaluated once per row and shared.
 """
 
 from __future__ import annotations
@@ -25,9 +31,15 @@ import ctypes
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from citus_tpu_torch.ops.cuda_build import count_launch
+from citus_tpu_torch.ops.expr_codegen import (
+    FoldExprs, FoldRow, fold_exprs, generate_fold_row,
+)
+from citus_tpu_torch.planner.bound import BColumn, walk
+
 _MAX_KEYS, _MAX_ARGS, _MAX_OPS = 8, 32, 32
 #: partial sums per group of a float sum in the plain version
 _SUM_LANES = 1024
@@ -160,14 +172,211 @@ def _fold_sketch_plain(flat: torch.Tensor, base: torch.Tensor,
                              "amax", include_self=True)
 
 
+# ------------------------------------------------------------- program
+
+
+#: partial-op kinds the device fold computes: count/sum/min/max and, in
+#: scalar mode, the sketch registers of approx_count_distinct (hll),
+#: approx_percentile (ddsk) and approx_top_k (topk, topkv).  A GROUP BY
+#: with a sketch plans to hash_host and groups on the host, as in the
+#: reference (executor._hash_has_exact).
+DEVICE_KINDS = ("count", "sum", "min", "max", "hll", "ddsk", "topk", "topkv")
+
+
+class FoldProgram:
+    """A plan's per-row work in one fold or hash insert: its WHERE, group
+    keys and used aggregate arguments (``exprs``), over columns and
+    parameters of known device dtypes, with its partial ops (argument
+    slots), direct-mode key domains (lo, step, stride) and group count,
+    or the table's ``key_dtypes`` for a hash insert.  Its generated
+    source and library are made at the first CUDA launch (one build per
+    source: a literal family shares it), its plain version per device."""
+
+    def __init__(self, exprs: FoldExprs, ops, col_dtypes: dict,
+                 param_dtypes: dict, *, domains=(), n_groups: int = 1,
+                 key_dtypes=None):
+        self.exprs = exprs
+        self.ops = list(ops)
+        self.domains = list(domains)
+        self.n_groups = int(n_groups)
+        self.key_dtypes = None if key_dtypes is None \
+            else tuple(np.dtype(d) for d in key_dtypes)
+        used = {n.name for e in (exprs.filter, *exprs.keys, *exprs.args)
+                if e is not None for n in walk(e) if isinstance(n, BColumn)}
+        self.columns = sorted(used)
+        self.col_dtypes = {c: np.dtype(col_dtypes[c]) for c in self.columns}
+        self.param_dtypes = {k: np.dtype(v) for k, v in param_dtypes.items()}
+        if self.key_dtypes is None and len(self.domains) != len(exprs.keys):
+            raise ValueError("a fold needs one (lo, step, stride) domain per "
+                             "group key")
+        self._row = None
+        self._lib = None
+        self._plain: dict = {}
+        self._tables: dict = {}
+
+    @classmethod
+    def of_plan(cls, plan, param_dtypes: dict, key_dtypes=None
+                ) -> "FoldProgram":
+        """The program of a physical plan: its fold (scalar and direct
+        modes) or, with ``key_dtypes``, its hash insert."""
+        exprs = fold_exprs(plan)
+        used = sorted({op.arg_index for op in plan.partial_ops
+                       if op.arg_index >= 0})
+        slot = {ai: j for j, ai in enumerate(used)}
+        ops = [FoldOp("count_star") if op.arg_index < 0
+               else FoldOp(op.kind, slot[op.arg_index])
+               for op in plan.partial_ops]
+        schema = plan.bound.table.schema
+        col_dtypes = {c: schema.scan_dtype(c, device=True)
+                      for c in plan.scan_columns}
+        if key_dtypes is not None:
+            return cls(exprs, ops, col_dtypes, param_dtypes,
+                       key_dtypes=key_dtypes)
+        mode = plan.group_mode
+        if mode.kind not in ("scalar", "direct"):
+            raise ValueError("the device fold needs device-combinable "
+                             "partials (scalar/direct group modes)")
+        other = sorted({op.kind for op in plan.partial_ops
+                        if op.kind not in DEVICE_KINDS})
+        if other:
+            raise ValueError(f"the device fold has no partial op kind "
+                             f"{', '.join(other)}")
+        if mode.kind == "scalar":
+            return cls(exprs, ops, col_dtypes, param_dtypes)
+        return cls(exprs, ops, col_dtypes, param_dtypes,
+                   domains=[(d.lo, d.step, s) for d, s in
+                            zip(mode.domains, mode.strides)],
+                   n_groups=mode.n_groups)
+
+    @property
+    def hashed(self) -> bool:
+        return self.key_dtypes is not None
+
+    @property
+    def row(self) -> FoldRow:
+        """The generated source (raises for an unsupported node)."""
+        if self._row is None:
+            self._row = generate_fold_row(self.exprs, self.col_dtypes,
+                                          self.param_dtypes, self.key_dtypes)
+        return self._row
+
+    def library(self):
+        """The loaded library of the generated source, built at first
+        use (``cuda_build.load_generated``)."""
+        if self._lib is None:
+            from citus_tpu_torch.ops.cuda_build import load_generated
+            if self.hashed:
+                from citus_tpu_torch.ops.hash_agg_insert import (
+                    _bind_library as bind_library,
+                )
+            else:
+                bind_library = _bind_fold_library
+            self._lib = bind_library(load_generated(self.build_name,
+                                                    self.row.source))
+        return self._lib
+
+    @property
+    def build_name(self) -> str:
+        """The generated source's file and library name (not a
+        ``csrc`` name: the source includes ``csrc/scan_agg_fold.cu`` or
+        ``csrc/hash_agg_insert.cu``)."""
+        return "generated_insert" if self.hashed else "generated_fold"
+
+    def tables(self, device) -> list:
+        key = str(device)
+        t = self._tables.get(key)
+        if t is None:
+            t = [torch.from_numpy(m).to(device) for m in self.row.tables]
+            self._tables[key] = t
+        return t
+
+    def plain_fns(self, device):
+        """-> (torch namespace, filter, key and argument functions) of
+        the plain version on ``device``."""
+        key = str(device)
+        fns = self._plain.get(key)
+        if fns is None:
+            from citus_tpu_torch.ops.xp_torch import TorchNamespace
+            from citus_tpu_torch.planner.bound import compile_expr
+            xp = TorchNamespace(device)
+            e = self.exprs
+            fns = (xp, None if e.filter is None else compile_expr(e.filter, xp),
+                   [compile_expr(k, xp) for k in e.keys],
+                   [compile_expr(a, xp) for a in e.args])
+            self._plain[key] = fns
+        return fns
+
+    def plain_eval(self, cols: dict, params: dict, row_mask: torch.Tensor,
+                   with_filter: bool = True):
+        """The plain version's expressions over one batch, in eager tensor
+        ops: -> (row_mask & WHERE, [(key values, validity)], [(argument
+        values, validity)]) as ``compile_expr`` gives them."""
+        from citus_tpu_torch.planner.bound import predicate_mask
+        xp, ffn, kfns, afns = self.plain_fns(row_mask.device)
+        n = row_mask.shape[-1]
+        env = {}
+        for name in self.columns:
+            v, valid = cols[name]
+            env[name] = (v, torch.ones(n, dtype=torch.bool, device=v.device)
+                         if valid is None else valid)
+        for name, (v, valid) in (params or {}).items():
+            env[name] = (xp.asarray(np.asarray(v, self.param_dtypes[name])),
+                         xp.asarray(np.asarray(bool(valid))))
+        mask = row_mask
+        if with_filter and ffn is not None:
+            mask = row_mask & predicate_mask(xp, ffn, env, row_mask)
+        return mask, [f(env) for f in kfns], [f(env) for f in afns]
+
+
+def _vec(v) -> torch.Tensor:
+    """A plain-version input vector: contiguous [N], or [1] for a
+    constant."""
+    v = torch.as_tensor(v)
+    return (v.reshape(1) if v.dim() == 0 else v).contiguous()
+
+
+def _validity(valid, device) -> Optional[torch.Tensor]:
+    """A plain-version validity input: None when every row is valid."""
+    if valid is True:
+        return None
+    if valid is False:
+        return torch.zeros(1, dtype=torch.bool, device=device)
+    return _vec(valid)
+
+
+def plain_fold_inputs(prog: FoldProgram, cols: dict, params: dict,
+                      row_mask: torch.Tensor, with_filter: bool = True):
+    """-> (mask, keys, args) of ``scan_agg_fold_plain`` for one batch:
+    the program's expressions in eager tensor ops."""
+    mask, keys, args = prog.plain_eval(cols, params, row_mask, with_filter)
+    dev = row_mask.device
+    fkeys = [FoldKey(_vec(kv), _validity(kvalid, dev), lo, step, stride)
+             for (kv, kvalid), (lo, step, stride) in zip(keys, prog.domains)]
+    return mask, fkeys, [(_vec(v), _validity(k, dev)) for v, k in args]
+
+
+def fold_plain(prog: FoldProgram, acc: Sequence[torch.Tensor],
+               rows: Optional[torch.Tensor], cols: dict, params: dict,
+               row_mask: torch.Tensor) -> None:
+    """The plain version of the generated fold, on any device: the
+    expressions as eager tensor code, then ``scan_agg_fold_plain``."""
+    mask, keys, args = plain_fold_inputs(prog, cols, params, row_mask)
+    scan_agg_fold_plain(acc, rows, mask.contiguous(), keys, args, prog.ops,
+                        prog.n_groups)
+
+
+def fold_batched_plain(prog: FoldProgram, acc: Sequence[torch.Tensor],
+                       rows: Optional[torch.Tensor], cols: dict,
+                       masks: torch.Tensor) -> None:
+    """The plain version of the generated batched fold: the keys and
+    arguments once, then ``scan_agg_fold_batched_plain``."""
+    _, keys, args = plain_fold_inputs(prog, cols, {}, masks[0],
+                                      with_filter=False)
+    scan_agg_fold_batched_plain(acc, rows, masks, keys, args, prog.ops,
+                                prog.n_groups)
+
+
 # ------------------------------------------------------------- kernel
-
-
-class _Col(ctypes.Structure):
-    _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
-                ("data_stride", ctypes.c_int64),
-                ("valid_stride", ctypes.c_int64),
-                ("dtype", ctypes.c_int32), ("pad", ctypes.c_int32)]
 
 
 class _Params(ctypes.Structure):
@@ -175,11 +384,9 @@ class _Params(ctypes.Structure):
                 ("mask", ctypes.c_void_p),
                 ("n_keys", ctypes.c_int32), ("n_args", ctypes.c_int32),
                 ("n_ops", ctypes.c_int32), ("pad", ctypes.c_int32),
-                ("keys", _Col * _MAX_KEYS),
                 ("key_lo", ctypes.c_int64 * _MAX_KEYS),
                 ("key_step", ctypes.c_int64 * _MAX_KEYS),
                 ("key_stride", ctypes.c_int64 * _MAX_KEYS),
-                ("args", _Col * _MAX_ARGS),
                 ("op_kind", ctypes.c_int32 * _MAX_OPS),
                 ("op_arg", ctypes.c_int32 * _MAX_OPS),
                 ("op_dtype", ctypes.c_int32 * _MAX_OPS),
@@ -189,54 +396,62 @@ class _Params(ctypes.Structure):
                 ("rows", ctypes.c_void_p)]
 
 
-_lib = None
+def _bind_fold_library(lib):
+    """Declare a generated fold library's entry points and check its
+    parameter blocks' layouts."""
+    from citus_tpu_torch.ops.filter_mask import _FmParams
+    P, R = ctypes.POINTER(_Params), ctypes.POINTER(_FmParams)
+    lib.scan_agg_fold_launch.restype = ctypes.c_int
+    lib.scan_agg_fold_launch.argtypes = [P, R, ctypes.c_void_p,
+                                         ctypes.POINTER(ctypes.c_int)]
+    lib.scan_agg_fold_batched_launch.restype = ctypes.c_int
+    lib.scan_agg_fold_batched_launch.argtypes = [
+        P, R, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.scan_agg_fold_params_size, lib.fold_row_params_size):
+        fn.restype = ctypes.c_int
+        fn.argtypes = []
+    if lib.scan_agg_fold_params_size() != ctypes.sizeof(_Params) \
+            or lib.fold_row_params_size() != ctypes.sizeof(_FmParams):
+        raise RuntimeError("scan_agg_fold: parameter block layout "
+                           "differs between Python and CUDA")
+    return lib
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        from citus_tpu_torch.ops.cuda_build import load
-        lib = load("scan_agg_fold")
-        lib.scan_agg_fold_launch.restype = ctypes.c_int
-        lib.scan_agg_fold_launch.argtypes = [
-            ctypes.POINTER(_Params), ctypes.c_void_p,
-            ctypes.POINTER(ctypes.c_int)]
-        lib.scan_agg_fold_params_size.restype = ctypes.c_int
-        lib.scan_agg_fold_params_size.argtypes = []
-        if lib.scan_agg_fold_params_size() != ctypes.sizeof(_Params):
-            raise RuntimeError("scan_agg_fold: parameter block layout "
-                               "differs between Python and CUDA")
-        _lib = lib
-    return _lib
-
-
-def _check_vector(t: torch.Tensor, what: str, n: int, dev) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"scan_agg_fold: {what} must be a tensor")
-    if t.device != dev:
-        raise ValueError(f"scan_agg_fold: {what} is on {t.device}, "
-                         f"the mask on {dev}")
-    if t.dim() != 1 or t.shape[0] not in (n, 1) or not t.is_contiguous():
-        raise ValueError(f"scan_agg_fold: {what} must be a contiguous "
-                         f"[{n}] or [1] vector, got {tuple(t.shape)}")
-    if t.dtype not in _DTYPE_CODES:
-        raise TypeError(f"scan_agg_fold: {what} has dtype {t.dtype}")
-
-
-def _col(t: torch.Tensor, valid: Optional[torch.Tensor], what: str,
-         n: int, dev) -> _Col:
-    _check_vector(t, what, n, dev)
-    c = _Col()
-    c.data = t.data_ptr()
-    c.data_stride = 1 if t.shape[0] == n else 0
-    c.dtype = _DTYPE_CODES[t.dtype]
-    if valid is not None:
-        _check_vector(valid, f"{what} validity", n, dev)
-        if valid.dtype != torch.bool:
-            raise TypeError(f"scan_agg_fold: {what} validity must be bool")
-        c.valid = valid.data_ptr()
-        c.valid_stride = 1 if valid.shape[0] == n else 0
-    return c
+def row_block(prog: FoldProgram, cols: dict, params: Optional[dict], n: int,
+              dev):
+    """The generated row's parameter block (``FmParams``) over one
+    batch's columns, the program's dictionary tables and, unless None,
+    one query's host parameters."""
+    from citus_tpu_torch.ops.filter_mask import _FmParams, _param_bits
+    from citus_tpu_torch.ops.xp_torch import torch_dtype
+    row = prog.row
+    r = _FmParams()
+    r.n = n
+    for j, name in enumerate(row.columns):
+        v, valid = cols[name]
+        want = torch_dtype(prog.col_dtypes[name])
+        if v.device != dev or v.dtype != want or v.shape != (n,) \
+                or not v.is_contiguous():
+            raise ValueError(
+                f"fold: column {name!r} must be a contiguous [{n}] {want} "
+                f"tensor on {dev}, got {v.dtype} {tuple(v.shape)} on "
+                f"{v.device}")
+        r.cols[j] = v.data_ptr()
+        if valid is not None:
+            if valid.device != dev or valid.dtype != torch.bool \
+                    or valid.shape != (n,) or not valid.is_contiguous():
+                raise ValueError(f"fold: validity of {name!r} must be a "
+                                 f"contiguous [{n}] bool tensor on {dev}")
+            r.valids[j] = valid.data_ptr()
+    for j, t in enumerate(prog.tables(dev)):
+        r.tables[j] = t.data_ptr()
+        r.table_len[j] = t.numel()
+    if params is not None:
+        for j, name in enumerate(row.params):
+            v, valid = params[name]
+            r.params[j] = _param_bits(v, prog.param_dtypes[name])
+            r.param_valid[j] = 1 if bool(valid) else 0
+    return r
 
 
 def _reg_shape(kind: str, n_groups: int, n_q) -> tuple:
@@ -248,19 +463,21 @@ def _reg_shape(kind: str, n_groups: int, n_q) -> tuple:
     return shape + (() if n_groups == 1 else (n_groups,)) + (SKETCH_M[kind],)
 
 
-def _block(acc, rows, mask, keys, args, ops, n_groups, n_q=None) -> _Params:
-    """The parameter block of one launch; registers as ``_reg_shape``,
-    ``mask`` [N] (one query) or [n_q, N] (``n_q`` queries)."""
+def _block(prog: FoldProgram, acc, rows, mask, n_q=None) -> _Params:
+    """The fold's parameter block of one launch; registers as
+    ``_reg_shape``, ``mask`` [N] (one query) or [n_q, N] (``n_q``
+    queries)."""
     dev = mask.device
     n = mask.shape[-1]
+    ops, n_groups = prog.ops, prog.n_groups
+    n_keys, n_args = len(prog.exprs.keys), len(prog.exprs.args)
     want_dim = 1 if n_q is None else 2
     if mask.dtype != torch.bool or mask.dim() != want_dim \
             or (n_q is not None and mask.shape[0] != n_q) \
             or not mask.is_contiguous():
         raise ValueError("scan_agg_fold: mask must be a contiguous bool "
                          + ("vector" if n_q is None else f"[{n_q}, N] tensor"))
-    if len(keys) > _MAX_KEYS or len(args) > _MAX_ARGS \
-            or len(ops) > _MAX_OPS:
+    if n_keys > _MAX_KEYS or n_args > _MAX_ARGS or len(ops) > _MAX_OPS:
         raise ValueError(
             f"scan_agg_fold takes at most {_MAX_KEYS} keys, {_MAX_ARGS} "
             f"arguments and {_MAX_OPS} partial ops")
@@ -271,17 +488,11 @@ def _block(acc, rows, mask, keys, args, ops, n_groups, n_q=None) -> _Params:
     p.n = n
     p.n_groups = n_groups
     p.mask = mask.data_ptr()
-    p.n_keys, p.n_args, p.n_ops = len(keys), len(args), len(ops)
-    for i, k in enumerate(keys):
-        c = _col(k.values, k.valid, f"key {i}", n, dev)
-        if c.dtype not in (0, 1, 2):
-            raise TypeError(f"scan_agg_fold: key {i} must be integer")
-        if k.step <= 0:
+    p.n_keys, p.n_args, p.n_ops = n_keys, n_args, len(ops)
+    for i, (lo, step, stride) in enumerate(prog.domains):
+        if step <= 0:
             raise ValueError(f"scan_agg_fold: key {i} step must be > 0")
-        p.keys[i] = c
-        p.key_lo[i], p.key_step[i], p.key_stride[i] = k.lo, k.step, k.stride
-    for i, (v, valid) in enumerate(args):
-        p.args[i] = _col(v, valid, f"argument {i}", n, dev)
+        p.key_lo[i], p.key_step[i], p.key_stride[i] = lo, step, stride
     for i, (a, op) in enumerate(zip(acc, ops)):
         if op.kind not in _KIND_CODES:
             raise ValueError(f"scan_agg_fold: unknown op kind {op.kind!r}")
@@ -293,7 +504,7 @@ def _block(acc, rows, mask, keys, args, ops, n_groups, n_q=None) -> _Params:
                 f"contiguous {list(want)} tensor of "
                 f"{_ACC_DTYPES[op.kind]} on {dev}, got {a.dtype} "
                 f"{tuple(a.shape)} on {a.device}")
-        if op.kind != "count_star" and not 0 <= op.arg < len(args):
+        if op.kind != "count_star" and not 0 <= op.arg < n_args:
             raise ValueError(f"scan_agg_fold: op {i} argument out of range")
         p.op_kind[i] = _KIND_CODES[op.kind]
         p.op_arg[i] = max(op.arg, 0)
@@ -309,40 +520,42 @@ def _block(acc, rows, mask, keys, args, ops, n_groups, n_q=None) -> _Params:
     return p
 
 
-def _launch(acc, rows, mask, keys, args, ops, n_groups) -> int:
-    p = _block(acc, rows, mask, keys, args, ops, n_groups)
+def _launch(prog, acc, rows, cols, params, row_mask) -> int:
+    lib = prog.library()
+    dev = row_mask.device
+    p = _block(prog, acc, rows, row_mask)
+    r = row_block(prog, cols, params, row_mask.shape[0], dev)
     regime = ctypes.c_int(-1)
-    dev = mask.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().scan_agg_fold_launch(ctypes.byref(p), stream,
-                                              ctypes.byref(regime))
+        err = lib.scan_agg_fold_launch(ctypes.byref(p), ctypes.byref(r),
+                                       stream, ctypes.byref(regime))
     if err != 0:
         raise RuntimeError(f"scan_agg_fold launch failed: CUDA error {err}")
     return regime.value
 
 
-def scan_agg_fold(acc: Sequence[torch.Tensor], rows: Optional[torch.Tensor],
-                  mask: torch.Tensor, keys: Sequence[FoldKey],
-                  args: Sequence[tuple], ops: Sequence[FoldOp],
-                  n_groups: int) -> None:
+def scan_agg_fold(prog: FoldProgram, acc: Sequence[torch.Tensor],
+                  rows: Optional[torch.Tensor], cols: dict, params: dict,
+                  row_mask: torch.Tensor) -> None:
     """Fold one batch into ``acc``/``rows`` in place.
 
-    ``acc[i]`` is op ``i``'s [G] register of its accumulator type,
-    ``rows`` the [G] int64 group-row counts (None in scalar mode, G=1),
-    a sketch op's registers [M] (scalar mode; [G, M] for G > 1),
-    ``mask`` the bool [N] rows that pass the filter, ``keys`` the
-    direct-mode group keys, ``args`` (values, validity or None) pairs of
-    [N] or broadcast [1] vectors.  CUDA tensors launch the kernel, CPU
-    tensors run the plain version."""
-    if mask.device.type == "cuda":
-        scan_agg_fold.last_regime = _launch(acc, rows, mask, keys, args,
-                                            ops, n_groups)
+    ``prog`` is the plan's ``FoldProgram``; ``acc[i]`` is op ``i``'s [G]
+    register of its accumulator type, ``rows`` the [G] int64 group-row
+    counts (None in scalar mode, G=1), a sketch op's registers [M]
+    (scalar mode; [G, M] for G > 1); ``cols`` maps the scan columns to
+    (values, validity or None) [N] tensors, ``params`` the parameter env
+    names to host (value, valid) scalars; ``row_mask`` the bool [N] real
+    (non-padding) rows.  CUDA tensors launch the generated kernel, CPU
+    tensors run ``fold_plain``."""
+    if row_mask.device.type == "cuda":
+        scan_agg_fold.last_regime = _launch(prog, acc, rows, cols, params,
+                                            row_mask)
         count_launch(scan_agg_fold)
         return
-    if mask.device.type != "cpu":
-        raise ValueError(f"scan_agg_fold: no kernel for {mask.device}")
-    scan_agg_fold_plain(acc, rows, mask, keys, args, ops, n_groups)
+    if row_mask.device.type != "cpu":
+        raise ValueError(f"scan_agg_fold: no kernel for {row_mask.device}")
+    fold_plain(prog, acc, rows, cols, params, row_mask)
 
 
 #: kernel launches since the counter was last set to 0
@@ -367,67 +580,49 @@ def scan_agg_fold_batched_plain(acc: Sequence[torch.Tensor],
                             keys, args, ops, n_groups)
 
 
-_lib_batched = None
-
-
-def _library_batched():
-    global _lib_batched
-    if _lib_batched is None:
-        from citus_tpu_torch.ops.cuda_build import load
-        lib = load("scan_agg_fold_batched")
-        lib.scan_agg_fold_batched_launch.restype = ctypes.c_int
-        lib.scan_agg_fold_batched_launch.argtypes = [
-            ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p,
-            ctypes.POINTER(ctypes.c_int)]
-        lib.scan_agg_fold_batched_params_size.restype = ctypes.c_int
-        lib.scan_agg_fold_batched_params_size.argtypes = []
-        if lib.scan_agg_fold_batched_params_size() != ctypes.sizeof(_Params):
-            raise RuntimeError("scan_agg_fold_batched: parameter block "
-                               "layout differs between Python and CUDA")
-        _lib_batched = lib
-    return _lib_batched
-
-
-def _launch_batched(acc, rows, masks, keys, args, ops, n_groups) -> int:
+def _launch_batched(prog, acc, rows, cols, masks) -> int:
     n_q = masks.shape[0] if masks.dim() == 2 else 0
     if n_q <= 0:
         raise ValueError("scan_agg_fold_batched: masks must be [Q, N], Q > 0")
-    p = _block(acc, rows, masks, keys, args, ops, n_groups, n_q)
-    regime = ctypes.c_int(-1)
+    lib = prog.library()
     dev = masks.device
+    p = _block(prog, acc, rows, masks, n_q)
+    r = row_block(prog, cols, None, masks.shape[1], dev)
+    regime = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library_batched().scan_agg_fold_batched_launch(
-            ctypes.byref(p), n_q, stream, ctypes.byref(regime))
+        err = lib.scan_agg_fold_batched_launch(
+            ctypes.byref(p), ctypes.byref(r), n_q, stream,
+            ctypes.byref(regime))
     if err != 0:
         raise RuntimeError(f"scan_agg_fold_batched launch failed: CUDA "
                            f"error {err}")
     return regime.value
 
 
-def scan_agg_fold_batched(acc: Sequence[torch.Tensor],
-                          rows: Optional[torch.Tensor], masks: torch.Tensor,
-                          keys: Sequence[FoldKey], args: Sequence[tuple],
-                          ops: Sequence[FoldOp], n_groups: int) -> None:
+def scan_agg_fold_batched(prog: FoldProgram, acc: Sequence[torch.Tensor],
+                          rows: Optional[torch.Tensor], cols: dict,
+                          masks: torch.Tensor) -> None:
     """Fold one batch into the registers of Q queries at once, in place:
     row q of every register (``acc[i]`` [Q, G], a sketch op's [Q, M] in
     scalar mode, ``rows`` [Q, G] or None in scalar mode, G = 1) takes the
-    rows that pass ``masks[q]`` (bool
-    [Q, N]).  ``keys`` and ``args`` are shared by every query: they
-    reference no parameter.  It is the reference's ``batched:jit_fused``
-    (a ``jax.vmap`` of the fused worker over the query axis).  CUDA
-    tensors launch ``csrc/scan_agg_fold_batched.cu`` (one launch per
-    call, counted in ``scan_agg_fold_batched.launches``), CPU tensors
-    run the plain version."""
+    rows that pass ``masks[q]`` (bool [Q, N]: each query's WHERE, with
+    the padding).  The program's keys and arguments reference no
+    parameter: they are evaluated once per row for every query.  It is
+    the reference's ``batched:jit_fused`` (a ``jax.vmap`` of the fused
+    worker over the query axis).  CUDA tensors launch the generated
+    batched kernel (one launch per call, counted in
+    ``scan_agg_fold_batched.launches``), CPU tensors run
+    ``fold_batched_plain``."""
     if masks.device.type == "cuda":
         scan_agg_fold_batched.last_regime = _launch_batched(
-            acc, rows, masks, keys, args, ops, n_groups)
+            prog, acc, rows, cols, masks)
         count_launch(scan_agg_fold_batched)
         return
     if masks.device.type != "cpu":
         raise ValueError(f"scan_agg_fold_batched: no kernel for "
                          f"{masks.device}")
-    scan_agg_fold_batched_plain(acc, rows, masks, keys, args, ops, n_groups)
+    fold_batched_plain(prog, acc, rows, cols, masks)
 
 
 #: kernel launches since the counter was last set to 0

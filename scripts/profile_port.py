@@ -2,6 +2,7 @@
 on one CUDA card.
 
     python3 scripts/profile_port.py [--rows N] [--reps R]
+                                    [--package-root DIR]
 
 Loads bench.py's lineitem (chip_smoke.py's copy of its generator, 4
 shards) on the card, runs each of Q1, Q6, H1, H2 and P1 twice (for Q1
@@ -10,8 +11,13 @@ BY and the projection read the stripes on every run, as their executor
 paths do, with citus.hash_agg_slots = auto), then R more times under
 ``torch.profiler`` and prints, per query: the wall time per run, the
 device time per run summed over CUDA kernels and copies, the device's
-busy share of the wall time, and the kernels that took most of the
-device time.  Then the same for chip_smoke.py's phase-5 literal families
+busy share of the wall time, the device kernels per run (the port's, by
+chip_smoke.py's PORT_KERNELS, and every other one, PyTorch's
+elementwise kernels among them) and copies, and the kernels that took
+most of the device time.  The same for S1 on chip_smoke.py's sketch
+table.  ``--package-root`` imports ``citus_tpu_torch`` from another
+checkout (say, the parent commit unpacked with ``git archive``), so two
+trees are compared in one call.  Then the same for chip_smoke.py's phase-5 literal families
 (8 variants each of Q6, H2, P1 and Q1, sent from 8 threads at once with
 citus.megabatch_window_ms = 1000 and megabatch_max_size = 8, so they
 coalesce): per round of 8 queries.  Fails without a CUDA device.
@@ -27,25 +33,30 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=5_000_000)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--package-root", default=ROOT,
+                    help="checkout whose citus_tpu_torch is profiled")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
+    sys.path.insert(0, ROOT)
     import chip_smoke as cs
+    # the package of --package-root; chip_smoke.py stays this checkout's
+    sys.path.insert(0, os.path.abspath(args.package_root))
     import citus_tpu_torch as ctt
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print("card:", card, flush=True)
+    print("package:", os.path.dirname(ctt.__file__), flush=True)
     cl = ctt.Cluster(os.path.join(tempfile.mkdtemp(), "db"))
     cl.execute(cs.LINEITEM_DDL)
     cl.execute(f"SELECT create_distributed_table('lineitem', 'l_orderkey', {cs.SHARDS})")
@@ -66,9 +77,17 @@ def main() -> int:
         events = [e for e in prof.key_averages()
                   if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
         device_us = sum(e.self_device_time_total for e in events) / args.reps
+        copies = sum(e.count for e in events
+                     if e.key.lower().startswith(("memcpy", "memset")))
+        port = sum(e.count for e in events
+                   if any(k in e.key for k in cs.PORT_KERNELS))
+        other = sum(e.count for e in events) - copies - port
         print(f"{name} warm at {args.rows} rows: wall {wall * 1e3:.3f} ms/run, "
               f"device {device_us / 1e3:.3f} ms/run, device busy share "
-              f"{device_us / 1e6 / wall:.4f} ({card})", flush=True)
+              f"{device_us / 1e6 / wall:.4f}; device kernels per run: "
+              f"{port / args.reps:g} of the port, {other / args.reps:g} "
+              f"other, {copies / args.reps:g} copies and sets ({card})",
+              flush=True)
         events.sort(key=lambda e: -e.self_device_time_total)
         for e in events[:8]:
             print(f"  {e.self_device_time_total / args.reps / 1e3:9.4f} ms/run "
@@ -78,6 +97,10 @@ def main() -> int:
     for name, sql in (("Q1", cs.Q1), ("Q6", cs.Q6), ("H1", cs.H1),
                       ("H2", cs.H2), ("P1", cs.P1)):
         profiled(name, lambda: cl.execute(sql))
+    scl, _ = cs.load_sketch_table(ctt, os.path.join(tempfile.mkdtemp(),
+                                                    "sketch"), args.rows)
+    profiled("S1", lambda: scl.execute(cs.S1))
+    scl.close()
     cl.execute(f"SET citus.megabatch_max_size = {cs.Q_BATCH}")
     for name, (_kind, variants) in cs.families().items():
         sqls = [sql for sql, _ in variants]

@@ -54,9 +54,8 @@ from citus_tpu_torch.ops.hash_agg import (
     merge_hash_tables_into,
 )
 from citus_tpu_torch.ops.hash_agg_insert import (
-    hash_agg_insert, hash_agg_insert_plain,
+    hash_agg_insert, hash_agg_insert_plain, insert_plain,
 )
-from citus_tpu_torch.ops.xp_torch import TorchNamespace
 from citus_tpu_torch.planner import parse_sql
 from citus_tpu_torch.planner.bind import bind_select
 from citus_tpu_torch.planner.bound import compile_expr
@@ -250,8 +249,7 @@ def _run_reference(plan, S, batches):
 def _run_port(plan, S, batches, device="cpu"):
     key_dtypes = (np.dtype(np.int64), np.dtype(np.float64),
                   np.dtype(np.int32))
-    xp = TorchNamespace(device)
-    fused = build_fused_hash_worker(plan, xp, key_dtypes)
+    fused = build_fused_hash_worker(plan, key_dtypes)
     table = empty_hash_state(plan, S, key_dtypes, device)
     acc = HostGroupAccumulator(len(plan.bound.group_keys), plan.partial_ops)
     key_fns = [compile_expr(k, np) for k in plan.bound.group_keys]
@@ -302,8 +300,11 @@ def test_plain_insert_matches_reference_worker(plans, S):
 
 def test_plain_insert_all_false_mask_and_bool_keys():
     """An all-false mask touches nothing; bool keys (one byte) group."""
-    from citus_tpu_torch.ops.scan_agg_fold import FoldOp
+    from citus_tpu_torch import types as T
+    from citus_tpu_torch.ops.expr_codegen import FoldExprs
     from citus_tpu_torch.ops.hash_agg import HashTable
+    from citus_tpu_torch.ops.scan_agg_fold import FoldOp, FoldProgram
+    from citus_tpu_torch.planner.bound import BColumn
     S, n = 11, 500
     rng = np.random.default_rng(9)
 
@@ -315,17 +316,25 @@ def test_plain_insert_all_false_mask_and_bool_keys():
             [torch.zeros(S, dtype=torch.int64)],
             torch.zeros(S, dtype=torch.int64),
             torch.zeros(S, dtype=torch.int32))
-    keys = [(torch.from_numpy(rng.integers(0, 2, n).astype(bool)), None),
-            (torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)),
-             torch.from_numpy(rng.random(n) > 0.2))]
+    cols = {"b": (torch.from_numpy(rng.integers(0, 2, n).astype(bool)), None),
+            "i": (torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)),
+                  torch.from_numpy(rng.random(n) > 0.2))}
+    prog = FoldProgram(
+        FoldExprs(None, (BColumn("b", T.BOOL_T), BColumn("i", T.INT32_T)), ()),
+        [FoldOp("count_star")], {"b": np.bool_, "i": np.int32}, {},
+        key_dtypes=(np.bool_, np.int32))
     t = table()
-    spill = hash_agg_insert(t, torch.zeros(n, dtype=torch.bool), keys, [],
-                            [FoldOp("count_star")])
+    spill = hash_agg_insert(prog, t, cols, {}, torch.zeros(n, dtype=torch.bool))
     assert not spill.any() and int(t.rows.sum()) == 0
-    spill = hash_agg_insert_plain(t, torch.ones(n, dtype=torch.bool), keys,
-                                  [], [FoldOp("count_star")])
+    spill = hash_agg_insert(prog, t, cols, {}, torch.ones(n, dtype=torch.bool))
     assert int(t.rows.sum()) + int(spill.sum()) == n
     assert int((t.rows > 0).sum()) <= 8  # 2 bools x (3 ids + NULL)
+    keys = [(v, torch.ones(n, dtype=torch.bool) if m is None else m)
+            for v, m in cols.values()]
+    t2 = table()
+    spill2 = hash_agg_insert_plain(t2, torch.ones(n, dtype=torch.bool), keys,
+                                   [], [FoldOp("count_star")])
+    assert torch.equal(t2.rows, t.rows) and torch.equal(spill2, spill)
 
 
 # ------------------------------------------------- slice-level, via SQL
@@ -564,19 +573,19 @@ def test_chip_smoke_phase3_helpers_rehearse_on_cpu(tmp_path):
         port.copy_from("lineitem", columns=chip_smoke.copy_columns(c))
     port.execute("SET citus.direct_gid_limit = 100")
     call, n_real = chip_smoke.main_path_hash_call(port, "cpu")
-    assert call[0].slots == 8192 and 0 < n_real <= call[1].numel()
+    assert call[1].slots == 8192 and 0 < n_real <= call[-1].numel()
     cases = [call] + [chip_smoke.adversarial_hash_call("cpu", 5003, 1000, 3,
                                                        all_false)
                       for all_false in (False, True)]
     for case in cases:
         err = chip_smoke.compare_hash("rehearsal", case, hash_agg_insert,
-                                      hash_agg_insert_plain)
+                                      insert_plain)
         assert err == 0.0  # same plain version on both sides
-    table = call[0]
+    table = call[1]
     slot = sum(t.element_size() for t in table.key_values + table.key_flags
                + table.partials + [table.rows, table.state])
     inputs = chip_smoke.hash_bytes(call, 0)
-    assert inputs > 2 * call[1].numel()   # the mask in, the spill mask out
+    assert inputs > 2 * call[-1].numel()  # the mask in, the spill mask out
     assert chip_smoke.hash_bytes(call, 5) == inputs + 10 * slot
     port.close()
     plans = chip_smoke.smoke_plans("cpu", str(tmp_path), n=4096)
@@ -606,19 +615,23 @@ def test_hash_kernel_matches_plain_on_card(plans, S):
 
 def test_insert_inputs_are_the_main_path_kernel_inputs(plans):
     """build_hash_insert_inputs gives the kernel its main-path inputs:
-    one mask, one [N] key per group key of the table's dtype, and one
-    op per partial."""
+    the plan's hash program (keys of the table's dtypes, one op per
+    partial), the table, the scan columns by name and the row mask; the
+    plain version's keys come out in the table's key dtypes."""
+    from citus_tpu_torch.ops.hash_agg_insert import plain_insert_inputs
     _, pp = plans
     key_dtypes = (np.dtype(np.int64), np.dtype(np.float64),
                   np.dtype(np.int32))
-    xp = TorchNamespace("cpu")
     cols, valids, row_mask = _batches(3, n_batches=1)[0]
     table = empty_hash_state(pp, 64, key_dtypes, "cpu")
-    t, mask, keys, args, ops = build_hash_insert_inputs(pp, xp, key_dtypes)(
+    prog, t, tcols, params, mask = build_hash_insert_inputs(pp, key_dtypes)(
         table, tuple(torch.from_numpy(cols[n]) for n in pp.scan_columns),
         tuple(torch.from_numpy(valids[n]) for n in pp.scan_columns),
         torch.from_numpy(row_mask))
-    assert t is table and mask.dtype == torch.bool
+    assert t is table and mask.dtype == torch.bool and params == {}
+    assert set(tcols) == set(pp.scan_columns)
+    assert prog.key_dtypes == key_dtypes and prog.row.hashed
+    assert len(prog.ops) == len(pp.partial_ops) == len(table.partials)
+    _, keys, _ = plain_insert_inputs(prog, tcols, params, mask)
     assert [k[0].dtype for k in keys] == [torch.int64, torch.float64,
                                           torch.int32]
-    assert len(ops) == len(pp.partial_ops) == len(table.partials)

@@ -56,7 +56,6 @@ from citus_tpu_torch.ops.hash_agg import (
 from citus_tpu_torch.ops.hash_agg_merge import (
     _MergeParams, _block, hash_agg_merge, hash_agg_merge_plain,
 )
-from citus_tpu_torch.ops.xp_torch import TorchNamespace
 from citus_tpu_torch.planner import parse_sql
 from citus_tpu_torch.planner.bind import bind_select
 from citus_tpu_torch.planner.bound import compile_expr
@@ -159,7 +158,7 @@ def _add_spills(acc, plan, compile_fn, batches, spills) -> None:
 def _port_insert(plan, S, batches, acc):
     """The port's streaming insert (plain version); spilled rows into
     ``acc``.  -> its HashTable."""
-    fused = build_fused_hash_worker(plan, TorchNamespace("cpu"), KEY_DTYPES)
+    fused = build_fused_hash_worker(plan, KEY_DTYPES)
     table = empty_hash_state(plan, S, KEY_DTYPES, "cpu")
     key_fns = [compile_expr(k, np) for k in plan.bound.group_keys]
     arg_fns = [compile_expr(a, np) for a in plan.agg_args]

@@ -85,16 +85,13 @@ from citus_tpu_torch.ops.filter_mask import (
     stack_params,
 )
 from citus_tpu_torch.ops.hash_agg import (
-    build_shared_hash_inputs, empty_hash_state, hash_slot_bytes,
-    merge_hash_tables_into,
+    empty_hash_state, hash_slot_bytes, merge_hash_tables_into,
 )
 from citus_tpu_torch.ops.hash_agg_insert import (
     hash_agg_insert_batched, hash_agg_insert_batched_plain,
 )
-from citus_tpu_torch.ops.scan_agg import build_shared_fold_inputs
 from citus_tpu_torch.ops.scan_agg_fold import scan_agg_fold_batched
 from citus_tpu_torch.observability.trace import Trace, activate
-from citus_tpu_torch.ops.xp_torch import TorchNamespace
 from citus_tpu_torch.planner import parse_sql
 from citus_tpu_torch.planner.auto_param import auto_parameterize
 from citus_tpu_torch.planner.bind import bind_select
@@ -651,6 +648,14 @@ def _ref_masks(rp, rparams, cols, valids, row_mask):
     return np.asarray(fn(c, v, jnp.asarray(row_mask)))
 
 
+def _by_name(plan, cols, valids, dev="cpu"):
+    """A numpy batch's scan columns as the kernels take them: name ->
+    (values, validity) tensors on ``dev``."""
+    return {n: (torch.from_numpy(cols[n]).to(dev),
+                torch.from_numpy(valids[n]).to(dev))
+            for n in plan.scan_columns}
+
+
 def _port_masks(pp, pparams, cols, valids, row_mask, device="cpu"):
     prog = _build_filter_mask(pp, pparams[0])
     stacked = stack_params(prog, [_params_env(pp, p) for p in pparams],
@@ -711,16 +716,15 @@ def test_plain_batched_fold_matches_vmap(catalogs, name):
                  + pvalids, jnp.asarray(row_mask))
     want = [np.asarray(a) for a in acc]
     # the port: batched masks, shared keys and arguments, [Q, G] registers
-    shared, ops, G = build_shared_fold_inputs(pp, TorchNamespace("cpu"))
+    fold = megabatch._fold_program(pp, pparams[0], "cpu")
+    ops = fold.ops
     regs, rows = megabatch._empty_stacked_partials(pp, q, "cpu")
     for cols, valids, row_mask in batches:
         prog, stacked, tcols, trm = _port_masks(pp, pparams, cols, valids,
                                                 row_mask)
         masks = filter_mask_batched(prog, tcols, stacked, trm)
-        keys, args = shared(
-            tuple(torch.from_numpy(cols[n]) for n in pp.scan_columns),
-            tuple(torch.from_numpy(valids[n]) for n in pp.scan_columns))
-        scan_agg_fold_batched(regs, rows, masks, keys, args, ops, G)
+        scan_agg_fold_batched(fold, regs, rows, _by_name(pp, cols, valids),
+                              masks)
     got = [r.numpy() for r in regs]
     if rows is not None:
         got.append(rows.numpy())
@@ -768,7 +772,7 @@ def test_plain_batched_hash_insert_matches_vmap(catalogs, S):
             [k.type for k in rp.bound.group_keys])))
     # the port: batched masks, shared keys/arguments, Q stacked tables
     kd = _hash_key_dtypes(pp, {})
-    shared, ops = build_shared_hash_inputs(pp, TorchNamespace("cpu"), kd)
+    insert = megabatch._fold_program(pp, pparams[0], "cpu", kd)
     table = empty_hash_state(pp, S, kd, "cpu", n_queries=q)
     accs = [HostGroupAccumulator(len(pp.bound.group_keys), pp.partial_ops)
             for _ in range(q)]
@@ -780,11 +784,9 @@ def test_plain_batched_hash_insert_matches_vmap(catalogs, S):
         prog, stacked, tcols, trm = _port_masks(pp, pparams, cols, valids,
                                                 row_mask)
         masks = filter_mask_batched(prog, tcols, stacked, trm)
-        keys, args = shared(
-            tuple(torch.from_numpy(cols[n]) for n in pp.scan_columns),
-            tuple(torch.from_numpy(valids[n]) for n in pp.scan_columns),
-            trm)
-        sp = hash_agg_insert_batched(table, masks, keys, args, ops).numpy()
+        sp = hash_agg_insert_batched(insert, table,
+                                     _by_name(pp, cols, valids),
+                                     masks).numpy()
         assert sp.shape == (q, N_PAD)
         spilled += sp.sum(axis=1)
         masked += masks.numpy().sum(axis=1)
@@ -826,17 +828,19 @@ def test_stacked_table_slices_and_budget(catalogs):
 def test_plain_batched_hash_insert_equals_per_query_inserts(catalogs):
     """One batched insert into Q stacked tables gives each query the
     table and spills of a one-table insert with its own mask."""
-    from citus_tpu_torch.ops.hash_agg_insert import hash_agg_insert_plain
+    from citus_tpu_torch.ops.hash_agg_insert import (
+        hash_agg_insert_plain, plain_insert_inputs,
+    )
     _, _, pp, pparams = _family(catalogs, "hash_host")
     kd = _hash_key_dtypes(pp, {})
     cols, valids, row_mask = _batch(pp, 41)
     prog, stacked, tcols, trm = _port_masks(pp, pparams, cols, valids,
                                             row_mask)
     masks = filter_mask_batched(prog, tcols, stacked, trm)
-    shared, ops = build_shared_hash_inputs(pp, TorchNamespace("cpu"), kd)
-    keys, args = shared(
-        tuple(torch.from_numpy(cols[n]) for n in pp.scan_columns),
-        tuple(torch.from_numpy(valids[n]) for n in pp.scan_columns), trm)
+    insert = megabatch._fold_program(pp, pparams[0], "cpu", kd)
+    _, keys, args = plain_insert_inputs(insert, _by_name(pp, cols, valids),
+                                        {}, trm, with_filter=False)
+    ops = insert.ops
     stack = empty_hash_state(pp, 32, kd, "cpu", n_queries=len(pparams))
     sp = hash_agg_insert_batched_plain(stack, masks, keys, args, ops)
     for qi in range(len(pparams)):
@@ -919,23 +923,18 @@ def test_batched_kernels_match_plain_on_card(catalogs, name):
         prog, stacked, tcols, trm = _port_masks(pp, pparams, cols, valids,
                                                 row_mask, dev)
         masks = filter_mask_batched(prog, tcols, stacked, trm)
-        c = tuple(torch.from_numpy(cols[n]).to(dev) for n in pp.scan_columns)
-        v = tuple(torch.from_numpy(valids[n]).to(dev)
-                  for n in pp.scan_columns)
+        by_name = _by_name(pp, cols, valids, dev)
         if name == "hash_host":
             kd = _hash_key_dtypes(pp, {})
-            shared, ops = build_shared_hash_inputs(pp, TorchNamespace(dev),
-                                                   kd)
-            keys, args = shared(c, v, trm)
+            insert = megabatch._fold_program(pp, pparams[0], dev, kd)
             table = empty_hash_state(pp, 64, kd, dev, n_queries=q)
-            sp = hash_agg_insert_batched(table, masks, keys, args, ops)
+            sp = hash_agg_insert_batched(insert, table, by_name, masks)
             got[dev] = (masks.cpu(), table.rows.sum(dim=1).cpu()
                         + sp.sum(dim=1).cpu())
         else:
-            shared, ops, G = build_shared_fold_inputs(pp, TorchNamespace(dev))
-            keys, args = shared(c, v)
+            fold = megabatch._fold_program(pp, pparams[0], dev)
             regs, rows = megabatch._empty_stacked_partials(pp, q, dev)
-            scan_agg_fold_batched(regs, rows, masks, keys, args, ops, G)
+            scan_agg_fold_batched(fold, regs, rows, by_name, masks)
             got[dev] = (masks.cpu(), [r.cpu() for r in regs])
     assert torch.equal(got["cpu"][0], got["cuda"][0])
     if name == "hash_host":
@@ -995,14 +994,14 @@ def test_chip_smoke_phase3_batched_helpers_rehearse_on_cpu(smoke_lineitem,
     plans = chip_smoke.smoke_plans("cpu", str(tmp_path), n=4096)
     for name in ("Q6", "Q1"):
         call = chip_smoke.batched_fold_call("cpu", plans, name)
-        assert call[2].shape == (chip_smoke.Q_BATCH, 4096)
+        assert call[-1].shape == (chip_smoke.Q_BATCH, 4096)
         assert chip_smoke.compare_fold(name, call, scan_agg_fold_batched,
                                        scan_agg_fold_batched) >= 0.0
         assert chip_smoke.fold_bytes(call) > 4096 * chip_smoke.Q_BATCH
     call, n_real = chip_smoke.batched_hash_call(cl, "cpu")
-    table, masks, keys, args, ops = call
+    prog, table, cols, masks = call
     assert masks.shape[0] == chip_smoke.Q_BATCH and n_real > 0
-    spill = hash_agg_insert_batched(table, masks, keys, args, ops)
+    spill = hash_agg_insert_batched(prog, table, cols, masks)
     for q in range(chip_smoke.Q_BATCH):
         chip_smoke.check_hash_invariants(f"q{q}", table.query(q), spill[q],
                                          masks[q])

@@ -12,8 +12,10 @@ over nulls, NaN, +-inf and +-0.0, and with an all-false row mask.
 
 int64 registers must be identical, float min/max identical with NaN in
 the same places, float sums within rel 1e-12 (another summation order).
-The kernel itself runs only on a card: ``test_kernel_matches_plain_on_card``
-holds it against the plain version there and skips here.
+The kernel generated for each plan runs only on a card:
+``test_kernel_matches_plain_on_card`` holds it against the plain version
+there and skips here (``tests/test_torch_fold_codegen.py`` holds the
+generated row itself against the reference on the CPU, through g++).
 """
 
 import numpy as np
@@ -33,9 +35,12 @@ from citus_tpu.planner.physical import plan_select as ref_plan
 from citus_tpu_torch.ops.scan_agg import (
     build_fused_worker_fn, build_worker_fn, empty_device_partials,
 )
+from citus_tpu_torch import types as T
+from citus_tpu_torch.ops.expr_codegen import FoldExprs
 from citus_tpu_torch.ops.scan_agg_fold import (
-    FoldKey, FoldOp, scan_agg_fold, scan_agg_fold_plain,
+    FoldOp, FoldProgram, fold_plain, scan_agg_fold,
 )
+from citus_tpu_torch.planner.bound import BColumn, BLiteral
 from citus_tpu_torch.ops.xp_torch import TorchNamespace
 from citus_tpu_torch.planner import parse_sql
 from citus_tpu_torch.planner.bind import bind_select
@@ -206,9 +211,17 @@ def test_int64_sum_wraps_like_xla(catalogs):
     assert abs(got[-1]) >= 2**62  # the shadow sum sees the overflow
 
 
+#: the fold case's columns and their types: a group key and one argument
+#: column of each register type
+_CASE_COLUMNS = {"key": T.INT64_T, "ints": T.INT64_T, "floats": T.FLOAT64_T,
+                 "i32": T.INT32_T, "f32": T.FLOAT32_T}
+
+
 def _fold_case(device, G, n, seed):
     """Inputs of one fold at the kernel's interface, all op kinds and
-    accumulator types, with nulls, NaN and a broadcast constant."""
+    accumulator types, with nulls, NaN and a literal argument: -> the
+    program (keys and arguments are columns, plus the literal 3; no
+    WHERE), registers, rows, columns and the row mask."""
     g = torch.Generator().manual_seed(seed)
     mask = torch.rand(n, generator=g) < 0.8
     key = torch.randint(0, max(G - 1, 1), (n,), generator=g)
@@ -220,8 +233,11 @@ def _fold_case(device, G, n, seed):
     i32 = torch.randint(-1000, 1000, (n,), generator=g, dtype=torch.int32)
     f32 = torch.randn(n, generator=g, dtype=torch.float32)
     valid = torch.rand(n, generator=g) < 0.9
-    args = [(ints, valid), (floats, None), (i32, valid), (f32, valid),
-            (torch.tensor([3], dtype=torch.int64), None)]
+    cols = {"key": (key, key_valid), "ints": (ints, valid),
+            "floats": (floats, None), "i32": (i32, valid), "f32": (f32, valid)}
+    args = [BColumn(c, _CASE_COLUMNS[c]) for c in ("ints", "floats", "i32",
+                                                   "f32")]
+    args.append(BLiteral(3, T.INT64_T))
     ops = [FoldOp("count_star"), FoldOp("count", 0), FoldOp("sum", 0),
            FoldOp("sum", 1), FoldOp("min", 0), FoldOp("max", 1),
            FoldOp("min", 2), FoldOp("max", 3), FoldOp("sum", 2),
@@ -229,7 +245,11 @@ def _fold_case(device, G, n, seed):
     dts = [torch.int64, torch.int64, torch.int64, torch.float64,
            torch.int64, torch.float64, torch.int32, torch.float32,
            torch.int64, torch.float64, torch.int64, torch.float64]
-    keys = [FoldKey(key, key_valid, 0, 1, 1)] if G > 1 else []
+    keys = [BColumn("key", T.INT64_T)] if G > 1 else []
+    prog = FoldProgram(FoldExprs(None, tuple(keys), tuple(args)), ops,
+                       {c: torch.empty(0, dtype=v.dtype).numpy().dtype
+                        for c, (v, _) in cols.items()},
+                       {}, domains=[(0, 1, 1)] * len(keys), n_groups=G)
 
     def to(t):
         return None if t is None else t.to(device)
@@ -244,10 +264,8 @@ def _fold_case(device, G, n, seed):
                 (info.max if op.kind == "min" else info.min)
         acc.append(torch.full((G,), fill, dtype=dt, device=device))
     rows = torch.zeros(G, dtype=torch.int64, device=device) if G > 1 else None
-    return (acc, rows, to(mask),
-            [FoldKey(to(k.values), to(k.valid), k.lo, k.step, k.stride)
-             for k in keys],
-            [(to(v), to(m)) for v, m in args], ops)
+    return (prog, acc, rows,
+            {c: (to(v), to(m)) for c, (v, m) in cols.items()}, to(mask))
 
 
 @pytest.mark.cuda
@@ -256,14 +274,14 @@ def test_kernel_matches_plain_on_card(G):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     n = (1 << 20) + 3  # not a multiple of the block size
-    acc_k, rows_k, mask, keys, args, ops = _fold_case("cuda", G, n, 11)
-    acc_p, rows_p, *_ = _fold_case("cuda", G, n, 11)
+    prog, acc_k, rows_k, cols, mask = _fold_case("cuda", G, n, 11)
+    _, acc_p, rows_p, *_ = _fold_case("cuda", G, n, 11)
     launches = scan_agg_fold.launches
-    scan_agg_fold(acc_k, rows_k, mask, keys, args, ops, G)
+    scan_agg_fold(prog, acc_k, rows_k, cols, {}, mask)
     assert scan_agg_fold.launches == launches + 1
-    scan_agg_fold_plain(acc_p, rows_p, mask, keys, args, ops, G)
+    fold_plain(prog, acc_p, rows_p, cols, {}, mask)
     torch.cuda.synchronize()
-    for op, k, p in zip(ops, acc_k, acc_p):
+    for op, k, p in zip(prog.ops, acc_k, acc_p):
         k, p = k.cpu().numpy(), p.cpu().numpy()
         if op.kind == "sum" and np.issubdtype(k.dtype, np.floating):
             np.testing.assert_array_equal(np.isnan(k), np.isnan(p))
@@ -279,14 +297,16 @@ def test_plain_fold_matches_numpy_scatter():
     """The plain version on the CPU against numpy's ufunc.at scatter
     (the reference's host oracle), for the fold case the card test uses."""
     G, n = 12, 5000
-    acc, rows, mask, keys, args, ops = _fold_case("cpu", G, n, 5)
+    prog, acc, rows, cols, mask = _fold_case("cpu", G, n, 5)
     want = [a.numpy().copy() for a in acc]
-    scan_agg_fold(acc, rows, mask, keys, args, ops, G)
+    scan_agg_fold(prog, acc, rows, cols, {}, mask)
     m = mask.numpy()
-    k = keys[0]
-    code = np.where(k.valid.numpy(), k.values.numpy() - k.lo + 1, 0)
+    key, key_valid = cols["key"]
+    code = np.where(key_valid.numpy(), key.numpy() + 1, 0)
     gid = np.clip(np.where(m, code, 0), 0, G - 1)
-    for i, op in enumerate(ops):
+    args = [cols[c] for c in ("ints", "floats", "i32", "f32")] + [
+        (torch.tensor([3]), None)]
+    for i, op in enumerate(prog.ops):
         if op.kind == "count_star":
             np.add.at(want[i], gid[m], 1)
             continue
@@ -300,7 +320,7 @@ def test_plain_fold_matches_numpy_scatter():
         else:
             f = np.minimum if op.kind == "min" else np.maximum
             f.at(want[i], gid[ok], v[ok].astype(want[i].dtype))
-    for op, got, w in zip(ops, acc, want):
+    for op, got, w in zip(prog.ops, acc, want):
         if op.kind == "sum" and np.issubdtype(w.dtype, np.floating):
             np.testing.assert_allclose(got.numpy(), w, rtol=1e-5, atol=0)
         else:

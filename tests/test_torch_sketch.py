@@ -47,13 +47,16 @@ from citus_tpu.planner.physical import plan_select as ref_plan
 from citus_tpu_torch.executor import megabatch
 from citus_tpu_torch.executor.megabatch import GLOBAL_MEGABATCH
 from citus_tpu_torch.ops import sketch_buckets as sb
+from citus_tpu_torch import types as T
+from citus_tpu_torch.ops.expr_codegen import FoldExprs
 from citus_tpu_torch.ops.scan_agg import (
-    build_fused_worker_fn, build_shared_fold_inputs, empty_device_partials,
+    build_fused_worker_fn, empty_device_partials,
 )
 from citus_tpu_torch.ops.scan_agg_fold import (
-    FoldOp, SKETCH_M, scan_agg_fold, scan_agg_fold_batched,
-    scan_agg_fold_batched_plain, scan_agg_fold_plain,
+    FoldOp, FoldProgram, SKETCH_M, fold_batched_plain, fold_plain,
+    scan_agg_fold, scan_agg_fold_batched, scan_agg_fold_plain,
 )
+from citus_tpu_torch.planner.bound import BColumn
 from citus_tpu_torch.ops.xp_torch import TorchNamespace
 from citus_tpu_torch.planner import aggregates as port_agg
 from citus_tpu_torch.planner import parse_sql
@@ -309,13 +312,14 @@ def test_batched_sketch_fold_matches_jax_per_query(catalogs, case):
     masks = [rng.random((q, N_PAD)) > 0.4 for _ in batches]
     for m in masks:
         m[:, N_REAL:] = False
-    shared, ops, G = build_shared_fold_inputs(pp, TorchNamespace("cpu"))
+    prog = FoldProgram.of_plan(pp, {})
     regs, rows = megabatch._empty_stacked_partials(pp, q, "cpu")
-    assert rows is None and G == 1
+    assert rows is None and prog.n_groups == 1
     for (cols, valids, _), m in zip(batches, masks):
-        keys, args = shared(*_tensors(cols, valids))
-        scan_agg_fold_batched(regs, rows, torch.from_numpy(m), keys, args,
-                              ops, G)
+        tcols, tvalids = _tensors(cols, valids)
+        scan_agg_fold_batched(prog, regs, rows,
+                              dict(zip(pp.scan_columns, zip(tcols, tvalids))),
+                              torch.from_numpy(m))
     for qi in range(q):
         want = _run_ref(rp, [(cols, valids, m[qi])
                              for (cols, valids, _), m in zip(batches, masks)])
@@ -392,10 +396,17 @@ def test_sketch_fold_matches_plain_on_card(q):
     n = (1 << 20) + 3
     acc_k, mask, args, ops = _sketch_call("cuda", n, q, seed=11)
     acc_p, *_ = _sketch_call("cuda", n, q, seed=11)
-    kernel = scan_agg_fold if q is None else scan_agg_fold_batched
-    plain = scan_agg_fold_plain if q is None else scan_agg_fold_batched_plain
-    kernel(acc_k, None, mask, [], args, ops, 1)
-    plain(acc_p, None, mask, [], args, ops, 1)
+    prog = FoldProgram(
+        FoldExprs(None, (), (BColumn("f", T.FLOAT64_T),
+                             BColumn("i", T.INT64_T))),
+        ops, {"f": np.float64, "i": np.int64}, {})
+    cols = dict(zip(("f", "i"), args))
+    if q is None:
+        scan_agg_fold(prog, acc_k, None, cols, {}, mask)
+        fold_plain(prog, acc_p, None, cols, {}, mask)
+    else:
+        scan_agg_fold_batched(prog, acc_k, None, cols, mask)
+        fold_batched_plain(prog, acc_p, None, cols, mask)
     torch.cuda.synchronize()
     for op, k, p in zip(ops, acc_k, acc_p):
         if op.kind == "sum":
@@ -505,17 +516,19 @@ def test_chip_smoke_sketch_helpers_rehearse_on_cpu(tmp_path):
     masks = filter_mask_batched(
         prog, cs.predicate_columns(plan, prog, cols, valids), stacked,
         row_mask)
-    shared, ops, G = build_shared_fold_inputs(plan, TorchNamespace("cpu"))
     regs, rows = _empty_stacked_partials(plan, 8, "cpu")
-    batched = (regs, rows, masks, *shared(cols, valids), ops, G)
+    batched = (FoldProgram.of_plan(plan, {}), regs, rows,
+               dict(zip(plan.scan_columns, zip(cols, valids))), masks)
     for name, call, kernel, plain in (
-            ("S1", splans["s1_call"], scan_agg_fold, scan_agg_fold_plain),
+            ("S1", splans["s1_call"], scan_agg_fold, fold_plain),
             ("adversarial", cs.adversarial_sketch_call("cpu", 8003),
-             scan_agg_fold, scan_agg_fold_plain),
+             scan_agg_fold, fold_plain),
+            ("adversarial Q=2", cs.adversarial_sketch_call("cpu", 8003, q=2),
+             scan_agg_fold_batched, fold_batched_plain),
             ("S family", batched, scan_agg_fold_batched,
-             scan_agg_fold_batched_plain)):
+             fold_batched_plain)):
         assert cs.compare_fold(name, call, kernel, plain) == 0.0
-        assert cs.sketch_fold_ops(call) > call[2].numel()
+        assert cs.sketch_fold_ops(call) > cs.fold_masks(call).numel()
     port = ctt.Cluster(str(tmp_path / "s"), device="cpu")
     try:
         port.execute(cs.S_DDL)
