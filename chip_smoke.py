@@ -82,9 +82,13 @@ result line:
    int64 registers, keys, counts, min/max and NaN positions must be
    identical, float64 sums within rel 1e-12 (atomics add in another
    order; the sums near cancellation as above).  Each kernel is timed
-   (CUDA events, median) beside its bound (the bytes it must read: the
-   scan columns, their validity and the row mask, and the registers or
-   table), its plain version and a one-op library yardstick;
+   (CUDA events, median) beside its bound (the bytes it must move on
+   this run's data: the mask; of each column the WHERE reads, and its
+   validity, the 32-byte sectors holding a row whose WHERE it
+   evaluates; of each other column the sectors holding a row whose keys
+   and arguments it evaluates (one that passes, or that some query's
+   mask passes); the registers or the table's filled slots), its plain
+   version and a one-op library yardstick;
 4. the main path through the port's entry points: ``Cluster(tmpdir)``
    on CUDA, bench.py's lineitem (schema, generator, seed 7) at TPC-H SF1
    (6,001,215 rows) in 4 shards, each query cold and then a second
@@ -466,35 +470,100 @@ def fold_masks(call):
     return call[-1]
 
 
-def fold_bytes(call) -> int:
-    """Bytes one fold must move: the row mask (or the Q masks) and each
-    scan column the generated row reads, with its validity, read once;
-    each register read and written once.  The expressions' intermediate
-    values stay in registers and are not counted."""
-    prog, regs, rows, cols = call[:4]
+#: bytes of one DRAM sector: the least a load of a scattered row moves
+SECTOR_BYTES = 32
+
+
+def sector_bytes(t, rows) -> int:
+    """Bytes of the 32-byte sectors of ``t`` (an [N] column) that hold at
+    least one row of ``rows`` (bool [N])."""
+    import torch
+    per = max(1, SECTOR_BYTES // t.element_size())
+    pad = (-rows.numel()) % per
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros(pad)])
+    hit = int(rows.view(-1, per).any(dim=1).sum())
+    return min(t.numel() * t.element_size(), hit * SECTOR_BYTES)
+
+
+def _column_names(exprs) -> set:
+    from citus_tpu_torch.planner.bound import BColumn, walk
+    return {n.name for x in exprs if x is not None for n in walk(x)
+            if isinstance(n, BColumn)}
+
+
+def read_rows(prog, cols, params, mask):
+    """-> (the rows whose WHERE a generated fold or insert evaluates, the
+    rows whose keys and arguments it evaluates) on this call's data.  One
+    query (``mask`` [N], the row mask): the WHERE where the row mask is
+    set, the keys and arguments where the WHERE passes too.  Q queries
+    (``mask`` [Q, N], each query's WHERE already in its mask): no WHERE,
+    the keys and arguments where some query's mask is set."""
+    if mask.dim() == 2:
+        return None, mask.any(dim=0)
+    return mask, prog.plain_eval(cols, params, mask)[0]
+
+
+def column_bytes(prog, cols, params, mask) -> int:
+    """Bytes of the scan columns and validities a generated fold or insert
+    must read on this call's data (``read_rows``): of a column the WHERE
+    reads, the sectors that hold a row whose WHERE it evaluates; of a
+    column only the keys and arguments read, the sectors that hold a row
+    whose keys and arguments it evaluates.  A column both read is charged
+    once, as the WHERE's: the second load of a row hits the cache."""
+    where_rows, value_rows = read_rows(prog, cols, params, mask)
+    e = prog.exprs
+    where = set() if where_rows is None else _column_names((e.filter,))
     seen, total = set(), 0
-    tensors = [fold_masks(call)] + [t for c in prog.row.columns
-                                    for t in cols[c]]
-    for t in tensors:
-        if t is not None and t.data_ptr() not in seen:
-            seen.add(t.data_ptr())
-            total += t.numel() * t.element_size()
-    outs = list(regs) + ([rows] if rows is not None else [])
-    total += 2 * sum(t.numel() * t.element_size() for t in outs)
+    for c in sorted(where | _column_names((*e.keys, *e.args))):
+        rows = where_rows if c in where else value_rows
+        for t in cols[c]:
+            if t is not None and t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                total += sector_bytes(t, rows)
     return total
 
 
-def fold_ops(call) -> int:
-    """Operations of a fold: per (query, row) mask entry one for each
-    bound node of the WHERE, keys and arguments, one per partial op,
-    four per key for the group id, and one to read the mask."""
+def call_params(call) -> dict:
+    """The host parameters of a one-query fold or insert call ({} for a
+    batched one, whose WHERE arrives in its masks)."""
+    return call[-2] if call[-1].dim() == 1 else {}
+
+
+def fold_bytes(call) -> int:
+    """Bytes one fold must move on this call's data: the row mask (or the
+    Q masks) read once, the scan columns and validities as
+    ``column_bytes`` charges them, each register read and written once.
+    The expressions' intermediate values stay in registers."""
+    prog, regs, rows, cols = call[:4]
+    mask = fold_masks(call)
+    outs = list(regs) + ([rows] if rows is not None else [])
+    return (mask.numel() + column_bytes(prog, cols, call_params(call), mask)
+            + 2 * sum(t.numel() * t.element_size() for t in outs))
+
+
+def fold_ops(call, op_cost=lambda op: 1) -> int:
+    """Operations of a fold on this call's data (``read_rows``): one to
+    read each mask entry; one per bound node of the WHERE for each row
+    whose WHERE it evaluates; one per bound node of the keys and
+    arguments and four per key for the group id for each row whose keys
+    and arguments it evaluates; ``op_cost(op)`` per partial op for each
+    (query, row) it folds."""
     from citus_tpu_torch.planner.bound import walk
-    prog = call[0]
+    prog, mask = call[0], fold_masks(call)
+    where_rows, value_rows = read_rows(prog, call[3], call_params(call),
+                                       mask)
     e = prog.exprs
-    nodes = sum(1 for x in (e.filter, *e.keys, *e.args) if x is not None
-                for _ in walk(x))
-    return fold_masks(call).numel() * (
-        len(prog.ops) + 4 * len(e.keys) + 1 + nodes)
+
+    def nodes(xs):
+        return sum(1 for x in xs if x is not None for _ in walk(x))
+    folded = value_rows if mask.dim() == 1 else mask
+    where = 0 if where_rows is None else \
+        int(where_rows.sum()) * nodes((e.filter,))
+    return (mask.numel() + where
+            + int(value_rows.sum()) * (nodes((*e.keys, *e.args))
+                                       + 4 * len(e.keys))
+            + int(folded.sum()) * sum(op_cost(op) for op in prog.ops))
 
 
 def clone_call(call):
@@ -504,24 +573,54 @@ def clone_call(call):
             None if rows is None else rows.clone()) + tuple(call[3:])
 
 
-def compare_fold(name: str, call, kernel, plain, abs_sums=None) -> float:
+def fold_abs_sums(call) -> list:
+    """Per partial op of a fold call, the plain version's per-group sum
+    of the magnitudes of a float sum's argument over the rows the call
+    folds (registers shaped as the op's), None for every other op."""
+    import torch
+    from citus_tpu_torch.ops.scan_agg_fold import (
+        FoldOp, plain_fold_inputs, scan_agg_fold_batched_plain,
+        scan_agg_fold_plain,
+    )
+    prog, regs, cols, mask = call[0], call[1], call[3], fold_masks(call)
+    if mask.dim() == 2:
+        _, keys, args = plain_fold_inputs(prog, cols, {}, mask[0],
+                                          with_filter=False)
+        fold = scan_agg_fold_batched_plain
+    else:
+        mask, keys, args = plain_fold_inputs(prog, cols, call[4], mask)
+        fold = scan_agg_fold_plain
+    mags = [(v.abs(), ok) if v.is_floating_point() else (v, ok)
+            for v, ok in args]
+    out = []
+    for op, r in zip(prog.ops, regs):
+        if op.kind != "sum" or not r.is_floating_point():
+            out.append(None)
+            continue
+        a = torch.zeros(r.shape, dtype=torch.float64, device=r.device)
+        fold([a], None, mask.contiguous(), keys, mags,
+             [FoldOp("sum", op.arg)], prog.n_groups)
+        out.append(a)
+    return out
+
+
+def compare_fold(name: str, call, kernel, plain, abs_sums=False) -> float:
     """Kernel vs plain on one input; -> max abs error of float sums.
 
     int64 registers, counts, min/max and NaN positions identical; a
     float64 sum within rel 1e-12 of the plain version's (atomics add in
-    another order).  ``abs_sums`` maps the index of a sum over signed
-    data to the index of the op that sums the magnitudes of the same
-    argument: near cancellation a bound relative to the sum itself is
-    wrong, so that sum is held to 1e-12 times the plain version's sum
-    of magnitudes of its group."""
+    another order).  With ``abs_sums`` (a case over signed float data),
+    each float sum is held instead to 1e-12 times the plain version's
+    sum of the magnitudes of its group's values (``fold_abs_sums``):
+    near cancellation a bound relative to the sum itself is wrong."""
     import torch
     kc, pc = clone_call(call), clone_call(call)
     kernel(*kc)
     plain(*pc)
     if fold_masks(call).is_cuda:
         torch.cuda.synchronize()
+    scales = fold_abs_sums(call) if abs_sums else None
     max_err = 0.0
-    abs_sums = abs_sums or {}
     for i, (op, k, p) in enumerate(zip(call[0].ops, kc[1], pc[1])):
         k, p = k.cpu().numpy(), p.cpu().numpy()
         if op.kind == "sum" and np.issubdtype(k.dtype, np.floating):
@@ -532,13 +631,12 @@ def compare_fold(name: str, call, kernel, plain, abs_sums=None) -> float:
                                   p[~fin & ~np.isnan(p)]):
                 raise AssertionError(f"{name}: op {i} infinities differ")
             err = np.abs(k[fin] - p[fin])
-            scale = np.abs(p) if i not in abs_sums \
-                else pc[1][abs_sums[i]].cpu().numpy()
+            scale = np.abs(p) if scales is None else scales[i].cpu().numpy()
             tol = 1e-12 * scale[fin]
             if (err > tol).any():
                 raise AssertionError(
                     f"{name}: op {i} float sum beyond 1e-12 x "
-                    f"{'its sum of magnitudes' if i in abs_sums else 'itself'}"
+                    f"{'its sum of magnitudes' if abs_sums else 'itself'}"
                     f": max err {err.max()}")
             if err.size:
                 max_err = max(max_err, float(err.max()))
@@ -630,8 +728,7 @@ def synthetic_global_case(device, n: int, G: int, seed: int, all_false: bool):
 def cancellation_case(device, n: int, G: int, seed: int):
     """A direct fold of signed float64 values whose group sums nearly
     cancel (each group's values drawn around 0 with magnitudes up to
-    1e9), beside the sum of their magnitudes.  -> (the arguments of
-    ``scan_agg_fold``, {index of sum(x): index of sum(|x|)})."""
+    1e9).  -> the arguments of ``scan_agg_fold``."""
     import torch
     from citus_tpu_torch import types as T
     from citus_tpu_torch.ops.scan_agg_fold import FoldOp
@@ -642,19 +739,18 @@ def cancellation_case(device, n: int, G: int, seed: int):
     sums = np.bincount(key, weights=x, minlength=G)
     counts = np.maximum(np.bincount(key, minlength=G), 1)
     x = x - (sums / counts)[key]
-    types = {"key": T.INT64_T, "x": T.FLOAT64_T, "ax": T.FLOAT64_T}
-    ops = [FoldOp("count_star"), FoldOp("sum", 0), FoldOp("sum", 1)]
+    types = {"key": T.INT64_T, "x": T.FLOAT64_T}
+    ops = [FoldOp("count_star"), FoldOp("sum", 0)]
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    cols = {"key": (t(key), None), "x": (t(x), None), "ax": (t(np.abs(x)), None)}
-    prog = column_program(None, ["key"], ["x", "ax"], ops, types, cols,
+    cols = {"key": (t(key), None), "x": (t(x), None)}
+    prog = column_program(None, ["key"], ["x"], ops, types, cols,
                           domains=[(0, 1, 1)], n_groups=G + 1)
     regs = [torch.zeros(G + 1, dtype=torch.int64, device=device),
-            torch.zeros(G + 1, dtype=torch.float64, device=device),
             torch.zeros(G + 1, dtype=torch.float64, device=device)]
     rows = torch.zeros(G + 1, dtype=torch.int64, device=device)
-    return (prog, regs, rows, cols, {}, t(np.ones(n, bool))), {1: 2}
+    return (prog, regs, rows, cols, {}, t(np.ones(n, bool)))
 
 
 SYN_DDL = """CREATE TABLE syn (k bigint NOT NULL, a bigint, b int,
@@ -788,7 +884,7 @@ def generated_programs(plans, splans, tmp: str) -> list:
     from citus_tpu_torch.ops.scan_agg_fold import FoldProgram
     progs = [plans["fold_calls"]["q6"][0], plans["fold_calls"]["q1"][0],
              synthetic_global_case("cpu", 16, 4, 1, False)[0],
-             cancellation_case("cpu", 16, 4, 1)[0][0],
+             cancellation_case("cpu", 16, 4, 1)[0],
              adversarial_sketch_call("cpu", 8192)[0],
              adversarial_hash_call("cpu", 16, 8, 1, False)[0],
              splans["s1_call"][0], *plans["hash_programs"].values()]
@@ -898,31 +994,51 @@ def hash_partial_ops(table, ops):
     return out
 
 
+def _host_rows(n: int, keys, args) -> tuple:
+    """Keys and arguments ((values, validity or None) tensors, [N] or a
+    broadcast [1]) as [N] numpy arrays."""
+    def host(t):
+        if t is None:
+            return np.ones(n, bool)
+        a = t.cpu().numpy()
+        return np.broadcast_to(a, (n,)) if a.shape[0] != n else a
+    return ([(host(kv), host(kvm)) for kv, kvm in keys],
+            [(host(v), host(valid)) for v, valid in args])
+
+
 def host_groups(table, spill, mask, keys, args, ops) -> dict:
     """The merged groups of one insert: the table's occupied slots and
     the spilled rows through HostGroupAccumulator (executor/host_agg.py),
     -> {canonical key bytes: partial values}."""
     from citus_tpu_torch.executor.host_agg import HostGroupAccumulator
     acc = HostGroupAccumulator(len(keys), hash_partial_ops(table, ops))
-    n = mask.shape[0]
-
-    def host(t):
-        if t is None:
-            return np.ones(n, bool)
-        a = t.cpu().numpy()
-        return np.broadcast_to(a, (n,)) if a.shape[0] != n else a
-    acc.add_batch(spill.cpu().numpy(),
-                  [(host(kv), host(kvm)) for kv, kvm in keys],
-                  [(host(v), host(valid)) for v, valid in args])
+    acc.add_batch(spill.cpu().numpy(), *_host_rows(mask.shape[0], keys,
+                                                   args))
     key_tables, partials, rows = table.to_host()
     acc.merge_partials(rows > 0, [(kv, kf == 2) for kv, kf in key_tables],
                        list(partials), rows)
     return {kb: tuple(acc._accs[gi]) for kb, gi in acc._groups.items()}
 
 
-def compare_groups(name: str, got: dict, want: dict, pops) -> float:
-    """Identical groups; int64 partials identical, float sums within rel
-    1e-12 (atomics add in another order), float min/max identical.
+def abs_groups(table, mask, keys, args, ops) -> dict:
+    """Per group of the masked rows, each partial op over the magnitudes
+    of its argument (HostGroupAccumulator): a float sum's entry is its
+    group's sum of magnitudes.  -> {canonical key bytes: values}."""
+    from citus_tpu_torch.executor.host_agg import HostGroupAccumulator
+    acc = HostGroupAccumulator(len(keys), hash_partial_ops(table, ops))
+    hkeys, hargs = _host_rows(mask.shape[0], keys, args)
+    acc.add_batch(mask.cpu().numpy(), hkeys,
+                  [(np.abs(v) if v.dtype.kind == "f" else v, ok)
+                   for v, ok in hargs])
+    return {kb: tuple(acc._accs[gi]) for kb, gi in acc._groups.items()}
+
+
+def compare_groups(name: str, got: dict, want: dict, pops,
+                   scale: dict = None) -> float:
+    """Identical groups; int64 partials identical, float min/max
+    identical, float sums within rel 1e-12 (atomics add in another
+    order) or, with ``scale`` (``abs_groups``: a case over signed float
+    data), within 1e-12 times their group's sum of magnitudes.
     -> max abs error of float sums."""
     if got.keys() != want.keys():
         raise AssertionError(
@@ -930,7 +1046,7 @@ def compare_groups(name: str, got: dict, want: dict, pops) -> float:
             f"{len(got.keys() ^ want.keys())} differ")
     max_err = 0.0
     for kb, w in want.items():
-        for op, a, b in zip(pops, got[kb], w):
+        for i, (op, a, b) in enumerate(zip(pops, got[kb], w)):
             a, b = np.asarray(a), np.asarray(b)
             if op.kind == "sum" and b.dtype.kind == "f":
                 if np.isnan(a) != np.isnan(b) or (
@@ -938,9 +1054,12 @@ def compare_groups(name: str, got: dict, want: dict, pops) -> float:
                     raise AssertionError(f"{name}: sum {a} vs {b}")
                 if np.isfinite(b):
                     err = abs(float(a) - float(b))
-                    if err > 1e-12 * abs(float(b)):
+                    tol = abs(float(b)) if scale is None \
+                        else float(scale[kb][i])
+                    if err > 1e-12 * tol:
                         raise AssertionError(
-                            f"{name}: float sum {a} vs {b} beyond rel 1e-12")
+                            f"{name}: float sum {a} vs {b} beyond 1e-12 x "
+                            f"{'itself' if scale is None else 'its sum of magnitudes'}")
                     max_err = max(max_err, err)
             elif not np.array_equal(a, b, equal_nan=b.dtype.kind == "f"):
                 raise AssertionError(f"{name}: {op.kind} {a} vs {b}")
@@ -977,22 +1096,20 @@ def check_table(name: str, table) -> None:
 
 
 def hash_bytes(call, occupied: int) -> int:
-    """Bytes one insert into a fresh table must move: the row mask (or
-    the Q masks) and each scan column the generated row reads, with its
-    validity, read once, the spill mask(s) written once, and each of the
-    ``occupied`` slots it fills read and written once (claim word, keys,
-    flags, partials, rows).  A row that spills only probes slots already
-    occupied, so no other slot needs to be touched."""
+    """Bytes one insert into a fresh table must move on this call's data:
+    the row mask (or the Q masks) read and the spill mask(s) written
+    once, the scan columns and validities as ``column_bytes`` charges
+    them, and each of the ``occupied`` slots it fills read and written
+    once (claim word, keys, flags, partials, rows).  A row that spills
+    only probes slots already occupied, so no other slot needs to be
+    touched."""
     prog, table, cols = call[:3]
     mask = call[-1]
-    seen, total = set(), mask.numel()
-    for t in [mask] + [t for c in prog.row.columns for t in cols[c]]:
-        if t is not None and t.data_ptr() not in seen:
-            seen.add(t.data_ptr())
-            total += t.numel() * t.element_size()
     slot = sum(t.element_size() for t in table.key_values + table.key_flags
                + table.partials + [table.rows, table.state])
-    return total + 2 * occupied * slot
+    return (2 * mask.numel() + column_bytes(prog, cols, call_params(call),
+                                            mask)
+            + 2 * occupied * slot)
 
 
 def main_path_hash_call(cl, device):
@@ -1078,10 +1195,12 @@ def adversarial_hash_call(device, n: int, S: int, seed: int,
     return prog, table, cols, {}, t(mask)
 
 
-def compare_hash(name: str, call, kernel, plain) -> float:
+def compare_hash(name: str, call, kernel, plain, abs_sums=False) -> float:
     """Kernel vs plain (``hash_agg_insert``'s arguments) on fresh copies
-    of one insert's table; -> max abs error of float sums in the merged
-    groups."""
+    of one insert's table: the invariants of each side, then the merged
+    groups of table and spill (``compare_groups``; with ``abs_sums``, the
+    float sums held to their groups' sums of magnitudes).  -> max abs
+    error of float sums in the merged groups."""
     import torch
     from citus_tpu_torch.ops.hash_agg_insert import plain_insert_inputs
     prog, table, cols, params, row_mask = call
@@ -1094,9 +1213,43 @@ def compare_hash(name: str, call, kernel, plain) -> float:
     check_hash_invariants(f"{name} kernel", kt, ks, mask)
     check_hash_invariants(f"{name} plain", pt, ps, mask)
     pops = hash_partial_ops(table, prog.ops)
+    scale = abs_groups(table, mask, keys, args, prog.ops) if abs_sums \
+        else None
     return compare_groups(
         name, host_groups(kt, ks, mask, keys, args, prog.ops),
-        host_groups(pt, ps, mask, keys, args, prog.ops), pops)
+        host_groups(pt, ps, mask, keys, args, prog.ops), pops, scale)
+
+
+def compare_hash_batched(name: str, call, kernel, plain, abs_sums=False):
+    """Kernel vs plain (``hash_agg_insert_batched``'s arguments) on fresh
+    copies of the Q tables, query by query as ``compare_hash`` holds one
+    insert.  -> (max abs error of float sums, the kernel's tables, its
+    [Q, N] spill masks)."""
+    import torch
+    from citus_tpu_torch.ops.hash_agg_insert import plain_insert_inputs
+    prog, table, cols, masks = call
+    _, keys, args = plain_insert_inputs(prog, cols, {}, masks[0],
+                                        with_filter=False)
+    kt, pt = clone_table(table), clone_table(table)
+    ks = kernel(prog, kt, cols, masks)
+    ps = plain(prog, pt, cols, masks)
+    if masks.is_cuda:
+        torch.cuda.synchronize()
+    pops = hash_partial_ops(table, prog.ops)
+    max_err = 0.0
+    for qi in range(masks.shape[0]):
+        for what, t, sp in (("kernel", kt, ks), ("plain", pt, ps)):
+            check_hash_invariants(f"{name} q{qi} {what}", t.query(qi),
+                                  sp[qi], masks[qi])
+        scale = abs_groups(table.query(qi), masks[qi], keys, args,
+                           prog.ops) if abs_sums else None
+        max_err = max(max_err, compare_groups(
+            f"{name} q{qi}",
+            host_groups(kt.query(qi), ks[qi], masks[qi], keys, args,
+                        prog.ops),
+            host_groups(pt.query(qi), ps[qi], masks[qi], keys, args,
+                        prog.ops), pops, scale))
+    return max_err, kt, ks
 
 
 def time_cuda_fresh(fn, reset, reps: int = 10) -> float:
@@ -1611,27 +1764,27 @@ def run_checked(cl, qname: str, sql: str, want: list, n_rows: int,
              f"{cuda_build.BUILDS['count'] - builds0['count']} "
              f"({cuda_build.BUILDS['seconds'] - builds0['seconds']:.3f} s)")
     if run_kind == "warm" and kernel != "filter_mask":
-        # the profiler has been seen to drop a run's kernel records (the
-        # copies recorded, no kernel at all): such a run is tried again
+        # a run whose kernel records the profiler dropped (copies recorded,
+        # no kernel) measured nothing: it is run again, and the phase
+        # fails when no run of three measured the count
         for _ in range(3):
             seen = device_kernels(cl, sql)
             if seen is not None and seen[0] + seen[1] > 0:
                 break
         if seen is None or seen[0] + seen[1] == 0:
-            extra += (", device kernels per query: not measured (the "
-                      "profiler recorded no kernel in 3 runs; the last "
-                      f"launched {seen[4] if seen else '?'} kernels of the "
-                      f"port and recorded {seen[2] if seen else 0} copies)")
-        else:
-            port, other, copies, names, _ = seen
-            if port != batches or other:
-                raise AssertionError(
-                    f"{qname} warm: the profiler saw {port} kernels of the "
-                    f"port for {batches} batches and {other} others "
-                    f"{names}")
-            extra += (f", device kernels per query (torch.profiler): "
-                      f"{port} of the port ({port / batches:g} a batch), "
-                      f"{other} other, {copies} copies and sets")
+            raise AssertionError(
+                f"{qname} warm: torch.profiler recorded no kernel in 3 runs "
+                f"(the last launched {seen[4] if seen else '?'} kernels of "
+                f"the port and recorded {seen[2] if seen else 0} copies): "
+                f"the device kernels per batch are not measured")
+        port, other, copies, names, _ = seen
+        if port != batches or other:
+            raise AssertionError(
+                f"{qname} warm: the profiler saw {port} kernels of the "
+                f"port for {batches} batches and {other} others {names}")
+        extra += (f", device kernels per query (torch.profiler): "
+                  f"{port} of the port ({port / batches:g} a batch), "
+                  f"{other} other, {copies} copies and sets")
     if kernel == "hash_agg_insert":
         extra += (f", hash_slots {pipe['hash_slots']}, hash_occupancy_pct "
                  f"{pipe['hash_occupancy_pct']}, hash_spilled_rows "
@@ -1656,15 +1809,14 @@ def phase3_fold(device, plans, rows: list) -> None:
     import torch
     from citus_tpu_torch.ops.scan_agg_fold import fold_plain, scan_agg_fold
     calls = plans["fold_calls"]
-    cases = [("q6 scalar G=1", calls["q6"], None),
-             ("q1 direct G=12", calls["q1"], None)]
+    cases = [("q6 scalar G=1", calls["q6"], False),
+             ("q1 direct G=12", calls["q1"], False)]
     for all_false in (False, True):
         cases.append((f"direct G=65536{' all-false mask' if all_false else ''}",
                       synthetic_global_case(device, FOLD_N + 3, 65536, 21,
-                                            all_false), None))
-    cancel, abs_sums = cancellation_case(device, FOLD_N + 3, 4096, 27)
-    cases.append(("signed float64 sums near cancellation, G=4097", cancel,
-                  abs_sums))
+                                            all_false), False))
+    cases.append(("signed float64 sums near cancellation, G=4097",
+                  cancellation_case(device, FOLD_N + 3, 4096, 27), True))
     max_err, main, q6 = 0.0, None, None
     for name, call, abs_of in cases:
         err = compare_fold(name, call, scan_agg_fold, fold_plain, abs_of)
@@ -1693,8 +1845,9 @@ def phase3_fold(device, plans, rows: list) -> None:
             f"regime={regime} agrees (max abs err of float sums "
             f"{err!r}{'; sums held to 1e-12 x their sum of magnitudes' if abs_of else ''}); "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s: scan columns, "
-            f"validity and row mask once, registers), library yardstick "
+            f"{bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s: row mask, the "
+            f"sectors of the scan columns and validity the rows read, "
+            f"registers), library yardstick "
             f"(one int64 index_add_, one op) {lib_ms:.4f} ms")
     say(f"phase 3 scan_agg_fold: Q1 {main['ms']:.4f} ms (bound "
         f"{main['bound_ms']:.4f}), Q6 {q6['ms']:.4f} ms (bound "
@@ -1759,8 +1912,8 @@ def phase3_hash(device, cl, rows: list) -> None:
             f"{placed}, spilled {int(spill.sum())}, occupied "
             f"{occupied} slots; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at "
-            f"3.35 TB/s: scan columns, validity and row mask once, the "
-            f"spill mask, each occupied slot "
+            f"3.35 TB/s: row mask, the sectors of the scan columns and "
+            f"validity the rows read, the spill mask, each occupied slot "
             f"read and written once); slot traffic {placed * sectors * 32} B in 32-byte "
             f"sectors ({sectors} a placed row); library yardstick (one int64 "
             f"index_add_ into S slots, one op) {lib_ms:.4f} ms")
@@ -2041,7 +2194,8 @@ def phase3_batched_fold(device, plans, rows: list) -> None:
             f"G={G} ops={len(call[0].ops)} regime={regime} agrees (max abs "
             f"err of float sums {err!r}); kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at "
-            f"3.35 TB/s: the row's scan columns once, Q x N masks, "
+            f"3.35 TB/s: Q x N masks, the sectors of the key and "
+            f"argument columns holding a row some query passes, "
             f"registers), "
             f"library yardstick (one int64 index_add_ into Q x G slots, one "
             f"op) {lib_ms:.4f} ms")
@@ -2096,43 +2250,29 @@ def phase3_batched_hash(device, cl, rows: list) -> None:
     Appends its JSON row."""
     import torch
     from citus_tpu_torch.ops.hash_agg_insert import (
-        hash_agg_insert_batched, insert_batched_plain, plain_insert_inputs,
+        hash_agg_insert_batched, insert_batched_plain,
     )
     from citus_tpu_torch.ops.hash_agg import HashTable
     call, n_real = batched_hash_call(cl, device)
     prog, table, cols, masks = call
-    ops = prog.ops
-    _, keys, args = plain_insert_inputs(prog, cols, {}, masks[0],
-                                        with_filter=False)
-    q = masks.shape[0]
+    ops, n_keys, q = prog.ops, len(prog.exprs.keys), masks.shape[0]
     # and the same inputs into Q tables of 1,000 slots: most rows spill
     small = HashTable([v[:, :1000].contiguous() for v in table.key_values],
                       [f[:, :1000].contiguous() for f in table.key_flags],
                       [p[:, :1000].contiguous() for p in table.partials],
                       table.rows[:, :1000].contiguous(),
                       table.state[:, :1000].contiguous())
-    pops = hash_partial_ops(table, ops)
     max_err = 0.0
     for case, tab in (("S=2^20", table), ("S=1000", small)):
-        kt, pt = clone_table(tab), clone_table(tab)
-        ks = hash_agg_insert_batched(prog, kt, cols, masks)
-        ps = insert_batched_plain(prog, pt, cols, masks)
-        torch.cuda.synchronize()
-        for qi in range(q):
-            for what, t, sp in (("kernel", kt, ks), ("plain", pt, ps)):
-                check_hash_invariants(f"H family {case} q{qi} {what}",
-                                      t.query(qi), sp[qi], masks[qi])
-            max_err = max(max_err, compare_groups(
-                f"H family {case} q{qi}",
-                host_groups(kt.query(qi), ks[qi], masks[qi], keys, args,
-                            ops),
-                host_groups(pt.query(qi), ps[qi], masks[qi], keys, args,
-                            ops), pops))
+        err, kt, ks = compare_hash_batched(
+            f"H family {case}", (prog, tab, cols, masks),
+            hash_agg_insert_batched, insert_batched_plain)
+        max_err = max(max_err, err)
         say(f"phase 3 hash_agg_insert_batched [H family, {case}]: per query "
             f"placed {kt.rows.sum(dim=1).tolist()}, spilled "
             f"{ks.sum(dim=1).tolist()}, masked "
             f"{masks.sum(dim=1).tolist()}: agrees with the plain version")
-        del kt, pt
+        del kt
     work = clone_table(table)
     ms = time_cuda_fresh(
         lambda: hash_agg_insert_batched(prog, work, cols, masks),
@@ -2152,12 +2292,13 @@ def phase3_batched_hash(device, cl, rows: list) -> None:
     val = torch.randint(0, 1000, (n,), device=device)
     lib_ms = time_cuda(lambda: acc.index_add_(0, slot, val))
     say(f"phase 3 hash_agg_insert_batched [H family, one SF1 shard batch "
-        f"({n_real} rows)]: Q={q} N={n} S={S} keys={len(keys)} "
+        f"({n_real} rows)]: Q={q} N={n} S={S} keys={n_keys} "
         f"ops={len(ops)} agrees per query (merged groups of table and "
         f"spill; max abs err of float sums {max_err!r}); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s: the row's "
-        f"scan columns once, Q masks and Q spill masks, each of the "
+        f"bound {bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s: Q masks and "
+        f"Q spill masks, the sectors of the key and argument columns "
+        f"holding a row some query passes, each of the "
         f"{occupied} occupied slots of the Q tables read and written "
         f"once), kernel at {ms / bound_ms:.1f}x its bound, library yardstick (one int64 index_add_ into Q x S "
         f"slots, one op) {lib_ms:.4f} ms")
@@ -2396,21 +2537,12 @@ def adversarial_sketch_call(device, n: int, q=None, all_false=False):
 
 
 def sketch_fold_ops(call) -> int:
-    """Operations of a sketch fold on this call's data: one to read each
-    mask entry and one per bound node of its expressions for each row,
-    and per (query, row) that passes a few for a count or sum and ~40 for
-    a sketch (splitmix64, the leading-zero count or a float64 log, the
+    """Operations of a sketch fold on this call's data (``fold_ops``),
+    with a few per (query, row) folded for a count or sum and ~40 for a
+    sketch (splitmix64, the leading-zero count or a float64 log, the
     bucket and its atomic)."""
     from citus_tpu_torch.ops.scan_agg_fold import SKETCH_M
-    from citus_tpu_torch.planner.bound import walk
-    prog, masks = call[0], fold_masks(call)
-    if masks.dim() == 1:  # one query: the rows its WHERE passes
-        masks = prog.plain_eval(call[3], call[4], masks)[0]
-    e = prog.exprs
-    nodes = sum(1 for x in (e.filter, *e.keys, *e.args) if x is not None
-                for _ in walk(x))
-    per_row = sum(40 if op.kind in SKETCH_M else 2 for op in prog.ops)
-    return masks.numel() * (1 + nodes) + int(masks.sum()) * per_row
+    return fold_ops(call, lambda op: 40 if op.kind in SKETCH_M else 2)
 
 
 def phase3_sketch_folds(device, splans, rows: list) -> None:
@@ -2481,7 +2613,9 @@ def phase3_sketch_folds(device, splans, rows: list) -> None:
                         if op.kind == "ddsk")
             flat = torch.zeros(ddsk.numel(), dtype=torch.int64,
                                device=device)
-            hits = int(mask.sum())
+            folded = mask if batched else \
+                read_rows(call[0], call[3], call[4], mask)[1]
+            hits = int(folded.sum())
             idx = torch.randint(0, flat.numel(), (hits,), device=device)
             ones = torch.ones(hits, dtype=torch.int64, device=device)
             lib_ms = time_cuda(lambda: flat.index_add_(0, idx, ones))
@@ -3481,7 +3615,10 @@ def run(args) -> dict:
     from citus_tpu_torch import errors as ctt_errors
     from citus_tpu_torch.executor.device_cache import GLOBAL_CACHE
     from citus_tpu_torch.ops import cuda_build
-    from citus_tpu_torch.ops.scan_agg_fold import scan_agg_fold
+    from citus_tpu_torch.ops.hash_agg_insert import INSERT_BUILD
+    from citus_tpu_torch.ops.scan_agg_fold import (
+        FOLD_BUILD, fold_library, scan_agg_fold,
+    )
 
     # ---- phase 1: card and versions
     card = card_line()
@@ -3522,8 +3659,9 @@ def run(args) -> dict:
         q1_fold = plans["fold_calls"]["q1"][0]
         folds = [p for p in generated_programs(plans, splans, tmp)
                  if p.row.source != q1_fold.row.source]
-        fold_sources = list(dict.fromkeys((p.build_name, p.row.source)
-                                          for p in folds))
+        fold_sources = list(dict.fromkeys(
+            (INSERT_BUILD if p.hashed else FOLD_BUILD, p.row.source)
+            for p in folds))
         jobs += [cuda_build.start_generated(name, src)
                  for name, src in fold_sources]
         cuda_build.build_all(kernels)
@@ -3542,13 +3680,13 @@ def run(args) -> dict:
         say(f"phase 2 cold nvcc build of one generated predicate (the "
             f"synthetic one) alone: {time.perf_counter() - t0:.3f} s")
         t0 = time.perf_counter()
-        q1_fold.library()
+        fold_library(q1_fold)
         say(f"phase 2 cold nvcc build of one generated fold (Q1's: "
             f"{len(q1_fold.row.columns)} columns, {len(q1_fold.exprs.args)} "
             f"arguments, {len(q1_fold.ops)} ops; the one-query and the "
             f"batched kernel) alone: {time.perf_counter() - t0:.3f} s")
         for line in cuda_build.build_log(
-                q1_fold.build_name, q1_fold.row.source).splitlines():
+                FOLD_BUILD, q1_fold.row.source).splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 say(f"phase 2 ptxas Q1 fold: {line.strip()}")
 

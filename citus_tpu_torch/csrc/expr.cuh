@@ -81,18 +81,6 @@ FM_HD float fm_f32(uint32_t bits) {
 
 FM_HD bool fm_valid(const uint8_t* v, int64_t i) { return v == nullptr || v[i] != 0; }
 
-// a hash key's canonical float value (the reference's _canon_keys):
-// -0.0 -> 0.0, every NaN -> the canonical quiet NaN, NULL -> 0
-FM_HD double fm_canon_f64(double v, bool valid) {
-    if (!valid || v == 0.0) return 0.0;
-    return v != v ? fm_f64(0x7ff8000000000000ull) : v;
-}
-
-FM_HD float fm_canon_f32(float v, bool valid) {
-    if (!valid || v == 0.0f) return 0.0f;
-    return v != v ? fm_f32(0x7fc00000u) : v;
-}
-
 // wrapping int32 / int64 arithmetic
 FM_HD int32_t fm_add32(int32_t a, int32_t b) { return (int32_t)((uint32_t)a + (uint32_t)b); }
 FM_HD int32_t fm_sub32(int32_t a, int32_t b) { return (int32_t)((uint32_t)a - (uint32_t)b); }

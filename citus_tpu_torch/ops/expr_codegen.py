@@ -20,9 +20,10 @@ into the row source of the fold (``csrc/fold.cuh``) or hash-insert
 and each key's and argument's (value, valid), evaluated in registers
 with the same semantics, then the fold or insert instantiated over it.
 A direct-mode key is its value as int64 (``astype(np.int64)`` of the
-reference's group id); a hash key is cast to its key dtype and made
-canonical (-0.0 -> 0.0, one quiet NaN, NULL -> 0), as the reference's
-``_eval_keys`` and ``_canon_keys`` do.  Outside ``__CUDACC__`` the
+reference's group id); a hash key is cast to its key dtype, as the
+reference's ``_eval_keys`` casts it, and the insert's ``key_bits``
+(``csrc/hash_probe.cuh``) makes it canonical (-0.0 -> 0.0, one quiet
+NaN, NULL -> 0) as ``_canon_keys`` does.  Outside ``__CUDACC__`` the
 source instead has a host C entry, ``fold_row_host``, that writes those
 outputs for ``n`` rows: the tests compile it with g++ and hold it
 against the reference.
@@ -715,13 +716,16 @@ class FoldExprs:
     args: tuple
 
 
-def fold_exprs(plan) -> FoldExprs:
-    """A physical plan's ``FoldExprs``: argument slot j is the j-th
+def fold_exprs(plan) -> tuple:
+    """-> (a physical plan's ``FoldExprs``, each partial op's argument
+    slot, -1 for one that reads none): argument slot j is the j-th
     smallest ``agg_args`` index a partial op reads."""
     used = sorted({op.arg_index for op in plan.partial_ops
                    if op.arg_index >= 0})
-    return FoldExprs(plan.bound.filter, tuple(plan.bound.group_keys),
-                     tuple(plan.agg_args[i] for i in used))
+    slot = {ai: j for j, ai in enumerate(used)}
+    return (FoldExprs(plan.bound.filter, tuple(plan.bound.group_keys),
+                      tuple(plan.agg_args[i] for i in used)),
+            [slot.get(op.arg_index, -1) for op in plan.partial_ops])
 
 
 @dataclass(frozen=True)
@@ -758,7 +762,7 @@ def generate_fold_row(plan, col_dtypes: dict, param_dtypes: dict,
     the row source ``FoldRow`` and includes the kernels; otherwise it
     defines ``fold_row_host``.  Literal keys, arguments and validities
     are constants of the source."""
-    e = plan if isinstance(plan, FoldExprs) else fold_exprs(plan)
+    e = plan if isinstance(plan, FoldExprs) else fold_exprs(plan)[0]
     hashed = key_dtypes is not None
     if hashed and len(key_dtypes) != len(e.keys):
         raise ValueError("one key dtype per group key")
@@ -774,11 +778,6 @@ def generate_fold_row(plan, col_dtypes: dict, param_dtypes: dict,
         v, k, dt = g.gen(ke)
         kdt = _dtype(key_dtypes[j]) if hashed else _I64
         val = cast(v, dt, kdt)
-        if hashed:
-            if kdt.kind == "f":
-                val = f"fm_canon_f{kdt.itemsize * 8}({val}, {k})"
-            elif k != "true":
-                val = f"({k} ? {val} : {_bits_literal(0, kdt)})"
         fields.append(f"    {_C_TYPES[kdt]} k{j};\n    bool kv{j};\n")
         outs.append(f"    o.k{j} = {val};\n    o.kv{j} = {k};\n")
         key_dts.append(kdt)

@@ -230,6 +230,16 @@ def _bind_library(lib):
     return lib
 
 
+#: the build name of a generated insert's source (not a ``csrc`` name:
+#: the source includes ``csrc/hash_agg_insert.cu``)
+INSERT_BUILD = "generated_insert"
+
+
+def insert_library(prog: FoldProgram):
+    """The generated insert library of ``prog``, built at first use."""
+    return prog.library(INSERT_BUILD, _bind_library)
+
+
 def _check_table_vector(t, what: str, shape: tuple, dtypes, dev) -> None:
     if t.device != dev or t.dtype not in dtypes or t.shape != shape \
             or not t.is_contiguous():
@@ -320,7 +330,7 @@ def _block(prog: FoldProgram, table, mask, spill, n_q=None) -> _Params:
 
 
 def _launch(prog, table, cols, params, row_mask) -> torch.Tensor:
-    lib = prog.library()
+    lib = insert_library(prog)
     dev = row_mask.device
     spill = torch.empty(row_mask.shape[-1], dtype=torch.bool, device=dev)
     p = _block(prog, table, row_mask, spill)
@@ -385,7 +395,7 @@ def _launch_batched(prog, table, cols, masks) -> torch.Tensor:
     if n_q <= 0:
         raise ValueError("hash_agg_insert_batched: masks must be [Q, N], "
                          "Q > 0")
-    lib = prog.library()
+    lib = insert_library(prog)
     dev = masks.device
     spill = torch.empty(masks.shape, dtype=torch.bool, device=dev)
     p = _block(prog, table, masks, spill, n_q)

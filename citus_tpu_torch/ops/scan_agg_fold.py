@@ -219,13 +219,9 @@ class FoldProgram:
                 ) -> "FoldProgram":
         """The program of a physical plan: its fold (scalar and direct
         modes) or, with ``key_dtypes``, its hash insert."""
-        exprs = fold_exprs(plan)
-        used = sorted({op.arg_index for op in plan.partial_ops
-                       if op.arg_index >= 0})
-        slot = {ai: j for j, ai in enumerate(used)}
-        ops = [FoldOp("count_star") if op.arg_index < 0
-               else FoldOp(op.kind, slot[op.arg_index])
-               for op in plan.partial_ops]
+        exprs, slots = fold_exprs(plan)
+        ops = [FoldOp("count_star") if j < 0 else FoldOp(op.kind, j)
+               for op, j in zip(plan.partial_ops, slots)]
         schema = plan.bound.table.schema
         col_dtypes = {c: schema.scan_dtype(c, device=True)
                       for c in plan.scan_columns}
@@ -260,27 +256,15 @@ class FoldProgram:
                                           self.param_dtypes, self.key_dtypes)
         return self._row
 
-    def library(self):
-        """The loaded library of the generated source, built at first
-        use (``cuda_build.load_generated``)."""
+    def library(self, name: str, bind):
+        """The loaded library of the generated source, built at first use
+        as ``name`` (``cuda_build.load_generated``) and declared by
+        ``bind``: the fold's and the insert's wrappers pass their own
+        (``fold_library``, ``hash_agg_insert.insert_library``)."""
         if self._lib is None:
             from citus_tpu_torch.ops.cuda_build import load_generated
-            if self.hashed:
-                from citus_tpu_torch.ops.hash_agg_insert import (
-                    _bind_library as bind_library,
-                )
-            else:
-                bind_library = _bind_fold_library
-            self._lib = bind_library(load_generated(self.build_name,
-                                                    self.row.source))
+            self._lib = bind(load_generated(name, self.row.source))
         return self._lib
-
-    @property
-    def build_name(self) -> str:
-        """The generated source's file and library name (not a
-        ``csrc`` name: the source includes ``csrc/scan_agg_fold.cu`` or
-        ``csrc/hash_agg_insert.cu``)."""
-        return "generated_insert" if self.hashed else "generated_fold"
 
     def tables(self, device) -> list:
         key = str(device)
@@ -417,6 +401,16 @@ def _bind_fold_library(lib):
     return lib
 
 
+#: the build name of a generated fold's source (not a ``csrc`` name: the
+#: source includes ``csrc/scan_agg_fold.cu``)
+FOLD_BUILD = "generated_fold"
+
+
+def fold_library(prog: FoldProgram):
+    """The generated fold library of ``prog``, built at first use."""
+    return prog.library(FOLD_BUILD, _bind_fold_library)
+
+
 def row_block(prog: FoldProgram, cols: dict, params: Optional[dict], n: int,
               dev):
     """The generated row's parameter block (``FmParams``) over one
@@ -521,7 +515,7 @@ def _block(prog: FoldProgram, acc, rows, mask, n_q=None) -> _Params:
 
 
 def _launch(prog, acc, rows, cols, params, row_mask) -> int:
-    lib = prog.library()
+    lib = fold_library(prog)
     dev = row_mask.device
     p = _block(prog, acc, rows, row_mask)
     r = row_block(prog, cols, params, row_mask.shape[0], dev)
@@ -584,7 +578,7 @@ def _launch_batched(prog, acc, rows, cols, masks) -> int:
     n_q = masks.shape[0] if masks.dim() == 2 else 0
     if n_q <= 0:
         raise ValueError("scan_agg_fold_batched: masks must be [Q, N], Q > 0")
-    lib = prog.library()
+    lib = fold_library(prog)
     dev = masks.device
     p = _block(prog, acc, rows, masks, n_q)
     r = row_block(prog, cols, None, masks.shape[1], dev)

@@ -9,7 +9,9 @@
   numpy-seeded columns with nulls, NaN, +-inf, +-0.0, zero divisors,
   INT64_MIN/MAX and float-to-int overflow.  Direct-mode keys are the
   reference's ``astype(int64)``, hash keys its ``_eval_keys`` (cast to
-  the key dtype, canonical).  Pass bits, validity and key values must be
+  the key dtype, canonical; the generated key is the cast, made
+  canonical by the insert's ``key_bits``, which ``_canonical`` mirrors
+  here).  Pass bits, validity and key values must be
   identical, and argument values where valid.  The exceptions are the
   float operations XLA's jit rewrites.  The generated code rounds every
   operation on its own, as numpy, JAX without jit and the port's torch
@@ -31,9 +33,8 @@
   an insert (test_torch_slice, _hash_agg, _megabatch, _sketch, _net) is
   accepted by the generator and its source compiles with g++: no query
   the card answered before the generator starts to raise.
-- The ``cuda`` tests hold the generated serial and batched fold and
-  insert kernels against their plain versions; they need a card and
-  skip here.
+- The generated kernels themselves are held against their plain
+  versions on the card by test_torch_fold_card.py, which imports no JAX.
 """
 
 import ctypes
@@ -64,75 +65,25 @@ from citus_tpu.planner.bound import predicate_mask as ref_predicate_mask
 from citus_tpu.planner.physical import plan_select as ref_plan_select
 from citus_tpu_torch.errors import UnsupportedFeatureError
 from citus_tpu_torch.executor.executor import (
-    _hash_key_dtypes, _param_dtypes, _params_env, encode_params,
+    _hash_key_dtypes, _param_dtypes, _params_env,
 )
 from citus_tpu_torch.ops import cuda_build
 from citus_tpu_torch.ops import scan_agg_fold as saf
 from citus_tpu_torch.ops.expr_codegen import generate_fold_row
 from citus_tpu_torch.ops.filter_mask import _FmParams, _param_bits
-from citus_tpu_torch.ops.hash_agg import empty_hash_state
 from citus_tpu_torch.ops.hash_agg_insert import (
-    hash_agg_insert, hash_agg_insert_batched, insert_batched_plain,
-    insert_plain,
+    insert_batched_plain, insert_plain,
 )
-from citus_tpu_torch.ops.scan_agg import empty_device_partials
-from citus_tpu_torch.planner import parse_sql
-from citus_tpu_torch.planner.auto_param import auto_parameterize
-from citus_tpu_torch.planner.bind import bind_select
 from citus_tpu_torch.planner.bound import (
     BBinOp, BCast, BLiteral, BMathFunc, BScale, walk,
 )
-from citus_tpu_torch.planner.physical import plan_select
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
-from test_torch_projection import _predicate_table  # noqa: E402
+from torch_fold_cases import (  # noqa: E402
+    N, PLANS, columns as _columns, load_data, port_plan, row_mask as _row_mask,
+)
 
-N = 3000
-I64 = np.iinfo(np.int64)
-
-#: synthetic plans over test_torch_projection's predicate table: keys and
-#: arguments over every node kind of C1's predicate (EXTRACT, date_trunc,
-#: + interval, CASE and abs/coalesce/nullif, upper/length/strpos, the
-#: transcendentals, rounding, sign, greatest/least, casts both ways)
-SYN_HASH = (
-    "SELECT extract(year FROM d2), date_trunc('month', d2), upper(txt), "
-    "CASE WHEN a > 0 THEN s ELSE -s END, CAST(s AS bigint), a % b, "
-    "count(*), sum(a / b), sum(s * u + s), min(abs(s)), max(sqrt(u)), "
-    "sum(CAST(p AS double)), sum(round(p, 1)), min(greatest(a, b, 3)), "
-    "max(length(txt)), sum(extract(epoch FROM ts)), max(power(u, b)), "
-    "sum(coalesce(b, a)), count(nullif(a, 5)), sum(ln(u)), min(exp(s)), "
-    "max(sign(p)), sum(floor(s)), min(trunc(p, 1)), sum(strpos(txt, 'y')), "
-    "max(CASE WHEN s > 0 THEN 1 WHEN s IS NULL THEN 2 ELSE 3 END), "
-    "sum(CAST(u AS decimal(12,2))), min(least(s, u)), max(f), "
-    "sum(extract(dow FROM d2 + interval '1 month')), "
-    "max(extract(hour FROM date_trunc('hour', ts))), "
-    "sum(CAST(f AS bigint)), min(log10(u)), max(ceil(p)), "
-    "sum(extract(doy FROM date_trunc('quarter', d2))) "
-    "FROM t WHERE a > -40 OR s IS NULL GROUP BY extract(year FROM d2), "
-    "date_trunc('month', d2), upper(txt), "
-    "CASE WHEN a > 0 THEN s ELSE -s END, CAST(s AS bigint), a % b")
-SYN_DIRECT = (
-    "SELECT b, flag, count(*), count(s), sum(a * 2 - b), min(s), max(f), "
-    "sum(CAST(a AS double) / 3), sum(p * 2), min(d), max(d2), "
-    "sum(CASE WHEN flag THEN a ELSE -a END) "
-    "FROM t WHERE NOT (f < 0.25) OR a % b = 1 GROUP BY b, flag")
-SYN_SCALAR = (
-    "SELECT count(*), sum(round(s, 2)), min(-a), max(a), sum(1), "
-    "sum(CAST(p AS double) * u), count(txt) FROM t WHERE s <> s OR u > 0")
-
-#: name -> (data set, SELECT, direct_gid_limit or None)
-PLANS = {
-    "q1": ("lineitem", cs.Q1, None),
-    "q6": ("lineitem", cs.Q6, None),
-    "h1": ("lineitem", cs.H1, 100),
-    "h2": ("lineitem", cs.H2, 100),
-    "bench_hash": ("lineitem", cs.BENCH_HASH, 100),
-    "s1": ("sketch", cs.S1, None),
-    "syn_hash": ("t", SYN_HASH, None),
-    "syn_direct": ("t", SYN_DIRECT, None),
-    "syn_scalar": ("t", SYN_SCALAR, None),
-}
 #: chip_smoke.py phase 5's families whose variants share one source
 FAMILIES = {"Q1": ("lineitem", None), "Q6": ("lineitem", None),
             "H": ("lineitem", 100)}
@@ -156,20 +107,7 @@ def catalogs(tmp_path_factory):
     for name in ("lineitem", "sketch", "t"):
         d = str(tmp_path_factory.mktemp(name))
         ref = ct.Cluster(d)
-        if name == "lineitem":
-            ref.execute(cs.LINEITEM_DDL)
-            ref.execute("SELECT create_distributed_table('lineitem', "
-                        "'l_orderkey', 4)")
-            ref.copy_from("lineitem", columns=cs.copy_columns(
-                next(cs.lineitem_chunks(4000))))
-        elif name == "sketch":
-            ref.execute(cs.S_DDL)
-            ref.execute("SELECT create_distributed_table('lineitem', "
-                        "'l_suppkey', 4)")
-            ref.copy_from("lineitem", columns=cs.sketch_copy_columns(
-                next(cs.sketch_chunks(4000, 3, 4000))))
-        else:
-            _predicate_table(ref)
+        load_data(name, ref)
         out[name] = (ref, ctt.Cluster(d, device="cpu"))
     yield out
     for ref, port in out.values():
@@ -179,64 +117,15 @@ def catalogs(tmp_path_factory):
 
 def _plan(ref_side: bool, cat, sql: str, direct_limit):
     """-> (plan, encoded parameters) as Cluster.execute plans ``sql``."""
-    parse, bind, auto, plan_fn, encode = (
-        (ref_parse, ref_bind, ref_auto_param, ref_plan_select, ref_encode)
-        if ref_side else
-        (parse_sql, bind_select, auto_parameterize, plan_select,
-         encode_params))
-    bound = bind(cat, parse(sql)[0])
+    if not ref_side:
+        return port_plan(cat, sql, direct_limit)
+    bound = ref_bind(cat, ref_parse(sql)[0])
     values = None
-    ap = auto(bound)
+    ap = ref_auto_param(bound)
     if ap is not None:
         bound, values = ap
-    plan = plan_fn(cat, bound, direct_limit=direct_limit or 65536)
-    return plan, encode(cat, bound, values)
-
-
-def _columns(plan, seed: int):
-    """numpy columns of the plan's scan in their device dtypes: nulls,
-    NaN, +-inf, +-0.0, zero divisors, INT64_MIN/MAX, floats past the
-    int64 range; -> (cols, valids) by name."""
-    rng = np.random.default_rng(seed)
-    schema = plan.bound.table.schema
-    cols, valids = {}, {}
-    for c in plan.scan_columns:
-        dt = np.dtype(schema.scan_dtype(c, device=True))
-        if dt.kind == "f":
-            v = rng.normal(0, 3, N) * 10.0 ** rng.integers(-2, 4, N)
-            v[rng.integers(0, N, 40)] = np.nan
-            v[rng.integers(0, N, 20)] = np.inf
-            v[rng.integers(0, N, 20)] = -np.inf
-            v[rng.integers(0, N, 20)] = -0.0
-            v[rng.integers(0, N, 20)] = 0.0
-            v[rng.integers(0, N, 10)] = 3e19      # past int64
-            v[rng.integers(0, N, 10)] = -3e19
-            v = v.astype(dt)
-        elif dt == np.int32:
-            # dates, dictionary ids, ints: small ranges, dates around 1970
-            v = rng.integers(-4000, 20000, N).astype(np.int32)
-            if c in ("txt", "l_returnflag", "l_linestatus"):
-                v = rng.integers(0, 4, N).astype(np.int32)
-            elif c in ("b",):
-                v = rng.integers(-3, 4, N).astype(np.int32)
-        elif dt == np.bool_:
-            v = rng.integers(0, 2, N).astype(bool)
-        else:
-            v = rng.integers(-60, 60, N).astype(dt)
-            big = rng.integers(0, N, 60)
-            v[big] = rng.integers(-10**15, 10**15, 60)
-            v[:4] = [I64.min, I64.max, 0, -1]
-            if c == "ts":
-                v = rng.integers(-3 * 10**15, 4 * 10**15, N)
-        cols[c] = np.ascontiguousarray(v)
-        valids[c] = rng.random(N) > 0.1
-    return cols, valids
-
-
-def _row_mask():
-    m = np.ones(N, bool)
-    m[-17:] = False  # padding rows
-    return m
+    plan = ref_plan_select(cat, bound, direct_limit=direct_limit or 65536)
+    return plan, ref_encode(cat, bound, values)
 
 
 def _reference(rplan, key_dtypes, jit: bool):
@@ -391,6 +280,16 @@ def _host_run(lib, name, prog, cols, valids, penv, row_mask):
             [(a, m.astype(bool)) for a, m in args])
 
 
+def _canonical(v: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """A hash key as the insert's ``key_bits`` (csrc/hash_probe.cuh)
+    stores it: NULL -> 0, -0.0 -> 0.0, every NaN -> the one quiet NaN."""
+    v = np.where(valid, v, np.zeros((), v.dtype))
+    if v.dtype.kind == "f":
+        v = np.where(v == 0, np.zeros((), v.dtype), v)
+        v = np.where(np.isnan(v), np.full((), np.nan, v.dtype), v)
+    return v
+
+
 def _bits(a: np.ndarray) -> np.ndarray:
     return a.view(np.int64 if a.itemsize == 8 else np.int32) \
         if a.dtype.kind == "f" else a.astype(np.int64)
@@ -455,7 +354,10 @@ def test_generated_fold_row_on_host_matches_jax(cases, harness, name):
         for j, ((gv, gm), (wv, wm)) in enumerate(zip(got_keys, want_keys)):
             assert gv.dtype == wv.dtype, (j, gv.dtype, wv.dtype)
             np.testing.assert_array_equal(gm, wm, err_msg=f"key {j} valid")
-            at = wm if prog.key_dtypes is None else np.ones(N, bool)
+            if prog.key_dtypes is None:
+                at = wm
+            else:
+                at, gv = np.ones(N, bool), _canonical(gv, gm)
             np.testing.assert_array_equal(_bits(gv)[at], _bits(wv)[at],
                                           err_msg=f"key {j}")
         for j, ((gv, gm), (wv, wm)) in enumerate(zip(got_args, want_args)):
@@ -505,8 +407,15 @@ def test_literals_and_parameters_in_the_source(cases):
                                "l_extendedprice"}
     h = cases["h2"].prog.row
     assert h.hashed and h.key_dtypes == (np.dtype(np.int64),)
-    assert "fm_canon" not in h.source          # int keys need no float canon
-    assert "fm_canon_f64" in cases["syn_hash"].prog.row.source
+    # a hash key is the bare cast to its key dtype: the insert's key_bits
+    # (csrc/hash_probe.cuh) alone makes it canonical
+    syn = cases["syn_hash"].prog.row
+    assert np.dtype(np.float64) in syn.key_dtypes
+    for row in (h, syn):
+        assert "?" not in "".join(line for line in row.source.splitlines()
+                                  if line.lstrip().startswith("o.k"))
+        assert all(f"::key_bits(v.k{j}, v.kv{j})" in row.source
+                   for j in range(len(row.key_dtypes)))
 
 
 def test_unsupported_value_raises_naming_b10(cases):
@@ -636,113 +545,90 @@ def test_chip_smoke_fold_helpers_rehearse_on_cpu(tmp_path):
     assert all("FoldRow" in p.row.source for p in progs)
     q6 = plans["fold_calls"]["q6"]
     assert q6[0].row.params and set(q6[4]) >= set(q6[0].row.params)
-    cancel, abs_sums = cs.cancellation_case("cpu", 5003, 64, 3)
-    cases = [(q6, None), (plans["fold_calls"]["q1"], None),
-             (cs.synthetic_global_case("cpu", 5003, 4096, 2, False), None),
-             (cancel, abs_sums)]
-    for call, abs_of in cases:
+    cancel = cs.cancellation_case("cpu", 5003, 64, 3)
+    cases = [(q6, False), (plans["fold_calls"]["q1"], False),
+             (cs.synthetic_global_case("cpu", 5003, 4096, 2, False), False),
+             (cancel, True)]
+    for call, abs_sums in cases:
         assert cs.compare_fold("rehearsal", call, saf.scan_agg_fold,
-                               saf.fold_plain, abs_of) == 0.0
+                               saf.fold_plain, abs_sums) == 0.0
         assert cs.fold_bytes(call) > cs.fold_masks(call).numel()
         assert cs.fold_ops(call) > cs.fold_masks(call).numel()
     # a sum near cancellation is small against its sum of magnitudes
     regs = cs.clone_call(cancel)[1]
-    saf.fold_plain(cancel[0], regs, None if cancel[2] is None
-                   else cancel[2].clone(), *cancel[3:])
-    assert (regs[1].abs()[1:] < 1e-3 * regs[2][1:]).all()
+    saf.fold_plain(cancel[0], regs, cancel[2].clone(), *cancel[3:])
+    mags = cs.fold_abs_sums(cancel)
+    assert mags[0] is None
+    assert (regs[1].abs()[1:] < 1e-3 * mags[1][1:]).all()
 
 
-# ------------------------------------------------------------ on the card
+def _sector_bytes_numpy(a: np.ndarray, rows: np.ndarray) -> int:
+    per = max(1, 32 // a.itemsize)
+    hit = len(np.unique(np.flatnonzero(rows) // per))
+    return min(a.nbytes, 32 * hit)
 
 
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+def test_chip_smoke_bounds_charge_the_sectors_the_rows_read(tmp_path):
+    """chip_smoke.py's bounds charge of a column the WHERE reads the
+    32-byte sectors holding a row whose WHERE the kernel evaluates, of
+    every other column the sectors holding a row whose keys and
+    arguments it evaluates (one that passes, or that some query's mask
+    passes): Q6's price column only where its WHERE passes, and in the
+    batched fold no column the WHERE alone reads."""
+    rows = torch.zeros(40, dtype=torch.bool)
+    rows[[0, 5, 39]] = True
+    assert cs.sector_bytes(torch.zeros(40, dtype=torch.int64), rows) == 96
+    assert cs.sector_bytes(torch.zeros(40, dtype=torch.bool), rows) == 40
+    assert cs.sector_bytes(torch.zeros(40, dtype=torch.int32),
+                           torch.zeros(40, dtype=torch.bool)) == 0
+    plans = cs.smoke_plans("cpu", str(tmp_path), n=4096)
+    prog, _, _, cols, params, mask = plans["fold_calls"]["q6"]
+    passed = prog.plain_eval(cols, params, mask)[0].numpy()
+    assert 0 < passed.sum() < 0.2 * len(passed)
+    where = cs._column_names((prog.exprs.filter,))
+    assert where == {"l_shipdate", "l_discount", "l_quantity"}
+    want, full = 0, 0
+    for c in prog.row.columns:
+        for t in cols[c]:
+            if t is not None:
+                rows = mask.numpy() if c in where else passed
+                want += _sector_bytes_numpy(t.numpy(), rows)
+                full += t.numel() * t.element_size()
+    got = cs.column_bytes(prog, cols, params, mask)
+    assert got == want < full
+    # the batched fold: Q6's keys and arguments read only l_extendedprice
+    # and l_discount, where some query's mask is set
+    bprog, _, _, bcols, masks = cs.batched_fold_call("cpu", plans, "Q6")
+    anyq = masks.any(dim=0).numpy()
+    want = sum(_sector_bytes_numpy(t.numpy(), anyq)
+               for c in ("l_extendedprice", "l_discount")
+               for t in bcols[c] if t is not None)
+    assert cs.column_bytes(bprog, bcols, {}, masks) == want
 
 
-def _device_batch(case, dev, seed=11):
-    cols, valids = _columns(case.pplan, seed)
-    return ({c: (torch.from_numpy(cols[c]).to(dev),
-                 torch.from_numpy(valids[c]).to(dev)) for c in cols},
-            torch.from_numpy(_row_mask()).to(dev))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["q1", "syn_direct", "syn_scalar", "s1"])
-def test_generated_fold_matches_plain_on_card(cases, name):
-    _card()
-    case = cases[name]
-    tcols, row_mask = _device_batch(case, "cuda")
-    penv = _params_env(case.pplan, case.params[0][1])
-    regs = []
-    for _ in range(2):
-        acc = empty_device_partials(case.pplan, "cuda")
-        n_ops = len(case.prog.ops)
-        direct = case.pplan.group_mode.kind == "direct"
-        regs.append((list(acc[:n_ops]) if direct else
-                     [a.view(1) if a.dim() == 0 else a for a in acc[:n_ops]],
-                     acc[n_ops] if direct else None))
-    launches = saf.scan_agg_fold.launches
-    saf.scan_agg_fold(case.prog, *regs[0], tcols, penv, row_mask)
-    assert saf.scan_agg_fold.launches == launches + 1
-    saf.fold_plain(case.prog, *regs[1], tcols, penv, row_mask)
-    torch.cuda.synchronize()
-    for op, k, p in zip(case.prog.ops, regs[0][0], regs[1][0]):
-        k, p = k.cpu().numpy(), p.cpu().numpy()
-        if op.kind == "sum" and k.dtype.kind == "f":
-            np.testing.assert_array_equal(np.isnan(k), np.isnan(p))
-            np.testing.assert_allclose(k, p, rtol=1e-12, atol=0)
-        else:
-            np.testing.assert_array_equal(k, p)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["q1", "syn_direct"])
-def test_generated_batched_fold_matches_plain_on_card(cases, name):
-    _card()
-    from citus_tpu_torch.executor.megabatch import _empty_stacked_partials
-    case = cases[name]
-    tcols, row_mask = _device_batch(case, "cuda")
-    g = torch.Generator(device="cpu").manual_seed(3)
-    masks = ((torch.rand((3, N), generator=g) < 0.7).cuda()
-             & row_mask).contiguous()
-    got = []
-    for fn in (saf.scan_agg_fold_batched, saf.fold_batched_plain):
-        regs, rows = _empty_stacked_partials(case.pplan, 3, "cuda")
-        fn(case.prog, regs, rows, tcols, masks)
-        got.append((regs, rows))
-    torch.cuda.synchronize()
-    for op, k, p in zip(case.prog.ops, got[0][0], got[1][0]):
-        k, p = k.cpu().numpy(), p.cpu().numpy()
-        if op.kind == "sum" and k.dtype.kind == "f":
-            np.testing.assert_allclose(k, p, rtol=1e-12, atol=0)
-        else:
-            np.testing.assert_array_equal(k, p)
-    if got[0][1] is not None:
-        assert torch.equal(got[0][1], got[1][1])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,slots", [("syn_hash", 64), ("h2", 4096)])
-def test_generated_insert_matches_plain_on_card(cases, name, slots):
-    _card()
-    case = cases[name]
-    tcols, row_mask = _device_batch(case, "cuda")
-    penv = _params_env(case.pplan, case.params[0][1])
-    rows = []
-    for fn in (hash_agg_insert, insert_plain):
-        t = empty_hash_state(case.pplan, slots, case.key_dtypes, "cuda")
-        spill = fn(case.prog, t, tcols, penv, row_mask)
-        rows.append(int(t.rows.sum()) + int(spill.sum()))
-    torch.cuda.synchronize()
-    assert rows[0] == rows[1] > 0
-    g = torch.Generator(device="cpu").manual_seed(4)
-    masks = ((torch.rand((2, N), generator=g) < 0.7).cuda()
-             & row_mask).contiguous()
-    placed = []
-    for fn in (hash_agg_insert_batched, insert_batched_plain):
-        t = empty_hash_state(case.pplan, slots, case.key_dtypes, "cuda",
-                             n_queries=2)
-        spill = fn(case.prog, t, tcols, masks)
-        placed.append((t.rows.sum(dim=1) + spill.sum(dim=1)).tolist())
-    assert placed[0] == placed[1] == masks.sum(dim=1).tolist()
+def test_chip_smoke_hash_comparisons_rehearse_on_cpu():
+    """chip_smoke.py's insert comparisons on the CPU with the plain
+    version on both sides: the merged groups of table and spill, the
+    float sums held to their groups' sums of magnitudes, for one table
+    and for Q tables; the bound counts masks, spill and read sectors."""
+    call = cs.adversarial_hash_call("cpu", 5003, 1000, 31, False)
+    prog, table, cols, params, mask = call
+    assert cs.compare_hash("rehearsal", call, insert_plain, insert_plain,
+                           abs_sums=True) == 0.0
+    assert cs.hash_bytes(call, 0) >= 2 * mask.numel()
+    masks = torch.stack([mask, ~mask]).contiguous()
+    from citus_tpu_torch.ops.hash_agg import HashTable
+    tables = HashTable(*[[t.unsqueeze(0).repeat(2, 1).contiguous()
+                          for t in ts]
+                         for ts in (table.key_values, table.key_flags,
+                                    table.partials)],
+                       table.rows.unsqueeze(0).repeat(2, 1).contiguous(),
+                       table.state.unsqueeze(0).repeat(2, 1).contiguous())
+    bcall = (prog, tables, cols, masks)
+    err, kt, ks = cs.compare_hash_batched(
+        "rehearsal", bcall, insert_batched_plain, insert_batched_plain,
+        abs_sums=True)
+    assert err == 0.0
+    assert (kt.rows.sum(dim=1) + ks.sum(dim=1)).tolist() == \
+        masks.sum(dim=1).tolist()
+    assert cs.hash_bytes(bcall, 0) >= 2 * masks.numel()

@@ -51,6 +51,7 @@ from citus_tpu_torch.planner.bound import param_env_names
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
+from torch_fold_cases import predicate_table as _predicate_table  # noqa: E402
 from test_torch_slice import (  # noqa: E402
     _load_events, _load_lineitem, assert_same_rows,
 )
@@ -241,20 +242,6 @@ PREDICATES = [
     "least(s, u) < 0",
     "greatest(p, 10) = 10",
 ]
-
-
-def _predicate_table(cl, rows=N):
-    cl.execute("CREATE TABLE t (k bigint NOT NULL, a bigint, b int, "
-               "p decimal(12,2), s double, f real, u double, txt text, "
-               "d date, flag boolean, d2 date, ts timestamp)")
-    cl.execute("SELECT create_distributed_table('t', 'k', 2)")
-    cl.execute("INSERT INTO t (k, a, b, p, s, f, u, txt, d, flag) "
-               "VALUES (0, 1, 2, 3.5, 0.5, 0.25, 1.5, 'x', "
-               "'2021-01-02', true), (1, NULL, NULL, NULL, NULL, NULL, NULL, "
-               "NULL, NULL, NULL), (2, 5, 0, 1.0, 0.0, 0.0, 0.0, 'y', "
-               "'2021-04-04', false), (3, 7, 1, 2.0, 1.0, 1.0, 2.0, 'z', "
-               "'2021-05-05', true), (4, 9, 1, 2.0, 1.0, 1.0, 2.0, 'yy', "
-               "'2021-05-05', true)")
 
 
 @pytest.fixture(scope="module")
