@@ -67,13 +67,17 @@ def main() -> int:
         run()
         run()  # warm: plan cached (Q1/Q6: batches cached too)
         torch.cuda.synchronize()
+        # idle at each end of the session, as chip_smoke.py's retries do:
+        # late in a long process a shorter session may lose its record
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(cs.PROFILE_RETRY_PAUSE_S)
             t0 = time.perf_counter()
             for _ in range(args.reps):
                 run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / args.reps
+            time.sleep(cs.PROFILE_RETRY_PAUSE_S)
         events = [e for e in prof.key_averages()
                   if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
         device_us = sum(e.self_device_time_total for e in events) / args.reps

@@ -632,3 +632,40 @@ def test_chip_smoke_hash_comparisons_rehearse_on_cpu():
     assert (kt.rows.sum(dim=1) + ks.sum(dim=1)).tolist() == \
         masks.sum(dim=1).tolist()
     assert cs.hash_bytes(bcall, 0) >= 2 * masks.numel()
+
+
+@pytest.mark.parametrize("records, tries", [
+    ([(4, 0, 6, {}, 4, "")], 1),
+    ([(0, 0, 0, {}, 4, ""), (0, 0, 6, {}, 4, ""), (2, 0, 6, {}, 4, ""),
+      (4, 1, 6, {"k": 1}, 4, "")], 4),
+    ([(0, 0, 0, {}, 4, "")] * cs.PROFILE_TRIES, None),
+])
+def test_chip_smoke_profiled_runs_retry_lost_records(monkeypatch, records,
+                                                     tries):
+    """chip_smoke.py phase 4 measures a warm query's device kernels from
+    the first profiled run whose record holds every kernel of the port
+    its wrappers launched: a run with none (nothing recorded, or copies
+    alone) or some of them is run again in a session idling longer at
+    each end, and the phase fails when no run of PROFILE_TRIES has them
+    all.  A complete record is returned with its other kernels, which
+    the phase then refuses."""
+    left = list(records)
+    pauses, said = [], []
+
+    def fake(cl, sql, pause):
+        pauses.append(pause)
+        return left.pop(0)
+    monkeypatch.setattr(cs, "device_kernels", fake)
+    monkeypatch.setattr(cs, "say", lambda *parts: said.append(parts))
+    if tries is None:
+        with pytest.raises(AssertionError, match="not measured"):
+            cs.profiled_kernels(None, "S1", "SELECT 1")
+    else:
+        got = cs.profiled_kernels(None, "S1", "SELECT 1")
+        assert got == records[-1][:4] + (tries, "")
+    assert not left
+    # every lost run is printed; the first session is short, the rest long
+    assert len(said) == len(records) - (tries is not None)
+    assert pauses == [cs.PROFILE_PAUSE_S] + \
+        [cs.PROFILE_RETRY_PAUSE_S] * (len(records) - 1)
+    assert cs.PROFILE_RETRY_PAUSE_S > cs.PROFILE_PAUSE_S
