@@ -10,8 +10,9 @@ result line:
 1. the card (``nvidia-smi`` name and power limit) and the torch, CUDA
    and nvcc versions;
 2. build of every CUDA kernel of the port from ``citus_tpu_torch/csrc``
-   (``rollup_delta``, ``hash_agg_merge``, ``partition_pack`` and
-   ``sorted_join``), of the predicate kernels generated for Q6, P1, the
+   (``rollup_delta``, ``hash_agg_merge``, ``partition_pack``,
+   ``sorted_join``, ``mesh_combine`` and ``mesh_exchange``), of the
+   predicate kernels generated for Q6, P1, the
    predicate over every C1 node, C1's five WHEREs and the phase-5 and
    phase-8 families, and of the fold and insert kernels generated for
    each plan phases 3-7 run (``ops/expr_codegen.py generate_fold_row``:
@@ -78,7 +79,16 @@ result line:
      pairs, as the device join sizes it), a
      many-to-many join, an all-invalid side and invalid rows on both
      sides: l_idx, r_idx, out_valid, total and every gathered column
-     identical.
+     identical;
+   - ``mesh_combine`` (B6) over 4 members on the card, each member's
+     registers folded by the generated fold from its share of the rows:
+     Q1's (12 groups x 13 positions), S1's (sketch registers) and a
+     G = 65,536 direct fold's with NaN, +-inf and +-0.0, one member
+     folding no row: every output identical bit for bit (sums in member
+     order in both);
+   - ``exchange_blocks`` over 4 members: QJOIN's lineitem side at SF1
+     split and packed as the device join does it: identical receive
+     buffers.
    int64 registers, keys, counts, min/max and NaN positions must be
    identical, float64 sums within rel 1e-12 (atomics add in another
    order; the sums near cancellation as above).  Each kernel is timed
@@ -88,7 +98,9 @@ result line:
    evaluates; of each other column the sectors holding a row whose keys
    and arguments it evaluates (one that passes, or that some query's
    mask passes); the registers or the table's filled slots), its plain
-   version and a one-op library yardstick;
+   version and a one-op library yardstick (B6: one torch.stack and
+   sum / amin / amax a position; the exchange: torch.stack, transpose
+   and contiguous a column);
 4. the main path through the port's entry points: ``Cluster(tmpdir)``
    on CUDA, bench.py's lineitem (schema, generator, seed 7) at TPC-H SF1
    (6,001,215 rows) in 4 shards, each query cold and then a second
@@ -168,7 +180,17 @@ result line:
    projections (one ``filter_mask`` launch per batch, rows equal to
    numpy's), a literal family over C1's nodes coalesced (one
    ``filter_mask_batched`` launch per shard batch), and the five pushed
-   between two coordinators over 262,144 events rows.
+   between two coordinators over 262,144 events rows;
+9. the mesh: a second ``Cluster`` over the same tables whose mesh has 4
+   members on the card (``mesh_devices=[card] * 4``, the device cache
+   emptied first), run right after phases 8, 5 (Q1) and 4 (S1) on their
+   tables: Q6 at SF1, Q1 at 5,000,000 rows and S1 on the sketch table,
+   each cold and warm (the warm run replays the mesh's cache entry),
+   rows equal to the numpy oracle, one fold per member per round and
+   one ``mesh_combine`` per query and no other kernel; one warm QJOIN at
+   SF1 through the device join over the 4 members (``partition_pack``
+   8 times, ``exchange_blocks`` 8 (2 exchanges of 4 launches),
+   ``sorted_join`` 4, ``mesh_combine`` once for the overflow).
 
 Then a JSON line of the kernels, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -1552,7 +1574,10 @@ def launch_counters() -> dict:
     from citus_tpu_torch.ops.scan_agg_fold import (
         scan_agg_fold, scan_agg_fold_batched,
     )
-    from citus_tpu_torch.parallel.shuffle import pack_blocks, sorted_join
+    from citus_tpu_torch.parallel.mesh import mesh_combine
+    from citus_tpu_torch.parallel.shuffle import (
+        exchange_blocks, pack_blocks, sorted_join,
+    )
     from citus_tpu_torch.rollup.kernels import rollup_delta
     return {"scan_agg_fold": scan_agg_fold,
             "hash_agg_insert": hash_agg_insert, "filter_mask": filter_mask,
@@ -1560,7 +1585,8 @@ def launch_counters() -> dict:
             "scan_agg_fold_batched": scan_agg_fold_batched,
             "hash_agg_insert_batched": hash_agg_insert_batched,
             "rollup_delta": rollup_delta, "hash_agg_merge": hash_agg_merge,
-            "partition_pack": pack_blocks, "sorted_join": sorted_join}
+            "partition_pack": pack_blocks, "sorted_join": sorted_join,
+            "mesh_combine": mesh_combine, "exchange_blocks": exchange_blocks}
 
 
 #: the batched kernels each phase-5 family's coalesced run must launch,
@@ -2761,9 +2787,10 @@ def phase3_rollup_delta(device, rows: list) -> None:
 
 def run_sketch_phases(ctt, tmp: str, n_rows: int, launches: dict,
                       card: str) -> None:
-    """Phases 4 (S1), 5 (the S family) and 6 (rollups) on the sketch
-    table; adds the main path's launches of the sketch fold, the
-    batched sketch fold, the batched predicate and the rollup kernel."""
+    """Phases 4 (S1), 9 (S1 over the mesh), 5 (the S family) and 6
+    (rollups) on the sketch table; adds the main path's launches of the
+    sketch fold, the mesh's combine, the batched sketch fold, the
+    batched predicate and the rollup kernel."""
     import torch
     from citus_tpu_torch.ops.scan_agg_fold import (
         scan_agg_fold, scan_agg_fold_batched,
@@ -2776,6 +2803,14 @@ def run_sketch_phases(ctt, tmp: str, n_rows: int, launches: dict,
         for run_kind in ("cold", "warm"):
             launches["scan_agg_fold[sketch]"] += run_checked(
                 cl, "S1", S1, want, n_rows, run_kind)
+        # ---- phase 9: S1 over the mesh
+        mcl = mesh_cluster(ctt, os.path.join(tmp, "sketch"), cl.device)
+        try:
+            for run_kind in ("cold", "warm"):
+                run_mesh_query(mcl, "S1", S1, want, n_rows, run_kind,
+                               launches, card, "scan_agg_fold[sketch]")
+        finally:
+            mcl.close()
         # ---- phase 5: the S family, serial and coalesced
         kind, variants = sketch_families()["S"]
         got = run_family(cl, "S", kind, variants, cols, n_rows, card)
@@ -3495,13 +3530,250 @@ def phase3_sorted_join(device, rows: list, sides, n: int = 1 << 20) -> None:
                  "library_ms": None})
 
 
+# ------------------------------------------------ the mesh (B6, exchange)
+
+#: members of phase 3's and phase 9's meshes, all on the one card
+MESH_MEMBERS = 4
+#: the combine over members of each fold op's registers
+MESH_KINDS = {"count_star": "sum", "count": "sum", "sum": "sum",
+              "min": "min", "max": "max", "hll": "max", "ddsk": "sum",
+              "topk": "sum", "topkv": "max"}
+
+
+def member_registers(call, n: int, empty: int = -1) -> tuple:
+    """The registers of ``n`` mesh members for one fold call: member m
+    folds the rows ``i % n == m`` of the call's batch through the
+    generated fold kernel into its own fresh registers (member ``empty``
+    folds no row: its registers keep their seeds, the +-inf and integer
+    extremes of min and max).  -> (combine kinds, [member's registers])."""
+    import torch
+    from citus_tpu_torch.ops.scan_agg_fold import scan_agg_fold
+    prog, mask = call[0], fold_masks(call)
+    idx = torch.arange(mask.numel(), device=mask.device)
+    members = []
+    for m in range(n):
+        c = clone_call(call)
+        mm = mask & (idx % n == m) & (m != empty)
+        scan_agg_fold(c[0], c[1], c[2], c[3], c[4], mm)
+        members.append(tuple(c[1]) + (() if c[2] is None else (c[2],)))
+    kinds = [MESH_KINDS[op.kind] for op in prog.ops]
+    if call[2] is not None:
+        kinds.append("sum")
+    return kinds, members
+
+
+def compare_bits(name: str, got, want) -> None:
+    """Identical outputs; a float's NaN where the other has NaN (any
+    payload), its other values bit for bit."""
+    import torch
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{name}: output {i} dtype or shape differs")
+        g, w = g.reshape(-1), w.reshape(-1)
+        if g.dtype.is_floating_point:
+            nan = torch.isnan(w)
+            if not torch.equal(torch.isnan(g), nan):
+                raise AssertionError(f"{name}: output {i} NaN positions "
+                                     "differ")
+            g, w = g[~nan], w[~nan]
+            itype = torch.int64 if g.element_size() == 8 else torch.int32
+            g, w = g.view(itype), w.view(itype)
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: output {i} differs from the plain "
+                                 "version")
+
+
+def phase3_mesh_combine(device, plans, splans, rows: list) -> None:
+    """mesh_combine (B6) against its plain version, every output bit for
+    bit: the registers of Q1's fold (12 groups x 13 positions), of S1's
+    (scalar counts and sums, HLL, DDSketch and top-k registers) and of a
+    direct fold of 65,536 groups with nulls, NaN, +-inf and +-0.0 (one
+    member folding no row), each over 4 members on the card; appends
+    its JSON row."""
+    import torch
+    from citus_tpu_torch.parallel.mesh import (
+        mesh_combine, mesh_combine_plain,
+    )
+    n = MESH_MEMBERS
+    cases = [("Q1", plans["fold_calls"]["q1"], -1),
+             ("S1", splans["s1_call"], -1),
+             ("G=65,536 direct, NaN, +-inf, +-0.0, one empty member",
+              synthetic_global_case(device, FOLD_N, 65_536, 3, False), 2)]
+    main = None
+    for name, call, empty in cases:
+        kinds, members = member_registers(call, n, empty)
+        got = mesh_combine(kinds, members)
+        want = mesh_combine_plain(kinds, members)
+        compare_bits(f"mesh_combine [{name}]", got, want)
+        ms = time_cuda(lambda: mesh_combine(kinds, members))
+        plain_ms = time_cuda(lambda: mesh_combine_plain(kinds, members),
+                             reps=5)
+        lib = {"sum": lambda t: t.sum(0), "min": lambda t: t.amin(0),
+               "max": lambda t: t.amax(0), "none": lambda t: t}
+
+        def library():
+            return [lib[k](torch.stack([m[i] for m in members]))
+                    for i, k in enumerate(kinds)]
+        lib_ms = time_cuda(library)
+        nbytes = sum((n + (n if k == "none" else 1)) * r.numel()
+                     * r.element_size() for k, r in zip(kinds, members[0]))
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        library_ms=lib_ms)
+        say(f"phase 3 mesh_combine [{name}]: {n} members, {len(kinds)} "
+            f"positions ({', '.join(sorted(set(kinds)))}), "
+            f"{sum(r.numel() for r in members[0])} elements a member: "
+            f"identical to the plain version; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({nbytes} B at "
+            f"3.35 TB/s), one torch.stack and sum/amin/amax a position "
+            f"(the library yardstick) {lib_ms:.4f} ms")
+    rows.append({"name": "mesh_combine", "route": "cuda",
+                 "source": "citus_tpu_torch/csrc/mesh_combine.cu",
+                 "replaces": "citus_tpu/parallel/mesh.py:46",
+                 "max_abs_err": 0.0, **main, "bound_by": "bytes"})
+
+
+def mesh_blocks(gid, cols, n: int):
+    """One side of QJOIN's device join split over ``n`` members as
+    ``_device_join_step`` splits it (rows in order, the last member
+    padded with masked rows), routed ``gid % n`` and packed by each
+    member (B7) with the exact block capacity.  -> (each member's packed
+    columns and validity, capacity)."""
+    import torch
+    from citus_tpu_torch.parallel.shuffle import pack_blocks
+    N = gid.numel()
+    per = -(-N // n)
+    pad = per * n - N
+    dev = gid.device
+
+    def stack(t, fill):
+        return torch.cat([t, torch.full((pad,), fill, dtype=t.dtype,
+                                        device=dev)]).reshape(n, per)
+    g2 = stack(gid, 0)
+    tgt = (g2 % n).to(torch.int32)
+    mask = stack(torch.ones(N, dtype=torch.bool, device=dev), False)
+    cols2 = [stack(c, 0) for c in cols]
+    cap = max(int(torch.bincount(tgt[s][mask[s]].long(), minlength=n).max())
+              for s in range(n))
+    blocks = []
+    for s in range(n):
+        packed, pvalid, _ = pack_blocks(
+            (g2[s].contiguous(),) + tuple(c[s].contiguous() for c in cols2),
+            tgt[s].contiguous(), mask[s].contiguous(), n, cap)
+        blocks.append(packed + (pvalid,))
+    return blocks, cap
+
+
+def phase3_mesh_exchange(device, rows: list, sides) -> None:
+    """exchange_blocks against its plain version, outputs identical: the
+    lineitem side of QJOIN's device join at SF1 (gid, l_orderkey,
+    l_quantity and their validity, the packed validity) over 4 members on
+    the card; appends its JSON row."""
+    import torch
+    from citus_tpu_torch.parallel.mesh import DeviceMesh
+    from citus_tpu_torch.parallel.shuffle import (
+        exchange_blocks, exchange_blocks_plain,
+    )
+    n = MESH_MEMBERS
+    mesh = DeviceMesh([device] * n)
+    (lgid, lcols, _), _, _ = sides
+    blocks, cap = mesh_blocks(lgid, lcols, n)
+    got = exchange_blocks(blocks, mesh)
+    want = exchange_blocks_plain(blocks, mesh)
+    for d in range(n):
+        compare_exact(f"exchange_blocks [QJOIN lineitem, destination {d}]",
+                      got[d], want[d])
+    ms = time_cuda(lambda: exchange_blocks(blocks, mesh), reps=10)
+    plain_ms = time_cuda(lambda: exchange_blocks_plain(blocks, mesh), reps=5)
+    lib_ms = time_cuda(lambda: [
+        torch.stack([b[c] for b in blocks]).transpose(0, 1).contiguous()
+        for c in range(len(blocks[0]))], reps=10)
+    # every slot of every block read once, every received slot written once
+    nbytes = 2 * sum(b.numel() * b.element_size() for bl in blocks
+                     for b in bl)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"phase 3 exchange_blocks [QJOIN lineitem side at SF1]: {n} members, "
+        f"{lgid.numel()} rows, {len(blocks[0])} columns, capacity {cap}: "
+        f"identical to the plain version; {n} launches {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at 3.35 "
+        f"TB/s), torch.stack(...).transpose(0, 1).contiguous() a column "
+        f"(the library yardstick) {lib_ms:.4f} ms")
+    rows.append({"name": "exchange_blocks", "route": "cuda",
+                 "source": "citus_tpu_torch/csrc/mesh_exchange.cu",
+                 "replaces": "citus_tpu/parallel/shuffle.py:62",
+                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": "bytes",
+                 "library_ms": lib_ms})
+
+
+def mesh_cluster(ctt, path: str, device):
+    """A second Cluster over ``path``'s tables whose mesh has
+    MESH_MEMBERS members on ``device`` (the card); the device cache is
+    emptied first, so the mesh path cannot take a single-stream entry of
+    the same scan (a single-batch entry wins there, as in the
+    reference)."""
+    from citus_tpu_torch.executor.device_cache import GLOBAL_CACHE
+    GLOBAL_CACHE.clear()
+    cl = ctt.Cluster(path, device=device,
+                     mesh_devices=[device] * MESH_MEMBERS)
+    if cl.mesh.shape["shard"] != MESH_MEMBERS:
+        raise AssertionError(f"phase 9: mesh {cl.mesh}")
+    return cl
+
+
+def run_mesh_query(cl, qname: str, sql: str, want: list, n_rows: int,
+                   run_kind: str, launches: dict, card: str,
+                   fold: str = "scan_agg_fold") -> None:
+    """One aggregate over the mesh: rows equal to the oracle, one fold
+    per member per round and one mesh_combine (on the card: launches, no
+    other kernel)."""
+    import torch
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    r = cl.execute(sql)
+    if cl.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {k: f.launches for k, f in counters.items()}
+    if r.rows != want:
+        raise AssertionError(f"phase 9 {qname} {run_kind}: rows differ from "
+                             f"the numpy oracle:\n{r.rows[:20]}\n{want[:20]}")
+    pl = r.explain["pipeline"]
+    rounds = pl.get("mesh_rounds", 0)
+    expect = {"scan_agg_fold": rounds * MESH_MEMBERS, "mesh_combine": 1}
+    if cl.device.type != "cuda":
+        got = dict.fromkeys(got, 0)
+        got.update(expect)      # the plain versions ran: nothing launched
+    if pl.get("mesh_members") != MESH_MEMBERS or rounds == 0 \
+            or {k: v for k, v in got.items() if v} != expect \
+            or pl["fused_dispatches"] != expect["scan_agg_fold"]:
+        raise AssertionError(f"phase 9 {qname} {run_kind}: pipeline {pl}, "
+                             f"launches {got}, expected {expect}")
+    if cl.device.type == "cuda":
+        launches[fold] += got["scan_agg_fold"]
+        launches["mesh_combine"] += got["mesh_combine"]
+    say(f"phase 9 {qname} {run_kind} at {n_rows} rows on a "
+        f"{MESH_MEMBERS}-member mesh of the card: {len(r.rows)} rows equal "
+        f"the numpy oracle in {dt:.4f} s ({n_rows / dt:.1f} rows/s); "
+        f"{rounds} rounds, scan_agg_fold launches {got['scan_agg_fold']} "
+        f"({MESH_MEMBERS} a round), mesh_combine launches "
+        f"{got['mesh_combine']}, h2d_bytes {pl.get('h2d_bytes', 0)}, "
+        f"host_decode_ms {pl.get('host_decode_ms', 0)}, device_ms "
+        f"{pl.get('device_ms', 0)} ({card})")
+
+
 def run_join_query(cl, qname: str, sql: str, want: list, run_kind: str,
                    n_rows: int, n_orders: int, launches: dict,
-                   devjoin: bool, card: str) -> None:
+                   devjoin: bool, card: str, phase: str = "phase 8") -> None:
     """One join on ``cl``: rows equal to the oracle, EXPLAIN's strategy
     join:repartition and (``devjoin``) the device join, and on the card
     partition_pack launched twice and sorted_join once (devjoin) or not
-    at all, no other kernel."""
+    at all, no other kernel; over a mesh of n > 1 members, a device join
+    step packs 2n times, exchanges twice (n launches each), joins on
+    each member and sums the overflow with one mesh_combine."""
     import torch
     counters = launch_counters()
     for f in counters.values():
@@ -3515,17 +3787,22 @@ def run_join_query(cl, qname: str, sql: str, want: list, run_kind: str,
     for k, v in got.items():
         launches[k] += v
     if r.rows != want:
-        raise AssertionError(f"phase 8 {qname} {run_kind}: rows differ from "
+        raise AssertionError(f"{phase} {qname} {run_kind}: rows differ from "
                              f"the numpy oracle: {r.rows} != {want}")
     shuffle = r.explain.get("shuffle", "")
     if r.explain["strategy"] != "join:repartition" \
             or ("devjoin" in shuffle) != devjoin:
-        raise AssertionError(f"phase 8 {qname}: EXPLAIN {r.explain}")
+        raise AssertionError(f"{phase} {qname}: EXPLAIN {r.explain}")
     if cl.device.type == "cuda":
+        m = cl.mesh.shape["shard"]
         want_l = {"partition_pack": 2, "sorted_join": 1 if devjoin else 0}
+        if m > 1:
+            want_l = {"partition_pack": 2 * m, "exchange_blocks": 2 * m,
+                      "sorted_join": m if devjoin else 0,
+                      "mesh_combine": 1 if devjoin else 2}
         if {k: v for k, v in got.items() if v} != \
                 {k: v for k, v in want_l.items() if v}:
-            raise AssertionError(f"phase 8 {qname} {run_kind}: launches "
+            raise AssertionError(f"{phase} {qname} {run_kind}: launches "
                                  f"{got}, expected {want_l}")
     steps = r.explain.get("device_join_steps", [])
     detail = "; ".join(
@@ -3536,7 +3813,7 @@ def run_join_query(cl, qname: str, sql: str, want: list, run_kind: str,
         f"H2D {s['h2d_ms']:.3f} ms, on the card (launch to overflow read) "
         f"{s['device_ms']:.3f} ms, D2H {s['d2h_ms']:.3f} ms"
         for s in steps)
-    say(f"phase 8 {qname} {run_kind}: rows {r.rows} equal the numpy oracle "
+    say(f"{phase} {qname} {run_kind}: rows {r.rows} equal the numpy oracle "
         f"in {dt:.4f} s, {(n_rows + n_orders) / dt:.1f} rows/s "
         f"((lineitem + orders_b rows) / s); EXPLAIN {r.explain['strategy']} "
         f"{shuffle}; kernel launches {({k: v for k, v in got.items() if v})}"
@@ -3620,12 +3897,13 @@ def run_c1_pushed(ctt, tmp: str, launches: dict, card: str,
 
 
 def run_join_phase(ctt, cl, cols: dict, tmp: str, n_rows: int,
-                   launches: dict, card: str) -> None:
+                   launches: dict, card: str) -> list:
     """Phase 8 on the SF1 lineitem of ``cl``: bench.py's orders_b,
     QJOIN cold and warm through the device join (B7 twice, B8 once),
     its LEFT JOIN through the bucket path (B7 twice), then an events
     table of the same scale for C1's five projections, serial and
-    coalesced, and pushed between two coordinators."""
+    coalesced, and pushed between two coordinators.  -> QJOIN's oracle
+    rows."""
     n_orders = n_rows // 4
     flag = load_orders_b(cl, n_orders)
     want = oracle_qjoin(cols, flag)
@@ -3641,6 +3919,7 @@ def run_join_phase(ctt, cl, cols: dict, tmp: str, n_rows: int,
                            card).items():
         launches[k] += v
     run_c1_pushed(ctt, tmp, launches, card, cl.device)
+    return want
 
 
 def run(args) -> dict:
@@ -3676,7 +3955,7 @@ def run(args) -> dict:
         # fold alone, for their cold build times
         t0 = time.perf_counter()
         kernels = ["rollup_delta", "hash_agg_merge", "partition_pack",
-                   "sorted_join"]
+                   "sorted_join", "mesh_combine", "mesh_exchange"]
         # the predicates of Q6 and P1 and of the phase-5 families (each
         # generated source holds the one-query and the batched kernel);
         # Q6's and P's families share Q6's and P1's sources
@@ -3747,6 +4026,8 @@ def run(args) -> dict:
         sides = qjoin_sides(n_rows, device)
         phase3_partition_pack(device, n_rows, kernel_rows, sides)
         phase3_sorted_join(device, kernel_rows, sides)
+        phase3_mesh_combine(device, plans, splans, kernel_rows)
+        phase3_mesh_exchange(device, kernel_rows, sides)
         del sides
         launches = dict.fromkeys(launch_counters(), 0)
         launches.update({"scan_agg_fold[sketch]": 0,
@@ -3778,8 +4059,21 @@ def run(args) -> dict:
         for name in ("Q6", "H", "P"):
             phase5(cl, name, cols, n_rows)
         # ---- phase 8: joins on the SF1 lineitem, and C1's projections
-        run_join_phase(ctt, cl, cols, tmp, n_rows, launches, card)
+        qjoin_want = run_join_phase(ctt, cl, cols, tmp, n_rows, launches,
+                                    card)
+        # ---- phase 9: Q6 and QJOIN over a mesh of MESH_MEMBERS members
+        # on the card, a second Cluster over the same SF1 tables
+        mcl = mesh_cluster(ctt, os.path.join(tmp, "sf"), device)
+        try:
+            for run_kind in ("cold", "warm"):
+                run_mesh_query(mcl, "Q6", Q6, oracle_q6(cols), n_rows,
+                               run_kind, launches, card)
+            run_join_query(mcl, "QJOIN", QJOIN, qjoin_want, "warm", n_rows,
+                           n_rows // 4, launches, True, card, "phase 9")
+        finally:
+            mcl.close()
         q1_rows = n_rows
+        q1_dir = os.path.join(tmp, "sf")
         if q1_guard_fires(cols):
             # the engine's int64 overflow guard (executor/finalize.py
             # _check_sum_overflow, as in citus_tpu) rejects Q1's
@@ -3804,11 +4098,20 @@ def run(args) -> dict:
                 f"{scan_agg_fold.launches} kernel launches")
             cl.close()
             q1_rows = Q1_ROWS
-            cl, cols = load_lineitem(ctt, os.path.join(tmp, "q1"), q1_rows)
+            q1_dir = os.path.join(tmp, "q1")
+            cl, cols = load_lineitem(ctt, q1_dir, q1_rows)
         for run_kind in ("cold", "warm"):
             launches["scan_agg_fold"] += run_checked(
                 cl, "Q1", Q1, oracle_q1(cols), q1_rows, run_kind)
         phase5(cl, "Q1", cols, q1_rows)
+        # ---- phase 9: Q1 over the mesh
+        mcl = mesh_cluster(ctt, q1_dir, device)
+        try:
+            for run_kind in ("cold", "warm"):
+                run_mesh_query(mcl, "Q1", Q1, oracle_q1(cols), q1_rows,
+                               run_kind, launches, card)
+        finally:
+            mcl.close()
         cl.close()
         # ---- phases 4-6 of the sketch aggregates and rollups
         run_sketch_phases(ctt, tmp, n_rows, launches, card)

@@ -1,10 +1,12 @@
 """Cluster: the public entry point.
 
 One Cluster = one coordinator over a data directory + a logical node set,
-executing on one torch device.  SQL goes through ``execute``; the
-control-plane operations the reference exposes as UDFs
-(create_distributed_table, ...) are available both as Python methods and
-through their SQL spellings (``SELECT create_distributed_table('t','col')``).
+executing on one torch device, and over the members of its device mesh
+(``mesh_devices``) for multi-batch aggregates and repartition joins.
+SQL goes through ``execute``; the control-plane operations the
+reference exposes as UDFs (create_distributed_table, ...) are available
+both as Python methods and through their SQL spellings
+(``SELECT create_distributed_table('t','col')``).
 
 This port carries the first slices of the JAX package's surface: CREATE
 TABLE / DROP TABLE, create_distributed_table, COPY (``copy_from``),
@@ -327,6 +329,27 @@ def _subst_excluded(e, excl: dict):
     return e
 
 
+def resolve_mesh(device, mesh_devices=None):
+    """The Cluster's ``DeviceMesh``: ``mesh_devices`` (a list of devices,
+    one per member; a device may repeat), or by default one member per
+    CUDA device, ``device`` first, as the reference's mesh spans
+    ``jax.devices()``; on the CPU one member.  Members share ``device``'s
+    kind."""
+    import torch
+    from citus_tpu_torch.parallel.mesh import DeviceMesh
+    if mesh_devices is None:
+        mesh_devices = [device]
+        if device.type == "cuda":
+            mesh_devices += [torch.device("cuda", i)
+                             for i in range(torch.cuda.device_count())
+                             if i != device.index]
+    members = [resolve_device(d) for d in mesh_devices]
+    if any(d.type != device.type for d in members):
+        raise ValueError(f"mesh members {[str(d) for d in members]} are not "
+                         f"all on {device.type}, the Cluster's device")
+    return DeviceMesh(members)
+
+
 def _unported(what: str, item: str):
     raise UnsupportedFeatureError(
         f"{what} is not ported to citus_tpu_torch yet (ROADMAP.md {item})")
@@ -335,6 +358,7 @@ def _unported(what: str, item: str):
 class Cluster:
     def __init__(self, data_dir: str, *, n_nodes: Optional[int] = None,
                  settings: Optional[Settings] = None, device=None,
+                 mesh_devices=None,
                  serve_port: Optional[int] = None,
                  coordinator: Optional[tuple] = None,
                  data_port: Optional[int] = None,
@@ -342,7 +366,12 @@ class Cluster:
                  secret: Optional[bytes] = None,
                  data_bind_host: str = "127.0.0.1"):
         """``device``: the torch device the ``gpu`` backend runs on;
-        None = CUDA (raises when there is none).  ``n_nodes`` defaults to
+        None = CUDA (raises when there is none).  ``mesh_devices``: the
+        members of the mesh that multi-batch aggregates and repartition
+        joins run over, one device each (a device may repeat: ``["cpu"]
+        * 8`` is an 8-member mesh on the CPU, ``["cuda:0"] * 4`` four
+        members on one card); None = one member per CUDA device, or one
+        on the CPU (``resolve_mesh``).  ``n_nodes`` defaults to
         the number of CUDA devices (1 on the CPU), as the reference
         defaults to its JAX device count, and to 0 when
         ``hosted_nodes`` is given.
@@ -361,6 +390,7 @@ class Cluster:
             secret = secret.encode()
         self._secret = secret
         self.device = resolve_device(device)
+        self.mesh = resolve_mesh(self.device, mesh_devices)
         self.settings = settings or current_settings()
         self.catalog = Catalog(data_dir)
         if hosted_nodes is not None:
@@ -1342,7 +1372,7 @@ class Cluster:
             from citus_tpu_torch.planner.join_planner import bind_join_select
             bj = bind_join_select(self.catalog, stmt)
             return execute_join_select(self.catalog, bj, self.settings,
-                                       device=self.device)
+                                       device=self.device, mesh=self.mesh)
         if not isinstance(stmt.from_, A.TableRef):
             _unported("subqueries in FROM", "queue A")
         if stmt.distinct_on or stmt.windows or any(
@@ -1367,4 +1397,4 @@ class Cluster:
         bound, plan, values = self._cached_select_plan(stmt, sql_text or None)
         return execute_select(self.catalog, bound, self.settings,
                               plan=plan, param_values=values,
-                              device=self.device)
+                              device=self.device, mesh=self.mesh)

@@ -10,6 +10,11 @@ and naturally invalidates, and the generation keys out the two windows
 version alone misses (the version is committed before the stripe flip,
 and a torn scan's put must not satisfy the seqlock retry after it).
 
+A mesh query's entry is keyed by the same key plus ``("mesh", n,
+members)`` and holds its rounds, each a list of every member's batch
+on that member's device; its bytes are those tensors' bytes, pad
+members included, so the accounting stays exact.
+
 A byte-bounded LRU keeps the cache inside device memory; eviction drops
 the tensor references and lets PyTorch's allocator reuse the memory.
 Beyond the hit/miss/evicted counters the cache keeps a ledger: live

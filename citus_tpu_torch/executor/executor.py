@@ -22,9 +22,19 @@ an ``execute_task`` RPC (executor/worker_tasks.py, executor/pipeline.py)
 while the local shards scan here, and the returned partial states,
 hash tables (re-inserted through one ``hash_agg_merge`` each) or
 filtered rows join the local ones; a task that fails falls back to
-pulling the placement's files.  The multi-device
-mesh path of the reference (shard_map + psum) is not ported: it needs
-more than one device (ROADMAP.md queue B, B6).
+pulling the placement's files.
+
+With a mesh of more than one member (the Cluster's ``mesh_devices``), a
+scalar or direct aggregate over two batches or more takes the mesh
+branch, as the reference's shard_map + psum path does: batches go in
+rounds of one per member, each member folds its batch into its own
+registers on its own device (one ``scan_agg_fold`` per member per
+round), and ``mesh_combine`` (B6) combines the members' registers.
+Unlike the reference, which combines every round in the mesh and then
+the rounds on the host, a member keeps its registers across rounds and
+the combine runs once per query: the rows are the same, integers
+exactly, float sums up to summation order.  Hash GROUP BY, projections
+and megabatches stay on the single stream, as in the reference.
 """
 
 from __future__ import annotations
@@ -39,15 +49,15 @@ from citus_tpu_torch.catalog import Catalog
 from citus_tpu_torch.config import Settings
 from citus_tpu_torch.errors import ExecutionError
 from citus_tpu_torch.executor.batches import (
-    ShardBatch, bucket_rows, load_shard_batches, pad_to_batch,
+    ShardBatch, bucket_rows, empty_batch, load_shard_batches, pad_to_batch,
 )
 from citus_tpu_torch.executor.finalize import finalize_groups, order_and_limit
 from citus_tpu_torch.executor.kernel_cache import get_kernel
 from citus_tpu_torch.observability import trace as _trace
 from citus_tpu_torch.observability.trace import clock
 from citus_tpu_torch.ops.scan_agg import (
-    build_fused_worker_fn, build_worker_fn, combine_partials_host,
-    empty_device_partials,
+    build_fused_worker_fn, build_worker_fn, combine_kinds,
+    combine_partials_host, empty_device_partials,
 )
 from citus_tpu_torch.planner.auto_param import PHYSICAL_SRC, substitute_params
 from citus_tpu_torch.planner.bind import BoundSelect
@@ -152,7 +162,7 @@ def _host_batches(cat: Catalog, plan: PhysicalPlan):
 
 
 def _run_partials_cpu(cat: Catalog, plan: PhysicalPlan, settings: Settings,
-                      params=((), ()), device=None):
+                      params=((), ()), device=None, mesh=None):
     worker = build_worker_fn(plan, np)
     pcols, pvalids = params
     shard_results = []
@@ -315,11 +325,16 @@ class _StreamStats:
         plan.runtime_cache["task_bytes"] = self.task_bytes
 
 
+#: ``_stream_device_batches``'s default: look the cache key up itself
+_LOOKUP = object()
+
+
 def _stream_device_batches(cat: Catalog, plan: PhysicalPlan,
                            settings: Settings, device, launch, pstats, *,
                            cache_key: Optional[tuple] = None,
                            cache_tenant: Optional[str] = None,
-                           on_sync=None) -> _StreamStats:
+                           on_sync=None, cached=_LOOKUP,
+                           host_batches=None) -> _StreamStats:
     """Call ``launch(db, hb)`` once for each padded shard batch of the
     plan: ``db`` on ``device``, ``hb`` its host batch.
 
@@ -332,7 +347,10 @@ def _stream_device_batches(cat: Catalog, plan: PhysicalPlan,
     most ``depth`` batches stay un-synced, then the stream waits for the
     device (the launches are ordered on one stream, so that retires all
     of them) and calls ``on_sync()`` — and once more after the last
-    batch.  Each streamed batch is one ``device_round`` span."""
+    batch.  Each streamed batch is one ``device_round`` span.
+    ``cached`` is the entry of ``cache_key`` when the caller looked it up
+    already, and ``host_batches`` the padded host batches when the
+    caller has them (else the plan's)."""
     from citus_tpu_torch.executor.device_cache import GLOBAL_CACHE
     from citus_tpu_torch.executor.pipeline import (
         prefetch_batches, read_ahead_depth,
@@ -340,7 +358,8 @@ def _stream_device_batches(cat: Catalog, plan: PhysicalPlan,
     from citus_tpu_torch.testing.faults import FAULTS
 
     st = _StreamStats()
-    cached = None if cache_key is None else GLOBAL_CACHE.get(cache_key)
+    if cached is _LOOKUP:
+        cached = None if cache_key is None else GLOBAL_CACHE.get(cache_key)
     if cached is not None:
         st.cached = True
         for b in cached:
@@ -354,8 +373,10 @@ def _stream_device_batches(cat: Catalog, plan: PhysicalPlan,
     window_bytes = 0       # un-synced streamed bytes on device
     since_sync = 0
     staging = _Staging(device, depth + 1)
-    host_iter = prefetch_batches(_iter_padded_batches(cat, plan, settings),
-                                 read_ahead_depth(settings), pstats)
+    if host_batches is None:
+        host_batches = _iter_padded_batches(cat, plan, settings)
+    host_iter = prefetch_batches(host_batches, read_ahead_depth(settings),
+                                 pstats)
     try:
         for hb in host_iter:
             t_dev = clock()
@@ -403,10 +424,193 @@ def _stream_device_batches(cat: Catalog, plan: PhysicalPlan,
     return st
 
 
+def _repad_batch(b: ShardBatch, bucket: int) -> ShardBatch:
+    """Grow a padded host batch to a larger bucket (a mesh round's
+    members share one shape)."""
+    pad = bucket - b.padded_rows
+    if pad <= 0:
+        return b
+    cols = tuple(np.concatenate([c, np.zeros(pad, c.dtype)]) for c in b.cols)
+    valids = tuple(np.concatenate([v, np.ones(pad, bool)]) for v in b.valids)
+    mask = np.concatenate([b.row_mask, np.zeros(pad, bool)])
+    return ShardBatch(cols, valids, mask, b.n_rows, bucket, b.shard_index)
+
+
+def _run_mesh_round(plan: PhysicalPlan, mesh, buf: list, stagings: dict,
+                    launch, collect: Optional[list]) -> int:
+    """One round onto the mesh: ``buf``'s host batches (filled in place
+    with empty ones, shard index -1, to one per member) re-padded to the
+    round's largest bucket, copied to their members' devices and folded
+    there (``launch(m, db)``); the device batches are kept in
+    ``collect`` for the device cache.  -> the round's bytes."""
+    from citus_tpu_torch.parallel.mesh import shard_axis_size
+    from citus_tpu_torch.testing.faults import FAULTS
+    # delay injections here model device-side round latency for the
+    # host/device overlap tests (the decode half is decode_batch)
+    FAULTS.hit("device_round", plan.bound.table.name)
+    t0 = clock()
+    n_real = len(buf)
+    bucket = max(b.padded_rows for b in buf)
+    while len(buf) < shard_axis_size(mesh):
+        buf.append(empty_batch(plan.bound.table, plan, bucket, -1))
+    nbytes = 0
+    dbs = []
+    for m, hb in enumerate(_repad_batch(b, bucket) for b in buf):
+        db = stagings[mesh.device_of(m)].to_device(hb)
+        launch(m, db)
+        dbs.append(db)
+        nbytes += (sum(c.nbytes for c in hb.cols)
+                   + sum(v.nbytes for v in hb.valids) + hb.row_mask.nbytes)
+    if collect is not None:
+        collect.append(dbs)
+    ctx = _trace.current()
+    if ctx is not None:
+        tr, parent = ctx
+        tr.add_closed("device_round", parent.span_id, t0, clock(),
+                      {"batches": n_real, "bytes": int(nbytes)})
+    return nbytes
+
+
+def _book_mesh_round(buf: list, nb: int, task_bytes: list) -> None:
+    """Split one mesh round's H2D bytes across the round's REAL shard
+    members for attribution (``_run_mesh_round`` appends shard_index=-1
+    pad batches into ``buf`` in place; their padding overhead belongs to
+    the shards that forced the round).  The byte remainder lands on the
+    first member so the ledger total stays exactly equal to the
+    bytes_scanned counter bump.  (The reference also splits the round's
+    time into ``mesh_task_times``, which nothing reads.)"""
+    real = [mb for mb in buf if mb.shard_index >= 0] or buf
+    share, rem = divmod(int(nb), len(real))
+    for i, mb in enumerate(real):
+        task_bytes.append((mb.shard_index, share + (rem if i == 0 else 0)))
+
+
+def _mesh_folds(plan: PhysicalPlan, mesh, params):
+    """-> (``launch(m, db)`` folding a device batch into member m's
+    registers, the members' registers).  Each member's registers are a
+    fresh allocation on its device; its parameters ride each launch's
+    parameter block (replicated, as the reference's ``p_stack``)."""
+    from citus_tpu_torch.ops.xp_torch import TorchNamespace
+    from citus_tpu_torch.parallel.mesh import on_member, shard_axis_size
+    penv = _params_env(plan, params)
+    folds = {}
+    for dev in set(mesh.devices):
+        folds[dev] = get_kernel(
+            plan, f"fused:{dev}",
+            lambda dev=dev: build_fused_worker_fn(
+                plan, TorchNamespace(dev), _param_dtypes(plan, params)),
+            extra=(str(dev),))
+    # one host-to-device copy of the seeds per device; the other
+    # members on it start from device-side clones, before any fold
+    seeds: dict = {}
+    accs = []
+    for m in range(shard_axis_size(mesh)):
+        dev = mesh.device_of(m)
+        if dev in seeds:
+            accs.append(tuple(t.clone() for t in seeds[dev]))
+        else:
+            seeds[dev] = empty_device_partials(plan, dev)
+            accs.append(seeds[dev])
+
+    def launch(m, db):
+        dev = mesh.device_of(m)
+        with on_member(dev):
+            folds[dev](accs[m], db.cols, db.valids, db.row_mask, penv)
+    return launch, accs
+
+
+def _run_partials_mesh(cat: Catalog, plan: PhysicalPlan, settings: Settings,
+                       params, mesh, mkey: Optional[tuple], cache_tenant,
+                       pstats, batches=None, cached_rounds=None):
+    """The mesh branch of ``_run_partials_device`` (the reference's
+    ``_run_partials_jax`` over more than one device): ``batches`` (two or
+    more padded host batches, lazily) go in rounds of one per member, or
+    ``cached_rounds``, the mesh cache entry, replays its rounds (each
+    member's device batches); each member folds
+    into its own registers, and one ``mesh_combine`` gives the
+    partials.  A streamed scan is kept for the cache while its working
+    set fits; past it, at most ``depth`` rounds stay un-synced."""
+    from citus_tpu_torch.executor.device_cache import GLOBAL_CACHE
+    from citus_tpu_torch.executor.pipeline import (
+        prefetch_batches, read_ahead_depth,
+    )
+    from citus_tpu_torch.parallel.mesh import mesh_combine, shard_axis_size
+    n_dev = shard_axis_size(mesh)
+    launch, accs = _mesh_folds(plan, mesh, params)
+    devices = list(dict.fromkeys(mesh.devices))
+    rounds = 0
+    if cached_rounds is not None:
+        for dbs in cached_rounds:
+            for m, db in enumerate(dbs):
+                launch(m, db)
+            rounds += 1
+    else:
+        depth = _prefetch_depth(settings)
+        stagings = {d: _Staging(d, (depth + 1) * n_dev) for d in devices}
+        collect: Optional[list] = [] if mkey is not None else None
+        nbytes = 0
+        since_sync = 0
+        task_bytes: list = []
+
+        def step(buf):
+            """One round, booked; past the cache, at most ``depth``
+            rounds stay un-synced."""
+            nonlocal nbytes, collect, since_sync, rounds
+            t_dev = clock()
+            nb = _run_mesh_round(plan, mesh, buf, stagings, launch, collect)
+            nbytes += nb
+            rounds += 1
+            _book_mesh_round(buf, nb, task_bytes)
+            if collect is not None and nbytes > GLOBAL_CACHE.capacity:
+                collect = None  # working set exceeds the cache: stream
+            if collect is None:
+                since_sync += 1
+                if since_sync >= depth:
+                    for d in devices:
+                        _block_ready(d)
+                    since_sync = 0
+            pstats.device_s += clock() - t_dev
+        # host/device overlap: the decode thread prepares the NEXT round
+        # (up to read_ahead_depth rounds of n_dev batches) while the
+        # devices fold the current one
+        host_iter = prefetch_batches(batches, read_ahead_depth(settings)
+                                     * n_dev, pstats)
+        buf: list = []
+        try:
+            for hb in host_iter:
+                buf.append(hb)
+                if len(buf) == n_dev:
+                    step(buf)
+                    buf = []
+            if buf:
+                step(buf)
+        finally:
+            host_iter.close()
+        if collect:
+            GLOBAL_CACHE.put(mkey, collect, nbytes, tenant=cache_tenant)
+        pstats.h2d_bytes = nbytes
+        GLOBAL_COUNTERS.bump("bytes_scanned", nbytes)
+        GLOBAL_COUNTERS.bump("device_hbm_touched_bytes", nbytes)
+        plan.runtime_cache["task_bytes"] = task_bytes
+        pstats.publish(plan)
+    t_dev = clock()
+    partials = tuple(p.cpu().numpy() for p in mesh_combine(
+        combine_kinds(plan), [tuple(a) for a in accs]))
+    pstats.device_s += clock() - t_dev
+    GLOBAL_COUNTERS.bump("fused_dispatches", rounds * n_dev)
+    pl = plan.runtime_cache.setdefault("pipeline", {})
+    pl["fused_dispatches"] = rounds * n_dev
+    pl["mesh_members"] = n_dev
+    pl["mesh_rounds"] = rounds
+    return partials
+
+
 def _run_partials_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
-                         params=((), ()), device=None):
+                         params=((), ()), device=None, mesh=None):
     import torch
-    from citus_tpu_torch.executor.device_cache import plan_cache_key
+    from citus_tpu_torch.executor.device_cache import (
+        GLOBAL_CACHE, plan_cache_key,
+    )
     from citus_tpu_torch.executor.pipeline import PipelineStats
     from citus_tpu_torch.ops.xp_torch import TorchNamespace
     from citus_tpu_torch.workload import tenant_key
@@ -417,6 +621,44 @@ def _run_partials_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
     xp = TorchNamespace(device)
     pstats = PipelineStats()
     _trace.set_phase("device")
+    # an open transaction's staged writes change what a scan sees
+    # without bumping table.version: bypass the device cache for the
+    # tables it touched.  A cache entry is charged to the tenant whose
+    # query pinned it (the shared bucket for non-router scans)
+    from citus_tpu_torch.storage.overlay import current_overlay
+    txn = current_overlay()
+    overlaid = txn is not None and plan.bound.table.name in txn.tables
+    key = None if overlaid \
+        else plan_cache_key(plan, cat.data_dir) + (str(device),)
+    cache_tenant = tenant_key(plan.router_key)
+    cached = None if key is None else GLOBAL_CACHE.get(key)
+    host_batches = None
+    # a single-batch table cached under the one-device key serves from
+    # the single stream below without touching disk: only enter the mesh
+    # branch when no such entry exists
+    if mesh is not None and mesh.shape["shard"] > 1 and cached is None:
+        # mesh entries hold each member's device batches per round, a
+        # different structure than the single stream's: they key apart
+        mkey = None if key is None else key + (
+            "mesh", mesh.shape["shard"], tuple(map(str, mesh.devices)))
+        mcached = None if mkey is None else GLOBAL_CACHE.get(mkey)
+        if mcached is not None:
+            return _run_partials_mesh(cat, plan, settings, params, mesh,
+                                      mkey, cache_tenant, pstats,
+                                      cached_rounds=mcached)
+        import itertools
+        stream = _iter_padded_batches(cat, plan, settings)
+        t_peek = clock()
+        first = next(stream, None)
+        second = None if first is None else next(stream, None)
+        pstats.host_decode_s += clock() - t_peek
+        if first is None:
+            return combine_partials_host(plan, [_empty_partials(plan, np)])
+        if second is not None:
+            return _run_partials_mesh(
+                cat, plan, settings, params, mesh, mkey, cache_tenant,
+                pstats, itertools.chain([first, second], stream))
+        host_batches = iter([first])  # one batch: the single stream
     # one fold per batch into device-resident registers, updated in
     # place (the port's donate_argnums): one scan_agg_fold launch per
     # batch -- the plan's WHERE, keys and arguments generated into it,
@@ -428,19 +670,11 @@ def _run_partials_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
                        extra=(str(device),))
     penv = _params_env(plan, params)
     acc = empty_device_partials(plan, device)
-    # an open transaction's staged writes change what a scan sees
-    # without bumping table.version: bypass the device cache for the
-    # tables it touched.  A cache entry is charged to the tenant whose
-    # query pinned it (the shared bucket for non-router scans)
-    from citus_tpu_torch.storage.overlay import current_overlay
-    txn = current_overlay()
-    overlaid = txn is not None and plan.bound.table.name in txn.tables
     st = _stream_device_batches(
         cat, plan, settings, device,
         lambda db, hb: fused(acc, db.cols, db.valids, db.row_mask, penv),
-        pstats, cache_key=None if overlaid
-        else plan_cache_key(plan, cat.data_dir) + (str(device),),
-        cache_tenant=tenant_key(plan.router_key))
+        pstats, cache_key=key, cache_tenant=cache_tenant, cached=cached,
+        host_batches=host_batches)
     if st.n_dispatch == 0:
         return combine_partials_host(plan, [_empty_partials(plan, np)])
     t_dev = clock()
@@ -464,7 +698,7 @@ def _decode_direct_keys(plan: PhysicalPlan, rows: np.ndarray):
 
 
 def _run_agg(cat: Catalog, plan: PhysicalPlan, settings: Settings,
-             params=((), ()), device=None) -> list[tuple]:
+             params=((), ()), device=None, mesh=None) -> list[tuple]:
     backend = settings.executor.task_executor_backend
     mode = plan.group_mode.kind
     penv = _params_env(plan, params)
@@ -488,7 +722,7 @@ def _run_agg(cat: Catalog, plan: PhysicalPlan, settings: Settings,
     local, dispatch = dispatch_remote_tasks(cat, plan, settings, params)
     try:
         partials = run(cat, _with_shards(plan, local), settings, params,
-                       device)
+                       device, mesh)
     except BaseException:
         dispatch.abort()  # no RPC thread outlives the attempt
         raise
@@ -498,7 +732,7 @@ def _run_agg(cat: Catalog, plan: PhysicalPlan, settings: Settings,
         tb = list(plan.runtime_cache.get("task_bytes", []))
         remote_partials = [*remote_partials,
                            run(cat, _with_shards(plan, fallback), settings,
-                               params, device)]
+                               params, device, mesh)]
         plan.runtime_cache["task_times"] = (
             tt + list(plan.runtime_cache.get("task_times", [])))
         plan.runtime_cache["task_bytes"] = (
@@ -995,9 +1229,10 @@ def _bind_time_prune(plan: PhysicalPlan, params) -> PhysicalPlan:
 def execute_select(cat: Catalog, bound: BoundSelect, settings: Settings,
                    plan: Optional[PhysicalPlan] = None,
                    param_values: Optional[list] = None,
-                   device=None) -> Result:
+                   device=None, mesh=None) -> Result:
     """Run one bound SELECT.  ``device`` is the torch device of the
-    ``gpu`` backend (the Cluster's)."""
+    ``gpu`` backend (the Cluster's), ``mesh`` the Cluster's
+    ``DeviceMesh`` (None: the single stream on ``device``)."""
     t0 = clock()
     _guard_remote_written(cat, [bound.table.name])
     if plan is None:
@@ -1022,12 +1257,13 @@ def execute_select(cat: Catalog, bound: BoundSelect, settings: Settings,
                 if r is not None:
                     return r
         return _execute_select_serial(cat, bound, settings, plan, params,
-                                      t0, exec_span, device)
+                                      t0, exec_span, device, mesh)
 
 
 def _execute_select_serial(cat: Catalog, bound: BoundSelect,
                            settings: Settings, plan: PhysicalPlan, params,
-                           t0: float, exec_span, device) -> Result:
+                           t0: float, exec_span, device,
+                           mesh=None) -> Result:
     GLOBAL_COUNTERS.bump("queries_executed")
     if plan.is_router:
         GLOBAL_COUNTERS.bump("router_queries")
@@ -1059,7 +1295,8 @@ def _execute_select_serial(cat: Catalog, bound: BoundSelect,
                 if bound.param_specs:
                     run_plan = _bind_time_prune(run_plan, params)
             if bound.has_aggs:
-                return _run_agg(cat, run_plan, settings, params, device)
+                return _run_agg(cat, run_plan, settings, params, device,
+                                mesh)
             return _run_projection(cat, run_plan, settings, params, device)
         rows = snapshot_read(cat.data_dir, bound.table, _attempt,
                              timeout=settings.executor.lock_timeout_s)

@@ -11,13 +11,15 @@ Physical execution of BoundJoinSelect plans:
   pull-to-coordinator degradation path.
 - *repartition* strategy: both sides are partitioned by join-key hash
   and joined per bucket.  On the ``gpu`` backend each inner equi step
-  runs on the device mesh (``_device_join_step``): the partition kernel
-  (B7, ``parallel/shuffle.py pack_blocks``) packs both sides, and the
-  sort-join kernel (B8, ``sorted_join``) joins them and gathers the
-  joined columns.  The port's mesh is one card (``parallel/mesh.py``),
-  where the exchange between the two is the identity.  Steps the device
-  join refuses (outer joins, and outputs over ``MAX_DEVICE_JOIN_CAP``)
-  take the bucket path, whose packing runs B7 too.  The ``cpu`` backend
+  runs on the Cluster's device mesh (``_device_join_step``): each member
+  packs its rows with the partition kernel (B7, ``parallel/shuffle.py
+  pack_blocks``), the exchange kernel (``exchange_blocks``) hands block d
+  of every member to member d, and each member joins what it received
+  with the sort-join kernel (B8, ``sorted_join``), gathering the joined
+  columns.  On a one-member mesh the exchange is the identity.  Steps
+  the device join refuses (outer joins, and outputs over
+  ``MAX_DEVICE_JOIN_CAP``) take the bucket path, whose packing and
+  exchange run B7 and the exchange kernel too.  The ``cpu`` backend
   buckets on the host, as the reference's cpu oracle does.
 
 The join algorithm is an exact hash join over int64-encoded key bit
@@ -223,18 +225,20 @@ def _host_shuffle(frame, target: np.ndarray, n_buckets: int) -> list:
 MAX_DEVICE_JOIN_CAP = 1 << 22
 
 
-def _get_mesh(settings: Settings, device):
+def _get_mesh(settings: Settings, device, mesh=None):
     """The device mesh, or None for the cpu oracle.  The ``gpu`` backend
-    joins on the one-card mesh of the Cluster's device (the reference
-    needs more than one device for its mesh; at one device its
-    collectives are the identity, and the port's partition and join
-    kernels do the real work there)."""
+    joins on the Cluster's mesh, or without one on the one-member mesh of
+    its device (the reference needs more than one device for its mesh;
+    at one member the exchange is the identity, and the port's partition
+    and join kernels do the real work there)."""
     backend = settings.executor.task_executor_backend
     if backend == "cpu":
         return None
     if backend != "gpu":
         raise ExecutionError(
             f"unknown task_executor_backend {backend!r} (cpu | gpu)")
+    if mesh is not None:
+        return mesh
     if device is None:
         raise ExecutionError("the gpu backend needs the Cluster's device")
     import torch
@@ -253,10 +257,12 @@ def _to_host(tensors) -> list:
     return [t.cpu().numpy() for t in tensors]
 
 
-def _sync(device) -> None:
+def _sync(mesh) -> None:
+    """Wait for every member's card."""
     import torch
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for device in dict.fromkeys(mesh.devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def _stack_side(frame, gid, tgt, mask, n_dev):
@@ -348,12 +354,14 @@ def _device_join_step(cur, n, right, rn, step, mesh, stats=None):
     fn = build_repartition_join(mesh, n_lcols=len(lv), n_rcols=len(rv),
                                 capacity_l=cap_l, capacity_r=cap_r,
                                 join_cap=J, n_groups=U)
+    # the stacks land on member 0's device; each member's row moves on
+    # to its own device inside the builder (nothing moves on one card)
     dev = mesh.device
     t1 = clock()
     lv, rv = _to_device(lv, dev), _to_device(rv, dev)
     lgid2, ltgt2, lmask2, rgid2, rtgt2, rmask2 = _to_device(
         (lgid2, ltgt2, lmask2, rgid2, rtgt2, rmask2), dev)
-    _sync(dev)
+    _sync(mesh)
     t2 = clock()
     out_l, out_r, out_valid, overflow = fn(lv, lgid2, ltgt2, lmask2,
                                            rv, rgid2, rtgt2, rmask2)
@@ -402,10 +410,10 @@ def _apply_residual(step, cur, n):
 
 
 def _device_shuffle(frame, target: np.ndarray, mesh) -> list:
-    """Exchange rows to their bucket device over the mesh: the partition
-    kernel packs them, the exchange moves them (the map-merge of
-    MapMergeJob; parallel/shuffle.py).  Returns per-bucket host
-    frames."""
+    """Exchange rows to their bucket member over the mesh: each member's
+    partition kernel packs them, the exchange kernel moves them (the
+    map-merge of MapMergeJob; parallel/shuffle.py).  Returns per-bucket
+    host frames."""
     from citus_tpu_torch.parallel.shuffle import build_repartition
 
     n_dev = mesh.shape["shard"]
@@ -453,7 +461,7 @@ def _device_shuffle(frame, target: np.ndarray, mesh) -> list:
 
 
 def _repartition_tasks(cat: Catalog, bj: BoundJoinSelect, settings: Settings,
-                       device=None):
+                       device=None, mesh=None):
     """Partition both distributed sides by join-key hash -> per-bucket
     frame overrides.  Uses the device shuffle when a mesh is available,
     host bucketing otherwise."""
@@ -461,7 +469,7 @@ def _repartition_tasks(cat: Catalog, bj: BoundJoinSelect, settings: Settings,
     qualified = bj.binder.qualified
     lframe, ln = _load_rel_frame(cat, bj.rel_plans[la], qualified)
     rframe, rn = _load_rel_frame(cat, bj.rel_plans[ra], qualified)
-    mesh = _get_mesh(settings, device)
+    mesh = _get_mesh(settings, device, mesh)
     B = (mesh.shape["shard"] if mesh is not None
          else settings.planner.repartition_bucket_count_per_device * 8)
     ltgt = _bucket_targets(lframe, lks, ln, B)
@@ -545,7 +553,8 @@ def _concat_frames(pieces):
 
 
 def _stepwise_shuffle_join(cat: Catalog, bj: BoundJoinSelect,
-                           settings: Settings, device=None, stats=None):
+                           settings: Settings, device=None, stats=None,
+                           mesh=None):
     """Multi-step shuffle DAG: each equi-join step hash-partitions both
     the accumulated frame and the incoming relation on the step's keys
     and joins bucket-by-bucket — the general MapMergeJob composition for
@@ -555,7 +564,7 @@ def _stepwise_shuffle_join(cat: Catalog, bj: BoundJoinSelect,
     qualified = bj.binder.qualified
     frames = {alias: _load_rel_frame(cat, bj.rel_plans[alias], qualified)
               for alias, _t in bj.rels}
-    mesh = _get_mesh(settings, device)
+    mesh = _get_mesh(settings, device, mesh)
     B = (mesh.shape["shard"] if mesh is not None
          else settings.planner.repartition_bucket_count_per_device * 8)
     mode = "all_to_all" if mesh is not None else "host"
@@ -635,9 +644,10 @@ def _guard_remote_hosted(cat: Catalog, bj: BoundJoinSelect) -> None:
 
 
 def execute_join_select(cat: Catalog, bj: BoundJoinSelect, settings: Settings,
-                        device=None) -> Result:
-    """Run a join plan; ``device`` is the Cluster's torch device, where
-    the ``gpu`` backend's device join runs."""
+                        device=None, mesh=None) -> Result:
+    """Run a join plan; ``device`` is the Cluster's torch device and
+    ``mesh`` its ``DeviceMesh``, over which the ``gpu`` backend's device
+    join runs (None: the one-member mesh of ``device``)."""
     from citus_tpu_torch.executor.executor import _guard_remote_written
     from citus_tpu_torch.transaction.snapshot import snapshot_read_multi
 
@@ -648,12 +658,12 @@ def execute_join_select(cat: Catalog, bj: BoundJoinSelect, settings: Settings,
     # colocation group — validated, non-blocking (transaction/snapshot.py)
     return snapshot_read_multi(
         cat.data_dir, [t_ for _, t_ in bj.rels],
-        lambda: _execute_join_select(cat, bj, settings, device),
+        lambda: _execute_join_select(cat, bj, settings, device, mesh),
         timeout=settings.executor.lock_timeout_s)
 
 
 def _execute_join_select(cat: Catalog, bj: BoundJoinSelect, settings: Settings,
-                         device=None) -> Result:
+                         device=None, mesh=None) -> Result:
     from citus_tpu_torch.executor.executor import GLOBAL_COUNTERS
     GLOBAL_COUNTERS.bump("join_queries")
     t0 = clock()
@@ -668,18 +678,18 @@ def _execute_join_select(cat: Catalog, bj: BoundJoinSelect, settings: Settings,
         tasks = ([(si, None) for si in range(dist[0].shard_count)]
                  if dist else [(None, None)])
     elif (strategy == "repartition" and bj.repartition_spec is not None
-          and _get_mesh(settings, device) is None):
+          and _get_mesh(settings, device, mesh) is None):
         # single-repartition with host buckets (the cpu oracle)
         with _trace.span("shuffle", mode="host"):
             overrides, shuffle_mode = _repartition_tasks(cat, bj, settings,
-                                                         device)
+                                                         device, mesh)
         tasks = [(None, fo) for fo in overrides]
     elif strategy == "repartition":
         # on a mesh the step-wise path joins each equi step on device
         # (exchange + per-device sort join, one host fetch)
         with _trace.span("shuffle", mode="mesh"):
             frame_n = _stepwise_shuffle_join(cat, bj, settings, device,
-                                             join_steps)
+                                             join_steps, mesh)
         shuffle_mode = f"{frame_n[2]}:{frame_n[3]}-step"
         tasks = [(None, {"__result__": (frame_n[0], frame_n[1])})]
     else:

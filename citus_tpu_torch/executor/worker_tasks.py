@@ -508,7 +508,7 @@ def _run_worker_task(cluster, p: dict) -> tuple[dict, bytes]:
         run = _run_partials_cpu if backend == "cpu" else _run_partials_device
 
         def _attempt():
-            return run(cat, plan, settings, params, device)
+            return run(cat, plan, settings, params, device, cluster.mesh)
         with _trace.span("worker_scan", shard_id=shard_id, kind="agg"):
             partials = snapshot_read(
                 cat.data_dir, t, _attempt,

@@ -237,6 +237,20 @@ def _np_scatter_max(acc, idx, upd):
     return acc
 
 
+def combine_kinds(plan: PhysicalPlan) -> list[str]:
+    """Elementwise combine op per partial state, in build_worker_fn
+    output order (the trailing "sum" is direct mode's group row
+    counts): what ``mesh_combine`` applies over a mesh's members."""
+    kinds = []
+    for op in plan.partial_ops:
+        kinds.append({"sum": "sum", "count": "sum", "min": "min",
+                      "max": "max", "hll": "max", "ddsk": "sum",
+                      "topk": "sum", "topkv": "max"}[op.kind])
+    if plan.group_mode.kind == "direct":
+        kinds.append("sum")
+    return kinds
+
+
 def build_fused_worker_fn(plan: PhysicalPlan, xp,
                           param_dtypes=None) -> Callable:
     """Fused hot loop: filter→partial-agg AND the running cross-batch
@@ -312,8 +326,8 @@ def build_fold_inputs(plan: PhysicalPlan, param_dtypes=None) -> Callable:
 def combine_partials_host(plan: PhysicalPlan, shard_partials: list[tuple]) -> tuple:
     """Combine per-shard partial tuples on the host (numpy).  Used by the
     local executor and as the coordinator-side merge when shards were
-    executed in independent rounds; the in-mesh combine uses
-    psum/pmin/pmax instead (citus_tpu_torch.parallel.collectives)."""
+    executed in independent rounds; the mesh's combine is
+    ``parallel/mesh.py mesh_combine`` instead."""
     ops = list(plan.partial_ops)
     n = len(ops)
     has_rows = plan.group_mode.kind == "direct"

@@ -1,4 +1,5 @@
-"""Repartition shuffle: the partition (B7) and sort-join (B8) kernels.
+"""Repartition shuffle: the partition (B7), exchange and sort-join (B8)
+kernels.
 
 The reference redistributes rows between workers with MapMergeJob (map
 tasks hash-partition each shard's rows into bucket files, fetch tasks
@@ -10,13 +11,17 @@ Static-shape contract, as in the reference: each device holds ``N`` rows
 (src, dst) block is padded to a fixed capacity ``C``.  Rows past ``C``
 are counted in ``overflow`` and the caller refuses a nonzero one.
 
-The two kernels, each a wrapper with a launch counter and a plain
+The three kernels, each a wrapper with a launch counter and a plain
 PyTorch version:
 
-- ``pack_blocks`` (B7, ``csrc/partition_pack.cu``): one device's rows
+- ``pack_blocks`` (B7, ``csrc/partition_pack.cu``): one member's rows
   into ``[n_dev, C]`` send blocks by target, stable, with the overflow
   count (the reference's ``_pack_blocks``);
-- ``sorted_join`` (B8, ``csrc/sorted_join.cu``): one device's inner
+- ``exchange_blocks`` (the exchange of B7/B8, ``csrc/mesh_exchange.cu``):
+  block d of every member's packed columns to member d, the reference's
+  ``all_to_all(split_axis=0, concat_axis=0)``, one launch per
+  destination;
+- ``sorted_join`` (B8, ``csrc/sorted_join.cu``): one member's inner
   equi-join on dense group ids, ``(l_idx, r_idx, out_valid, total)`` of
   ``join_cap`` slots exactly as the reference's
   ``_sorted_join_indexes``, and the gather of every column at them (its
@@ -27,10 +32,11 @@ On CUDA tensors a wrapper launches its kernel (counted in
 version.  There is no fallback between the two.
 
 ``build_repartition`` and ``build_repartition_join`` compose them over a
-mesh as the reference's builders do.  The mesh has one card
-(``parallel/mesh.py``): the exchange between packing and joining is the
-identity there, and NCCL's all_to_all takes its place with more than
-one card (ROADMAP.md A9b).
+mesh of ``n_dev`` members (``parallel/mesh.py``) as the reference's
+builders do: each member packs, the blocks are exchanged, the overflow
+sums over members (``mesh_combine``, the reference's ``psum``) and each
+member joins what it received.  On a one-member mesh the exchange and
+the sum are the identity and launch nothing.
 """
 
 from __future__ import annotations
@@ -42,7 +48,9 @@ import numpy as np
 import torch
 
 from citus_tpu_torch.ops.cuda_build import count_launch
-from citus_tpu_torch.parallel.mesh import SHARD_AXIS
+from citus_tpu_torch.parallel.mesh import (
+    MAX_MEMBERS, mesh_combine, on_member, shard_axis_size, to_member,
+)
 
 #: rows per tile of the counting passes (csrc/partition.cuh PT_TILE)
 _TILE = 2048
@@ -50,6 +58,7 @@ _TILE = 2048
 _MAX_DIGITS = 1024
 _PP_MAX_COLS = 64
 _SJ_MAX_COLS = 32
+_MX_MAX_COLS = 24
 
 
 def _tiles(n: int) -> int:
@@ -103,6 +112,19 @@ def _library(name: str):
     from citus_tpu_torch.ops import cuda_build
     lib = cuda_build.load(name)
     vp = ctypes.c_void_p
+    if name == "mesh_exchange":
+        lib.mesh_exchange_launch.argtypes = [ctypes.POINTER(_MxParams), vp]
+        lib.mesh_exchange_launch.restype = ctypes.c_int
+        for fn, want in ((lib.mesh_exchange_params_size,
+                          ctypes.sizeof(_MxParams)),
+                         (lib.mesh_exchange_max_src, MAX_MEMBERS),
+                         (lib.mesh_exchange_max_cols, _MX_MAX_COLS)):
+            fn.restype, fn.argtypes = ctypes.c_int, []
+            if fn() != want:
+                raise RuntimeError("mesh_exchange: parameter block layout "
+                                   "differs between Python and CUDA")
+        _libs[name] = lib
+        return lib
     if name == "partition_pack":
         lib.partition_pack_launch.argtypes = [ctypes.POINTER(_PpParams), vp]
         lib.partition_pack_launch.restype = ctypes.c_int
@@ -387,65 +409,212 @@ def sorted_join(lgid, lvalid, rgid, rvalid, lcols: tuple, rcols: tuple,
 sorted_join.launches = 0
 
 
+# --------------------------------------------------- the exchange (B7/B8)
+
+
+class _MxColumn(ctypes.Structure):
+    _fields_ = [("dst", ctypes.c_void_p), ("elem", ctypes.c_int64),
+                ("src", ctypes.c_void_p * MAX_MEMBERS)]
+
+
+class _MxParams(ctypes.Structure):
+    _fields_ = [("n_src", ctypes.c_int64), ("capacity", ctypes.c_int64),
+                ("n_cols", ctypes.c_int64),
+                ("cols", _MxColumn * _MX_MAX_COLS)]
+
+
+def exchange_blocks_plain(blocks: list, mesh) -> list:
+    """``exchange_blocks`` in eager tensor ops: destination d's column c
+    is the concatenation, in source order, of block d of every source's
+    column c, on d's device.  Counts its calls in
+    ``exchange_blocks_plain.calls``."""
+    _count_call(exchange_blocks_plain)
+    n = len(blocks)
+    return [tuple(torch.cat([to_member(blocks[s][c][d], mesh.device_of(d))
+                             for s in range(n)])
+                  for c in range(len(blocks[0])))
+            for d in range(n)]
+
+
+exchange_blocks_plain.calls = 0
+
+
+def _exchange_launch(blocks: list, mesh) -> list:
+    n = len(blocks)
+    n_cols = len(blocks[0])
+    if n > MAX_MEMBERS:
+        raise ValueError(f"exchange_blocks: at most {MAX_MEMBERS} members")
+    C = blocks[0][0].shape[1]
+    for s, cols in enumerate(blocks):
+        if len(cols) != n_cols:
+            raise ValueError("exchange_blocks: sources differ in columns")
+        for c, b in enumerate(cols):
+            want = blocks[0][c]
+            if b.shape != (n, C) or b.dtype != want.dtype \
+                    or not b.is_contiguous() or b.device.type != "cuda" \
+                    or b.element_size() not in (1, 4, 8):
+                raise ValueError(f"exchange_blocks: source {s} column {c} "
+                                 f"must be a contiguous [{n}, {C}] "
+                                 f"{want.dtype} CUDA tensor of 1, 4 or 8 "
+                                 f"byte values, got {b.dtype} "
+                                 f"{tuple(b.shape)} on {b.device}")
+    lib = _library("mesh_exchange")
+    out = []
+    for d in range(n):
+        dev = mesh.device_of(d)
+        # the blocks d receives, on d's card (no copy on one card)
+        src = [[to_member(blocks[s][c][d], dev) for c in range(n_cols)]
+               for s in range(n)]
+        recv = tuple(torch.empty(n * C, dtype=blocks[0][c].dtype, device=dev)
+                     for c in range(n_cols))
+        with on_member(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for a in range(0, n_cols, _MX_MAX_COLS):
+                p = _MxParams()
+                p.n_src, p.capacity = n, C
+                chunk = range(a, min(a + _MX_MAX_COLS, n_cols))
+                p.n_cols = len(chunk)
+                for k, c in enumerate(chunk):
+                    p.cols[k].dst = recv[c].data_ptr()
+                    p.cols[k].elem = recv[c].element_size()
+                    for s in range(n):
+                        p.cols[k].src[s] = src[s][c].data_ptr()
+                err = lib.mesh_exchange_launch(ctypes.byref(p), stream)
+                if err != 0:
+                    raise RuntimeError(f"mesh_exchange launch failed: CUDA "
+                                       f"error {err}")
+                count_launch(exchange_blocks)
+        out.append(recv)
+    return out
+
+
+def exchange_blocks(blocks: list, mesh) -> list:
+    """The all_to_all of a repartition over ``mesh``: ``blocks[s]`` is
+    source member s's tuple of packed ``[n, C]`` columns (its validity
+    among them), on any device; -> for each destination member d the
+    tuple of its ``[n * C]`` receive columns on d's device, block d of
+    source s at rows ``[s * C, (s + 1) * C)`` (the reference's
+    ``all_to_all(split_axis=0, concat_axis=0)`` flattened).  CUDA tensors
+    launch ``csrc/mesh_exchange.cu`` once per destination (for up to 24
+    columns; each launch counted in ``exchange_blocks.launches``), after
+    moving the blocks a destination needs from other cards onto its own;
+    CPU tensors run ``exchange_blocks_plain``."""
+    dev = blocks[0][0].device
+    if dev.type == "cuda":
+        return _exchange_launch(blocks, mesh)
+    if dev.type != "cpu":
+        raise ValueError(f"exchange_blocks: no kernel for {dev}")
+    return exchange_blocks_plain(blocks, mesh)
+
+
+#: kernel launches since the counter was last set to 0
+exchange_blocks.launches = 0
+
+
 # -------------------------------------------------------- over the mesh
 
 
-def _one_card(mesh) -> None:
-    """The builders below run on the one-card mesh, where the exchange
-    between packing and joining is the identity: block 0 of the one
-    device goes to itself.  (NCCL's all_to_all between cards, and the
-    loop over source devices that comes with it, ROADMAP.md A9b.)"""
-    if mesh.shape[SHARD_AXIS] != 1:
-        raise NotImplementedError("the exchange between cards is not ported "
-                                  "yet (ROADMAP.md A9b)")
+def _pack_members(mesh, values, gid, target, mask, capacity: int):
+    """Each member packs its row of the stacked inputs on its device
+    (B7); -> per member (packed columns + validity, overflow)."""
+    n = shard_axis_size(mesh)
+    out = []
+    for s in range(n):
+        dev = mesh.device_of(s)
+        row = lambda t: to_member(t[s], dev)  # noqa: E731
+        cols = ((row(gid),) if gid is not None else ()) + tuple(
+            row(v) for v in values)
+        with on_member(dev):
+            packed, pvalid, overflow = pack_blocks(cols, row(target),
+                                                   row(mask), n, capacity)
+        out.append((packed + (pvalid,), overflow))
+    return out
+
+
+def _received(mesh, packed: list) -> list:
+    """Each destination member's ``[n * C]`` columns: the exchange, or
+    on a one-member mesh the one block as it is."""
+    if shard_axis_size(mesh) == 1:
+        return [tuple(b[0] for b in packed[0])]
+    return exchange_blocks(packed, mesh)
+
+
+def _overflow_sum(mesh, overflows: list) -> torch.Tensor:
+    """The overflow summed over members (the reference's ``psum``):
+    ``mesh_combine``, or the one member's count as it is."""
+    if len(overflows) == 1:
+        return overflows[0]
+    return mesh_combine(["sum"], [(o,) for o in overflows])[0]
+
+
+def _stacked(mesh, per_member: list) -> torch.Tensor:
+    """Per-member tensors as one ``[n, ...]`` stack on member 0's device
+    (a view on a one-member mesh)."""
+    if len(per_member) == 1:
+        return per_member[0][None]
+    return torch.stack([to_member(t, mesh.device) for t in per_member])
 
 
 def build_repartition(mesh, n_cols: int, capacity: int):
     """An exchange over ``mesh``: values tuple of ``[n_dev, N]`` tensors,
     target ``[n_dev, N]`` int32, mask ``[n_dev, N]`` -> values tuple of
-    ``[n_dev, n_dev * C]`` (rows now on their target device), validity
+    ``[n_dev, n_dev * C]`` (rows now on their target member), validity
     ``[n_dev, n_dev * C]`` and the overflow count (0-d; nonzero means
-    rows were dropped)."""
-    _one_card(mesh)
+    rows were dropped).  Row s of each input is member s's: it packs
+    there (``pack_blocks``), the blocks move (``exchange_blocks``) and
+    the overflow sums over members (``mesh_combine``)."""
 
     def run(values, target, mask):
         if len(values) != n_cols:
             raise ValueError(f"repartition built for {n_cols} columns")
-        packed, pvalid, overflow = pack_blocks(
-            tuple(v[0] for v in values), target[0], mask[0], 1, capacity)
-        return packed, pvalid, overflow
+        packed = _pack_members(mesh, values, None, target, mask, capacity)
+        recv = _received(mesh, [p for p, _ in packed])
+        cols = tuple(_stacked(mesh, [r[c] for r in recv])
+                     for c in range(n_cols + 1))
+        return cols[:-1], cols[-1], _overflow_sum(
+            mesh, [o for _, o in packed])
     return run
 
 
 def build_repartition_join(mesh, n_lcols: int, n_rcols: int, capacity_l: int,
                            capacity_r: int, join_cap: int, n_groups: int):
     """A shuffle and join over ``mesh``: both relations exchange by join
-    group bucket, then each device joins its bucket (``sorted_join``).
-    Inputs as the reference's: left values tuple of ``[n_dev, Nl]``
-    (validity as bool columns), lgid ``[n_dev, Nl]`` int64 dense group ids
-    (``n_groups`` of them), ltgt / lmask likewise, and the same for the
-    right side.  -> (left columns ``[n_dev, join_cap]``, right columns,
-    out_valid ``[n_dev, join_cap]``, overflow 0-d: nonzero when a block
-    or ``join_cap`` was too small)."""
-    _one_card(mesh)
+    group bucket, then each member joins what it received
+    (``sorted_join``).  Inputs as the reference's: left values tuple of
+    ``[n_dev, Nl]`` (validity as bool columns), lgid ``[n_dev, Nl]``
+    int64 dense group ids (``n_groups`` of them), ltgt / lmask likewise,
+    and the same for the right side; row s is member s's.  -> (left
+    columns ``[n_dev, join_cap]``, right columns, out_valid ``[n_dev,
+    join_cap]``, overflow 0-d: nonzero when a block or ``join_cap`` was
+    too small, summed over members)."""
 
-    def exchange(values, gid, tgt, mask, capacity):
-        packed, pvalid, overflow = pack_blocks((gid[0],) + tuple(
-            v[0] for v in values), tgt[0], mask[0], 1, capacity)
-        return packed[0][0], tuple(c[0] for c in packed[1:]), pvalid[0], \
-            overflow
+    def side(values, gid, tgt, mask, capacity):
+        packed = _pack_members(mesh, values, gid, tgt, mask, capacity)
+        recv = _received(mesh, [p for p, _ in packed])
+        # per member: (gid, columns, validity), and the overflow
+        return [(r[0], r[1:-1], r[-1]) for r in recv], [o for _, o in packed]
 
     def run(lvals, lgid, ltgt, lmask, rvals, rgid, rtgt, rmask):
         if len(lvals) != n_lcols or len(rvals) != n_rcols:
             raise ValueError("repartition join built for another column "
                              "count")
-        lg, lc, lv, lov = exchange(lvals, lgid, ltgt, lmask, capacity_l)
-        rg, rc, rv, rov = exchange(rvals, rgid, rtgt, rmask, capacity_r)
-        _, _, ovalid, total, ol, orr = sorted_join(lg, lv, rg, rv, lc, rc,
-                                                   n_groups, join_cap)
-        overflow = lov + rov + torch.clamp(total - join_cap, min=0)
-        return (tuple(c[None] for c in ol), tuple(c[None] for c in orr),
-                ovalid[None], overflow)
+        left, lov = side(lvals, lgid, ltgt, lmask, capacity_l)
+        right, rov = side(rvals, rgid, rtgt, rmask, capacity_r)
+        outs_l, outs_r, ovalid, overflows = [], [], [], []
+        for d, ((lg, lc, lv), (rg, rc, rv)) in enumerate(zip(left, right)):
+            with on_member(mesh.device_of(d)):
+                _, _, ov, total, ol, orr = sorted_join(
+                    lg, lv, rg, rv, lc, rc, n_groups, join_cap)
+            outs_l.append(ol)
+            outs_r.append(orr)
+            ovalid.append(ov)
+            overflows.append(lov[d] + rov[d]
+                             + torch.clamp(total - join_cap, min=0))
+        return (tuple(_stacked(mesh, [o[c] for o in outs_l])
+                      for c in range(n_lcols)),
+                tuple(_stacked(mesh, [o[c] for o in outs_r])
+                      for c in range(n_rcols)),
+                _stacked(mesh, ovalid), _overflow_sum(mesh, overflows))
     return run
 
 

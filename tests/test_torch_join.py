@@ -15,6 +15,9 @@ EXPLAIN strategy and shuffle mode.
   tests/test_repartition_join.py (TPC-H Q12's shape, a projection, a
   left outer join, a reference table, a text key, the colocated case,
   three relations stepwise);
+- every query above again with the port on an 8-member CPU mesh
+  (``mesh_devices=["cpu"] * 8``), the reference's device count: both
+  packages' device joins exchange over 8 members;
 - bench.py's QJOIN (BASELINE.json config 5) over bench.py's lineitem
   and orders_b generators at test scale;
 - TPC-H Q3's and Q10's shapes: distributed relations joined with
@@ -36,8 +39,10 @@ import citus_tpu as ct
 import citus_tpu_torch as ctt
 from citus_tpu_torch.errors import UnsupportedFeatureError
 from citus_tpu_torch.executor import join_executor
+from citus_tpu_torch.parallel.mesh import mesh_combine
 from citus_tpu_torch.parallel.shuffle import (
-    pack_blocks, pack_blocks_plain, sorted_join, sorted_join_plain,
+    exchange_blocks, exchange_blocks_plain, pack_blocks, pack_blocks_plain,
+    sorted_join, sorted_join_plain,
 )
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -303,6 +308,58 @@ def test_join_rows_identical_to_reference(clusters, dataset, sql):
     _same_rows(got_cpu.rows, want.rows, ordered)
     assert got_cpu.explain["strategy"] == want_cpu.explain["strategy"]
     assert got_cpu.explain.get("shuffle") == want_cpu.explain.get("shuffle")
+
+
+N_DEV = 8
+
+
+@pytest.fixture(scope="module")
+def mesh_ports(tmp_path_factory):
+    """{dataset: port cluster on an 8-member CPU mesh}: the reference's
+    device join runs over tests/conftest.py's 8 devices, the port's over
+    8 members."""
+    out = {}
+    try:
+        for name, fill in FILLS.items():
+            out[name] = ctt.Cluster(
+                str(tmp_path_factory.mktemp(f"{name}_mesh")), device="cpu",
+                mesh_devices=["cpu"] * N_DEV)
+            fill(out[name])
+        yield out
+    finally:
+        for port in out.values():
+            port.close()
+
+
+@pytest.mark.parametrize("dataset,sql", [(d, s) for d, _, s in QUERIES],
+                         ids=[i for _, i, _ in QUERIES])
+def test_join_rows_over_8_members_identical_to_reference(clusters,
+                                                         mesh_ports,
+                                                         dataset, sql):
+    """The same SQL through the reference's 8-device mesh and the port's
+    8-member mesh: identical rows, strategy and shuffle (devjoin in
+    both where the reference joins on its mesh).  Each device join step
+    packs 2 x 8 times, exchanges twice and joins on each of the 8
+    members; the bucket path packs and exchanges both sides."""
+    ref, _ = clusters[dataset]
+    port = mesh_ports[dataset]
+    want = ref.execute(sql)
+    c0 = _calls() + (exchange_blocks_plain.calls,)
+    got = port.execute(sql)
+    c1 = _calls() + (exchange_blocks_plain.calls,)
+    _same_rows(got.rows, want.rows, "ORDER BY" in sql)
+    assert got.explain["strategy"] == want.explain["strategy"]
+    assert got.explain.get("shuffle") == want.explain.get("shuffle")
+    steps = got.explain.get("device_join_steps", [])
+    packs, joins, exchanges = (b - a for a, b in zip(c0, c1))
+    assert joins == N_DEV * len(steps)
+    if steps:
+        assert "devjoin" in got.explain["shuffle"]
+        assert packs >= 2 * N_DEV * len(steps) and exchanges >= 2 * len(steps)
+    elif got.explain["strategy"] == "join:repartition" \
+            and "devjoin" not in got.explain["shuffle"]:
+        assert packs == 2 * N_DEV and exchanges == 2
+    assert exchange_blocks.launches == mesh_combine.launches == 0
 
 
 def test_pull_strategy_gives_the_same_rows(clusters):

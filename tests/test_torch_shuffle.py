@@ -19,6 +19,13 @@ against the JAX package's jitted bodies.
   slots; ``csrc/partition_pack.cu``, ``csrc/sorted_join.cu``) gives the
   same outputs: the kernels' design is checked here, their code on a
   card.
+- Over a mesh of 8 CPU members, ``build_repartition`` and
+  ``build_repartition_join`` (each member packs, ``exchange_blocks``
+  moves block d of every member to member d, the overflow sums over
+  members, each member joins) against the reference's builders at
+  tests/conftest.py's 8 devices: values, validity and overflow, an
+  overflowing block too, where the reference's C8 slots are recorded;
+  ``exchange_blocks_plain`` against a numpy block transpose.
 - ``test_*_kernel_matches_plain_on_card`` hold the CUDA kernels against
   the plain versions; they need a card and skip here.
 """
@@ -468,8 +475,180 @@ def test_build_repartition_packs_into_the_one_bucket():
 
 
 def test_a_mesh_of_more_than_one_card_is_refused_naming_a9b():
+    """A mesh of several members of one kind runs (the tests below); one
+    whose members span device kinds, as a mesh across hosts would, is
+    refused, naming ROADMAP.md A9b."""
+    assert DeviceMesh([torch.device("cpu")] * 2).shape["shard"] == 2
     with pytest.raises(NotImplementedError, match="A9b"):
-        DeviceMesh([torch.device("cpu"), torch.device("cpu")])
+        DeviceMesh([torch.device("cpu"), torch.device("cuda", 0)])
+
+
+# ------------------------------------------ over a mesh of 8 members
+
+
+N_DEV = 8
+
+
+def _stacked_case(n, seed, masked=0.1):
+    """[N_DEV, n] stacks of four columns (int64, int32, float64, bool),
+    targets and masks, one row per member, from numpy."""
+    rng = np.random.default_rng(seed)
+    values = (np.arange(N_DEV * n, dtype=np.int64).reshape(N_DEV, n) * 3 - 7,
+              rng.integers(-1000, 1000, (N_DEV, n)).astype(np.int32),
+              rng.normal(0, 1, (N_DEV, n)),
+              rng.random((N_DEV, n)) > 0.5)
+    target = rng.integers(0, N_DEV, (N_DEV, n)).astype(np.int32)
+    mask = rng.random((N_DEV, n)) >= masked
+    return values, target, mask
+
+
+def _port_mesh():
+    return DeviceMesh([torch.device("cpu")] * N_DEV)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("fit", ["over", "exact", "under"])
+def test_build_repartition_over_8_members_matches_reference(fit):
+    """Values, validity and overflow of the port's repartition (each
+    member packs, exchange_blocks moves block d to member d,
+    mesh_combine sums the overflow) against the reference's
+    build_repartition at 8 devices.  The reference may lose a block's
+    last row where ROADMAP.md C8 says; those slots are recorded and
+    only they may differ."""
+    from citus_tpu.parallel.mesh import default_mesh
+    from citus_tpu.parallel.shuffle import (
+        build_repartition as ref_build_repartition,
+    )
+    values, target, mask = _stacked_case(400, seed={"over": 1, "exact": 2,
+                                                    "under": 3}[fit])
+    need = max(_need(target[s], mask[s], N_DEV) for s in range(N_DEV))
+    cap = {"over": need + 2, "exact": need, "under": need // 2}[fit]
+    want = ref_build_repartition(default_mesh(), len(values), cap)(
+        values, target, mask)
+    shuffle.exchange_blocks_plain.calls = 0
+    got = build_repartition(_port_mesh(), len(values), cap)(
+        tuple(_t(v) for v in values), _t(target), _t(mask))
+    assert shuffle.exchange_blocks_plain.calls == 1
+    assert int(got[2]) == int(want[2])
+    assert (int(got[2]) > 0) == (fit == "under")
+    # the slots the reference's pack clobbered: block d of source s
+    # lands on member d at rows [s * cap, (s + 1) * cap)
+    c8 = [(d, s * cap + r) for s in range(N_DEV)
+          for d, r in _c8_slots(target[s], mask[s], N_DEV, cap)]
+    assert (len(c8) > 0) == (fit == "under")
+    for g, w in zip(got[0] + (got[1],), tuple(want[0]) + (want[1],)):
+        g, w = g.numpy().copy(), np.asarray(w).copy()
+        assert g.dtype == w.dtype and g.shape == w.shape == (N_DEV,
+                                                             N_DEV * cap)
+        for slot in c8:
+            g[slot] = w[slot] = 0
+        np.testing.assert_array_equal(g, w)
+
+
+def test_one_column_repartition_over_8_members_as_dryrun_multichip():
+    """__graft_entry__.py dryrun_multichip's repartition: one int64
+    column, every row valid, targets value % 8, capacity N: no
+    overflow, every row received once, on the member it targets, and
+    the reference's blocks exactly."""
+    from citus_tpu.parallel.mesh import default_mesh
+    from citus_tpu.parallel.shuffle import (
+        build_repartition as ref_build_repartition,
+    )
+    N = 64
+    vals = np.arange(N_DEV * N, dtype=np.int64).reshape(N_DEV, N)
+    tgt = (vals % N_DEV).astype(np.int32)
+    msk = np.ones((N_DEV, N), bool)
+    (want,), want_valid, want_ov = ref_build_repartition(
+        default_mesh(), 1, N)((vals,), tgt, msk)
+    (got,), valid, ov = build_repartition(_port_mesh(), 1, N)(
+        (_t(vals),), _t(tgt), _t(msk))
+    assert int(ov) == int(want_ov) == 0
+    assert int(valid.sum()) == N_DEV * N
+    for d in range(N_DEV):
+        assert (got[d][valid[d]] % N_DEV == d).all()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(want_valid))
+
+
+def _join_stacks(seed, n_l=300, n_r=200, u=60):
+    rng = np.random.default_rng(seed)
+    lgid = rng.integers(0, u, (N_DEV, n_l)).astype(np.int64)
+    rgid = rng.integers(0, u, (N_DEV, n_r)).astype(np.int64)
+    lmask = rng.random((N_DEV, n_l)) > 0.1
+    rmask = rng.random((N_DEV, n_r)) > 0.1
+    lv = (np.arange(N_DEV * n_l, dtype=np.int64).reshape(N_DEV, n_l), lmask)
+    rv = (rng.normal(0, 1, (N_DEV, n_r)), rmask)
+    ltgt, rtgt = (lgid % N_DEV).astype(np.int32), (rgid % N_DEV).astype(
+        np.int32)
+    return lv, lgid, ltgt, lmask, rv, rgid, rtgt, rmask, u
+
+
+def _pair_counts(lgid, lmask, rgid, rmask, u):
+    lc = np.bincount(lgid[lmask], minlength=u)
+    rc = np.bincount(rgid[rmask], minlength=u)
+    per = np.zeros(N_DEV, np.int64)
+    np.add.at(per, np.arange(u) % N_DEV, lc * rc)
+    return int(per.max()), int((lc * rc).sum())
+
+
+@pytest.mark.parametrize("fit", ["exact", "block_under", "join_under"])
+def test_build_repartition_join_over_8_members_matches_reference(fit):
+    """Left and right columns gathered per member, validity and the
+    overflow (summed over members) against the reference's
+    build_repartition_join at 8 devices, with exact capacities, an
+    overflowing block and a join_cap one short."""
+    from citus_tpu.parallel.mesh import default_mesh
+    from citus_tpu.parallel.shuffle import (
+        build_repartition_join as ref_build_join,
+    )
+    lv, lgid, ltgt, lmask, rv, rgid, rtgt, rmask, u = _join_stacks(
+        seed={"exact": 4, "block_under": 5, "join_under": 6}[fit])
+    cap_l = max(_need(ltgt[s], lmask[s], N_DEV) for s in range(N_DEV))
+    cap_r = max(_need(rtgt[s], rmask[s], N_DEV) for s in range(N_DEV))
+    J, pairs = _pair_counts(lgid, lmask, rgid, rmask, u)
+    if fit == "block_under":
+        cap_l -= 1
+    if fit == "join_under":
+        J -= 1
+    want = ref_build_join(default_mesh(), 2, 2, cap_l, cap_r, J)(
+        lv, lgid, ltgt, lmask, rv, rgid, rtgt, rmask)
+    got = build_repartition_join(_port_mesh(), 2, 2, cap_l, cap_r, J, u)(
+        tuple(_t(v) for v in lv), _t(lgid), _t(ltgt), _t(lmask),
+        tuple(_t(v) for v in rv), _t(rgid), _t(rtgt), _t(rmask))
+    assert int(got[3]) == int(want[3])
+    assert (int(got[3]) > 0) == (fit != "exact")
+    gv, wv = got[2].numpy(), np.asarray(want[2])
+    assert gv.shape == wv.shape == (N_DEV, J)
+    if fit == "block_under":
+        # ROADMAP.md C8: the reference's overflowing blocks lost their
+        # last row besides the rows past capacity, so its pairs differ;
+        # the port's counted overflow is the same
+        assert gv.sum() >= wv.sum()
+        return
+    np.testing.assert_array_equal(gv, wv)
+    assert int(gv.sum()) == pairs if fit == "exact" else int(gv.sum()) < pairs
+    for g, w in zip(got[0] + got[1], tuple(want[0]) + tuple(want[1])):
+        np.testing.assert_array_equal(g.numpy()[gv], np.asarray(w)[wv])
+
+
+def test_exchange_blocks_plain_is_a_block_transpose():
+    """Destination d receives block d of every source, in source order:
+    a transpose of the [source, destination] block grid."""
+    rng = np.random.default_rng(8)
+    C = 5
+    grid = rng.integers(0, 10**6, (N_DEV, N_DEV, C))      # [s, d, C]
+    valid = rng.random((N_DEV, N_DEV, C)) > 0.3
+    blocks = [(_t(grid[s]), _t(valid[s])) for s in range(N_DEV)]
+    out = shuffle.exchange_blocks(blocks, _port_mesh())
+    assert shuffle.exchange_blocks.launches == 0
+    want = grid.transpose(1, 0, 2).reshape(N_DEV, N_DEV * C)
+    want_v = valid.transpose(1, 0, 2).reshape(N_DEV, N_DEV * C)
+    for d in range(N_DEV):
+        np.testing.assert_array_equal(out[d][0].numpy(), want[d])
+        np.testing.assert_array_equal(out[d][1].numpy(), want_v[d])
 
 
 # ------------------------------------------------------------- on a card
@@ -506,6 +685,25 @@ def test_sorted_join_kernel_matches_plain_on_card():
             assert torch.equal(g, w), case
         assert torch.equal(got[4][0], want[4][0]), case
         assert torch.equal(got[5][0], want[5][0]), case
+
+
+@pytest.mark.cuda
+def test_exchange_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(8)
+    for n, C in ((1, 7), (4, 1000), (8, 4097)):
+        mesh = DeviceMesh([torch.device("cuda", 0)] * n)
+        blocks = [(torch.from_numpy(rng.integers(0, 10**9, (n, C))).cuda(),
+                   torch.from_numpy(rng.integers(-9, 9, (n, C)).astype(
+                       np.int32)).cuda(),
+                   torch.from_numpy(rng.random((n, C)) > 0.5).cuda())
+                  for _ in range(n)]
+        got = shuffle.exchange_blocks(blocks, mesh)
+        want = shuffle.exchange_blocks_plain(blocks, mesh)
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                assert torch.equal(a, b)
 
 
 def test_plain_versions_are_what_the_wrappers_run_on_cpu():
