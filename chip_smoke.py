@@ -67,7 +67,9 @@ result line:
      case (NaN, +-inf, +-0.0, 1e-300, a subnormal, every DDSketch bucket
      edge and its neighbours, INT64_MIN/MAX, nulls, an all-false mask,
      N not a multiple of the block); of ``scan_agg_fold_batched`` for
-     the S family at Q = 8 (global atomics) and Q = 6 (shared memory);
+     the S family at Q = 8 (the shared-memory table in two query chunks
+     of 4: ~264 KB of registers pass the opt-in limit) and Q = 6 (one
+     table), against eight serial S1 folds;
    - ``rollup_delta`` for all six kinds at n = 65,536 (one refresh
      batch) and n = 2^23 (SF1's backfill, padded) into 10,000 groups;
    - ``partition_pack`` (B7) on both sides of QJOIN's device join at
@@ -88,7 +90,8 @@ result line:
      order in both);
    - ``exchange_blocks`` over 4 members: QJOIN's lineitem side at SF1
      split and packed as the device join does it: identical receive
-     buffers.
+     buffers, one launch, and its kernel timed alone from a prebuilt
+     parameter block beside the wrapper call.
    int64 registers, keys, counts, min/max and NaN positions must be
    identical, float64 sums within rel 1e-12 (atomics add in another
    order; the sums near cancellation as above).  Each kernel is timed
@@ -189,7 +192,8 @@ result line:
    rows equal to the numpy oracle, one fold per member per round and
    one ``mesh_combine`` per query and no other kernel; one warm QJOIN at
    SF1 through the device join over the 4 members (``partition_pack``
-   8 times, ``exchange_blocks`` 8 (2 exchanges of 4 launches),
+   8 times, ``exchange_blocks`` twice (one launch an exchange on the
+   one card),
    ``sorted_join`` 4, ``mesh_combine`` once for the overflow).
 
 Then a JSON line of the kernels, the card line, and as the last line
@@ -486,6 +490,14 @@ def time_cuda(fn, reps: int = 25, rounds: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
+
+
+def regime_name(regime: int) -> str:
+    """A fold launch's regime (``last_regime``) in words."""
+    if regime > 1:
+        return f"shared-memory table in {regime} query chunks"
+    return {1: "shared-memory table", 0: "global atomics"}.get(regime,
+                                                               "none")
 
 
 def fold_masks(call):
@@ -1884,8 +1896,7 @@ def phase3_fold(device, plans, rows: list) -> None:
     for name, call, abs_of in cases:
         err = compare_fold(name, call, scan_agg_fold, fold_plain, abs_of)
         max_err = max(max_err, err)
-        regime = {1: "shared-memory table", 0: "global atomics"}.get(
-            scan_agg_fold.last_regime, "none")
+        regime = regime_name(scan_agg_fold.last_regime)
         kc = clone_call(call)
         ms = time_cuda(lambda: scan_agg_fold(*kc))
         pc = clone_call(call)
@@ -2237,8 +2248,7 @@ def phase3_batched_fold(device, plans, rows: list) -> None:
             raise AssertionError(
                 f"scan_agg_fold_batched [{name}]: regime "
                 f"{scan_agg_fold_batched.last_regime}, not {want_regime}")
-        regime = {1: "shared-memory table", 0: "global atomics"}.get(
-            scan_agg_fold_batched.last_regime, "none")
+        regime = regime_name(scan_agg_fold_batched.last_regime)
         kc = clone_call(call)
         ms = time_cuda(lambda: scan_agg_fold_batched(*kc))
         pc = clone_call(call)
@@ -2612,8 +2622,9 @@ def phase3_sketch_folds(device, splans, rows: list) -> None:
     """scan_agg_fold and scan_agg_fold_batched with the sketch ops against
     their plain versions: S1's ops on one padded 2^21-row batch of the
     generated sketch table, the adversarial case (and an all-false
-    mask), the S family at Q = 8 (global atomics: ~264 KB of registers)
-    and at Q = 6 (the shared-memory table).  Registers identical, float
+    mask), the S family at Q = 8 (~264 KB of registers: the shared-memory
+    table in two query chunks of 4) and at Q = 6 (one table), the Q = 8
+    family against eight serial S1 folds.  Registers identical, float
     sums within rel 1e-12.  Appends the two sketch rows of the JSON."""
     import torch
     from citus_tpu_torch.executor.megabatch import (
@@ -2642,7 +2653,7 @@ def phase3_sketch_folds(device, splans, rows: list) -> None:
                      ("adversarial all-false mask",
                       lambda: adversarial_sketch_call(device, n,
                                                       all_false=True), 1)]),
-            (True, [("S family Q=8", lambda: family_call(8), 0),
+            (True, [("S family Q=8", lambda: family_call(8), 2),
                     ("S family Q=6", lambda: family_call(6), 1),
                     ("adversarial Q=2", lambda: adversarial_sketch_call(
                         device, n, q=2), 1)])):
@@ -2653,6 +2664,8 @@ def phase3_sketch_folds(device, splans, rows: list) -> None:
         for case, make, want_regime in cases:
             call = make()
             err = compare_fold(f"{name} [{case}]", call, kernel, plain)
+            if case == "S family Q=8":
+                q8 = call
             max_err = max(max_err, err)
             if kernel.last_regime != want_regime:
                 raise AssertionError(f"{name} [{case}]: regime "
@@ -2669,6 +2682,8 @@ def phase3_sketch_folds(device, splans, rows: list) -> None:
             if main is None:
                 main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=by)
+            if case == "S1":
+                s1_ms = ms
             mask = fold_masks(call)
             # yardstick: ONE index_add_ of the passing (query, row) pairs
             # into the DDSketch registers, buckets drawn beforehand
@@ -2685,13 +2700,26 @@ def phase3_sketch_folds(device, splans, rows: list) -> None:
             say(f"phase 3 {name} [{case}, sketch ops]: N={mask.shape[-1]}"
                 f"{f' Q={mask.shape[0]}' if batched else ''} "
                 f"ops={[op.kind for op in call[0].ops]} regime="
-                f"{'shared-memory table' if kernel.last_regime else 'global atomics'}: "
+                f"{regime_name(kernel.last_regime)}: "
                 f"registers identical (max abs err of float sums {err!r}); "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s, {nops} "
                 f"operations at 67 TFLOP/s: {by}), library yardstick (one "
                 f"int64 index_add_ of the {hits} passing rows into the "
                 f"DDSketch registers, one op) {lib_ms:.4f} ms")
+        if batched:
+            # the same 8 queries folded one after another, each by the
+            # batched kernel at Q = 1 over its own mask
+            fold_q8, regs8, _, cols8, masks8 = q8
+            singles = [(fold_q8, [r[q:q + 1].clone() for r in regs8], None,
+                        cols8, masks8[q:q + 1].contiguous())
+                       for q in range(8)]
+            serial_ms = time_cuda(lambda: [scan_agg_fold_batched(*c)
+                                           for c in singles])
+            say(f"phase 3 scan_agg_fold_batched [S family Q=8, sketch ops]: "
+                f"{main['ms']:.4f} ms against its 8 queries folded one at "
+                f"a time {serial_ms:.4f} ms (8 launches at Q = 1; 8 x S1's "
+                f"serial fold {8 * s1_ms:.4f} ms)")
         rows.append({"name": f"{name}[sketch]", "route": "cuda",
                      "source": f"citus_tpu_torch/csrc/{name}.cu",
                      "replaces": "citus_tpu/ops/scan_agg.py:84",
@@ -3669,22 +3697,38 @@ def phase3_mesh_exchange(device, rows: list, sides) -> None:
     """exchange_blocks against its plain version, outputs identical: the
     lineitem side of QJOIN's device join at SF1 (gid, l_orderkey,
     l_quantity and their validity, the packed validity) over 4 members on
-    the card; appends its JSON row."""
+    the card, in one launch; the wrapper call timed beside its kernel
+    alone, launched from a prebuilt parameter block (the wrapper's host
+    time apart); appends its JSON row."""
     import torch
     from citus_tpu_torch.parallel.mesh import DeviceMesh
     from citus_tpu_torch.parallel.shuffle import (
-        exchange_blocks, exchange_blocks_plain,
+        exchange_blocks, exchange_blocks_plain, exchange_prepare,
+        exchange_run,
     )
     n = MESH_MEMBERS
     mesh = DeviceMesh([device] * n)
     (lgid, lcols, _), _, _ = sides
     blocks, cap = mesh_blocks(lgid, lcols, n)
+    launches = exchange_blocks.launches
     got = exchange_blocks(blocks, mesh)
+    launched = exchange_blocks.launches - launches
     want = exchange_blocks_plain(blocks, mesh)
     for d in range(n):
         compare_exact(f"exchange_blocks [QJOIN lineitem, destination {d}]",
                       got[d], want[d])
+    if device.type == "cuda" and launched != 1:
+        raise AssertionError(f"exchange_blocks: {launched} launches for one "
+                             "exchange on one card")
     ms = time_cuda(lambda: exchange_blocks(blocks, mesh), reps=10)
+    kernel_ms = None
+    if device.type == "cuda":
+        received, prepared = exchange_prepare(blocks, mesh)
+        kernel_ms = time_cuda(lambda: exchange_run(prepared, count=False),
+                              reps=10)
+        for d in range(n):
+            compare_exact(f"exchange_run [QJOIN lineitem, destination {d}]",
+                          received[d], want[d])
     plain_ms = time_cuda(lambda: exchange_blocks_plain(blocks, mesh), reps=5)
     lib_ms = time_cuda(lambda: [
         torch.stack([b[c] for b in blocks]).transpose(0, 1).contiguous()
@@ -3693,12 +3737,15 @@ def phase3_mesh_exchange(device, rows: list, sides) -> None:
     nbytes = 2 * sum(b.numel() * b.element_size() for bl in blocks
                      for b in bl)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    alone = "not measured" if kernel_ms is None else f"{kernel_ms:.4f} ms"
     say(f"phase 3 exchange_blocks [QJOIN lineitem side at SF1]: {n} members, "
         f"{lgid.numel()} rows, {len(blocks[0])} columns, capacity {cap}: "
-        f"identical to the plain version; {n} launches {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at 3.35 "
-        f"TB/s), torch.stack(...).transpose(0, 1).contiguous() a column "
-        f"(the library yardstick) {lib_ms:.4f} ms")
+        f"identical to the plain version; {launched} launch(es), the "
+        f"wrapper call {ms:.4f} ms, its kernel alone (from a prebuilt "
+        f"parameter block) {alone}, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s), "
+        f"torch.stack(...).transpose(0, 1).contiguous() a column (the "
+        f"library yardstick) {lib_ms:.4f} ms")
     rows.append({"name": "exchange_blocks", "route": "cuda",
                  "source": "citus_tpu_torch/csrc/mesh_exchange.cu",
                  "replaces": "citus_tpu/parallel/shuffle.py:62",
@@ -3772,8 +3819,9 @@ def run_join_query(cl, qname: str, sql: str, want: list, run_kind: str,
     join:repartition and (``devjoin``) the device join, and on the card
     partition_pack launched twice and sorted_join once (devjoin) or not
     at all, no other kernel; over a mesh of n > 1 members, a device join
-    step packs 2n times, exchanges twice (n launches each), joins on
-    each member and sums the overflow with one mesh_combine."""
+    step packs 2n times, exchanges twice, joins on
+    each member and sums the overflow with one mesh_combine.  An exchange
+    is one launch per card."""
     import torch
     counters = launch_counters()
     for f in counters.values():
@@ -3797,7 +3845,8 @@ def run_join_query(cl, qname: str, sql: str, want: list, run_kind: str,
         m = cl.mesh.shape["shard"]
         want_l = {"partition_pack": 2, "sorted_join": 1 if devjoin else 0}
         if m > 1:
-            want_l = {"partition_pack": 2 * m, "exchange_blocks": 2 * m,
+            cards = len({cl.mesh.device_of(d) for d in range(m)})
+            want_l = {"partition_pack": 2 * m, "exchange_blocks": 2 * cards,
                       "sorted_join": m if devjoin else 0,
                       "mesh_combine": 1 if devjoin else 2}
         if {k: v for k, v in got.items() if v} != \

@@ -36,7 +36,7 @@
 // the scan columns with their validity bytes (about 51 B a row for TPC-H
 // Q1, bench.py Q1_BYTES_PER_ROW) -- against 3.35 TB/s; the arithmetic per
 // row is the expressions' few dozen operations, a few integer operations
-// for the group id and one atomic per partial op.  The design serves that
+// for the group id and one update per partial op.  The design serves that
 // bound with one pass over the inputs, the expressions evaluated in
 // registers (no intermediate column is written; a row loads the WHERE's
 // columns first and the keys' and arguments' only when it passes, so
@@ -46,11 +46,15 @@
 // 512 B of HLL, 16 KB of DDSketch counts, 8 + 8 KB of top-k; merged into
 // the registers with one atomic per non-empty slot at the end of the
 // block), global atomics otherwise, and no intermediate written to device
-// memory.  A sketch row also pays a splitmix64 hash or a float64 log, and
-// every row lands on one of 128 HLL registers: the sketch fold is bound by
-// shared-memory atomic contention, not bytes.  Warp-level pre-aggregation
-// and 16-byte vector loads are later work.  The kernels and the launcher
-// live in fold.cuh, shared with the batched fold.
+// memory.  What bounded it before was not bytes but atomics: every row
+// made one atomic per op on a few hot addresses (TPC-H Q1 fills 4 of its
+// 12 groups; a sketch row lands on one of 128 HLL registers and a few hot
+// DDSketch buckets), and float64 and min/max atomics are compare-and-swap
+// loops.  So the updates are warp-aggregated (fold.cuh): the lanes of a
+// warp that fold into one register combine by popcount or shuffles
+// first, and one lane per register updates it.  A sketch row still pays a
+// splitmix64 hash or a float64 log.  The kernels and the launcher live in
+// fold.cuh, shared with the batched fold.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -22,19 +22,24 @@
 //   [Q, M] for the sketch ops of scalar mode (hll, ddsk, topk, topkv,
 //   bucketed as in scan_agg_fold.cu).
 // That is scan_agg_fold over a virtual group space of Q * G groups in
-// which a row lands in up to Q of them, so both regimes carry over: a
+// which a row lands in up to Q of them, so the regimes carry over: a
 // block-private shared-memory table of every op's registers for Q * G
 // groups while its bytes fit the opt-in limit (TPC-H Q1 at Q = 32: 12
 // groups, 16 ops and rows = 52,224 B, past the 48 KB default, so the
 // launcher raises the kernel's dynamic shared-memory limit; a sketch
-// query's ~33 KB of registers fit up to Q = 6), global atomics otherwise
-// (a sketch family at Q = 8 needs ~264 KB).
+// query's ~33 KB of registers fit up to Q = 6); past it, tables of the
+// queries in chunks that fit, one chunk per blockIdx.y of the same
+// launch (a sketch family at Q = 8, ~264 KB: two chunks of 4); global
+// atomics only when one query's registers do not fit.  A row's segment
+// of the warp (the lanes of its group, fold.cuh) is found once and
+// serves every query: per query, only the lanes that pass it combine.
 //
 // What bounds it on an H100: memory, as for one query -- the shared key
 // and argument columns are read once whatever Q is (the Q passes over a
-// row re-read its argument bytes from L1), plus Q * N mask bytes and the
-// registers -- against 3.35 TB/s, until Q * (ops + 1) atomics a row make
-// shared-memory atomics the limit.
+// row re-read its argument bytes from L1; a chunk of queries re-reads
+// the rows some query of it passes), plus Q * N mask bytes and the
+// registers -- against 3.35 TB/s, until the per-query ballots and
+// reductions of each warp make the instruction issue the limit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,8 +49,9 @@
 // Launches one batched fold of `p` for `n_q` queries on `stream`, the
 // keys and arguments from FoldRow over the columns of `r`: p->mask points
 // at the [n_q, n] masks, every p->acc[o] at [n_q, G * M] registers and
-// p->rows at [n_q, G] (or null).  *regime is set to 1 for the
-// shared-memory table, 0 for global atomics.  Returns the CUDA error of
+// p->rows at [n_q, G] (or null).  *regime is set to the number of query
+// chunks of the shared-memory table (1: one table for all), 0 for global
+// atomics.  Returns the CUDA error of
 // the launch (0 = cudaSuccess); the kernel runs asynchronously.
 extern "C" int scan_agg_fold_batched_launch(const SafParams* p, const FmParams* r, int n_q,
                                             void* stream, int* regime) {

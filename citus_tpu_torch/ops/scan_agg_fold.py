@@ -554,7 +554,8 @@ def scan_agg_fold(prog: FoldProgram, acc: Sequence[torch.Tensor],
 
 #: kernel launches since the counter was last set to 0
 scan_agg_fold.launches = 0
-#: 1 = shared-memory group table, 0 = global atomics (last launch)
+#: the last launch's regime: n >= 1 = the shared-memory group table in n
+#: query chunks (1: one table for every query), 0 = global atomics
 scan_agg_fold.last_regime = -1
 
 
@@ -621,5 +622,6 @@ def scan_agg_fold_batched(prog: FoldProgram, acc: Sequence[torch.Tensor],
 
 #: kernel launches since the counter was last set to 0
 scan_agg_fold_batched.launches = 0
-#: 1 = shared-memory group table, 0 = global atomics (last launch)
+#: the last launch's regime: n >= 1 = the shared-memory group table in n
+#: query chunks (1: one table for every query), 0 = global atomics
 scan_agg_fold_batched.last_regime = -1

@@ -19,8 +19,9 @@ PyTorch version:
   count (the reference's ``_pack_blocks``);
 - ``exchange_blocks`` (the exchange of B7/B8, ``csrc/mesh_exchange.cu``):
   block d of every member's packed columns to member d, the reference's
-  ``all_to_all(split_axis=0, concat_axis=0)``, one launch per
-  destination;
+  ``all_to_all(split_axis=0, concat_axis=0)``, one launch per card for
+  every destination on it (on one card, straight into the stacked
+  ``[n, n * C]`` receive columns);
 - ``sorted_join`` (B8, ``csrc/sorted_join.cu``): one member's inner
   equi-join on dense group ids, ``(l_idx, r_idx, out_valid, total)`` of
   ``join_cap`` slots exactly as the reference's
@@ -113,10 +114,9 @@ def _library(name: str):
     lib = cuda_build.load(name)
     vp = ctypes.c_void_p
     if name == "mesh_exchange":
-        lib.mesh_exchange_launch.argtypes = [ctypes.POINTER(_MxParams), vp]
+        lib.mesh_exchange_launch.argtypes = [vp, vp]
         lib.mesh_exchange_launch.restype = ctypes.c_int
-        for fn, want in ((lib.mesh_exchange_params_size,
-                          ctypes.sizeof(_MxParams)),
+        for fn, want in ((lib.mesh_exchange_params_size, _MX_WORDS * 8),
                          (lib.mesh_exchange_max_src, MAX_MEMBERS),
                          (lib.mesh_exchange_max_cols, _MX_MAX_COLS)):
             fn.restype, fn.argtypes = ctypes.c_int, []
@@ -412,15 +412,36 @@ sorted_join.launches = 0
 # --------------------------------------------------- the exchange (B7/B8)
 
 
-class _MxColumn(ctypes.Structure):
-    _fields_ = [("dst", ctypes.c_void_p), ("elem", ctypes.c_int64),
-                ("src", ctypes.c_void_p * MAX_MEMBERS)]
+#: the exchange's parameter block (csrc/mesh_exchange.cu MxParams) as
+#: int64 words: n_src, capacity, n_cols, n_dst, remote, then the arrays
+_MX_DST_IDS = 5
+_MX_ELEM = _MX_DST_IDS + MAX_MEMBERS
+_MX_DST = _MX_ELEM + _MX_MAX_COLS
+_MX_SRC = _MX_DST + _MX_MAX_COLS
+_MX_WORDS = _MX_SRC + _MX_MAX_COLS * MAX_MEMBERS
 
 
-class _MxParams(ctypes.Structure):
-    _fields_ = [("n_src", ctypes.c_int64), ("capacity", ctypes.c_int64),
-                ("n_cols", ctypes.c_int64),
-                ("cols", _MxColumn * _MX_MAX_COLS)]
+def exchange_params(n_src: int, capacity: int, dst_ids, remote: int,
+                    elems, dst_ptrs, src_ptrs) -> np.ndarray:
+    """The parameter block of one exchange launch, as int64 words: for
+    each destination row k (member ``dst_ids[k]``), each source s and
+    each column c, copy ``capacity`` values of ``elems[c]`` bytes from
+    ``src_ptrs[c][s] + row * capacity * elems[c]`` (row = k when bit s of
+    ``remote`` is set, the source's rows being copies for this launch's
+    destinations; else ``dst_ids[k]``) to ``dst_ptrs[c] + (k * n_src + s)
+    * capacity * elems[c]``.  Pointers are addresses on the launch's
+    card (``data_ptr()``)."""
+    n_cols, n_dst = len(elems), len(dst_ids)
+    if not 1 <= n_cols <= _MX_MAX_COLS or not 1 <= n_dst <= MAX_MEMBERS \
+            or not 1 <= n_src <= MAX_MEMBERS:
+        raise ValueError("exchange_params: 1 to 24 columns, 1 to 16 members")
+    p = np.zeros(_MX_WORDS, np.int64)
+    p[:_MX_DST_IDS] = (n_src, capacity, n_cols, n_dst, remote)
+    p[_MX_DST_IDS:_MX_DST_IDS + n_dst] = dst_ids
+    p[_MX_ELEM:_MX_ELEM + n_cols] = elems
+    p[_MX_DST:_MX_DST + n_cols] = dst_ptrs
+    p[_MX_SRC:].reshape(_MX_MAX_COLS, MAX_MEMBERS)[:n_cols, :n_src] = src_ptrs
+    return p
 
 
 def exchange_blocks_plain(blocks: list, mesh) -> list:
@@ -439,53 +460,89 @@ def exchange_blocks_plain(blocks: list, mesh) -> list:
 exchange_blocks_plain.calls = 0
 
 
-def _exchange_launch(blocks: list, mesh) -> list:
-    n = len(blocks)
-    n_cols = len(blocks[0])
+def _exchange_check(blocks: list) -> tuple:
+    """-> (n, n_cols, C) of valid CUDA send blocks; raises otherwise."""
+    n, n_cols = len(blocks), len(blocks[0])
     if n > MAX_MEMBERS:
         raise ValueError(f"exchange_blocks: at most {MAX_MEMBERS} members")
+    if any(len(cols) != n_cols for cols in blocks):
+        raise ValueError("exchange_blocks: sources differ in columns")
     C = blocks[0][0].shape[1]
     for s, cols in enumerate(blocks):
-        if len(cols) != n_cols:
-            raise ValueError("exchange_blocks: sources differ in columns")
         for c, b in enumerate(cols):
-            want = blocks[0][c]
-            if b.shape != (n, C) or b.dtype != want.dtype \
+            want = blocks[0][c].dtype
+            if b.shape != (n, C) or b.dtype != want \
                     or not b.is_contiguous() or b.device.type != "cuda" \
                     or b.element_size() not in (1, 4, 8):
                 raise ValueError(f"exchange_blocks: source {s} column {c} "
                                  f"must be a contiguous [{n}, {C}] "
-                                 f"{want.dtype} CUDA tensor of 1, 4 or 8 "
+                                 f"{want} CUDA tensor of 1, 4 or 8 "
                                  f"byte values, got {b.dtype} "
                                  f"{tuple(b.shape)} on {b.device}")
+    return n, n_cols, C
+
+
+def exchange_cards(member_devices, source_devices) -> list:
+    """The launches of one exchange, one per card: -> [(device, the
+    destination members on it, remote)], cards in the order of their
+    first member; bit s of ``remote`` is set when source s's blocks lie
+    on another device (they are copied onto the card first, one row per
+    destination)."""
+    cards: dict = {}
+    for d, dev in enumerate(member_devices):
+        cards.setdefault(dev, []).append(d)
+    return [(dev, dsts, sum(1 << s for s, sd in enumerate(source_devices)
+                            if sd != dev))
+            for dev, dsts in cards.items()]
+
+
+def exchange_prepare(blocks: list, mesh) -> tuple:
+    """The receive buffers and parameter blocks of ``exchange_blocks``
+    on CUDA, nothing launched: -> (out, launches).  ``out[d]`` is
+    destination d's tuple of ``[n * C]`` receive columns: row k of one
+    ``[n_dst, n * C]`` tensor per column and card (on one card, rows d of
+    the stacked ``[n, n * C]`` output).  ``launches`` holds one
+    ``(device, params, sources)`` per card and 24 columns, ``params`` the
+    int64 block of ``exchange_params``; the blocks a card's destinations
+    need from other cards are copied onto it first (``sources`` keeps
+    those copies)."""
+    n, n_cols, C = _exchange_check(blocks)
+    out, launches = [None] * n, []
+    for dev, dsts, remote in exchange_cards(
+            [mesh.device_of(d) for d in range(n)],
+            [cols[0].device for cols in blocks]):
+        src = [tuple(to_member(b[dsts], dev) for b in cols)
+               if (remote >> s) & 1 else cols
+               for s, cols in enumerate(blocks)]
+        recv = [torch.empty((len(dsts), n * C), dtype=b.dtype, device=dev)
+                for b in blocks[0]]
+        for a in range(0, n_cols, _MX_MAX_COLS):
+            cs = range(a, min(a + _MX_MAX_COLS, n_cols))
+            launches.append((dev, exchange_params(
+                n, C, dsts, remote, [recv[c].element_size() for c in cs],
+                [recv[c].data_ptr() for c in cs],
+                [[src[s][c].data_ptr() for s in range(n)] for c in cs]),
+                src))
+        rows = [r.unbind(0) for r in recv]
+        for k, d in enumerate(dsts):
+            out[d] = tuple(r[k] for r in rows)
+    return out, launches
+
+
+def exchange_run(launches: list, count: bool = True) -> None:
+    """Launch ``csrc/mesh_exchange.cu`` once per entry of
+    ``exchange_prepare``'s ``launches``, each counted in
+    ``exchange_blocks.launches`` unless ``count`` is False."""
     lib = _library("mesh_exchange")
-    out = []
-    for d in range(n):
-        dev = mesh.device_of(d)
-        # the blocks d receives, on d's card (no copy on one card)
-        src = [[to_member(blocks[s][c][d], dev) for c in range(n_cols)]
-               for s in range(n)]
-        recv = tuple(torch.empty(n * C, dtype=blocks[0][c].dtype, device=dev)
-                     for c in range(n_cols))
+    for dev, params, _ in launches:
         with on_member(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            for a in range(0, n_cols, _MX_MAX_COLS):
-                p = _MxParams()
-                p.n_src, p.capacity = n, C
-                chunk = range(a, min(a + _MX_MAX_COLS, n_cols))
-                p.n_cols = len(chunk)
-                for k, c in enumerate(chunk):
-                    p.cols[k].dst = recv[c].data_ptr()
-                    p.cols[k].elem = recv[c].element_size()
-                    for s in range(n):
-                        p.cols[k].src[s] = src[s][c].data_ptr()
-                err = lib.mesh_exchange_launch(ctypes.byref(p), stream)
-                if err != 0:
-                    raise RuntimeError(f"mesh_exchange launch failed: CUDA "
-                                       f"error {err}")
-                count_launch(exchange_blocks)
-        out.append(recv)
-    return out
+            err = lib.mesh_exchange_launch(
+                params.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"mesh_exchange launch failed: CUDA error "
+                               f"{err}")
+        if count:
+            count_launch(exchange_blocks)
 
 
 def exchange_blocks(blocks: list, mesh) -> list:
@@ -495,13 +552,17 @@ def exchange_blocks(blocks: list, mesh) -> list:
     tuple of its ``[n * C]`` receive columns on d's device, block d of
     source s at rows ``[s * C, (s + 1) * C)`` (the reference's
     ``all_to_all(split_axis=0, concat_axis=0)`` flattened).  CUDA tensors
-    launch ``csrc/mesh_exchange.cu`` once per destination (for up to 24
-    columns; each launch counted in ``exchange_blocks.launches``), after
-    moving the blocks a destination needs from other cards onto its own;
+    launch ``csrc/mesh_exchange.cu`` once per card for every destination
+    on it (for up to 24 columns; each launch counted in
+    ``exchange_blocks.launches``), after moving the blocks a card's
+    destinations need from other cards onto it; on one card the receive
+    columns are the rows of one stacked ``[n, n * C]`` tensor per column.
     CPU tensors run ``exchange_blocks_plain``."""
     dev = blocks[0][0].device
     if dev.type == "cuda":
-        return _exchange_launch(blocks, mesh)
+        out, launches = exchange_prepare(blocks, mesh)
+        exchange_run(launches)
+        return out
     if dev.type != "cpu":
         raise ValueError(f"exchange_blocks: no kernel for {dev}")
     return exchange_blocks_plain(blocks, mesh)
@@ -548,10 +609,19 @@ def _overflow_sum(mesh, overflows: list) -> torch.Tensor:
 
 
 def _stacked(mesh, per_member: list) -> torch.Tensor:
-    """Per-member tensors as one ``[n, ...]`` stack on member 0's device
-    (a view on a one-member mesh)."""
+    """Per-member tensors as one ``[n, ...]`` stack on member 0's device:
+    a view on a one-member mesh, and the tensor itself when they are its
+    rows in order (the exchange's receive columns on one card); else a
+    copy."""
     if len(per_member) == 1:
         return per_member[0][None]
+    base = per_member[0]._base
+    if base is not None and base.device == mesh.device \
+            and base.shape[0] == len(per_member) and base.is_contiguous() \
+            and all(t._base is base and t.shape == base.shape[1:]
+                    and t.storage_offset() == base.storage_offset()
+                    + i * base.stride(0) for i, t in enumerate(per_member)):
+        return base
     return torch.stack([to_member(t, mesh.device) for t in per_member])
 
 

@@ -9,12 +9,15 @@ its own ``cpu`` backend.
   than one launch takes (48: two launches): identical bits, NaN where
   the plain version has NaN;
 - ``exchange_blocks``: 1, 4 and 16 members, columns of 1, 4 and 8 bytes,
-  more columns than one launch takes (26): identical outputs;
+  capacities 16 does not divide (and QJOIN's at SF1, 376,388), more
+  columns than one launch takes (26): identical outputs, one launch per
+  24 columns for every destination on the card, each destination's
+  receive columns rows of one stacked [n, n * C] tensor;
 - Q1 and Q6 over 13 shards (four rounds of four members, the last one
   partial) and a repartition join, on a 4-member mesh of the card: rows
   equal to the numpy backend's, one fold per member per round, one
   combine per query, and per device join step 8 packs, 2 exchanges of
-  4 launches, 4 sort-joins and the overflow's combine.
+  one launch, 4 sort-joins and the overflow's combine.
 
 The kernels have no CPU mode: these tests need a card and skip without
 one.  This module imports no JAX, so it runs on a machine without the
@@ -102,7 +105,7 @@ def test_combine_kernel_matches_plain_on_card(card, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,C,cols", [(1, 7, 3), (4, 1000, 5),
-                                      (16, 4097, 26)])
+                                      (4, 376_388, 6), (16, 4097, 26)])
 def test_exchange_kernel_matches_plain_on_card(card, n, C, cols):
     rng = np.random.default_rng(C)
     makers = [lambda: rng.integers(0, 10**12, (n, C)),
@@ -114,11 +117,17 @@ def test_exchange_kernel_matches_plain_on_card(card, n, C, cols):
     shuffle.exchange_blocks.launches = 0
     got = shuffle.exchange_blocks(blocks, mesh)
     torch.cuda.synchronize()
-    assert shuffle.exchange_blocks.launches == n * (-(-cols // 24))
+    assert shuffle.exchange_blocks.launches == -(-cols // 24)
     want = shuffle.exchange_blocks_plain(blocks, mesh)
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             assert torch.equal(a, b)
+    for c in range(cols):
+        stacked = got[0][c]._base
+        assert stacked is not None and stacked.shape == (n, n * C)
+        for d in range(n):
+            assert got[d][c]._base is stacked
+            assert got[d][c].data_ptr() == stacked[d].data_ptr()
 
 
 SHARDS = 13
@@ -209,6 +218,6 @@ def test_four_member_mesh_device_join_on_card(mesh_cluster):
     assert r.rows == want
     assert "devjoin" in r.explain["shuffle"]
     assert shuffle.pack_blocks.launches == 2 * N_MEMBERS
-    assert shuffle.exchange_blocks.launches == 2 * N_MEMBERS
+    assert shuffle.exchange_blocks.launches == 2
     assert shuffle.sorted_join.launches == N_MEMBERS
     assert pmesh.mesh_combine.launches == 1

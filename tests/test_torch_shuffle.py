@@ -651,6 +651,191 @@ def test_exchange_blocks_plain_is_a_block_transpose():
         np.testing.assert_array_equal(out[d][1].numpy(), want_v[d])
 
 
+def _emulate_exchange(p: np.ndarray, arena: np.ndarray) -> None:
+    """``csrc/mesh_exchange.cu``'s kernel in numpy, over one parameter
+    block whose pointers are byte offsets into ``arena``: per run
+    (destination row, source, column), the unaligned head and tail byte
+    by byte and the body as aligned 16-byte stores, each from the two
+    aligned 16-byte source chunks that cover it, their little-endian
+    words shifted into place as ``shifted<WO>`` does."""
+    n_src, cap, n_cols, n_dst, remote = (int(v) for v in p[:5])
+    dst_ids = p[shuffle._MX_DST_IDS:shuffle._MX_DST_IDS + n_dst]
+    elem = p[shuffle._MX_ELEM:shuffle._MX_ELEM + n_cols]
+    dst = p[shuffle._MX_DST:shuffle._MX_DST + n_cols]
+    src = p[shuffle._MX_SRC:].reshape(shuffle._MX_MAX_COLS,
+                                      shuffle.MAX_MEMBERS)
+    for k in range(n_dst):
+        for s in range(n_src):
+            for c in range(n_cols):
+                ln = cap * int(elem[c])
+                row = k if (remote >> s) & 1 else int(dst_ids[k])
+                a = int(src[c, s]) + row * ln
+                b = int(dst[c]) + (k * n_src + s) * ln
+                head = min((16 - b % 16) % 16, ln)
+                nb = (ln - head) // 16
+                arena[b:b + head] = arena[a:a + head]
+                t0 = head + nb * 16
+                arena[b + t0:b + ln] = arena[a + t0:a + ln]
+                if nb == 0:
+                    continue
+                s0 = a + head
+                base, wo, sh = s0 & ~15, (s0 & 15) >> 2, (s0 & 3) * 8
+                m = np.arange(nb)
+                lo = arena[base + 16 * m[:, None] + np.arange(16)]
+                if s0 % 16:
+                    hi = arena[base + 16 * (m[:, None] + 1) + np.arange(16)]
+                    lo = np.concatenate([lo, hi], axis=1)
+                w = lo.view("<u4").astype(np.uint64)
+                if s0 % 16:
+                    w = ((w[:, wo + 1:wo + 5] << np.uint64(32))
+                         | w[:, wo:wo + 4]) >> np.uint64(sh)
+                body = (w & np.uint64(0xffffffff)).astype("<u4")
+                arena[b + head:b + head + nb * 16] = body.view(np.uint8) \
+                    .reshape(-1)
+
+
+def _arena_blocks(n, C, dtypes, seed):
+    """n sources' [n, C] columns of ``dtypes`` laid out in one byte arena
+    at offsets of every alignment: -> (arena, blocks as numpy arrays,
+    their offsets [column][source])."""
+    rng = np.random.default_rng(seed)
+    sizes = [n * C * np.dtype(dt).itemsize for dt in dtypes]
+    # sources, receive rows, copied rows, and the padding between them
+    arena = np.zeros(4096 + 3 * n * sum(sizes) + 512 * (n + 4) * len(dtypes),
+                     np.uint8)
+    at, blocks, offs = 4096 + 3, [], [[0] * n for _ in dtypes]
+    for s in range(n):
+        cols = []
+        for c, dt in enumerate(dtypes):
+            a = (rng.integers(-10**12, 10**12, (n, C)) if dt == np.int64
+                 else rng.integers(-9, 9, (n, C)).astype(np.int32)
+                 if dt == np.int32 else rng.random((n, C)) > 0.5)
+            a = np.ascontiguousarray(a.astype(dt))
+            # 8-, 4- and 1-byte aligned as allocations of their type
+            at += (-at) % np.dtype(dt).itemsize
+            arena[at:at + a.nbytes] = a.view(np.uint8).reshape(-1)
+            offs[c][s] = at
+            at += a.nbytes + int(rng.integers(0, 24)) * np.dtype(dt).itemsize
+            cols.append(a)
+        blocks.append(tuple(cols))
+    return arena, blocks, offs, at
+
+
+@pytest.mark.parametrize("n,C", [(1, 7), (4, 1000), (4, 1003), (16, 37)])
+def test_exchange_plan_emulated_matches_plain(n, C):
+    """The one-card parameter block (every member a destination, k = d)
+    applied by a numpy model of the kernel: every destination's receive
+    row equals ``exchange_blocks_plain``'s, for 1-, 4- and 8-byte
+    columns, capacities 16 does not divide, sources at every alignment."""
+    dtypes = [np.int64, np.int32, np.bool_, np.int32, np.int64]
+    arena, blocks, offs, at = _arena_blocks(n, C, dtypes, n * C)
+    dst = []
+    for dt in dtypes:
+        at += (-at) % 256                 # allocations start 256-aligned
+        dst.append(at)
+        at += n * n * C * np.dtype(dt).itemsize
+    assert at <= arena.size
+    p = shuffle.exchange_params(n, C, list(range(n)), 0,
+                                [np.dtype(dt).itemsize for dt in dtypes],
+                                dst, offs)
+    _emulate_exchange(p, arena)
+    want = shuffle.exchange_blocks_plain(
+        [tuple(_t(b) for b in cols) for cols in blocks],
+        DeviceMesh([torch.device("cpu")] * n))
+    for c, dt in enumerate(dtypes):
+        size = np.dtype(dt).itemsize
+        got = arena[dst[c]:dst[c] + n * n * C * size].view(dt).reshape(
+            n, n * C)
+        for d in range(n):
+            np.testing.assert_array_equal(got[d], want[d][c].numpy())
+
+
+def test_exchange_cards_one_launch_per_card():
+    """One card: one launch for every destination, no copy.  Members on
+    two cards: a launch per card for its own destinations, the other
+    card's sources marked remote; their copied rows (one per
+    destination, row k) exchange as the plain version does."""
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    assert shuffle.exchange_cards([c0] * 4, [c0] * 4) == [(c0, [0, 1, 2, 3],
+                                                           0)]
+    two = shuffle.exchange_cards([c0, c1, c0, c1], [c0, c1, c0, c1])
+    assert two == [(c0, [0, 2], 0b1010), (c1, [1, 3], 0b0101)]
+    n, C = 4, 9
+    dtypes = [np.int64, np.bool_, np.int32]
+    arena, blocks, offs, at = _arena_blocks(n, C, dtypes, 5)
+    want = shuffle.exchange_blocks_plain(
+        [tuple(_t(b) for b in cols) for cols in blocks],
+        DeviceMesh([torch.device("cpu")] * n))
+    for dev, dsts, remote in two:
+        src = [[0] * n for _ in dtypes]
+        for s in range(n):
+            for c, dt in enumerate(dtypes):
+                if (remote >> s) & 1:   # the rows dsts, copied in order
+                    a = np.ascontiguousarray(blocks[s][c][dsts])
+                    at += (-at) % 256
+                    arena[at:at + a.nbytes] = a.view(np.uint8).reshape(-1)
+                    src[c][s] = at
+                    at += a.nbytes
+                else:
+                    src[c][s] = offs[c][s]
+        dst = []
+        for dt in dtypes:
+            at += (-at) % 256
+            dst.append(at)
+            at += len(dsts) * n * C * np.dtype(dt).itemsize
+        assert at <= arena.size
+        p = shuffle.exchange_params(n, C, dsts, remote,
+                                    [np.dtype(dt).itemsize for dt in dtypes],
+                                    dst, src)
+        _emulate_exchange(p, arena)
+        for c, dt in enumerate(dtypes):
+            size = np.dtype(dt).itemsize
+            got = arena[dst[c]:dst[c] + len(dsts) * n * C * size].view(
+                dt).reshape(len(dsts), n * C)
+            for k, d in enumerate(dsts):
+                np.testing.assert_array_equal(got[k], want[d][c].numpy())
+
+
+def test_exchange_params_layout_and_limits():
+    """The block is MxParams' 453 int64 words (3,624 B, under the 4 KB
+    of kernel parameters): header, destination ids, element sizes,
+    receive pointers, source pointers [column][source]; 24 columns and
+    16 members at most."""
+    p = shuffle.exchange_params(3, 11, [2, 0], 0b10, [8, 1], [100, 200],
+                                [[1, 2, 3], [4, 5, 6]])
+    assert p.dtype == np.int64 and p.nbytes == 3624 <= 4096
+    assert list(p[:5]) == [3, 11, 2, 2, 0b10]
+    assert list(p[shuffle._MX_DST_IDS:shuffle._MX_DST_IDS + 2]) == [2, 0]
+    assert list(p[shuffle._MX_ELEM:shuffle._MX_ELEM + 2]) == [8, 1]
+    assert list(p[shuffle._MX_DST:shuffle._MX_DST + 2]) == [100, 200]
+    src = p[shuffle._MX_SRC:].reshape(24, 16)
+    assert src[0, :3].tolist() == [1, 2, 3] and src[1, :3].tolist() == \
+        [4, 5, 6] and not src[2:].any() and not src[:, 3:].any()
+    for bad in (dict(elems=[8] * 25, dst_ptrs=[0] * 25,
+                     src_ptrs=[[0]] * 25), dict(n_src=17)):
+        kw = dict(n_src=1, capacity=4, dst_ids=[0], remote=0, elems=[8],
+                  dst_ptrs=[0], src_ptrs=[[0]])
+        kw.update(bad)
+        with pytest.raises(ValueError):
+            shuffle.exchange_params(**kw)
+
+
+def test_stacked_is_the_receive_tensor_of_its_rows():
+    """``_stacked`` of the rows of one [n, m] tensor in order is that
+    tensor (the exchange's receive columns on one card: no copy); rows
+    out of order, or of different tensors, are stacked anew."""
+    mesh = DeviceMesh([torch.device("cpu")] * 4)
+    recv = torch.empty((4, 6), dtype=torch.int64)
+    recv.copy_(torch.arange(4 * 6).reshape(4, 6))
+    assert shuffle._stacked(mesh, list(recv.unbind(0))) is recv
+    rows = list(recv.unbind(0))
+    again = shuffle._stacked(mesh, rows[::-1])
+    assert again.data_ptr() != recv.data_ptr()
+    assert torch.equal(again, recv.flip(0))
+    mixed = shuffle._stacked(mesh, rows[:3] + [recv[3].clone()])
+    assert mixed.data_ptr() != recv.data_ptr() and torch.equal(mixed, recv)
+
+
 # ------------------------------------------------------------- on a card
 
 
