@@ -3723,9 +3723,8 @@ def phase3_mesh_exchange(device, rows: list, sides) -> None:
     ms = time_cuda(lambda: exchange_blocks(blocks, mesh), reps=10)
     kernel_ms = None
     if device.type == "cuda":
-        received, prepared = exchange_prepare(blocks, mesh)
-        kernel_ms = time_cuda(lambda: exchange_run(prepared, count=False),
-                              reps=10)
+        received, prepared, _ = exchange_prepare(blocks, mesh)
+        kernel_ms = time_cuda(lambda: exchange_run(prepared), reps=10)
         for d in range(n):
             compare_exact(f"exchange_run [QJOIN lineitem, destination {d}]",
                           received[d], want[d])

@@ -12,6 +12,8 @@
 // (the struct FoldRow of a generated source, which then includes
 // scan_agg_fold.cu and scan_agg_fold_batched.cu).  Over the plan's scan
 // columns and parameters (an FmParams block, expr.cuh) it gives:
+//     Row::kKeys                      the plan's group keys (0: scalar
+//                                     mode, every row in group 0)
 //     Row::Vals                       one row's evaluated keys and arguments
 //     Row::pass(rp, i)                row i's WHERE (NULL is false), from
 //                                     the columns the WHERE reads
@@ -45,7 +47,7 @@
 // every regime, whatever mix of plain and sketch ops the plan has.
 //
 // Updates are warp-aggregated.  A warp takes 32 consecutive rows.  When
-// more than FOLD_DIRECT_LANES of them pass, the lanes whose rows fold
+// more than kFoldDirectLanes of them pass, the lanes whose rows fold
 // into the same register (the same group) find each other with
 // __match_any_sync, and for each query the lanes that pass it combine
 // inside the warp: counts add the popcount of the passing peers, sums,
@@ -191,24 +193,17 @@ __device__ __forceinline__ void fold_op(const SafParams& p, int o, char* base, i
 
 #define FULL_WARP 0xffffffffu
 
-// Build-time choices of the design, measured on the card
-// (scripts/kernel_ab.py --define):
-//   FOLD_THREADS       threads a block
-//   FOLD_MIN_BLOCKS    blocks an SM must fit (__launch_bounds__: caps the
-//                      registers a thread)
-//   FOLD_DIRECT_LANES  a warp whose rows pass in at most this many lanes,
-//                      and a query's sum, min or max that at most this
-//                      many lanes fold into, update by each lane's own
-//                      atomic: too few rows for a reduction to pay
-#ifndef FOLD_THREADS
-#define FOLD_THREADS 512
-#endif
-#ifndef FOLD_MIN_BLOCKS
-#define FOLD_MIN_BLOCKS 2
-#endif
-#ifndef FOLD_DIRECT_LANES
-#define FOLD_DIRECT_LANES 12
-#endif
+// The design's constants, each measured on the card (PERF.md §6):
+//   kFoldThreads      threads a block
+//   kFoldMinBlocks    blocks an SM must fit (__launch_bounds__: caps the
+//                     registers a thread at 64)
+//   kFoldDirectLanes  a warp whose rows pass in at most this many lanes,
+//                     and a query's sum, min or max that at most this
+//                     many lanes fold into, update by each lane's own
+//                     atomic: too few rows for a reduction to pay
+static constexpr int kFoldThreads = 512;
+static constexpr int kFoldMinBlocks = 2;
+static constexpr int kFoldDirectLanes = 12;
 
 // a row's argument as the raw bits of op o's accumulator type (the low 4
 // bytes for a 4-byte type), cast as combine_value casts it
@@ -328,7 +323,7 @@ __device__ __forceinline__ void fold_values(WarpRows& w, int64_t G, char* base, 
         const int j = __ffs(m) - 1;
         const bool c = ok && ((qbits >> j) & 1u);
         const unsigned cb = __ballot_sync(FULL_WARP, c);
-        if (fp_popc(cb) <= FOLD_DIRECT_LANES) {
+        if (fp_popc(cb) <= kFoldDirectLanes) {
             if (c) apply_reduced<K, DT>(base + ((ql + j) * G + w.g) * stride, x);
             continue;
         }
@@ -365,6 +360,8 @@ __device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
 
 template <class Row>
 __device__ __forceinline__ int64_t group_of(const SafParams& p, const typename Row::Vals& v) {
+    // no key: group 0, with no int64 division compiled in
+    if (Row::kKeys == 0) return 0;
     // unsigned arithmetic: wraps like the reference's int64 lanes
     unsigned long long gid = 0;
     for (int k = 0; k < p.n_keys; ++k) {
@@ -406,7 +403,7 @@ __device__ __forceinline__ unsigned query_bits(const SafParams& p, int64_t i, in
 // (q - q0) * G + g of a block's table (`shared`) or q * G + g of the
 // registers.  Each row's columns, keys, arguments and group id are
 // evaluated once, when it passes some query of the chunk.  When more
-// than FOLD_DIRECT_LANES lanes pass, the lanes that fold into one
+// than kFoldDirectLanes lanes pass, the lanes that fold into one
 // register combine inside the warp first (fold_counts, fold_values; the
 // sketch ops, whose rows spread over many buckets, update per lane) and
 // one lane updates it; else each lane updates its own registers.  With
@@ -440,7 +437,7 @@ __device__ __forceinline__ void fold_warp(const SafParams& p, const FmParams& rp
         g = group_of<Row>(p, v);
     }
     const unsigned every = nq >= 32 ? FULL_WARP : (1u << nq) - 1u;
-    if (fp_popc(hb) <= FOLD_DIRECT_LANES) {
+    if (fp_popc(hb) <= kFoldDirectLanes) {
         if (!has) return;
         for (int w0 = 0; w0 < nq; w0 += 32) {
             unsigned qbits =
@@ -471,7 +468,8 @@ __device__ __forceinline__ void fold_warp(const SafParams& p, const FmParams& rp
     w.lane = lane;
     w.g = g;
     // segments by group: in scalar mode every passing lane shares one
-    const unsigned peers = G > 1 ? match_slot(lane, has, g, G) : (has ? hb : (1u << lane));
+    const unsigned peers =
+        Row::kKeys > 0 && G > 1 ? match_slot(lane, has, g, G) : (has ? hb : (1u << lane));
     // the shuffle steps of the warp's largest segment, when some op
     // reduces values over segments (counts need only the popcounts)
     const int steps =
@@ -541,7 +539,7 @@ __device__ __forceinline__ void fold_rows(const SafParams& p, const FmParams& rp
 // for the G groups of the q_chunk queries of chunk blockIdx.y, and with
 // kCommon (one chunk) the registers of the rows every query passes
 template <class Row, bool kFilter, bool kCommon>
-__global__ void __launch_bounds__(FOLD_THREADS, FOLD_MIN_BLOCKS)
+__global__ void __launch_bounds__(kFoldThreads, kFoldMinBlocks)
     fold_shared_q(const __grid_constant__ SafParams p, const __grid_constant__ FmParams rp,
                   const int n_q, const int q_chunk) {
     const int common = kCommon ? 1 : 0;
@@ -602,13 +600,11 @@ __global__ void __launch_bounds__(FOLD_THREADS, FOLD_MIN_BLOCKS)
 
 // global regime: the warps' reduced updates go straight to the registers
 template <class Row, bool kFilter>
-__global__ void __launch_bounds__(FOLD_THREADS, FOLD_MIN_BLOCKS)
+__global__ void __launch_bounds__(kFoldThreads, kFoldMinBlocks)
     fold_global_q(const __grid_constant__ SafParams p, const __grid_constant__ FmParams rp,
                   const int n_q) {
     fold_rows<Row, kFilter, false>(p, rp, 0, n_q, nullptr, false);
 }
-
-static const int kFoldThreads = FOLD_THREADS;
 
 // Launches one fold of `p0` for `n_q` queries on `stream`, the rows from
 // `Row` over the columns and parameters of `rp`: p0->mask points at the

@@ -854,6 +854,7 @@ def _fold_row_tail(n_keys, n_args, key_dts, arg_dts, hashed) -> str:
         "#ifdef __CUDACC__\n" + head +
         "\n// the row source of the kernels included below\n"
         "struct FoldRow {\n"
+        f"    static constexpr int kKeys = {n_keys};\n"
         "    typedef FrVals Vals;\n"
         "    static __device__ __forceinline__ bool pass(const FmParams& p, "
         "int64_t i) {\n"

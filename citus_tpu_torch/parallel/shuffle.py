@@ -498,24 +498,25 @@ def exchange_cards(member_devices, source_devices) -> list:
 
 def exchange_prepare(blocks: list, mesh) -> tuple:
     """The receive buffers and parameter blocks of ``exchange_blocks``
-    on CUDA, nothing launched: -> (out, launches).  ``out[d]`` is
-    destination d's tuple of ``[n * C]`` receive columns: row k of one
-    ``[n_dst, n * C]`` tensor per column and card (on one card, rows d of
-    the stacked ``[n, n * C]`` output).  ``launches`` holds one
-    ``(device, params, sources)`` per card and 24 columns, ``params`` the
-    int64 block of ``exchange_params``; the blocks a card's destinations
-    need from other cards are copied onto it first (``sources`` keeps
-    those copies)."""
+    on CUDA, nothing launched: -> (out, launches, stacked).  ``out[d]``
+    is destination d's tuple of ``[n * C]`` receive columns: row k of one
+    ``[n_dst, n * C]`` tensor per column and card.  ``stacked`` is that
+    tuple of tensors when one card holds every destination (each
+    ``[n, n * C]``, row d destination d's), else None.  ``launches``
+    holds one ``(device, params, sources)`` per card and 24 columns,
+    ``params`` the int64 block of ``exchange_params``; the blocks a
+    card's destinations need from other cards are copied onto it first
+    (``sources`` keeps those copies)."""
     n, n_cols, C = _exchange_check(blocks)
-    out, launches = [None] * n, []
-    for dev, dsts, remote in exchange_cards(
-            [mesh.device_of(d) for d in range(n)],
-            [cols[0].device for cols in blocks]):
+    out, launches, stacked = [None] * n, [], None
+    cards = exchange_cards([mesh.device_of(d) for d in range(n)],
+                           [cols[0].device for cols in blocks])
+    for dev, dsts, remote in cards:
         src = [tuple(to_member(b[dsts], dev) for b in cols)
                if (remote >> s) & 1 else cols
                for s, cols in enumerate(blocks)]
-        recv = [torch.empty((len(dsts), n * C), dtype=b.dtype, device=dev)
-                for b in blocks[0]]
+        recv = tuple(torch.empty((len(dsts), n * C), dtype=b.dtype,
+                                 device=dev) for b in blocks[0])
         for a in range(0, n_cols, _MX_MAX_COLS):
             cs = range(a, min(a + _MX_MAX_COLS, n_cols))
             launches.append((dev, exchange_params(
@@ -526,13 +527,15 @@ def exchange_prepare(blocks: list, mesh) -> tuple:
         rows = [r.unbind(0) for r in recv]
         for k, d in enumerate(dsts):
             out[d] = tuple(r[k] for r in rows)
-    return out, launches
+        if len(cards) == 1:
+            stacked = recv
+    return out, launches, stacked
 
 
-def exchange_run(launches: list, count: bool = True) -> None:
+def exchange_run(launches: list) -> None:
     """Launch ``csrc/mesh_exchange.cu`` once per entry of
     ``exchange_prepare``'s ``launches``, each counted in
-    ``exchange_blocks.launches`` unless ``count`` is False."""
+    ``exchange_blocks.launches``."""
     lib = _library("mesh_exchange")
     for dev, params, _ in launches:
         with on_member(dev):
@@ -541,8 +544,20 @@ def exchange_run(launches: list, count: bool = True) -> None:
         if err != 0:
             raise RuntimeError(f"mesh_exchange launch failed: CUDA error "
                                f"{err}")
-        if count:
-            count_launch(exchange_blocks)
+        count_launch(exchange_blocks)
+
+
+def _exchange(blocks: list, mesh) -> tuple:
+    """-> (``exchange_blocks``' result, the stacked receive columns of
+    ``exchange_prepare`` or None)."""
+    dev = blocks[0][0].device
+    if dev.type == "cuda":
+        out, launches, stacked = exchange_prepare(blocks, mesh)
+        exchange_run(launches)
+        return out, stacked
+    if dev.type != "cpu":
+        raise ValueError(f"exchange_blocks: no kernel for {dev}")
+    return exchange_blocks_plain(blocks, mesh), None
 
 
 def exchange_blocks(blocks: list, mesh) -> list:
@@ -558,14 +573,7 @@ def exchange_blocks(blocks: list, mesh) -> list:
     destinations need from other cards onto it; on one card the receive
     columns are the rows of one stacked ``[n, n * C]`` tensor per column.
     CPU tensors run ``exchange_blocks_plain``."""
-    dev = blocks[0][0].device
-    if dev.type == "cuda":
-        out, launches = exchange_prepare(blocks, mesh)
-        exchange_run(launches)
-        return out
-    if dev.type != "cpu":
-        raise ValueError(f"exchange_blocks: no kernel for {dev}")
-    return exchange_blocks_plain(blocks, mesh)
+    return _exchange(blocks, mesh)[0]
 
 
 #: kernel launches since the counter was last set to 0
@@ -600,6 +608,20 @@ def _received(mesh, packed: list) -> list:
     return exchange_blocks(packed, mesh)
 
 
+def _received_stacked(mesh, packed: list) -> tuple:
+    """Each column's ``[n, n * C]`` receive rows on member 0's device
+    (row d destination d's): on a one-member mesh the one block as it
+    is, on one card the exchange kernel's own receive tensors, else the
+    destinations' columns stacked."""
+    if shard_axis_size(mesh) == 1:
+        return tuple(packed[0])
+    out, stacked = _exchange(packed, mesh)
+    if stacked is not None:
+        return stacked
+    return tuple(_stacked(mesh, [r[c] for r in out])
+                 for c in range(len(packed[0])))
+
+
 def _overflow_sum(mesh, overflows: list) -> torch.Tensor:
     """The overflow summed over members (the reference's ``psum``):
     ``mesh_combine``, or the one member's count as it is."""
@@ -609,19 +631,10 @@ def _overflow_sum(mesh, overflows: list) -> torch.Tensor:
 
 
 def _stacked(mesh, per_member: list) -> torch.Tensor:
-    """Per-member tensors as one ``[n, ...]`` stack on member 0's device:
-    a view on a one-member mesh, and the tensor itself when they are its
-    rows in order (the exchange's receive columns on one card); else a
-    copy."""
+    """Per-member tensors as one ``[n, ...]`` stack on member 0's device
+    (a view on a one-member mesh)."""
     if len(per_member) == 1:
         return per_member[0][None]
-    base = per_member[0]._base
-    if base is not None and base.device == mesh.device \
-            and base.shape[0] == len(per_member) and base.is_contiguous() \
-            and all(t._base is base and t.shape == base.shape[1:]
-                    and t.storage_offset() == base.storage_offset()
-                    + i * base.stride(0) for i, t in enumerate(per_member)):
-        return base
     return torch.stack([to_member(t, mesh.device) for t in per_member])
 
 
@@ -638,9 +651,7 @@ def build_repartition(mesh, n_cols: int, capacity: int):
         if len(values) != n_cols:
             raise ValueError(f"repartition built for {n_cols} columns")
         packed = _pack_members(mesh, values, None, target, mask, capacity)
-        recv = _received(mesh, [p for p, _ in packed])
-        cols = tuple(_stacked(mesh, [r[c] for r in recv])
-                     for c in range(n_cols + 1))
+        cols = _received_stacked(mesh, [p for p, _ in packed])
         return cols[:-1], cols[-1], _overflow_sum(
             mesh, [o for _, o in packed])
     return run

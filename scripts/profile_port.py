@@ -3,6 +3,7 @@ on one CUDA card.
 
     python3 scripts/profile_port.py [--rows N] [--reps R]
                                     [--package-root DIR]
+    python3 scripts/profile_port.py --kernels [--package-root DIR]
 
 Loads bench.py's lineitem (chip_smoke.py's copy of its generator, 4
 shards) on the card, runs each of Q1, Q6, H1, H2 and P1 twice (for Q1
@@ -20,12 +21,26 @@ checkout (say, the parent commit unpacked with ``git archive``), so two
 trees are compared in one call.  Then the same for chip_smoke.py's phase-5 literal families
 (8 variants each of Q6, H2, P1 and Q1, sent from 8 threads at once with
 citus.megabatch_window_ms = 1000 and megabatch_max_size = 8, so they
-coalesce): per round of 8 queries.  Fails without a CUDA device.
+coalesce): per round of 8 queries.
+
+``--kernels`` times the fold and exchange kernels instead, with the
+chip_smoke.py and the citus_tpu_torch of ``--package-root``: after a
+second of back-to-back folds (so that no case is timed while the card's
+clocks ramp up), that chip_smoke.py's phase-3 cases of scan_agg_fold,
+scan_agg_fold_batched (sketch families too) and exchange_blocks, each
+held against its plain version and timed as phase 3 times it; then the
+device time a call of the Q6, Q1 and S1 folds and of the Q6 and Q1
+families at Q = 8 (torch.profiler, the mean of KERNEL_REPS calls, host
+time apart), the folds' register and spill counts from ptxas, and one
+JSON line of it all.  Run it in turns on two trees (parent, change,
+change, parent) to compare them in one call.  Fails without a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -33,6 +48,87 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: calls a fold case's device time is the mean of (--kernels), and the
+#: idle seconds at each end of its profiler session (a session that
+#: starts or ends busy may lose its record)
+KERNEL_REPS = 100
+KERNEL_PAUSE_S = 0.5
+
+
+def kernels(root: str) -> int:
+    """``--kernels``: phase 3's fold and exchange cases of ``root``'s
+    chip_smoke.py and citus_tpu_torch, then the folds' device times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    # both of root: each tree's phase 3 checks its own regimes and launches
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    import citus_tpu_torch as ctt
+    from citus_tpu_torch.ops import cuda_build
+    from citus_tpu_torch.ops.scan_agg_fold import (
+        FOLD_BUILD, scan_agg_fold, scan_agg_fold_batched,
+    )
+    device = torch.device("cuda", 0)
+    card = cs.card_line()
+    package = os.path.dirname(ctt.__file__)
+    print("card:", card, flush=True)
+    print("package:", package, flush=True)
+    tmp = tempfile.mkdtemp()
+    plans = cs.smoke_plans(device, tmp)
+    splans = cs.sketch_plans(device, tmp)
+    # every fold phase 3 launches, all nvcc processes at once
+    sources = dict.fromkeys(p.row.source for p in cs.generated_programs(
+        plans, splans, tmp) if not p.hashed)
+    for job in [cuda_build.start_generated(FOLD_BUILD, src)
+                for src in sources]:
+        cuda_build.finish_generated(job)
+    folds = plans["fold_calls"]
+    cases = {"Q6": (scan_agg_fold, folds["q6"]),
+             "Q1": (scan_agg_fold, folds["q1"]),
+             "S1": (scan_agg_fold, splans["s1_call"]),
+             "Q6 family Q=8": (scan_agg_fold_batched,
+                               cs.batched_fold_call(device, plans, "Q6")),
+             "Q1 family Q=8": (scan_agg_fold_batched,
+                               cs.batched_fold_call(device, plans, "Q1"))}
+    warm = cs.clone_call(folds["q1"])
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:
+        for _ in range(50):
+            scan_agg_fold(*warm)
+        torch.cuda.synchronize()
+    rows: list = []
+    cs.phase3_fold(device, plans, rows)
+    cs.phase3_batched_fold(device, plans, rows)
+    cs.phase3_sketch_folds(device, splans, rows)
+    cs.phase3_mesh_exchange(device, rows, cs.qjoin_sides(cs.SF1_ROWS,
+                                                         device))
+    device_ms = {}
+    for name, (kernel, call) in cases.items():
+        kc = cs.clone_call(call)
+        kernel(*kc)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(KERNEL_PAUSE_S)
+            for _ in range(KERNEL_REPS):
+                kernel(*kc)
+            torch.cuda.synchronize()
+            time.sleep(KERNEL_PAUSE_S)
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type.name == "CUDA")
+        device_ms[name] = us / 1e3 / KERNEL_REPS if us > 0 else None
+        print(f"{name}: device "
+              + (f"{device_ms[name]:.4f} ms a call" if us > 0
+                 else "not measured (no device record)") + f" ({card})",
+              flush=True)
+        for line in cuda_build.build_log(FOLD_BUILD,
+                                         call[0].row.source).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"{name} ptxas: {line.strip()}", flush=True)
+    print(json.dumps({"card": card, "package": package,
+                      "ms": {r["name"]: r["ms"] for r in rows},
+                      "device_ms": device_ms}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -41,10 +137,14 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--package-root", default=ROOT,
                     help="checkout whose citus_tpu_torch is profiled")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time phase 3's fold and exchange kernels")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: no CUDA device")
+    if args.kernels:
+        return kernels(os.path.abspath(args.package_root))
     from torch.profiler import ProfilerActivity, profile
 
     sys.path.insert(0, ROOT)

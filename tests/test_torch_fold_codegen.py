@@ -418,6 +418,21 @@ def test_literals_and_parameters_in_the_source(cases):
                    for j in range(len(row.key_dtypes)))
 
 
+def test_fold_row_states_its_key_count(cases):
+    """The row source gives the fold its group keys as a constant
+    (``FoldRow::kKeys``: with none, csrc/fold.cuh compiles no group id
+    and no segment match), one per key the row evaluates."""
+    counts = set()
+    for name, case in cases.items():
+        row = case.prog.row
+        n = len(row.key_dtypes)
+        assert f"static constexpr int kKeys = {n};" in row.source, name
+        assert all(f"v.kv{j}" in row.source for j in range(n)), name
+        counts.add(n)
+    assert cases["family_Q6"].prog.row.source.count("kKeys = 0;") == 1
+    assert 0 in counts and max(counts) > 1
+
+
 def test_unsupported_value_raises_naming_b10(cases):
     """A dtype the generator has no C type for raises on the card's path;
     the kernel never falls back to eager tensor code there."""

@@ -128,6 +128,19 @@ def test_exchange_kernel_matches_plain_on_card(card, n, C, cols):
         for d in range(n):
             assert got[d][c]._base is stacked
             assert got[d][c].data_ptr() == stacked[d].data_ptr()
+    if n == 1:
+        return
+    # what build_repartition takes: the kernel's own receive tensors,
+    # with no stack copy after the launch
+    shuffle.exchange_blocks.launches = 0
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "stack", None)
+        cols_got = shuffle._received_stacked(mesh, blocks)
+    torch.cuda.synchronize()
+    assert shuffle.exchange_blocks.launches == -(-cols // 24)
+    for c, g in enumerate(cols_got):
+        assert g.shape == (n, n * C) and g.is_contiguous()
+        assert torch.equal(g, torch.stack([w[c] for w in want]))
 
 
 SHARDS = 13

@@ -820,20 +820,25 @@ def test_exchange_params_layout_and_limits():
             shuffle.exchange_params(**kw)
 
 
-def test_stacked_is_the_receive_tensor_of_its_rows():
-    """``_stacked`` of the rows of one [n, m] tensor in order is that
-    tensor (the exchange's receive columns on one card: no copy); rows
-    out of order, or of different tensors, are stacked anew."""
-    mesh = DeviceMesh([torch.device("cpu")] * 4)
-    recv = torch.empty((4, 6), dtype=torch.int64)
-    recv.copy_(torch.arange(4 * 6).reshape(4, 6))
-    assert shuffle._stacked(mesh, list(recv.unbind(0))) is recv
-    rows = list(recv.unbind(0))
-    again = shuffle._stacked(mesh, rows[::-1])
-    assert again.data_ptr() != recv.data_ptr()
-    assert torch.equal(again, recv.flip(0))
-    mixed = shuffle._stacked(mesh, rows[:3] + [recv[3].clone()])
-    assert mixed.data_ptr() != recv.data_ptr() and torch.equal(mixed, recv)
+@pytest.mark.parametrize("n", [1, 4])
+def test_received_stacked_columns(n):
+    """``_received_stacked``: per column the ``[n, n * C]`` receive rows,
+    row d destination d's.  One member: its packed blocks themselves (no
+    copy); several on the CPU: the plain exchange's columns stacked."""
+    rng = np.random.default_rng(n)
+    C = 5
+    blocks = [(_t(rng.integers(0, 99, (n, C))), _t(rng.random((n, C)) > 0.5))
+              for _ in range(n)]
+    mesh = DeviceMesh([torch.device("cpu")] * n)
+    got = shuffle._received_stacked(mesh, blocks)
+    if n == 1:
+        assert all(g is b for g, b in zip(got, blocks[0]))
+        return
+    want = shuffle.exchange_blocks_plain(blocks, mesh)
+    assert len(got) == 2
+    for c, g in enumerate(got):
+        assert g.shape == (n, n * C)
+        assert torch.equal(g, torch.stack([w[c] for w in want]))
 
 
 # ------------------------------------------------------------- on a card
