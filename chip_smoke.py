@@ -35,7 +35,9 @@ result line:
    - ``hash_agg_insert`` for bench.py's ``GROUP BY l_orderkey`` (count
      and an int64 sum) on the first padded shard batch of the loaded
      lineitem into 2^20 slots (what citus.hash_agg_slots = auto gives at
-     SF1), and an adversarial insert: three keys (int64; float64 with
+     SF1), the same rows with l_orderkey in runs of 1-7 rows as dbgen
+     writes lineitem (the warp-aggregated path), and an adversarial
+     insert: three keys (int64; float64 with
      -0.0, NaN payloads and nulls; int32) on 1,000 slots, so most rows
      spill, a float64 sum/min/max, an all-false mask, N not a multiple
      of the block.  The merged groups (table and spilled rows through
@@ -79,9 +81,9 @@ result line:
      overflow identical;
    - ``sorted_join`` (B8) on QJOIN's join at SF1 (join_cap = its
      pairs, as the device join sizes it), a
-     many-to-many join, an all-invalid side and invalid rows on both
-     sides: l_idx, r_idx, out_valid, total and every gathered column
-     identical;
+     many-to-many join, an all-invalid side, invalid rows on both
+     sides and one gid holding 60 % of the left rows: l_idx, r_idx,
+     out_valid, total and every gathered column identical;
    - ``mesh_combine`` (B6) over 4 members on the card, each member's
      registers folded by the generated fold from its share of the rows:
      Q1's (12 groups x 13 positions), S1's (sketch registers) and a
@@ -1002,19 +1004,14 @@ def filter_bytes(cols: dict, row_mask) -> int:
 
 
 def clone_table(t):
-    from citus_tpu_torch.ops.hash_agg import HashTable
-    return HashTable([v.clone() for v in t.key_values],
-                     [f.clone() for f in t.key_flags],
-                     [p.clone() for p in t.partials], t.rows.clone(),
-                     t.state.clone())
+    """A copy of a hash table in slot records, as the kernels take it."""
+    from citus_tpu_torch.ops.hash_agg import record_views
+    return record_views(t.records.clone(), [v.dtype for v in t.key_values],
+                        [p.dtype for p in t.partials])
 
 
 def copy_table_(dst, src) -> None:
-    for a, b in zip(dst.key_values + dst.key_flags + dst.partials
-                    + [dst.rows, dst.state],
-                    src.key_values + src.key_flags + src.partials
-                    + [src.rows, src.state]):
-        a.copy_(b)
+    dst.records.copy_(src.records)
 
 
 def hash_partial_ops(table, ops):
@@ -1176,6 +1173,26 @@ def main_path_hash_call(cl, device):
     return call, hb.n_rows
 
 
+def clustered_hash_call(call, n_real: int, seed: int = 17):
+    """The main path's hash call with its real rows' l_orderkey in runs
+    of 1 to 7 consecutive rows, as dbgen writes TPC-H lineitem (an
+    order's lines together; dbgen's sparse order keys, 8 of every 32),
+    on the call's (fresh) table: one group a run, about n_real / 4
+    groups."""
+    import torch
+    prog, table, cols, params, row_mask = call
+    rng = np.random.default_rng(seed)
+    runs = rng.integers(1, 8, n_real // 4 + 8)
+    runs = runs[:np.searchsorted(np.cumsum(runs), n_real) + 1]
+    order = np.arange(runs.size)
+    keys = np.repeat(order // 8 * 32 + order % 8 + 1, runs)[:n_real]
+    values, valid = cols["l_orderkey"]
+    values = values.clone()
+    values[:n_real] = torch.from_numpy(keys).to(values.device)
+    return (prog, table, dict(cols, l_orderkey=(values, valid)), params,
+            row_mask)
+
+
 def adversarial_hash_call(device, n: int, S: int, seed: int,
                           all_false: bool):
     """Three keys (int64; float64 with +-0.0, NaN payloads, +-inf; int32),
@@ -1184,7 +1201,7 @@ def adversarial_hash_call(device, n: int, S: int, seed: int,
     ``hash_agg_insert``."""
     import torch
     from citus_tpu_torch import types as T
-    from citus_tpu_torch.ops.hash_agg import HashTable
+    from citus_tpu_torch.ops.hash_agg import record_layout, record_views
     from citus_tpu_torch.ops.scan_agg_fold import FoldOp
     rng = np.random.default_rng(seed)
     nan_bits = np.array([0x7FF8000000000000, 0x7FF0000000000001,
@@ -1214,20 +1231,15 @@ def adversarial_hash_call(device, n: int, S: int, seed: int,
              "v": T.FLOAT64_T}
     prog = column_program(None, ["k1", "k2", "k3"], ["v"], ops, types, cols,
                           key_dtypes=(np.int64, np.float64, np.int32))
-    i64 = torch.int64
-    table = HashTable(
-        [torch.full((S,), -2**63, dtype=i64, device=device),
-         torch.full((S,), float("-inf"), dtype=torch.float64, device=device),
-         torch.full((S,), -2**31, dtype=torch.int32, device=device)],
-        [torch.zeros(S, dtype=torch.int8, device=device) for _ in range(3)],
-        [torch.zeros(S, dtype=i64, device=device),
-         torch.zeros(S, dtype=i64, device=device),
-         torch.zeros(S, dtype=torch.float64, device=device),
-         torch.full((S,), float("inf"), dtype=torch.float64, device=device),
-         torch.full((S,), float("-inf"), dtype=torch.float64,
-                    device=device)],
-        torch.zeros(S, dtype=i64, device=device),
-        torch.zeros(S, dtype=torch.int32, device=device))
+    i64, f64 = torch.int64, torch.float64
+    kdts, adts = [i64, f64, torch.int32], [i64, i64, f64, f64, f64]
+    table = record_views(torch.zeros(
+        (S, record_layout(len(kdts), len(adts)).words), dtype=i64,
+        device=device), kdts, adts)
+    for v, fill in zip(table.key_values + table.partials[3:],
+                       (-2**63, float("-inf"), -2**31, float("inf"),
+                        float("-inf"))):
+        v.fill_(fill)
     return prog, table, cols, {}, t(mask)
 
 
@@ -1374,9 +1386,12 @@ def main_path_merge_call(device, tmp: str, n: int = SF1_ROWS // SHARDS,
     plan, key_dtypes = r1_plan(device, tmp)
     table = r1_table(device, plan, key_dtypes, n, slots, 21)
     peer = r1_table(device, plan, key_dtypes, n, slots, 22)
-    return ((table, list(zip(peer.key_values, peer.key_flags)),
-             peer.partials, peer.rows, [op.kind for op in plan.partial_ops]),
-            n)
+    # the peer's table as it arrives: one contiguous [M] array a field
+    c = [t.contiguous() for t in peer.key_values + peer.key_flags
+         + peer.partials + [peer.rows]]
+    k = len(peer.key_values)
+    return ((table, list(zip(c[:k], c[k:2 * k])), c[2 * k:-1], c[-1],
+             [op.kind for op in plan.partial_ops]), n)
 
 
 def adversarial_merge_call(device, n: int, S: int, S_peer: int, seed: int,
@@ -1414,8 +1429,9 @@ def adversarial_merge_call(device, n: int, S: int, S_peer: int, seed: int,
         host[holes] = junk[holes].astype(host.dtype)
         kv.copy_(torch.from_numpy(host))
     kinds = ["count" if op.kind == "count_star" else op.kind for op in ops]
-    return (table, list(zip(peer.key_values, peer.key_flags)), peer.partials,
-            peer.rows, kinds)
+    c = lambda ts: [t.contiguous() for t in ts]  # noqa: E731  as shipped
+    return (table, list(zip(c(peer.key_values), c(peer.key_flags))),
+            c(peer.partials), peer.rows.contiguous(), kinds)
 
 
 def compare_merge(name: str, call, kernel, plain) -> float:
@@ -1935,15 +1951,18 @@ def phase3_fold(device, plans, rows: list) -> None:
 
 def phase3_hash(device, cl, rows: list) -> None:
     """hash_agg_insert against its plain version: the main path's first
-    SF1 shard batch of bench.py's hash GROUP BY on 2^20 slots, and the
-    adversarial case; appends its JSON row."""
+    SF1 shard batch of bench.py's hash GROUP BY on 2^20 slots, the same
+    rows with dbgen's clustered order keys, and the adversarial case;
+    appends its JSON row."""
     import torch
     from citus_tpu_torch.ops.hash_agg_insert import (
         hash_agg_insert, insert_plain,
     )
     main_call, n_real = main_path_hash_call(cl, device)
     cases = [(f"bench hash GROUP BY l_orderkey, one shard ({n_real} rows)",
-              main_call)]
+              main_call),
+             ("the same rows, l_orderkey in runs of 1-7 rows as dbgen "
+              "writes it", clustered_hash_call(main_call, n_real))]
     for all_false in (False, True):
         cases.append((f"adversarial 3 keys S=1000"
                       f"{' all-false mask' if all_false else ''}",
@@ -1969,9 +1988,9 @@ def phase3_hash(device, cl, rows: list) -> None:
         occupied = int((work.rows > 0).sum())
         nbytes = hash_bytes(call, occupied)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        # slot traffic: every placed row touches its claim word, each key
-        # and flag, every partial register and rows[slot] at random
-        sectors = 2 + 2 * n_keys + len(ops)
+        # slot traffic: every placed row touches its slot's record (the
+        # claim word, keys, flags, registers and row count) at random
+        record = table.records.shape[-1] * 8
         S = table.slots
         acc = torch.zeros(S, dtype=torch.int64, device=device)
         n = mask.numel()
@@ -1988,8 +2007,8 @@ def phase3_hash(device, cl, rows: list) -> None:
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at "
             f"3.35 TB/s: row mask, the sectors of the scan columns and "
             f"validity the rows read, the spill mask, each occupied slot "
-            f"read and written once); slot traffic {placed * sectors * 32} B in 32-byte "
-            f"sectors ({sectors} a placed row); library yardstick (one int64 "
+            f"read and written once); slot traffic: one {record}-byte "
+            f"record a placed row, {placed * record} B; library yardstick (one int64 "
             f"index_add_ into S slots, one op) {lib_ms:.4f} ms")
     rows.append({"name": "hash_agg_insert", "route": "cuda",
                  "source": "citus_tpu_torch/csrc/hash_agg_insert.cu",
@@ -2325,16 +2344,14 @@ def phase3_batched_hash(device, cl, rows: list) -> None:
     from citus_tpu_torch.ops.hash_agg_insert import (
         hash_agg_insert_batched, insert_batched_plain,
     )
-    from citus_tpu_torch.ops.hash_agg import HashTable
+    from citus_tpu_torch.ops.hash_agg import record_views
     call, n_real = batched_hash_call(cl, device)
     prog, table, cols, masks = call
     ops, n_keys, q = prog.ops, len(prog.exprs.keys), masks.shape[0]
     # and the same inputs into Q tables of 1,000 slots: most rows spill
-    small = HashTable([v[:, :1000].contiguous() for v in table.key_values],
-                      [f[:, :1000].contiguous() for f in table.key_flags],
-                      [p[:, :1000].contiguous() for p in table.partials],
-                      table.rows[:, :1000].contiguous(),
-                      table.state[:, :1000].contiguous())
+    small = record_views(table.records[:1000].clone(),
+                         [v.dtype for v in table.key_values],
+                         [p.dtype for p in table.partials])
     max_err = 0.0
     for case, tab in (("S=2^20", table), ("S=1000", small)):
         err, kt, ks = compare_hash_batched(
@@ -3493,24 +3510,22 @@ def phase3_partition_pack(device, n_rows: int, rows: list, sides) -> None:
                  "library_ms": None})
 
 
-def phase3_sorted_join(device, rows: list, sides, n: int = 1 << 20) -> None:
-    """sorted_join (B8) against its plain version, every output
-    identical: QJOIN's join at SF1 (both sides packed by B7, join_cap
-    its pairs), a many-to-many join (``n`` x n / 4 rows over n / 10 gids),
-    an empty (all-invalid) side, and invalid rows on both sides;
-    appends its JSON row."""
+def sorted_join_cases(device, sides, n: int = 1 << 20) -> list:
+    """-> [(name, sorted_join's arguments)]: QJOIN's join at SF1 (both
+    sides packed by B7, join_cap its pairs), a many-to-many join (``n`` x
+    n / 4 rows over n / 10 gids), an empty (all-invalid) right side,
+    invalid rows on both sides, and one gid holding 60 % of n left rows
+    (the others spread over n / 10 gids; the right side holds it twice)."""
     import torch
-    from citus_tpu_torch.parallel.shuffle import (
-        pack_blocks, sorted_join, sorted_join_plain,
-    )
+    from citus_tpu_torch.parallel.shuffle import pack_blocks
     (lgid, lcols, cap_l), (rgid, rcols, cap_r), U = sides
     packed = []
     for gid, cols, cap in ((lgid, lcols, cap_l), (rgid, rcols, cap_r)):
-        n = gid.numel()
+        m = gid.numel()
         p, pv, _ = pack_blocks((gid,) + cols,
-                               torch.zeros(n, dtype=torch.int32,
+                               torch.zeros(m, dtype=torch.int32,
                                            device=device),
-                               torch.ones(n, dtype=torch.bool, device=device),
+                               torch.ones(m, dtype=torch.bool, device=device),
                                1, cap)
         packed.append((p[0][0], pv[0], tuple(c[0] for c in p[1:])))
     (lg, lv, lc), (rg, rv, rc) = packed
@@ -3524,15 +3539,32 @@ def phase3_sorted_join(device, rows: list, sides, n: int = 1 << 20) -> None:
                                         ("empty right side", n // 16,
                                          n // 256, 300, 0.0, 1.1),
                                         ("invalid rows both sides", n, n,
-                                         n // 2, 0.3, 0.3)):
+                                         n // 2, 0.3, 0.3),
+                                        ("one gid holding 60 % of the left "
+                                         "rows", n, n // 4, n // 10, 0.0,
+                                         0.0)):
         g1 = rng.integers(0, u, L).astype(np.int64)
         g2 = rng.integers(0, u, R).astype(np.int64)
+        if name.startswith("one gid"):
+            g1[rng.random(L) < 0.6] = u // 3
+            g2[g2 == u // 3] = u // 3 + 1
+            g2[rng.integers(0, R, 2)] = u // 3
         v1, v2 = rng.random(L) >= lmiss, rng.random(R) >= rmiss
         c = np.bincount(g1[v1], minlength=u)
         total = int(c[g2[v2]].sum())
         cases.append((name, (t(g1), t(v1), t(g2), t(v2),
                              (t(rng.integers(0, 10**9, L)), t(v1)),
                              (t(rng.random(R)),), u, total + 1000)))
+    return cases
+
+
+def phase3_sorted_join(device, rows: list, sides, n: int = 1 << 20) -> None:
+    """sorted_join (B8) against its plain version, every output
+    identical, in each of ``sorted_join_cases``; appends its JSON row."""
+    from citus_tpu_torch.parallel.shuffle import (
+        sorted_join, sorted_join_plain,
+    )
+    cases = sorted_join_cases(device, sides, n)
     main = None
     for name, args in cases:
         got = sorted_join(*args)

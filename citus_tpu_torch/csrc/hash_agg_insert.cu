@@ -35,11 +35,11 @@
 //
 // Claiming.  The reference claims in several scatter passes (the minimum
 // fingerprint wins, then the stored keys verify the claim).  Here a
-// per-slot int32 state word, kept beside the table, orders one pass:
-// 0 empty, 1 publishing, 2 published.  A row that finds its slot empty
-// claims it with atomicCAS(0 -> 1), stores the keys and flags, fences and
-// releases the state to 2; it waits on nothing between claim and
-// release, so Hopper's independent thread scheduling lets waiters in the
+// per-slot int32 state word, the head of the slot's record, orders one
+// pass: 0 empty, 1 publishing, 2 published.  A row that finds its slot
+// empty claims it with atomicCAS(0 -> 1), stores the keys and flags and
+// releases the state to 2 (st.release orders the stores before it); it
+// waits on nothing between claim and release, so Hopper's independent thread scheduling lets waiters in the
 // same warp spin safely.  Every other row reads the state with acquire
 // semantics, sleeps while it is 1, and then compares keys, read past L1.
 // Key comparison is on the canonical bits, which is the NaN-aware
@@ -49,14 +49,20 @@
 // and scan columns once (about 27 B a row for bench.py's
 // `GROUP BY l_orderkey` with a count and an int64 sum, whose plan adds a
 // float64 overflow shadow), but then makes dependent random accesses to
-// its slot: the state word, the key and flag, and one atomic per partial
-// op plus rows[slot].  At S = 2^20 slots that table is 53 B a slot,
-// 56 MB, about the size of the 50 MB L2, and the words every probe reads
-// (state, key, flag: 13 MB) fit it, so random slot accesses and atomics
-// served from L2, not HBM bytes, are the likely limit.  The design keeps
-// every slot access to one cache line per table and issues no second
-// pass over the rows.  Warp-level pre-aggregation of equal keys and
-// shared-memory staging of hot slots are later work.
+// its slot: the claim word, the key and flag, and one atomic per partial
+// op plus the row count.  Kept as separate [S] arrays these are about
+// seven 32-byte sectors a placed row over a 53 MB table at S = 2^20,
+// about the size of the 50 MB L2.  Here a slot is one record (48 B for
+// that plan; hash_probe.cuh HaiParams), so a placed row touches two or
+// three sectors of one record, and the records of the groups a batch
+// fills (352,789 of them in an SF1 shard batch, 17 MB) stay in L2 after
+// their first touch.  The slot of a fingerprint comes from a reciprocal
+// computed once per table (hash_slot.cuh), not a 64-bit division.  The
+// rows of one group in a warp (clustered keys: dbgen writes an order's
+// lineitem rows together) fold inside the warp first, by fold.cuh's
+// segment reductions, and one lane probes and updates the record; a
+// warp whose rows are all of different groups (random keys) pays one
+// __match_any_sync and a vote for that, and takes the per-row path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,30 +71,52 @@
 
 template <class Row>
 __global__ void hash_insert(const HaiParams p, const FmParams rp) {
-    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= p.n) return;
-    if (!p.mask[i]) {
-        p.spill[i] = 0;
-        return;
-    }
-    if (!Row::pass(rp, i)) {
-        p.spill[i] = 0;
-        return;
-    }
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    bool live = i < p.n && p.mask[i];
+    if (live) live = Row::pass(rp, i);
+    if (i < p.n && !live) p.spill[i] = 0;
     typename Row::Vals v;
-    Row::values(rp, i, v);
-    KeyBits keys[HAI_MAX_KEYS];
-    for (int k = 0; k < p.n_keys; ++k) keys[k] = Row::key_bits(v, k);
-    const uint64_t h = keys_fingerprint(p.n_keys, keys);
-    const uint64_t S = (uint64_t)p.slots;
-    int64_t slot = (int64_t)(h % S);
-    bool placed = probe(p, keys, slot);
-    if (!placed) {
-        slot = (int64_t)(mix64(h, HAI_GOLD) % S);
-        placed = probe(p, keys, slot);
+    KeyBits keys[Row::kKeys];
+    uint64_t h = 0;
+    if (live) {
+        Row::values(rp, i, v);
+#pragma unroll
+        for (int k = 0; k < Row::kKeys; ++k) keys[k] = Row::key_bits(v, k);
+        h = keys_fingerprint<Row::kKeys>(p.n_keys, keys);
     }
-    p.spill[i] = placed ? 0 : 1;
-    if (placed) fold_slot<Row>(p, v, slot);
+    // the lanes of this warp whose rows share this row's fingerprint
+    unsigned peers = __match_any_sync(FULL_WARP, live ? h : 0ull)
+                     & __ballot_sync(FULL_WARP, live);
+    if (!live) peers = 1u << lane;
+    if (__all_sync(FULL_WARP, fp_popc(peers) == 1)) {
+        // every row its own group (random keys: nearly every warp)
+        if (!live) return;
+        char* r = place<Row::kKeys>(p, keys, h, 0);
+        p.spill[i] = r == nullptr ? 1 : 0;
+        if (r != nullptr) fold_slot<Row>(p, v, r);
+        return;
+    }
+    // clustered keys: a group's rows fold in the warp first.  Its lanes
+    // are those with the fingerprint and the keys of its lowest lane;
+    // a lane whose keys differ (a fingerprint collision) is alone.
+    const int head = __ffs(peers) - 1;
+    bool same = true;
+#pragma unroll
+    for (int k = 0; k < Row::kKeys; ++k) {
+        const uint64_t raw = __shfl_sync(FULL_WARP, live ? keys[k].raw : 0ull, head);
+        const int valid = __shfl_sync(FULL_WARP, live ? (int)keys[k].valid : 0, head);
+        same = same && (!live || (raw == keys[k].raw && valid == (int)keys[k].valid));
+    }
+    const unsigned odd = __ballot_sync(FULL_WARP, !same);
+    peers = same ? peers & ~odd : 1u << lane;
+    WarpSeg seg = warp_seg(peers, lane,
+                           seg_steps(__reduce_max_sync(FULL_WARP, (unsigned)fp_popc(peers))));
+    char* r = nullptr;
+    if (live && seg.rank == 0) r = place<Row::kKeys>(p, keys, h, 0);
+    r = (char*)__shfl_sync(FULL_WARP, (unsigned long long)r, __ffs(peers) - 1);
+    if (live) p.spill[i] = r == nullptr ? 1 : 0;
+    fold_segment<Row>(p, v, live, seg, lane, r);
 }
 
 static const int kThreads = 256;

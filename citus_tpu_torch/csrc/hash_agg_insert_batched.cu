@@ -22,15 +22,19 @@
 // claim through the per-slot claim word), its ops folded into the slot
 // and spill[q][i] set when both probes lose.  Table q is the slice
 // [q * S, (q + 1) * S) of every [Q, S] table (claim words, key values
-// and flags, partials, rows), so the one-table probe runs unchanged on
-// the flattened slot index q * S + s.  Per query the result is that of
-// hash_agg_insert on its own table with its own mask.
+// and flags, partials, rows): its records sit at query_stride from
+// table q - 1's (ops/hash_agg.py lays the Q records of a slot side by
+// side), so the one-table probe runs unchanged on record (q, s).  Per
+// query the result is that of hash_agg_insert on its own table with its
+// own mask.
 //
 // What bounds it on an H100: as for one table, the random slot traffic
-// (claim word, keys and flags, one atomic per op and rows) -- now Q times
-// per row that passes every filter, into Q tables of 53 B a slot (Q * 56 MB
-// at S = 2^20: past the 50 MB L2 from Q = 1 on) -- while the key and
-// argument columns are read once whatever Q is.
+// (claim word, keys and flags, one atomic per op and rows: one record)
+// -- now Q times
+// per row that passes every filter, into Q tables of 48 B a slot for the
+// H family's plan (Q * 48 MB at S = 2^20), whose Q records of a slot
+// are adjacent, so a row's Q probes of one slot share lines -- while the
+// key and argument columns are read once whatever Q is.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,27 +53,26 @@ __global__ void hash_insert_q(const HaiParams p, const FmParams rp, const int n_
     }
     typename Row::Vals v;
     Row::values(rp, i, v);
-    KeyBits keys[HAI_MAX_KEYS];
-    for (int k = 0; k < p.n_keys; ++k) keys[k] = Row::key_bits(v, k);
-    const uint64_t h = keys_fingerprint(p.n_keys, keys);
+    KeyBits keys[Row::kKeys];
+#pragma unroll
+    for (int k = 0; k < Row::kKeys; ++k) keys[k] = Row::key_bits(v, k);
+    const uint64_t h = keys_fingerprint<Row::kKeys>(p.n_keys, keys);
     const uint64_t S = (uint64_t)p.slots;
-    const int64_t s1 = (int64_t)(h % S);
-    const int64_t s2 = (int64_t)(mix64(h, HAI_GOLD) % S);
+    const uint64_t s1 = hs_slot(h, S, p.slots_magic);
+    const uint64_t s2 = hs_slot(mix64(h, HAI_GOLD), S, p.slots_magic);
     for (int q = 0; q < n_q; ++q) {
         const int64_t at = (int64_t)q * p.n + i;
         if (!p.mask[at]) {
             p.spill[at] = 0;
             continue;
         }
-        const int64_t base = (int64_t)q * p.slots;
-        int64_t slot = base + s1;
-        bool placed = probe(p, keys, slot);
-        if (!placed) {
-            slot = base + s2;
-            placed = probe(p, keys, slot);
+        char* r = slot_record(p, q, s1);
+        if (!probe<Row::kKeys>(p, keys, r)) {
+            r = slot_record(p, q, s2);
+            if (!probe<Row::kKeys>(p, keys, r)) r = nullptr;
         }
-        p.spill[at] = placed ? 0 : 1;
-        if (placed) fold_slot<Row>(p, v, slot);
+        p.spill[at] = r == nullptr ? 1 : 0;
+        if (r != nullptr) fold_slot<Row>(p, v, r);
     }
 }
 
@@ -77,8 +80,8 @@ static const int kThreadsQ = 256;
 
 // Launches one batched insert of `p` for `n_q` queries on `stream`, the
 // keys and arguments from FoldRow over the columns of `r`: p->mask and
-// p->spill point at [n_q, n] bool masks, every table of p at
-// [n_q, p->slots] storage.  Returns the CUDA error of the launch
+// p->spill point at [n_q, n] bool masks, p->records at the records of
+// n_q tables.  Returns the CUDA error of the launch
 // (0 = cudaSuccess); the kernel runs asynchronously.
 extern "C" int hash_agg_insert_batched_launch(const HaiParams* p, const FmParams* r, int n_q,
                                               void* stream) {

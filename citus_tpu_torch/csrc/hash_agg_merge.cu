@@ -24,8 +24,8 @@
 //   - spill[e] = 1 when both probes lose; the executor merges those entries
 //     exactly on the host (merge_hash_tables_into with entry_mask).
 //
-// Parameters: the insert's HaiParams describe the table side (slots, key
-// tables, partial tables, rows, state); the merge adds the entries: keys[k]
+// Parameters: the insert's HaiParams describe the table side (slots, the
+// slot records and their fields' offsets); the merge adds the entries: keys[k]
 // the entries' key values, args[o] the entries' partial column of op o,
 // their key flags and row counts.
 //
@@ -33,7 +33,8 @@
 // states and row count are read once (M entries, mostly empty: a shipped
 // table is the peer's whole [S'] table), and each occupied entry then makes
 // the dependent slot accesses of the insert (state, key, flag, one atomic
-// per op and one on rows).  Empty entries cost their 8-byte row count only:
+// per op and one on rows, all in the slot's record).  Empty entries cost
+// their 8-byte row count only:
 // the thread reads rows[e] first and returns.  When the two tables hold
 // the same groups, most occupied entries match and no claim is contended.
 
@@ -69,24 +70,13 @@ __global__ void hash_merge(const HamParams m) {
             keys[k].valid = false;
         }
     }
-    const uint64_t h = keys_fingerprint(p.n_keys, keys);
-    const uint64_t S = (uint64_t)p.slots;
-    int64_t slot = (int64_t)(h % S);
-    bool placed = probe(p, keys, slot);
-    if (!placed) {
-        slot = (int64_t)(mix64(h, HAI_GOLD) % S);
-        placed = probe(p, keys, slot);
-    }
-    p.spill[e] = placed ? 0 : 1;
-    if (!placed) return;
-    for (int o = 0; o < p.n_ops; ++o) {
-        int kind = p.op_kind[o];
-        int dt = p.op_dtype[o];
-        int w = (kind == SAF_COUNT_STAR || kind == SAF_COUNT
-                 || dt == SAF_I64 || dt == SAF_F64) ? 8 : 4;
-        merge_value(kind, dt, (char*)p.acc[o] + slot * w, m.args[o], e);
-    }
-    atomicAdd((unsigned long long*)p.rows + slot, (unsigned long long)r);
+    const uint64_t h = keys_fingerprint<HAI_MAX_KEYS>(p.n_keys, keys);
+    char* slot = place<HAI_MAX_KEYS>(p, keys, h, 0);
+    p.spill[e] = slot == nullptr ? 1 : 0;
+    if (slot == nullptr) return;
+    for (int o = 0; o < p.n_ops; ++o)
+        merge_value(p.op_kind[o], p.op_dtype[o], slot + p.acc_off[o], m.args[o], e);
+    atomicAdd((unsigned long long*)(slot + p.rows_off), (unsigned long long)r);
 }
 
 static const int kThreads = 256;

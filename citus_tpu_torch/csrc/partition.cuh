@@ -1,8 +1,8 @@
-// Stable partition building blocks of the repartition kernels
-// (partition_pack.cu, B7, and sorted_join.cu, B8): an exclusive scan of
-// int64 counts over many blocks, and one stable counting pass that
-// places every row by a small "digit" (a destination, or 8 bits of a
-// sort key) at its global position, rows of one digit in input order.
+// Stable partition building blocks of the repartition kernel
+// (partition_pack.cu, B7): an exclusive scan of int64 counts over many
+// blocks, and one stable counting pass that places every row by a small
+// "digit" (a destination) at its global position, rows of one digit in
+// input order.
 //
 // A counting pass runs in three launches over tiles of PT_TILE rows,
 // one tile per block:

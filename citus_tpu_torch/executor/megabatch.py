@@ -86,8 +86,8 @@ _AUTO_SPARSE_S = 0.025
 
 #: device bytes the Q stacked hash tables of one dispatch may take; a
 #: larger group splits into sub-batches that each scan the shards once
-#: (2^20 slots of a TPC-H per-order revenue table: 53 B a slot, so 77
-#: queries fit)
+#: (2^20 slots of 48 to 88-byte slot records, ops/hash_agg.py
+#: record_layout: 46 to 85 queries fit)
 HASH_TABLES_BUDGET_BYTES = 4 << 30
 
 

@@ -128,12 +128,20 @@ class HashTable:
     ``2 * (rows > 0)`` between launches.
 
     Stacked for Q queries of one plan family (the megabatch path), every
-    tensor is [Q, S] and ``query(q)`` is query q's own [S] table."""
+    tensor is [Q, S] and ``query(q)`` is query q's own [S] table.
+
+    ``empty_hash_state`` lays every slot out as one record
+    (``SlotRecord``) of ``records``, [S, W] (stacked: [S, Q, W], the Q
+    records of a slot side by side) int64 words, and the tensors above
+    are strided views of it, so the insert kernels touch one record a
+    slot.  A table of separate tensors (``records`` None) serves the
+    plain versions; the kernels refuse it."""
     key_values: list
     key_flags: list
     partials: list
     rows: torch.Tensor
     state: torch.Tensor
+    records: Optional[torch.Tensor] = None
 
     @property
     def slots(self) -> int:
@@ -144,15 +152,74 @@ class HashTable:
         return HashTable([v[q] for v in self.key_values],
                          [f[q] for f in self.key_flags],
                          [p[q] for p in self.partials], self.rows[q],
-                         self.state[q])
+                         self.state[q],
+                         None if self.records is None
+                         else self.records[:, q])
 
     def to_host(self):
         """-> (key_tables [(values, flags)], partials, rows) as numpy,
-        the reference's fetched table layout."""
+        the reference's fetched table layout (of a record table: one copy
+        of its records, viewed field by field)."""
+        t = self
+        if self.records is not None:
+            t = record_views(self.records.cpu(),
+                             [v.dtype for v in self.key_values],
+                             [p.dtype for p in self.partials])
         return ([(v.cpu().numpy(), f.cpu().numpy())
-                 for v, f in zip(self.key_values, self.key_flags)],
-                tuple(p.cpu().numpy() for p in self.partials),
-                self.rows.cpu().numpy())
+                 for v, f in zip(t.key_values, t.key_flags)],
+                tuple(p.cpu().numpy() for p in t.partials),
+                t.rows.cpu().numpy())
+
+
+@dataclass(frozen=True)
+class SlotRecord:
+    """The byte offsets of a slot's fields in its record of ``words``
+    int64 words: the claim word at 0 and key k's flag at ``4 + k`` (the
+    head, the words a probe reads first), then one word for each key
+    value, one for each partial register (a 4-byte one in its low half)
+    and the row count."""
+    words: int
+    flags: tuple
+    keys: tuple
+    partials: tuple
+    rows: int
+    state: int = 0
+
+
+def record_layout(n_k: int, n_o: int) -> SlotRecord:
+    """The slot record of a table of ``n_k`` keys and ``n_o`` partial
+    ops."""
+    head = -(-(4 + n_k) // 8)
+    return SlotRecord(head + n_k + n_o + 1,
+                      tuple(4 + k for k in range(n_k)),
+                      tuple(8 * (head + k) for k in range(n_k)),
+                      tuple(8 * (head + n_k + o) for o in range(n_o)),
+                      8 * (head + n_k + n_o))
+
+
+def _field(records: torch.Tensor, dtype: torch.dtype, off: int):
+    """The field at byte ``off`` of every record, as a strided view."""
+    return records.view(dtype)[..., off // dtype.itemsize]
+
+
+def record_views(records: torch.Tensor, key_dtypes, acc_dtypes
+                 ) -> HashTable:
+    """``records`` ([S, W] or [S, Q, W] int64, ``record_layout``'s W) as
+    a HashTable of [S] / [Q, S] views of these key and register torch
+    dtypes."""
+    lay = record_layout(len(key_dtypes), len(acc_dtypes))
+    if records.dtype != torch.int64 or records.shape[-1] != lay.words:
+        raise ValueError(f"hash table records must be int64 [..., "
+                         f"{lay.words}]")
+
+    def f(dtype, off):
+        v = _field(records, dtype, off)
+        return v if v.dim() == 1 else v.transpose(0, 1)
+    return HashTable([f(d, o) for d, o in zip(key_dtypes, lay.keys)],
+                     [f(torch.int8, o) for o in lay.flags],
+                     [f(d, o) for d, o in zip(acc_dtypes, lay.partials)],
+                     f(torch.int64, lay.rows), f(torch.int32, lay.state),
+                     records)
 
 
 def empty_hash_state(plan: PhysicalPlan, slots: int, key_dtypes: tuple,
@@ -160,41 +227,40 @@ def empty_hash_state(plan: PhysicalPlan, slots: int, key_dtypes: tuple,
     """Empty table on ``device``: key value tables filled with their
     dtype minimum, flag tables at 0, partial tables at their op's
     identity/sentinel, rows and claim words at 0.  With ``n_queries``,
-    Q stacked tables ([Q, S] tensors)."""
+    Q stacked tables ([Q, S] tensors).  Every slot is one record of
+    ``records`` (``record_layout``); the tensors are views of it."""
+    from citus_tpu_torch.ops.xp_torch import torch_dtype
     S = int(slots)
     if S <= 0:
         raise ValueError(f"hash table needs a positive slot count, got {S}")
-    shape = (S,) if n_queries is None else (int(n_queries), S)
+    kdts = [np.dtype(k) for k in key_dtypes]
+    adts = [_acc_dtype(op) for op in plan.partial_ops]
+    tk = [torch_dtype(k) for k in kdts]
+    ta = [torch_dtype(a) for a in adts]
+    shape = (S,) if n_queries is None else (S, int(n_queries))
+    # filled on the host and copied: no device kernel but the inserts'
+    table = record_views(
+        torch.zeros(shape + (record_layout(len(tk), len(ta)).words,),
+                    dtype=torch.int64), tk, ta)
+    for v, kdt in zip(table.key_values, kdts):
+        v.fill_(np.asarray(_key_sentinel(kdt)).item())
+    for p, op, dt in zip(table.partials, plan.partial_ops, adts):
+        if op.kind in ("min", "max") and op.arg_index >= 0:
+            p.fill_(np.asarray(_sentinel(op.kind, dt), dt).item())
+    return record_views(table.records.to(device), tk, ta)
 
-    def t(a):
-        return torch.from_numpy(a).to(device)
-    key_values, key_flags = [], []
-    for kdt in key_dtypes:
-        kdt = np.dtype(kdt)
-        key_values.append(t(np.full(shape, _key_sentinel(kdt), kdt)))
-        key_flags.append(t(np.zeros(shape, np.int8)))
-    partials = []
-    for op in plan.partial_ops:
-        dt = np.dtype(op.dtype)
-        if op.kind == "count" or op.arg_index < 0:
-            partials.append(t(np.zeros(shape, np.int64)))
-        elif op.kind == "sum":
-            partials.append(t(np.zeros(shape, dt)))
-        else:
-            partials.append(t(np.full(shape, dt.type(_sentinel(op.kind, dt)),
-                                      dt)))
-    return HashTable(key_values, key_flags, partials,
-                     t(np.zeros(shape, np.int64)),
-                     t(np.zeros(shape, np.int32)))
+
+def _acc_dtype(op) -> np.dtype:
+    """The register dtype of a hash table's partial op."""
+    if op.kind == "count" or op.arg_index < 0:
+        return np.dtype(np.int64)
+    return np.dtype(op.dtype)
 
 
 def hash_slot_bytes(plan: PhysicalPlan, key_dtypes: tuple) -> int:
-    """Device bytes of one slot of a table: key values and flags,
-    partials, rows and the claim word."""
-    return (sum(np.dtype(k).itemsize + 1 for k in key_dtypes)
-            + sum(8 if op.kind == "count" or op.arg_index < 0
-                  else np.dtype(op.dtype).itemsize
-                  for op in plan.partial_ops) + 8 + 4)
+    """Device bytes of one slot of a table: its record (key values and
+    flags, partials, rows and the claim word, ``record_layout``)."""
+    return 8 * record_layout(len(key_dtypes), len(plan.partial_ops)).words
 
 
 def build_hash_insert_inputs(plan: PhysicalPlan, key_dtypes: tuple,

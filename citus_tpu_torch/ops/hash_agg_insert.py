@@ -198,16 +198,26 @@ def insert_plain(prog: FoldProgram, table, cols: dict, params: dict,
 
 class _Params(ctypes.Structure):
     _fields_ = [("n", ctypes.c_int64), ("slots", ctypes.c_int64),
+                ("slots_magic", ctypes.c_uint64),
                 ("mask", ctypes.c_void_p), ("spill", ctypes.c_void_p),
+                ("records", ctypes.c_void_p),
+                ("slot_stride", ctypes.c_int64),
+                ("query_stride", ctypes.c_int64),
                 ("n_keys", ctypes.c_int32), ("n_ops", ctypes.c_int32),
                 ("key_dtype", ctypes.c_int32 * _MAX_KEYS),
-                ("key_values", ctypes.c_void_p * _MAX_KEYS),
-                ("key_flags", ctypes.c_void_p * _MAX_KEYS),
+                ("key_off", ctypes.c_int32 * _MAX_KEYS),
+                ("flag_off", ctypes.c_int32 * _MAX_KEYS),
                 ("op_kind", ctypes.c_int32 * _MAX_OPS),
                 ("op_arg", ctypes.c_int32 * _MAX_OPS),
                 ("op_dtype", ctypes.c_int32 * _MAX_OPS),
-                ("acc", ctypes.c_void_p * _MAX_OPS),
-                ("rows", ctypes.c_void_p), ("state", ctypes.c_void_p)]
+                ("acc_off", ctypes.c_int32 * _MAX_OPS),
+                ("rows_off", ctypes.c_int32), ("state_off", ctypes.c_int32)]
+
+
+def slot_magic(S: int) -> int:
+    """The reciprocal of ``csrc/hash_slot.cuh hs_slot``: floor((2^64 - 1)
+    / S), with which a high multiply and one correction give h % S."""
+    return ((1 << 64) - 1) // S
 
 
 def _bind_library(lib):
@@ -240,36 +250,33 @@ def insert_library(prog: FoldProgram):
     return prog.library(INSERT_BUILD, _bind_library)
 
 
-def _check_table_vector(t, what: str, shape: tuple, dtypes, dev) -> None:
-    if t.device != dev or t.dtype not in dtypes or t.shape != shape \
-            or not t.is_contiguous():
+def _record_field(t, what: str, shape: tuple, dtypes, dev, base: int,
+                  strides: tuple) -> int:
+    """-> the byte offset of a table tensor's field in its slot record:
+    ``t`` is a ``shape`` view of ``dtypes`` on ``dev`` with the table's
+    record ``strides`` (bytes) whose field lies inside the record at
+    ``base``."""
+    es = t.element_size() if t.dtype in dtypes else 0
+    off = t.data_ptr() - base
+    if t.device != dev or es == 0 or tuple(t.shape) != shape \
+            or tuple(x * es for x in t.stride()) != strides \
+            or not 0 <= off <= min(strides) - es or off % es:
         raise ValueError(
-            f"hash_agg_insert: {what} must be a contiguous {list(shape)} "
-            f"tensor of {dtypes} on {dev}, got {t.dtype} {tuple(t.shape)} "
-            f"on {t.device}")
-
-
-def _check_table(table, shape: tuple, kinds, dev) -> None:
-    """Every tensor of ``table`` is a contiguous ``shape`` tensor of its
-    kind's dtypes on ``dev``; the key tables' dtypes are their own."""
-    for i, (kvt, kft) in enumerate(zip(table.key_values, table.key_flags)):
-        if kvt.dtype not in _DTYPE_CODES:
-            raise TypeError(f"hash_agg_insert: key table {i} has dtype "
-                            f"{kvt.dtype}")
-        _check_table_vector(kvt, f"key table {i}", shape, (kvt.dtype,), dev)
-        _check_table_vector(kft, f"key flag table {i}", shape,
-                            (torch.int8,), dev)
-    for i, (a, kind) in enumerate(zip(table.partials, kinds)):
-        _check_table_vector(a, f"partial table {i} ({kind})", shape,
-                            _ACC_DTYPES[kind], dev)
-    _check_table_vector(table.rows, "rows", shape, (torch.int64,), dev)
-    _check_table_vector(table.state, "state", shape, (torch.int32,), dev)
+            f"hash_agg_insert: {what} must be a {list(shape)} view of "
+            f"{dtypes} on {dev} into the table's slot records (strides "
+            f"{strides} bytes; see ops/hash_agg.py empty_hash_state), got "
+            f"{t.dtype} {tuple(t.shape)} strides {t.stride()} on {t.device}")
+    return off
 
 
 def table_block(table, kinds, shape: tuple, dev, n: int, n_q=None):
     """The table side of a hash kernel's parameter block (``HaiParams``):
-    slots, key, partial, row and claim-word tables, op kinds and
-    accumulator dtypes; ``n`` rows, ``n_q`` stacked tables or None."""
+    slots and their reciprocal, the records' base and strides, each
+    field's offset in a record, op kinds and accumulator dtypes; ``n``
+    rows, ``n_q`` stacked tables or None.  The table must be laid out in
+    slot records (``ops/hash_agg.py empty_hash_state``): every tensor a
+    strided view of one record per slot.  The checked block is kept on
+    the table and reused while its tensors are the same objects."""
     S = table.slots
     if not 0 < len(table.key_values) <= _MAX_KEYS \
             or len(table.partials) > _MAX_OPS:
@@ -279,21 +286,53 @@ def table_block(table, kinds, shape: tuple, dev, n: int, n_q=None):
         raise ValueError("hash_agg_insert: one partial table per op")
     if S <= 0 or S >= 1 << 62 or (n_q or 1) * S >= 1 << 62:
         raise ValueError(f"hash_agg_insert: bad slot count {S}")
-    _check_table(table, shape, kinds, dev)
+    fields = (table.key_values + table.key_flags + table.partials
+              + [table.rows, table.state])
+    key = (tuple(kinds), shape, str(dev), table.state.data_ptr())
+    cached = getattr(table, "_block", None)
+    if cached is not None and cached[0] == key \
+            and all(a is b for a, b in zip(cached[1], fields)):
+        p = _Params.from_buffer_copy(cached[2])
+        p.n = n
+        return p
+    st = table.state
+    strides = tuple(x * 4 for x in st.stride())
+    if min(strides) % 8 or min(strides) <= 0:
+        raise ValueError("hash_agg_insert: the table is not laid out in "
+                         "slot records (ops/hash_agg.py empty_hash_state)")
+    base = min(t.data_ptr() for t in fields)
     p = _Params()
-    p.n, p.slots = n, S
+    p.n, p.slots, p.slots_magic = n, S, slot_magic(S)
+    p.records, p.slot_stride = base, strides[-1]
+    p.query_stride = strides[0] if n_q is not None else 0
     p.n_keys, p.n_ops = len(table.key_values), len(kinds)
+    taken = []
+
+    def field(t, what, dtypes):
+        off = _record_field(t, what, shape, dtypes, dev, base, strides)
+        taken.append((off, off + t.element_size()))
+        return off
     for i, (kvt, kft) in enumerate(zip(table.key_values, table.key_flags)):
+        if kvt.dtype not in _DTYPE_CODES:
+            raise TypeError(f"hash_agg_insert: key table {i} has dtype "
+                            f"{kvt.dtype}")
         p.key_dtype[i] = _DTYPE_CODES[kvt.dtype]
-        p.key_values[i] = kvt.data_ptr()
-        p.key_flags[i] = kft.data_ptr()
+        p.key_off[i] = field(kvt, f"key table {i}", (kvt.dtype,))
+        p.flag_off[i] = field(kft, f"key flag table {i}", (torch.int8,))
     for i, (a, kind) in enumerate(zip(table.partials, kinds)):
         if kind not in _KIND_CODES:
             raise ValueError(f"hash_agg_insert: unknown op kind {kind!r}")
         p.op_kind[i] = _KIND_CODES[kind]
+        p.acc_off[i] = field(a, f"partial table {i} ({kind})",
+                             _ACC_DTYPES[kind])
         p.op_dtype[i] = _DTYPE_CODES[a.dtype]
-        p.acc[i] = a.data_ptr()
-    p.rows, p.state = table.rows.data_ptr(), table.state.data_ptr()
+    p.rows_off = field(table.rows, "rows", (torch.int64,))
+    p.state_off = field(st, "state", (torch.int32,))
+    taken.sort()
+    if any(a[1] > b[0] for a, b in zip(taken, taken[1:])):
+        raise ValueError("hash_agg_insert: two fields of the table's slot "
+                         "records overlap")
+    table._block = (key, fields, bytes(p))
     return p
 
 

@@ -33,6 +33,7 @@ from __future__ import annotations
 import ctypes
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from citus_tpu_torch.ops.cuda_build import count_launch
@@ -113,30 +114,65 @@ def _library():
     return _lib
 
 
-def _check_entries(t: torch.Tensor, what: str, m: int, dtypes, dev) -> None:
-    if t.device != dev or t.dtype not in dtypes or t.shape != (m,) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"hash_agg_merge: {what} must be a contiguous [{m}] tensor of "
-            f"{dtypes} on {dev}, got {t.dtype} {tuple(t.shape)} on "
-            f"{t.device}")
+def _word(*path) -> int:
+    """The int64 word of a field of ``_MergeParams`` (a path of names and
+    array indexes)."""
+    t, off = _MergeParams, 0
+    for name in path:
+        if isinstance(name, int):
+            size = ctypes.sizeof(t._type_)
+            t, off = t._type_, off + name * size
+        else:
+            f = getattr(t, name)
+            off += f.offset
+            t = dict(t._fields_)[name]
+    return off // 8
 
 
-def _entry_col(t: torch.Tensor, what: str, m: int, dtypes, dev) -> _Col:
-    _check_entries(t, what, m, dtypes, dev)
-    c = _Col()
-    c.data = t.data_ptr()
-    c.data_stride = 1
-    c.dtype = _DTYPE_CODES[t.dtype]
-    return c
+#: the words a merge call fills: the entry count, the spill mask, each
+#: key's values and flags, each op's partials, the row counts
+_W_N, _W_SPILL = _word("t", "n"), _word("t", "spill")
+_W_KEYS = [_word("keys", i, "data") for i in range(_MAX_KEYS)]
+_W_FLAGS = [_word("entry_flags", i) for i in range(_MAX_KEYS)]
+_W_ARGS = [_word("args", o, "data") for o in range(_MAX_OPS)]
+_W_ROWS = _word("entry_rows")
+
+
+def _template(table, kinds, dev) -> tuple:
+    """-> (the merge block of ``table`` and these kinds with no entries,
+    the word indexes a call fills, the entry dtypes), built once per
+    table side (``table_block``) and kept on the table."""
+    for kind in kinds:
+        if kind not in MERGE_KINDS:
+            raise ValueError(f"hash_agg_merge: cannot merge partial kind "
+                             f"{kind!r}")
+    side = table_block(table, kinds, (table.slots,), dev, 0)
+    key = bytes(side)
+    cached = getattr(table, "_merge_block", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    mp = _MergeParams()
+    mp.t = side
+    n_k, n_o = len(table.key_values), len(kinds)
+    for i, kvt in enumerate(table.key_values):
+        mp.keys[i].data_stride, mp.keys[i].dtype = 1, _DTYPE_CODES[kvt.dtype]
+    for o, a in enumerate(table.partials):
+        mp.args[o].data_stride, mp.args[o].dtype = 1, _DTYPE_CODES[a.dtype]
+        mp.t.op_arg[o] = o
+    words = np.array(_W_KEYS[:n_k] + _W_FLAGS[:n_k] + _W_ARGS[:n_o]
+                     + [_W_ROWS, _W_SPILL, _W_N], np.int64)
+    dtypes = ([v.dtype for v in table.key_values] + [torch.int8] * n_k
+              + [a.dtype for a in table.partials] + [torch.int64])
+    out = (bytes(mp), words, dtypes)
+    table._merge_block = (key, out)
+    return out
 
 
 def _block(table, keys, partials, rows, kinds, spill) -> _MergeParams:
+    """The parameter block (``HamParams``) of one merge: the table's
+    template with this call's entry pointers written in as int64 words."""
     dev = rows.device
     m = rows.shape[0] if rows.dim() == 1 else -1
-    if m < 0 or rows.dtype != torch.int64 or not rows.is_contiguous():
-        raise ValueError("hash_agg_merge: rows must be a contiguous int64 "
-                         "vector")
     if not 0 < len(keys) <= _MAX_KEYS or len(kinds) > _MAX_OPS:
         raise ValueError(f"hash_agg_merge takes 1 to {_MAX_KEYS} keys and "
                          f"at most {_MAX_OPS} partial ops")
@@ -145,26 +181,21 @@ def _block(table, keys, partials, rows, kinds, spill) -> _MergeParams:
         raise ValueError("hash_agg_merge: one key and flag entry column "
                          "per key table, one partial column and kind per "
                          "partial table")
-    for kind in kinds:
-        if kind not in MERGE_KINDS:
-            raise ValueError(f"hash_agg_merge: cannot merge partial kind "
-                             f"{kind!r}")
-    S = table.slots
-    if S <= 0 or S >= 1 << 62:
-        raise ValueError(f"hash_agg_merge: bad slot count {S}")
-    mp = _MergeParams()
-    mp.t = table_block(table, kinds, (S,), dev, m)
-    mp.t.spill = spill.data_ptr()
-    for i, ((kv, kf), kvt) in enumerate(zip(keys, table.key_values)):
-        mp.keys[i] = _entry_col(kv, f"key entries {i}", m, (kvt.dtype,), dev)
-        _check_entries(kf, f"key flag entries {i}", m, (torch.int8,), dev)
-        mp.entry_flags[i] = kf.data_ptr()
-    for o, (a, e, kind) in enumerate(zip(table.partials, partials, kinds)):
-        mp.args[o] = _entry_col(e, f"partial entries {o} ({kind})", m,
-                                (a.dtype,), dev)
-        mp.t.op_arg[o] = o
-    mp.entry_rows = rows.data_ptr()
-    return mp
+    block, words, dtypes = _template(table, kinds, dev)
+    entries = ([kv for kv, _ in keys] + [kf for _, kf in keys]
+               + list(partials) + [rows])
+    for t, want in zip(entries, dtypes):
+        if t.dtype != want or t.shape != (m,) or not t.is_contiguous() \
+                or t.device != dev:
+            raise ValueError(
+                f"hash_agg_merge: every entry column must be a contiguous "
+                f"[{m}] tensor on {dev} of its table's dtype (keys, int8 "
+                f"flags, partials, int64 rows), got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device} for {want}")
+    buf = bytearray(block)
+    np.frombuffer(buf, np.int64)[words] = [t.data_ptr() for t in entries] \
+        + [spill.data_ptr(), m]
+    return _MergeParams.from_buffer(buf)
 
 
 def _launch(table, keys, partials, rows, kinds) -> torch.Tensor:

@@ -53,7 +53,8 @@ from citus_tpu_torch.parallel.mesh import (
     MAX_MEMBERS, mesh_combine, on_member, shard_axis_size, to_member,
 )
 
-#: rows per tile of the counting passes (csrc/partition.cuh PT_TILE)
+#: rows per tile of the counting passes (csrc/partition.cuh PT_TILE) and
+#: of sorted_join's radix passes and scans (csrc/sorted_join.cu SJ_TILE)
 _TILE = 2048
 #: destinations of one counting pass, the virtual one included
 _MAX_DIGITS = 1024
@@ -80,24 +81,19 @@ class _PpParams(ctypes.Structure):
                 ("hist", ctypes.c_void_p), ("bsum", ctypes.c_void_p)]
 
 
-class _SjParams(ctypes.Structure):
-    _fields_ = [("L", ctypes.c_int64), ("R", ctypes.c_int64),
-                ("U", ctypes.c_int64), ("J", ctypes.c_int64),
-                ("lgid", ctypes.c_void_p), ("lvalid", ctypes.c_void_p),
-                ("rgid", ctypes.c_void_p), ("rvalid", ctypes.c_void_p),
-                ("l_idx", ctypes.c_void_p), ("r_idx", ctypes.c_void_p),
-                ("out_valid", ctypes.c_void_p), ("total", ctypes.c_void_p),
-                ("key_a", ctypes.c_void_p), ("key_b", ctypes.c_void_p),
-                ("idx_a", ctypes.c_void_p), ("idx_b", ctypes.c_void_p),
-                ("hist", ctypes.c_void_p), ("bsum", ctypes.c_void_p),
-                ("starts", ctypes.c_void_p), ("lo", ctypes.c_void_p),
-                ("run", ctypes.c_void_p)]
-
-
-class _SjGather(ctypes.Structure):
-    _fields_ = [("J", ctypes.c_int64), ("idx", ctypes.c_void_p),
-                ("n_cols", ctypes.c_int64),
-                ("cols", _PpColumn * _SJ_MAX_COLS)]
+#: sorted_join's parameter block (csrc/sorted_join.cu SjParams) as int64
+#: words: these fields, then SJ_MAX_COLS columns of (in, out, elem, right)
+_SJ_FIELDS = ("L", "R", "U", "J", "epoch", "passes", "width", "lgid",
+              "lvalid", "rgid", "rvalid", "l_idx", "r_idx", "out_valid",
+              "total", "zero", "zero_bytes", "starts", "hist", "tickets",
+              "u_agg", "u_incl", "u_flag", "r_agg", "r_incl", "r_flag",
+              "digit_state", "key_a", "key_b", "idx_a", "idx_b", "base",
+              "ends", "n_cols")
+_SJ = {f: i for i, f in enumerate(_SJ_FIELDS)}
+_SJ_WORDS = len(_SJ_FIELDS) + 4 * _SJ_MAX_COLS
+_SJ_MAX_PASSES, _SJ_TICKETS = 4, 6
+#: epochs of one workspace's look-back words (csrc/sorted_join.cu)
+_SJ_EPOCHS = 1 << 30
 
 
 _libs: dict = {}
@@ -131,13 +127,17 @@ def _library(name: str):
         sizes = [(lib.partition_pack_params_size, _PpParams)]
         tile = lib.partition_pack_tile
     else:
-        lib.sorted_join_launch.argtypes = [ctypes.POINTER(_SjParams), vp]
-        lib.sorted_join_gather_launch.argtypes = [ctypes.POINTER(_SjGather),
-                                                  vp]
+        lib.sorted_join_launch.argtypes = [vp, vp]
+        lib.sorted_join_gather_launch.argtypes = [ctypes.c_int64, vp, vp, vp]
         lib.sorted_join_launch.restype = ctypes.c_int
         lib.sorted_join_gather_launch.restype = ctypes.c_int
-        sizes = [(lib.sorted_join_params_size, _SjParams),
-                 (lib.sorted_join_gather_size, _SjGather)]
+        for fn, want in ((lib.sorted_join_params_words, _SJ_WORDS),
+                         (lib.sorted_join_max_cols, _SJ_MAX_COLS)):
+            fn.restype, fn.argtypes = ctypes.c_int, []
+            if fn() != want:
+                raise RuntimeError("sorted_join: parameter block layout "
+                                   "differs between Python and CUDA")
+        sizes = []
         tile = lib.sorted_join_tile
     for fn, struct in sizes:
         fn.restype, fn.argtypes = ctypes.c_int, []
@@ -319,22 +319,80 @@ def sorted_join_plain(lgid, lvalid, rgid, rvalid, lcols: tuple, rcols: tuple,
 sorted_join_plain.calls = 0
 
 
-def _gather_launch(lib, idx, cols, dev, stream):
-    outs = tuple(torch.empty(idx.shape[0], dtype=c.dtype, device=dev)
-                 for c in cols)
-    for a in range(0, len(cols), _SJ_MAX_COLS):
-        g = _SjGather()
-        g.J, g.idx = idx.shape[0], idx.data_ptr()
-        chunk = list(zip(cols, outs))[a:a + _SJ_MAX_COLS]
-        g.n_cols = len(chunk)
-        for k, (c, o) in enumerate(chunk):
-            g.cols[k].in_, g.cols[k].out = c.data_ptr(), o.data_ptr()
-            g.cols[k].elem = c.element_size()
-        err = lib.sorted_join_gather_launch(ctypes.byref(g), stream)
-        if err != 0:
-            raise RuntimeError(f"sorted_join gather launch failed: CUDA "
-                               f"error {err}")
-    return outs
+class _SjWorkspace:
+    """One device stream's reused scratch of ``sorted_join``: the
+    look-back words of its digit passes and of its scans each in a region
+    of their own (so a word read there is always one such word, of this
+    launch's epoch or an earlier one), then everything else."""
+
+    def __init__(self):
+        self.buf = None
+        self.caps = (0, 0, 0)
+        self.epoch = 0
+
+    def take(self, dev, digit_words: int, flag_words: int, rest: int):
+        """-> (base address, epoch) of a workspace of at least these
+        sizes: a fresh zeroed one when it grows or its epochs run out."""
+        need = (digit_words, flag_words, rest)
+        if any(n > c for n, c in zip(need, self.caps)) \
+                or self.epoch + 1 >= _SJ_EPOCHS:
+            self.caps = tuple(max(n, c) for n, c in zip(need, self.caps))
+            self.buf = None
+            self.buf = torch.zeros(self._bytes(*self.caps), dtype=torch.uint8,
+                                   device=dev)
+            self.epoch = 0
+        self.epoch += 1
+        return self.buf.data_ptr(), self.epoch
+
+    @staticmethod
+    def _bytes(digit_words, flag_words, rest) -> int:
+        return 8 * digit_words + 8 * -(-flag_words // 2) + rest
+
+
+_sj_spaces: dict = {}
+_sj_lock = threading.Lock()
+
+
+def _sj_layout(L: int, R: int, U: int, passes: int) -> dict:
+    """Byte offsets of ``sorted_join``'s workspace past its look-back
+    regions, from 0: the zeroed part (starts, digit histograms,
+    tickets), the scans' tile sums, the sort's buffers and the runs."""
+    tu, tr = _tiles(U + 1), _tiles(R)
+    sizes = [("starts", 8 * (U + 1)), ("hist", 8 * 256 * _SJ_MAX_PASSES),
+             ("tickets", 4 * _SJ_TICKETS), ("u_agg", 8 * tu),
+             ("u_incl", 8 * tu), ("r_agg", 8 * tr), ("r_incl", 8 * tr),
+             ("key_a", 4 * L), ("key_b", 4 * L), ("idx_a", 4 * L),
+             ("idx_b", 4 * L), ("base", 8 * R), ("ends", 8 * R)]
+    out, at = {}, 0
+    for name, n in sizes:
+        out[name] = at
+        at += -(-n // 8) * 8
+    out["zero_bytes"] = out["u_agg"]
+    out["bytes"] = at
+    return out
+
+
+def _sj_passes(U: int) -> tuple:
+    """(radix passes, digit bits) of keys in [0, U]: ceil(bits / 8)
+    passes of ceil(bits / passes) bits, bits the bit length of U."""
+    bits = int(U).bit_length()
+    passes = -(-bits // 8)
+    return passes, (-(-bits // passes) if passes else 0)
+
+
+def _sj_params(L: int, R: int, U: int, J: int, ptrs: dict, cols) -> np.ndarray:
+    """The parameter block of one ``sorted_join`` launch as int64 words:
+    sizes and ``ptrs`` by field name, then ``cols`` as (in, out, elem,
+    right) tuples."""
+    p = np.zeros(_SJ_WORDS, np.int64)
+    p[:4] = (L, R, U, J)
+    for name, v in ptrs.items():
+        p[_SJ[name]] = v
+    p[_SJ["n_cols"]] = len(cols)
+    if cols:
+        head = len(_SJ_FIELDS)
+        p[head:head + 4 * len(cols)] = np.asarray(cols, np.int64).reshape(-1)
+    return p
 
 
 def _sorted_join_launch(lgid, lvalid, rgid, rvalid, lcols, rcols,
@@ -352,31 +410,51 @@ def _sorted_join_launch(lgid, lvalid, rgid, rvalid, lcols, rcols,
         for j, c in enumerate(cols):
             _check_vector(f"sorted_join: {side} column {j}", c, n, dev)
     lib = _library("sorted_join")
-    i32 = lambda k: torch.empty(k, dtype=torch.int32, device=dev)  # noqa: E731
     i64 = lambda k: torch.empty(k, dtype=torch.int64, device=dev)  # noqa: E731
-    scratch = {"key_a": i32(L), "key_b": i32(L), "idx_a": i32(L),
-               "idx_b": i32(L), "hist": i64(256 * _tiles(L)),
-               "bsum": i64(max(1, _tiles(256 * _tiles(L)), _tiles(U),
-                               _tiles(R))),
-               "starts": i64(U + 1), "lo": i64(R), "run": i64(R)}
     l_idx, r_idx = i64(J), i64(J)
     out_valid = torch.empty(J, dtype=torch.bool, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
-    p = _SjParams()
-    p.L, p.R, p.U, p.J = L, R, U, J
-    p.lgid, p.lvalid = lgid.data_ptr(), lvalid.data_ptr()
-    p.rgid, p.rvalid = rgid.data_ptr(), rvalid.data_ptr()
-    p.l_idx, p.r_idx = l_idx.data_ptr(), r_idx.data_ptr()
-    p.out_valid, p.total = out_valid.data_ptr(), total.data_ptr()
-    for k, t in scratch.items():
-        setattr(p, k, t.data_ptr())
+    cols = [(c, 0) for c in lcols] + [(c, 1) for c in rcols]
+    outs = [torch.empty(J, dtype=c.dtype, device=dev) for c, _ in cols]
+    fused = [(c.data_ptr(), o.data_ptr(), c.element_size(), right)
+             for (c, right), o in zip(cols, outs)][:_SJ_MAX_COLS]
+    passes, width = _sj_passes(U)
+    lay = _sj_layout(L, R, U, passes)
+    digit_words = passes * _tiles(L) * 256
+    flag_words = _tiles(U + 1) + _tiles(R)
     stream = _stream(dev)
-    err = lib.sorted_join_launch(ctypes.byref(p), stream)
+    with _sj_lock:
+        ws = _sj_spaces.setdefault((str(dev), stream), _SjWorkspace())
+        base, epoch = ws.take(dev, digit_words, flag_words, lay["bytes"])
+        flags = base + 8 * ws.caps[0]
+        rest = flags + 8 * -(-ws.caps[1] // 2)
+        ptrs = {name: rest + lay[name] for name in (
+            "starts", "hist", "tickets", "u_agg", "u_incl", "r_agg",
+            "r_incl", "key_a", "key_b", "idx_a", "idx_b", "base", "ends")}
+        ptrs.update(
+            epoch=epoch, passes=passes, width=width,
+            lgid=lgid.data_ptr(), lvalid=lvalid.data_ptr(),
+            rgid=rgid.data_ptr(), rvalid=rvalid.data_ptr(),
+            l_idx=l_idx.data_ptr(), r_idx=r_idx.data_ptr(),
+            out_valid=out_valid.data_ptr(), total=total.data_ptr(),
+            zero=rest, zero_bytes=lay["zero_bytes"], digit_state=base,
+            u_flag=flags, r_flag=flags + 4 * _tiles(U + 1))
+        p = _sj_params(L, R, U, J, ptrs, fused)
+        err = lib.sorted_join_launch(p.ctypes.data, stream)
     if err != 0:
         raise RuntimeError(f"sorted_join launch failed: CUDA error {err}")
-    out_l = _gather_launch(lib, l_idx, lcols, dev, stream)
-    out_r = _gather_launch(lib, r_idx, rcols, dev, stream)
-    return l_idx, r_idx, out_valid, total, out_l, out_r
+    for k in range(_SJ_MAX_COLS, len(cols)):
+        (c, right), o = cols[k], outs[k]
+        col = np.array([c.data_ptr(), o.data_ptr(), c.element_size(), right],
+                       np.int64)
+        err = lib.sorted_join_gather_launch(
+            J, (r_idx if right else l_idx).data_ptr(), col.ctypes.data,
+            stream)
+        if err != 0:
+            raise RuntimeError(f"sorted_join gather launch failed: CUDA "
+                               f"error {err}")
+    return (l_idx, r_idx, out_valid, total, tuple(outs[:len(lcols)]),
+            tuple(outs[len(lcols):]))
 
 
 def sorted_join(lgid, lvalid, rgid, rvalid, lcols: tuple, rcols: tuple,

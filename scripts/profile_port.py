@@ -3,7 +3,8 @@ on one CUDA card.
 
     python3 scripts/profile_port.py [--rows N] [--reps R]
                                     [--package-root DIR]
-    python3 scripts/profile_port.py --kernels [--package-root DIR]
+    python3 scripts/profile_port.py --kernels [--no-checks]
+                                    [--package-root DIR]
 
 Loads bench.py's lineitem (chip_smoke.py's copy of its generator, 4
 shards) on the card, runs each of Q1, Q6, H1, H2 and P1 twice (for Q1
@@ -23,18 +24,24 @@ trees are compared in one call.  Then the same for chip_smoke.py's phase-5 liter
 citus.megabatch_window_ms = 1000 and megabatch_max_size = 8, so they
 coalesce): per round of 8 queries.
 
-``--kernels`` times the fold and exchange kernels instead, with the
-chip_smoke.py and the citus_tpu_torch of ``--package-root``: after a
-second of back-to-back folds (so that no case is timed while the card's
-clocks ramp up), that chip_smoke.py's phase-3 cases of scan_agg_fold,
-scan_agg_fold_batched (sketch families too) and exchange_blocks, each
-held against its plain version and timed as phase 3 times it; then the
-device time a call of the Q6, Q1 and S1 folds and of the Q6 and Q1
-families at Q = 8 (torch.profiler, the mean of KERNEL_REPS calls, host
-time apart), the folds' register and spill counts from ptxas, and one
-JSON line of it all.  Run it in turns on two trees (parent, change,
-change, parent) to compare them in one call.  Fails without a CUDA
-device.
+``--kernels`` times the kernels instead, with the chip_smoke.py and the
+citus_tpu_torch of ``--package-root``: after a second of back-to-back
+folds (so that no case is timed while the card's clocks ramp up), that
+chip_smoke.py's phase-3 cases of scan_agg_fold, scan_agg_fold_batched
+(sketch families too), exchange_blocks, hash_agg_insert,
+hash_agg_merge, hash_agg_insert_batched and sorted_join, each held
+against its plain version and timed as phase 3 times it (skipped with
+``--no-checks``); then, for each case, its device time a call (torch.profiler, the
+mean of KERNEL_REPS calls, host time apart; a call that updates a hash
+table in place runs on a fresh copy each time, whose copy is profiled
+alone and taken out), the device time and launches a call of each
+kernel name it runs, and its wrapper time (CUDA events around the
+call, the median of 10), the folds' register and spill counts from
+ptxas, and one JSON line of it all.  The inputs of the cases that the
+tree's chip_smoke.py may lack (the clustered insert, the sort join's
+cases) come from this checkout's.  Run it in turns on two trees
+(parent, change, change, parent) to compare them in one call.  Fails
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -55,42 +62,87 @@ KERNEL_REPS = 100
 KERNEL_PAUSE_S = 0.5
 
 
-def kernels(root: str) -> int:
-    """``--kernels``: phase 3's fold and exchange cases of ``root``'s
-    chip_smoke.py and citus_tpu_torch, then the folds' device times."""
+def _module(path: str, name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def device_profile(fn, reset, reps: int) -> dict:
+    """-> {kernel name: (device ms a call, launches a call)} of ``fn``
+    alone: ``reps`` calls, each after ``reset`` (None: nothing), under
+    torch.profiler, less a session of the resets alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def session(call: bool) -> dict:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(KERNEL_PAUSE_S)
+            for _ in range(reps):
+                if reset is not None:
+                    reset()
+                if call:
+                    fn()
+            torch.cuda.synchronize()
+            time.sleep(KERNEL_PAUSE_S)
+        return {e.key: (e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type.name == "CUDA"}
+    with_fn = session(True)
+    alone = session(False) if reset is not None else {}
+    out = {}
+    for name, (us, count) in with_fn.items():
+        us0, count0 = alone.get(name, (0.0, 0))
+        if count > count0:
+            out[name] = ((us - us0) / 1e3 / reps, (count - count0) / reps)
+    return out
+
+
+def kernels(root: str, no_checks: bool = False) -> int:
+    """``--kernels``: phase 3's cases of ``root``'s chip_smoke.py and
+    citus_tpu_torch, then every case's device and wrapper times."""
+    import torch
 
     # both of root: each tree's phase 3 checks its own regimes and launches
     sys.path.insert(0, root)
     import chip_smoke as cs
+    here = cs if root == ROOT else _module(
+        os.path.join(ROOT, "chip_smoke.py"), "chip_smoke_cases")
     import citus_tpu_torch as ctt
     from citus_tpu_torch.ops import cuda_build
+    from citus_tpu_torch.ops.hash_agg_insert import (
+        INSERT_BUILD, hash_agg_insert, hash_agg_insert_batched,
+    )
+    from citus_tpu_torch.ops.hash_agg_merge import hash_agg_merge
     from citus_tpu_torch.ops.scan_agg_fold import (
         FOLD_BUILD, scan_agg_fold, scan_agg_fold_batched,
     )
+    from citus_tpu_torch.parallel.shuffle import sorted_join
     device = torch.device("cuda", 0)
     card = cs.card_line()
     package = os.path.dirname(ctt.__file__)
     print("card:", card, flush=True)
     print("package:", package, flush=True)
     tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
     plans = cs.smoke_plans(device, tmp)
     splans = cs.sketch_plans(device, tmp)
-    # every fold phase 3 launches, all nvcc processes at once
-    sources = dict.fromkeys(p.row.source for p in cs.generated_programs(
-        plans, splans, tmp) if not p.hashed)
-    for job in [cuda_build.start_generated(FOLD_BUILD, src)
-                for src in sources]:
+    # every generated fold and insert phase 3 launches and the fixed
+    # kernels, all nvcc processes at once
+    jobs = [cuda_build.start_generated(INSERT_BUILD if p.hashed
+                                       else FOLD_BUILD, p.row.source)
+            for p in {p.row.source: p for p in cs.generated_programs(
+                plans, splans, tmp)}.values()]
+    cuda_build.build_all(["hash_agg_merge", "sorted_join", "partition_pack",
+                          "mesh_exchange"])
+    for job in jobs:
         cuda_build.finish_generated(job)
+    cl, _ = cs.load_lineitem(ctt, os.path.join(tmp, "sf"), cs.SF1_ROWS)
+    print(f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
     folds = plans["fold_calls"]
-    cases = {"Q6": (scan_agg_fold, folds["q6"]),
-             "Q1": (scan_agg_fold, folds["q1"]),
-             "S1": (scan_agg_fold, splans["s1_call"]),
-             "Q6 family Q=8": (scan_agg_fold_batched,
-                               cs.batched_fold_call(device, plans, "Q6")),
-             "Q1 family Q=8": (scan_agg_fold_batched,
-                               cs.batched_fold_call(device, plans, "Q1"))}
     warm = cs.clone_call(folds["q1"])
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < 1.0:
@@ -98,36 +150,88 @@ def kernels(root: str) -> int:
             scan_agg_fold(*warm)
         torch.cuda.synchronize()
     rows: list = []
-    cs.phase3_fold(device, plans, rows)
-    cs.phase3_batched_fold(device, plans, rows)
-    cs.phase3_sketch_folds(device, splans, rows)
-    cs.phase3_mesh_exchange(device, rows, cs.qjoin_sides(cs.SF1_ROWS,
-                                                         device))
-    device_ms = {}
-    for name, (kernel, call) in cases.items():
+    sides = cs.qjoin_sides(cs.SF1_ROWS, device)
+    if not no_checks:
+        cs.phase3_fold(device, plans, rows)
+        cs.phase3_batched_fold(device, plans, rows)
+        cs.phase3_sketch_folds(device, splans, rows)
+        cs.phase3_mesh_exchange(device, rows, sides)
+        cs.phase3_hash(device, cl, rows)
+        cs.phase3_merge(device, tmp, rows)
+        cs.phase3_batched_hash(device, cl, rows)
+        cs.phase3_sorted_join(device, rows, sides)
+
+    def fold(kernel, call):
         kc = cs.clone_call(call)
-        kernel(*kc)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(KERNEL_PAUSE_S)
-            for _ in range(KERNEL_REPS):
-                kernel(*kc)
-            torch.cuda.synchronize()
-            time.sleep(KERNEL_PAUSE_S)
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type.name == "CUDA")
-        device_ms[name] = us / 1e3 / KERNEL_REPS if us > 0 else None
+        return (lambda: kernel(*kc)), None, call[0].row.source
+
+    def table_case(kernel, call, at):
+        """A call whose table (argument ``at``) a fresh copy of which
+        every call updates."""
+        table = call[at]
+        work = cs.clone_table(table)
+        args = list(call)
+        args[at] = work
+        return ((lambda: kernel(*args)),
+                (lambda: cs.copy_table_(work, table)), None)
+
+    hash_call, n_real = cs.main_path_hash_call(cl, device)
+    cases = {
+        "Q6": fold(scan_agg_fold, folds["q6"]),
+        "Q1": fold(scan_agg_fold, folds["q1"]),
+        "S1": fold(scan_agg_fold, splans["s1_call"]),
+        "Q6 family Q=8": fold(scan_agg_fold_batched,
+                              cs.batched_fold_call(device, plans, "Q6")),
+        "Q1 family Q=8": fold(scan_agg_fold_batched,
+                              cs.batched_fold_call(device, plans, "Q1")),
+        "B2 main": table_case(hash_agg_insert, hash_call, 1),
+        "B2 clustered": table_case(
+            hash_agg_insert, here.clustered_hash_call(hash_call, n_real), 1),
+        "B2 adversarial": table_case(
+            hash_agg_insert,
+            cs.adversarial_hash_call(device, cs.FOLD_N + 3, 1000, 31,
+                                     False), 1),
+        "B5c H family Q=8": table_case(hash_agg_insert_batched,
+                                       cs.batched_hash_call(cl, device)[0],
+                                       1),
+        "B3 R1 merge": table_case(
+            hash_agg_merge,
+            cs.main_path_merge_call(device, tempfile.mkdtemp())[0], 0),
+    }
+    for name, args in here.sorted_join_cases(device, sides):
+        if name in ("QJOIN SF1", "many-to-many") or name.startswith("one"):
+            cases[f"B8 {name}"] = ((lambda a=args: sorted_join(*a)), None,
+                                   None)
+    device_ms, wrapper_ms, by_kernel = {}, {}, {}
+    for name, (fn, reset, source) in cases.items():
+        per = device_profile(fn, reset, KERNEL_REPS)
+        device_ms[name] = sum(ms for ms, _ in per.values()) or None
+        wrapper_ms[name] = cs.time_cuda_fresh(fn, reset or (lambda: None))
+        by_kernel[name] = {k: [round(ms, 6), n] for k, (ms, n) in per.items()}
         print(f"{name}: device "
-              + (f"{device_ms[name]:.4f} ms a call" if us > 0
-                 else "not measured (no device record)") + f" ({card})",
-              flush=True)
-        for line in cuda_build.build_log(FOLD_BUILD,
-                                         call[0].row.source).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"{name} ptxas: {line.strip()}", flush=True)
+              + (f"{device_ms[name]:.4f} ms a call" if per
+                 else "not measured (no device record)")
+              + f", {sum(n for _, n in per.values()):g} launches a call; "
+              f"wrapper {wrapper_ms[name]:.4f} ms ({card})", flush=True)
+        for k, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {ms:9.4f} ms {n:6g} a call  {k[:100]}", flush=True)
+        if source is not None:
+            for line in cuda_build.build_log(FOLD_BUILD,
+                                             source).splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"{name} ptxas: {line.strip()}", flush=True)
+    for line in cuda_build.build_log(INSERT_BUILD,
+                                     hash_call[0].row.source).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"B2 ptxas: {line.strip()}", flush=True)
+    for line in cuda_build.build_log("sorted_join").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"B8 ptxas: {line.strip()}", flush=True)
+    cl.close()
     print(json.dumps({"card": card, "package": package,
                       "ms": {r["name"]: r["ms"] for r in rows},
-                      "device_ms": device_ms}), flush=True)
+                      "device_ms": device_ms, "wrapper_ms": wrapper_ms,
+                      "kernels": by_kernel}), flush=True)
     return 0
 
 
@@ -138,13 +242,16 @@ def main() -> int:
     ap.add_argument("--package-root", default=ROOT,
                     help="checkout whose citus_tpu_torch is profiled")
     ap.add_argument("--kernels", action="store_true",
-                    help="time phase 3's fold and exchange kernels")
+                    help="time phase 3's kernels")
+    ap.add_argument("--no-checks", action="store_true",
+                    help="with --kernels: time the cases without phase 3's "
+                         "checks against the plain versions")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: no CUDA device")
     if args.kernels:
-        return kernels(os.path.abspath(args.package_root))
+        return kernels(os.path.abspath(args.package_root), args.no_checks)
     from torch.profiler import ProfilerActivity, profile
 
     sys.path.insert(0, ROOT)

@@ -632,13 +632,11 @@ def test_chip_smoke_hash_comparisons_rehearse_on_cpu():
                            abs_sums=True) == 0.0
     assert cs.hash_bytes(call, 0) >= 2 * mask.numel()
     masks = torch.stack([mask, ~mask]).contiguous()
-    from citus_tpu_torch.ops.hash_agg import HashTable
-    tables = HashTable(*[[t.unsqueeze(0).repeat(2, 1).contiguous()
-                          for t in ts]
-                         for ts in (table.key_values, table.key_flags,
-                                    table.partials)],
-                       table.rows.unsqueeze(0).repeat(2, 1).contiguous(),
-                       table.state.unsqueeze(0).repeat(2, 1).contiguous())
+    from citus_tpu_torch.ops.hash_agg import record_views
+    # two copies of the table, the records of a slot side by side
+    tables = record_views(table.records.unsqueeze(1).repeat(1, 2, 1),
+                          [v.dtype for v in table.key_values],
+                          [p.dtype for p in table.partials])
     bcall = (prog, tables, cols, masks)
     err, kt, ks = cs.compare_hash_batched(
         "rehearsal", bcall, insert_batched_plain, insert_batched_plain,

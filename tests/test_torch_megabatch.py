@@ -820,9 +820,12 @@ def test_stacked_table_slices_and_budget(catalogs):
     per_slot = sum(int(x.element_size()) for x in
                    t.key_values + t.key_flags + t.partials
                    + [t.rows, t.state])
-    assert hash_slot_bytes(pp, kd) == per_slot
-    # TPC-H per-order revenue at 2^20 slots: 53 B a slot (PERF.md)
-    assert megabatch.HASH_TABLES_BUDGET_BYTES // ((1 << 20) * 53) >= 32
+    # one record a slot, its fields inside it, the Q records of a slot
+    # side by side
+    record = t.records.shape[-1] * t.records.element_size()
+    assert t.records.shape[:2] == (16, 3)
+    assert hash_slot_bytes(pp, kd) == record >= per_slot
+    assert megabatch.HASH_TABLES_BUDGET_BYTES // ((1 << 20) * record) >= 32
 
 
 def test_plain_batched_hash_insert_equals_per_query_inserts(catalogs):

@@ -43,7 +43,7 @@ from citus_tpu_torch.parallel.mesh import DeviceMesh
 from citus_tpu_torch.parallel.shuffle import (
     build_repartition, build_repartition_join, pack_blocks, pack_blocks_plain,
     repartition_host, sorted_join, sorted_join_indexes_plain,
-    sorted_join_plain,
+    sorted_join_plain, _sj_passes,
 )
 
 # ------------------------------------------------------------------ B7
@@ -286,6 +286,15 @@ def _join_cases():
                                        rmasked=0.5) + (700,)
     cases["one_row_each"] = (np.array([0], np.int64), np.array([True]),
                              np.array([0], np.int64), np.array([True]), 1)
+    # one gid holding 70 % of the left rows, present twice on the right
+    lgid, lvalid, rgid, rvalid = _join_case(3000, 400, 300, seed=12)
+    rng = np.random.default_rng(12)
+    lgid[rng.random(3000) < 0.7] = 123
+    rgid[rgid == 123] = 124
+    rgid[[5, 300]], rvalid[[5, 300]] = 123, True
+    cases["skewed"] = (lgid, lvalid, rgid, rvalid, 300)
+    # keys in [0, 65535]: two passes of 8 bits, the largest digit count
+    cases["widest_digits"] = _join_case(3000, 700, 65535, seed=13) + (65535,)
     return cases
 
 
@@ -334,39 +343,93 @@ def test_sorted_join_refuses_an_empty_side():
             sorted_join(lg, lg > 0, rg, rg > 0, (), (), 1, 4)
 
 
-def _join_kernel_model(lgid, lvalid, rgid, rvalid, U, J, tile=512):
-    """sorted_join.cu step by step: valid left gids counted and scanned
-    into starts, a least-significant-digit radix sort of (key, row) 8
-    bits a pass with the counting passes of partition.cuh, each right
-    row's lo and run length from starts, the runs scanned, expanded one
-    right row at a time, and the tail of clipped slots."""
+def _look_back(tile_sums, rng):
+    """The exclusive prefix of every tile as sorted_join.cu's decoupled
+    look-back finds it: tile t publishes its sum, then walks back over
+    the tiles before it, adding the sums of those still in flight (a
+    random number of them: published sum only) until one has published
+    its inclusive prefix, and publishes its own."""
+    incl = []
+    out = []
+    for t, s in enumerate(tile_sums):
+        in_flight = int(rng.integers(0, t + 1))
+        before, j = 0, t - 1
+        while j >= 0:
+            if t - j <= in_flight:
+                before += tile_sums[j]
+            else:
+                before += incl[j]
+                break
+            j -= 1
+        out.append(before)
+        incl.append(before + s)
+    return np.array(out, np.int64)
+
+
+def _join_kernel_model(lgid, lvalid, rgid, rvalid, U, J, tile=512, seed=0):
+    """sorted_join.cu step by step, on tiles of ``tile`` rows: left keys
+    counted (the invalid rows at U); the counts scanned tile by tile into
+    starts with the look-back, and every pass's digit histogram taken
+    from them; the stable radix sort of
+    (key, row), ceil(bits / 8) passes of ceil(bits / passes) bits, each
+    tile placing its rows of a digit after the digit's smaller digits
+    (the histogram) and after the tiles before it (a look-back per
+    digit), within the tile by the warps' counts and each warp's ranks
+    (staged in the tile's sorted order); the right rows' runs scanned
+    tile by tile into run ends and bases; then each output slot's right
+    row by a search of the run ends and its left row from the order."""
+    rng = np.random.default_rng(seed)
     L, R = len(lgid), len(rgid)
     ok = lvalid & (lgid >= 0) & (lgid < U)
     key = np.where(ok, lgid, U).astype(np.int64)
+    counts = np.zeros(U + 1, np.int64)
+    np.add.at(counts, key, 1)      # the invalid rows at U
+
+    def scan(values):
+        n = len(values)
+        sums = [int(values[a:a + tile].sum()) for a in range(0, n, tile)]
+        prefix = _look_back(sums, rng)
+        out = np.empty(n, np.int64)
+        for t, a in enumerate(range(0, n, tile)):
+            chunk = values[a:a + tile]
+            out[a:a + tile] = prefix[t] + np.cumsum(chunk) - chunk
+        return out
+    starts = scan(counts)
+    passes, width = _sj_passes(U)
     idx = np.arange(L)
-    starts = np.zeros(U + 1, np.int64)
-    np.add.at(starts, lgid[ok], 1)
-    cnt = starts[:U].copy()
-    starts[:U] = np.cumsum(cnt) - cnt
-    starts[U] = cnt.sum()
-    shift = 0
-    while shift < 31 and (U >> shift) > 0:
-        digit = (key >> shift) & 255
-        nt = -(-L // tile)
-        hist = np.zeros((256, nt), np.int64)
-        for t in range(nt):
-            hist[:, t] = np.bincount(digit[t * tile:(t + 1) * tile],
-                                     minlength=256)
-        flat = hist.reshape(-1)
-        offs = (np.cumsum(flat) - flat).reshape(256, nt)
+    nt = -(-L // tile)
+    for k in range(passes):
+        digit = (key >> (k * width)) & ((1 << width) - 1)
+        # from the counts a gid, as the starts scan takes it
+        hist = np.bincount((np.arange(U + 1) >> (k * width))
+                           & ((1 << width) - 1), weights=counts,
+                           minlength=1 << width).astype(np.int64)
+        first = np.cumsum(hist) - hist
+        per_tile = np.stack([np.bincount(digit[t * tile:(t + 1) * tile],
+                                         minlength=1 << width)
+                             for t in range(nt)])
+        before = np.stack([_look_back(list(per_tile[:, d]), rng)
+                           for d in range(1 << width)], 1)
         nkey, nidx = np.empty_like(key), np.empty_like(idx)
         for t in range(nt):
-            running = offs[:, t].copy()
-            for i in range(t * tile, min(L, (t + 1) * tile)):
-                pos = running[digit[i]]
-                running[digit[i]] += 1
-                nkey[pos], nidx[pos] = key[i], idx[i]
-        key, idx, shift = nkey, nidx, shift + 8
+            # 8 warps of tile / 8 consecutive rows: each ranks its rows
+            # of a digit, the warps' counts give their starts
+            rows = np.arange(t * tile, min(L, (t + 1) * tile))
+            warp = (rows - t * tile) // (tile // 8)
+            wcounts = np.zeros((8, 1 << width), np.int64)
+            rank = np.empty(rows.size, np.int64)
+            for n, i in enumerate(rows):
+                rank[n] = wcounts[warp[n], digit[i]]
+                wcounts[warp[n], digit[i]] += 1
+            warp_start = np.cumsum(wcounts, 0) - wcounts
+            local_start = np.cumsum(per_tile[t]) - per_tile[t]
+            offset = first + before[t] - local_start
+            for n, i in enumerate(rows):
+                at = local_start[digit[i]] + warp_start[warp[n], digit[i]] \
+                    + rank[n]
+                nkey[offset[digit[i]] + at] = key[i]
+                nidx[offset[digit[i]] + at] = idx[i]
+        key, idx = nkey, nidx
     order = idx
     nvl = starts[U]
     lo = np.zeros(R, np.int64)
@@ -380,28 +443,25 @@ def _join_kernel_model(lgid, lvalid, rgid, rvalid, U, J, tile=512):
         else:
             a, b = starts[g], starts[g + 1]
         lo[r], run[r] = a, (b - a if rvalid[r] else 0)
-    total = int(run.sum())
-    run = np.cumsum(run) - run
-    l_idx = np.full(J, -1, np.int64)
-    r_idx = np.full(J, -1, np.int64)
-    out_valid = np.zeros(J, bool)
-    for r in range(R):
-        end = run[r + 1] if r + 1 < R else total
-        for j in range(run[r], min(end, J)):
-            l_idx[j], r_idx[j], out_valid[j] = order[lo[r] + j - run[r]], r, True
-    for j in range(total, J):
-        pos = min(max(lo[R - 1] - run[R - 1] + j, 0), L - 1)
-        l_idx[j], r_idx[j] = order[pos], R - 1
-    return [l_idx, r_idx, out_valid, np.int64(total)]
+    excl = scan(run)
+    ends, base = excl + run, lo - excl
+    total = ends[-1]
+    j = np.arange(J)
+    r_idx = np.minimum(np.searchsorted(ends, j, side="right"), R - 1)
+    l_idx = order[np.clip(base[r_idx] + j, 0, L - 1)]
+    return [l_idx, r_idx, j < total, np.int64(total)]
 
 
 @pytest.mark.parametrize("case", ["unit", "many_to_many", "one_group",
                                   "left_empty", "invalid_both",
-                                  "one_row_each"])
+                                  "one_row_each", "skewed",
+                                  "widest_digits"])
 def test_sorted_join_kernel_model_matches_plain(case):
     """The CUDA kernel's algorithm (a numpy model, small tiles so rows
-    cross tiles) gives the plain version's slots, the clipped ones
-    included; a gid range over 256 takes two radix passes."""
+    cross tiles, look-backs that find tiles still in flight) gives the
+    plain version's slots, the clipped ones included; a gid range over
+    256 takes two radix passes, U = 65,535 two passes of 256 digits, and
+    one gid holding most left rows spans many tiles."""
     lgid, lvalid, rgid, rvalid, U = JOIN_CASES[case]
     J = _pairs_needed(lgid, lvalid, rgid, rvalid) + 9
     got = _join_kernel_model(lgid, lvalid, rgid, rvalid, U, J)
