@@ -49,12 +49,15 @@ result line:
      kind of ROADMAP.md C1's repair (EXTRACT, CASE and abs, upper,
      length, date_trunc by week and by month, + interval '1 month', and
      sqrt, ln, power, round, floor, greatest, sign, exp) on 2^21
-     generated events rows with nulls: identical masks;
+     generated events rows with nulls, then each over views that start
+     3 elements into their buffers (no base 16-byte aligned), with no
+     row mask: identical masks;
    - the batched kernels of the megabatch path at Q = 8 on one padded
      2^21-row batch: ``filter_mask_batched`` for the predicate of each
      phase-5 family, of phase 8's C1 family and of a family over the
-     predicate over every C1 node under its 8 parameter sets (identical
-     [Q, N] masks),
+     predicate over every C1 node under its 8 parameter sets, Q6's at
+     Q = 32, and Q6's over views 3 elements into their buffers with no
+     row mask (identical [Q, N] masks),
      ``scan_agg_fold_batched`` for the Q6 (scalar) and Q1 (direct)
      families (and Q1 at Q = 32, whose shared-memory table passes the
      48 KB default, and a G = 65,536 fold of 3 queries in the
@@ -73,12 +76,15 @@ result line:
      of 4: ~264 KB of registers pass the opt-in limit) and Q = 6 (one
      table), against eight serial S1 folds;
    - ``rollup_delta`` for all six kinds at n = 65,536 (one refresh
-     batch) and n = 2^23 (SF1's backfill, padded) into 10,000 groups;
+     batch) and n = 2^23 (SF1's backfill, padded) into 10,000 groups,
+     timed as the wrapper's call (its tables allocated and filled) and
+     as its kernel alone into tables allocated beforehand;
    - ``partition_pack`` (B7) on both sides of QJOIN's device join at
      SF1 (gid, l_orderkey, l_quantity with their validity; the flagged
-     orders_b rows), n_dev = 1, and on the lineitem side to 8
-     destinations with a capacity that overflows: blocks, validity and
-     overflow identical;
+     orders_b rows), n_dev = 1, on the lineitem side to 8 destinations
+     with a capacity that overflows, on one member's rows of phase 9's
+     mesh to 4 destinations, and on the lineitem side to 1,023 (the
+     most one launch takes): blocks, validity and overflow identical;
    - ``sorted_join`` (B8) on QJOIN's join at SF1 (join_cap = its
      pairs, as the device join sizes it), a
      many-to-many join, an all-invalid side, invalid rows on both
@@ -993,10 +999,12 @@ def filter_call(prog, columns: dict, params: dict, device, n: int):
 
 def filter_bytes(cols: dict, row_mask) -> int:
     """Bytes one predicate launch must move: each column and validity
-    read once, the row mask read once, the mask written once."""
-    total = 2 * row_mask.numel()
+    read once, the row mask (if any) read once, the mask written once."""
+    n = next(iter(cols.values()))[0].numel()
+    total = n if row_mask is None else 2 * n
     for v, m in cols.values():
-        total += v.numel() * v.element_size() + m.numel()
+        total += v.numel() * v.element_size() + (0 if m is None
+                                                 else m.numel())
     return total
 
 
@@ -1754,7 +1762,7 @@ PROFILE_RETRY_PAUSE_S = 2.0
 #: name fragments of the port's kernels as the profiler reports them
 PORT_KERNELS = ("fold_shared_q", "fold_global_q", "hash_insert", "fm_kernel",
                 "fm_batched_kernel", "hash_merge", "rollup_delta",
-                "partition", "sorted_join")
+                "partition", "pp_pass", "pp_fill", "sorted_join")
 
 
 def device_kernels(cl, sql: str, pause: float = PROFILE_PAUSE_S) -> tuple:
@@ -1835,9 +1843,10 @@ def run_checked(cl, qname: str, sql: str, want: list, n_rows: int,
                 run_kind: str, kernel: str = "scan_agg_fold") -> int:
     """Run one query; its rows must equal the oracle's, ``kernel`` must
     launch once per batch of the query and no other kernel may launch.
-    A warm fold or insert runs once more under torch.profiler: the card
-    must run exactly one kernel of the port per batch and no other
-    kernel (no PyTorch elementwise kernel).  -> kernel launches."""
+    A warm run goes once more under torch.profiler: the card must run
+    exactly one kernel of the port per batch and no other kernel (no
+    PyTorch elementwise kernel; for a projection, no row mask filled
+    per batch).  -> kernel launches."""
     import torch
     from citus_tpu_torch.ops import cuda_build
     counters = launch_counters()
@@ -1865,7 +1874,7 @@ def run_checked(cl, qname: str, sql: str, want: list, n_rows: int,
     extra = (f", nvcc builds during the run "
              f"{cuda_build.BUILDS['count'] - builds0['count']} "
              f"({cuda_build.BUILDS['seconds'] - builds0['seconds']:.3f} s)")
-    if run_kind == "warm" and kernel != "filter_mask":
+    if run_kind == "warm":
         port, other, copies, names, tries, where = profiled_kernels(
             cl, qname, sql)
         if port != batches or other:
@@ -2080,19 +2089,52 @@ def phase3_merge(device, tmp: str, rows: list) -> None:
                  "library_ms": None})
 
 
+def filter_cases(device, plans) -> list:
+    """-> [(name, FilterProgram, (cols, params, row_mask))]: the
+    one-query predicate (B4) over FOLD_N rows in P1's, Q6's and the
+    synthetic predicate's columns and C1's predicate over every node
+    kind, the last 1,000 rows padding."""
+    line = lineitem_filter_columns(plans["physical"])
+    out = []
+    for name, key, cols in (("P1", "p1", line), ("Q6", "q6", line),
+                            ("syn", "syn", syn_columns(FOLD_N, 41)),
+                            ("C1all", "c1_all", plans["events"])):
+        prog, params = plans["filters"][key]
+        out.append((name, prog, filter_call(prog, cols, params, device,
+                                            FOLD_N)))
+    return out
+
+
+def misaligned_filter_call(call, offset: int = 3):
+    """``call``'s first N - ``offset`` rows of every column and validity
+    as views starting ``offset`` elements into their buffers (no base
+    16-byte aligned, nor the row count a multiple of 16), and no row
+    mask: -> (cols, params, None)."""
+    import torch
+    cols, params, row_mask = call
+    n = row_mask.numel() - offset
+
+    def view(t):
+        buf = torch.empty(n + offset, dtype=t.dtype, device=t.device)
+        buf[offset:] = t[:n]
+        return buf[offset:]
+    return ({c: (view(v), None if m is None else view(m))
+             for c, (v, m) in cols.items()}, params, None)
+
+
 def phase3_filter(device, plans, rows: list) -> None:
-    """filter_mask against its plain version on FOLD_N rows: Q6's and
-    P1's predicates over generated lineitem, and the synthetic one;
-    appends its JSON row."""
+    """filter_mask against its plain version on FOLD_N rows: P1's and
+    Q6's predicates over generated lineitem, the synthetic one and C1's
+    over every node kind, then each over views that start 3 elements
+    into their buffers, with no row mask; appends its JSON row."""
     import torch
     from citus_tpu_torch.ops.filter_mask import filter_mask, filter_mask_plain
-    line = lineitem_filter_columns(plans["physical"])
-    syn = syn_columns(FOLD_N, 41)
     main = None
-    for name, cols in (("p1", line), ("q6", line), ("syn", syn),
-                       ("c1_all", plans["events"])):
-        prog, params = plans["filters"][name]
-        call = filter_call(prog, cols, params, device, FOLD_N)
+    cases = filter_cases(device, plans)
+    cases += [(f"{name} misaligned views, no row mask", prog,
+               misaligned_filter_call(call))
+              for name, prog, call in cases]
+    for name, prog, call in cases:
         got = filter_mask(prog, *call)
         want = filter_mask_plain(prog, *call)
         if not torch.equal(got, want):
@@ -2106,8 +2148,8 @@ def phase3_filter(device, plans, rows: list) -> None:
         lib_ms = time_cuda(lambda: torch.ge(first, 1))
         if main is None:
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
-        say(f"phase 3 filter_mask [{name}]: N={FOLD_N} columns "
-            f"{list(prog.columns)} params {len(params)}: masks identical "
+        say(f"phase 3 filter_mask [{name}]: N={got.numel()} columns "
+            f"{list(prog.columns)} params {len(call[1])}: masks identical "
             f"({int(got.sum())} rows pass); kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B at "
             f"3.35 TB/s), library yardstick (one torch.ge over one column, "
@@ -2175,17 +2217,15 @@ def batched_fold_call(device, plans, name: str, repeat: int = 1):
             dict(zip(plan.scan_columns, zip(cols, valids))), masks)
 
 
-def phase3_batched_filter(device, plans, rows: list) -> None:
-    """filter_mask_batched against its plain version: each phase-5
-    family's predicate under its Q_BATCH parameter sets over FOLD_N
-    generated lineitem rows; appends its JSON row."""
-    import torch
-    from citus_tpu_torch.ops.filter_mask import (
-        filter_mask_batched, filter_mask_batched_plain,
-    )
-    main = None
+def batched_filter_cases(device, plans,
+                         names=("Q6", "Q1", "H", "P", "C1", "C1all")) -> list:
+    """-> [(name, FilterProgram, (cols, StackedParams, row_mask))]: the
+    batched predicate (B5a) of each phase-5 family ``names`` under its
+    Q_BATCH parameter sets over one FOLD_N-row batch (generated
+    lineitem; the events table for C1's families)."""
     ev = plans["events"]
-    for name in ("Q6", "Q1", "H", "P", "C1", "C1all"):
+    out = []
+    for name in names:
         plan, params = plans["families"][name]
         if name.startswith("C1"):
             cols, valids, row_mask = padded_batch(
@@ -2195,7 +2235,33 @@ def phase3_batched_filter(device, plans, rows: list) -> None:
             cols, valids, row_mask = padded_batch(device, plan,
                                                   plans["physical"])
         prog, stacked = family_filter(device, plan, params)
-        fcols = predicate_columns(plan, prog, cols, valids)
+        out.append((name, prog, (predicate_columns(plan, prog, cols, valids),
+                                 stacked, row_mask)))
+    return out
+
+
+def phase3_batched_filter(device, plans, rows: list) -> None:
+    """filter_mask_batched against its plain version: each phase-5
+    family's predicate under its Q_BATCH parameter sets over FOLD_N
+    generated lineitem rows, Q6's family at Q = 32 too, and Q6's over
+    views that start 3 elements into their buffers, with no row mask;
+    appends its JSON row."""
+    import torch
+    from citus_tpu_torch.ops.filter_mask import (
+        filter_mask_batched, filter_mask_batched_plain,
+    )
+    main = None
+    cases = [(f"{name} family", prog, call)
+             for name, prog, call in batched_filter_cases(device, plans)]
+    plan, params = plans["families"]["Q6"]
+    prog, stacked = family_filter(device, plan, params * 4)
+    q6 = cases[0][2]
+    cases.append(("Q6 family at Q = 32", prog, (q6[0], stacked, q6[2])))
+    mis = misaligned_filter_call((q6[0], q6[1], q6[2]))
+    cases.append(("Q6 family, misaligned views, no row mask", cases[0][1],
+                  mis))
+    for name, prog, call in cases:
+        fcols, stacked, row_mask = call
         got = filter_mask_batched(prog, fcols, stacked, row_mask)
         want = filter_mask_batched_plain(prog, fcols, stacked, row_mask)
         if not torch.equal(got, want):
@@ -2216,7 +2282,7 @@ def phase3_batched_filter(device, plans, rows: list) -> None:
                                             thr.unsqueeze(1)))
         if main is None:
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
-        say(f"phase 3 filter_mask_batched [{name} family]: Q={q} N={n} "
+        say(f"phase 3 filter_mask_batched [{name}]: Q={q} N={n} "
             f"columns {list(prog.columns)}: masks identical "
             f"({got.sum(dim=1).tolist()} rows pass); kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B "
@@ -2743,13 +2809,30 @@ def phase3_sketch_folds(device, splans, rows: list) -> None:
                      "max_abs_err": max_err, **main, "library_ms": None})
 
 
+def rollup_fold_only(K, kind: str, vals, g, ok, out, out2) -> None:
+    """rollup_delta's kernel alone, launched through its C entry into
+    tables allocated beforehand (not counted as a launch of the main
+    path): the part of a call that ``index_add_`` is a yardstick of."""
+    import torch
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = K._library().rollup_delta_launch(
+        K.KINDS[kind], g.numel(), None if vals is None else vals.data_ptr(),
+        g.data_ptr(), ok.data_ptr(), out.data_ptr(),
+        None if out2 is None else out2.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"rollup_delta launch failed: CUDA error {err}")
+
+
 def phase3_rollup_delta(device, rows: list) -> None:
     """rollup_delta against its plain version for all six kinds, one
     delta batch of the default citus.rollup_max_batch_rows (65,536) and
     one of SF1's backfill (2^23 padded) into 10,000 groups (16,384
-    padded), times beside the bytes bound and a one-op yardstick into
-    the same tables.  Appends its JSON row: one 65,536-row refresh batch
-    of phase 6's five aggregates (count, sum_int, hll, ddsk, topk)."""
+    padded), times beside the bytes bound and a one-op yardstick into a
+    table of the same size: the wrapper's call (which allocates and
+    fills its tables) and its kernel alone into tables allocated
+    beforehand.  Appends its JSON row: one 65,536-row refresh batch of
+    phase 6's five aggregates (count, sum_int, hll, ddsk, topk), the
+    wrapper's calls."""
     import torch
     from citus_tpu_torch.rollup import kernels as K
     rng = np.random.default_rng(31)
@@ -2790,6 +2873,9 @@ def phase3_rollup_delta(device, rows: list) -> None:
                                          "tables differ")
             ms = time_cuda(lambda: K.rollup_delta(kind, vals, g, ok, G),
                            reps=5)
+            tables = K._tables(kind, G, device)
+            fold_ms = time_cuda(lambda: rollup_fold_only(
+                K, kind, vals, g, ok, *tables), reps=5)
             plain_ms = time_cuda(lambda: K.rollup_delta_plain(
                 kind, vals, g, ok, *K._tables(kind, G, device)), reps=2)
             out_bytes = sum(t.numel() * t.element_size() for t in want
@@ -2818,11 +2904,14 @@ def phase3_rollup_delta(device, rows: list) -> None:
                 f"({G} padded)]: tables identical"
                 f"{' (sum within rel 1e-12)' if kind == 'sum_float' else ''}; "
                 f"kernel {ms:.4f} ms (tables allocated and filled, then the "
-                f"fold), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"fold), the fold alone into tables allocated beforehand "
+                f"{fold_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms "
                 f"({in_bytes} B in, {out_bytes} B of tables out, at 3.35 "
                 f"TB/s), library yardstick (one "
                 f"{'scatter_reduce_ amax' if kind == 'hll' else 'index_add_'}"
-                f" into a table of the same size, one op) {lib_ms:.4f} ms")
+                f" into a table of the same size allocated beforehand, one "
+                f"op; to set beside the fold alone) {lib_ms:.4f} ms")
     rows.append({"name": "rollup_delta", "route": "cuda",
                  "source": "citus_tpu_torch/csrc/rollup_delta.cu",
                  "replaces": "citus_tpu/rollup/kernels.py:47",
@@ -3459,28 +3548,55 @@ def compare_exact(name: str, got, want) -> None:
                                  "plain version")
 
 
-def phase3_partition_pack(device, n_rows: int, rows: list, sides) -> None:
-    """partition_pack (B7) against its plain version, outputs identical:
-    both sides of QJOIN's device join at SF1 (n_dev = 1, the one card's
-    mesh) and the lineitem side to 8 destinations with a capacity that
-    overflows; appends its JSON row."""
+def partition_cases(device, sides, wide: bool = False) -> list:
+    """-> [(name, pack_blocks' arguments)]: both sides of QJOIN's device
+    join at SF1 (n_dev = 1, the one card's mesh), the lineitem side to 8
+    destinations with a capacity that overflows, and one member's rows
+    of phase 9's 4-member mesh (a quarter of lineitem to gid % 4, the
+    capacity its largest block).  ``wide``: also the lineitem side to
+    1,023 destinations (the most one launch takes), 1 % of rows
+    masked."""
     import torch
-    from citus_tpu_torch.parallel.shuffle import (
-        pack_blocks, pack_blocks_plain,
-    )
     (lgid, lcols, cap_l), (rgid, rcols, cap_r), _U = sides
     cases = []
     for side, gid, cols, cap in (("lineitem", lgid, lcols, cap_l),
                                  ("orders_b", rgid, rcols, cap_r)):
         n = gid.numel()
-        cases.append((f"QJOIN {side} n_dev=1", (gid,) + cols,
+        cases.append((f"QJOIN {side} n_dev=1", ((gid,) + cols,
                       torch.zeros(n, dtype=torch.int32, device=device),
-                      torch.ones(n, dtype=torch.bool, device=device), 1, cap))
-    tgt8 = (lgid % 8).to(torch.int32)
-    need = int(torch.bincount(tgt8.long(), minlength=8).max())
-    mask8 = torch.rand(lgid.numel(), device=device) > 0.01
-    cases.append(("lineitem n_dev=8 overflowing", (lgid,) + lcols, tgt8,
-                  mask8, 8, need // 2))
+                      torch.ones(n, dtype=torch.bool, device=device), 1,
+                      cap)))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    keep = torch.rand(lgid.numel(), device=device, generator=gen) > 0.01
+
+    def spread(n_dev, rows, cap_of_need):
+        tgt = (lgid[:rows] % n_dev).to(torch.int32)
+        need = int(torch.bincount(tgt.long()[keep[:rows]],
+                                  minlength=n_dev).max())
+        return ((lgid[:rows],) + tuple(c[:rows] for c in lcols), tgt,
+                keep[:rows], n_dev, cap_of_need(need))
+    cases.append(("lineitem n_dev=8 overflowing",
+                  spread(8, lgid.numel(), lambda need: need // 2)))
+    per = -(-lgid.numel() // MESH_MEMBERS)
+    cases.append((f"phase 9 member n_dev={MESH_MEMBERS}",
+                  spread(MESH_MEMBERS, per, lambda need: need)))
+    if wide:
+        cases.append(("lineitem n_dev=1023",
+                      spread(1023, lgid.numel(), lambda need: need)))
+    return cases
+
+
+def phase3_partition_pack(device, n_rows: int, rows: list, sides) -> None:
+    """partition_pack (B7) against its plain version, outputs identical,
+    in each of ``partition_cases`` (n_dev = 1023 too); appends its JSON
+    row."""
+    import torch
+    from citus_tpu_torch.parallel.shuffle import (
+        pack_blocks, pack_blocks_plain,
+    )
+    cases = [(name,) + args
+             for name, args in partition_cases(device, sides, wide=True)]
     main = None
     for name, values, target, mask, n_dev, cap in cases:
         got = pack_blocks(values, target, mask, n_dev, cap)

@@ -3,14 +3,19 @@
 // the row sources of the fold and hash-insert kernels (generate_fold_row:
 // a plan's WHERE, group keys and aggregate arguments, see fold.cuh).
 //
-// A generated source includes this header and defines, for row i,
-//     FmRow fm_load(const FmParams& p, int64_t i)       the row's columns
-//     bool fm_eval(p, const FmRow& r, prm, pvl)         the predicate under
-//                                                       one set of parameters
-//     bool fm_predicate(const FmParams& p, int64_t i)   one query
-//     void fm_batched_row(p, const FmBatch& b, int64_t i)  Q queries
-// and (under __CUDACC__) the kernels that write out[i] = row_mask[i] &&
-// fm_predicate(p, i) and, for Q queries at once, out[q][i], with their C
+// A generated predicate source includes this header and defines
+//     FmRows, fm_load_rows(p, r0, rs)         the columns of thread g's
+//                                             FM_ROWS rows from r0
+//     FmRow fm_row(rs, k)                     row r0 + k of them
+//     bool fm_eval(p, const FmRow& r, prm, pvl)  the predicate under one
+//                                             set of parameters
+//     void fm_rows(p, g)                      thread g's rows of one
+//                                             query: out[i] = row_mask[i]
+//                                             && the predicate
+//     void fm_batched_rows(p, b, g)           thread g's rows of Q
+//                                             queries: out[q][i], the
+//                                             columns loaded once
+// and (under __CUDACC__) the kernels that run every chunk, with their C
 // launchers.  The helpers below are __host__ __device__, so the same
 // predicate also compiles with a host C++ compiler: the tests hold it
 // against the JAX package on the CPU through that route.
@@ -25,6 +30,7 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifndef __CUDACC__
 #define __host__
@@ -80,6 +86,132 @@ FM_HD float fm_f32(uint32_t bits) {
 }
 
 FM_HD bool fm_valid(const uint8_t* v, int64_t i) { return v == nullptr || v[i] != 0; }
+
+// ---- several rows a thread (the predicate kernels) ------------------------
+//
+// Thread g takes R consecutive rows, r0 = g * R on (R = FM_ROWS of the
+// generated source, at most 8).  Where the R rows are whole and a run's
+// address allows, a column's R values are read as 16-byte vectors (fewer
+// for a narrow run) and each 1-byte mask (a column's validity, the row
+// mask, the output) as one R-byte vector, so neighbouring threads read
+// and write neighbouring vectors; the parameters of a query are read
+// once for the R rows, and its R output bytes are built in one word.  A view at an odd offset or the short last thread
+// moves its rows one by one in the same code.
+
+// A aligned bytes at src into w[0 .. A / 4) (A = 4, 8 or 16)
+template <int A>
+FM_HD void fm_ldv(const void* src, uint32_t* w) {
+#ifdef __CUDA_ARCH__
+    if (A == 16) {
+        const uint4 v = *(const uint4*)src;
+        w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    } else if (A == 8) {
+        const uint2 v = *(const uint2*)src;
+        w[0] = v.x; w[1] = v.y;
+    } else {
+        w[0] = *(const uint32_t*)src;
+    }
+#else
+    memcpy(w, src, A);
+#endif
+}
+
+FM_HD bool fm_aligned(const void* a, int bytes) {
+    return ((uintptr_t)a & (uintptr_t)(bytes - 1)) == 0;
+}
+
+// R values of T, or R bytes, as 32-bit words
+template <class T, int R>
+union FmLane {
+    uint32_t w[(R * sizeof(T) + 3) / 4];
+    T v[R];
+};
+
+// the R bytes at m (R-aligned, R = 4 or 8) as bits
+template <int R>
+FM_HD uint32_t fm_byte_bits(const uint8_t* m) {
+    FmLane<uint8_t, R> u;
+    fm_ldv<R>(m, u.w);
+    uint32_t b = 0;
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+        if (u.v[k] != 0) b |= 1u << k;
+    return b;
+}
+
+// bit k: row r0 + k is below n and its byte of m is not 0 (m null: every
+// such row)
+template <int R>
+FM_HD uint32_t fm_keep(const uint8_t* m, int64_t r0, int64_t n) {
+    if (R >= 4 && r0 + R <= n && m != nullptr && fm_aligned(m + r0, R))
+        return fm_byte_bits<R>(m + r0);
+    uint32_t b = 0;
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+        if (r0 + k < n && (m == nullptr || m[r0 + k] != 0)) b |= 1u << k;
+    return b;
+}
+
+// thread g's rows of a column: out[k] = row r0 + k (0 past n), and bit k
+// of *bits set where that row is below n and valid
+template <class T, int R>
+FM_HD void fm_ld_rows(const void* values, const uint8_t* valid, int64_t r0, int64_t n,
+                      T (&out)[R], uint32_t* bits) {
+    constexpr int B = R * (int)sizeof(T);
+    constexpr int A = B < 16 ? B : 16;
+    const T* src = (const T*)values + r0;
+    if (B >= 4 && r0 + R <= n && fm_aligned(src, A)) {
+        FmLane<T, R> u;
+#pragma unroll
+        for (int v = 0; v < B / A; ++v) fm_ldv<A>((const char*)src + v * A, &u.w[v * A / 4]);
+#pragma unroll
+        for (int k = 0; k < R; ++k) out[k] = u.v[k];
+    } else {
+#pragma unroll
+        for (int k = 0; k < R; ++k) out[k] = r0 + k < n ? src[k] : (T)0;
+    }
+    *bits = fm_keep<R>(valid, r0, n);
+}
+
+// byte k (k < R <= 8): 1 where row r0 + k is below n and its byte of m
+// is not 0 (m null: every such row), else 0
+template <int R>
+FM_HD uint64_t fm_keep_bytes(const uint8_t* m, int64_t r0, int64_t n) {
+    if (R >= 4 && r0 + R <= n && m != nullptr && fm_aligned(m + r0, R)) {
+        uint32_t w[2] = {0u, 0u};
+        fm_ldv<R>(m + r0, w);
+        uint64_t x = (uint64_t)w[0] | (uint64_t)w[1] << 32;
+        x |= x >> 4;
+        x |= x >> 2;
+        x |= x >> 1;
+        return x & 0x0101010101010101ull;
+    }
+    uint64_t x = 0;
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+        if (r0 + k < n && (m == nullptr || m[r0 + k] != 0)) x |= 1ull << (8 * k);
+    return x;
+}
+
+// out[r0 + k] = byte k of w, for the rows below n (R <= 8)
+template <int R>
+FM_HD void fm_store_rows(uint8_t* out, int64_t r0, int64_t n, uint64_t w) {
+    uint8_t* dst = out + r0;
+    if (r0 + R <= n && fm_aligned(dst, R)) {
+#ifdef __CUDA_ARCH__
+        if (R == 8) *(uint2*)dst = make_uint2((uint32_t)w, (uint32_t)(w >> 32));
+        else if (R == 4) *(uint32_t*)dst = (uint32_t)w;
+        else if (R == 2) *(uint16_t*)dst = (uint16_t)w;
+        else *dst = (uint8_t)w;
+#else
+        memcpy(dst, &w, R);
+#endif
+        return;
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+        if (r0 + k < n) dst[k] = (uint8_t)(w >> (8 * k));
+}
 
 // wrapping int32 / int64 arithmetic
 FM_HD int32_t fm_add32(int32_t a, int32_t b) { return (int32_t)((uint32_t)a + (uint32_t)b); }

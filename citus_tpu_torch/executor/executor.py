@@ -1086,8 +1086,9 @@ def _build_filter_mask(plan: PhysicalPlan, params):
 class _ProjectionMask:
     """The WHERE of a projection as the row mask of one host batch: on
     the gpu backend one generated ``filter_mask`` launch over only the
-    predicate's columns, read back to the host; on the cpu backend the
-    numpy predicate.  ``launches`` counts the kernel launches."""
+    predicate's columns, with no row mask (every row of a host batch is
+    real), read back to the host; on the cpu backend the numpy
+    predicate.  ``launches`` counts the kernel launches."""
 
     def __init__(self, plan: PhysicalPlan, settings: Settings, params,
                  device):
@@ -1118,10 +1119,13 @@ class _ProjectionMask:
             dcols = {c: tuple(torch.from_numpy(np.ascontiguousarray(a))
                               .to(self.device) for a in env[c])
                      for c in self.prog.columns}
-            row_mask = torch.ones(n, dtype=torch.bool, device=self.device)
+            # every row of the batch: no row mask (a predicate of no
+            # column takes one, for the batch's device)
+            row_mask = None if dcols else torch.ones(
+                n, dtype=torch.bool, device=self.device)
             self.launches += 1
-            return filter_mask(self.prog, dcols, self.penv,
-                               row_mask).cpu().numpy()
+            return filter_mask(self.prog, dcols, self.penv, row_mask,
+                               n).cpu().numpy()
         if plan.bound.filter is None:
             return np.ones(n, bool)
         from citus_tpu_torch.planner.bound import compile_expr, predicate_mask

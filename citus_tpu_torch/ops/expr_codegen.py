@@ -6,11 +6,11 @@ a ``__host__ __device__`` function ``fm_eval(p, r, prm, pvl)`` that
 evaluates every node of the tree as a (value, valid) pair over the
 loaded columns ``r`` of one row and one query's parameters, with the
 semantics of the reference's ``compile_expr``/``predicate_mask`` under
-JAX; ``fm_predicate(p, i)`` for one query and ``fm_batched_row`` for Q
-queries of one family (the columns loaded once); and, under
-``__CUDACC__``, the kernels that write ``out[i] = row_mask[i] &&
-fm_predicate(p, i)`` and ``out[q, i]`` for every query q, with their C
-launchers.
+JAX; ``fm_rows(p, g)`` for one query and ``fm_batched_rows`` for Q
+queries of one family (the columns loaded once), each over a thread's
+few consecutive rows; and, under ``__CUDACC__``, the kernels that write
+``out[i] = row_mask[i] && predicate(i)`` and ``out[q, i]`` for every
+query q, with their C launchers.
 ``csrc/expr.cuh`` holds the helpers and the parameter block.
 
 ``generate_fold_row(plan, col_dtypes, param_dtypes, key_dtypes)`` turns
@@ -583,57 +583,96 @@ class _Gen:
 
 
 _KERNEL = """
-// one query, row i, with the parameters of the parameter block
-__host__ __device__ inline bool fm_predicate(const FmParams& p, int64_t i) {
-    return fm_eval(p, fm_load(p, i), p.params, p.param_valid);
+// one query's parameters into registers
+__host__ __device__ inline void fm_params(const int64_t* prm, const uint8_t* pvl,
+                                          int64_t (&lp)[FM_PARAMS], uint8_t (&lv)[FM_PARAMS]) {
+#pragma unroll
+    for (int j = 0; j < FM_PARAMS; ++j) {
+        lp[j] = prm[j];
+        lv[j] = pvl[j];
+    }
 }
 
-// Q queries, row i: the row's columns are loaded once, then the
-// predicate runs once per query with that query's parameters
-__host__ __device__ inline void fm_batched_row(const FmParams& p, const FmBatch& b,
-                                               int64_t i) {
-    const bool keep = p.row_mask == nullptr || p.row_mask[i] != 0;
-    if (!keep) {
-        for (int64_t q = 0; q < b.n_q; ++q) b.out[q * p.n + i] = 0;
-        return;
-    }
-    const FmRow r = fm_load(p, i);
+// byte k: 1 where row r0 + k passes under one query's parameters and
+// is kept (keep: 1 in the kept rows' bytes).  Every row is evaluated
+// without a branch (a row that is not kept may hold any bits; no node
+// traps on them), so the rows' evaluations interleave.
+__host__ __device__ inline uint64_t fm_eval_rows(const FmParams& p, const FmRows& rs,
+                                                 uint64_t keep,
+                                                 const int64_t (&lp)[FM_PARAMS],
+                                                 const uint8_t (&lv)[FM_PARAMS]) {
+    uint64_t w = 0;
+#pragma unroll
+    for (int k = 0; k < FM_ROWS; ++k)
+        w |= (uint64_t)(fm_eval(p, fm_row(rs, k), lp, lv) ? 1u : 0u) << (8 * k);
+    return w & keep;
+}
+
+// thread g's rows of one query, with the parameters of the parameter block
+__host__ __device__ inline void fm_rows(const FmParams& p, int64_t g) {
+    const int64_t r0 = g * FM_ROWS;
+    if (r0 >= p.n) return;
+    const uint64_t keep = fm_keep_bytes<FM_ROWS>(p.row_mask, r0, p.n);
+    FmRows rs;
+    fm_load_rows(p, r0, rs);
+    int64_t lp[FM_PARAMS];
+    uint8_t lv[FM_PARAMS];
+    fm_params(p.params, p.param_valid, lp, lv);
+    fm_store_rows<FM_ROWS>(p.out, r0, p.n, fm_eval_rows(p, rs, keep, lp, lv));
+}
+
+// thread g's rows of Q queries: the columns loaded once, then query by
+// query its parameters (read once for the thread's rows) and its bytes
+// of out[q]
+__host__ __device__ inline void fm_batched_rows(const FmParams& p, const FmBatch& b,
+                                                int64_t g) {
+    const int64_t r0 = g * FM_ROWS;
+    if (r0 >= p.n) return;
+    const uint64_t keep = fm_keep_bytes<FM_ROWS>(p.row_mask, r0, p.n);
+    FmRows rs;
+    fm_load_rows(p, r0, rs);
     for (int64_t q = 0; q < b.n_q; ++q) {
-        const int64_t* prm = b.params + q * b.n_params;
-        const uint8_t* pvl = b.param_valid + q * b.n_params;
-        b.out[q * p.n + i] = fm_eval(p, r, prm, pvl) ? 1 : 0;
+        int64_t lp[FM_PARAMS];
+        uint8_t lv[FM_PARAMS];
+        fm_params(b.params + q * b.n_params, b.param_valid + q * b.n_params, lp, lv);
+        fm_store_rows<FM_ROWS>(b.out + q * p.n, r0, p.n, fm_eval_rows(p, rs, keep, lp, lv));
     }
+}
+
+// the threads that cover n rows, FM_ROWS rows a thread
+__host__ __device__ inline int64_t fm_threads(int64_t n) {
+    return (n + FM_ROWS - 1) / FM_ROWS;
 }
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
-__global__ void fm_kernel(const FmParams p) {
-    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= p.n) return;
-    bool keep = p.row_mask == nullptr || p.row_mask[i] != 0;
-    p.out[i] = (keep && fm_predicate(p, i)) ? 1 : 0;
+#define FM_THREADS 256
+
+__global__ void __launch_bounds__(FM_THREADS) fm_kernel(const FmParams p) {
+    fm_rows(p, (int64_t)blockIdx.x * FM_THREADS + threadIdx.x);
 }
 
-__global__ void fm_batched_kernel(const FmParams p, const FmBatch b) {
-    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < p.n) fm_batched_row(p, b, i);
+__global__ void __launch_bounds__(FM_THREADS) fm_batched_kernel(const FmParams p,
+                                                                const FmBatch b) {
+    fm_batched_rows(p, b, (int64_t)blockIdx.x * FM_THREADS + threadIdx.x);
+}
+
+// a thread for each FM_ROWS rows
+static unsigned fm_blocks(int64_t n) {
+    return (unsigned)((fm_threads(n) + FM_THREADS - 1) / FM_THREADS);
 }
 
 extern "C" int filter_mask_launch(const FmParams* p, void* stream) {
     if (p->n <= 0) return 0;
-    const int threads = 256;
-    long long blocks = (p->n + threads - 1) / threads;
-    fm_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(*p);
+    fm_kernel<<<fm_blocks(p->n), FM_THREADS, 0, (cudaStream_t)stream>>>(*p);
     return (int)cudaGetLastError();
 }
 
 extern "C" int filter_mask_batched_launch(const FmParams* p, const FmBatch* b,
                                           void* stream) {
     if (p->n <= 0 || b->n_q <= 0) return 0;
-    const int threads = 256;
-    long long blocks = (p->n + threads - 1) / threads;
-    fm_batched_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(*p, *b);
+    fm_batched_kernel<<<fm_blocks(p->n), FM_THREADS, 0, (cudaStream_t)stream>>>(*p, *b);
     return (int)cudaGetLastError();
 }
 
@@ -649,27 +688,47 @@ def generate_predicate(expr, col_dtypes: dict, param_dtypes: dict
     ``col_dtypes`` maps column names, ``param_dtypes`` parameter env
     names (``BParam.env_name``) to their device dtypes.
 
-    The source defines ``FmRow`` (the row's loaded columns),
-    ``fm_load(p, i)`` (loads them), ``fm_eval(p, r, prm, pvl)`` (the
-    predicate over a loaded row and one query's parameter values and
-    validity), ``fm_predicate(p, i)`` (one query, the parameter block's
-    parameters) and ``fm_batched_row(p, b, i)`` (Q queries, the columns
-    loaded once), and, under ``__CUDACC__``, the one-query and the
-    batched kernel with their C launchers."""
+    The source defines ``FmRow`` (one row's loaded columns), ``FmRows``
+    and ``fm_load_rows(p, r0, rs)`` (the columns of a thread's
+    ``FM_ROWS`` consecutive rows from r0), ``fm_row(rs, k)``,
+    ``fm_eval(p, r, prm, pvl)`` (the predicate over a loaded row and one
+    query's parameter values and validity), ``fm_rows(p, g)`` (thread
+    g's rows of one query, the parameter block's parameters) and
+    ``fm_batched_rows(p, b, g)`` (thread g's rows of Q queries, the
+    columns loaded once), and, under ``__CUDACC__``, the one-query and
+    the batched kernel with their C launchers.  ``FM_ROWS`` (a thread's
+    rows, kept in registers) is 8 for a row of at most 8 bytes of
+    columns, 4 up to 24, else 2, and 1 for a long predicate (whose
+    evaluation takes the time and the registers); chosen by timing the
+    Q1, P, Q6 and C1 families at 1, 2, 4 and 8 on the card (PERF.md
+    §5)."""
     g = _Gen(col_dtypes, param_dtypes)
     v, k, dt = g.gen(expr)
     b = v if dt == _BOOL else f"({v} != 0)"
     body = "\n".join(g.lines)
+    row_bytes = sum(t.itemsize for t in g.column_types)
+    rows = 8 if row_bytes <= 8 else 4 if row_bytes <= 24 else 2
+    if len(g.lines) > _LONG_PREDICATE:
+        rows = 1
     source = (
         "// generated by citus_tpu_torch/ops/expr_codegen.py from:\n"
         f"// {_one_line(expr)}\n"
         "#include \"expr.cuh\"\n\n"
+        f"#define FM_ROWS {rows}\n"
+        f"#define FM_PARAMS {max(1, len(g.params))}\n\n"
         f"{_row_struct(g)}"
-        "__host__ __device__ inline FmRow fm_load(const FmParams& p, "
-        "int64_t i) {\n"
+        f"{_rows_struct(g)}"
+        "__host__ __device__ inline void fm_load_rows(const FmParams& p, "
+        "int64_t r0, FmRows& rs) {\n"
+        f"{_row_loads(g)}"
+        "}\n\n"
+        "__host__ __device__ inline FmRow fm_row(const FmRows& rs, int k) "
+        "{\n"
         "    FmRow r{};\n"
-        f"{_loads(g, range(len(g.columns)))}"
-        "    return r;\n"
+        + "".join(f"    r.c{j} = rs.c{j}[k];\n"
+                  f"    r.v{j} = ((rs.v{j} >> k) & 1u) != 0;\n"
+                  for j in range(len(g.columns)))
+        + "    return r;\n"
         "}\n\n"
         "__host__ __device__ inline bool fm_eval(const FmParams& p, "
         "const FmRow& r, const int64_t* prm, const uint8_t* pvl) {\n"
@@ -679,6 +738,30 @@ def generate_predicate(expr, col_dtypes: dict, param_dtypes: dict
     _check_limits(g)
     return Predicate(source, tuple(g.columns), tuple(g.params),
                      tuple(g.tables))
+
+
+#: generated lines past which a predicate takes 1 row a thread (its
+#: evaluation is long, its temporaries many): on the card the C1 family's
+#: 67 lines ran fastest at 2 rows a thread, the C1all family's 201 at 1
+_LONG_PREDICATE = 70
+
+
+def _rows_struct(g: _Gen) -> str:
+    """``FmRows``: the loaded columns of a thread's rows, validity as
+    bits."""
+    fields = "".join(f"    {_C_TYPES[t]} c{j}[FM_ROWS];\n    uint32_t v{j};\n"
+                     for j, t in enumerate(g.column_types)) \
+        or "    bool unused;\n"
+    return f"struct FmRows {{\n{fields}}};\n\n"
+
+
+def _row_loads(g: _Gen) -> str:
+    """C statements loading every column of a thread's rows from
+    ``r0``."""
+    return "".join(
+        f"    fm_ld_rows<{_C_TYPES[t]}, FM_ROWS>(p.cols[{j}], p.valids[{j}], "
+        f"r0, p.n, rs.c{j}, &rs.v{j});\n"
+        for j, t in enumerate(g.column_types))
 
 
 def _row_struct(g: _Gen) -> str:
@@ -755,7 +838,7 @@ def generate_fold_row(plan, col_dtypes: dict, param_dtypes: dict,
     and direct modes) or the hash insert (``key_dtypes``: the table's key
     dtypes) of ``plan``, a ``PhysicalPlan`` or its ``FoldExprs``.
 
-    The source defines ``FmRow``/``fm_load`` as a predicate's do,
+    The source defines ``FmRow`` as a predicate's does,
     ``fr_filter`` (the WHERE's pass bit, NULL is false; ``true`` without
     a WHERE), ``FrVals`` and ``fr_values`` (keys ``k<j>``/``kv<j>`` and
     arguments ``a<j>``/``av<j>``).  Under ``__CUDACC__`` it wraps them as

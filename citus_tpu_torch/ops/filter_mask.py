@@ -7,7 +7,9 @@ the bound tree (``ops/expr_codegen.py``) and its plain PyTorch version.
 (``citus_tpu/executor/executor.py:971-979 _build_filter``).  ``prog``
 is the ``FilterProgram`` of one plan's predicate, ``cols`` maps the
 predicate's column names to (values, validity or None) tensors,
-``params`` the parameter env names to host (value, valid) scalars.
+``params`` the parameter env names to host (value, valid) scalars;
+``row_mask`` None keeps every row (the batch's length then comes from
+the columns, or ``n``).
 
 On CUDA tensors it generates the predicate's source (once per program),
 builds it with ``nvcc`` (once per source, ``cuda_build.load_generated``)
@@ -29,6 +31,7 @@ plain version runs ``filter_mask_plain`` once per query.
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Optional
 
 import numpy as np
@@ -41,6 +44,8 @@ from citus_tpu_torch.planner.bound import (
 )
 
 _MAX_COLS, _MAX_PARAMS, _MAX_TABLES = 64, 64, 16
+#: a float64's bits as an int64 (a parameter's encoding)
+_F64_BITS_IN, _F64_BITS = struct.Struct("<d"), struct.Struct("<q")
 
 
 class FilterProgram:
@@ -58,6 +63,7 @@ class FilterProgram:
         self._lib = None
         self._plain: dict = {}
         self._tables: dict = {}
+        self._blocks: dict = {}
 
     @property
     def predicate(self) -> Predicate:
@@ -98,6 +104,25 @@ class FilterProgram:
             self._tables[key] = t
         return t
 
+    def block(self, device) -> tuple:
+        """-> (the parameter block's bytes with this device's dictionary
+        tables in it, the columns' names and torch dtypes and the
+        parameters' names and dtypes, in slot order), built once per
+        device: a launch copies the bytes and sets only what changes."""
+        b = self._blocks.get(device)
+        if b is None:
+            from citus_tpu_torch.ops.xp_torch import torch_dtype
+            p = _FmParams()
+            for j, t in enumerate(self.tables(device)):
+                p.tables[j] = t.data_ptr()
+                p.table_len[j] = t.numel()
+            b = (bytes(p), tuple((name, torch_dtype(self.col_dtypes[name]))
+                                 for name in self.predicate.columns),
+                 tuple((name, self.param_dtypes[name])
+                       for name in self.predicate.params))
+            self._blocks[device] = b
+        return b
+
     def plain_fn(self, device):
         key = str(device)
         fn = self._plain.get(key)
@@ -109,11 +134,27 @@ class FilterProgram:
         return fn
 
 
+def _batch_rows(cols: dict, row_mask, n) -> tuple:
+    """-> (rows, device) of one batch: the row mask's, else ``n`` and the
+    columns' device."""
+    if row_mask is not None:
+        return row_mask.shape[0], row_mask.device
+    if not cols:
+        raise ValueError("filter_mask: without a row mask the batch needs "
+                         "a column")
+    v = next(iter(cols.values()))[0]
+    return (v.shape[0] if n is None else n), v.device
+
+
 def filter_mask_plain(prog: FilterProgram, cols: dict, params: dict,
-                      row_mask: torch.Tensor) -> torch.Tensor:
-    """``row_mask & predicate`` in eager tensor ops on any device."""
+                      row_mask: Optional[torch.Tensor], n: int = None
+                      ) -> torch.Tensor:
+    """``row_mask & predicate`` in eager tensor ops on any device (row
+    mask None: every row)."""
+    n, dev = _batch_rows(cols, row_mask, n)
+    if row_mask is None:
+        row_mask = torch.ones(n, dtype=torch.bool, device=dev)
     xp, fn = prog.plain_fn(row_mask.device)
-    n = row_mask.shape[0]
     env = {}
     for name, (v, valid) in cols.items():
         env[name] = (v, torch.ones(n, dtype=torch.bool, device=v.device)
@@ -143,8 +184,8 @@ class _FmBatch(ctypes.Structure):
 
 def _param_bits(v, dt: np.dtype) -> int:
     if dt.kind == "f":
-        return int(np.asarray(v, np.float64).view(np.int64))
-    return int(np.asarray(v).astype(np.int64))
+        return _F64_BITS.unpack(_F64_BITS_IN.pack(float(v)))[0]
+    return int(v)
 
 
 def _param_value(bits: int, dt: np.dtype):
@@ -155,76 +196,84 @@ def _param_value(bits: int, dt: np.dtype):
     return b.astype(dt)
 
 
-def _block(prog: FilterProgram, cols: dict, row_mask: torch.Tensor,
+def _block(prog: FilterProgram, cols: dict, row_mask, n: int, dev,
            out: torch.Tensor) -> "_FmParams":
     """The parameter block of one launch over ``cols`` (parameters
-    left at 0)."""
-    from citus_tpu_torch.ops.xp_torch import torch_dtype
-    dev = row_mask.device
-    n = row_mask.shape[0]
-    if row_mask.dtype != torch.bool or row_mask.dim() != 1 \
-            or not row_mask.is_contiguous():
-        raise ValueError("filter_mask: row_mask must be a contiguous bool "
-                         "vector")
-    pred = prog.predicate
-    p = _FmParams()
+    left at 0): the program's block for ``dev`` with this batch's
+    pointers, each column checked."""
+    raw, slots, _ = prog.block(dev)
+    p = _FmParams.from_buffer_copy(raw)
     p.n = n
-    p.row_mask = row_mask.data_ptr()
+    if row_mask is not None:
+        if row_mask.dtype != torch.bool or row_mask.dim() != 1 \
+                or not row_mask.is_contiguous():
+            raise ValueError("filter_mask: row_mask must be a contiguous "
+                             "bool vector")
+        p.row_mask = row_mask.data_ptr()
     p.out = out.data_ptr()
-    for j, name in enumerate(pred.columns):
+    pc, pv = p.cols, p.valids
+    di = out.get_device()
+    for j, (name, want) in enumerate(slots):
         v, valid = cols[name]
-        want = torch_dtype(prog.col_dtypes[name])
-        if v.device != dev or v.dtype != want or v.shape != (n,) \
-                or not v.is_contiguous():
+        if v.dtype != want or v.get_device() != di or v.dim() != 1 \
+                or v.shape[0] != n or not v.is_contiguous():
             raise ValueError(
                 f"filter_mask: column {name!r} must be a contiguous [{n}] "
                 f"{want} tensor on {dev}, got {v.dtype} {tuple(v.shape)} "
                 f"on {v.device}")
-        p.cols[j] = v.data_ptr()
+        pc[j] = v.data_ptr()
         if valid is not None:
-            if valid.device != dev or valid.dtype != torch.bool \
-                    or valid.shape != (n,) or not valid.is_contiguous():
+            if valid.dtype != torch.bool or valid.get_device() != di \
+                    or valid.dim() != 1 or valid.shape[0] != n \
+                    or not valid.is_contiguous():
                 raise ValueError(f"filter_mask: validity of {name!r} must "
                                  f"be a contiguous [{n}] bool tensor on "
                                  f"{dev}")
-            p.valids[j] = valid.data_ptr()
-    tables = prog.tables(dev)
-    for j, t in enumerate(tables):
-        p.tables[j] = t.data_ptr()
-        p.table_len[j] = t.numel()
+            pv[j] = valid.data_ptr()
     return p
 
 
-def _launch(prog: FilterProgram, cols: dict, params: dict,
-            row_mask: torch.Tensor) -> torch.Tensor:
+def _launch_on(dev, launch) -> int:
+    """``launch(stream)`` with ``dev`` the current card (the C launch
+    takes the current device's context) on PyTorch's current stream of
+    ``dev``: -> its CUDA error."""
+    if torch.cuda.current_device() != dev.index:
+        with torch.cuda.device(dev):
+            return _launch_on(dev, launch)
+    return launch(torch._C._cuda_getCurrentRawStream(dev.index))
+
+
+def _launch(prog: FilterProgram, cols: dict, params: dict, row_mask, n: int,
+            dev) -> torch.Tensor:
     lib = prog.library()
-    out = torch.empty(row_mask.shape[0], dtype=torch.bool,
-                      device=row_mask.device)
-    p = _block(prog, cols, row_mask, out)
-    dev = row_mask.device
-    for j, name in enumerate(prog.predicate.params):
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    p = _block(prog, cols, row_mask, n, dev, out)
+    pp, pvl = p.params, p.param_valid
+    for j, (name, dt) in enumerate(prog.block(dev)[2]):
         v, valid = params[name]
-        p.params[j] = _param_bits(v, prog.param_dtypes[name])
-        p.param_valid[j] = 1 if bool(valid) else 0
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.filter_mask_launch(ctypes.byref(p), stream)
+        pp[j] = _param_bits(v, dt)
+        pvl[j] = 1 if valid else 0
+    err = _launch_on(dev, lambda s: lib.filter_mask_launch(ctypes.byref(p),
+                                                           s))
     if err != 0:
         raise RuntimeError(f"filter_mask launch failed: CUDA error {err}")
     return out
 
 
 def filter_mask(prog: FilterProgram, cols: dict, params: dict,
-                row_mask: torch.Tensor) -> torch.Tensor:
-    """-> bool [N] ``row_mask & predicate`` of one batch.  CUDA tensors
-    launch the generated kernel, CPU tensors run the plain version."""
-    if row_mask.device.type == "cuda":
-        out = _launch(prog, cols, params, row_mask)
+                row_mask: Optional[torch.Tensor], n: int = None
+                ) -> torch.Tensor:
+    """-> bool [N] ``row_mask & predicate`` of one batch (row mask None:
+    every one of the columns' N rows, or of ``n``).  CUDA tensors launch
+    the generated kernel, CPU tensors run the plain version."""
+    n, dev = _batch_rows(cols, row_mask, n)
+    if dev.type == "cuda":
+        out = _launch(prog, cols, params, row_mask, n, dev)
         count_launch(filter_mask)
         return out
-    if row_mask.device.type != "cpu":
-        raise ValueError(f"filter_mask: no kernel for {row_mask.device}")
-    return filter_mask_plain(prog, cols, params, row_mask)
+    if dev.type != "cpu":
+        raise ValueError(f"filter_mask: no kernel for {dev}")
+    return filter_mask_plain(prog, cols, params, row_mask, n)
 
 
 #: kernel launches since the counter was last set to 0
@@ -269,7 +318,8 @@ def stack_params(prog: FilterProgram, params: list, device) -> StackedParams:
 
 def filter_mask_batched_plain(prog: FilterProgram, cols: dict,
                               params: StackedParams,
-                              row_mask: torch.Tensor) -> torch.Tensor:
+                              row_mask: Optional[torch.Tensor]
+                              ) -> torch.Tensor:
     """The same masks in eager tensor ops on any device: one
     ``filter_mask_plain`` per query, with its parameters decoded from
     the stacked bits.  -> bool [Q, N]."""
@@ -285,9 +335,8 @@ def filter_mask_batched_plain(prog: FilterProgram, cols: dict,
 
 
 def _launch_batched(prog: FilterProgram, cols: dict, params: StackedParams,
-                    row_mask: torch.Tensor) -> torch.Tensor:
-    dev = row_mask.device
-    n, q = row_mask.shape[0], params.n_queries
+                    row_mask, n: int, dev) -> torch.Tensor:
+    q = params.n_queries
     if params.names != prog.predicate.params:
         raise ValueError("filter_mask_batched: parameters stacked for "
                          "another predicate")
@@ -298,15 +347,13 @@ def _launch_batched(prog: FilterProgram, cols: dict, params: StackedParams,
                              f"be contiguous [Q, P] {dt} tensors on {dev}")
     lib = prog.library()
     out = torch.empty((q, n), dtype=torch.bool, device=dev)
-    p = _block(prog, cols, row_mask, out)
+    p = _block(prog, cols, row_mask, n, dev, out)
     b = _FmBatch()
     b.n_q, b.n_params = q, params.bits.shape[1]
     b.params, b.param_valid = params.bits.data_ptr(), params.valid.data_ptr()
     b.out = out.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.filter_mask_batched_launch(ctypes.byref(p), ctypes.byref(b),
-                                             stream)
+    err = _launch_on(dev, lambda s: lib.filter_mask_batched_launch(
+        ctypes.byref(p), ctypes.byref(b), s))
     if err != 0:
         raise RuntimeError(f"filter_mask_batched launch failed: CUDA error "
                            f"{err}")
@@ -315,7 +362,7 @@ def _launch_batched(prog: FilterProgram, cols: dict, params: StackedParams,
 
 def filter_mask_batched(prog: FilterProgram, cols: dict,
                         params: StackedParams,
-                        row_mask: torch.Tensor) -> torch.Tensor:
+                        row_mask: Optional[torch.Tensor]) -> torch.Tensor:
     """-> bool [Q, N]: row q is ``row_mask & predicate`` under query q's
     parameters, for Q queries of one family over one batch (the
     reference's ``batched:jit_filter``, a ``jax.vmap`` of the
@@ -324,14 +371,14 @@ def filter_mask_batched(prog: FilterProgram, cols: dict,
     evaluates the predicate once per query (one launch per call,
     counted in ``filter_mask_batched.launches``); CPU tensors run
     ``filter_mask_batched_plain``.  There is no fallback between the
-    two."""
-    if row_mask.device.type == "cuda":
-        out = _launch_batched(prog, cols, params, row_mask)
+    two.  A row mask of None keeps every row."""
+    n, dev = _batch_rows(cols, row_mask, None)
+    if dev.type == "cuda":
+        out = _launch_batched(prog, cols, params, row_mask, n, dev)
         count_launch(filter_mask_batched)
         return out
-    if row_mask.device.type != "cpu":
-        raise ValueError(f"filter_mask_batched: no kernel for "
-                         f"{row_mask.device}")
+    if dev.type != "cpu":
+        raise ValueError(f"filter_mask_batched: no kernel for {dev}")
     return filter_mask_batched_plain(prog, cols, params, row_mask)
 
 

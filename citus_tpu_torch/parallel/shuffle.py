@@ -53,11 +53,11 @@ from citus_tpu_torch.parallel.mesh import (
     MAX_MEMBERS, mesh_combine, on_member, shard_axis_size, to_member,
 )
 
-#: rows per tile of the counting passes (csrc/partition.cuh PT_TILE) and
+#: rows per tile of the partition (csrc/partition_pack.cu PP_TILE) and
 #: of sorted_join's radix passes and scans (csrc/sorted_join.cu SJ_TILE)
 _TILE = 2048
-#: destinations of one counting pass, the virtual one included
-_MAX_DIGITS = 1024
+#: destinations of one partition (csrc/partition_pack.cu PP_MAX_DEV)
+_PP_MAX_DEV = 1023
 _PP_MAX_COLS = 64
 _SJ_MAX_COLS = 32
 _MX_MAX_COLS = 24
@@ -78,7 +78,8 @@ class _PpParams(ctypes.Structure):
                 ("mask", ctypes.c_void_p), ("n_cols", ctypes.c_int64),
                 ("cols", _PpColumn * _PP_MAX_COLS),
                 ("out_valid", ctypes.c_void_p), ("overflow", ctypes.c_void_p),
-                ("hist", ctypes.c_void_p), ("bsum", ctypes.c_void_p)]
+                ("ticket", ctypes.c_void_p), ("state", ctypes.c_void_p),
+                ("ticket_base", ctypes.c_int64), ("epoch", ctypes.c_int64)]
 
 
 #: sorted_join's parameter block (csrc/sorted_join.cu SjParams) as int64
@@ -92,7 +93,8 @@ _SJ_FIELDS = ("L", "R", "U", "J", "epoch", "passes", "width", "lgid",
 _SJ = {f: i for i, f in enumerate(_SJ_FIELDS)}
 _SJ_WORDS = len(_SJ_FIELDS) + 4 * _SJ_MAX_COLS
 _SJ_MAX_PASSES, _SJ_TICKETS = 4, 6
-#: epochs of one workspace's look-back words (csrc/sorted_join.cu)
+#: epochs of one workspace's look-back words (csrc/sorted_join.cu,
+#: csrc/partition_pack.cu)
 _SJ_EPOCHS = 1 << 30
 
 
@@ -126,6 +128,11 @@ def _library(name: str):
         lib.partition_pack_launch.restype = ctypes.c_int
         sizes = [(lib.partition_pack_params_size, _PpParams)]
         tile = lib.partition_pack_tile
+        lib.partition_pack_max_dev.restype = ctypes.c_int
+        lib.partition_pack_max_dev.argtypes = []
+        if lib.partition_pack_max_dev() != _PP_MAX_DEV:
+            raise RuntimeError("partition_pack: destination limit differs "
+                               "between Python and CUDA")
     else:
         lib.sorted_join_launch.argtypes = [vp, vp]
         lib.sorted_join_gather_launch.argtypes = [ctypes.c_int64, vp, vp, vp]
@@ -153,8 +160,9 @@ def _library(name: str):
 
 
 def _stream(device):
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream of ``device`` (a CUDA device with its
+    index), as a C pointer."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _check_vector(what: str, t: torch.Tensor, n: int, device, dtype=None):
@@ -213,12 +221,44 @@ def pack_blocks_plain(values: tuple, target: torch.Tensor, mask: torch.Tensor,
 pack_blocks_plain.calls = 0
 
 
+class _PpWorkspace:
+    """One device stream's reused scratch of ``pack_blocks``: the ticket
+    counter, then ``[tiles, n_dev]`` look-back words.  Neither is ever
+    cleared: each launch takes the tickets past those of the launches
+    before it and tags its words with an epoch of its own."""
+
+    def __init__(self):
+        self.buf = None
+        self.words = 0
+        self.epoch = 0
+        self.tickets = 0
+
+    def take(self, dev, words: int):
+        """-> (ticket address, words address, ticket base, epoch) of a
+        launch needing ``words`` look-back words: a fresh zeroed
+        workspace when it grows or its epochs run out."""
+        if words > self.words or self.epoch + 1 >= _SJ_EPOCHS:
+            self.words = max(words, self.words)
+            self.buf = None
+            self.buf = torch.zeros(8 * (1 + self.words), dtype=torch.uint8,
+                                   device=dev)
+            self.epoch = self.tickets = 0
+        self.epoch += 1
+        at = self.buf.data_ptr()
+        return at, at + 8, self.tickets, self.epoch
+
+
+_pp_spaces: dict = {}
+_pp_lock = threading.Lock()
+
+
 def _pack_launch(values, target, mask, n_dev: int, capacity: int):
     dev = target.device
     n = target.shape[0]
-    if not 1 <= n_dev < _MAX_DIGITS or capacity < 1:
+    if not 1 <= n_dev <= _PP_MAX_DEV or capacity < 1 or n >= 2**31 - 1:
         raise ValueError(f"pack_blocks: n_dev must lie in [1, "
-                         f"{_MAX_DIGITS - 1}] and capacity be positive")
+                         f"{_PP_MAX_DEV}], capacity be positive and the "
+                         "rows under 2^31 - 1")
     if len(values) > _PP_MAX_COLS:
         raise ValueError(f"pack_blocks: more than {_PP_MAX_COLS} columns")
     _check_vector("pack_blocks: target", target, n, dev, torch.int32)
@@ -226,11 +266,6 @@ def _pack_launch(values, target, mask, n_dev: int, capacity: int):
     for j, v in enumerate(values):
         _check_vector(f"pack_blocks: column {j}", v, n, dev)
     lib = _library("partition_pack")
-    nt = _tiles(n)
-    hist = torch.empty(max(1, (n_dev + 1) * nt), dtype=torch.int64,
-                       device=dev)
-    bsum = torch.empty(max(1, _tiles((n_dev + 1) * nt)), dtype=torch.int64,
-                       device=dev)
     packed = tuple(torch.empty((n_dev, capacity), dtype=v.dtype, device=dev)
                    for v in values)
     pvalid = torch.empty((n_dev, capacity), dtype=torch.bool, device=dev)
@@ -244,8 +279,16 @@ def _pack_launch(values, target, mask, n_dev: int, capacity: int):
         p.cols[j].out = out.data_ptr()
         p.cols[j].elem = v.element_size()
     p.out_valid, p.overflow = pvalid.data_ptr(), overflow.data_ptr()
-    p.hist, p.bsum = hist.data_ptr(), bsum.data_ptr()
-    err = lib.partition_pack_launch(ctypes.byref(p), _stream(dev))
+    stream = _stream(dev)
+    with _pp_lock:
+        ws = _pp_spaces.setdefault((str(dev), stream), _PpWorkspace())
+        p.ticket, p.state, p.ticket_base, p.epoch = ws.take(
+            dev, _tiles(n) * n_dev)
+        err = lib.partition_pack_launch(ctypes.byref(p), stream)
+        if err == 0:
+            ws.tickets += _tiles(n)
+        else:
+            ws.words = -1  # tickets unknown: a fresh workspace next time
     if err != 0:
         raise RuntimeError(f"partition_pack launch failed: CUDA error {err}")
     return packed, pvalid, overflow
@@ -259,9 +302,9 @@ def pack_blocks(values: tuple, target: torch.Tensor, mask: torch.Tensor,
     past ``capacity``, counted in ``overflow``.  ``values`` are ``[N]``
     columns of any dtype (validity travels as bool columns).  -> (packed
     columns, packed validity ``[n_dev, capacity]`` bool, overflow 0-d
-    int64).  CUDA tensors launch ``csrc/partition_pack.cu`` (one launch
-    per call, counted in ``pack_blocks.launches``); CPU tensors run
-    ``pack_blocks_plain``."""
+    int64).  CUDA tensors launch ``csrc/partition_pack.cu`` (one counted
+    launch per call: a pass over the rows and a fill of the slots no row
+    reached); CPU tensors run ``pack_blocks_plain``."""
     if target.device.type == "cuda":
         out = _pack_launch(values, target, mask, n_dev, capacity)
         count_launch(pack_blocks)

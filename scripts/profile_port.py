@@ -4,6 +4,7 @@ on one CUDA card.
     python3 scripts/profile_port.py [--rows N] [--reps R]
                                     [--package-root DIR]
     python3 scripts/profile_port.py --kernels [--no-checks]
+                                    [--cases PREFIX,...]
                                     [--package-root DIR]
 
 Loads bench.py's lineitem (chip_smoke.py's copy of its generator, 4
@@ -29,17 +30,27 @@ citus_tpu_torch of ``--package-root``: after a second of back-to-back
 folds (so that no case is timed while the card's clocks ramp up), that
 chip_smoke.py's phase-3 cases of scan_agg_fold, scan_agg_fold_batched
 (sketch families too), exchange_blocks, hash_agg_insert,
-hash_agg_merge, hash_agg_insert_batched and sorted_join, each held
-against its plain version and timed as phase 3 times it (skipped with
-``--no-checks``); then, for each case, its device time a call (torch.profiler, the
-mean of KERNEL_REPS calls, host time apart; a call that updates a hash
+hash_agg_merge, hash_agg_insert_batched, sorted_join, filter_mask,
+filter_mask_batched and pack_blocks, each held against its plain
+version and timed as phase 3 times it (skipped with ``--no-checks``);
+then, for each case, its device time a call (torch.profiler, the mean
+of KERNEL_REPS calls, host time apart; a call that updates a hash
 table in place runs on a fresh copy each time, whose copy is profiled
 alone and taken out), the device time and launches a call of each
 kernel name it runs, and its wrapper time (CUDA events around the
-call, the median of 10), the folds' register and spill counts from
-ptxas, and one JSON line of it all.  The inputs of the cases that the
-tree's chip_smoke.py may lack (the clustered insert, the sort join's
-cases) come from this checkout's.  Run it in turns on two trees
+call, the median of 10), the generated kernels' register and spill
+counts from ptxas, and one JSON line of it all.  The cases: the folds
+(Q6, Q1, S1, the Q6 and Q1 families), B2's main, clustered and
+adversarial inserts, the H family (B5c), R1's merge (B3), B8 at QJOIN
+SF1, many-to-many and one skewed gid, the one-query predicate (B4) of
+P1, Q6 and C1 over every node kind, the batched predicate (B5a) of the
+Q6, Q1, H, P and C1all families at Q = 8, and the partition (B7) of
+QJOIN's lineitem and orders_b sides (n_dev = 1), lineitem to 8
+destinations, overflowing, and one member of phase 9's mesh to 4.
+``--cases B4,B7`` keeps the cases whose names start so.  The inputs of
+the cases that the tree's chip_smoke.py may lack (the clustered insert,
+the sort join's, predicate and partition cases) come from this
+checkout's.  Run it in turns on two trees
 (parent, change, change, parent) to compare them in one call.  Fails
 without a CUDA device.
 """
@@ -101,9 +112,10 @@ def device_profile(fn, reset, reps: int) -> dict:
     return out
 
 
-def kernels(root: str, no_checks: bool = False) -> int:
+def kernels(root: str, no_checks: bool = False, only=()) -> int:
     """``--kernels``: phase 3's cases of ``root``'s chip_smoke.py and
-    citus_tpu_torch, then every case's device and wrapper times."""
+    citus_tpu_torch, then every case's device and wrapper times (of the
+    cases whose names start with one of ``only``, if any)."""
     import torch
 
     # both of root: each tree's phase 3 checks its own regimes and launches
@@ -120,7 +132,10 @@ def kernels(root: str, no_checks: bool = False) -> int:
     from citus_tpu_torch.ops.scan_agg_fold import (
         FOLD_BUILD, scan_agg_fold, scan_agg_fold_batched,
     )
-    from citus_tpu_torch.parallel.shuffle import sorted_join
+    from citus_tpu_torch.ops.filter_mask import (
+        filter_mask, filter_mask_batched,
+    )
+    from citus_tpu_torch.parallel.shuffle import pack_blocks, sorted_join
     device = torch.device("cuda", 0)
     card = cs.card_line()
     package = os.path.dirname(ctt.__file__)
@@ -136,6 +151,14 @@ def kernels(root: str, no_checks: bool = False) -> int:
                                        else FOLD_BUILD, p.row.source)
             for p in {p.row.source: p for p in cs.generated_programs(
                 plans, splans, tmp)}.values()]
+    # and the predicates of the B4 and B5a cases
+    preds = [plans["filters"][k][0].predicate.source
+             for k in ("p1", "q6", "c1_all", "syn")]
+    for name in ("Q6", "Q1", "H", "P", "C1", "C1all"):
+        preds.append(cs.family_filter("cpu", *plans["families"][name])[0]
+                     .predicate.source)
+    jobs += [cuda_build.start_generated("filter_mask", src)
+             for src in dict.fromkeys(preds)]
     cuda_build.build_all(["hash_agg_merge", "sorted_join", "partition_pack",
                           "mesh_exchange"])
     for job in jobs:
@@ -160,10 +183,13 @@ def kernels(root: str, no_checks: bool = False) -> int:
         cs.phase3_merge(device, tmp, rows)
         cs.phase3_batched_hash(device, cl, rows)
         cs.phase3_sorted_join(device, rows, sides)
+        cs.phase3_filter(device, plans, rows)
+        cs.phase3_batched_filter(device, plans, rows)
+        cs.phase3_partition_pack(device, cs.SF1_ROWS, rows, sides)
 
     def fold(kernel, call):
         kc = cs.clone_call(call)
-        return (lambda: kernel(*kc)), None, call[0].row.source
+        return (lambda: kernel(*kc)), None, (FOLD_BUILD, call[0].row.source)
 
     def table_case(kernel, call, at):
         """A call whose table (argument ``at``) a fresh copy of which
@@ -202,6 +228,21 @@ def kernels(root: str, no_checks: bool = False) -> int:
         if name in ("QJOIN SF1", "many-to-many") or name.startswith("one"):
             cases[f"B8 {name}"] = ((lambda a=args: sorted_join(*a)), None,
                                    None)
+    for name, prog, call in here.filter_cases(device, plans):
+        if name != "syn":
+            cases[f"B4 {name}"] = ((lambda p=prog, c=call: filter_mask(p, *c)),
+                                   None, ("filter_mask", prog.predicate.source))
+    for name, prog, call in here.batched_filter_cases(
+            device, plans, ("Q6", "Q1", "H", "P", "C1all")):
+        cases[f"B5a {name} family Q={cs.Q_BATCH}"] = (
+            (lambda p=prog, c=call: filter_mask_batched(p, *c)), None,
+            ("filter_mask", prog.predicate.source))
+    for name, args in here.partition_cases(device, sides):
+        cases[f"B7 {name}"] = ((lambda a=args: pack_blocks(*a)), None,
+                               ("partition_pack", None))
+    if only:
+        cases = {k: v for k, v in cases.items()
+                 if any(k.startswith(o) for o in only)}
     device_ms, wrapper_ms, by_kernel = {}, {}, {}
     for name, (fn, reset, source) in cases.items():
         per = device_profile(fn, reset, KERNEL_REPS)
@@ -216,8 +257,7 @@ def kernels(root: str, no_checks: bool = False) -> int:
         for k, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0]):
             print(f"  {ms:9.4f} ms {n:6g} a call  {k[:100]}", flush=True)
         if source is not None:
-            for line in cuda_build.build_log(FOLD_BUILD,
-                                             source).splitlines():
+            for line in cuda_build.build_log(*source).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"{name} ptxas: {line.strip()}", flush=True)
     for line in cuda_build.build_log(INSERT_BUILD,
@@ -246,12 +286,16 @@ def main() -> int:
     ap.add_argument("--no-checks", action="store_true",
                     help="with --kernels: time the cases without phase 3's "
                          "checks against the plain versions")
+    ap.add_argument("--cases", default="",
+                    help="with --kernels: time only the cases whose names "
+                         "start with one of these comma-separated prefixes")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: no CUDA device")
     if args.kernels:
-        return kernels(os.path.abspath(args.package_root), args.no_checks)
+        return kernels(os.path.abspath(args.package_root), args.no_checks,
+                       tuple(c for c in args.cases.split(",") if c))
     from torch.profiler import ProfilerActivity, profile
 
     sys.path.insert(0, ROOT)

@@ -596,7 +596,7 @@ def test_chip_smoke_phase3_helpers_rehearse_on_cpu(tmp_path):
         args = chip_smoke.filter_call(prog, cols, params, "cpu", 4096)
         assert filter_mask_plain(prog, *args).shape == (4096,)
         assert chip_smoke.filter_bytes(args[0], args[2]) > 4096
-        assert "fm_predicate" in prog.predicate.source
+        assert "fm_rows" in prog.predicate.source
 
 
 @pytest.mark.cuda

@@ -862,10 +862,10 @@ def test_plain_batched_hash_insert_equals_per_query_inserts(catalogs):
 @pytest.mark.parametrize("name", list(KERNEL_FAMILIES))
 def test_generated_batched_row_on_host_matches_vmap(catalogs, name,
                                                     tmp_path):
-    """The generated ``fm_batched_row`` (the batched kernel's body)
-    compiled by g++: columns loaded once, the predicate run per query
-    with its row of the stacked parameters; masks identical to the
-    reference's jax.vmap."""
+    """The generated ``fm_batched_rows`` (a thread of the batched
+    kernel: its rows' columns loaded once, the predicate run per query
+    with its row of the stacked parameters) compiled by g++ and run for
+    every thread; masks identical to the reference's jax.vmap."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ (the native codec's compiler) found")
@@ -877,7 +877,8 @@ def test_generated_batched_row_on_host_matches_vmap(catalogs, name,
     (tmp_path / "harness.cpp").write_text(
         '#include "pred.inc"\n'
         'extern "C" void run(const FmParams* p, const FmBatch* b) {\n'
-        "    for (int64_t i = 0; i < p->n; ++i) fm_batched_row(*p, *b, i);\n"
+        "    for (int64_t g = 0; g < fm_threads(p->n); ++g)\n"
+        "        fm_batched_rows(*p, *b, g);\n"
         "}\n")
     so = tmp_path / "libharness.so"
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared",

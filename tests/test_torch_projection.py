@@ -42,7 +42,9 @@ from citus_tpu.planner.bound import predicate_mask as ref_predicate_mask
 from citus_tpu_torch.ops import cuda_build
 from citus_tpu_torch.ops.expr_codegen import generate_predicate
 from citus_tpu_torch.ops.filter_mask import (
-    FilterProgram, _FmParams, _param_bits, filter_mask, filter_mask_plain,
+    FilterProgram, _FmBatch, _FmParams, _param_bits, filter_mask,
+    filter_mask_batched, filter_mask_batched_plain, filter_mask_plain,
+    stack_params,
 )
 from citus_tpu_torch.planner import parse_sql
 from citus_tpu_torch.planner.auto_param import auto_parameterize
@@ -241,6 +243,17 @@ PREDICATES = [
     "greatest(a, b, 3) > 10",
     "least(s, u) < 0",
     "greatest(p, 10) = 10",
+    # 32 and 56 bytes of columns a row, and a long predicate: 4, 2 and 1
+    # rows a thread
+    "a > 5 AND s < 0.5 AND p > 3 AND u < 1",
+    "a + b > 3 AND p < s + u AND f < 0.5 AND ts > '1990-01-01' "
+    "AND d2 > '1950-01-01'",
+    "extract(year FROM d2) = 2020 OR extract(month FROM ts) = 2 OR "
+    "extract(day FROM d2 + interval '1 month') = 29 OR "
+    "date_trunc('quarter', d2) < date '1960-01-01' OR "
+    "extract(doy FROM ts + interval '1 month') = 60 OR "
+    "extract(day FROM ts - interval '13 months') = 31 OR "
+    "date_trunc('year', ts + interval '2 months') > '2000-01-01'",
 ]
 
 
@@ -315,11 +328,15 @@ def _param_arrays(bound, values):
     return out
 
 
-def _reference_mask(ref, pred, cols, valids, row_mask, auto):
+def _reference_mask(ref, pred, cols, valids, row_mask, auto, params=None):
+    """The reference's mask; ``params`` (an env of (value, valid)) in
+    place of the predicate's own literals."""
     bound, values = _bound(ref_parse, ref_bind, ref_auto_param, ref.catalog,
                            pred, auto)
     env = {c: (jnp.asarray(cols[c]), jnp.asarray(valids[c])) for c in cols}
-    for name, (v, m) in _param_arrays(bound, values).items():
+    if params is None:
+        params = _param_arrays(bound, values)
+    for name, (v, m) in params.items():
         env[name] = (jnp.asarray(v), jnp.asarray(m))
     fn = ref_compile(bound.filter, jnp)
     rm = jnp.asarray(row_mask)
@@ -361,11 +378,12 @@ def test_plain_filter_mask_matches_jax(predicate_env, pred, auto):
 
 
 def _host_params(prog, cols, valids, params, row_mask, out, keep):
-    """A filled FmParams over numpy buffers (``keep`` holds them)."""
+    """A filled FmParams over numpy buffers (``keep`` holds them); a
+    null row mask for None."""
     pred = prog.predicate
     p = _FmParams()
-    p.n = row_mask.shape[0]
-    p.row_mask = row_mask.ctypes.data
+    p.n = out.shape[0]
+    p.row_mask = 0 if row_mask is None else row_mask.ctypes.data
     p.out = out.ctypes.data
     for j, c in enumerate(pred.columns):
         v = np.ascontiguousarray(cols[c].astype(prog.col_dtypes[c]))
@@ -385,6 +403,22 @@ def _host_params(prog, cols, valids, params, row_mask, out, keep):
     return p
 
 
+def _chunk_entries(q: str) -> str:
+    """The harness's C entries of generated source ``q``.inc: ``run_q``
+    and ``run_b_q`` run every thread's rows of one query and of Q
+    queries, as the kernels' threads do (``fm_rows``,
+    ``fm_batched_rows``, FM_ROWS consecutive rows a thread)."""
+    return (f"#undef FM_ROWS\n#undef FM_PARAMS\n"
+            f"namespace {q} {{\n#include \"{q}.inc\"\n}}\n"
+            f"extern \"C\" void run_{q}(const FmParams* p) {{\n"
+            f"    for (int64_t g = 0; g < {q}::fm_threads(p->n); ++g)"
+            f" {q}::fm_rows(*p, g);\n}}\n"
+            f"extern \"C\" void run_b_{q}(const FmParams* p, const FmBatch* b)"
+            " {\n"
+            f"    for (int64_t g = 0; g < {q}::fm_threads(p->n); ++g)"
+            f" {q}::fm_batched_rows(*p, *b, g);\n}}\n")
+
+
 @pytest.fixture(scope="module")
 def host_harness(predicate_env, tmp_path_factory):
     """Every predicate of PREDICATES, literal and parameterized, generated
@@ -402,12 +436,7 @@ def host_harness(predicate_env, tmp_path_factory):
             q = f"q{i}_{int(auto)}"
             progs[(pred, auto)] = (q, prog, params)
             (d / f"{q}.inc").write_text(prog.predicate.source)
-            parts.append(
-                f"namespace {q} {{\n#include \"{q}.inc\"\n}}\n"
-                f"extern \"C\" void run_{q}(const FmParams* p) {{\n"
-                "    for (int64_t i = 0; i < p->n; ++i)\n"
-                "        p->out[i] = (p->row_mask == nullptr || p->row_mask[i])"
-                f" && {q}::fm_predicate(*p, i);\n}}\n")
+            parts.append(_chunk_entries(q))
     (d / "harness.cpp").write_text("\n".join(parts))
     so = d / "libharness.so"
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off",
@@ -434,6 +463,181 @@ def test_generated_predicate_on_host_matches_jax(predicate_env, host_harness,
     fn.restype = None
     fn(ctypes.byref(p))
     np.testing.assert_array_equal(out.astype(bool), want)
+
+
+#: predicates of the kernels' row cases: every column dtype (int64,
+#: float64, float32, decimal, dictionary ids, int32 days, timestamps,
+#: bool), and 8, 4, 2 and 1 rows a thread
+CHUNK_PREDICATES = [
+    "s * u + s > 0.75",
+    "txt IN ('x', 'z')",
+    "d >= '2021-03-01' AND d < '2021-06-01'",
+    "flag AND a > 3",
+    "extract(hour FROM ts) = 13 OR extract(minute FROM ts) < 3",
+    "CASE WHEN a > 0 THEN p ELSE 1.5 END > 10",
+    "floor(f) = -1",
+    "date_trunc('month', d2) = date '2020-02-01'",
+    "a > 5 AND s < 0.5 AND p > 3 AND u < 1",
+    "a + b > 3 AND p < s + u AND f < 0.5 AND ts > '1990-01-01' "
+    "AND d2 > '1950-01-01'",
+    "extract(year FROM d2) = 2020 OR extract(month FROM ts) = 2 OR "
+    "extract(day FROM d2 + interval '1 month') = 29 OR "
+    "date_trunc('quarter', d2) < date '1960-01-01' OR "
+    "extract(doy FROM ts + interval '1 month') = 60 OR "
+    "extract(day FROM ts - interval '13 months') = 31 OR "
+    "date_trunc('year', ts + interval '2 months') > '2000-01-01'",
+]
+#: (rows, the views' first element in their buffers, a row mask): n not
+#: a multiple of a thread's rows, n under one vector, views (and output)
+#: at odd offsets, no row mask
+CHUNK_SHAPES = {"tail": (1999, 0, True), "short": (3, 0, True),
+                "misaligned": (1997, 3, True),
+                "misaligned_no_row_mask": (1001, 1, False),
+                "no_row_mask": (2000, 0, False)}
+
+
+def _at(a: np.ndarray, offset: int) -> np.ndarray:
+    """``a`` as a view starting ``offset`` elements into a buffer (16-byte
+    aligned, as numpy allocates), so not aligned for an odd offset."""
+    buf = np.zeros(a.size + offset + 16, a.dtype)
+    buf[offset:offset + a.size] = a
+    return buf[offset:offset + a.size]
+
+
+def _chunk_case(prog, cols, valids, shape, seed):
+    """-> (columns, validity, row mask or None) of one shape, the columns
+    cast to the program's dtypes and placed as views."""
+    n, offset, with_mask = CHUNK_SHAPES[shape]
+    ncols = {c: _at(cols[c][:n].astype(prog.col_dtypes[c]), offset)
+             for c in prog.columns}
+    nvalid = {c: _at(valids[c][:n], offset) for c in prog.columns}
+    rng = np.random.default_rng(seed)
+    row_mask = _at(rng.random(n) > 0.2, offset) if with_mask else None
+    return ncols, nvalid, row_mask
+
+
+def _chunk_params(prog, cols, valids, row_mask, keep):
+    """A filled FmParams over the given arrays as they lie (``keep``
+    holds what it points to); a null row mask for None."""
+    p = _FmParams()
+    p.n = len(next(iter(cols.values()))) if cols else 0
+    p.row_mask = 0 if row_mask is None else row_mask.ctypes.data
+    for j, c in enumerate(prog.predicate.columns):
+        p.cols[j], p.valids[j] = cols[c].ctypes.data, valids[c].ctypes.data
+    for j, t in enumerate(prog.predicate.tables):
+        arr = np.ascontiguousarray(t)
+        keep.append(arr)
+        p.tables[j] = arr.ctypes.data
+        p.table_len[j] = arr.size
+    return p
+
+
+def _variants(prog, params: dict, q: int) -> list:
+    """``q`` parameter envs of one family: query k moves every integer
+    parameter by k and scales every float one by 1 + k / 4; query 5's
+    first parameter is NULL."""
+    out = []
+    for k in range(q):
+        env = {}
+        for j, (name, (v, ok)) in enumerate(params.items()):
+            dt = prog.param_dtypes[name]
+            w = v * (1 + k / 4) if dt.kind == "f" else \
+                v if dt.kind == "b" else v + k
+            env[name] = (np.asarray(w, dt),
+                         np.asarray(bool(ok) and not (k == 5 and j == 0)))
+        out.append(env)
+    return out
+
+
+@pytest.mark.parametrize("shape", list(CHUNK_SHAPES))
+@pytest.mark.parametrize("pred", CHUNK_PREDICATES)
+def test_generated_chunks_on_host_match_jax(predicate_env, host_harness,
+                                            pred, shape):
+    """Every thread's rows of one query, as the kernel's threads run them
+    (``fm_rows``, several rows a thread, by vectors where the addresses
+    allow), compiled by g++: a tail shorter than a thread's rows, fewer
+    rows than one vector, columns, validity and output at odd offsets, a
+    null row mask; masks identical to the reference's."""
+    ref, _, cols, valids = predicate_env
+    lib, progs = host_harness
+    q, prog, params = progs[(pred, True)]
+    ncols, nvalid, row_mask = _chunk_case(prog, cols, valids, shape, 7)
+    n = CHUNK_SHAPES[shape][0]
+    want = _reference_mask(ref, pred, ncols, nvalid,
+                           np.ones(n, bool) if row_mask is None else row_mask,
+                           True)
+    out = _at(np.full(n, 9, np.uint8), CHUNK_SHAPES[shape][1])
+    keep: list = []
+    p = _chunk_params(prog, ncols, nvalid, row_mask, keep)
+    p.out = out.ctypes.data
+    for j, name in enumerate(prog.predicate.params):
+        v, m = params[name]
+        p.params[j] = _param_bits(v, prog.param_dtypes[name])
+        p.param_valid[j] = 1 if bool(m) else 0
+    fn = getattr(lib, f"run_{q}")
+    fn.argtypes = [ctypes.POINTER(_FmParams)]
+    fn.restype = None
+    fn(ctypes.byref(p))
+    np.testing.assert_array_equal(out, want.astype(np.uint8))
+
+
+@pytest.mark.parametrize("shape", ["misaligned", "no_row_mask"])
+@pytest.mark.parametrize("n_q", [1, 8, 32])
+@pytest.mark.parametrize("pred", CHUNK_PREDICATES)
+def test_generated_batched_chunks_on_host_match_jax(
+        predicate_env, host_harness, pred, n_q, shape):
+    """Every thread's rows of Q queries of one family
+    (``fm_batched_rows``: the rows' columns loaded once, then query by
+    query its parameters and its bytes of out[q]), compiled by g++, Q =
+    1, 8 and 32, rows q of the output at odd offsets (n odd); each
+    query's mask identical to the reference's under its parameters."""
+    ref, _, cols, valids = predicate_env
+    lib, progs = host_harness
+    q, prog, params = progs[(pred, True)]
+    ncols, nvalid, row_mask = _chunk_case(prog, cols, valids, shape, 8)
+    n = CHUNK_SHAPES[shape][0]
+    envs = _variants(prog, params, n_q)
+    stacked = stack_params(prog, envs, "cpu")
+    out = np.full((n_q, n), 9, np.uint8)
+    keep: list = []
+    p = _chunk_params(prog, ncols, nvalid, row_mask, keep)
+    bits = np.ascontiguousarray(stacked.bits.numpy())
+    pvalid = np.ascontiguousarray(stacked.valid.numpy())
+    b = _FmBatch()
+    b.n_q, b.n_params = n_q, bits.shape[1]
+    b.params, b.param_valid = bits.ctypes.data, pvalid.ctypes.data
+    b.out = out.ctypes.data
+    fn = getattr(lib, f"run_b_{q}")
+    fn.argtypes = [ctypes.POINTER(_FmParams), ctypes.POINTER(_FmBatch)]
+    fn.restype = None
+    fn(ctypes.byref(p), ctypes.byref(b))
+    rm = np.ones(n, bool) if row_mask is None else row_mask
+    for k, env in enumerate(envs):
+        want = _reference_mask(ref, pred, ncols, nvalid, rm, True, env)
+        np.testing.assert_array_equal(out[k], want.astype(np.uint8),
+                                      err_msg=f"query {k}")
+
+
+@pytest.mark.parametrize("pred", CHUNK_PREDICATES)
+def test_filter_mask_without_row_mask_keeps_every_row(predicate_env, pred):
+    """``filter_mask`` and ``filter_mask_batched`` with no row mask (the
+    projection path's batches) mask the columns' every row, as the
+    reference does under an all-true row mask."""
+    ref, port, cols, valids = predicate_env
+    prog, params = _port_program(port, pred, True)
+    tcols = {c: (torch.from_numpy(cols[c]), torch.from_numpy(valids[c]))
+             for c in prog.columns}
+    ones = np.ones(N, bool)
+    got = filter_mask(prog, tcols, params, None)
+    np.testing.assert_array_equal(
+        got.numpy(), _reference_mask(ref, pred, cols, valids, ones, True))
+    envs = _variants(prog, params, 3)
+    got = filter_mask_batched(prog, tcols, stack_params(prog, envs, "cpu"),
+                              None)
+    for k, env in enumerate(envs):
+        np.testing.assert_array_equal(
+            got[k].numpy(),
+            _reference_mask(ref, pred, cols, valids, ones, True, env))
 
 
 def test_unsupported_node_raises_naming_b10(predicate_env):
@@ -483,6 +687,38 @@ def test_filter_kernel_matches_plain_on_card(predicate_env):
             assert torch.equal(got, want), pred
 
 
+@pytest.mark.cuda
+def test_filter_kernels_match_plain_on_misaligned_views_on_card(
+        predicate_env):
+    """Both kernels of each chunk predicate against their plain versions
+    on the card, in every CHUNK_SHAPES shape (views at odd offsets, no
+    row mask, short and ragged batches), the batched one at Q = 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    _, port, cols, valids = predicate_env
+    for pred in CHUNK_PREDICATES:
+        prog, params = _port_program(port, pred, True)
+        stacked = stack_params(prog, _variants(prog, params, 32), "cuda")
+        for shape in CHUNK_SHAPES:
+            ncols, nvalid, rm = _chunk_case(prog, cols, valids, shape, 9)
+            offset = CHUNK_SHAPES[shape][1]
+
+            def card(a):
+                t = torch.zeros(a.size + offset + 16, dtype=torch.from_numpy(
+                    a[:0]).dtype, device="cuda")
+                t[offset:offset + a.size] = torch.from_numpy(
+                    np.ascontiguousarray(a)).cuda()
+                return t[offset:offset + a.size]
+            tcols = {c: (card(ncols[c]), card(nvalid[c])) for c in ncols}
+            trm = None if rm is None else card(rm)
+            got = filter_mask(prog, tcols, params, trm)
+            assert torch.equal(got, filter_mask_plain(prog, tcols, params,
+                                                      trm)), (pred, shape)
+            got = filter_mask_batched(prog, tcols, stacked, trm)
+            assert torch.equal(got, filter_mask_batched_plain(
+                prog, tcols, stacked, trm)), (pred, shape)
+
+
 # ------------------------------------------------------------------ C1
 # ROADMAP.md C1: on the card a projection whose WHERE held one of these
 # nodes raised, where the reference answers.  Each WHERE (over
@@ -514,8 +750,8 @@ def c1_recorded(pair):
     for where, _ in C1_WHERES:
         calls = []
 
-        def record(prog, cols, params, row_mask, _calls=calls):
-            got = real(prog, cols, params, row_mask)
+        def record(prog, cols, params, row_mask, n=None, _calls=calls):
+            got = real(prog, cols, params, row_mask, n)
             _calls.append((prog, cols, params, row_mask, got))
             return got
         fm_mod.filter_mask = record
@@ -556,12 +792,7 @@ def c1_harness(c1_recorded, tmp_path_factory):
         q = f"c1_{i}"
         names[where] = q
         (d / f"{q}.inc").write_text(prog.predicate.source)
-        parts.append(
-            f"namespace {q} {{\n#include \"{q}.inc\"\n}}\n"
-            f"extern \"C\" void run_{q}(const FmParams* p) {{\n"
-            "    for (int64_t i = 0; i < p->n; ++i)\n"
-            "        p->out[i] = (p->row_mask == nullptr || p->row_mask[i])"
-            f" && {q}::fm_predicate(*p, i);\n}}\n")
+        parts.append(_chunk_entries(q))
     (d / "harness.cpp").write_text("\n".join(parts))
     so = d / "libc1.so"
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off",
@@ -587,8 +818,8 @@ def test_c1_generated_predicate_on_scan_batches(c1_recorded, c1_harness,
         ncols = {c: v.numpy() for c, (v, _) in cols.items()}
         nvalid = {c: (np.ones(len(v), bool) if m is None else m.numpy())
                   for c, (v, m) in cols.items()}
-        rm = row_mask.numpy()
-        out = np.zeros(rm.shape[0], np.uint8)
+        rm = None if row_mask is None else row_mask.numpy()
+        out = np.zeros(want.shape[0], np.uint8)
         keep: list = []
         p = _host_params(prog, ncols, nvalid, params, rm, out, keep)
         fn(ctypes.byref(p))

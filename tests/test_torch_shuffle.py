@@ -164,58 +164,176 @@ def test_reference_pack_blocks_loses_a_full_last_block_row_c8():
     assert port[0][0].tolist() == [[10, 11]]
 
 
-def _pack_kernel_model(values, target, mask, n_dev, capacity, tile=2048):
-    """partition_pack.cu step by step: per-tile destination histograms
-    (digit-major), their exclusive scan, each row's position from its
-    tile's offset plus its rank among the tile's earlier rows of its
-    digit, rows of rank under capacity placed, the rest of every block
-    zero, and the overflow from the scanned counts."""
+def _digit_look_backs(counts, rng):
+    """The rows of each destination in the tiles before each tile, as
+    partition_pack.cu's decoupled look-backs find them when tiles finish
+    out of order: ``counts`` [tiles, n_dev].  Tiles are numbered in the
+    order they start; at each step one tile of those that can move, drawn
+    at random, either publishes its counts (status AGG) or, once
+    published, walks back over the tiles before it, adding the counts of
+    those that have only published theirs (AGG) until one has published
+    its inclusive counts (INCL), and publishes its own.  A walk that
+    meets a tile that has published nothing waits.  -> (before [tiles,
+    n_dev], how many walks added an AGG tile's counts)."""
+    nt, n_dev = counts.shape
+    state = ["none"] * nt
+    incl = np.zeros_like(counts)
+    before = np.zeros_like(counts)
+    partial = 0
+    while any(st != "incl" for st in state):
+        moves = []
+        for t in range(nt):
+            if state[t] == "none":
+                moves.append(t)
+            elif state[t] == "agg":
+                j = t - 1
+                while j >= 0 and state[j] == "agg":
+                    j -= 1
+                if j < 0 or state[j] == "incl":
+                    moves.append(t)
+        t = int(rng.choice(moves))
+        if state[t] == "none":
+            state[t] = "incl" if t == 0 else "agg"
+            if t == 0:
+                incl[0] = counts[0]
+            continue
+        acc, j = np.zeros(n_dev, counts.dtype), t - 1
+        while state[j] == "agg":
+            acc += counts[j]
+            partial += 1
+            j -= 1
+        acc += incl[j]
+        before[t], incl[t] = acc, acc + counts[t]
+        state[t] = "incl"
+    return before, partial
+
+
+def _pack_kernel_model(values, target, mask, n_dev, capacity, tile=2048,
+                       seed=0):
+    """partition_pack.cu step by step on tiles of ``tile`` rows: each
+    tile's 8 warps (tile / 8 consecutive rows each) rank their own kept
+    rows of a destination in input order, the warps' counts give each
+    warp's start, the look-backs the tile's start among all rows of a
+    destination (``_digit_look_backs``, tiles finishing out of order); the
+    kept rows are staged in (destination, input) order and written from
+    there, those past the capacity dropped (a tile whose rows all go to
+    one destination writes them as they lie); then the fill of every
+    block's slots past its rows from the last tile's inclusive counts,
+    and the overflow from them.  -> (packed, validity, overflow, the
+    walks that added a tile's published counts)."""
+    rng = np.random.default_rng(seed)
     n = len(target)
-    digit = np.where(mask & (target >= 0) & (target < n_dev), target, n_dev)
+    kept = mask & (target >= 0) & (target < n_dev)
     nt = -(-n // tile)
-    hist = np.zeros((n_dev + 1, nt), np.int64)
+    counts = np.zeros((nt, n_dev), np.int64)
     for t in range(nt):
-        hist[:, t] = np.bincount(digit[t * tile:(t + 1) * tile],
-                                 minlength=n_dev + 1)
-    flat = hist.reshape(-1)
-    offs = (np.cumsum(flat) - flat).reshape(n_dev + 1, nt)
+        rows = np.arange(t * tile, min(n, (t + 1) * tile))
+        rows = rows[kept[rows]]
+        counts[t] = np.bincount(target[rows], minlength=n_dev)
+    before, partial = _digit_look_backs(counts, rng) if nt \
+        else (counts, 0)
     packed = [np.full((n_dev, capacity), 99, v.dtype) for v in values]
     pvalid = np.full((n_dev, capacity), 7, np.uint8)
     for t in range(nt):
-        running = offs[:, t].copy()
-        for i in range(t * tile, min(n, (t + 1) * tile)):
-            d = digit[i]
-            pos = running[d]
-            running[d] += 1
-            if d < n_dev and pos - offs[d, 0] < capacity:
+        rows = np.arange(t * tile, min(n, (t + 1) * tile))
+        dense = np.nonzero(counts[t] == rows.size)[0]
+        if dense.size:
+            # every row kept, to one destination: its rows as they lie
+            d = dense[0]
+            for at, i in enumerate(rows):
+                r = before[t, d] + at
+                if r < capacity:
+                    for p, v in zip(packed, values):
+                        p[d, r] = v[i]
+                    pvalid[d, r] = 1
+            continue
+        warp = (rows - t * tile) // (tile // 8)
+        wcounts = np.zeros((8, n_dev), np.int64)
+        rank = np.zeros(rows.size, np.int64)
+        for k, i in enumerate(rows):
+            if kept[i]:
+                rank[k] = wcounts[warp[k], target[i]]
+                wcounts[warp[k], target[i]] += 1
+        warp_start = np.cumsum(wcounts, 0) - wcounts
+        local_start = np.cumsum(counts[t]) - counts[t]
+        staged = np.full(int(counts[t].sum()), -1, np.int64)
+        for k, i in enumerate(rows):
+            if kept[i]:
+                d = target[i]
+                staged[local_start[d] + warp_start[warp[k], d] + rank[k]] = i
+        assert (staged >= 0).all()
+        for at, i in enumerate(staged):
+            d = target[i]
+            r = before[t, d] + at - local_start[d]
+            if r < capacity:
                 for p, v in zip(packed, values):
-                    p[d, pos - offs[d, 0]] = v[i]
-                pvalid[d, pos - offs[d, 0]] = 1
-    count = (offs[1:, 0] - offs[:-1, 0]) if nt else np.zeros(n_dev + 1)
+                    p[d, r] = v[i]
+                pvalid[d, r] = 1
+    total = before[-1] + counts[-1] if nt else np.zeros(n_dev, np.int64)
     for d in range(n_dev):
-        for r in range(int(count[d]) if nt else 0, capacity):
+        for r in range(min(int(total[d]), capacity), capacity):
             for p in packed:
                 p[d, r] = 0
             pvalid[d, r] = 0
-    overflow = int(np.maximum(count[:n_dev] - capacity, 0).sum()) if nt else 0
-    return packed, pvalid.astype(bool), overflow
+    overflow = int(np.maximum(total - capacity, 0).sum())
+    return packed, pvalid.astype(bool), overflow, partial
 
 
-@pytest.mark.parametrize("n,n_dev,fit", [(5000, 1, "exact"),
-                                         (5000, 8, "under"),
-                                         (4097, 3, "over"), (0, 2, "over")])
+#: the masked share of a model case by its row count (else 0.2): none
+#: masked (4,100 rows to one destination: every tile takes the dense
+#: path, an overflowing one), every row masked
+MODEL_MASKED = {3000: 0.0, 1000: 1.1, 4100: 0.0}
+
+
+@pytest.mark.parametrize("n,n_dev,fit", [
+    (5000, 1, "exact"), (5000, 4, "exact"), (5000, 8, "under"),
+    (4097, 3, "over"), (6000, 1023, "exact"), (3000, 1023, "under"),
+    (1000, 2, "exact"), (0, 2, "over"), (4100, 1, "under")])
 def test_pack_kernel_model_matches_plain(n, n_dev, fit):
     """The CUDA kernel's algorithm (a numpy model with a small tile, so
-    rows cross tiles) gives the plain version's blocks."""
-    values, target, mask = _pack_case(n, n_dev, seed=3)
-    need = _need(target, mask, n_dev)
+    rows cross tiles, and tiles that finish out of order so look-backs
+    add the counts of tiles still in flight) gives the plain version's
+    blocks and, apart from ROADMAP.md C8's slots, the reference's: one
+    destination, 4, 8 and 1,023 (rows past a ragged tile's end, targets
+    out of range), overflowing blocks, masked rows, every row masked, no
+    rows."""
+    masked = MODEL_MASKED.get(n, 0.2)
+    values, target, mask = _pack_case(n, n_dev, seed=3, masked=masked)
+    if n and masked:
+        target[::97] = n_dev      # out of range: dropped as masked rows
+        target[1::101] = -1
+    need = _need(target, mask & (target >= 0) & (target < n_dev), n_dev)
     capacity = {"over": need + 1, "exact": max(need, 1),
                 "under": max(need // 3, 1)}[fit]
-    got = _pack_kernel_model(values, target, mask, n_dev, capacity, tile=512)
+    got = _pack_kernel_model(values, target, mask, n_dev, capacity,
+                             tile=512, seed=n_dev)
     want = _run_port_pack(values, target, mask, n_dev, capacity)
-    assert got[2] == want[2]
-    for g, w in zip(got[0] + [got[1]], want[0] + [want[1]]):
+    ref = _run_ref_pack(values, target, mask, n_dev, capacity)
+    assert got[2] == want[2] == ref[2]
+    if n >= 4 * 512 and n_dev < 1023 and masked < 1:
+        assert got[3] > 0   # some look-back met a tile still in flight
+    c8 = _c8_slots(target, mask & (target >= 0) & (target < n_dev), n_dev,
+                   capacity)
+    for g, w, r in zip(got[0] + [got[1]], want[0] + [want[1]],
+                       ref[0] + [ref[1]]):
         np.testing.assert_array_equal(g, w)
+        r, w = r.copy(), w.copy()
+        for slot in c8:
+            r[slot] = w[slot] = 0
+        np.testing.assert_array_equal(r, w)
+
+
+def test_pack_kernel_model_keeps_the_c8_row():
+    """ROADMAP.md C8's case through the kernel's model: a full last
+    block followed by masked rows keeps its last row, as the plain
+    version does (the reference loses it)."""
+    values = (np.array([10, 11, 12, 13], np.int64),)
+    target = np.zeros(4, np.int32)
+    mask = np.array([True, True, False, False])
+    got = _pack_kernel_model(values, target, mask, 1, 2, tile=8)
+    assert got[2] == 0
+    assert got[1].tolist() == [[True, True]]
+    assert got[0][0].tolist() == [[10, 11]]
 
 
 def test_pack_blocks_on_cpu_runs_the_plain_version():
@@ -908,12 +1026,17 @@ def test_received_stacked_columns(n):
 def test_pack_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
-    for n, n_dev in ((100_000, 1), (100_000, 8), (0, 2)):
+    def view(a, offset):   # a view at an odd offset: no base aligned
+        t = torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device="cuda")
+        buf[offset:] = t
+        return buf[offset:]
+    for n, n_dev, offset in ((100_000, 1, 0), (100_000, 8, 0), (0, 2, 0),
+                             (100_001, 4, 3), (300_000, 1023, 1)):
         values, target, mask = _pack_case(n, n_dev, seed=n_dev)
         cap = max(_need(target, mask, n_dev) - 5, 1)
-        args = (tuple(torch.from_numpy(v).cuda() for v in values),
-                torch.from_numpy(target).cuda(), torch.from_numpy(mask).cuda(),
-                n_dev, cap)
+        args = (tuple(view(v, offset) for v in values), view(target, offset),
+                view(mask, offset), n_dev, cap)
         got = pack_blocks(*args)
         want = pack_blocks_plain(*args)
         for g, w in zip(got[0] + (got[1], got[2]), want[0] + (want[1], want[2])):
