@@ -76,9 +76,12 @@ result line:
      of 4: ~264 KB of registers pass the opt-in limit) and Q = 6 (one
      table), against eight serial S1 folds;
    - ``rollup_delta`` for all six kinds at n = 65,536 (one refresh
-     batch) and n = 2^23 (SF1's backfill, padded) into 10,000 groups,
-     timed as the wrapper's call (its tables allocated and filled) and
-     as its kernel alone into tables allocated beforehand;
+     batch, the direct regime) and n = 2^23 (SF1's backfill, padded;
+     count and the sums in the privatized regime, checked, and also
+     held and timed in the other regimes) into 10,000 groups, timed as
+     the wrapper's call (its table allocated and filled; event time and
+     device time from torch.profiler) and as its kernel alone into a
+     table allocated beforehand;
    - ``partition_pack`` (B7) on both sides of QJOIN's device join at
      SF1 (gid, l_orderkey, l_quantity with their validity; the flagged
      orders_b rows), n_dev = 1, on the lineitem side to 8 destinations
@@ -92,10 +95,11 @@ result line:
      out_valid, total and every gathered column identical;
    - ``mesh_combine`` (B6) over 4 members on the card, each member's
      registers folded by the generated fold from its share of the rows:
-     Q1's (12 groups x 13 positions), S1's (sketch registers) and a
+     Q1's (12 groups x 17 positions), S1's (sketch registers) and a
      G = 65,536 direct fold's with NaN, +-inf and +-0.0, one member
-     folding no row: every output identical bit for bit (sums in member
-     order in both);
+     folding no row, from one allocation a member (the executor's call)
+     and from separate tensors: every output identical bit for bit
+     (sums in member order in both), event and device times;
    - ``exchange_blocks`` over 4 members: QJOIN's lineitem side at SF1
      split and packed as the device join does it: identical receive
      buffers, one launch, and its kernel timed alone from a prebuilt
@@ -198,7 +202,9 @@ result line:
    tables: Q6 at SF1, Q1 at 5,000,000 rows and S1 on the sketch table,
    each cold and warm (the warm run replays the mesh's cache entry),
    rows equal to the numpy oracle, one fold per member per round and
-   one ``mesh_combine`` per query and no other kernel; one warm QJOIN at
+   one ``mesh_combine`` per query and no other kernel, one
+   device-to-host copy per warm query (torch.profiler), its warm time
+   beside phase 4's on the single stream; one warm QJOIN at
    SF1 through the device join over the 4 members (``partition_pack``
    8 times, ``exchange_blocks`` twice (one launch an exchange on the
    one card),
@@ -498,6 +504,42 @@ def time_cuda(fn, reps: int = 25, rounds: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
+
+
+#: calls a phase-3 device time is the mean of, and the idle seconds at
+#: each end of its profiler session (a session that starts or ends busy
+#: may lose its record)
+DEVICE_REPS = 20
+DEVICE_PAUSE_S = 0.3
+
+
+def device_time(fn, reps: int = DEVICE_REPS) -> tuple:
+    """``fn``'s device time a call from torch.profiler: -> (ms a call
+    over its kernels, copies and sets, {name: ms a call}); (None, {})
+    when the session lost its device record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(DEVICE_PAUSE_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(DEVICE_PAUSE_S)
+    per = {e.key: e.self_device_time_total / 1e3 / reps
+           for e in prof.key_averages()
+           if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
+    return (sum(per.values()) if per else None), per
+
+
+def fmt_ms(ms) -> str:
+    return "not measured (no device record)" if ms is None else f"{ms:.4f} ms"
+
+
+def fmt_kernels(per: dict) -> str:
+    return ", ".join(f"{k.split('(')[0][:40]} {v:.4f}"
+                     for k, v in sorted(per.items(), key=lambda kv: -kv[1]))
 
 
 def regime_name(regime: int) -> str:
@@ -1761,8 +1803,9 @@ PROFILE_RETRY_PAUSE_S = 2.0
 
 #: name fragments of the port's kernels as the profiler reports them
 PORT_KERNELS = ("fold_shared_q", "fold_global_q", "hash_insert", "fm_kernel",
-                "fm_batched_kernel", "hash_merge", "rollup_delta",
-                "partition", "pp_pass", "pp_fill", "sorted_join")
+                "fm_batched_kernel", "hash_merge", "rd_direct", "rd_private",
+                "rd_fill_topk", "partition", "pp_pass",
+                "pp_fill", "sorted_join", "mc_kernel")
 
 
 def device_kernels(cl, sql: str, pause: float = PROFILE_PAUSE_S) -> tuple:
@@ -1839,6 +1882,25 @@ def profiled_kernels(cl, qname: str, sql: str) -> tuple:
         f"kernels per batch are not measured")
 
 
+#: phase 4's warm seconds of a query on the single stream, set beside
+#: phase 9's over the mesh: the median of WARM_REPEATS more runs
+SINGLE_STREAM_WARM_S: dict = {}
+WARM_REPEATS = 7
+
+
+def median_warm_s(cl, sql: str) -> float:
+    """The median wall seconds of WARM_REPEATS more runs of ``sql``, each
+    synchronized."""
+    import torch
+    times = []
+    for _ in range(WARM_REPEATS):
+        t0 = time.perf_counter()
+        cl.execute(sql)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
 def run_checked(cl, qname: str, sql: str, want: list, n_rows: int,
                 run_kind: str, kernel: str = "scan_agg_fold") -> int:
     """Run one query; its rows must equal the oracle's, ``kernel`` must
@@ -1846,7 +1908,8 @@ def run_checked(cl, qname: str, sql: str, want: list, n_rows: int,
     A warm run goes once more under torch.profiler: the card must run
     exactly one kernel of the port per batch and no other kernel (no
     PyTorch elementwise kernel; for a projection, no row mask filled
-    per batch).  -> kernel launches."""
+    per batch).  A warm run under 0.1 s also keeps the median of
+    WARM_REPEATS more runs, set beside phase 9's.  -> kernel launches."""
     import torch
     from citus_tpu_torch.ops import cuda_build
     counters = launch_counters()
@@ -1875,6 +1938,8 @@ def run_checked(cl, qname: str, sql: str, want: list, n_rows: int,
              f"{cuda_build.BUILDS['count'] - builds0['count']} "
              f"({cuda_build.BUILDS['seconds'] - builds0['seconds']:.3f} s)")
     if run_kind == "warm":
+        if dt < 0.1:
+            SINGLE_STREAM_WARM_S[qname] = median_warm_s(cl, sql)
         port, other, copies, names, tries, where = profiled_kernels(
             cl, qname, sql)
         if port != batches or other:
@@ -2809,77 +2874,110 @@ def phase3_sketch_folds(device, splans, rows: list) -> None:
                      "max_abs_err": max_err, **main, "library_ms": None})
 
 
-def rollup_fold_only(K, kind: str, vals, g, ok, out, out2) -> None:
-    """rollup_delta's kernel alone, launched through its C entry into
-    tables allocated beforehand (not counted as a launch of the main
-    path): the part of a call that ``index_add_`` is a yardstick of."""
+#: phase 3's rollup_delta batches: one refresh batch of the default
+#: citus.rollup_max_batch_rows and SF1's backfill, padded
+ROLLUP_BATCHES = (65_536, 1 << 23)
+
+
+def rollup_batch(device, n: int, seed: int) -> dict:
+    """One delta batch of ``n`` rows into SUPPLIERS groups (1 % of the
+    rows not ok): -> {kind: (values, gidx, ok)}, float prices with NaN,
+    +-inf, +-0.0, 1e-300 and a subnormal for sum_float and ddsk, part
+    keys for the int64 kinds, None for count."""
     import torch
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = K._library().rollup_delta_launch(
-        K.KINDS[kind], g.numel(), None if vals is None else vals.data_ptr(),
-        g.data_ptr(), ok.data_ptr(), out.data_ptr(),
-        None if out2 is None else out2.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"rollup_delta launch failed: CUDA error {err}")
+    from citus_tpu_torch.rollup import kernels as K
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.integers(0, SUPPLIERS, n).astype(np.int32)
+                         ).to(device)
+    ok = torch.from_numpy(rng.random(n) > 0.01).to(device)
+    prices = rng.integers(90_000, 10_500_000, n) / 100.0
+    prices[:7] = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-300, 5e-324]
+    fvals = torch.from_numpy(prices).to(device)
+    ivals = torch.from_numpy(rng.integers(1, PARTS + 1, n)).to(device)
+    return {kind: (None if kind == "count" else
+                   fvals if kind in ("sum_float", "ddsk") else ivals, g, ok)
+            for kind in K.KINDS}
+
+
+def compare_rollup(name: str, got, want) -> float:
+    """One kind's tables against the plain version's: identical, a float
+    sum within rel 1e-12 (atomics and blocks add in another order) with
+    its NaN and +-inf where the plain version's are.  -> max abs error."""
+    import torch
+    err_max = 0.0
+    got = got if isinstance(got, tuple) else (got,)
+    for k, p in zip(got, want):
+        if not k.dtype.is_floating_point:
+            if not torch.equal(k, p):
+                raise AssertionError(f"{name}: tables differ")
+            continue
+        fin = torch.isfinite(p)
+        nan = torch.isnan(p)
+        if not torch.equal(torch.isnan(k), nan) \
+                or not torch.equal(k[~fin & ~nan], p[~fin & ~nan]):
+            raise AssertionError(f"{name}: non-finite sums differ")
+        err = (k[fin] - p[fin]).abs()
+        if (err > 1e-12 * p[fin].abs()).any():
+            raise AssertionError(f"{name}: sum beyond rel 1e-12")
+        err_max = max(err_max, float(err.max()))
+    return err_max
 
 
 def phase3_rollup_delta(device, rows: list) -> None:
     """rollup_delta against its plain version for all six kinds, one
     delta batch of the default citus.rollup_max_batch_rows (65,536) and
     one of SF1's backfill (2^23 padded) into 10,000 groups (16,384
-    padded), times beside the bytes bound and a one-op yardstick into a
-    table of the same size: the wrapper's call (which allocates and
-    fills its tables) and its kernel alone into tables allocated
-    beforehand.  Appends its JSON row: one 65,536-row refresh batch of
-    phase 6's five aggregates (count, sum_int, hll, ddsk, topk), the
-    wrapper's calls."""
+    padded): the regime the wrapper chooses (direct; privatized for
+    count and the sums at 2^23, checked), each time beside the bytes
+    bound and a one-op yardstick into a table of the same size: the
+    wrapper's call (its table allocated and filled, then the fold; event
+    time and device time from torch.profiler, each kernel's beside) and
+    its kernel alone into a table allocated beforehand.  At 2^23 the
+    count and sums also run in the direct regime, held to the plain
+    version and timed on the device.  Appends its JSON row: one
+    65,536-row refresh batch of phase 6's five aggregates (count,
+    sum_int, hll, ddsk, topk), the wrapper's calls."""
     import torch
     from citus_tpu_torch.rollup import kernels as K
-    rng = np.random.default_rng(31)
     G = K._pad_to(SUPPLIERS)
     main = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     max_err = 0.0
-    for n in (65_536, 1 << 23):
-        g = torch.from_numpy(rng.integers(0, SUPPLIERS, n).astype(np.int32)
-                             ).to(device)
-        ok = torch.from_numpy(rng.random(n) > 0.01).to(device)
-        prices = rng.integers(90_000, 10_500_000, n) / 100.0
-        prices[:7] = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-300, 5e-324]
-        fvals = torch.from_numpy(prices).to(device)
-        ivals = torch.from_numpy(rng.integers(1, PARTS + 1, n)).to(device)
-        for kind in K.KINDS:
-            vals = None if kind == "count" else \
-                fvals if kind in ("sum_float", "ddsk") else ivals
+    for n in ROLLUP_BATCHES:
+        batch = rollup_batch(device, n, 31 + n)
+        ivals = batch["topk"][0]
+        for kind, (vals, g, ok) in batch.items():
+            name = f"rollup_delta {kind} n={n}"
+            regime = K.regime(kind, n, G)
+            if (regime != "direct") != (n > 65_536 and kind in K.PRIVATE_KINDS):
+                raise AssertionError(f"{name}: regime {regime}")
             got = K.rollup_delta(kind, vals, g, ok, G)
+            if K.rollup_delta.last_regime != regime:
+                raise AssertionError(f"{name}: launched in "
+                                     f"{K.rollup_delta.last_regime}")
             want = K._tables(kind, G, device)
             K.rollup_delta_plain(kind, vals, g, ok, *want)
             torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            for k, p in zip(got, want):
-                if kind == "sum_float":
-                    fin = torch.isfinite(p)
-                    if not torch.equal(torch.isnan(k), torch.isnan(p)) \
-                            or not torch.equal(k[~fin & ~torch.isnan(p)],
-                                               p[~fin & ~torch.isnan(p)]):
-                        raise AssertionError("rollup_delta sum_float: "
-                                             "non-finite sums differ")
-                    err = (k[fin] - p[fin]).abs()
-                    if (err > 1e-12 * p[fin].abs()).any():
-                        raise AssertionError("rollup_delta sum_float beyond "
-                                             "rel 1e-12")
-                    max_err = max(max_err, float(err.max()))
-                elif not torch.equal(k, p):
-                    raise AssertionError(f"rollup_delta {kind} n={n}: "
-                                         "tables differ")
+            max_err = max(max_err, compare_rollup(name, got, want))
+            others = []
+            if regime != "direct":
+                for other in (r for r in K.REGIMES if r != regime):
+                    t = K._table(kind, G, device)
+                    K.launch_fold(kind, vals, g, ok, t, other)
+                    torch.cuda.synchronize()
+                    compare_rollup(f"{name} in {other}", t, want)
+                    dev_ms, _ = device_time(lambda: K.launch_fold(
+                        kind, vals, g, ok, t, other))
+                    others.append(f"{other} {fmt_ms(dev_ms)}")
             ms = time_cuda(lambda: K.rollup_delta(kind, vals, g, ok, G),
                            reps=5)
-            tables = K._tables(kind, G, device)
-            fold_ms = time_cuda(lambda: rollup_fold_only(
-                K, kind, vals, g, ok, *tables), reps=5)
+            dev_ms, per = device_time(
+                lambda: K.rollup_delta(kind, vals, g, ok, G))
+            table = K._table(kind, G, device)
+            fold_ms = time_cuda(lambda: K.launch_fold(
+                kind, vals, g, ok, table, regime, fill=False), reps=5)
             plain_ms = time_cuda(lambda: K.rollup_delta_plain(
                 kind, vals, g, ok, *K._tables(kind, G, device)), reps=2)
-            out_bytes = sum(t.numel() * t.element_size() for t in want
-                            if t is not None)
+            out_bytes = table.numel() * table.element_size()
             in_bytes = g.numel() * 4 + ok.numel() + (
                 0 if vals is None else vals.numel() * 8)
             bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
@@ -2901,12 +2999,16 @@ def phase3_rollup_delta(device, rows: list) -> None:
                 main["plain_ms"] += plain_ms
                 main["bound_ms"] += bound_ms
             say(f"phase 3 rollup_delta [{kind}, n={n}, G={SUPPLIERS} "
-                f"({G} padded)]: tables identical"
+                f"({G} padded), {regime}]: tables identical"
                 f"{' (sum within rel 1e-12)' if kind == 'sum_float' else ''}; "
-                f"kernel {ms:.4f} ms (tables allocated and filled, then the "
-                f"fold), the fold alone into tables allocated beforehand "
-                f"{fold_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms "
+                f"the wrapper's call {ms:.4f} ms (its table allocated and "
+                f"filled, then the fold), device {fmt_ms(dev_ms)} "
+                f"(torch.profiler: {fmt_kernels(per)}); the fold alone "
+                f"into a table allocated beforehand {fold_ms:.4f} ms"
+                + (f"; the fold's device time in the other regimes: "
+                   f"{', '.join(others)} (identical to the plain version)"
+                   if others else "")
+                + f"; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({in_bytes} B in, {out_bytes} B of tables out, at 3.35 "
                 f"TB/s), library yardstick (one "
                 f"{'scatter_reduce_ amax' if kind == 'hll' else 'index_add_'}"
@@ -3759,16 +3861,37 @@ def compare_bits(name: str, got, want) -> None:
                                  "version")
 
 
+def member_arenas(kinds: list, members: list) -> tuple:
+    """The members' registers as the executor keeps them: one allocation
+    a member, laid out by ``RegisterLayout``.  -> (layout, arenas)."""
+    import torch
+    from citus_tpu_torch.parallel.mesh import RegisterLayout
+    first = members[0]
+    layout = RegisterLayout(kinds, [r.dtype for r in first],
+                            [r.shape for r in first], len(members))
+    arenas = []
+    for regs in members:
+        arena = torch.empty(layout.nbytes, dtype=torch.uint8,
+                            device=first[0].device)
+        for v, r in zip(layout.views(arena), regs):
+            v.copy_(r)
+        arenas.append(arena)
+    return layout, arenas
+
+
 def phase3_mesh_combine(device, plans, splans, rows: list) -> None:
     """mesh_combine (B6) against its plain version, every output bit for
-    bit: the registers of Q1's fold (12 groups x 13 positions), of S1's
+    bit: the registers of Q1's fold (12 groups x 17 positions), of S1's
     (scalar counts and sums, HLL, DDSketch and top-k registers) and of a
     direct fold of 65,536 groups with nulls, NaN, +-inf and +-0.0 (one
-    member folding no row), each over 4 members on the card; appends
-    its JSON row."""
+    member folding no row), each over 4 members on the card, as the
+    executor holds them (one allocation a member, one launch into one
+    output allocation: the main path's call) and as separate tensors
+    (``mesh_combine``); each timed by events and on the device
+    (torch.profiler); appends its JSON row (the main path's call)."""
     import torch
     from citus_tpu_torch.parallel.mesh import (
-        mesh_combine, mesh_combine_plain,
+        mesh_combine, mesh_combine_arenas, mesh_combine_plain,
     )
     n = MESH_MEMBERS
     cases = [("Q1", plans["fold_calls"]["q1"], -1),
@@ -3778,10 +3901,17 @@ def phase3_mesh_combine(device, plans, splans, rows: list) -> None:
     main = None
     for name, call, empty in cases:
         kinds, members = member_registers(call, n, empty)
-        got = mesh_combine(kinds, members)
+        layout, arenas = member_arenas(kinds, members)
         want = mesh_combine_plain(kinds, members)
-        compare_bits(f"mesh_combine [{name}]", got, want)
-        ms = time_cuda(lambda: mesh_combine(kinds, members))
+        compare_bits(f"mesh_combine [{name}]", mesh_combine(kinds, members),
+                     want)
+        compare_bits(f"mesh_combine_arenas [{name}]", layout.out_views(
+            mesh_combine_arenas(layout, arenas)), want)
+        ms = time_cuda(lambda: mesh_combine_arenas(layout, arenas))
+        dev_ms, per = device_time(lambda: mesh_combine_arenas(layout,
+                                                              arenas))
+        sep_ms = time_cuda(lambda: mesh_combine(kinds, members))
+        sep_dev, _ = device_time(lambda: mesh_combine(kinds, members))
         plain_ms = time_cuda(lambda: mesh_combine_plain(kinds, members),
                              reps=5)
         lib = {"sum": lambda t: t.sum(0), "min": lambda t: t.amin(0),
@@ -3800,10 +3930,15 @@ def phase3_mesh_combine(device, plans, splans, rows: list) -> None:
         say(f"phase 3 mesh_combine [{name}]: {n} members, {len(kinds)} "
             f"positions ({', '.join(sorted(set(kinds)))}), "
             f"{sum(r.numel() for r in members[0])} elements a member: "
-            f"identical to the plain version; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({nbytes} B at "
-            f"3.35 TB/s), one torch.stack and sum/amin/amax a position "
-            f"(the library yardstick) {lib_ms:.4f} ms")
+            f"identical to the plain version, from one allocation a member "
+            f"and from separate tensors; the main path's call (one "
+            f"allocation a member, one launch into one output) {ms:.4f} ms, "
+            f"device {fmt_ms(dev_ms)} ({fmt_kernels(per)}); separate "
+            f"tensors (mesh_combine) {sep_ms:.4f} ms, device "
+            f"{fmt_ms(sep_dev)}; plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({nbytes} B at 3.35 TB/s), one torch.stack "
+            f"and sum/amin/amax a position (the library yardstick) "
+            f"{lib_ms:.4f} ms")
     rows.append({"name": "mesh_combine", "route": "cuda",
                  "source": "citus_tpu_torch/csrc/mesh_combine.cu",
                  "replaces": "citus_tpu/parallel/mesh.py:46",
@@ -3946,9 +4081,21 @@ def run_mesh_query(cl, qname: str, sql: str, want: list, n_rows: int,
             or pl["fused_dispatches"] != expect["scan_agg_fold"]:
         raise AssertionError(f"phase 9 {qname} {run_kind}: pipeline {pl}, "
                              f"launches {got}, expected {expect}")
+    extra = ""
     if cl.device.type == "cuda":
         launches[fold] += got["scan_agg_fold"]
         launches["mesh_combine"] += got["mesh_combine"]
+        if run_kind == "warm":
+            d2h = mesh_d2h_copies(cl, sql)
+            if d2h != 1:
+                raise AssertionError(f"phase 9 {qname} warm: {d2h} "
+                                     "device-to-host copies, not 1")
+            single = SINGLE_STREAM_WARM_S.get(qname)
+            extra = (f"; device-to-host copies per query (torch.profiler) "
+                     f"{d2h}; warm, the median of {WARM_REPEATS} more runs: "
+                     f"here {median_warm_s(cl, sql):.4f} s, phase 4's "
+                     f"{qname} on the single stream "
+                     + ("not run" if single is None else f"{single:.4f} s"))
     say(f"phase 9 {qname} {run_kind} at {n_rows} rows on a "
         f"{MESH_MEMBERS}-member mesh of the card: {len(r.rows)} rows equal "
         f"the numpy oracle in {dt:.4f} s ({n_rows / dt:.1f} rows/s); "
@@ -3956,7 +4103,29 @@ def run_mesh_query(cl, qname: str, sql: str, want: list, n_rows: int,
         f"({MESH_MEMBERS} a round), mesh_combine launches "
         f"{got['mesh_combine']}, h2d_bytes {pl.get('h2d_bytes', 0)}, "
         f"host_decode_ms {pl.get('host_decode_ms', 0)}, device_ms "
-        f"{pl.get('device_ms', 0)} ({card})")
+        f"{pl.get('device_ms', 0)}{extra} ({card})")
+
+
+def mesh_d2h_copies(cl, sql: str) -> int:
+    """Device-to-host copies of one more run of ``sql`` (torch.profiler;
+    up to PROFILE_TRIES sessions, until one records the run's kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    pause = PROFILE_PAUSE_S
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pause)
+            cl.execute(sql)
+            torch.cuda.synchronize()
+            time.sleep(pause)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any("mc_kernel" in k for k in names):
+            return sum(1 for k in names if "DtoH" in k)
+        pause = PROFILE_RETRY_PAUSE_S
+    raise AssertionError("phase 9: torch.profiler recorded no combine in "
+                         f"{PROFILE_TRIES} runs")
 
 
 def run_join_query(cl, qname: str, sql: str, want: list, run_kind: str,

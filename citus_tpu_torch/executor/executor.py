@@ -485,10 +485,29 @@ def _book_mesh_round(buf: list, nb: int, task_bytes: list) -> None:
         task_bytes.append((mb.shard_index, share + (rem if i == 0 else 0)))
 
 
+def mesh_layout(plan: PhysicalPlan, n: int):
+    """-> (the plan's ``RegisterLayout`` over ``n`` members, its seed
+    arena's bytes: ``_empty_partials`` packed), cached on the plan."""
+    key = ("mesh_layout", n)
+    hit = plan.runtime_cache.get(key)
+    if hit is None:
+        import torch
+        from citus_tpu_torch.parallel.mesh import RegisterLayout
+        seeds = _empty_partials(plan, np)
+        layout = RegisterLayout(
+            combine_kinds(plan),
+            [torch.from_numpy(np.asarray(s)).dtype for s in seeds],
+            [np.shape(s) for s in seeds], n)
+        hit = (layout, torch.from_numpy(layout.pack(seeds)))
+        plan.runtime_cache[key] = hit
+    return hit
+
+
 def _mesh_folds(plan: PhysicalPlan, mesh, params):
     """-> (``launch(m, db)`` folding a device batch into member m's
-    registers, the members' registers).  Each member's registers are a
-    fresh allocation on its device; its parameters ride each launch's
+    registers, the plan's ``RegisterLayout``, the members' register
+    arenas).  Each member's registers are one fresh allocation on its
+    device, the layout's views of it; its parameters ride each launch's
     parameter block (replicated, as the reference's ``p_stack``)."""
     from citus_tpu_torch.ops.xp_torch import TorchNamespace
     from citus_tpu_torch.parallel.mesh import on_member, shard_axis_size
@@ -500,23 +519,25 @@ def _mesh_folds(plan: PhysicalPlan, mesh, params):
             lambda dev=dev: build_fused_worker_fn(
                 plan, TorchNamespace(dev), _param_dtypes(plan, params)),
             extra=(str(dev),))
+    layout, seed = mesh_layout(plan, shard_axis_size(mesh))
     # one host-to-device copy of the seeds per device; the other
     # members on it start from device-side clones, before any fold
     seeds: dict = {}
-    accs = []
+    arenas = []
     for m in range(shard_axis_size(mesh)):
         dev = mesh.device_of(m)
         if dev in seeds:
-            accs.append(tuple(t.clone() for t in seeds[dev]))
+            arenas.append(seeds[dev].clone())
         else:
-            seeds[dev] = empty_device_partials(plan, dev)
-            accs.append(seeds[dev])
+            seeds[dev] = seed.to(dev, copy=True)
+            arenas.append(seeds[dev])
+    accs = [layout.views(a) for a in arenas]
 
     def launch(m, db):
         dev = mesh.device_of(m)
         with on_member(dev):
             folds[dev](accs[m], db.cols, db.valids, db.row_mask, penv)
-    return launch, accs
+    return launch, layout, arenas
 
 
 def _run_partials_mesh(cat: Catalog, plan: PhysicalPlan, settings: Settings,
@@ -527,16 +548,18 @@ def _run_partials_mesh(cat: Catalog, plan: PhysicalPlan, settings: Settings,
     more padded host batches, lazily) go in rounds of one per member, or
     ``cached_rounds``, the mesh cache entry, replays its rounds (each
     member's device batches); each member folds
-    into its own registers, and one ``mesh_combine`` gives the
-    partials.  A streamed scan is kept for the cache while its working
+    into its own registers, and one ``mesh_combine_arenas`` gives the
+    partials in one allocation, copied to the host in one copy.  A streamed scan is kept for the cache while its working
     set fits; past it, at most ``depth`` rounds stay un-synced."""
     from citus_tpu_torch.executor.device_cache import GLOBAL_CACHE
     from citus_tpu_torch.executor.pipeline import (
         prefetch_batches, read_ahead_depth,
     )
-    from citus_tpu_torch.parallel.mesh import mesh_combine, shard_axis_size
+    from citus_tpu_torch.parallel.mesh import (
+        mesh_combine_arenas, shard_axis_size,
+    )
     n_dev = shard_axis_size(mesh)
-    launch, accs = _mesh_folds(plan, mesh, params)
+    launch, layout, arenas = _mesh_folds(plan, mesh, params)
     devices = list(dict.fromkeys(mesh.devices))
     rounds = 0
     if cached_rounds is not None:
@@ -594,8 +617,9 @@ def _run_partials_mesh(cat: Catalog, plan: PhysicalPlan, settings: Settings,
         plan.runtime_cache["task_bytes"] = task_bytes
         pstats.publish(plan)
     t_dev = clock()
-    partials = tuple(p.cpu().numpy() for p in mesh_combine(
-        combine_kinds(plan), [tuple(a) for a in accs]))
+    # one combine into one output allocation, one copy to the host
+    partials = layout.host_outputs(
+        mesh_combine_arenas(layout, arenas).cpu().numpy())
     pstats.device_s += clock() - t_dev
     GLOBAL_COUNTERS.bump("fused_dispatches", rounds * n_dev)
     pl = plan.runtime_cache.setdefault("pipeline", {})

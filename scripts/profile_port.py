@@ -31,8 +31,9 @@ folds (so that no case is timed while the card's clocks ramp up), that
 chip_smoke.py's phase-3 cases of scan_agg_fold, scan_agg_fold_batched
 (sketch families too), exchange_blocks, hash_agg_insert,
 hash_agg_merge, hash_agg_insert_batched, sorted_join, filter_mask,
-filter_mask_batched and pack_blocks, each held against its plain
-version and timed as phase 3 times it (skipped with ``--no-checks``);
+filter_mask_batched, pack_blocks, mesh_combine and rollup_delta, each
+held against its plain version and timed as phase 3 times it (skipped
+with ``--no-checks``);
 then, for each case, its device time a call (torch.profiler, the mean
 of KERNEL_REPS calls, host time apart; a call that updates a hash
 table in place runs on a fresh copy each time, whose copy is profiled
@@ -46,7 +47,13 @@ SF1, many-to-many and one skewed gid, the one-query predicate (B4) of
 P1, Q6 and C1 over every node kind, the batched predicate (B5a) of the
 Q6, Q1, H, P and C1all families at Q = 8, and the partition (B7) of
 QJOIN's lineitem and orders_b sides (n_dev = 1), lineitem to 8
-destinations, overflowing, and one member of phase 9's mesh to 4.
+destinations, overflowing, and one member of phase 9's mesh to 4; the
+combine (B6) of Q1's, S1's and a G = 65,536 fold's registers over 4
+members, each member's registers separate tensors; the rollup delta
+fold (B9) of each of its six kinds at n = 65,536 and 2^23 into 16,384
+groups, the wrapper's call (tables allocated and filled, then the
+fold), and its yardstick, one ``index_add_`` of the 2^23 rows into a
+table of top-k's size.
 ``--cases B4,B7`` keeps the cases whose names start so.  The inputs of
 the cases that the tree's chip_smoke.py may lack (the clustered insert,
 the sort join's, predicate and partition cases) come from this
@@ -135,7 +142,10 @@ def kernels(root: str, no_checks: bool = False, only=()) -> int:
     from citus_tpu_torch.ops.filter_mask import (
         filter_mask, filter_mask_batched,
     )
+    from citus_tpu_torch.parallel.mesh import mesh_combine
     from citus_tpu_torch.parallel.shuffle import pack_blocks, sorted_join
+    from citus_tpu_torch.rollup import kernels as rollup_kernels
+    from citus_tpu_torch.rollup.kernels import rollup_delta
     device = torch.device("cuda", 0)
     card = cs.card_line()
     package = os.path.dirname(ctt.__file__)
@@ -160,7 +170,7 @@ def kernels(root: str, no_checks: bool = False, only=()) -> int:
     jobs += [cuda_build.start_generated("filter_mask", src)
              for src in dict.fromkeys(preds)]
     cuda_build.build_all(["hash_agg_merge", "sorted_join", "partition_pack",
-                          "mesh_exchange"])
+                          "mesh_exchange", "mesh_combine", "rollup_delta"])
     for job in jobs:
         cuda_build.finish_generated(job)
     cl, _ = cs.load_lineitem(ctt, os.path.join(tmp, "sf"), cs.SF1_ROWS)
@@ -186,6 +196,8 @@ def kernels(root: str, no_checks: bool = False, only=()) -> int:
         cs.phase3_filter(device, plans, rows)
         cs.phase3_batched_filter(device, plans, rows)
         cs.phase3_partition_pack(device, cs.SF1_ROWS, rows, sides)
+        cs.phase3_mesh_combine(device, plans, splans, rows)
+        cs.phase3_rollup_delta(device, rows)
 
     def fold(kernel, call):
         kc = cs.clone_call(call)
@@ -240,11 +252,40 @@ def kernels(root: str, no_checks: bool = False, only=()) -> int:
     for name, args in here.partition_cases(device, sides):
         cases[f"B7 {name}"] = ((lambda a=args: pack_blocks(*a)), None,
                                ("partition_pack", None))
+    for name, call, empty in (
+            ("Q1", folds["q1"], -1), ("S1", splans["s1_call"], -1),
+            ("G=65,536", cs.synthetic_global_case(device, cs.FOLD_N, 65_536,
+                                                  3, False), 2)):
+        kinds, members = here.member_registers(call, here.MESH_MEMBERS,
+                                               empty)
+        cases[f"B6 {name}"] = (
+            (lambda k=kinds, m=members: mesh_combine(k, m)), None,
+            ("mesh_combine", None))
+    groups = rollup_kernels._pad_to(here.SUPPLIERS)
+    for n in here.ROLLUP_BATCHES:
+        batch = here.rollup_batch(device, n, 31 + n)
+        for kind, args in batch.items():
+            cases[f"B9 {kind} n={n}"] = (
+                (lambda a=args, k=kind: rollup_delta(k, *a, groups)), None,
+                ("rollup_delta", None))
+    # the topk fold's yardstick: one index_add_ of the backfill batch's
+    # ok rows into a [G * TOPK_M] int64 table allocated beforehand
+    _, g, ok = batch["topk"]
+    m = rollup_kernels.TOPK_M
+    flat = torch.zeros(groups * m, dtype=torch.int64, device=device)
+    idx = g.to(torch.int64) * m + batch["topk"][0] % m
+    src = ok.to(torch.int64)
+    cases[f"B9 yardstick topk n={n}"] = (
+        (lambda: flat.index_add_(0, idx, src)), None, None)
     if only:
         cases = {k: v for k, v in cases.items()
                  if any(k.startswith(o) for o in only)}
     device_ms, wrapper_ms, by_kernel = {}, {}, {}
     for name, (fn, reset, source) in cases.items():
+        if reset is not None:
+            reset()
+        fn()  # built, loaded and allocated before the profiled calls
+        torch.cuda.synchronize()
         per = device_profile(fn, reset, KERNEL_REPS)
         device_ms[name] = sum(ms for ms, _ in per.values()) or None
         wrapper_ms[name] = cs.time_cuda_fresh(fn, reset or (lambda: None))

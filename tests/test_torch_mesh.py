@@ -176,6 +176,112 @@ def test_combine_of_every_position_at_once_matches_reference():
         _assert_combined(k, g.numpy(), w)
 
 
+def _layout_case(n):
+    """Q1's positions and a sketch's, a none position, and registers
+    whose ends are off the 16-byte vectors: (kinds, [member registers])
+    of n members, numpy-made."""
+    shapes = [((12,), np.int64, "sum"), ((12,), np.float64, "sum"),
+              ((), np.int64, "sum"), ((13,), np.float64, "min"),
+              ((7,), np.int32, "max"), ((128,), np.int32, "max"),
+              ((3,), np.float32, "min"), ((5,), np.int64, "none"),
+              ((), np.float64, "max"), ((2048,), np.int64, "sum")]
+    kinds = [k for _, _, k in shapes]
+    stacks = [_members(k, d, shp, seed=i)[:n]
+              for i, (shp, d, k) in enumerate(shapes)]
+    return kinds, stacks
+
+
+def test_register_layout_is_one_allocation_a_member():
+    """Each position a view of one member's arena at a 16-byte aligned
+    offset; the output one allocation, a none position [n, ...] in it;
+    packed seeds, views and host outputs agree."""
+    kinds, stacks = _layout_case(N_DEV)
+    regs = [tuple(torch.from_numpy(np.array(s[m])) for s in stacks)
+            for m in range(N_DEV)]
+    layout = pmesh.RegisterLayout(kinds, [r.dtype for r in regs[0]],
+                                  [r.shape for r in regs[0]], N_DEV)
+    assert all(o % 16 == 0 for o in layout.in_offsets + layout.out_offsets)
+    arena = torch.from_numpy(layout.pack([r.numpy() for r in regs[0]]))
+    assert arena.dtype == torch.uint8 and arena.shape == (layout.nbytes,)
+    base = arena.data_ptr()
+    for v, r, o in zip(layout.views(arena), regs[0], layout.in_offsets):
+        assert v.data_ptr() == base + o and v.shape == r.shape
+        assert torch.equal(v.nan_to_num(), r.nan_to_num())
+    out = torch.zeros(layout.out_nbytes, dtype=torch.uint8)
+    views = layout.out_views(out)
+    assert views[kinds.index("none")].shape == (N_DEV, 5)
+    for v in views:
+        v.fill_(3)
+    for h, v in zip(layout.host_outputs(out.numpy()), views):
+        assert h.shape == tuple(v.shape) and (h == 3).all()
+        assert np.shares_memory(h, out.numpy())
+
+
+def test_combine_of_arenas_matches_reference():
+    """``mesh_combine_arenas`` over 8 members' arenas on the CPU: every
+    position as the reference's sharded_partial_agg gives it, the output
+    one allocation split by the layout."""
+    kinds, stacks = _layout_case(N_DEV)
+    want = _ref_combine(kinds, stacks)
+    regs = [tuple(torch.from_numpy(np.array(s[m])) for s in stacks)
+            for m in range(N_DEV)]
+    layout = pmesh.RegisterLayout(kinds, [r.dtype for r in regs[0]],
+                                  [r.shape for r in regs[0]], N_DEV)
+    arenas = [torch.from_numpy(layout.pack([r.numpy() for r in m]))
+              for m in regs]
+    out = pmesh.mesh_combine_arenas(layout, arenas)
+    assert out.shape == (layout.out_nbytes,)
+    for k, g, w in zip(kinds, layout.host_outputs(out.numpy()), want):
+        _assert_combined(k, g, w)
+
+
+def test_general_layouts_are_cached_by_register_shapes():
+    """``mesh_combine``'s layout is built once per kinds, members and
+    register shapes; more positions than the old 24 a launch fit one
+    parameter block, and a block too large for one launch is refused."""
+    kinds = ["sum"] * 48
+    regs = [tuple(torch.zeros(12, dtype=torch.int64) for _ in kinds)
+            for _ in range(16)]
+    a = pmesh._layout_of(kinds, regs)
+    assert pmesh._layout_of(kinds, regs) is a
+    assert a.general_words.shape[0] == pmesh._HEADER_WORDS + 48 * (4 + 16)
+    with pytest.raises(ValueError):
+        pmesh.RegisterLayout(["sum"] * 400, [torch.int64] * 400,
+                             [(1,)] * 400, 16)
+
+
+def test_general_parameter_block_has_a_pointer_a_position_and_member(
+        monkeypatch):
+    """``mesh_combine``'s general path (registers as separate tensors):
+    the parameter block is the layout's segment table, then member m's
+    pointer of position i at [i][m]; a position with a register off the
+    16-byte vectors loses its aligned flag; the output is one
+    allocation, every position a view of it."""
+    seen = []
+    monkeypatch.setattr(pmesh, "_launch_words",
+                        lambda words, dev: seen.append(words.copy()))
+    kinds = ["sum", "max", "none"]
+    members = [(torch.zeros(12, dtype=torch.int64),
+                torch.zeros(13, dtype=torch.int32)[1:],   # 4 bytes in
+                torch.zeros((), dtype=torch.float64)) for _ in range(3)]
+    out = pmesh._combine_launch(kinds, members)
+    (words,) = seen
+    layout = pmesh._layout_of(kinds, members)
+    h, p, n = pmesh._HEADER_WORDS, 3, 3
+    assert words[0] == n | p << 32 and words[1] & 1 == 1
+    table = words[h + 4 * p:].reshape(p, n)
+    for i in range(p):
+        assert list(table[i]) == [m[i].data_ptr() for m in members]
+    # position 1: a register 4 bytes into its buffer; position 2: a none
+    # position whose member rows are 8 bytes, off the vectors
+    aligned = [bool(words[h + 4 * i] & pmesh._ALIGNED) for i in range(p)]
+    assert aligned == [True, False, False]
+    assert out[2].shape == (3,) and out[0].shape == (12,)
+    assert len({o.untyped_storage().data_ptr() for o in out}) == 1
+    assert words[2] == out[0].untyped_storage().data_ptr()
+    assert layout.out_nbytes == 96 + 48 + 32
+
+
 def test_combine_takes_the_first_members_order_for_float_sums():
     """Member order, member 0 first: the result is one fixed
     left-to-right sum, whatever the run."""
@@ -470,6 +576,55 @@ def test_mesh_combines_once_per_query(pair, monkeypatch):
     assert calls == [N_DEV, N_DEV]
 
 
+#: more partial positions than the parent's 24 a launch: 5 columns x
+#: sum, min, max, count, min and max of a date, the group row counts
+WIDE = ("SELECT l_returnflag, " + ", ".join(
+    f"sum({c}), min({c}), max({c}), count({c})"
+    for c in ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
+              "l_orderkey")) + ", min(l_shipdate), max(l_shipdate) "
+    "FROM lineitem "
+    "GROUP BY l_returnflag ORDER BY l_returnflag")
+
+
+def test_plan_caches_its_register_layout(pair, monkeypatch):
+    """A plan of more than 24 positions over 8 members: rows identical
+    to the reference's; the layout (its segment table) is built once for
+    the plan and reused warm; each member's registers are views of one
+    arena; one combine a query, whose output is split on the host."""
+    ref, port = pair
+    built, arenas_seen, split = [], [], []
+    real_init = pmesh.RegisterLayout.__init__
+    real_combine = pmesh.mesh_combine_arenas
+    real_host = pmesh.RegisterLayout.host_outputs
+
+    def init(self, kinds, *a, **k):
+        built.append(len(kinds))
+        real_init(self, kinds, *a, **k)
+
+    def combine(layout, arenas):
+        arenas_seen.append((layout, list(arenas)))
+        return real_combine(layout, arenas)
+
+    def host(self, out):
+        split.append(out.shape)
+        return real_host(self, out)
+    monkeypatch.setattr(pmesh.RegisterLayout, "__init__", init)
+    monkeypatch.setattr(pmesh.RegisterLayout, "host_outputs", host)
+    monkeypatch.setattr(pmesh, "mesh_combine_arenas", combine)
+    GLOBAL_CACHE.clear()
+    want = ref.execute(WIDE).rows
+    for _ in range(2):                       # cold, then warm
+        assert_same_rows(port.execute(WIDE).rows, want)
+    assert len(built) == 1 and built[0] > 24
+    assert len(arenas_seen) == 2 and arenas_seen[0][0] is arenas_seen[1][0]
+    layout, arenas = arenas_seen[1]
+    assert len(arenas) == N_DEV
+    assert all(a.dtype == torch.uint8 and a.shape == (layout.nbytes,)
+               for a in arenas)
+    assert len({a.data_ptr() for a in arenas}) == N_DEV
+    assert split == [(layout.out_nbytes,)] * 2
+
+
 def test_one_member_mesh_takes_the_single_stream(tmp_path):
     """A Cluster whose mesh has one member runs today's single stream:
     one fold per batch, no mesh round, no combine."""
@@ -523,6 +678,8 @@ def test_chip_smoke_phase3_mesh_helpers_rehearse_on_cpu(tmp_path,
     card): the members' registers fold, the blocks pack, the plain
     versions agree with themselves, and the JSON rows carry every key."""
     monkeypatch.setattr(chip_smoke, "time_cuda", lambda fn, **kw: 0.0)
+    monkeypatch.setattr(chip_smoke, "device_time",
+                        lambda fn, **kw: (fn(), (None, {}))[1])
     monkeypatch.setattr(chip_smoke, "FOLD_N", 4096)
     dev = torch.device("cpu")
     rows: list = []

@@ -4,10 +4,12 @@ versions, and a Cluster whose mesh has four members on one card against
 its own ``cpu`` backend.
 
 - ``mesh_combine``: every kind (sum, min, max, none) and register dtype
-  (int64, float64, int32, float32), 0-d and vector registers, NaN, +-inf, +-0.0
-  and a member that saw no row, 1 to 16 members, and more positions
-  than one launch takes (48: two launches): identical bits, NaN where
-  the plain version has NaN;
+  (int64, float64, int32, float32), 0-d and vector registers, registers
+  whose ends are off the 16-byte vectors, NaN, +-inf, +-0.0 and a member
+  that saw no row, 1, 2, 3, 4 and 16 members, 64 positions in one launch,
+  from separate tensors (views one element into their buffers too) and
+  from one allocation a member (``mesh_combine_arenas``, the executor's
+  call): identical bits, NaN where the plain version has NaN;
 - ``exchange_blocks``: 1, 4 and 16 members, columns of 1, 4 and 8 bytes,
   capacities 16 does not divide (and QJOIN's at SF1, 376,388), more
   columns than one launch takes (26): identical outputs, one launch per
@@ -16,14 +18,17 @@ its own ``cpu`` backend.
 - Q1 and Q6 over 13 shards (four rounds of four members, the last one
   partial) and a repartition join, on a 4-member mesh of the card: rows
   equal to the numpy backend's, one fold per member per round, one
-  combine per query, and per device join step 8 packs, 2 exchanges of
-  one launch, 4 sort-joins and the overflow's combine.
+  combine and one device-to-host copy per query, and per device join
+  step 8 packs, 2 exchanges of one launch, 4 sort-joins and the
+  overflow's combine.
 
 The kernels have no CPU mode: these tests need a card and skip without
 one.  This module imports no JAX, so it runs on a machine without the
 JAX package, past the suite's ``conftest.py``:
 ``python -m pytest --noconftest tests/test_torch_mesh_card.py``.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -78,29 +83,67 @@ def _same(g, w):
     assert torch.equal(g, w)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 4, 16])
-def test_combine_kernel_matches_plain_on_card(card, n):
-    rng = np.random.default_rng(n)
+def _positions(n, rng):
+    """64 positions: every kind, dtype and shape, n members' registers
+    (numpy) of each."""
     kinds, stacks = [], []
     for kind in ("sum", "min", "max", "none"):
         for dtype in (np.int64, np.float64, np.int32, np.float32):
-            for shape in ((), (12,), (65_536,)):
+            for shape in ((), (12,), (13,), (65_539,)):
                 kinds.append(kind)
                 stacks.append(_register(kind, dtype, shape, n, rng,
                                         n // 2 if n > 1 else None))
+    return kinds, stacks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 16])
+def test_combine_kernel_matches_plain_on_card(card, n):
+    rng = np.random.default_rng(n)
+    kinds, stacks = _positions(n, rng)
     members = [tuple(torch.from_numpy(np.array(s[m])).to(card)
                      for s in stacks) for m in range(n)]
     pmesh.mesh_combine.launches = 0
     got = pmesh.mesh_combine(kinds, members)
     torch.cuda.synchronize()
-    # 48 positions: two launches of 24
-    assert pmesh.mesh_combine.launches == 2
+    # 64 positions: one launch
+    assert pmesh.mesh_combine.launches == 1
     want = pmesh.mesh_combine_plain(kinds, members)
     for g, w in zip(got, want):
         if g.dim() == 0:
             g, w = g.reshape(1), w.reshape(1)
         _same(g, w)
+    assert len({g.untyped_storage().data_ptr() for g in got}) == 1
+    # registers one element into their buffers: no 16-byte vectors
+    odd = [tuple(torch.cat([r.reshape(-1)[:1], r.reshape(-1)])[1:]
+                 .view(r.shape) for r in m) for m in members]
+    for g, w in zip(pmesh.mesh_combine(kinds, odd), want):
+        _same(g.reshape(-1), w.reshape(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 16])
+def test_combine_of_arenas_matches_plain_on_card(card, n):
+    """The executor's call: each member's registers one allocation, one
+    launch into one output allocation."""
+    rng = np.random.default_rng(100 + n)
+    kinds, stacks = _positions(n, rng)
+    members = [tuple(torch.from_numpy(np.array(s[m])).to(card)
+                     for s in stacks) for m in range(n)]
+    layout = pmesh.RegisterLayout(kinds, [r.dtype for r in members[0]],
+                                  [r.shape for r in members[0]], n)
+    arenas = [torch.from_numpy(layout.pack([r.cpu().numpy() for r in m]))
+              .to(card) for m in members]
+    pmesh.mesh_combine.launches = 0
+    out = pmesh.mesh_combine_arenas(layout, arenas)
+    torch.cuda.synchronize()
+    assert pmesh.mesh_combine.launches == 1
+    want = pmesh.mesh_combine_plain(kinds, members)
+    for g, h, w in zip(layout.out_views(out),
+                       layout.host_outputs(out.cpu().numpy()), want):
+        _same(g.reshape(-1), w.reshape(-1))
+        _same(torch.from_numpy(np.ascontiguousarray(h)).reshape(-1),
+              w.cpu().reshape(-1))
 
 
 @pytest.mark.cuda
@@ -219,6 +262,23 @@ def test_four_member_mesh_aggregate_on_card(mesh_cluster, sql):
         assert pl["mesh_members"] == N_MEMBERS and pl["mesh_rounds"] == 4
         assert scan_agg_fold.launches == 4 * N_MEMBERS
         assert pmesh.mesh_combine.launches == 1
+    # warm: the combined registers come to the host in one copy (a
+    # profiler session may lose its record: up to 3 sessions, until one
+    # records the combine)
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.5)
+            cl.execute(sql)
+            torch.cuda.synchronize()
+            time.sleep(0.5)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any("mc_kernel" in k for k in names):
+            break
+    else:
+        pytest.fail("torch.profiler recorded no combine in 3 sessions")
+    assert sum("DtoH" in k for k in names) == 1
 
 
 @pytest.mark.cuda

@@ -18,8 +18,13 @@ with ``device="cpu"`` (the rollup kernel's plain version):
   six kinds, with G not a power of two, n = 1 and an all-false ``ok``;
 - a rollup created by ``citus_tpu`` in a data directory is refreshed by
   ``citus_tpu_torch`` in the same directory, and the reverse: the state
-  carries across.
-``test_rollup_delta_matches_plain_on_card`` needs a card and skips here.
+  carries across;
+- top-k's table as one record a cell with strided (counts, values)
+  views and one host copy, the regime's choice and its bounds, the
+  batch staged as views of one buffer.
+``test_rollup_delta_matches_plain_on_card`` needs a card and skips here
+(``tests/test_torch_rollup_card.py`` holds the kernel on the card without
+JAX).
 """
 
 import os
@@ -291,6 +296,72 @@ def test_plain_delta_partials_match_reference(kind, n, groups, all_false):
             assert (p == empty[i]).all()
 
 
+def test_topk_table_is_one_record_a_cell():
+    """rollup_delta's top-k pair: strided views of one [G, M, 2] int64
+    record table (count, then the maximum value, adjacent), equal to the
+    reference's two tables; delta_partials copies the record once and
+    returns its host views."""
+    g, ok, v = _delta_inputs("topk", 3000, 37, 5)
+    gp = kernels._pad_to(37)
+    counts, vals = kernels.rollup_delta(
+        "topk", torch.from_numpy(v.astype(np.int64)),
+        torch.from_numpy(g.astype(np.int32)), torch.from_numpy(ok), gp)
+    assert counts.shape == vals.shape == (gp, kernels.TOPK_M)
+    assert counts.stride() == vals.stride() == (2 * kernels.TOPK_M, 2)
+    assert vals.data_ptr() == counts.data_ptr() + 8
+    assert counts.untyped_storage().data_ptr() \
+        == vals.untyped_storage().data_ptr()
+    want_c, want_v = ref_kernels.delta_partials("topk", g, ok, 37, v)
+    np.testing.assert_array_equal(counts.numpy()[:37], want_c)
+    np.testing.assert_array_equal(vals.numpy()[:37], want_v)
+    hc, hv = kernels.delta_partials("topk", g, ok, 37, v, device="cpu")
+    assert hv.ctypes.data == hc.ctypes.data + 8 and hc.strides[1] == 16
+    np.testing.assert_array_equal(hc, want_c)
+    np.testing.assert_array_equal(hv, want_v)
+
+
+@pytest.mark.parametrize("n,groups,private", [
+    (32 * 16_384 - 1, 16_384, False), (32 * 16_384, 16_384, True),
+    (1 << 30, 16_385, False)])
+@pytest.mark.parametrize("kind", list(kernels.KINDS))
+def test_regime_at_its_bounds(kind, n, groups, private):
+    """The privatized regime starts at PRIVATE_MIN_ROWS_PER_GROUP rows a
+    group and stops past PRIVATE_MAX_GROUPS groups (the most a block's
+    shared memory holds), for count and sums only."""
+    want = private and kind in kernels.PRIVATE_KINDS
+    assert kernels.regime(kind, n, groups) == ("private" if want
+                                               else "direct")
+
+
+def test_regime_takes_the_privatized_table_for_a_backfill():
+    """Count and sums of a backfill batch (2^23 rows into 16,384
+    groups) fold in shared memory; a refresh batch, the sketch kinds and
+    tables past a block's shared memory take global atomics."""
+    G = kernels._pad_to(10_000)
+    for kind in kernels.KINDS:
+        assert kernels.regime(kind, 65_536, G) == "direct"
+        assert kernels.regime(kind, 1 << 23, G) == (
+            "private" if kind in kernels.PRIVATE_KINDS
+            else "direct")
+    assert kernels.regime("count", 1 << 30, 2 * G) == "direct"
+
+
+def test_delta_batch_is_staged_in_one_buffer():
+    """delta_partials' padded batch: values, group ids and ok flags are
+    views of one buffer (on a card, one pinned host-to-device copy)."""
+    g, ok, v = _delta_inputs("sum_int", 1000, 37, 3)
+    vals, tg, tok = kernels._staged("sum_int", g, ok, v, 1000, 1024,
+                                    torch.device("cpu"))
+    base = vals.untyped_storage().data_ptr()
+    assert tg.untyped_storage().data_ptr() == tok.untyped_storage(
+        ).data_ptr() == base
+    assert (vals.shape, tg.shape, tok.shape) == ((1024,),) * 3
+    assert tg.data_ptr() - base == 8 * 1024 and tg.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(vals.numpy()[:1000], v)
+    np.testing.assert_array_equal(tg.numpy()[:1000], g)
+    assert not tok.numpy()[1000:].any()
+
+
 def test_rollup_delta_refuses_bad_inputs():
     g = torch.zeros(4, dtype=torch.int32)
     ok = torch.ones(4, dtype=torch.bool)
@@ -304,11 +375,12 @@ def test_rollup_delta_refuses_bad_inputs():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [65_536, 65_531, 1_000_003, 1 << 23])
 @pytest.mark.parametrize("kind", list(kernels.KINDS))
-def test_rollup_delta_matches_plain_on_card(kind):
+def test_rollup_delta_matches_plain_on_card(kind, n):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
-    n, groups = 65536, 10_000
+    groups = 10_000
     g, ok, v = _delta_inputs(kind, n, groups, 7)
     dev = torch.device("cuda")
     tg = torch.from_numpy(g.astype(np.int32)).to(dev)
@@ -318,6 +390,8 @@ def test_rollup_delta_matches_plain_on_card(kind):
     launches = kernels.rollup_delta.launches
     got = kernels.rollup_delta(kind, tv, tg, tok, kernels._pad_to(groups))
     assert kernels.rollup_delta.launches == launches + 1
+    assert kernels.rollup_delta.last_regime == kernels.regime(
+        kind, n, kernels._pad_to(groups))
     out, out2 = kernels._tables(kind, kernels._pad_to(groups), dev)
     kernels.rollup_delta_plain(kind, tv, tg, tok, out, out2)
     got = got if isinstance(got, tuple) else (got,)
