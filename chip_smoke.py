@@ -208,7 +208,22 @@ result line:
    SF1 through the device join over the 4 members (``partition_pack``
    8 times, ``exchange_blocks`` twice (one launch an exchange on the
    one card),
-   ``sorted_join`` 4, ``mesh_combine`` once for the overflow).
+   ``sorted_join`` 4, ``mesh_combine`` once for the overflow);
+10. the rest of SELECT on phase 4's SF1 lineitem (run right after phase
+   8; its ``l_suppkey``, 10,000 suppliers, from a random stream of its
+   own): TPC-H Q15 in its two-CTE form (no supplier table, so no
+   supplier join), an IN-subquery drill-down (its key count printed), a
+   window over an aggregate, Q1's ROLLUP, INTERSECT and EXCEPT of two
+   months' suppliers, DISTINCT ON, a derived table and a recursive CTE
+   of 100 steps, each cold and 5 times warm, its rows equal to the
+   port's numpy ``cpu`` backend's on the same tables (Q15's also to
+   numpy's), no nvcc build in the warm runs, no kernel but the port's
+   in one more warm run (torch.profiler); the allocated device memory
+   before and after 20 more warm runs of Q15 must not grow; then Q6
+   with ``$1..$5`` under phase 5's 8 value sets through ``execute(sql,
+   params)`` and through PREPARE / EXECUTE / DEALLOCATE: rows equal to
+   the literal Q6's and the oracle's, 1 plan-cache miss and 15 hits, no
+   nvcc build after the first execution.
 
 Then a JSON line of the kernels, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -332,11 +347,112 @@ def families() -> dict:
                                      ("Q1", "direct", q1))}
 
 
+# phase 10: the rest of SELECT over phase 4's lineitem.  TPC-H Q15 in
+# its two-CTE form (the supplier join dropped: there is no supplier
+# table), an IN-subquery drill-down, a window over an aggregate, Q1's
+# ROLLUP, INTERSECT and EXCEPT, DISTINCT ON, a derived table, a
+# recursive CTE of 100 steps, and Q6 with $1..$5
+Q15 = """WITH revenue AS (
+  SELECT l_suppkey AS supplier_no,
+    sum(l_extendedprice * (1 - l_discount)) AS total_revenue
+  FROM lineitem
+  WHERE l_shipdate >= date '1996-01-01' AND l_shipdate < date '1996-04-01'
+  GROUP BY l_suppkey),
+mx AS (SELECT max(total_revenue) AS max_revenue FROM revenue)
+SELECT supplier_no, total_revenue FROM revenue JOIN mx
+  ON total_revenue = max_revenue ORDER BY supplier_no"""
+
+
+def _between_days(lo, hi) -> str:
+    return (f"l_shipdate >= date '{'%d-%02d-%02d' % lo}' "
+            f"AND l_shipdate < date '{'%d-%02d-%02d' % hi}'")
+
+
+#: the month and the threshold of phase 10's IN-subquery: at SF1 the
+#: subquery keeps the suppliers with more than this quantity shipped
+#: in June 1995, a few hundred at most (ROADMAP.md C11: a few hundred
+#: more and the IN list's OR chain overflows the binder's recursion)
+IN_MONTH = ((1995, 6, 1), (1995, 7, 1))
+IN_THRESHOLD = 400
+
+
+def in_subquery(threshold: int = IN_THRESHOLD) -> str:
+    """The IN-subquery of ``in_drilldown`` alone (its keys are counted)."""
+    return (f"SELECT l_suppkey FROM lineitem WHERE {_between_days(*IN_MONTH)}"
+            f" GROUP BY l_suppkey HAVING sum(l_quantity) > {threshold}")
+
+
+def in_drilldown(threshold: int = IN_THRESHOLD) -> str:
+    return ("SELECT l_returnflag, count(*), sum(l_extendedprice) "
+            f"FROM lineitem\nWHERE l_suppkey IN ({in_subquery(threshold)})\n"
+            "GROUP BY l_returnflag ORDER BY l_returnflag")
+
+
+WINDOW_RANK = """SELECT l_suppkey, sum(l_extendedprice) AS revenue,
+  rank() OVER (ORDER BY sum(l_extendedprice) DESC) AS rnk
+FROM lineitem GROUP BY l_suppkey ORDER BY rnk, l_suppkey LIMIT 10"""
+
+Q1_ROLLUP = """SELECT l_returnflag, l_linestatus,
+  sum(l_quantity) AS sum_qty, sum(l_extendedprice) AS sum_base_price,
+  count(*) AS count_order
+FROM lineitem WHERE l_shipdate <= date '1998-12-01' - interval '90' day
+GROUP BY ROLLUP (l_returnflag, l_linestatus)
+ORDER BY l_returnflag NULLS LAST, l_linestatus NULLS LAST"""
+
+FIRST_MONTH = ((1992, 1, 1), (1992, 2, 1))
+LAST_MONTH = ((1998, 11, 1), (1998, 12, 1))
+
+
+def month_setop(op: str) -> str:
+    return (f"SELECT l_suppkey FROM lineitem WHERE "
+            f"{_between_days(*FIRST_MONTH)}\n{op}\n"
+            f"SELECT l_suppkey FROM lineitem WHERE "
+            f"{_between_days(*LAST_MONTH)}\nORDER BY l_suppkey")
+
+
+DISTINCT_ON = ("SELECT DISTINCT ON (l_returnflag) l_returnflag, "
+               "l_extendedprice, l_orderkey FROM lineitem\nWHERE "
+               f"{_between_days(*LAST_MONTH)}\n"
+               "ORDER BY l_returnflag, l_extendedprice DESC, l_orderkey")
+
+DERIVED = """SELECT count(*), max(total) FROM (
+  SELECT l_suppkey, sum(l_quantity) AS total FROM lineitem
+  GROUP BY l_suppkey) t"""
+
+RECURSIVE_STEPS = 100
+RECURSIVE = (f"WITH RECURSIVE s(n) AS (SELECT 1 UNION ALL SELECT n + 1 "
+             f"FROM s WHERE n < {RECURSIVE_STEPS}) "
+             "SELECT count(*), sum(n), max(n) FROM s")
+
+Q6_PARAM = """SELECT sum(l_extendedprice * l_discount) AS revenue
+FROM lineitem
+WHERE l_shipdate >= $1 AND l_shipdate < $2
+  AND l_discount BETWEEN $3 AND $4 AND l_quantity < $5"""
+
+
+def q6_params(i: int) -> list:
+    """Phase 5's i-th Q6 variant (``families``) as Q6_PARAM's values."""
+    year, disc, qty = 1993 + i % 5, 2 + i, 24 + i % 2
+    return [datetime.date(year, 1, 1), datetime.date(year + 1, 1, 1),
+            decimal.Decimal(f"0.{disc - 1:02d}"),
+            decimal.Decimal(f"0.{disc + 1:02d}"), qty]
+
+
+def phase10_queries(threshold: int = IN_THRESHOLD) -> list:
+    """(label, SQL) of phase 10's queries (a)-(h)."""
+    return [("a Q15", Q15), ("b IN-subquery", in_drilldown(threshold)),
+            ("c window", WINDOW_RANK), ("d ROLLUP", Q1_ROLLUP),
+            ("e INTERSECT", month_setop("INTERSECT")),
+            ("e EXCEPT", month_setop("EXCEPT")),
+            ("f DISTINCT ON", DISTINCT_ON), ("g derived", DERIVED),
+            ("h recursive", RECURSIVE)]
+
+
 LINEITEM_DDL = """CREATE TABLE lineitem (
         l_orderkey bigint NOT NULL, l_quantity decimal(12,2),
         l_extendedprice decimal(12,2), l_discount decimal(12,2),
         l_tax decimal(12,2), l_returnflag text, l_linestatus text,
-        l_shipdate date)"""
+        l_shipdate date, l_suppkey bigint)"""
 
 RF = np.array(["A", "N", "R"])
 LS = np.array(["F", "O"])
@@ -356,6 +472,9 @@ def lineitem_chunks(n_rows: int):
     """bench.py's ensure_data generator (seed 7, 1M-row chunks), as the
     integer arrays it draws: cents, flag indexes, day numbers."""
     rng = np.random.default_rng(7)
+    # l_suppkey (phase 10) from a stream of its own: bench.py's columns
+    # keep their values
+    srng = np.random.default_rng(8)
     chunk = 1_000_000
     for start in range(0, n_rows, chunk):
         n = min(chunk, n_rows - start)
@@ -368,6 +487,7 @@ def lineitem_chunks(n_rows: int):
             "rf": rng.integers(0, 3, n),
             "ls": rng.integers(0, 2, n),
             "ship": (rng.integers(0, 2526, n) + 8036).astype(np.int32),
+            "suppkey": srng.integers(1, SUPPLIERS + 1, n),
         }
 
 
@@ -382,6 +502,7 @@ def copy_columns(c: dict) -> dict:
         "l_returnflag": RF[c["rf"]].tolist(),
         "l_linestatus": LS[c["ls"]].tolist(),
         "l_shipdate": c["ship"],
+        "l_suppkey": c["suppkey"],
     }
 
 
@@ -461,6 +582,18 @@ def oracle_h2(cols: dict, lo: int = None, hi: int = None) -> list[tuple]:
               * (100 - cols["disc"][keep]))
     order = np.lexsort((keys, -rev))[:10]
     return [(int(keys[i]), _dec(rev[i], 4)) for i in order]
+
+
+def oracle_q15(cols: dict) -> list[tuple]:
+    """Phase 10's Q15: the suppliers of the largest revenue of ship days
+    [1996-01-01, 1996-04-01)."""
+    keep = ((cols["ship"] >= _day(1996, 1, 1))
+            & (cols["ship"] < _day(1996, 4, 1)))
+    rev = np.zeros(SUPPLIERS + 1, np.int64)
+    np.add.at(rev, cols["suppkey"][keep], cols["price"][keep].astype(np.int64)
+              * (100 - cols["disc"][keep]))
+    top = rev.max()
+    return [(int(s), _dec(top, 4)) for s in np.nonzero(rev == top)[0]]
 
 
 def oracle_p1(cols: dict, day: int = 1) -> list[tuple]:
@@ -985,6 +1118,53 @@ def generated_programs(plans, splans, tmp: str) -> list:
     rplan, rkd = r1_plan("cpu", os.path.join(tmp, "phase2"))
     progs.append(FoldProgram.of_plan(rplan, {}, rkd))
     return progs
+
+
+def phase10_sources(tmp: str) -> list:
+    """(build, source) of each generated kernel phase 10's queries
+    launch, recorded from the programs they hand the kernels' wrappers
+    on a CPU cluster over 20,000 generated lineitem rows (the plain
+    versions run there), so that phase 2 builds them with the rest.  The
+    IN-subquery's drill-down is missing: its IN list, and so its
+    source, depends on the rows."""
+    import citus_tpu_torch as ctt
+    from citus_tpu_torch.ops import filter_mask as fm
+    from citus_tpu_torch.ops import hash_agg_insert as hi
+    from citus_tpu_torch.ops import scan_agg_fold as saf
+    seen = {}
+
+    def recording(module, name, build, source):
+        plain = getattr(module, name)
+
+        def record(prog, *args, **kw):
+            seen.setdefault(source(prog), build(prog))
+            return plain(prog, *args, **kw)
+        setattr(module, name, record)
+        return module, name, plain
+
+    cl = ctt.Cluster(os.path.join(tmp, "phase10"), device="cpu")
+    patched = [
+        recording(saf, "fold_plain", lambda p: saf.FOLD_BUILD,
+                  lambda p: p.row.source),
+        recording(hi, "insert_plain", lambda p: hi.INSERT_BUILD,
+                  lambda p: p.row.source),
+        recording(fm, "filter_mask_plain", lambda p: "filter_mask",
+                  lambda p: p.predicate.source)]
+    try:
+        cl.execute(LINEITEM_DDL)
+        cl.execute("SELECT create_distributed_table('lineitem', "
+                   f"'l_orderkey', {SHARDS})")
+        cl.copy_from("lineitem",
+                     columns=copy_columns(next(lineitem_chunks(20_000))))
+        cl.execute("SET citus.hash_agg_slots = auto")
+        for _, sql in phase10_queries():
+            cl.execute(sql)
+        cl.execute(Q6_PARAM, params=q6_params(0))
+    finally:
+        for module, name, plain in patched:
+            setattr(module, name, plain)
+        cl.close()
+    return [(build, src) for src, build in seen.items()]
 
 
 def family_plans(cl, fams: dict = None) -> dict:
@@ -1808,8 +1988,9 @@ PORT_KERNELS = ("fold_shared_q", "fold_global_q", "hash_insert", "fm_kernel",
                 "pp_fill", "sorted_join", "mc_kernel")
 
 
-def device_kernels(cl, sql: str, pause: float = PROFILE_PAUSE_S) -> tuple:
-    """The card's work for one more run of ``sql``, from torch.profiler's
+def device_kernels(cl, sql, pause: float = PROFILE_PAUSE_S) -> tuple:
+    """The card's work for one more run of ``sql`` (SQL text, or a
+    callable that runs the query), from torch.profiler's
     CUDA activity, the session idling ``pause`` s at each end: -> (the
     port's kernels, other kernels, copies and sets, {name: count} of the
     other kernels, the port's launches the wrappers counted in that run,
@@ -1827,7 +2008,7 @@ def device_kernels(cl, sql: str, pause: float = PROFILE_PAUSE_S) -> tuple:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(pause)
-        cl.execute(sql)
+        sql() if callable(sql) else cl.execute(sql)
         torch.cuda.synchronize()
         time.sleep(pause)
     session_ms = (time.perf_counter() - t0) * 1e3
@@ -1854,7 +2035,7 @@ def device_kernels(cl, sql: str, pause: float = PROFILE_PAUSE_S) -> tuple:
     return port, other, copies, dict(names), launched, where
 
 
-def profiled_kernels(cl, qname: str, sql: str) -> tuple:
+def profiled_kernels(cl, qname: str, sql, phase: str = "phase 4") -> tuple:
     """``device_kernels`` of the first of up to PROFILE_TRIES profiled
     runs whose record holds every kernel of the port that its wrappers
     launched.  The profiler loses all or part of a session's device
@@ -1871,7 +2052,7 @@ def profiled_kernels(cl, qname: str, sql: str) -> tuple:
             cl, sql, pause)
         if port >= launched:
             return port, other, copies, names, tries, where
-        say(f"phase 4 {qname} warm: profiled run {tries} recorded {port} "
+        say(f"{phase} {qname} warm: profiled run {tries} recorded {port} "
             f"of the port's {launched} kernels, {other} other, {copies} "
             f"copies and sets; {where}")
         pause = PROFILE_RETRY_PAUSE_S
@@ -4287,6 +4468,261 @@ def run_join_phase(ctt, cl, cols: dict, tmp: str, n_rows: int,
     return want
 
 
+# ------------------------------------------------------------- phase 10
+
+#: warm runs of each phase-10 query after its cold run, and the warm
+#: runs of Q15 between the two reads of the allocated device memory
+P10_WARM = 5
+P10_MEMORY_RUNS = 20
+
+
+def cpu_backend_rows(cl, sql: str, params=None) -> list:
+    """The rows of the port's numpy ``cpu`` backend on the same tables."""
+    cl.execute("SET citus.task_executor_backend = cpu")
+    try:
+        return cl.execute(sql, params=params).rows
+    finally:
+        cl.execute("SET citus.task_executor_backend = gpu")
+
+
+def same_rows(got: list, want: list) -> bool:
+    """Identical rows, floats within rel 1e-12 (an intermediate table
+    reorders rows, so a float sum may differ in its last bits)."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for a, b in zip(g, w):
+            if isinstance(a, float) and isinstance(b, float):
+                if not (a == b or abs(a - b) <= 1e-12 * max(abs(a), abs(b))
+                        or (a != a and b != b)):
+                    return False
+            elif type(a) is not type(b) or a != b:
+                return False
+    return True
+
+
+def phase10_run(cl, label: str, sql: str, want: list, launches: dict,
+                card: str) -> None:
+    """One phase-10 query cold, then P10_WARM times warm: rows equal
+    ``want`` every time, no nvcc build in the warm runs, a kernel of the
+    port launched in each.  Adds the launches of every run to
+    ``launches``."""
+    import torch
+    from citus_tpu_torch.ops import cuda_build
+    counters = launch_counters()
+    times, builds, warm_launches = [], [], {}
+    for i in range(1 + P10_WARM):
+        for f in counters.values():
+            f.launches = 0
+        b0 = cuda_build.BUILDS["count"]
+        t0 = time.perf_counter()
+        rows = cl.execute(sql).rows
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        builds.append(cuda_build.BUILDS["count"] - b0)
+        if not same_rows(rows, want):
+            raise AssertionError(
+                f"phase 10 {label} run {i}: rows differ from the cpu "
+                f"backend's:\n{rows[:10]}\n{want[:10]}")
+        warm_launches = {k: f.launches for k, f in counters.items()
+                         if f.launches}
+        for k, v in warm_launches.items():
+            launches[k] += v
+    if sum(builds[1:]):
+        raise AssertionError(f"phase 10 {label}: {builds[1:]} nvcc builds "
+                             "in the warm runs")
+    if not warm_launches:
+        raise AssertionError(f"phase 10 {label}: no kernel of the port "
+                             "launched in a warm run")
+    say(f"phase 10 {label}: {len(want)} rows equal the cpu backend's; cold "
+        f"{times[0]:.4f} s (nvcc builds {builds[0]}), warm median "
+        f"{float(np.median(times[1:])) * 1e3:.3f} ms of {P10_WARM} runs "
+        f"(nvcc builds 0); launches in one warm run {warm_launches} "
+        f"({card})")
+
+
+def profile_phase10(cl, runs: list, card: str) -> None:
+    """One more warm run of each phase-10 query, all in one
+    torch.profiler session idling PROFILE_RETRY_PAUSE_S at each end (a
+    session of one short query loses its device records late in a long
+    process, see ``profiled_kernels``), each query's device records
+    told apart by its window on the session's clock (a query ends
+    synchronized, and 50 ms pass before the next): the card must run
+    the port's kernels and no other.  The session runs again, up to 3
+    times, when its records lack kernels the wrappers launched.
+    ``runs``: (label, run the query)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    counters = launch_counters()
+    for attempt in range(1, 4):
+        before = sum(f.launches for f in counters.values())
+        windows = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_RETRY_PAUSE_S)
+            for label, run in runs:
+                start = (time.perf_counter() - t0) * 1e3
+                n0 = sum(f.launches for f in counters.values())
+                run()
+                torch.cuda.synchronize()
+                windows.append((label, start,
+                                (time.perf_counter() - t0) * 1e3,
+                                sum(f.launches for f in counters.values())
+                                - n0))
+                time.sleep(0.05)
+            time.sleep(PROFILE_RETRY_PAUSE_S)
+        launched = sum(f.launches for f in counters.values()) - before
+        seen = {label: [0, 0, 0, {}] for label, _ in runs}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            at = e.time_range.start / 1e3
+            label = next((w[0] for w in windows if w[1] <= at <= w[2]),
+                         None)
+            if label is None:
+                continue
+            rec = seen[label]
+            if e.name.lower().startswith(("memcpy", "memset")):
+                rec[2] += 1
+            elif any(k in e.name for k in PORT_KERNELS):
+                rec[0] += 1
+            else:
+                rec[1] += 1
+                rec[3][e.name] = rec[3].get(e.name, 0) + 1
+        if all(seen[label][0] >= n for label, _, _, n in windows):
+            break
+        say(f"phase 10 profiled session {attempt} recorded "
+            f"{sum(r[0] for r in seen.values())} of the port's {launched} "
+            f"kernels; once more")
+    else:
+        raise AssertionError("phase 10: torch.profiler recorded fewer "
+                             "kernels than were launched in 3 sessions")
+    for label, start, end, n in windows:
+        port, other, copies, names = seen[label]
+        say(f"phase 10 {label} warm under torch.profiler: {port} kernels of "
+            f"the port ({n} launched), {other} other, {copies} copies and "
+            f"sets in its {end - start:.3f} ms window (session {attempt}) "
+            f"({card})")
+        if other or port != n:
+            raise AssertionError(f"phase 10 {label} warm: the profiler saw "
+                                 f"{port} of the port's {n} kernels and "
+                                 f"{other} others {names}")
+
+
+def phase10_params(cl, cols: dict, launches: dict, card: str):
+    """Q6 with $1..$5 under phase 5's 8 value sets, through
+    ``execute(sql, params)`` and then PREPARE, 8 EXECUTEs and
+    DEALLOCATE: each set's rows equal the literal Q6's (on the card) and
+    the numpy oracle's; one plan-cache miss and 15 hits; no nvcc build
+    after the first execution.  -> a run of it to profile."""
+    import torch
+    from citus_tpu_torch.ops import cuda_build
+    sets = [q6_params(i) for i in range(Q_BATCH)]
+    wants = []
+    for i in range(Q_BATCH):
+        year, disc, qty = 1993 + i % 5, 2 + i, 24 + i % 2
+        want = oracle_q6(cols, year, disc, qty)
+        literal = cl.execute(q6_variant(year, disc, qty)).rows
+        if literal != want:
+            raise AssertionError(f"phase 10 i: the literal Q6 {i} gives "
+                                 f"{literal}, the oracle {want}")
+        wants.append(want)
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    c0 = cl.counters.snapshot()
+    session = cl.session()
+    times, builds = [], []
+    for way in ("execute", "prepare"):
+        if way == "prepare":
+            session.execute("PREPARE q6 (date, date, numeric, numeric, "
+                            f"bigint) AS {Q6_PARAM}")
+        for i, p in enumerate(sets):
+            b0 = cuda_build.BUILDS["count"]
+            t0 = time.perf_counter()
+            if way == "execute":
+                rows = cl.execute(Q6_PARAM, params=p).rows
+            else:
+                args = (f"date '{p[0]}', date '{p[1]}', {p[2]}, {p[3]}, "
+                        f"{p[4]}")
+                rows = session.execute(f"EXECUTE q6 ({args})").rows
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            builds.append(cuda_build.BUILDS["count"] - b0)
+            if rows != wants[i]:
+                raise AssertionError(
+                    f"phase 10 i {way} set {i}: {rows} != {wants[i]}")
+    session.execute("DEALLOCATE q6")
+    c1 = cl.counters.snapshot()
+    misses = c1.get("plan_cache_misses", 0) - c0.get("plan_cache_misses", 0)
+    hits = c1.get("plan_cache_hits", 0) - c0.get("plan_cache_hits", 0)
+    if (misses, hits) != (1, 2 * Q_BATCH - 1):
+        raise AssertionError(f"phase 10 i: {misses} plan-cache misses and "
+                             f"{hits} hits, not 1 and {2 * Q_BATCH - 1}")
+    if sum(builds[1:]):
+        raise AssertionError(f"phase 10 i: nvcc builds after the first "
+                             f"execution: {builds}")
+    got = {k: f.launches for k, f in counters.items() if f.launches}
+    for k, v in got.items():
+        launches[k] += v
+    say(f"phase 10 i Q6 $1..$5: {2 * Q_BATCH} executions (8 through "
+        f"execute(sql, params), 8 through PREPARE/EXECUTE) equal the "
+        f"literal Q6 and the numpy oracle; plan cache {misses} miss, "
+        f"{hits} hits; first execution {times[0]:.4f} s (nvcc builds "
+        f"{builds[0]}), the other {len(times) - 1} median "
+        f"{float(np.median(times[1:])) * 1e3:.3f} ms (nvcc builds 0); "
+        f"launches {got} ({card})")
+    return lambda: cl.execute(Q6_PARAM, params=sets[-1])
+
+
+def run_phase10(cl, cols: dict, launches: dict, card: str) -> None:
+    """The rest of SELECT on phase 4's SF1 lineitem, on the card: the
+    queries of ``phase10_queries``, each against the cpu backend (Q15
+    also against numpy), the allocated device memory around 20 more
+    warm runs of Q15, the parameterized Q6, then one more warm run of
+    each under torch.profiler."""
+    import torch
+    t_phase = time.perf_counter()
+    cl.execute("SET citus.megabatch_window_ms = 0")
+    keys = len(cl.execute(in_subquery()).rows)
+    say(f"phase 10 b: the IN-subquery returns {keys} keys (suppliers with "
+        f"more than {IN_THRESHOLD} shipped in June 1995)")
+    runs = []
+    for label, sql in phase10_queries():
+        t0 = time.perf_counter()
+        want = cpu_backend_rows(cl, sql)
+        cpu_s = time.perf_counter() - t0
+        if label.startswith("a "):
+            oracle = oracle_q15(cols)
+            if want != oracle:
+                raise AssertionError(f"phase 10 Q15: the cpu backend gives "
+                                     f"{want}, numpy {oracle}")
+        say(f"phase 10 {label}: the cpu backend's rows in {cpu_s:.4f} s")
+        phase10_run(cl, label, sql, want, launches, card)
+        runs.append((label, lambda sql=sql: cl.execute(sql)))
+    before = torch.cuda.memory_allocated()
+    for _ in range(P10_MEMORY_RUNS):
+        cl.execute(Q15)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    leftovers = [n for n in cl.catalog.tables if n.startswith("__")]
+    if after > before or leftovers:
+        raise AssertionError(f"phase 10 Q15: allocated device memory "
+                             f"{before} -> {after} B over "
+                             f"{P10_MEMORY_RUNS} warm runs; tables left "
+                             f"{leftovers}")
+    say(f"phase 10 a Q15: torch.cuda.memory_allocated() {before} B before "
+        f"and {after} B after {P10_MEMORY_RUNS} more warm runs, no "
+        f"intermediate table left ({card})")
+    runs.append(("i Q6 $1..$5", phase10_params(cl, cols, launches, card)))
+    profile_phase10(cl, runs, card)
+    say(f"phase 10 took {time.perf_counter() - t_phase:.3f} s ({card})")
+
+
 def run(args) -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -4300,6 +4736,11 @@ def run(args) -> dict:
     from citus_tpu_torch.ops.scan_agg_fold import (
         FOLD_BUILD, fold_library, scan_agg_fold,
     )
+
+    t_run = time.perf_counter()
+
+    def elapsed(after: str) -> None:
+        say(f"elapsed after {after}: {time.perf_counter() - t_run:.1f} s")
 
     # ---- phase 1: card and versions
     card = card_line()
@@ -4371,6 +4812,17 @@ def run(args) -> dict:
             if "registers" in line or "spill" in line or "error" in line:
                 say(f"phase 2 ptxas Q1 fold: {line.strip()}")
 
+        # phase 10's generated kernels, but those built above, build
+        # while phase 4's lineitem loads (host work): one nvcc each,
+        # started together, all finished before phase 3
+        known = set(fold_sources) | {("filter_mask", src) for src in sources}
+        p10 = [b for b in phase10_sources(tmp)
+               if b not in known and b[1] != q1_fold.row.source]
+        t0 = time.perf_counter()
+        p10_jobs = [cuda_build.start_generated(name, src)
+                    for name, src in p10]
+
+        elapsed("phase 2")
         # ---- phase 3: kernel vs plain version at the main path's shapes
         n_rows = args.rows
         if n_rows != SF1_ROWS:
@@ -4378,6 +4830,12 @@ def run(args) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
         hits0 = GLOBAL_CACHE.hits
         cl, cols = load_lineitem(ctt, os.path.join(tmp, "sf"), n_rows)
+        t1 = time.perf_counter()
+        for job in p10_jobs:
+            cuda_build.finish_generated(job)
+        say(f"phase 2 build of phase 10's {len(p10)} generated kernels, "
+            f"during the load: {time.perf_counter() - t0:.3f} s, "
+            f"{time.perf_counter() - t1:.3f} s of it after the load")
         kernel_rows: list = []
         phase3_fold(device, plans, kernel_rows)
         phase3_hash(device, cl, kernel_rows)
@@ -4394,6 +4852,7 @@ def run(args) -> dict:
         phase3_mesh_combine(device, plans, splans, kernel_rows)
         phase3_mesh_exchange(device, kernel_rows, sides)
         del sides
+        elapsed("phase 3")
         launches = dict.fromkeys(launch_counters(), 0)
         launches.update({"scan_agg_fold[sketch]": 0,
                          "scan_agg_fold_batched[sketch]": 0})
@@ -4420,12 +4879,18 @@ def run(args) -> dict:
         for run_kind in ("cold", "warm"):
             launches["filter_mask"] += run_checked(
                 cl, "P1", P1, want_p1, n_rows, run_kind, "filter_mask")
+        elapsed("phase 4 at SF1")
         # ---- phase 5: literal families coalesced, on the SF1 lineitem
         for name in ("Q6", "H", "P"):
             phase5(cl, name, cols, n_rows)
+        elapsed("phase 5 at SF1")
         # ---- phase 8: joins on the SF1 lineitem, and C1's projections
         qjoin_want = run_join_phase(ctt, cl, cols, tmp, n_rows, launches,
                                     card)
+        elapsed("phase 8")
+        # ---- phase 10: the rest of SELECT on the SF1 lineitem
+        run_phase10(cl, cols, launches, card)
+        elapsed("phase 10")
         # ---- phase 9: Q6 and QJOIN over a mesh of MESH_MEMBERS members
         # on the card, a second Cluster over the same SF1 tables
         mcl = mesh_cluster(ctt, os.path.join(tmp, "sf"), device)
@@ -4478,10 +4943,13 @@ def run(args) -> dict:
         finally:
             mcl.close()
         cl.close()
+        elapsed("phases 9 and 4-5 of Q1")
         # ---- phases 4-6 of the sketch aggregates and rollups
         run_sketch_phases(ctt, tmp, n_rows, launches, card)
+        elapsed("phases 4-6 of the sketch table")
         # ---- phase 7: two coordinators on the card
         run_pair_phase(ctt, tmp, n_rows, launches, card)
+        elapsed("phase 7")
         say(f"phase 4 device cache hits {GLOBAL_CACHE.hits - hits0}, "
             f"peak device memory {torch.cuda.max_memory_allocated(device)} B")
     finally:

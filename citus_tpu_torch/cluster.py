@@ -8,16 +8,20 @@ reference exposes as UDFs (create_distributed_table, ...) are available
 both as Python methods and through their SQL spellings
 (``SELECT create_distributed_table('t','col')``).
 
-This port carries the first slices of the JAX package's surface: CREATE
+This port carries these slices of the JAX package's surface: CREATE
 TABLE / DROP TABLE, create_distributed_table, COPY (``copy_from``),
-INSERT ... VALUES with ON CONFLICT, UPDATE, DELETE, TRUNCATE,
-BEGIN/COMMIT/ROLLBACK and savepoints (``session()``), single-table
-SELECT with aggregates in every group mode (scalar, direct and hash,
-sketch aggregates included) and without them (filtered projections,
-DISTINCT), with ORDER BY / LIMIT on the result, EXPLAIN, change data
-capture and CDC-fed rollups (``rollup/``), and several coordinators
-over RPC (``serve_port``/``coordinator``/``data_port``/``hosted_nodes``:
-a query pushes its worker half to the coordinator owning each remote
+INSERT ... VALUES with ON CONFLICT, UPDATE, DELETE (with subqueries),
+TRUNCATE, BEGIN/COMMIT/ROLLBACK and savepoints (``session()``), SELECT
+with aggregates in every group mode (scalar, direct and hash, sketch
+aggregates included) and without them (filtered projections,
+DISTINCT), joins, WITH and WITH RECURSIVE, UNION / INTERSECT / EXCEPT,
+derived tables, scalar / IN / EXISTS subqueries (correlated ones
+decorrelated), DISTINCT ON, window functions, GROUPING SETS / ROLLUP /
+CUBE, SELECT without FROM, ``unnest``, ``execute(sql, params)`` and
+PREPARE / EXECUTE / DEALLOCATE, EXPLAIN, change data capture and
+CDC-fed rollups (``rollup/``), and several coordinators over RPC
+(``serve_port``/``coordinator``/``data_port``/``hosted_nodes``: a
+query pushes its worker half to the coordinator owning each remote
 shard, COPY routes rows to their owners, DDL goes through the metadata
 authority).  Everything else raises UnsupportedFeatureError naming its
 ROADMAP.md item.  A data
@@ -32,7 +36,8 @@ from typing import Any, Iterable, Optional, Sequence
 from citus_tpu_torch.catalog import Catalog
 from citus_tpu_torch.config import Settings, current_settings
 from citus_tpu_torch.errors import (
-    AnalysisError, TransactionError, UnsupportedFeatureError,
+    AnalysisError, CatalogError, ExecutionError, TransactionError,
+    UnsupportedFeatureError,
 )
 from citus_tpu_torch.executor import Result, execute_select
 from citus_tpu_torch.ingest import TableIngestor, encode_columns, rows_to_columns
@@ -60,6 +65,141 @@ def resolve_device(device=None):
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _has_derived(item) -> bool:
+    if isinstance(item, (A.SubqueryRef, A.FunctionRef)):
+        return True
+    if isinstance(item, A.Join):
+        return _has_derived(item.left) or _has_derived(item.right)
+    return False
+
+
+def _func_names(node) -> set:
+    """Names of every function a statement calls, anywhere in it (the
+    test for SQL functions the catalog holds, which are not ported)."""
+    import dataclasses
+    out: set = set()
+
+    def walk(x):
+        if isinstance(x, A.FuncCall):
+            out.add(x.name)
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                walk(y)
+
+    walk(node)
+    return out
+
+
+def _srf_result(name: str, args, alias) -> "Result":
+    """Evaluate a set-returning FROM function to rows (reference:
+    PostgreSQL SRFs; only constant arguments are supported since the
+    call is unlateral)."""
+    vals = [_eval_const(a) for a in args]
+    if name == "generate_series":
+        if len(vals) not in (2, 3):
+            raise AnalysisError(
+                "generate_series(start, stop [, step]) expects 2 or 3 "
+                "arguments")
+        if any(v is None for v in vals):
+            # PostgreSQL: a NULL bound yields zero rows
+            return Result(columns=[alias or "generate_series"], rows=[])
+        import decimal as _dec
+        import math as _math
+        numeric = False
+        for v in vals:
+            if isinstance(v, bool) \
+                    or not isinstance(v, (int, float, _dec.Decimal)):
+                raise AnalysisError(
+                    "generate_series requires numeric bounds "
+                    f"(got {v!r}); timestamp series are not supported")
+            if (isinstance(v, float) and not _math.isfinite(v)) \
+                    or (isinstance(v, _dec.Decimal) and not v.is_finite()):
+                raise AnalysisError(
+                    "generate_series bound cannot be infinity or NaN")
+            if not isinstance(v, int):
+                # PostgreSQL: any numeric argument makes the whole
+                # series numeric (2.0..4.0 -> 2.0, 3.0, 4.0)
+                numeric = True
+        if numeric:
+            # PostgreSQL numeric generate_series(1.1, 4.0, 1.3) ->
+            # 1.1, 2.4, 3.7 — exact decimal stepping
+            start = _dec.Decimal(str(vals[0]))
+            stop = _dec.Decimal(str(vals[1]))
+            step = _dec.Decimal(str(vals[2])) if len(vals) > 2 \
+                else _dec.Decimal(1)
+            if step == 0:
+                raise ExecutionError("step size cannot equal zero")
+            rows = []
+            v = start
+            while (v <= stop) if step > 0 else (v >= stop):
+                rows.append((v,))
+                v += step
+            return Result(columns=[alias or "generate_series"], rows=rows)
+        start, stop = int(vals[0]), int(vals[1])
+        step = int(vals[2]) if len(vals) > 2 else 1
+        if step == 0:
+            raise ExecutionError("step size cannot equal zero")
+        end = stop + (1 if step > 0 else -1)
+        rows = [(v,) for v in range(start, end, step)]
+        return Result(columns=[alias or "generate_series"], rows=rows)
+    if name == "unnest":
+        # reference: unnest(anyarray) SRF — one row per element
+        if len(vals) != 1:
+            raise AnalysisError("unnest(array) expects one argument")
+        arr = vals[0]
+        if arr is None:
+            return Result(columns=[alias or "unnest"], rows=[])
+        if not isinstance(arr, (list, tuple)):
+            raise AnalysisError(f"unnest requires an array (got {arr!r})")
+        return Result(columns=[alias or "unnest"],
+                      rows=[(v,) for v in arr])
+    raise UnsupportedFeatureError(
+        f"set-returning function {name}() is not supported in FROM")
+
+
+def _max_param_index(stmt) -> int:
+    """Highest $N referenced anywhere in a SELECT (0 when none)."""
+    mx = 0
+
+    def visit(e):
+        nonlocal mx
+        if isinstance(e, A.Param):
+            mx = max(mx, e.index)
+        elif isinstance(e, A.BinOp):
+            visit(e.left), visit(e.right)
+        elif isinstance(e, A.UnOp):
+            visit(e.operand)
+        elif isinstance(e, A.Between):
+            visit(e.expr), visit(e.lo), visit(e.hi)
+        elif isinstance(e, A.InList):
+            visit(e.expr)
+            for it in e.items:
+                visit(it)
+        elif isinstance(e, (A.IsNull, A.Cast)):
+            visit(e.expr)
+        elif isinstance(e, A.CaseExpr):
+            for c, v in e.whens:
+                visit(c), visit(v)
+            if e.else_ is not None:
+                visit(e.else_)
+        elif isinstance(e, A.FuncCall):
+            for a in e.args:
+                visit(a)
+
+    for item in stmt.items:
+        visit(item.expr)
+    visit(stmt.where)
+    visit(stmt.having)
+    for g in stmt.group_by:
+        visit(g)
+    for o in stmt.order_by:
+        visit(o.expr)
+    return mx
 
 
 def _eval_const(e):
@@ -327,6 +467,141 @@ def _subst_excluded(e, excl: dict):
             filter=_subst_excluded(e.filter, excl)
             if e.filter is not None else None)
     return e
+
+
+def _replace_exprs(e, mapping: dict):
+    """Structural replacement of whole sub-expressions (used to NULL out
+    rolled-up grouping columns inside HAVING)."""
+    if e in mapping:
+        return mapping[e]
+    if isinstance(e, A.BinOp):
+        return A.BinOp(e.op, _replace_exprs(e.left, mapping),
+                       _replace_exprs(e.right, mapping))
+    if isinstance(e, A.UnOp):
+        return A.UnOp(e.op, _replace_exprs(e.operand, mapping))
+    if isinstance(e, A.Between):
+        return A.Between(_replace_exprs(e.expr, mapping),
+                         _replace_exprs(e.lo, mapping),
+                         _replace_exprs(e.hi, mapping), e.negated)
+    if isinstance(e, A.InList):
+        return A.InList(_replace_exprs(e.expr, mapping),
+                        tuple(_replace_exprs(i, mapping) for i in e.items),
+                        e.negated)
+    if isinstance(e, A.IsNull):
+        return A.IsNull(_replace_exprs(e.expr, mapping), e.negated)
+    if isinstance(e, A.Cast):
+        return A.Cast(_replace_exprs(e.expr, mapping), e.type_name, e.type_args)
+    if isinstance(e, A.CaseExpr):
+        return A.CaseExpr(tuple((_replace_exprs(c, mapping),
+                                 _replace_exprs(v, mapping))
+                                for c, v in e.whens),
+                          _replace_exprs(e.else_, mapping)
+                          if e.else_ is not None else None)
+    if isinstance(e, A.FuncCall):
+        import dataclasses
+        return dataclasses.replace(
+            e, args=tuple(_replace_exprs(a, mapping) for a in e.args),
+            agg_order=tuple((_replace_exprs(oe, mapping), asc)
+                            for oe, asc in e.agg_order),
+            filter=_replace_exprs(e.filter, mapping)
+            if e.filter is not None else None)
+    return e
+
+
+def _sort_rows(rows, names, order_by):
+    """ORDER BY over materialized rows: items resolve by output position
+    or output column name (PostgreSQL's rule for set operations)."""
+    for oi in reversed(order_by):
+        idx = None
+        if isinstance(oi.expr, A.Literal) and isinstance(oi.expr.value, int):
+            idx = oi.expr.value - 1
+        elif isinstance(oi.expr, A.ColumnRef) and oi.expr.table is None \
+                and oi.expr.name in names:
+            idx = names.index(oi.expr.name)
+        if idx is None or not (0 <= idx < len(names)):
+            raise AnalysisError(
+                "ORDER BY on a set operation must reference an output "
+                "column name or position")
+        nf = oi.nulls_first if oi.nulls_first is not None else (not oi.ascending)
+        nulls = [x for x in rows if x[idx] is None]
+        vals = [x for x in rows if x[idx] is not None]
+        vals.sort(key=lambda x, j=idx: x[j], reverse=not oi.ascending)
+        rows = (nulls + vals) if nf else (vals + nulls)
+    return rows
+
+
+def _from_relations_scope(node) -> set:
+    """Relations referenced inside one WITH scope (CTE bodies + body)."""
+    inner: set = set()
+    for _n, sub in node.ctes:
+        inner |= _from_relations(sub)
+    inner |= _from_relations(node.body)
+    return inner
+
+
+def _from_relations(s) -> set:
+    """Relation names referenced in FROM clauses (incl. joins, derived
+    tables, set-op arms): a recursive CTE's self-reference, and the
+    tables a statement reads for the guards of ``_execute_stmt_inner``.
+    Subqueries in expressions are not walked (ROADMAP.md C10)."""
+    out: set = set()
+
+    def from_item(item):
+        if isinstance(item, A.TableRef):
+            out.add(item.name)
+        elif isinstance(item, A.Join):
+            from_item(item.left)
+            from_item(item.right)
+        elif isinstance(item, A.SubqueryRef):
+            walk(item.select)
+
+    def walk(node):
+        if isinstance(node, A.SetOp):
+            walk(node.left)
+            walk(node.right)
+        elif isinstance(node, A.WithSelect):
+            cte_names = {n for n, _ in node.ctes}
+            inner = _from_relations_scope(node)
+            out.update(inner - cte_names)
+        elif isinstance(node, A.Select) and node.from_ is not None:
+            from_item(node.from_)
+
+    walk(s)
+    return out
+
+
+def _infer_column_type(vals):
+    """Fallback type inference for intermediate results whose planner
+    types are unknown (e.g. window outputs): first non-NULL value wins;
+    decimals take the column's max scale."""
+    import datetime as _dt
+    import decimal as _dec
+    from citus_tpu_torch import types as T
+    kind = None
+    max_scale = 0
+    for v in vals:
+        if v is None:
+            continue
+        if isinstance(v, bool):
+            return T.BOOL_T
+        if isinstance(v, _dec.Decimal):
+            kind = "decimal"
+            max_scale = max(max_scale, -v.as_tuple().exponent)
+        elif isinstance(v, float):
+            return T.FLOAT64_T
+        elif isinstance(v, int):
+            kind = kind or "int"
+        elif isinstance(v, str):
+            return T.TEXT_T
+        elif isinstance(v, _dt.datetime):
+            return T.TIMESTAMP_T
+        elif isinstance(v, _dt.date):
+            return T.DATE_T
+        else:
+            raise AnalysisError(f"cannot infer a column type from {v!r}")
+    if kind == "decimal":
+        return T.decimal_t(max(18, max_scale), max(max_scale, 0))
+    return T.INT64_T
 
 
 def resolve_mesh(device, mesh_devices=None):
@@ -809,6 +1084,8 @@ class Cluster:
                 tl.remove(name)  # PostgreSQL drops the table from pubs
         self.catalog.commit()
         self._plan_cache.invalidate_table(name)
+        from citus_tpu_torch.executor.device_cache import GLOBAL_CACHE
+        GLOBAL_CACHE.drop_table(self.catalog.data_dir, name)
 
     def _truncate_one(self, name: str) -> None:
         from citus_tpu_torch.executor.dml import execute_truncate
@@ -1067,7 +1344,8 @@ class Cluster:
 
     #: statement types allowed inside BEGIN..COMMIT (DDL stages in the
     #: in-memory catalog until COMMIT)
-    _TXN_ALLOWED = (A.Select, A.Explain, A.Insert, A.Update, A.Delete,
+    _TXN_ALLOWED = (A.Select, A.WithSelect, A.SetOp, A.Explain, A.Insert,
+                    A.Update, A.Delete,
                     A.CreateTable, A.DropTable, A.SetConfig, A.ShowConfig,
                     A.UtilityCall)
 
@@ -1241,8 +1519,9 @@ class Cluster:
 
     # -------------------------------------------------------------- SQL
     def execute(self, sql: str, params: Optional[Sequence[Any]] = None,
-                session=None) -> Result:
-        """Run one SQL string on ``session`` (default: this thread's).
+                role: Optional[str] = None, session=None) -> Result:
+        """Run one SQL string on ``session`` (default: this thread's),
+        ``$N`` placeholders taking ``params``.
         Safe to call from several threads at once: the plan cache, the
         counters, the device cache, the kernel builds and the launch
         counters are locked, and each statement keeps its own scan
@@ -1251,42 +1530,150 @@ class Cluster:
         (executor/megabatch.py).  Inside BEGIN..COMMIT a statement's
         writes stage under the transaction and its reads see them; an
         error aborts the block until ROLLBACK."""
-        if params:
-            _unported("parameterized execute()", "queue A")
+        if role is not None:
+            _unported("roles and row-level security (role=)", "A14")
         if session is None:
             session = self._default_session()
         result = Result(columns=[], rows=[])
         with _trace.span("parse"):
             stmts = parse_sql(sql)
         t0 = _trace.clock()
-        key = sql if len(stmts) == 1 else None
         for stmt in stmts:
             if isinstance(stmt, A.TransactionStmt):
                 result = self._execute_transaction_stmt(session, stmt)
                 continue
             txn = session.txn
-            if txn is None:
-                result = self._execute_stmt(stmt, key)
-                continue
-            if txn.failed:
+            if txn is not None and txn.failed:
                 from citus_tpu_torch.transaction.session import (
                     InFailedTransaction,
                 )
                 raise InFailedTransaction(
                     "current transaction is aborted, commands ignored "
                     "until end of transaction block")
+            if isinstance(stmt, (A.Prepare, A.ExecutePrepared,
+                                 A.Deallocate)):
+                try:
+                    result = self._execute_prepared_stmt(session, stmt)
+                except Exception:
+                    # PostgreSQL: any error aborts the block
+                    if txn is not None:
+                        txn.failed = True
+                    raise
+                continue
+            if txn is None:
+                result = self._execute_in_session(stmt, sql, stmts, params)
+                continue
             from citus_tpu_torch.storage.overlay import transaction_overlay
             try:
                 self._guard_in_txn(stmt)
                 with transaction_overlay(txn):
-                    result = self._execute_stmt(stmt, key)
+                    result = self._execute_in_session(stmt, sql, stmts,
+                                                      params)
             except Exception:
                 # PostgreSQL: any error aborts the transaction block
                 # until ROLLBACK [TO SAVEPOINT]
                 txn.failed = True
                 raise
-        self._record_statement(sql, result, _trace.clock() - t0)
+        # the nested execute() of an EXECUTE already recorded the
+        # underlying statement: the wrapper is not counted twice
+        if not (len(stmts) == 1 and isinstance(stmts[0], A.ExecutePrepared)):
+            self._record_statement(sql, result, _trace.clock() - t0)
         return result
+
+    def _execute_in_session(self, stmt, sql: str, stmts: list,
+                            params) -> Result:
+        """One statement through parameter substitution and plan-cache
+        keying.  A parameterized single SELECT takes the generic plan
+        (``_execute_param_select``); any other statement has its $N
+        replaced by literals (``rewrite_params``) and is not cached."""
+        if params is not None:
+            if len(stmts) == 1 and isinstance(stmt, A.Select):
+                r = self._execute_param_select(sql, stmt, list(params))
+                if r is not None:
+                    return r
+            from citus_tpu_torch.planner.recursive import rewrite_params
+            stmt = rewrite_params(stmt, list(params))
+        key = sql if (len(stmts) == 1 and params is None) else None
+        return self._execute_stmt(stmt, key)
+
+    def _execute_prepared_stmt(self, session, stmt) -> Result:
+        """PREPARE / EXECUTE / DEALLOCATE.  The stored unit is SQL text,
+        so EXECUTE rides the text-keyed generic-plan cache: one plan and
+        one kernel build serve every invocation."""
+        if isinstance(stmt, A.Prepare):
+            if stmt.name in session.prepared:
+                raise CatalogError(
+                    f'prepared statement "{stmt.name}" already exists')
+            session.prepared[stmt.name] = stmt.sql
+            return Result(columns=[], rows=[])
+        if isinstance(stmt, A.Deallocate):
+            if stmt.name is None:
+                session.prepared.clear()
+                return Result(columns=[], rows=[])
+            if session.prepared.pop(stmt.name, None) is None:
+                raise CatalogError(
+                    f'prepared statement "{stmt.name}" does not exist')
+            return Result(columns=[], rows=[])
+        sql = session.prepared.get(stmt.name)
+        if sql is None:
+            raise CatalogError(
+                f'prepared statement "{stmt.name}" does not exist')
+        args = [_eval_const(a) for a in stmt.args]
+        return self.execute(sql, params=args or None, session=session)
+
+    def _execute_param_select(self, sql: str, stmt: A.Select,
+                              params: list) -> Optional[Result]:
+        """A parameterized SELECT through the generic-plan cache: bound
+        once with $N slots under ``("$param", sql)``, shards pruned at
+        execution for each value set, the values in the kernels'
+        parameter block (so every value set shares one build).  None
+        when the query's shape needs the literal-substitution
+        fallback."""
+        from citus_tpu_torch.planner.recursive import has_subquery
+        if not isinstance(stmt.from_, A.TableRef):
+            return None
+        if self.catalog.has_table(stmt.from_.name) \
+                and self.catalog.table(stmt.from_.name).is_partitioned:
+            return None  # the fallback refuses it in _execute_stmt
+        if stmt.distinct_on:
+            return None  # DISTINCT ON dedups through _execute_distinct_on
+        if any(isinstance(i.expr, A.WindowCall) for i in stmt.items):
+            return None
+        exprs = ([i.expr for i in stmt.items] + [stmt.where, stmt.having]
+                 + list(stmt.group_by) + [o.expr for o in stmt.order_by])
+        if any(e is not None and has_subquery(e) for e in exprs):
+            return None
+        n_params = _max_param_index(stmt)
+        if n_params > len(params):
+            raise AnalysisError(
+                f"query references ${n_params} but only "
+                f"{len(params)} parameters were supplied")
+        key = ("$param", sql)
+        backend = self.settings.executor.task_executor_backend
+        cache_on = self.settings.planner.plan_cache_mode != "force_custom"
+        _trace.set_phase("plan")
+        if cache_on:
+            entry = self._plan_cache.lookup(key, self.catalog, backend)
+            if entry is not None:
+                self.counters.bump("plan_cache_hits")
+                return execute_select(self.catalog, entry.bound,
+                                      self.settings, plan=entry.plan,
+                                      param_values=params,
+                                      device=self.device, mesh=self.mesh)
+        try:
+            with _trace.span("bind"):
+                bound = bind_select(self.catalog, stmt, param_count=n_params)
+        except UnsupportedFeatureError:
+            return None  # fall back to literal substitution
+        from citus_tpu_torch.planner.physical import plan_select
+        plan = plan_select(self.catalog, bound,
+                           direct_limit=self.settings.planner.direct_gid_limit)
+        if cache_on:
+            self._plan_cache.put(key, bound, plan, self.catalog, backend)
+            self.counters.bump("plan_cache_misses")
+        return execute_select(self.catalog, bound, self.settings, plan=plan,
+                              param_values=params, device=self.device,
+                              mesh=self.mesh)
 
     def _record_statement(self, sql: str, result: Result,
                           elapsed: float) -> None:
@@ -1347,10 +1734,89 @@ class Cluster:
     # operates on OUR placements only and must never push again
     _remote_exec_guard = __import__("threading").local()
 
+    #: statement-recursion ceiling: subquery materialization and CTE
+    #: bodies re-enter _execute_stmt; a runaway nesting fails with an
+    #: AnalysisError instead of a raw RecursionError
+    _MAX_STMT_DEPTH = 64
+    _stmt_depth = __import__("threading").local()
+
     def _execute_stmt(self, stmt: A.Statement,
                       sql_text: Optional[str] = None) -> Result:
+        depth = getattr(self._stmt_depth, "v", 0)
+        if depth >= self._MAX_STMT_DEPTH:
+            raise AnalysisError(
+                f"query nesting too deep (more than {self._MAX_STMT_DEPTH} "
+                "nested statements)")
+        self._stmt_depth.v = depth + 1
+        try:
+            return self._execute_stmt_inner(stmt, sql_text)
+        finally:
+            self._stmt_depth.v = depth
+
+    def _execute_stmt_inner(self, stmt: A.Statement,
+                            sql_text: Optional[str] = None) -> Result:
+        """One statement, in the reference's order: WITH, set
+        operations, DISTINCT ON, SELECT without FROM, decorrelation,
+        derived tables, GROUPING SETS, windows, unnest, subqueries
+        materialized, DELETE/UPDATE subqueries, joins, single-table
+        SELECT; everything else through the handler registry."""
+        # SELECT machinery above the planner (imported here: it imports
+        # this module's helpers)
+        from citus_tpu_torch.commands import select_exec
+        if isinstance(stmt, (A.Select, A.SetOp, A.WithSelect)):
+            from citus_tpu_torch.storage.overlay import current_overlay
+            txn0 = current_overlay()
+            if txn0 is not None and txn0.remote_written_tables:
+                hit = _from_relations(stmt) & txn0.remote_written_tables
+                if hit:
+                    raise UnsupportedFeatureError(
+                        f"cannot read {sorted(hit)[0]!r} in this "
+                        "transaction after writing its remote-hosted "
+                        "shards (remote staged state is not visible "
+                        "here); COMMIT first")
+        if isinstance(stmt, A.WithSelect):
+            return select_exec._execute_with(self, stmt)
+        if isinstance(stmt, (A.Select, A.SetOp)) and self.catalog.functions \
+                and _func_names(stmt) & set(self.catalog.functions):
+            _unported("SQL functions (CREATE FUNCTION)", "A14")
+        if isinstance(stmt, A.SetOp):
+            return select_exec._execute_setop(self, stmt)
+        if isinstance(stmt, A.Select) and stmt.distinct_on:
+            return select_exec._execute_distinct_on(self, stmt)
+        if isinstance(stmt, A.Select) and stmt.from_ is None:
+            return select_exec._execute_constant_select(self, stmt)
         if isinstance(stmt, A.Select):
+            from citus_tpu_torch.planner.recursive import (
+                decorrelate_scalars, decorrelate_where,
+            )
+            stmt = decorrelate_scalars(stmt)
+            stmt = decorrelate_where(stmt)
+            rels = _from_relations(stmt)
+            if rels & set(self.catalog.views):
+                _unported("views (CREATE VIEW)", "A14")
+            if any(self.catalog.has_table(n)
+                   and self.catalog.table(n).is_partitioned for n in rels):
+                _unported("partitioned tables", "A11")
+            if _has_derived(stmt.from_):
+                return select_exec._execute_derived(self, stmt)
+            if len(stmt.group_by) == 1 \
+                    and isinstance(stmt.group_by[0], A.GroupingSetsSpec):
+                return select_exec._execute_grouping_sets(
+                    self, stmt, stmt.group_by[0].sets)
+            if any(isinstance(i.expr, A.WindowCall) for i in stmt.items):
+                return select_exec._execute_window(self, stmt)
+            if any(isinstance(i.expr, A.FuncCall) and i.expr.name == "unnest"
+                   for i in stmt.items):
+                return select_exec._execute_unnest(self, stmt)
+            # recursive planning: materialize subqueries first
+            from citus_tpu_torch.planner.recursive import rewrite_subqueries
+            new_stmt = rewrite_subqueries(
+                stmt, lambda sub: self._execute_stmt(sub))
+            if new_stmt is not stmt:
+                return self._execute_stmt(new_stmt)  # plans are not cached
             return self._execute_select(stmt, sql_text)
+        if isinstance(stmt, (A.Delete, A.Update)):
+            stmt = self._materialize_dml_subqueries(stmt)
         if isinstance(stmt, A.UtilityCall):
             from citus_tpu_torch.commands.utility import execute_utility
             return execute_utility(self, stmt)
@@ -1362,9 +1828,35 @@ class Cluster:
             return handler(self, stmt)
         _unported(type(stmt).__name__, "queue A")
 
+    def _materialize_dml_subqueries(self, stmt):
+        """DELETE's WHERE and UPDATE's assignments and WHERE with their
+        subqueries run first and replaced by their values, through a
+        FROM-less SELECT wrapper (the reference's recursive planning of
+        modifications)."""
+        import dataclasses
+
+        from citus_tpu_torch.planner.recursive import (
+            has_subquery, rewrite_subqueries,
+        )
+        assignments = getattr(stmt, "assignments", [])
+        exprs = [e for _, e in assignments] + \
+            ([stmt.where] if stmt.where is not None else [])
+        if not any(has_subquery(e) for e in exprs):
+            return stmt
+        items = [A.SelectItem(e) for _, e in assignments]
+        wrapped = A.Select(items or [A.SelectItem(A.Literal(1, "int"))],
+                           from_=None, where=stmt.where)
+        rew = rewrite_subqueries(wrapped, lambda sub: self._execute_stmt(sub))
+        if isinstance(stmt, A.Delete):
+            return dataclasses.replace(stmt, where=rew.where)
+        return dataclasses.replace(
+            stmt, where=rew.where,
+            assignments=[(c, it.expr) for (c, _), it
+                         in zip(assignments, rew.items)])
+
     def _execute_select(self, stmt: A.Select, sql_text) -> Result:
-        if stmt.from_ is None:
-            _unported("SELECT without FROM", "queue A")
+        """A SELECT with no subquery, derived table, window or grouping
+        set left: a join, or one table through the plan cache."""
         if isinstance(stmt.from_, A.Join):
             from citus_tpu_torch.executor.join_executor import (
                 execute_join_select,
@@ -1373,19 +1865,6 @@ class Cluster:
             bj = bind_join_select(self.catalog, stmt)
             return execute_join_select(self.catalog, bj, self.settings,
                                        device=self.device, mesh=self.mesh)
-        if not isinstance(stmt.from_, A.TableRef):
-            _unported("subqueries in FROM", "queue A")
-        if stmt.distinct_on or stmt.windows or any(
-                isinstance(i.expr, A.WindowCall) for i in stmt.items):
-            _unported("DISTINCT ON and window functions", "queue A")
-        if len(stmt.group_by) == 1 \
-                and isinstance(stmt.group_by[0], A.GroupingSetsSpec):
-            _unported("GROUPING SETS", "queue A")
-        from citus_tpu_torch.planner.recursive import has_subquery
-        exprs = ([i.expr for i in stmt.items] + [stmt.where, stmt.having]
-                 + list(stmt.group_by) + [o.expr for o in stmt.order_by])
-        if any(e is not None and has_subquery(e) for e in exprs):
-            _unported("subqueries", "queue A")
         if self.catalog.rollups:
             # continuous aggregation: a dashboard query whose shape a
             # rollup materializes is answered from stored sketch state

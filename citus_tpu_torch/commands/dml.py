@@ -54,14 +54,10 @@ def _refuse_unported(cl, stmt, t) -> None:
 def delete(cl, stmt):
     from citus_tpu_torch.executor.dml import execute_delete
     from citus_tpu_torch.planner.bind import Binder
-    from citus_tpu_torch.planner.recursive import has_subquery
     from citus_tpu_torch.storage.overlay import current_overlay
     from citus_tpu_torch.transaction.locks import EXCLUSIVE
     t = cl.catalog.table(stmt.table)
     _refuse_unported(cl, stmt, t)
-    if stmt.where is not None and has_subquery(stmt.where):
-        raise UnsupportedFeatureError(
-            "subqueries in DELETE are not ported yet (ROADMAP.md A8)")
     where = Binder(cl.catalog, t).bind_scalar(stmt.where) \
         if stmt.where is not None else None
     with cl._write_lock(t, EXCLUSIVE):
@@ -79,16 +75,10 @@ def update(cl, stmt):
     from citus_tpu_torch.executor.dml import execute_update
     from citus_tpu_torch.planner.bind import Binder
     from citus_tpu_torch.planner.bound import BCast, BLiteral
-    from citus_tpu_torch.planner.recursive import has_subquery
     from citus_tpu_torch.storage.overlay import current_overlay
     from citus_tpu_torch.transaction.locks import EXCLUSIVE
     t = cl.catalog.table(stmt.table)
     _refuse_unported(cl, stmt, t)
-    exprs = [e for _, e in stmt.assignments] + \
-        ([stmt.where] if stmt.where is not None else [])
-    if any(has_subquery(e) for e in exprs):
-        raise UnsupportedFeatureError(
-            "subqueries in UPDATE are not ported yet (ROADMAP.md A8)")
     b = Binder(cl.catalog, t)
     assignments = []
     for col, e in stmt.assignments:

@@ -125,6 +125,22 @@ class DeviceBatchCache:
                     for (table, tenant), b in self._attr.items()),
             }
 
+    def drop_table(self, data_dir: str, table: str) -> int:
+        """Give back every entry of one table of ``data_dir`` (DROP
+        TABLE: the intermediate tables of CTEs, derived tables and set
+        operations are dropped after each statement, and their batches
+        must not wait for LRU eviction).  -> bytes released."""
+        freed = 0
+        with self._mu:
+            dead = [k for k in self._entries
+                    if len(k) > 1 and k[0] == data_dir and k[1] == table]
+            for k in dead:
+                _, nbytes, owner = self._entries.pop(k)
+                self._bytes -= nbytes
+                self._attr_sub_locked(owner, nbytes)
+                freed += nbytes
+        return freed
+
     def clear(self) -> None:
         with self._mu:
             self._entries.clear()

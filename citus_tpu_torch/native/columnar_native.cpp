@@ -15,11 +15,17 @@
 #include <thread>
 #include <vector>
 
-#include <zstd.h>
 #include <zlib.h>
 
 extern "C" {
-// liblz4 runtime is present; header is not — declare what we use.
+// the zstd and lz4 runtimes are often installed without their headers
+// — declare what we use, from each library's stable API.
+size_t ZSTD_compress(void* dst, size_t dstCapacity, const void* src,
+                     size_t srcSize, int compressionLevel);
+size_t ZSTD_decompress(void* dst, size_t dstCapacity, const void* src,
+                       size_t compressedSize);
+size_t ZSTD_compressBound(size_t srcSize);
+unsigned ZSTD_isError(size_t code);
 int LZ4_decompress_safe(const char* src, char* dst, int srcSize, int dstCapacity);
 int LZ4_compress_default(const char* src, char* dst, int srcSize, int dstCapacity);
 int LZ4_compressBound(int inputSize);

@@ -389,9 +389,10 @@ class Session:
         self.prepared: dict[str, str] = {}
 
     # -- public surface --------------------------------------------------
-    def execute(self, sql: str, params=None):
-        # roles (RLS, privileges) are not ported yet: ROADMAP.md queue A
-        return self._cluster.execute(sql, params=params, session=self)
+    def execute(self, sql: str, params=None, role=None):
+        # a role (RLS, privileges) is refused: ROADMAP.md A14
+        return self._cluster.execute(sql, params=params, role=role,
+                                     session=self)
 
     def copy_from(self, table_name: str, **kw):
         return self._cluster.copy_from(table_name, session=self, **kw)

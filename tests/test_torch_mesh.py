@@ -21,6 +21,8 @@ the JAX package at tests/conftest.py's 8 virtual devices.
   device-memory accounting, and streaming past the cache.
 """
 
+import decimal
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +34,7 @@ from citus_tpu.observability import trace as ref_trace
 from citus_tpu.parallel.mesh import default_mesh as ref_default_mesh
 from citus_tpu.parallel.mesh import sharded_partial_agg as ref_sharded
 from citus_tpu_torch.cluster import resolve_mesh
+from citus_tpu.executor.device_cache import GLOBAL_CACHE as REF_CACHE
 from citus_tpu_torch.executor.device_cache import GLOBAL_CACHE
 from citus_tpu_torch.observability import trace as port_trace
 from citus_tpu_torch.parallel import mesh as pmesh
@@ -437,12 +440,17 @@ MESH_QUERIES = [
      "FROM lineitem WHERE l_shipdate < date '1900-01-01'", None),
     ("empty_grouped", "SELECT l_returnflag, count(*) FROM lineitem WHERE "
      "l_quantity < 0 GROUP BY l_returnflag", None),
-    # literals the plan cache turns into parameters (the port's
-    # execute() takes no $n values yet), one of them a router key
+    # literals the plan cache turns into parameters, one of them a
+    # router key, and the same filters as $n values
     ("parameterised", "SELECT count(*), sum(l_quantity) FROM lineitem "
      "WHERE l_discount = 0.05 AND l_tax < 0.04", None),
     ("router", "SELECT count(*), sum(l_tax) FROM lineitem "
      "WHERE l_orderkey = 7", None),
+    ("dollar_params", "SELECT count(*), sum(l_quantity) FROM lineitem "
+     "WHERE l_discount = $1 AND l_tax < $2",
+     [decimal.Decimal("0.05"), decimal.Decimal("0.04")]),
+    ("dollar_router", "SELECT count(*), sum(l_tax) FROM lineitem "
+     "WHERE l_orderkey = $1", [7]),
 ]
 
 
@@ -480,7 +488,10 @@ def _mesh_rounds(rounds):
                          ids=[i for i, _, _ in MESH_QUERIES])
 def test_mesh_rows_identical_to_reference(pair, sql, params):
     ref, port = pair
+    # both start cold: a query of the same scan as an earlier case
+    # would replay that case's cache entry
     GLOBAL_CACHE.clear()
+    REF_CACHE.clear()
     want, ref_rounds = _traced(ref_trace, ref, sql, params)
     got, port_rounds = _traced(port_trace, port, sql, params)
     assert_same_rows(got.rows, want.rows)

@@ -534,3 +534,23 @@ def test_chip_smoke_phase7_rehearses_on_cpu(tmp_path, monkeypatch):
     chip_smoke.run_pair_phase(ctt, str(tmp_path), 20_000, launches, "cpu",
                               device="cpu")
     assert all(v == 0 for v in launches.values())  # plain versions only
+
+
+def test_cte_intermediate_distributes_over_both_coordinators(pair):
+    """An intermediate result of 4,096 rows or more is hash-distributed
+    over every active node, as the reference does it: its COPY ships the
+    rows of B's shards to B, the CTE's body pushes its tasks there, and
+    the table is gone from both catalogs after the statement."""
+    a, b = pair
+    cols = _columns()
+    _load(a, cols)
+    sql = ("WITH big AS (SELECT k, v FROM t WHERE v < 900) "
+           "SELECT count(*), sum(v) FROM big")
+    rows, d = _run(a, sql, "auto")
+    keep = cols["v"] < 900
+    assert rows == [(int(keep.sum()), int(cols["v"][keep].sum()))]
+    assert d["rows_ingested_remote"] > 0
+    assert d["remote_tasks_pushed"] >= 2 and d["remote_task_fallbacks"] == 0
+    b._reload_catalog()
+    for cl in (a, b):
+        assert not [n for n in cl.catalog.tables if n.startswith("__")]

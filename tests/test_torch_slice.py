@@ -198,9 +198,9 @@ def test_opens_reference_data_directory(tmp_path):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT id, row_number() OVER (ORDER BY id) FROM events",
-    "WITH w AS (SELECT id FROM events) SELECT count(*) FROM w",
-    "SELECT count(*) FROM (SELECT id FROM events) s",
+    "CREATE VIEW v AS SELECT 1",
+    "INSERT INTO events SELECT * FROM events",
+    "CREATE FUNCTION addone(x bigint) RETURNS bigint AS 'x + 1'",
     "SET citus.enable_metadata_sync = off",
     "VACUUM events",
     "DELETE FROM events WHERE id = 1 RETURNING id",
