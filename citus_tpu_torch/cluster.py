@@ -9,16 +9,24 @@ both as Python methods and through their SQL spellings
 (``SELECT create_distributed_table('t','col')``).
 
 This port carries these slices of the JAX package's surface: CREATE
-TABLE / DROP TABLE, create_distributed_table, COPY (``copy_from``),
-INSERT ... VALUES with ON CONFLICT, UPDATE, DELETE (with subqueries),
-TRUNCATE, BEGIN/COMMIT/ROLLBACK and savepoints (``session()``), SELECT
+TABLE (with PRIMARY KEY / UNIQUE, CHECK, FOREIGN KEY, DEFAULT, serial
+columns, PARTITION BY RANGE / PARTITION OF) and CREATE TABLE AS, DROP
+TABLE, CREATE / DROP INDEX and SEQUENCE, create_distributed_table and
+create_reference_table, the time-partition helpers, COPY
+(``copy_from``: defaults, partition routing, FK, unique, CHECK and
+partition-bound checks), INSERT ... VALUES and INSERT ... SELECT (the
+colocated / repartition / pull ladder) with ON CONFLICT, UPDATE and
+DELETE (with subqueries, RETURNING and the FK actions of a parent),
+TRUNCATE, VACUUM, BEGIN/COMMIT/ROLLBACK and savepoints (``session()``,
+DDL staged inside them), SELECT
 with aggregates in every group mode (scalar, direct and hash, sketch
 aggregates included) and without them (filtered projections,
 DISTINCT), joins, WITH and WITH RECURSIVE, UNION / INTERSECT / EXCEPT,
 derived tables, scalar / IN / EXISTS subqueries (correlated ones
 decorrelated), DISTINCT ON, window functions, GROUPING SETS / ROLLUP /
-CUBE, SELECT without FROM, ``unnest``, ``execute(sql, params)`` and
-PREPARE / EXECUTE / DEALLOCATE, EXPLAIN, change data capture and
+CUBE, SELECT without FROM, ``unnest``, a partitioned parent expanded
+to its surviving partitions, ``execute(sql, params)`` and PREPARE /
+EXECUTE / DEALLOCATE, EXPLAIN, change data capture and
 CDC-fed rollups (``rollup/``), and several coordinators over RPC
 (``serve_port``/``coordinator``/``data_port``/``hosted_nodes``: a
 query pushes its worker half to the coordinator owning each remote
@@ -467,6 +475,24 @@ def _subst_excluded(e, excl: dict):
             filter=_subst_excluded(e.filter, excl)
             if e.filter is not None else None)
     return e
+
+
+def _expand_returning_items(t, items, subst=None):
+    """Expand a RETURNING list to [(expr, output name)]: * becomes the
+    table's columns; substitutions (UPDATE assignments, INSERT row
+    values) apply after expansion."""
+    expanded = []
+    for it in items:
+        if isinstance(it.expr, A.Star):
+            for n in t.schema.names:
+                e = A.ColumnRef(n)
+                if subst:
+                    e = _replace_exprs(e, subst)
+                expanded.append((e, n))
+        else:
+            e = _replace_exprs(it.expr, subst) if subst else it.expr
+            expanded.append((e, it.alias or str(it.expr)))
+    return expanded
 
 
 def _replace_exprs(e, mapping: dict):
@@ -1019,10 +1045,28 @@ class Cluster:
                                  shard_count: Optional[int] = None,
                                  colocate_with: Optional[str] = None) -> None:
         """reference: create_distributed_table UDF
-        (src/backend/distributed/commands/create_distributed_table.c)."""
+        (src/backend/distributed/commands/create_distributed_table.c).
+        A partitioned parent distributes every partition, the siblings
+        colocated, and records the distribution on itself."""
+        from citus_tpu_torch.catalog.catalog import DistributionMethod
         t = self.catalog.table(name)
         if t.is_partitioned:
-            _unported("partitioned tables", "queue A")
+            shard_count = shard_count or self.settings.sharding.shard_count
+            t.schema.column(dist_column)
+            first = None
+            for p in self.catalog.partitions_of(name):
+                self.create_distributed_table(
+                    p.name, dist_column, shard_count,
+                    colocate_with=first or colocate_with)
+                first = first or p.name
+            t.method = DistributionMethod.HASH
+            t.dist_column = dist_column
+            t.partition_by["shard_count"] = shard_count
+            if first is not None:
+                t.colocation_id = self.catalog.table(first).colocation_id
+            t.version += 1
+            self.catalog.commit()
+            return
         from citus_tpu_torch.catalog.stats import table_row_count
         if table_row_count(self.catalog, t) > 0:
             raise UnsupportedFeatureError(
@@ -1033,35 +1077,46 @@ class Cluster:
             name, dist_column, shard_count, self.catalog.active_node_ids(),
             colocate_with=colocate_with,
             replication_factor=self.settings.sharding.shard_replication_factor)
+        try:
+            from citus_tpu_torch.integrity import validate_fk_distribution
+            validate_fk_distribution(self.catalog, name)
+        except Exception:
+            self.catalog._load()  # roll back the uncommitted distribution
+            raise
         self.catalog.commit()
 
     def create_reference_table(self, name: str) -> None:
         """reference: create_reference_table UDF (one shard, replicated
-        to every active node).  Foreign keys are not ported (ROADMAP.md
-        A11), so there is no distribution of them to validate."""
+        to every active node); its foreign keys are re-validated."""
         t = self.catalog.table(name)
-        if t.is_partitioned:
-            _unported("partitioned tables", "queue A")
         from citus_tpu_torch.catalog.stats import table_row_count
         if table_row_count(self.catalog, t) > 0:
             raise UnsupportedFeatureError(
                 "converting a non-empty table is not supported yet")
         self.catalog.make_reference_table(name,
                                           self.catalog.active_node_ids())
+        try:
+            from citus_tpu_torch.integrity import validate_fk_distribution
+            validate_fk_distribution(self.catalog, name)
+        except Exception:
+            self.catalog._load()
+            raise
         self.catalog.commit()
 
     def drop_table(self, name: str, *, if_exists: bool = False) -> None:
         """DROP TABLE (reference: citus_drop_all_shards): the catalog
         entry and, at once or at COMMIT inside a transaction, its files.
-        Partitioned tables and tables other tables reference by foreign
-        key are not ported (ROADMAP.md A11)."""
+        A partitioned parent drops its partitions; a table other tables
+        reference by foreign key is refused."""
         if if_exists and not self.catalog.has_table(name):
             return
+        from citus_tpu_torch.integrity import forbid_drop_referenced
+        forbid_drop_referenced(self.catalog, name)
         t = self.catalog.table(name)
-        if t.is_partitioned or t.partition_of is not None:
-            _unported("partitioned tables", "A11")
-        if self.catalog.referencing_fks(name):
-            _unported("foreign keys", "A11")
+        if t.is_partitioned:
+            # PostgreSQL: dropping the parent drops its partitions
+            for p in list(self.catalog.partitions_of(name)):
+                self.drop_table(p.name)
         import re as _re
         for col in t.schema:
             # owned serial sequences die with the table
@@ -1088,17 +1143,308 @@ class Cluster:
         GLOBAL_CACHE.drop_table(self.catalog.data_dir, name)
 
     def _truncate_one(self, name: str) -> None:
+        """Truncate one (possibly partitioned) relation; FK validation
+        happens at the statement level, list-aware."""
         from citus_tpu_torch.executor.dml import execute_truncate
         from citus_tpu_torch.transaction.locks import EXCLUSIVE
         t = self.catalog.table(name)
         if t.is_partitioned:
-            _unported("partitioned tables", "A11")
+            for p in self.catalog.partitions_of(name):
+                self._truncate_one(p.name)
+            return
         with self._write_lock(t, EXCLUSIVE):
             execute_truncate(self.catalog, self.catalog.table(name))
         self._plan_cache.invalidate_table(name)
         if self._cdc_captures(t.name):
             self.cdc.emit(t.name, "truncate",
                           self.clock.transaction_clock(), force=True)
+
+    # ------------------------------------------------------- partitioning
+    def _internal_txn(self):
+        """All-or-nothing wrapper for engine-generated multi-statement
+        work (multi-partition writes, CREATE TABLE AS): inside a user
+        transaction it is transparent (that transaction provides
+        atomicity); otherwise it opens, stages, and 2PC-commits an
+        internal one, rolling back on any failure."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def _ctx():
+            from citus_tpu_torch.storage.overlay import (
+                current_overlay, transaction_overlay,
+            )
+            if current_overlay() is not None:
+                yield
+                return
+            from citus_tpu_torch.transaction.session import OpenTransaction
+            s = self.session()
+            s.txn = OpenTransaction(self.txlog.begin(), s.lock_sid)
+            s.txn.tombstones_snapshot = {
+                k: set(v) for k, v in self.catalog._tombstones.items()}
+            try:
+                with transaction_overlay(s.txn):
+                    yield
+            except BaseException:
+                self._rollback_txn(s)
+                raise
+            self._commit_txn(s)
+        return _ctx()
+
+    def _create_partition(self, name: str, parent: str, lo_raw, hi_raw,
+                          *, if_not_exists: bool = False) -> None:
+        """CREATE TABLE name PARTITION OF parent FOR VALUES FROM..TO:
+        clone the parent's schema, record physical bounds, inherit the
+        parent's distribution (siblings colocate), constraints and
+        indexes.  Reference: PostgreSQL partition DDL distributed per
+        partition (multi_partitioning_utils.c)."""
+        import json as _json
+
+        from citus_tpu_torch.catalog.catalog import DistributionMethod
+        from citus_tpu_torch.partitioning import (
+            bound_to_physical, check_new_partition,
+        )
+        if if_not_exists and self.catalog.has_table(name):
+            return
+        pt = self.catalog.table(parent)
+        if not pt.is_partitioned:
+            raise CatalogError(f'"{parent}" is not partitioned')
+        col = pt.schema.column(pt.partition_by["column"])
+        lo = bound_to_physical(col.type, lo_raw)
+        hi = bound_to_physical(col.type, hi_raw)
+        check_new_partition(self.catalog, pt, lo, hi)
+        self.catalog.create_table(
+            name, pt.schema,
+            chunk_row_limit=pt.chunk_row_limit,
+            stripe_row_limit=pt.stripe_row_limit,
+            compression=pt.compression,
+            compression_level=pt.compression_level)
+        t = self.catalog.table(name)
+        t.partition_of = {"parent": parent, "lo": lo, "hi": hi}
+        # constraints declared on the parent apply to every partition
+        # (unique keys were validated at the parent's creation to
+        # include the partition column)
+        t.foreign_keys = _json.loads(_json.dumps(pt.foreign_keys))
+        t.check_constraints = _json.loads(_json.dumps(pt.check_constraints))
+        if pt.method == DistributionMethod.HASH:
+            siblings = [p for p in self.catalog.partitions_of(parent)
+                        if p.name != name and p.is_distributed]
+            self.catalog.distribute_table(
+                name, pt.dist_column,
+                pt.partition_by.get("shard_count")
+                or self.settings.sharding.shard_count,
+                self.catalog.active_node_ids(),
+                colocate_with=siblings[0].name if siblings else None,
+                replication_factor=self.settings.sharding.shard_replication_factor)
+        self.catalog.commit()
+        for ix in pt.indexes:
+            self.create_index(f"{name}_{ix['column']}_key", name,
+                              ix["column"], unique=ix.get("unique", False))
+        self._plan_cache.clear()
+
+    def _fanout_partitions(self, stmt, *, aggregate_explain: bool = False
+                           ) -> Result:
+        """Run a single-table utility statement (VACUUM) on every
+        partition of the named parent, optionally summing the integer
+        explain stats."""
+        import dataclasses as _dc
+        agg: dict = {}
+        for p in self.catalog.partitions_of(stmt.table):
+            sub = self._execute_stmt(_dc.replace(stmt, table=p.name))
+            if aggregate_explain:
+                for k, v in sub.explain.items():
+                    agg[k] = agg.get(k, 0) + v
+        return Result(columns=[], rows=[], explain=agg)
+
+    def _partition_dml(self, stmt, t) -> Result:
+        """UPDATE/DELETE against a partitioned parent: run per surviving
+        partition (pruned on the WHERE) and sum the counts."""
+        import dataclasses
+
+        from citus_tpu_torch.partitioning import prune_partitions
+        if getattr(stmt, "returning", None):
+            raise UnsupportedFeatureError(
+                "RETURNING on a partitioned parent is not supported")
+        if isinstance(stmt, A.Update):
+            pcol = t.partition_by["column"]
+            if any(c == pcol for c, _ in stmt.assignments):
+                raise UnsupportedFeatureError(
+                    "updating the partition column (row movement) is "
+                    "not supported; DELETE the rows and re-INSERT them "
+                    "through the parent so they route to the right "
+                    "partition")
+        total_key = "updated" if isinstance(stmt, A.Update) else "deleted"
+        total = 0
+        # atomic across partitions: a later partition's failure must not
+        # leave earlier partitions' writes committed
+        with self._internal_txn():
+            for p in prune_partitions(self.catalog, t, stmt.where):
+                sub = dataclasses.replace(stmt, table=p.name)
+                total += self._execute_stmt(sub).explain.get(total_key, 0)
+        return Result(columns=[], rows=[], explain={total_key: total})
+
+    def _copy_into_partitions(self, t, columns) -> int:
+        """Route an ingest batch against a partitioned parent to its
+        partitions by range (the multi-level ShardIdForTuple)."""
+        import numpy as np
+
+        from citus_tpu_torch.partitioning import partition_for_rows
+        pcol = t.partition_by["column"]
+        if pcol not in columns:
+            raise AnalysisError(f"missing column {pcol!r} in ingest batch")
+        col = t.schema.column(pcol)
+        raw = columns[pcol]
+        if isinstance(raw, np.ndarray) and raw.dtype != object \
+                and raw.dtype.kind in "iuf":
+            # mirror encode_columns' numeric fast path exactly (decimal
+            # floats scale by 10^scale with ROUND_HALF_UP; integer input
+            # is already physical), so routing and storage agree
+            if col.type.kind == "decimal" \
+                    and np.issubdtype(raw.dtype, np.floating):
+                x = raw * float(10 ** col.type.scale)
+                phys = np.where(x >= 0, np.floor(x + 0.5),
+                                np.ceil(x - 0.5)).astype(np.int64)
+            else:
+                phys = raw.astype(col.type.storage_dtype)
+        else:
+            vals = list(raw)
+            if any(v is None for v in vals):
+                raise AnalysisError(
+                    f'no partition of relation "{t.name}" found for row '
+                    f"({pcol} is null)")
+            phys = np.asarray([col.type.to_physical(v) for v in vals])
+        routed = partition_for_rows(self.catalog, t, phys)
+        # one stable sort by partition, then a slice a partition: each
+        # partition's rows in their batch order, as a mask of each
+        # partition would select them
+        part = np.empty(len(phys), np.int64)
+        for i, (_pname, mask) in enumerate(routed):
+            part[mask] = i
+        order = np.argsort(part, kind="stable")
+        bounds = np.searchsorted(part[order], np.arange(len(routed) + 1))
+        cols_np = {c: (v if isinstance(v, np.ndarray)
+                       else np.asarray(v, dtype=object))[order]
+                   for c, v in columns.items()}
+        n = 0
+        # atomic across partitions (a unique violation in the second
+        # partition must not leave the first partition's rows behind)
+        with self._internal_txn():
+            for i, (pname, _mask) in enumerate(routed):
+                lo, hi = int(bounds[i]), int(bounds[i + 1])
+                sub = {c: v[lo:hi] for c, v in cols_np.items()}
+                n += self.copy_from(pname, columns=sub)
+        return n
+
+    # ----------------------------------------------------------- indexes
+    def _find_index(self, name: str):
+        """-> (table_meta, index dict) or (None, None)."""
+        for t in self.catalog.tables.values():
+            for ix in t.indexes:
+                if ix["name"] == name:
+                    return t, ix
+        return None, None
+
+    def _drop_index_segments(self, t, column: str) -> None:
+        import os as _os
+
+        from citus_tpu_torch.storage.index import drop_segments
+        for shard in t.shards:
+            for node in shard.placements:
+                d = self.catalog.shard_dir(t.name, shard.shard_id, node)
+                if _os.path.isdir(d):
+                    drop_segments(d, column)
+
+    def _drop_index_segments_if_unindexed(self, table_name: str,
+                                          column: str) -> None:
+        """Deferred (COMMIT-time) segment removal: a same-name index
+        recreated later in the transaction must keep its fresh segments;
+        a dropped table's removal owns its whole directory."""
+        if not self.catalog.has_table(table_name):
+            return
+        t2 = self.catalog.table(table_name)
+        if t2.index_on(column) is None:
+            self._drop_index_segments(t2, column)
+
+    def create_index(self, name: str, table: str, column: str, *,
+                     unique: bool = False,
+                     if_not_exists: bool = False) -> None:
+        """CREATE [UNIQUE] INDEX: register the index, validate existing
+        data for UNIQUE, and backfill per-stripe segments on every
+        placement (reference: commands/index.c DDL propagation +
+        columnar_index_build_range_scan, columnar_tableam.c:1444)."""
+        from citus_tpu_torch.storage.index import backfill_index
+        from citus_tpu_torch.storage.overlay import current_overlay
+        from citus_tpu_torch.transaction.locks import EXCLUSIVE
+        _existing_t, existing = self._find_index(name)
+        if existing is not None:
+            if if_not_exists:
+                return
+            raise CatalogError(f'index "{name}" already exists')
+        t = self.catalog.table(table)
+        if t.is_partitioned:
+            raise UnsupportedFeatureError(
+                "CREATE INDEX on a partitioned parent is not supported; "
+                "create the index on each partition")
+        t.schema.column(column)  # must exist
+        if t.schema.column(column).type.is_float and unique:
+            raise UnsupportedFeatureError(
+                "UNIQUE indexes over floating-point columns are not "
+                "supported (no exact equality)")
+        if t.index_on(column) is not None:
+            raise CatalogError(
+                f'column "{column}" of "{table}" is already indexed')
+        ix = {"name": name, "column": column, "unique": bool(unique)}
+        # EXCLUSIVE write lock: no ingest may slip between the uniqueness
+        # validation / backfill and the catalog flip
+        with self._write_lock(t, EXCLUSIVE):
+            if unique:
+                from citus_tpu_torch.integrity import validate_unique_backfill
+                validate_unique_backfill(self.catalog, t, ix)
+            # segments first, catalog second: a backfill failure must
+            # leave no in-memory claim of an index that was never built
+            backfill_index(self.catalog, t, [column])
+            txn = current_overlay()
+            if txn is not None:
+                # ROLLBACK must remove the backfilled segments (additive
+                # files: invisible to peers until the catalog commits)
+                txn.on_rollback.append(
+                    lambda: self._drop_index_segments(t, column))
+            t.indexes.append(ix)
+            t.version += 1
+            self.catalog.ddl_epoch += 1
+            self.catalog.commit()
+        self._plan_cache.invalidate_table(t.name)
+
+    def _execute_create_index(self, stmt: A.CreateIndex) -> Result:
+        self.create_index(stmt.name, stmt.table, stmt.column,
+                          unique=stmt.unique,
+                          if_not_exists=stmt.if_not_exists)
+        return Result(columns=[], rows=[])
+
+    def _execute_drop_index(self, stmt: A.DropIndex) -> Result:
+        from citus_tpu_torch.storage.overlay import current_overlay
+        from citus_tpu_torch.transaction.locks import EXCLUSIVE
+        t, ix = self._find_index(stmt.name)
+        if ix is None:
+            if stmt.if_exists:
+                return Result(columns=[], rows=[])
+            raise CatalogError(f'index "{stmt.name}" does not exist')
+        with self._write_lock(t, EXCLUSIVE):
+            t.indexes.remove(ix)
+            # another index may not share the column (enforced at CREATE)
+            txn = current_overlay()
+            if txn is not None:
+                # segment removal is irreversible: defer to COMMIT
+                col = ix["column"]
+                tname = t.name
+                txn.on_commit.append(
+                    lambda: self._drop_index_segments_if_unindexed(tname, col))
+            else:
+                self._drop_index_segments(t, ix["column"])
+            t.version += 1
+            self.catalog.ddl_epoch += 1
+            self.catalog.commit()
+        self._plan_cache.invalidate_table(t.name)
+        return Result(columns=[], rows=[])
 
     # ----------------------------------------------------------- ingest
     def copy_from(self, table_name: str,
@@ -1112,7 +1458,10 @@ class Cluster:
         inside an open transaction (``session`` with BEGIN, or called
         from a statement of one) it stages under the transaction's xid
         and commits with it.  A captured table's rows go to its CDC
-        stream at commit."""
+        stream at commit.  Omitted columns take their DEFAULTs; a
+        partitioned parent routes each row to its partition; foreign
+        keys, unique indexes, CHECK constraints and a partition's bounds
+        are checked before anything is written."""
         from citus_tpu_torch.storage.overlay import (
             current_overlay, transaction_overlay,
         )
@@ -1141,11 +1490,27 @@ class Cluster:
             raise AnalysisError("provide exactly one of columns= or rows=")
         if rows is not None:
             columns = rows_to_columns(t.schema.names, rows, column_names)
+            if column_names is not None:
+                # rows_to_columns pads OMITTED columns with None; drop
+                # them again so their DEFAULTs apply (a column the user
+                # listed keeps its explicit NULLs)
+                listed = set(column_names)
+                columns = {c: v for c, v in columns.items()
+                           if c in listed
+                           or not t.schema.column(c).default_sql}
         if t.is_partitioned:
-            _unported("partitioned tables", "queue A")
-        if t.foreign_keys or t.unique_indexes or t.check_constraints:
-            _unported("constraint checks on ingest", "queue A")
+            # two-level routing: range partition first, then hash shard
+            # within it (each recursive call re-enters with the same
+            # session/transaction context)
+            return self._copy_into_partitions(t, columns)
+        columns = self._fill_defaults(t, columns)
         values, validity = encode_columns(self.catalog, t, columns)
+        if t.partition_of is not None:
+            from citus_tpu_torch.partitioning import check_partition_bounds
+            check_partition_bounds(self.catalog, t, values, validity)
+        if t.check_constraints:
+            from citus_tpu_torch.integrity import enforce_check_constraints
+            enforce_check_constraints(self.catalog, t, values, validity)
         remote_n = 0
         if self.catalog.remote_data is not None \
                 and not getattr(self._remote_exec_guard, "v", False):
@@ -1155,10 +1520,91 @@ class Cluster:
                 # every row went to remote hosts
                 self.counters.bump("rows_ingested", remote_n)
                 return remote_n
-        from citus_tpu_torch.transaction.locks import SHARED
+        from citus_tpu_torch.transaction.locks import EXCLUSIVE, SHARED
         txn = current_overlay()
-        with self._write_lock(t, SHARED):
-            t = self.catalog.table(table_name)  # re-fetch: fresh placements
+        # unique enforcement needs probe+write atomicity: two SHARED
+        # ingests could both miss the probe and insert the same key.
+        # The mode is re-derived from the fresh TableMeta inside the
+        # lock — a CREATE UNIQUE INDEX committed after our stale fetch
+        # must escalate us before the probe runs.
+        lock_mode = EXCLUSIVE if t.unique_indexes else SHARED
+        while True:
+            with self._write_lock(t, lock_mode):
+                t = self.catalog.table(table_name)  # re-fetch: fresh placements
+                if t.unique_indexes and lock_mode == SHARED:
+                    lock_mode = EXCLUSIVE
+                    continue  # retry under the stronger lock
+                self._copy_from_locked(t, txn, columns, values, validity)
+                break
+        n = len(next(iter(values.values()))) if values else 0
+        self.counters.bump("rows_ingested", n + remote_n)
+        if self._cdc_captures(t.name) and n:
+            self._emit_cdc(t.name, "insert",
+                           rows=self._decode_rows(t, values, validity),
+                           columns=t.schema.names)
+        return n + remote_n
+
+    def _fill_defaults(self, t, columns: dict) -> dict:
+        """Fill columns absent from an ingest batch from their DEFAULT
+        expressions (reference: pg_attrdef defaults applied by the
+        rewriter).  nextval defaults draw one value PER ROW; other
+        defaults are constants folded once."""
+        missing = [c for c in t.schema
+                   if c.name not in columns and c.default_sql]
+        if not missing:
+            return columns
+        n = len(next(iter(columns.values()))) if columns else 1
+        out = dict(columns)
+        from citus_tpu_torch.planner.parser import Parser
+        cache = self._default_expr_cache
+        for col in missing:
+            e = cache.get(col.default_sql)
+            if e is None:
+                e = Parser(col.default_sql).parse_expr()
+                if len(cache) > 512:
+                    cache.clear()
+                cache[col.default_sql] = e
+            if isinstance(e, A.FuncCall) and e.name == "nextval" \
+                    and e.args and isinstance(e.args[0], A.Literal):
+                seq = str(e.args[0].value)
+                out[col.name] = [self.catalog.nextval(seq)
+                                 for _ in range(n)]
+            else:
+                out[col.name] = [_eval_const(e)] * n
+        return out
+
+    def _copy_from_locked(self, t, txn, columns, values, validity) -> None:
+        """copy_from's body under the table write lock: FK and unique
+        probes, then the staged or 2PC ingest."""
+        import contextlib
+
+        from citus_tpu_torch.transaction.locks import SHARED
+        with contextlib.ExitStack() as stack:
+            if t.foreign_keys:
+                # hold the parents' group locks (SHARED) across probe +
+                # write, so a concurrent parent DELETE (EXCLUSIVE on the
+                # parent group) cannot interleave between the FK check
+                # and the ingest commit
+                from citus_tpu_torch.integrity import check_ingest
+                from citus_tpu_torch.transaction.write_locks import (
+                    group_resource, group_write_lock,
+                )
+                parents = {}
+                for fk in t.foreign_keys:
+                    p = self.catalog.table(fk["ref_table"])
+                    parents[group_resource(p)] = p
+                for res in sorted(parents):
+                    if txn is not None:
+                        txn.hold_group_lock(self, parents[res], SHARED)
+                    else:
+                        stack.enter_context(group_write_lock(
+                            self.catalog, parents[res], SHARED,
+                            lock_manager=self.locks,
+                            timeout=self.settings.executor.lock_timeout_s))
+                check_ingest(self, t, columns, values, validity)
+            if t.unique_indexes:
+                from citus_tpu_torch.integrity import check_unique_ingest
+                check_unique_ingest(self, t, values, validity)
             if txn is not None:
                 # stage under the open transaction; COMMIT flips it.  On
                 # failure, register (don't abort) what was staged, so
@@ -1180,13 +1626,6 @@ class Cluster:
                     ing.abort()
                     raise
                 ing.finish()
-        n = len(next(iter(values.values()))) if values else 0
-        self.counters.bump("rows_ingested", n + remote_n)
-        if self._cdc_captures(t.name) and n:
-            self._emit_cdc(t.name, "insert",
-                           rows=self._decode_rows(t, values, validity),
-                           columns=t.schema.names)
-        return n + remote_n
 
     def _route_remote_batch(self, t, values, validity):
         """Split a physical ingest batch by shard ownership: rows whose
@@ -1236,6 +1675,10 @@ class Cluster:
         if current_overlay() is not None:
             _unported("writes to remote-hosted shards inside an explicit "
                       "transaction (cross-host 2PC)", "A11")
+        if t.unique_indexes or t.foreign_keys:
+            raise UnsupportedFeatureError(
+                "unique/FK-constrained tables cannot span remote-hosted "
+                "shards yet (constraint probes are host-local)")
         dist = values[t.dist_column].astype(np.int64)
         idx = t.route_hashes(hash_int64(dist))
         # one batch per owning host
@@ -1346,7 +1789,9 @@ class Cluster:
     #: in-memory catalog until COMMIT)
     _TXN_ALLOWED = (A.Select, A.WithSelect, A.SetOp, A.Explain, A.Insert,
                     A.Update, A.Delete,
-                    A.CreateTable, A.DropTable, A.SetConfig, A.ShowConfig,
+                    A.CreateTable, A.DropTable, A.CreateIndex,
+                    A.DropIndex, A.CreateSequence, A.DropSequence,
+                    A.CreateTableAs, A.SetConfig, A.ShowConfig,
                     A.UtilityCall)
 
     def _guard_in_txn(self, stmt) -> None:
@@ -1730,6 +2175,23 @@ class Cluster:
             self.counters.bump("plan_cache_misses")
         return bound, plan, values
 
+    # parsed DEFAULT expressions keyed by their SQL text (immutable)
+    _default_expr_cache: dict = {}
+
+    def _returning_result(self, table_name, where, items, subst=None):
+        from citus_tpu_torch.commands.config_cmds import _returning_result
+        return _returning_result(self, table_name, where, items, subst)
+
+    def _run_command_on_shards(self, table_name, command,
+                               per_placement: bool = False):
+        from citus_tpu_torch.commands.shard_cmds import _run_command_on_shards
+        return _run_command_on_shards(self, table_name, command,
+                                      per_placement=per_placement)
+
+    def _table_ddl(self, name):
+        from citus_tpu_torch.commands.shard_cmds import _table_ddl
+        return _table_ddl(self, name)
+
     # set while executing a task a PEER pushed to us: such a task
     # operates on OUR placements only and must never push again
     _remote_exec_guard = __import__("threading").local()
@@ -1794,9 +2256,18 @@ class Cluster:
             rels = _from_relations(stmt)
             if rels & set(self.catalog.views):
                 _unported("views (CREATE VIEW)", "A14")
-            if any(self.catalog.has_table(n)
-                   and self.catalog.table(n).is_partitioned for n in rels):
-                _unported("partitioned tables", "A11")
+            if any(t.is_partitioned for t in self.catalog.tables.values()):
+                # partitioned parents rewrite to their surviving
+                # partitions (partition pruning stacks on shard and
+                # chunk pruning)
+                from citus_tpu_torch.partitioning import (
+                    expand_from, referenced_columns,
+                )
+                new_from = expand_from(self, stmt.from_, stmt.where,
+                                       referenced_columns(stmt))
+                if new_from is not stmt.from_:
+                    import dataclasses as _dc
+                    stmt = _dc.replace(stmt, from_=new_from)
             if _has_derived(stmt.from_):
                 return select_exec._execute_derived(self, stmt)
             if len(stmt.group_by) == 1 \

@@ -221,3 +221,42 @@ def execute_show(cl, stmt: A.ShowConfig) -> Result:
                       rows=[(k, _guc_value(cl, k)) for k in sorted(_GUCS)])
     key = _guc_key(stmt.name)
     return Result(columns=[stmt.name], rows=[(_guc_value(cl, key),)])
+
+
+def _returning_result(cl, table_name, where, items, subst=None):
+    """Evaluate a RETURNING clause as a distributed SELECT over the
+    affected rows (pre-image WHERE); for UPDATE, assignment
+    expressions are substituted into the items so the NEW values are
+    returned (reference: adaptive_executor.c DML RETURNING tuples)."""
+    from citus_tpu_torch.cluster import _eval_const, _expand_returning_items
+    t = cl.catalog.table(table_name)
+    expanded = _expand_returning_items(t, items, subst)
+    # constant items (e.g. SET c = 'z' substituted into RETURNING c)
+    # cannot ride the distributed select: fold them on the host and
+    # splice one copy per affected row
+    consts, sel_items = {}, []
+    for idx, (e, alias) in enumerate(expanded):
+        try:
+            consts[idx] = _eval_const(e)
+        except Exception:  # noqa: BLE001 -- not a constant: selected below
+            sel_items.append((idx, A.SelectItem(e, alias)))
+    if sel_items:
+        inner = cl._execute_stmt(A.Select(
+            [si for _, si in sel_items], A.TableRef(table_name), where))
+        inner_rows = inner.rows
+    else:
+        cnt = A.Select([A.SelectItem(A.FuncCall("count", (A.Star(),)))],
+                       A.TableRef(table_name), where)
+        nrows = int(cl._execute_stmt(cnt).rows[0][0] or 0)
+        inner_rows = [()] * nrows
+    rows = []
+    for r in inner_rows:
+        full, j = [None] * len(expanded), 0
+        for idx in range(len(expanded)):
+            if idx in consts:
+                full[idx] = consts[idx]
+            else:
+                full[idx] = r[j]
+                j += 1
+        rows.append(tuple(full))
+    return Result(columns=[a for _, a in expanded], rows=rows)

@@ -1,14 +1,17 @@
-"""DML statement handlers: DELETE, UPDATE, TRUNCATE.
+"""DML statement handlers: DELETE, UPDATE, TRUNCATE, VACUUM.
 
 Reference: the modify paths of multi_router_planner.c
-(CreateModifyPlan) and commands/truncate.c; each handler drives the
-columnar DML executors (executor/dml.py) under the colocation-group
-write lock, invalidates the table's cached plans and emits its change
-to the CDC stream.  This is the local half of citus_tpu/commands/dml.py:
-a modify of a table that another coordinator hosts shards of (its
-forwarding and cross-host 2PC) raises, naming ROADMAP.md A11; RETURNING,
-foreign-key actions, partitioned tables, CHECK/domain constraints and
-MERGE are not ported yet (ROADMAP.md A11).
+(CreateModifyPlan) and commands/truncate.c / vacuum.c; each handler
+drives the columnar DML executors (executor/dml.py) under the
+colocation-group write lock, invalidates the table's cached plans and
+emits its change to the CDC stream.  This is the local half of
+citus_tpu/commands/dml.py: RETURNING, the foreign-key actions of a
+parent's DELETE and UPDATE (RESTRICT / CASCADE / SET NULL), CHECK,
+unique and partition-bound checks on UPDATE, and DML, TRUNCATE and
+VACUUM on partitioned parents by fan-out.  A modify of a table that
+another coordinator hosts shards of (its forwarding and cross-host 2PC)
+raises, naming ROADMAP.md A11, as do MERGE, COPY to and from files,
+ANALYZE and REINDEX.
 """
 
 from __future__ import annotations
@@ -35,19 +38,9 @@ def refuse_remote_placements(cl, t, what: str) -> None:
             "(ROADMAP.md A11)")
 
 
-def _refuse_unported(cl, stmt, t) -> None:
-    refuse_remote_placements(cl, t, type(stmt).__name__.upper())
-    if getattr(stmt, "returning", None):
-        raise UnsupportedFeatureError(
-            "RETURNING is not ported yet (ROADMAP.md A11)")
-    if t.is_partitioned or t.partition_of is not None:
-        raise UnsupportedFeatureError(
-            "DML on partitioned tables is not ported yet (ROADMAP.md A11)")
-    if t.foreign_keys or cl.catalog.referencing_fks(t.name) \
-            or t.check_constraints:
-        raise UnsupportedFeatureError(
-            "DML on tables with foreign keys or CHECK constraints is not "
-            "ported yet (ROADMAP.md A11)")
+def _unported(what: str) -> None:
+    raise UnsupportedFeatureError(
+        f"{what} is not ported yet (ROADMAP.md A11)")
 
 
 @handles(A.Delete)
@@ -57,16 +50,31 @@ def delete(cl, stmt):
     from citus_tpu_torch.storage.overlay import current_overlay
     from citus_tpu_torch.transaction.locks import EXCLUSIVE
     t = cl.catalog.table(stmt.table)
-    _refuse_unported(cl, stmt, t)
+    if t.is_partitioned:
+        return cl._partition_dml(stmt, t)
+    refuse_remote_placements(cl, t, "DELETE")
     where = Binder(cl.catalog, t).bind_scalar(stmt.where) \
         if stmt.where is not None else None
     with cl._write_lock(t, EXCLUSIVE):
+        if cl.catalog.referencing_fks(stmt.table):
+            # RESTRICT / CASCADE / SET NULL on referencing tables
+            # before the parent rows disappear
+            from citus_tpu_torch.integrity import on_parent_delete
+            on_parent_delete(cl, stmt.table, stmt.where)
+        # RETURNING reads the pre-image under the same lock so the rows
+        # returned are exactly the rows deleted
+        ret = cl._returning_result(stmt.table, stmt.where,
+                                   stmt.returning) \
+            if stmt.returning else None
         t = cl.catalog.table(stmt.table)  # re-fetch: fresh placements
         n = execute_delete(cl.catalog, cl.txlog, t, where,
                            txn=current_overlay())
     cl._plan_cache.invalidate_table(t.name)
     if cl._cdc_captures(t.name) and n:
         cl._emit_cdc(t.name, "delete", count=n)
+    if ret is not None:
+        ret.explain["deleted"] = n
+        return ret
     return Result(columns=[], rows=[], explain={"deleted": n})
 
 
@@ -78,7 +86,9 @@ def update(cl, stmt):
     from citus_tpu_torch.storage.overlay import current_overlay
     from citus_tpu_torch.transaction.locks import EXCLUSIVE
     t = cl.catalog.table(stmt.table)
-    _refuse_unported(cl, stmt, t)
+    if t.is_partitioned:
+        return cl._partition_dml(stmt, t)
+    refuse_remote_placements(cl, t, "UPDATE")
     b = Binder(cl.catalog, t)
     assignments = []
     for col, e in stmt.assignments:
@@ -113,45 +123,113 @@ def update(cl, stmt):
            for c, _e in stmt.assignments):
         raise UnsupportedFeatureError(
             "UPDATE of a domain-typed column is not ported yet "
-            "(ROADMAP.md A11)")
+            "(ROADMAP.md A14)")
     with cl._write_lock(t, EXCLUSIVE):
+        assigned_cols = {c for c, _e in stmt.assignments}
+        if cl.catalog.referencing_fks(stmt.table):
+            from citus_tpu_torch.integrity import on_parent_update
+            on_parent_update(cl, stmt.table, assigned_cols,
+                             stmt.where, stmt.assignments)
+        if t.foreign_keys:
+            from citus_tpu_torch.integrity import check_child_update
+            check_child_update(cl, t, stmt.assignments)
+        ret = None
+        if stmt.returning:
+            # new values = assignments substituted into the items,
+            # evaluated over the pre-image under the same lock
+            subst = {}
+            for col, e in stmt.assignments:
+                subst[A.ColumnRef(col)] = e
+                subst[A.ColumnRef(col, stmt.table)] = e
+            ret = cl._returning_result(stmt.table, stmt.where,
+                                       stmt.returning, subst)
         t = cl.catalog.table(stmt.table)  # re-fetch: fresh placements
+        checks = []
+        if t.partition_of is not None:
+            from citus_tpu_torch.partitioning import check_partition_bounds
+            checks.append(
+                lambda v, m: check_partition_bounds(cl.catalog, t, v, m))
+        if t.check_constraints:
+            from citus_tpu_torch.integrity import enforce_check_constraints
+            checks.append(
+                lambda v, m: enforce_check_constraints(cl.catalog, t, v, m))
+        check = None
+        if checks:
+            check = lambda v, m: [c(v, m) for c in checks]  # noqa: E731
         n = execute_update(cl.catalog, cl.txlog, t, assignments, where,
-                           txn=current_overlay())
+                           txn=current_overlay(), check=check)
     cl._plan_cache.invalidate_table(t.name)
     if cl._cdc_captures(t.name) and n:
         cl._emit_cdc(t.name, "update", count=n)
+    if ret is not None:
+        ret.explain["updated"] = n
+        return ret
     return Result(columns=[], rows=[], explain={"updated": n})
 
 
 @handles(A.Truncate)
 def truncate(cl, stmt):
+    from citus_tpu_torch.integrity import forbid_truncate_referenced
     from citus_tpu_torch.transaction.locks import EXCLUSIVE
     from citus_tpu_torch.transaction.write_locks import group_resource
-    # validate EVERY relation up front: truncation deletes files
+    # validate EVERY relation up front (existence + FK rule with
+    # list-awareness: a referenced parent is fine when all its children
+    # are in the same list, like PostgreSQL): truncation deletes files
     # irreversibly, so a bad later name must not leave earlier tables
     # already emptied
     names = (stmt.table,) + tuple(stmt.more)
-    metas = {}
+    expanded = []
     for name in names:
         t0 = cl.catalog.table(name)
+        expanded.append(name)
         if t0.is_partitioned:
-            raise UnsupportedFeatureError(
-                "TRUNCATE of a partitioned table is not ported yet "
-                "(ROADMAP.md A11)")
-        refs = {r for r, _fk in cl.catalog.referencing_fks(name)}
-        if refs - set(names):
-            raise UnsupportedFeatureError(
-                "TRUNCATE of a table other tables reference by foreign "
-                "key is not ported yet (ROADMAP.md A11)")
-        refuse_remote_placements(cl, t0, "TRUNCATE")
-        metas.setdefault(group_resource(t0), t0)
+            expanded += [p.name for p in cl.catalog.partitions_of(name)]
+    for name in expanded:
+        forbid_truncate_referenced(cl.catalog, name,
+                                   also_truncated=set(expanded))
     # every relation's EXCLUSIVE lock (sorted: no lock-order inversion)
     # before the first irreversible flip, so TRUNCATE a, b is
     # all-or-nothing against a lock timeout
+    metas = {}
+    for name in expanded:
+        t0 = cl.catalog.table(name)
+        if not t0.is_partitioned:
+            refuse_remote_placements(cl, t0, "TRUNCATE")
+            metas.setdefault(group_resource(t0), t0)
     with contextlib.ExitStack() as stack:
         for res in sorted(metas):
             stack.enter_context(cl._write_lock(metas[res], EXCLUSIVE))
         for name in names:
             cl._truncate_one(name)
     return Result(columns=[], rows=[])
+
+
+@handles(A.Vacuum)
+def vacuum(cl, stmt):
+    from citus_tpu_torch.executor.dml import execute_vacuum
+    from citus_tpu_torch.transaction.locks import EXCLUSIVE
+    t = cl.catalog.table(stmt.table)
+    if t.is_partitioned:
+        # the parent holds no data: vacuum every partition
+        return cl._fanout_partitions(stmt, aggregate_explain=True)
+    refuse_remote_placements(cl, t, "VACUUM")
+    with cl._write_lock(t, EXCLUSIVE):
+        st = execute_vacuum(cl.catalog, cl.catalog.table(stmt.table))
+    cl._plan_cache.invalidate_table(t.name)
+    return Result(columns=[], rows=[], explain=st)
+
+
+@handles(A.Merge)
+def merge(cl, stmt):
+    _unported("MERGE (executor/merge_executor.py)")
+
+
+@handles(A.CopyTo, A.CopyFrom, A.CopyQueryTo)
+def copy_file(cl, stmt):
+    _unported("COPY to and from files (commands/copy_binary.py, "
+              "copy_to_csv / copy_from_csv)")
+
+
+@handles(A.Analyze, A.VacuumAnalyze, A.Reindex)
+def analyze_reindex(cl, stmt):
+    _unported("ANALYZE and REINDEX")

@@ -550,6 +550,8 @@ def _execute_setop(cl, stmt: A.SetOp) -> Result:
     pushed down run through recursive planning
     (recursive_planning.c:223)."""
     from collections import Counter
+    if stmt.op == "union" and stmt.all and _union_all_chain(stmt.left):
+        return _execute_union_all_chain(cl, stmt)
     lres = cl._execute_stmt(stmt.left)
     rres = cl._execute_stmt(stmt.right)
     if len(lres.columns) != len(rres.columns):
@@ -591,6 +593,50 @@ def _execute_setop(cl, stmt: A.SetOp) -> Result:
     return Result(columns=lres.columns, rows=rows,
                   types=lres.types or rres.types,
                   explain={"strategy": f"setop:{stmt.op}"})
+
+
+def _union_all_chain(node) -> bool:
+    """Whether ``node`` is an inner link of a left-deep UNION ALL chain
+    (no ORDER BY, LIMIT or OFFSET of its own)."""
+    return (isinstance(node, A.SetOp) and node.op == "union" and node.all
+            and not node.order_by and node.limit is None
+            and not node.offset)
+
+
+def _execute_union_all_chain(cl, stmt: A.SetOp) -> Result:
+    """A left-deep UNION ALL chain (a partitioned parent's surviving
+    partitions, ``partitioning.expand_from``) run arm by arm: the rows of
+    the nested evaluation, in its order, at one statement of depth where
+    the nested one takes one per arm.  The reference nests, so a parent
+    with more than about 60 surviving partitions passes its statement
+    depth limit of 64 there (ROADMAP.md C14)."""
+    arms = [stmt.right]
+    node = stmt.left
+    while _union_all_chain(node):
+        arms.append(node.right)
+        node = node.left
+    arms.append(node)
+    arms.reverse()
+    first = None
+    rows: list = []
+    types = None
+    for arm in arms:
+        r = cl._execute_stmt(arm)
+        if first is None:
+            first = r
+        elif len(r.columns) != len(first.columns):
+            raise AnalysisError(
+                "each side of a set operation must return the same number "
+                "of columns")
+        types = types or r.types
+        rows.extend(r.rows)
+    rows = _sort_rows(rows, first.columns, stmt.order_by)
+    if stmt.offset:
+        rows = rows[stmt.offset:]
+    if stmt.limit is not None:
+        rows = rows[:stmt.limit]
+    return Result(columns=first.columns, rows=rows, types=types,
+                  explain={"strategy": "setop:union"})
 
 
 def _execute_with(cl, stmt: A.WithSelect) -> Result:

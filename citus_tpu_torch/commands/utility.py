@@ -5,8 +5,12 @@ carries create_distributed_table, the rollup calls (create, drop,
 refresh, the citus_rollups() view), the stat views of its slices
 (counters, statements, tenants, the admission pool, megabatching, the
 data plane's transfers), node topology (citus_add_node,
-citus_remove_node) and the replicated tenant quotas; the other
-utilities are not ported yet (ROADMAP.md queue A).
+citus_remove_node), the replicated tenant quotas, the time-partition
+helpers (create_time_partitions, drop_old_time_partitions,
+time_partitions), sequences (nextval, currval, setval,
+citus_sequences), run_command_on_shards / _placements and
+master_get_table_ddl_events; the other utilities are not ported yet
+(ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -35,6 +39,81 @@ def _create_distributed_table(cl, name, args):
 def _create_reference_table(cl, name, args):
     cl.create_reference_table(args[0])
     return Result(columns=[name], rows=[(None,)])
+
+
+@utility("create_time_partitions")
+def _create_time_partitions(cl, name, args):
+    from citus_tpu_torch.partitioning import create_time_partitions
+    n = create_time_partitions(
+        cl, args[0], args[1], args[2],
+        args[3] if len(args) > 3 else None)
+    return Result(columns=[name], rows=[(n > 0,)],
+                  explain={"partitions_created": n})
+
+
+@utility("drop_old_time_partitions")
+def _drop_old_time_partitions(cl, name, args):
+    from citus_tpu_torch.partitioning import drop_old_time_partitions
+    n = drop_old_time_partitions(cl, args[0], args[1])
+    return Result(columns=[name], rows=[(n,)],
+                  explain={"partitions_dropped": n})
+
+
+@utility("time_partitions")
+def _time_partitions(cl, name, args):
+    # the time_partitions view (reference: a SQL view over pg_class +
+    # partition bounds)
+    rows = []
+    for t in cl.catalog.tables.values():
+        if t.partition_of is not None:
+            rows.append((t.partition_of["parent"], t.name,
+                         t.partition_of["lo"], t.partition_of["hi"]))
+    return Result(
+        columns=["parent_table", "partition", "from_value", "to_value"],
+        rows=sorted(rows))
+
+
+# -------------------------------------------------------------- sequences
+
+@utility("nextval")
+def _nextval(cl, name, args):
+    return Result(columns=["nextval"],
+                  rows=[(cl.catalog.nextval(str(args[0])),)])
+
+
+@utility("currval")
+def _currval(cl, name, args):
+    return Result(columns=["currval"],
+                  rows=[(cl.catalog.currval(str(args[0])),)])
+
+
+@utility("setval")
+def _setval(cl, name, args):
+    v = cl.catalog.setval(str(args[0]), int(args[1]))
+    return Result(columns=["setval"], rows=[(v,)])
+
+
+@utility("citus_sequences")
+def _citus_sequences(cl, name, args):
+    rows = [(n, s["value"], s["increment"], s["start"])
+            for n, s in sorted(cl.catalog.sequences.items())]
+    return Result(columns=["sequence_name", "next_block_start",
+                           "increment", "start"], rows=rows)
+
+
+# ------------------------------------------------------------ shard tools
+
+@utility("run_command_on_shards", "run_command_on_placements")
+def _run_command_on_shards(cl, name, args):
+    return cl._run_command_on_shards(
+        str(args[0]), str(args[1]),
+        per_placement=(name == "run_command_on_placements"))
+
+
+@utility("master_get_table_ddl_events")
+def _master_get_table_ddl_events(cl, name, args):
+    return Result(columns=["master_get_table_ddl_events"],
+                  rows=[(d,) for d in cl._table_ddl(str(args[0]))])
 
 
 # ------------------------------------------------------- stats/monitoring

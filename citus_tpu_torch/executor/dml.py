@@ -1,4 +1,4 @@
-"""DML execution: DELETE / UPDATE / TRUNCATE.
+"""DML execution: DELETE / UPDATE / TRUNCATE / VACUUM.
 
 Reference mapping:
 - DELETE/UPDATE on distributed tables: the router/multi-shard modify
@@ -15,8 +15,7 @@ deletion bitmaps, re-insert and 2PC log, so a data directory written by
 either package reads in the other.  Every write bumps the table's
 version inside a flip-generation bracket, the two things the device
 cache keys on (executor/device_cache.py plan_cache_key), so a warm scan
-after a DELETE never replays the old batches.  VACUUM is not ported
-yet (ROADMAP.md A11).
+after a DELETE never replays the old batches.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ from citus_tpu_torch.catalog import Catalog, TableMeta
 from citus_tpu_torch.errors import UnsupportedFeatureError
 from citus_tpu_torch.planner.bound import BExpr, compile_expr, predicate_mask
 from citus_tpu_torch.planner.physical import extract_intervals, prune_shards
-from citus_tpu_torch.storage import ShardReader
+from citus_tpu_torch.storage import ShardReader, ShardWriter
 from citus_tpu_torch.storage.deletes import (
     clear_deletes, commit_staged_deletes, stage_deletes,
 )
@@ -212,6 +211,7 @@ def _execute_update_tx(cat, txlog, table, assignments, where,
     new_values = {c: [] for c in all_columns}
     new_valid = {c: [] for c in all_columns}
     assign_map = dict(assignments)
+    replaced: dict = {}  # {primary_dir: {stripe_file: positions}} for unique probe
     total = 0
     for si in shard_indexes:
         shard = table.shards[si]
@@ -222,6 +222,7 @@ def _execute_update_tx(cat, txlog, table, assignments, where,
         merged, matched = _matched_rows_per_stripe(cat, table, d, where, all_columns)
         if not merged:
             continue
+        replaced[d] = {sf: set(ix.tolist()) for sf, (ix, _) in merged.items()}
         total += sum(len(ix) for ix, _ in merged.values())
         # stage the deletion on every placement of this shard
         for node in shard.placements:
@@ -281,9 +282,9 @@ def _execute_update_tx(cat, txlog, table, assignments, where,
               for c in all_columns}
     validity = {c: np.concatenate(new_valid[c]) for c in all_columns}
     if table.unique_indexes:
-        raise UnsupportedFeatureError(
-            "UPDATE of a table with unique indexes is not ported yet "
-            "(ROADMAP.md A11)")
+        from citus_tpu_torch.integrity import check_unique_update
+        check_unique_update(cat, table, values, validity,
+                            set(assign_map), replaced)
     if check is not None:
         check(values, validity)
     _write_replacement(cat, txlog, table, xid, txn, values, validity,
@@ -398,3 +399,52 @@ def execute_truncate(cat: Catalog, table: TableMeta) -> None:
                 clear_deletes(d)
         table.version += 1
     cat.commit()
+
+
+def execute_vacuum(cat: Catalog, table: TableMeta) -> dict:
+    """Rewrite placements without deleted rows; merge small stripes."""
+    import shutil
+    rewritten = reclaimed = 0
+    for shard in table.shards:
+        for node in shard.placements:
+            d = cat.shard_dir(table.name, shard.shard_id, node)
+            if not os.path.isdir(d):
+                continue
+            reader = ShardReader(d, table.schema)
+            from citus_tpu_torch.storage.deletes import load_deletes
+            if not load_deletes(d) and len(reader.stripe_files) <= 1:
+                continue  # nothing to reclaim or merge
+            tmp = d + ".vacuum"
+            if os.path.isdir(tmp):
+                shutil.rmtree(tmp)
+            w = ShardWriter(tmp, table.schema,
+                            chunk_row_limit=table.chunk_row_limit,
+                            stripe_row_limit=table.stripe_row_limit,
+                            codec=table.compression,
+                            level=table.compression_level,
+                            index_columns=tuple(table.index_columns))
+            live = 0
+            pnames = table.schema.physical_names()
+            for batch in reader.scan(pnames):
+                vals = {c: batch.values[c] for c in pnames}
+                valid = {c: (batch.validity[c] if batch.validity[c] is not None
+                             else np.ones(batch.row_count, bool))
+                         for c in pnames}
+                w.append_batch(vals, valid)
+                live += batch.row_count
+            w.flush()
+            reclaimed += reader.meta["row_count"] - live
+            old = d + ".old"
+            if os.path.isdir(old):
+                shutil.rmtree(old)
+            from citus_tpu_torch.transaction.snapshot import flip_generation
+            with flip_generation(cat.data_dir, table):
+                # the swap window (placement briefly absent) is inside
+                # the flip bracket: an overlapping snapshot read retries
+                os.rename(d, old)
+                os.rename(tmp, d)
+            record_cleanup(cat, old, DEFERRED_ON_SUCCESS)
+            rewritten += 1
+    table.version += 1
+    cat.commit()
+    return {"placements_rewritten": rewritten, "rows_reclaimed": reclaimed}

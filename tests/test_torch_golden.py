@@ -22,8 +22,9 @@ from citus_tpu_torch.errors import CitusTpuError
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_golden import GOLDEN_DIR, split_statements  # noqa: E402
 
-SCRIPTS = ["aggregates_ext", "basic", "grouping_sets", "recursive_cte",
-           "setops", "strings", "windows"]
+SCRIPTS = ["aggregates_ext", "basic", "grouping_sets", "insert_select",
+           "partitioning", "recursive_cte", "setops", "sql_surface2",
+           "strings", "txn_ddl", "windows"]
 
 
 def run_script(cl, text: str) -> str:

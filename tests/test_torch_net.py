@@ -524,6 +524,20 @@ def test_cross_host_dml_raises_with_its_roadmap_item(pair):
                                    "execute_sql", {"sql": "SELECT 1"})
 
 
+def test_insert_select_into_remote_shards_raises_with_its_roadmap_item(
+        pair):
+    """INSERT ... SELECT into a table with shards another coordinator
+    hosts is refused naming ROADMAP.md A11 (its array path writes local
+    placements only; the pull path's routing is not ported for it)."""
+    a, b = pair
+    _load(a, _columns(n=200))
+    from citus_tpu_torch.errors import UnsupportedFeatureError
+    for sql in ("INSERT INTO t SELECT * FROM t WHERE k < 10",
+                "INSERT INTO t (k, v) SELECT k, count(*) FROM t GROUP BY k"):
+        with pytest.raises(UnsupportedFeatureError, match="A11"):
+            a.execute(sql)
+
+
 def test_chip_smoke_phase7_rehearses_on_cpu(tmp_path, monkeypatch):
     """chip_smoke.py's phase 7 on the CPU at a small size: the pair, the
     load through A, R1/S1/R3 pushed and pulled against the numpy

@@ -578,8 +578,9 @@ def test_views_functions_and_partitions_of_the_catalog_are_refused(
     """A data directory the reference wrote with a view, an SQL function
     and a partitioned table opens in the port; a statement naming a view
     or a function raises naming ROADMAP.md A14 (their expansion is not
-    ported), one naming the partitioned parent A11, and one that names
-    none of them runs."""
+    ported); one naming the partitioned parent (ported since A11's local
+    write surface) and one that names none of them run, with the
+    reference's rows."""
     from citus_tpu_torch.errors import UnsupportedFeatureError
     d = str(tmp_path / "db")
     ref = ct.Cluster(d)
@@ -593,6 +594,7 @@ def test_views_functions_and_partitions_of_the_catalog_are_refused(
     ref.execute("SELECT create_time_partitions('metrics', '1 hour', "
                 "'2024-01-01 04:00', '2024-01-01 00:00')")
     want = ref.execute("SELECT count(*) FROM vt WHERE v < 2").rows
+    want_parent = ref.execute("SELECT count(*) FROM metrics").rows
     ref.close()
     port = ctt.Cluster(d, device="cpu")
     try:
@@ -602,9 +604,9 @@ def test_views_functions_and_partitions_of_the_catalog_are_refused(
                     "SELECT k FROM vt UNION SELECT addone(k) FROM vt"):
             with pytest.raises(UnsupportedFeatureError, match="A14"):
                 port.execute(sql)
-        # a partitioned parent (partition pruning, A11)
-        with pytest.raises(UnsupportedFeatureError, match="A11"):
-            port.execute("SELECT count(*) FROM metrics")
+        # a partitioned parent expands to its partitions
+        assert port.execute("SELECT count(*) FROM metrics").rows \
+            == want_parent
         assert port.execute("SELECT count(*) FROM vt WHERE v < 2").rows \
             == want
     finally:

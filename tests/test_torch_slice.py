@@ -199,13 +199,14 @@ def test_opens_reference_data_directory(tmp_path):
 
 @pytest.mark.parametrize("sql", [
     "CREATE VIEW v AS SELECT 1",
-    "INSERT INTO events SELECT * FROM events",
+    "MERGE INTO events e USING events s ON e.id = s.id "
+    "WHEN MATCHED THEN DELETE",
     "CREATE FUNCTION addone(x bigint) RETURNS bigint AS 'x + 1'",
     "SET citus.enable_metadata_sync = off",
-    "VACUUM events",
-    "DELETE FROM events WHERE id = 1 RETURNING id",
-    "UPDATE events SET qty = 1 WHERE id = 1 RETURNING id",
-    "CREATE TABLE p (a bigint PRIMARY KEY)",
+    "ANALYZE events",
+    "REINDEX TABLE events",
+    "ALTER TABLE events ADD COLUMN z bigint",
+    "COPY events TO 'events.csv'",
 ])
 def test_unported_statement_raises(pair, sql):
     _, port = pair
