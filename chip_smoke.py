@@ -248,7 +248,36 @@ result line:
    warm run (torch.profiler); the B1, B2 and B4 launches of the phase.
    Its generated kernels build during its own load, from a CPU
    rehearsal that runs, with phase 10's, in a process of its own from
-   the start of phase 2.
+   the start of phase 2;
+12. the rest of A11 on phase 8's orders_b arrays (1,500,303 rows; run
+   right after phase 11): (a) ``orders_m`` (o_orderkey PRIMARY KEY,
+   4 shards) loaded by ``COPY orders_m FROM '<file>' WITH (delimiter
+   '|')`` from a file numpy writes in dbgen's layout, ``COPY orders_m
+   TO`` CSV (its lines as a multiset equal to numpy's), a binary
+   export loaded into ``orders_m2``, ``COPY (SELECT o_flag, count(*)
+   ...) TO``; (d) CREATE STATISTICS on (o_custkey, o_flag), its
+   ndistinct numpy's; (b) a colocated staging table of TPC-H RF1's
+   1,500 new orders and 15,000 updated ones, MERGE ... WHEN MATCHED
+   UPDATE ... WHEN NOT MATCHED INSERT cold and warm (the same rows
+   after each; ``updated`` 15,000 and ``inserted`` 1,500, then 16,500
+   and 0; no kernel launched), RF2's MERGE ... DELETE of 1,500
+   orders, a source with a duplicate key refused and the table
+   unchanged; ANALYZE (``statistics_refreshed`` 1, numpy's
+   ndistinct); (c) ADD COLUMN, ADD CONSTRAINT CHECK (o_custkey >= 0)
+   validated by a count through B1, CHECK (o_custkey > 0) refused with
+   numpy's count of violating rows, RENAME COLUMN, DROP COLUMN, RENAME
+   TO, ``alter_distributed_table('orders_m', 8)``,
+   ``undistribute_table('orders_m2')``; (d) CREATE INDEX on o_custkey,
+   an index lookup, REINDEX TABLE after its segment files are deleted
+   (``segments_rebuilt`` the ``cpu`` backend's).  After each write the
+   Q checks (the count, sum(o_custkey) and sum(o_orderkey), the o_flag
+   counts) run on the card against numpy and the ``cpu`` backend; each read cold and
+   3 times warm (the exports, ANALYZE and REINDEX cold only, CREATE
+   STATISTICS and the MERGE once warm: the time limit), no
+   nvcc build in a warm run, no kernel but the port's in one more warm
+   run of the reads (torch.profiler); the B1, B2 and B4 launches of the
+   phase.  Its generated kernels build during its COPY FROM, from a CPU
+   rehearsal in the process of phases 10 and 11.
 
 Then a JSON line of the kernels, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -558,6 +587,54 @@ REINSERT_JUNE_16 = ("INSERT INTO li_copy SELECT * FROM lineitem WHERE "
 ORDERS_REF_DDL = "CREATE TABLE orders_ref (o_orderkey bigint PRIMARY KEY)"
 #: phase 11 runs each statement cold and this many times warm
 P11_WARM = 3
+
+# phase 12: the rest of A11 on phase 8's orders_b arrays.  TPC-H's own
+# load path (a `|`-delimited dbgen file through COPY FROM), exports to
+# CSV and binary files, MERGE of a staging table (TPC-H's refresh
+# functions RF1 and RF2 at SF1, plus an update stream), ALTER TABLE,
+# the redistribution UDFs, extended statistics with ANALYZE, REINDEX
+ORDERS_M_DDL = ("CREATE TABLE {t} (o_orderkey bigint PRIMARY KEY, "
+                "o_custkey bigint NOT NULL, o_flag text)")
+#: TPC-H RF1 inserts SF x 1,500 new orders and RF2 deletes as many
+PH12_RF1 = 1_500
+PH12_RF2 = 1_500
+#: existing orders the staging table updates (a new custkey and flag)
+PH12_UPDATES = 15_000
+#: phase 12 runs each read statement cold and this many times warm,
+#: but, to keep the script inside its time limit (PERF.md section 4),
+#: its whole-table statements (the exports, ANALYZE, REINDEX: 0.5-4 s
+#: a run on the card's host) cold only, CREATE STATISTICS (whose counts
+#: ANALYZE repeats) once warm and the MERGE P12_MERGE_WARM times warm
+P12_WARM = 3
+P12_WARM_HEAVY = 0
+P12_MERGE_WARM = 1
+PH12_CHECKS = {
+    "count and sums": ("SELECT count(*), sum(o_custkey), sum(o_orderkey) "
+                       "FROM {t}"),
+    "o_flag counts": ("SELECT {f}, count(*) FROM {t} GROUP BY {f} "
+                      "ORDER BY {f}"),
+}
+PH12_MERGE = (
+    "MERGE INTO orders_m t USING orders_delta d "
+    "ON t.o_orderkey = d.o_orderkey "
+    "WHEN MATCHED THEN UPDATE SET o_custkey = d.o_custkey, "
+    "o_flag = d.o_flag "
+    "WHEN NOT MATCHED THEN INSERT (o_orderkey, o_custkey, o_flag) "
+    "VALUES (d.o_orderkey, d.o_custkey, d.o_flag)")
+PH12_MERGE_RF2 = ("MERGE INTO orders_m t USING orders_rf2 r "
+                  "ON t.o_orderkey = r.o_orderkey WHEN MATCHED THEN DELETE")
+PH12_MERGE_DUP = ("MERGE INTO orders_m t USING orders_dup d "
+                  "ON t.o_orderkey = d.o_orderkey "
+                  "WHEN MATCHED THEN UPDATE SET o_custkey = d.o_custkey")
+PH12_FLAGS_QUERY = ("COPY (SELECT o_flag, count(*) FROM orders_m GROUP BY "
+                    "o_flag) TO '{path}'")
+PH12_CHECK_OK = ("ALTER TABLE orders_m ADD CONSTRAINT cust_nonneg "
+                 "CHECK (o_custkey >= 0)")
+#: orders_b's custkeys start at 0: this CHECK is violated
+PH12_CHECK_BAD = ("ALTER TABLE orders_m ADD CONSTRAINT cust_pos "
+                  "CHECK (o_custkey > 0)")
+PH12_LOOKUP = ("SELECT count(*), sum(o_orderkey) FROM orders_m "
+               "WHERE o_custkey = {k}")
 
 
 RF = np.array(["A", "N", "R"])
@@ -1324,26 +1401,29 @@ def rehearsal_sources(tmp: str, name: str, body) -> list:
     return [(build, src) for src, build in seen.items()]
 
 
-def start_rehearsals(tmp: str):
-    """Start ``phase10_sources`` and ``phase11_sources`` in a process of
-    their own, with no CUDA device visible to it, so that their CPU
-    rehearsals run beside phase 2's builds.  -> a handle for
+def start_rehearsals(tmp: str, n_orders: int):
+    """Start ``phase10_sources``, ``phase11_sources`` and
+    ``phase12_sources`` (over ``n_orders`` orders' value ranges) in a
+    process of their own, with no CUDA device visible to it, so that
+    their CPU rehearsals run beside phase 2's builds.  -> a handle for
     ``finish_rehearsals``."""
     out = os.path.join(tmp, "rehearsals.json")
     here = os.path.dirname(os.path.abspath(__file__))
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "import chip_smoke as c; "
             "json.dump({'p10': c.phase10_sources(sys.argv[2]), "
-            "'p11': c.phase11_sources(sys.argv[2])}, open(sys.argv[3], 'w'))")
+            "'p11': c.phase11_sources(sys.argv[2]), "
+            "'p12': c.phase12_sources(sys.argv[2], int(sys.argv[4]))}, "
+            "open(sys.argv[3], 'w'))")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    proc = subprocess.Popen([sys.executable, "-c", code, here, tmp, out],
-                            env=env)
+    proc = subprocess.Popen([sys.executable, "-c", code, here, tmp, out,
+                             str(n_orders)], env=env)
     return proc, out
 
 
 def finish_rehearsals(handle) -> tuple:
-    """Wait for ``start_rehearsals``; -> (phase 10's, phase 11's
-    (build, source) lists)."""
+    """Wait for ``start_rehearsals``; -> (phase 10's, phase 11's and
+    phase 12's (build, source) lists)."""
     proc, out = handle
     try:
         rc = proc.wait(timeout=900)
@@ -1355,7 +1435,7 @@ def finish_rehearsals(handle) -> tuple:
         raise AssertionError(f"the kernel-source rehearsals exited {rc}")
     with open(out) as fh:
         got = json.load(fh)
-    return ([tuple(b) for b in got["p10"]], [tuple(b) for b in got["p11"]])
+    return tuple([tuple(b) for b in got[k]] for k in ("p10", "p11", "p12"))
 
 
 def phase10_sources(tmp: str) -> list:
@@ -1413,6 +1493,54 @@ def phase11_sources(tmp: str) -> list:
         except Exception:  # noqa: BLE001 -- refused, as on the card
             pass
     return rehearsal_sources(tmp, "phase11", body)
+
+
+def phase12_sources(tmp: str, n_orders: int) -> list:
+    """``rehearsal_sources`` of phase 12's reads, over the first 20,000
+    of ``n_orders`` orders (their custkeys span the full scale's range,
+    so each plan takes the card's mode): the Q checks, COPY (SELECT
+    ...) TO, the statistics' counts, the CHECK validations, the index
+    lookup (the MERGEs, COPYs and DDL launch no kernel)."""
+    def body(cl):
+        state = ph12_orders(n_orders, 20_000)
+        tbl = os.path.join(tmp, "phase12_orders.tbl")
+        with open(tbl, "w") as fh:
+            fh.write("\n".join(ph12_lines(state, "|")) + "\n")
+        bin_path = os.path.join(tmp, "phase12_orders.bin")
+
+        def checks(t, f="o_flag"):
+            for sql in PH12_CHECKS.values():
+                cl.execute(sql.format(t=t, f=f))
+        for t in ("orders_m", "orders_m2"):
+            cl.execute(ORDERS_M_DDL.format(t=t))
+            cl.execute(f"SELECT create_distributed_table('{t}', "
+                       f"'o_orderkey', {SHARDS})")
+        cl.execute(f"COPY orders_m FROM '{tbl}' WITH (delimiter '|')")
+        checks("orders_m")
+        cl.execute(PH12_FLAGS_QUERY.format(
+            path=os.path.join(tmp, "phase12_flags.csv")))
+        cl.execute(f"COPY orders_m TO '{bin_path}' WITH (format binary)")
+        cl.execute(f"COPY orders_m2 FROM '{bin_path}' WITH (format binary)")
+        checks("orders_m2")
+        cl.execute("CREATE STATISTICS st_cust_flag ON o_custkey, o_flag "
+                   "FROM orders_m")
+        cl.execute("ANALYZE orders_m")
+        cl.execute(PH12_CHECK_OK)
+        try:
+            cl.execute(PH12_CHECK_BAD)
+            cl.execute("ALTER TABLE orders_m DROP CONSTRAINT cust_pos")
+        except Exception:  # noqa: BLE001 -- refused, as on the card
+            pass
+        cl.execute("ALTER TABLE orders_m RENAME COLUMN o_flag TO o_status")
+        checks("orders_m", "o_status")
+        cl.execute("ALTER TABLE orders_m RENAME COLUMN o_status TO o_flag")
+        cl.execute("SELECT alter_distributed_table('orders_m', 8)")
+        checks("orders_m")
+        cl.execute("SELECT undistribute_table('orders_m2')")
+        checks("orders_m2")
+        cl.execute("CREATE INDEX ix_cust ON orders_m (o_custkey)")
+        cl.execute(PH12_LOOKUP.format(k=int(state["cust"][0])))
+    return rehearsal_sources(tmp, "phase12", body)
 
 
 def family_plans(cl, fams: dict = None) -> dict:
@@ -2228,6 +2356,9 @@ PROFILE_TRIES = 10
 #: first run, and in each run after it
 PROFILE_PAUSE_S = 0.02
 PROFILE_RETRY_PAUSE_S = 2.0
+#: sessions ``profile_phase10`` runs, at most, until every query's
+#: window holds the kernels its wrappers launched
+PROFILE_SESSIONS = 5
 
 #: name fragments of the port's kernels as the profiler reports them
 PORT_KERNELS = ("fold_shared_q", "fold_global_q", "hash_insert", "fm_kernel",
@@ -4804,21 +4935,22 @@ def profile_phase10(cl, runs: list, card: str,
     process, see ``profiled_kernels``), each query's device records
     told apart by its window on the session's clock (a query ends
     synchronized, and 50 ms pass before the next): the card must run
-    the port's kernels and no other.  The session runs again, up to 3
-    times, when its records lack kernels the wrappers launched.
-    ``runs``: (label, run the query)."""
+    the port's kernels and no other.  The queries whose window lacks
+    kernels the wrappers launched run again in another session, up to
+    PROFILE_SESSIONS sessions in all; a kernel not of the port in any
+    session fails.  ``runs``: (label, run the query)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     counters = launch_counters()
-    for attempt in range(1, 4):
-        before = sum(f.launches for f in counters.values())
+    done, others, pending = {}, {}, list(runs)
+    for attempt in range(1, PROFILE_SESSIONS + 1):
         windows = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_RETRY_PAUSE_S)
-            for label, run in runs:
+            for label, run in pending:
                 start = (time.perf_counter() - t0) * 1e3
                 n0 = sum(f.launches for f in counters.values())
                 run()
@@ -4829,8 +4961,7 @@ def profile_phase10(cl, runs: list, card: str,
                                 - n0))
                 time.sleep(0.05)
             time.sleep(PROFILE_RETRY_PAUSE_S)
-        launched = sum(f.launches for f in counters.values()) - before
-        seen = {label: [0, 0, 0, {}] for label, _ in runs}
+        seen = {label: [0, 0, 0] for label, _ in pending}
         for e in prof.events():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
@@ -4846,25 +4977,33 @@ def profile_phase10(cl, runs: list, card: str,
                 rec[0] += 1
             else:
                 rec[1] += 1
-                rec[3][e.name] = rec[3].get(e.name, 0) + 1
-        if all(seen[label][0] >= n for label, _, _, n in windows):
+                others.setdefault(label, {})
+                others[label][e.name] = others[label].get(e.name, 0) + 1
+        for label, start, end, n in windows:
+            port, other, copies = seen[label]
+            if port >= n:
+                done[label] = (port, other, copies, n, end - start, attempt)
+        pending = [(label, run) for label, run in pending
+                   if label not in done]
+        if not pending:
             break
-        say(f"{phase} profiled session {attempt} recorded "
-            f"{sum(r[0] for r in seen.values())} of the port's {launched} "
-            f"kernels; once more")
-    else:
+        say(f"{phase} profiled session {attempt} lacked kernels the "
+            f"wrappers launched for {[label for label, _ in pending]}; "
+            "those once more")
+    if pending:
         raise AssertionError(f"{phase}: torch.profiler recorded fewer "
-                             "kernels than were launched in 3 sessions")
-    for label, start, end, n in windows:
-        port, other, copies, names = seen[label]
+                             f"kernels than were launched for "
+                             f"{[label for label, _ in pending]} in "
+                             f"{PROFILE_SESSIONS} sessions")
+    for label, _ in runs:
+        port, other, copies, n, ms, attempt = done[label]
         say(f"{phase} {label} warm under torch.profiler: {port} kernels of "
             f"the port ({n} launched), {other} other, {copies} copies and "
-            f"sets in its {end - start:.3f} ms window (session {attempt}) "
-            f"({card})")
-        if other or port != n:
+            f"sets in its {ms:.3f} ms window (session {attempt}) ({card})")
+        if label in others or port != n:
             raise AssertionError(f"{phase} {label} warm: the profiler saw "
                                  f"{port} of the port's {n} kernels and "
-                                 f"{other} others {names}")
+                                 f"others {others.get(label)}")
 
 
 def phase10_params(cl, cols: dict, launches: dict, card: str):
@@ -4978,18 +5117,19 @@ def run_phase10(cl, cols: dict, launches: dict, card: str) -> None:
 
 
 def ph11_statement(cl, label: str, run, got, want: list, launches: dict,
-                   card: str, reset=None, cpu_want=None) -> list:
-    """One phase-11 statement cold, then P11_WARM times warm: ``reset()``
-    (untimed) before each run, ``run()`` timed, ``got(result)`` -> the
-    rows to hold against ``want`` (numpy's) and, when given, against
-    ``cpu_want(result)`` (the port's numpy ``cpu`` backend's, after the
-    cold run); no nvcc build in a warm run.  Adds each run's launches to
-    ``launches``.  -> [seconds of each run]."""
+                   card: str, reset=None, cpu_want=None,
+                   phase: str = "phase 11", warm: int = P11_WARM) -> list:
+    """One statement of ``phase`` cold, then ``warm`` times warm:
+    ``reset()`` (untimed) before each run, ``run()`` timed,
+    ``got(result)`` -> the rows to hold against ``want`` (numpy's) and,
+    when given, against ``cpu_want(result)`` (the port's numpy ``cpu``
+    backend's, after the cold run); no nvcc build in a warm run.  Adds
+    each run's launches to ``launches``.  -> [seconds of each run]."""
     import torch
     from citus_tpu_torch.ops import cuda_build
     counters = launch_counters()
     times, builds, per_run = [], [], {}
-    for i in range(1 + P11_WARM):
+    for i in range(1 + warm):
         if reset is not None:
             reset()
         for f in counters.values():
@@ -4997,7 +5137,8 @@ def ph11_statement(cl, label: str, run, got, want: list, launches: dict,
         b0 = cuda_build.BUILDS["count"]
         t0 = time.perf_counter()
         r = run()
-        torch.cuda.synchronize()
+        if cl.device.type == "cuda":
+            torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         builds.append(cuda_build.BUILDS["count"] - b0)
         per_run = {k: f.launches for k, f in counters.items() if f.launches}
@@ -5005,18 +5146,18 @@ def ph11_statement(cl, label: str, run, got, want: list, launches: dict,
             launches[k] += v
         rows = got(r)
         if not same_rows(rows, want):
-            raise AssertionError(f"phase 11 {label} run {i}: rows differ "
+            raise AssertionError(f"{phase} {label} run {i}: rows differ "
                                  f"from numpy's:\n{rows[:8]}\n{want[:8]}")
         if i == 0 and cpu_want is not None:
             cpu = cpu_want(r)
             if not same_rows(rows, cpu):
-                raise AssertionError(f"phase 11 {label}: rows differ from "
+                raise AssertionError(f"{phase} {label}: rows differ from "
                                      f"the cpu backend's:\n{rows[:8]}\n"
                                      f"{cpu[:8]}")
     if sum(builds[1:]):
-        raise AssertionError(f"phase 11 {label}: {builds[1:]} nvcc builds "
+        raise AssertionError(f"{phase} {label}: {builds[1:]} nvcc builds "
                              "in the warm runs")
-    say(f"phase 11 {label}: {len(want)} rows equal numpy's"
+    say(f"{phase} {label}: {len(want)} rows equal numpy's"
         + (" and the cpu backend's" if cpu_want is not None else "")
         + f"; cold {times[0]:.4f} s (nvcc builds {builds[0]}), warm "
         f"{', '.join(f'{t:.4f}' for t in times[1:])} s (nvcc builds 0); "
@@ -5289,6 +5430,447 @@ def run_phase11(ctt, cl, cols: dict, launches: dict, card: str,
     say(f"phase 11 took {time.perf_counter() - t_phase:.3f} s ({card})")
 
 
+# ------------------------------------------------------------- phase 12
+
+def ph12_orders(n_orders: int, rows: int = None) -> dict:
+    """Phase 8's orders_b arrays (bench.py's generator, seed 11), or
+    their first ``rows``: key, custkey, flag index."""
+    chunks, got = [], 0
+    for c in orders_b_chunks(n_orders):
+        chunks.append(c)
+        got += len(c["o_orderkey"])
+        if rows is not None and got >= rows:
+            break
+    out = {"key": np.concatenate([c["o_orderkey"] for c in chunks]),
+           "cust": np.concatenate([c["o_custkey"] for c in chunks]),
+           "flag": np.concatenate([c["flag"] for c in chunks])}
+    return {k: v[:rows] for k, v in out.items()} if rows else out
+
+
+def ph12_staging(orders: dict, n_orders: int, seed: int = 12,
+                 updates: int = PH12_UPDATES, rf1: int = PH12_RF1,
+                 rf2: int = PH12_RF2) -> dict:
+    """Phase 12 (b)'s staging rows: ``delta`` (RF1's ``rf1`` new orders
+    after the last key and ``updates`` existing orders with a new
+    custkey and flag), ``rf2`` (that many existing orders the delta
+    leaves alone) and ``dup`` (one existing key twice)."""
+    rng = np.random.default_rng(seed)
+    keys = orders["key"]
+    upd = np.sort(rng.choice(keys, updates, replace=False))
+    top = int(keys.max()) + 1
+    dkeys = np.concatenate([upd, np.arange(top, top + rf1)])
+    delta = {"key": dkeys,
+             "cust": rng.integers(0, n_orders // 8 + 1, len(dkeys)),
+             "flag": rng.integers(0, 3, len(dkeys))}
+    rf2 = np.sort(rng.choice(np.setdiff1d(keys, upd), rf2,
+                             replace=False))
+    return {"delta": delta, "rf2": rf2,
+            "dup": np.array([int(upd[0]), int(upd[0])], np.int64)}
+
+
+def ph12_merge_state(state: dict, delta: dict) -> dict:
+    """numpy's MERGE of ``delta`` into ``state`` (both by key; state
+    sorted by key): matched rows take the delta's custkey and flag,
+    the others are inserted."""
+    k = state["key"]
+    i = np.minimum(np.searchsorted(k, delta["key"]), len(k) - 1)
+    hit = k[i] == delta["key"]
+    cust, flag = state["cust"].copy(), state["flag"].copy()
+    cust[i[hit]] = delta["cust"][hit]
+    flag[i[hit]] = delta["flag"][hit]
+    out = {"key": np.concatenate([k, delta["key"][~hit]]),
+           "cust": np.concatenate([cust, delta["cust"][~hit]]),
+           "flag": np.concatenate([flag, delta["flag"][~hit]])}
+    order = np.argsort(out["key"], kind="stable")
+    return {c: v[order] for c, v in out.items()}
+
+
+def ph12_oracle(state: dict, check: str) -> list:
+    """numpy's rows of PH12_CHECKS[check] over ``state``."""
+    if check == "count and sums":
+        return [(len(state["key"]), int(state["cust"].sum()),
+                 int(state["key"].sum()))]
+    counts = np.bincount(state["flag"], minlength=len(FLAGS))
+    return [(str(FLAGS[f]), int(n)) for f, n in enumerate(counts) if n]
+
+
+def ph12_ndistinct(state: dict) -> int:
+    return len(np.unique(state["cust"] * len(FLAGS) + state["flag"]))
+
+
+def ph12_lines(state: dict, delim: str) -> list:
+    """The rows of ``state`` as dbgen / COPY write them, one a line."""
+    return [f"{k}{delim}{c}{delim}{w}" for k, c, w in zip(
+        state["key"].tolist(), state["cust"].tolist(),
+        FLAGS[state["flag"]].tolist())]
+
+
+def ph12_columns(state: dict) -> dict:
+    return {"o_orderkey": state["key"], "o_custkey": state["cust"],
+            "o_flag": FLAGS[state["flag"]].tolist()}
+
+
+def ph12_checks(cl, table: str, state: dict, launches: dict, card: str,
+                label: str, flag: str = "o_flag", warm: int = P12_WARM):
+    """The Q checks of ``table`` (its count, sum(o_custkey) and
+    sum(o_orderkey), its o_flag counts), each cold and ``warm`` times warm, against numpy's
+    ``state`` and the cpu backend."""
+    for name, sql in PH12_CHECKS.items():
+        q = sql.format(t=table, f=flag)
+        ph11_statement(cl, f"{label}: {name}", lambda q=q: cl.execute(q),
+                       lambda r: r.rows, ph12_oracle(state, name), launches,
+                       card, cpu_want=lambda r, q=q: cpu_backend_rows(cl, q),
+                       phase="phase 12", warm=warm)
+
+
+def ph12_check_rows(cl) -> list:
+    """The rows of the Q checks of orders_m, run once."""
+    return [tuple(r) for sql in PH12_CHECKS.values()
+            for r in cl.execute(sql.format(t="orders_m", f="o_flag")).rows]
+
+
+def ph12_want(state: dict) -> list:
+    """numpy's rows of ``ph12_check_rows``."""
+    return [r for name in PH12_CHECKS for r in ph12_oracle(state, name)]
+
+
+def ph12_create(cl, name: str, ddl: str, columns: dict) -> None:
+    cl.execute(ddl)
+    cl.execute(f"SELECT create_distributed_table('{name}', 'o_orderkey', "
+               f"{SHARDS})")
+    cl.copy_from(name, columns=columns)
+
+
+def ph12_copy(cl, tmp: str, state: dict, launches: dict, card: str,
+              sources: list) -> list:
+    """(a) orders_m loaded from a dbgen-style `|` file by COPY FROM, its
+    CSV export, a binary round trip into orders_m2, COPY (SELECT ...)
+    TO.  The generated ``sources`` build during the load.  -> (label,
+    run) for the profiled run."""
+    from citus_tpu_torch.ops import cuda_build
+    n = len(state["key"])
+    cl.execute(ORDERS_M_DDL.format(t="orders_m"))
+    cl.execute("SELECT create_distributed_table('orders_m', 'o_orderkey', "
+               f"{SHARDS})")
+    tbl = os.path.join(tmp, "orders.tbl")
+    t0 = time.perf_counter()
+    with open(tbl, "w") as fh:
+        fh.write("\n".join(ph12_lines(state, "|")) + "\n")
+    write_s = time.perf_counter() - t0
+    jobs = [cuda_build.start_generated(name, src) for name, src in sources]
+    t0 = time.perf_counter()
+    r = cl.execute(f"COPY orders_m FROM '{tbl}' WITH (delimiter '|')")
+    load_s = time.perf_counter() - t0
+    if r.explain != {"copied": n}:
+        raise AssertionError(f"phase 12 a load: {r.explain}")
+    t0 = time.perf_counter()
+    for job in jobs:
+        cuda_build.finish_generated(job)
+    say(f"phase 12 a COPY orders_m FROM a `|` file ({n} rows, "
+        f"{os.path.getsize(tbl)} B, written by numpy in {write_s:.3f} s): "
+        f"{load_s:.3f} s ({n / load_s:.1f} rows/s); its {len(jobs)} "
+        f"generated kernels built during it, "
+        f"{time.perf_counter() - t0:.3f} s after it ({card})")
+    ph12_checks(cl, "orders_m", state, launches, card, "a after the load")
+    csv_path = os.path.join(tmp, "orders_out.csv")
+    first = {}
+
+    def exported(r):
+        body = open(csv_path, "rb").read()
+        if not first:
+            lines = sorted(body.decode().splitlines())
+            first["same"] = lines == sorted(ph12_lines(state, ","))
+            first["body"] = body
+        return [(r.explain["copied"], first["same"] and body == first["body"])]
+    times = ph11_statement(
+        cl, "a COPY orders_m TO CSV", lambda: cl.execute(
+            f"COPY orders_m TO '{csv_path}'"), exported, [(n, True)],
+        launches, card, phase="phase 12", warm=P12_WARM_HEAVY)
+    say(f"phase 12 a COPY TO CSV: {os.path.getsize(csv_path)} B, its lines "
+        f"as a multiset equal numpy's, {n / float(np.median(times)):.1f} "
+        f"rows/s (median) ({card})")
+    bin_path = os.path.join(tmp, "orders.bin")
+    times = ph11_statement(
+        cl, "a COPY orders_m TO a binary file", lambda: cl.execute(
+            f"COPY orders_m TO '{bin_path}' WITH (format binary)"),
+        lambda r: [(r.explain["copied"],)], [(n,)], launches, card,
+        phase="phase 12", warm=P12_WARM_HEAVY)
+    cl.execute(ORDERS_M_DDL.format(t="orders_m2"))
+    cl.execute("SELECT create_distributed_table('orders_m2', 'o_orderkey', "
+               f"{SHARDS})")
+    t0 = time.perf_counter()
+    r = cl.execute(f"COPY orders_m2 FROM '{bin_path}' WITH (format binary)")
+    bload_s = time.perf_counter() - t0
+    if r.explain != {"copied": n}:
+        raise AssertionError(f"phase 12 a binary load: {r.explain}")
+    say(f"phase 12 a binary round trip: {os.path.getsize(bin_path)} B "
+        f"written at {n / float(np.median(times)):.1f} rows/s (median), "
+        f"loaded into orders_m2 in {bload_s:.3f} s ({n / bload_s:.1f} "
+        f"rows/s) ({card})")
+    ph12_checks(cl, "orders_m2", state, launches, card,
+                "a orders_m2 after the binary load", warm=0)
+    flags_path = os.path.join(tmp, "flags.csv")
+    flags_sql = PH12_FLAGS_QUERY.format(path=flags_path)
+
+    def flag_rows(r):
+        rows = [tuple(line.split(",")) for line in
+                open(flags_path).read().splitlines()]
+        return [(r.explain["copied"],)] + sorted((f, int(c))
+                                                 for f, c in rows)
+    want = ph12_oracle(state, "o_flag counts")
+    ph11_statement(cl, "a COPY (SELECT o_flag, count(*) ...) TO CSV",
+                   lambda: cl.execute(flags_sql), flag_rows,
+                   [(len(want),)] + want, launches, card,
+                   phase="phase 12", warm=P12_WARM)
+    return [("a COPY (SELECT ...) TO", lambda: cl.execute(flags_sql))]
+
+
+def ph12_statistics(cl, state: dict, launches: dict, card: str,
+                    label: str, sql: str, reset=None,
+                    warm: int = P12_WARM_HEAVY) -> None:
+    """CREATE STATISTICS or ANALYZE, cold and ``warm`` times warm: the
+    stored ndistinct of (o_custkey, o_flag) equals numpy's."""
+    want = ph12_ndistinct(state)
+
+    def got(r):
+        refreshed = r.explain.get("statistics_refreshed", 1)
+        return [(refreshed, cl.catalog.statistics["st_cust_flag"]
+                 ["ndistinct"])]
+    ph11_statement(cl, label, lambda: cl.execute(sql), got, [(1, want)],
+                   launches, card, reset=reset, phase="phase 12",
+                   warm=warm)
+
+
+def ph12_merge(cl, state: dict, n_orders: int, launches: dict,
+               card: str) -> dict:
+    """(b) MERGE of the staging table (RF1's new orders and the update
+    stream) cold and P12_MERGE_WARM times warm, the RF2 MERGE ...
+    DELETE, a source with a duplicate key refused.  A MERGE launches no
+    kernel (its join runs on the host, as in the reference).  -> the
+    state after it."""
+    stage = ph12_staging(state, n_orders)
+    delta = stage["delta"]
+    ph12_create(cl, "orders_delta", ORDERS_M_DDL.format(
+        t="orders_delta").replace(" PRIMARY KEY", " NOT NULL"),
+        ph12_columns(delta))
+    ph12_create(cl, "orders_rf2", "CREATE TABLE orders_rf2 "
+                "(o_orderkey bigint NOT NULL)", {"o_orderkey": stage["rf2"]})
+    ph12_create(cl, "orders_dup", "CREATE TABLE orders_dup (o_orderkey "
+                "bigint NOT NULL, o_custkey bigint)",
+                {"o_orderkey": stage["dup"], "o_custkey": np.zeros(2, int)})
+    merged = ph12_merge_state(state, delta)
+    counters = launch_counters()
+    runs = []
+
+    def merge_rows(r):
+        want = ({"updated": PH12_UPDATES, "deleted": 0,
+                 "inserted": PH12_RF1} if not runs else
+                {"updated": PH12_UPDATES + PH12_RF1, "deleted": 0,
+                 "inserted": 0})
+        runs.append(r.explain)
+        if r.explain != want:
+            raise AssertionError(f"phase 12 b MERGE run {len(runs)}: "
+                                 f"{r.explain}, not {want}")
+        launched = {k: f.launches for k, f in counters.items()
+                    if f.launches}
+        if launched:
+            raise AssertionError(f"phase 12 b: a MERGE launched {launched}")
+        rows = ph12_check_rows(cl)
+        for k, f in counters.items():
+            launches[k] += f.launches
+        return rows
+    ph11_statement(cl, "b MERGE of orders_delta (WHEN MATCHED UPDATE, WHEN "
+                   "NOT MATCHED INSERT); the Q checks after each run",
+                   lambda: cl.execute(PH12_MERGE), merge_rows,
+                   ph12_want(merged), launches, card, phase="phase 12",
+                   warm=P12_MERGE_WARM)
+    say(f"phase 12 b MERGE explains: {runs} ({card})")
+    ph12_checks(cl, "orders_m", merged, launches, card, "b after MERGE")
+    keep = ~np.isin(merged["key"], stage["rf2"])
+    after = {c: v[keep] for c, v in merged.items()}
+    t0 = time.perf_counter()
+    r = cl.execute(PH12_MERGE_RF2)
+    rf2_s = time.perf_counter() - t0
+    if r.explain != {"updated": 0, "deleted": PH12_RF2, "inserted": 0}:
+        raise AssertionError(f"phase 12 b RF2: {r.explain}")
+    if ph12_check_rows(cl) != ph12_want(after):
+        raise AssertionError("phase 12 b RF2: rows differ from numpy's")
+    say(f"phase 12 b RF2's MERGE ... WHEN MATCHED THEN DELETE of "
+        f"{PH12_RF2} orders: {rf2_s:.4f} s, {r.explain} ({card})")
+    ph12_checks(cl, "orders_m", after, launches, card, "b after RF2")
+    from citus_tpu_torch.errors import ExecutionError
+    t0 = time.perf_counter()
+    try:
+        cl.execute(PH12_MERGE_DUP)
+    except ExecutionError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("phase 12 b: a duplicate source key merged")
+    dup_s = time.perf_counter() - t0
+    if ph12_check_rows(cl) != ph12_want(after):
+        raise AssertionError("phase 12 b: the refused MERGE changed rows")
+    say(f"phase 12 b MERGE of a source with a duplicate key refused in "
+        f"{dup_s:.4f} s ({refused!r}); orders_m unchanged ({card})")
+    return after
+
+
+def ph12_alter(cl, state: dict, state2: dict, launches: dict,
+               card: str) -> list:
+    """(c) ADD COLUMN, ADD CONSTRAINT CHECK validated through B1, a
+    violated CHECK refused with numpy's count, RENAME COLUMN, DROP
+    COLUMN, RENAME TO, alter_distributed_table to 8 shards,
+    undistribute_table of orders_m2.  -> (label, run) for the profiled
+    run."""
+    from citus_tpu_torch.errors import AnalysisError
+
+    def timed(sql):
+        t0 = time.perf_counter()
+        cl.execute(sql)
+        return time.perf_counter() - t0
+    add_s = timed("ALTER TABLE orders_m ADD COLUMN o_comment text")
+
+    def drop_check(name="cust_nonneg"):
+        if any(c["name"] == name
+               for c in cl.catalog.table("orders_m").check_constraints):
+            cl.execute(f"ALTER TABLE orders_m DROP CONSTRAINT {name}")
+    ph11_statement(cl, "c ADD CONSTRAINT CHECK (o_custkey >= 0), "
+                   "validated", lambda: cl.execute(PH12_CHECK_OK),
+                   lambda r: [tuple(c["name"] for c in cl.catalog.table(
+                       "orders_m").check_constraints)],
+                   [("cust_nonneg",)], launches, card, reset=drop_check,
+                   phase="phase 12", warm=P12_WARM)
+    zeros = int((state["cust"] == 0).sum())
+
+    def violated():
+        try:
+            cl.execute(PH12_CHECK_BAD)
+        except AnalysisError as e:
+            return str(e)
+        return "accepted"
+    ph11_statement(cl, "c ADD CONSTRAINT CHECK (o_custkey > 0), refused",
+                   violated, lambda msg: [(msg,)],
+                   [(f'check constraint of relation "orders_m" is violated '
+                     f"by {zeros} existing row(s)",)], launches, card,
+                   phase="phase 12", warm=P12_WARM)
+    ren_s = timed("ALTER TABLE orders_m RENAME COLUMN o_flag TO o_status")
+    ph12_checks(cl, "orders_m", state, launches, card,
+                "c after RENAME COLUMN o_flag TO o_status", "o_status")
+    ren_s += timed("ALTER TABLE orders_m RENAME COLUMN o_status TO o_flag")
+    drop_s = timed("ALTER TABLE orders_m DROP COLUMN o_comment")
+    names = cl.catalog.table("orders_m").schema.names
+    if names != ["o_orderkey", "o_custkey", "o_flag"]:
+        raise AssertionError(f"phase 12 c: orders_m has {names}")
+    rent_s = timed("ALTER TABLE orders_m RENAME TO orders_r")
+    ph12_checks(cl, "orders_r", state, launches, card,
+                "c after RENAME TO orders_r", warm=0)
+    rent_s += timed("ALTER TABLE orders_r RENAME TO orders_m")
+    say(f"phase 12 c: ADD COLUMN {add_s:.4f} s, RENAME COLUMN there and "
+        f"back {ren_s:.4f} s, DROP COLUMN {drop_s:.4f} s, RENAME TO there "
+        f"and back {rent_s:.4f} s ({card})")
+    adt_s = timed("SELECT alter_distributed_table('orders_m', 8)")
+    if cl.catalog.table("orders_m").shard_count != 8:
+        raise AssertionError("phase 12 c: orders_m did not reshard")
+    ph12_checks(cl, "orders_m", state, launches, card,
+                "c after alter_distributed_table to 8 shards")
+    und_s = timed("SELECT undistribute_table('orders_m2')")
+    if cl.catalog.table("orders_m2").method != "local":
+        raise AssertionError("phase 12 c: orders_m2 is still distributed")
+    ph12_checks(cl, "orders_m2", state2, launches, card,
+                "c after undistribute_table of orders_m2")
+    say(f"phase 12 c: alter_distributed_table('orders_m', 8) {adt_s:.4f} s "
+        f"({len(state['key'])} rows), undistribute_table('orders_m2') "
+        f"{und_s:.4f} s ({len(state2['key'])} rows) ({card})")
+    return [("c ADD CONSTRAINT CHECK", lambda: (
+        drop_check(), cl.execute(PH12_CHECK_OK)))]
+
+
+def ph12_index(cl, state: dict, launches: dict, card: str) -> list:
+    """(d) CREATE INDEX on o_custkey, an index lookup, REINDEX TABLE
+    after its segment files are deleted, the lookup again.  -> (label,
+    run) for the profiled run."""
+    t0 = time.perf_counter()
+    cl.execute("CREATE INDEX ix_cust ON orders_m (o_custkey)")
+    ix_s = time.perf_counter() - t0
+    k = int(state["cust"][0])
+    hit = state["cust"] == k
+    want = [(int(hit.sum()), int(state["key"][hit].sum()))]
+    lookup = PH12_LOOKUP.format(k=k)
+
+    def lookup_runs(label):
+        ph11_statement(cl, f"{label} (o_custkey = {k})",
+                       lambda: cl.execute(lookup), lambda r: r.rows, want,
+                       launches, card,
+                       cpu_want=lambda r: cpu_backend_rows(cl, lookup),
+                       phase="phase 12", warm=P12_WARM)
+    lookup_runs("d index lookup")
+    t = cl.catalog.table("orders_m")
+    removed = 0
+    for shard in t.shards:
+        for node in shard.placements:
+            d = cl.catalog.shard_dir("orders_m", shard.shard_id, node)
+            for f in os.listdir(d):
+                if f.endswith(".idx.o_custkey.npz"):
+                    os.remove(os.path.join(d, f))
+                    removed += 1
+    # the cpu backend's REINDEX first: its count is the one to equal
+    cl.execute("SET citus.task_executor_backend = cpu")
+    try:
+        rebuilt = cl.execute("REINDEX TABLE orders_m").explain[
+            "segments_rebuilt"]
+    finally:
+        cl.execute("SET citus.task_executor_backend = gpu")
+    ph11_statement(cl, "d REINDEX TABLE orders_m",
+                   lambda: cl.execute("REINDEX TABLE orders_m"),
+                   lambda r: [(r.explain["segments_rebuilt"],)],
+                   [(rebuilt,)], launches, card, phase="phase 12",
+                   warm=P12_WARM_HEAVY)
+    say(f"phase 12 d: CREATE INDEX ix_cust {ix_s:.4f} s; {removed} "
+        f"segment files deleted; REINDEX rebuilt {rebuilt} segments, the "
+        f"cpu backend's count ({card})")
+    lookup_runs("d index lookup after REINDEX")
+    return [("d index lookup", lambda: cl.execute(lookup))]
+
+
+def run_phase12(cl, n_orders: int, launches: dict, card: str,
+                sources: list, tmp: str, profile: bool = True) -> None:
+    """The rest of A11 on phase 8's orders_b arrays, on the card: (a)
+    COPY, (d) CREATE STATISTICS, (b) MERGE, (d) ANALYZE, (c) ALTER, (d)
+    the index and REINDEX, then (``profile``) one more warm run of the
+    reads under torch.profiler; the B1, B2 and B4 launches of the
+    phase.  The generated ``sources`` (``phase12_sources``) build during
+    the load."""
+    t_phase = time.perf_counter()
+    p12 = dict.fromkeys(launch_counters(), 0)
+    state = ph12_orders(n_orders)
+    runs = ph12_copy(cl, tmp, state, p12, card, sources)
+    stats = ("CREATE STATISTICS st_cust_flag ON o_custkey, o_flag "
+             "FROM orders_m")
+    ph12_statistics(cl, state, p12, card, "d CREATE STATISTICS on "
+                    "(o_custkey, o_flag)", stats,
+                    reset=lambda: cl.execute(
+                        "DROP STATISTICS IF EXISTS st_cust_flag"), warm=1)
+    merged = ph12_merge(cl, state, n_orders, p12, card)
+    ph12_statistics(cl, merged, p12, card, "d ANALYZE after the MERGEs",
+                    "ANALYZE orders_m")
+    runs += ph12_alter(cl, merged, state, p12, card)
+    runs += ph12_index(cl, merged, p12, card)
+    runs += [(f"Q check {name}", lambda sql=sql: cl.execute(
+        sql.format(t="orders_m", f="o_flag")))
+        for name, sql in PH12_CHECKS.items()]
+    runs.append(("d ANALYZE", lambda: cl.execute("ANALYZE orders_m")))
+    if profile:
+        profile_phase10(cl, runs, card, "phase 12")
+    for t in ("orders_m", "orders_m2", "orders_delta", "orders_rf2",
+              "orders_dup"):
+        cl.execute(f"DROP TABLE {t}")
+    for k, v in p12.items():
+        launches[k] += v
+    say(f"phase 12 launches: B1 scan_agg_fold {p12['scan_agg_fold']}, B2 "
+        f"hash_agg_insert {p12['hash_agg_insert']}, B4 filter_mask "
+        f"{p12['filter_mask']} ({card})")
+    say(f"phase 12 took {time.perf_counter() - t_phase:.3f} s ({card})")
+
+
 def run(args) -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -5319,7 +5901,7 @@ def run(args) -> dict:
     device = torch.device("cuda", 0)
 
     tmp = tempfile.mkdtemp(prefix="citus_tpu_torch_smoke_")
-    rehearsals = start_rehearsals(tmp)
+    rehearsals = start_rehearsals(tmp, args.rows // 4)
     try:
         plans = smoke_plans(device, tmp)
         splans = sketch_plans(device, tmp)
@@ -5384,8 +5966,9 @@ def run(args) -> dict:
         # started together, all finished before phase 3
         known = set(fold_sources) | {("filter_mask", src) for src in sources}
         t0 = time.perf_counter()
-        p10_sources, p11_sources = finish_rehearsals(rehearsals)
-        say(f"phase 2 rehearsals of phases 10 and 11 on the CPU, in a "
+        p10_sources, p11_sources, p12_sources = finish_rehearsals(
+            rehearsals)
+        say(f"phase 2 rehearsals of phases 10, 11 and 12 on the CPU, in a "
             f"process of their own: {time.perf_counter() - t0:.3f} s of "
             f"waiting for them")
         p10 = [b for b in p10_sources
@@ -5396,6 +5979,10 @@ def run(args) -> dict:
         # phase 11's, but those above, build while its own load runs
         p11 = [b for b in p11_sources
                if b not in known and b not in set(p10)
+               and b[1] != q1_fold.row.source]
+        # and phase 12's, but those above, while its own COPY FROM runs
+        p12 = [b for b in p12_sources
+               if b not in known and b not in set(p10) | set(p11)
                and b[1] != q1_fold.row.source]
 
         elapsed("phase 2")
@@ -5470,6 +6057,9 @@ def run(args) -> dict:
         # ---- phase 11: A11's local write surface on the SF1 lineitem
         run_phase11(ctt, cl, cols, launches, card, p11)
         elapsed("phase 11")
+        # ---- phase 12: the rest of A11 on phase 8's orders_b arrays
+        run_phase12(cl, n_rows // 4, launches, card, p12, tmp)
+        elapsed("phase 12")
         # ---- phase 9: Q6 and QJOIN over a mesh of MESH_MEMBERS members
         # on the card, a second Cluster over the same SF1 tables
         mcl = mesh_cluster(ctt, os.path.join(tmp, "sf"), device)

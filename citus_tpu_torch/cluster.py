@@ -14,11 +14,14 @@ columns, PARTITION BY RANGE / PARTITION OF) and CREATE TABLE AS, DROP
 TABLE, CREATE / DROP INDEX and SEQUENCE, create_distributed_table and
 create_reference_table, the time-partition helpers, COPY
 (``copy_from``: defaults, partition routing, FK, unique, CHECK and
-partition-bound checks), INSERT ... VALUES and INSERT ... SELECT (the
+partition-bound checks; COPY to and from CSV and binary files, COPY
+(SELECT ...) TO), INSERT ... VALUES and INSERT ... SELECT (the
 colocated / repartition / pull ladder) with ON CONFLICT, UPDATE and
 DELETE (with subqueries, RETURNING and the FK actions of a parent),
-TRUNCATE, VACUUM, BEGIN/COMMIT/ROLLBACK and savepoints (``session()``,
-DDL staged inside them), SELECT
+MERGE, ALTER TABLE, alter_distributed_table and undistribute_table,
+CREATE / DROP STATISTICS, ANALYZE, REINDEX, TRUNCATE, VACUUM,
+BEGIN/COMMIT/ROLLBACK and savepoints (``session()``, DDL staged inside
+them), SELECT
 with aggregates in every group mode (scalar, direct and hash, sketch
 aggregates included) and without them (filtered projections,
 DISTINCT), joins, WITH and WITH RECURSIVE, UNION / INTERSECT / EXCEPT,
@@ -74,6 +77,10 @@ def resolve_device(device=None):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
+
+
+def _option_bool(v) -> bool:
+    return str(v).lower() in ("true", "1", "on")
 
 def _has_derived(item) -> bool:
     if isinstance(item, (A.SubqueryRef, A.FunctionRef)):
@@ -1334,6 +1341,21 @@ class Cluster:
                 n += self.copy_from(pname, columns=sub)
         return n
 
+    def _drop_catalog_object(self, section: str, stmt) -> Result:
+        """DROP for the simple metadata-object sections (extension,
+        domain, collation, publication, statistics)."""
+        store = getattr(self.catalog, section)
+        if stmt.name not in store:
+            if stmt.if_exists:
+                return Result(columns=[], rows=[])
+            raise CatalogError(
+                f'{section[:-1]} "{stmt.name}" does not exist')
+        del store[stmt.name]
+        self.catalog.tombstone(section, stmt.name)
+        self.catalog.ddl_epoch += 1
+        self.catalog.commit()
+        return Result(columns=[], rows=[])
+
     # ----------------------------------------------------------- indexes
     def _find_index(self, name: str):
         """-> (table_meta, index dict) or (None, None)."""
@@ -1544,6 +1566,109 @@ class Cluster:
                            columns=t.schema.names)
         return n + remote_n
 
+    def copy_from_csv(self, table_name: str, path: str, *,
+                      delimiter: str = ",", header: bool = False,
+                      null_string: str = "", batch_rows: int = 200_000) -> int:
+        """Bulk load from a CSV file, streamed in batches (the reference's
+        COPY FROM with per-shard stream switchover,
+        commands/multi_copy.c)."""
+        import csv
+        t = self.catalog.table(table_name)
+        names = t.schema.names
+        total = 0
+
+        def load(batch: list) -> int:
+            # copy_from(rows=batch), its rows turned into columns by one
+            # transposition (rows_to_columns' check and message)
+            for row in batch:
+                if len(row) != len(names):
+                    raise AnalysisError(f"row has {len(row)} values, "
+                                        f"expected {len(names)}")
+            return self.copy_from(table_name, columns={
+                c: [None if v == null_string else v for v in col]
+                for c, col in zip(names, zip(*batch))})
+        with open(path, newline="") as fh:
+            reader = csv.reader(fh, delimiter=delimiter)
+            if header:
+                next(reader, None)
+            batch: list = []
+            for row in reader:
+                batch.append(row)
+                if len(batch) >= batch_rows:
+                    total += load(batch)
+                    batch = []
+            if batch:
+                total += load(batch)
+        return total
+
+    @staticmethod
+    def _open_csv_writer(fh, columns, *, delimiter: str, header: bool):
+        """One CSV emission convention for both COPY TO forms."""
+        import csv
+        w = csv.writer(fh, delimiter=delimiter)
+        if header:
+            w.writerow(columns)
+        return w
+
+    def copy_to_csv(self, table_name: str, path: str, *,
+                    delimiter: str = ",", header: bool = False,
+                    null_string: str = "") -> int:
+        """Streaming CSV export: shards are read batch by batch, decoded,
+        and written incrementally (symmetric with copy_from_csv)."""
+        import os as _os
+        from citus_tpu_torch.storage import ShardReader
+        from citus_tpu_torch.transaction.snapshot import read_generation
+        t = self.catalog.table(table_name)
+        names = t.schema.names
+        total = 0
+        # NOTE: the export streams to the caller's file, so a mid-export
+        # flip cannot be retried transparently; capture the generation
+        # and fail loudly on a torn export instead of silently writing
+        # a mixture (readers of query results get the retrying
+        # snapshot_read path; COPY TO keeps PostgreSQL's "repeatable
+        # read within the statement" spirit by detecting the overlap)
+        gen0, busy0 = read_generation(self.catalog.data_dir, t)
+        with open(path, "w", newline="") as fh:
+            w = self._open_csv_writer(fh, names, delimiter=delimiter,
+                                      header=header)
+            for shard in t.shards:
+                d = self.catalog.shard_dir(table_name, shard.shard_id,
+                                           shard.placements[0])
+                if not _os.path.isdir(d):
+                    continue
+                reader = ShardReader(d, t.schema)
+                from citus_tpu_torch import types as T
+                for batch in reader.scan(t.schema.physical_names(names)):
+                    # a batch is decoded column by column and written
+                    # row by row; a NULL is written as null_string
+                    decoded = []
+                    for c in names:
+                        col = t.schema.column(c)
+                        vals = batch.values[c]
+                        if col.type.is_text:
+                            out = self.catalog.decode_strings(
+                                table_name, c, vals.tolist())
+                        elif col.type.kind == "uuid":
+                            lane = batch.values[T.uuid_lane_name(c)]
+                            out = [T.uuid_from_lane_pair(int(h), int(l))
+                                   for h, l in zip(vals, lane)]
+                        else:
+                            conv = col.type.from_physical
+                            out = [conv(v) for v in vals.tolist()]
+                        m = batch.validity[c]
+                        if m is not None:
+                            out = [v if ok else null_string
+                                   for v, ok in zip(out, m.tolist())]
+                        decoded.append(out)
+                    w.writerows(zip(*decoded))
+                    total += batch.row_count
+        gen1, busy1 = read_generation(self.catalog.data_dir, t)
+        if busy0 or busy1 or gen1 != gen0:
+            raise ExecutionError(
+                "concurrent metadata flip during COPY TO; re-run the "
+                "export")
+        return total
+
     def _fill_defaults(self, t, columns: dict) -> dict:
         """Fill columns absent from an ingest batch from their DEFAULT
         expressions (reference: pg_attrdef defaults applied by the
@@ -1650,7 +1775,7 @@ class Cluster:
                 return values, validity, 0
             if current_overlay() is not None:
                 _unported("writes to remote-hosted placements inside an "
-                          "explicit transaction", "A11")
+                          "explicit transaction", "A13")
             shipped = 0
             for ep in eps:
                 shipped = cat.remote_data.ship_batch(ep, t.name, values,
@@ -1674,7 +1799,7 @@ class Cluster:
             return values, validity, 0
         if current_overlay() is not None:
             _unported("writes to remote-hosted shards inside an explicit "
-                      "transaction (cross-host 2PC)", "A11")
+                      "transaction (cross-host 2PC)", "A13")
         if t.unique_indexes or t.foreign_keys:
             raise UnsupportedFeatureError(
                 "unique/FK-constrained tables cannot span remote-hosted "
@@ -1785,20 +1910,38 @@ class Cluster:
         self._default_sessions[me.ident] = (me, s)
         return s
 
-    #: statement types allowed inside BEGIN..COMMIT (DDL stages in the
-    #: in-memory catalog until COMMIT)
+    #: statement types allowed inside BEGIN..COMMIT: catalog mutations
+    #: stage in memory (Catalog.commit defers), physical file actions
+    #: defer to COMMIT or register rollback cleanups (reference: DDL in
+    #: transaction blocks via citus_ProcessUtility, utility_hook.c:148).
+    #: The object statements of ROADMAP.md A14 pass this guard and are
+    #: refused by their own handlers.
     _TXN_ALLOWED = (A.Select, A.WithSelect, A.SetOp, A.Explain, A.Insert,
                     A.Update, A.Delete,
-                    A.CreateTable, A.DropTable, A.CreateIndex,
-                    A.DropIndex, A.CreateSequence, A.DropSequence,
-                    A.CreateTableAs, A.SetConfig, A.ShowConfig,
-                    A.UtilityCall)
+                    A.CreateTable, A.DropTable, A.CreateIndex, A.DropIndex,
+                    A.CreateSchema, A.CreateView, A.DropView,
+                    A.CreateSequence, A.DropSequence, A.CreateFunction,
+                    A.DropFunction, A.CreateType, A.DropType, A.CreateRole,
+                    A.DropRole, A.Grant, A.CreatePolicy, A.DropPolicy,
+                    A.CreateTrigger, A.DropTrigger, A.AlterTableRls,
+                    A.AlterTable, A.CreateExtension, A.DropExtension,
+                    A.CreateDomain, A.DropDomain, A.CreateCollation,
+                    A.DropCollation, A.CreatePublication,
+                    A.DropPublication, A.CreateStatistics,
+                    A.DropStatistics, A.Analyze, A.CreateTableAs,
+                    A.SetConfig, A.ShowConfig, A.UtilityCall)
 
     def _guard_in_txn(self, stmt) -> None:
         if not isinstance(stmt, self._TXN_ALLOWED):
             raise UnsupportedFeatureError(
                 f"{type(stmt).__name__} cannot run inside a transaction "
                 "block")
+        if isinstance(stmt, A.AlterTable) and stmt.action in (
+                "rename_table", "rename_column"):
+            # renames shard-data directories / dictionary and segment
+            # files in place — not stageable
+            raise UnsupportedFeatureError(
+                "ALTER TABLE RENAME cannot run inside a transaction block")
         if isinstance(stmt, A.UtilityCall) and stmt.name not in (
                 "create_distributed_table", "create_reference_table"):
             raise UnsupportedFeatureError(
@@ -2178,6 +2321,18 @@ class Cluster:
     # parsed DEFAULT expressions keyed by their SQL text (immutable)
     _default_expr_cache: dict = {}
 
+    def _compute_ndistinct(self, table, columns):
+        from citus_tpu_torch.commands.config_cmds import _compute_ndistinct
+        return _compute_ndistinct(self, table, columns)
+
+    def _execute_analyze(self, table):
+        from citus_tpu_torch.commands.config_cmds import _execute_analyze
+        return _execute_analyze(self, table)
+
+    def _execute_reindex(self, stmt):
+        from citus_tpu_torch.commands.config_cmds import _execute_reindex
+        return _execute_reindex(self, stmt)
+
     def _returning_result(self, table_name, where, items, subst=None):
         from citus_tpu_torch.commands.config_cmds import _returning_result
         return _returning_result(self, table_name, where, items, subst)
@@ -2297,7 +2452,9 @@ class Cluster:
         handler = _lookup(stmt)
         if handler is not None:
             return handler(self, stmt)
-        _unported(type(stmt).__name__, "queue A")
+        # every statement kind without a handler is an object DDL of
+        # ROADMAP.md A14 (views, functions, types, roles, policies, ...)
+        _unported(type(stmt).__name__, "A14")
 
     def _materialize_dml_subqueries(self, stmt):
         """DELETE's WHERE and UPDATE's assignments and WHERE with their

@@ -1,14 +1,18 @@
-"""SET/SHOW (GUC analog) for the settings the port's slice reads.
+"""SET/SHOW (GUC analog) for the settings the port's slice reads,
+RETURNING evaluation, ANALYZE, REINDEX and extended-statistics
+ndistinct.
 
-Reference: the ~139 citus.* GUCs (shared_library_init.c:980+).  The
-port accepts the GUCs its slices read; the others of the JAX
-package's table are not ported yet (ROADMAP.md queue A).  Settings
-apply to this Cluster handle.
+Reference: the ~139 citus.* GUCs (shared_library_init.c:980+);
+commands/vacuum.c ANALYZE; commands/index.c REINDEX.  The port accepts
+the GUCs its slices read; the others of the JAX package's table are
+not ported yet (ROADMAP.md A14).  Settings apply to this Cluster
+handle.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from citus_tpu_torch.commands.registry import handles
 from citus_tpu_torch.errors import CatalogError, UnsupportedFeatureError
@@ -163,7 +167,7 @@ def _guc_key(name: str) -> str:
             return key
     raise UnsupportedFeatureError(
         f'configuration parameter "{name}" is not ported yet '
-        "(ROADMAP.md queue A)")
+        "(ROADMAP.md A14)")
 
 
 def _guc_value(cl, key: str) -> str:
@@ -260,3 +264,68 @@ def _returning_result(cl, table_name, where, items, subst=None):
                 j += 1
         rows.append(tuple(full))
     return Result(columns=[a for _, a in expanded], rows=rows)
+
+
+def _compute_ndistinct(cl, table: str, columns: list) -> int:
+    """count(DISTINCT (cols)) — the extended-statistics ndistinct."""
+    sel = A.Select(
+        [A.SelectItem(A.FuncCall("count", (A.Star(),)))],
+        A.SubqueryRef(A.Select(
+            [A.SelectItem(A.ColumnRef(c)) for c in columns],
+            A.TableRef(table), distinct=True), "d"))
+    return int(cl._execute_stmt(sel).rows[0][0])
+
+
+def _execute_analyze(cl, table: Optional[str]) -> Result:
+    """ANALYZE [table]: recompute extended-statistics ndistinct
+    (column min/max stats are always skip-list-live here, so there
+    is no per-column histogram pass to run)."""
+    if table is not None:
+        cl.catalog.table(table)  # PostgreSQL: unknown relation errors
+    refreshed = 0
+    for name, st in cl.catalog.statistics.items():
+        if table is not None and st["table"] != table:
+            continue
+        if not cl.catalog.has_table(st["table"]):
+            continue
+        st["ndistinct"] = _compute_ndistinct(cl, st["table"], st["columns"])
+        refreshed += 1
+    if refreshed:
+        cl.catalog.commit()
+    return Result(columns=[], rows=[],
+                  explain={"statistics_refreshed": refreshed})
+
+
+def _execute_reindex(cl, stmt: A.Reindex) -> Result:
+    """REINDEX INDEX name | REINDEX TABLE name: rebuild segment
+    files from the stripe data (recovers from lost/corrupted
+    segments; a missing segment is only a slow path, never wrong)."""
+    from citus_tpu_torch.storage.index import backfill_index
+    from citus_tpu_torch.transaction.locks import EXCLUSIVE
+    if stmt.kind == "index":
+        t, ix = cl._find_index(stmt.name)
+        if ix is None:
+            raise CatalogError(f'index "{stmt.name}" does not exist')
+        targets = [(t, [ix["column"]])]
+    else:
+        t = cl.catalog.table(stmt.name)
+        if t.is_partitioned:
+            targets = [(p, p.index_columns)
+                       for p in cl.catalog.partitions_of(t.name)
+                       if p.indexes]
+        else:
+            targets = [(t, t.index_columns)] if t.indexes else []
+    rebuilt = 0
+    for tt, cols in targets:
+        with cl._write_lock(tt, EXCLUSIVE):
+            for col in cols:
+                cl._drop_index_segments(tt, col)
+            rebuilt += backfill_index(cl.catalog, tt, list(cols))
+            tt.version += 1
+    if targets:
+        cl.catalog.ddl_epoch += 1
+        cl.catalog.commit()
+        for tt, _cols in targets:
+            cl._plan_cache.invalidate_table(tt.name)
+    return Result(columns=[], rows=[],
+                  explain={"segments_rebuilt": rebuilt})

@@ -1,17 +1,18 @@
-"""DML statement handlers: DELETE, UPDATE, TRUNCATE, VACUUM.
+"""DML statement handlers: COPY to and from files, DELETE, UPDATE,
+MERGE, TRUNCATE, VACUUM [ANALYZE], ANALYZE and REINDEX.
 
 Reference: the modify paths of multi_router_planner.c
-(CreateModifyPlan) and commands/truncate.c / vacuum.c; each handler
-drives the columnar DML executors (executor/dml.py) under the
+(CreateModifyPlan), commands/multi_copy.c, merge_planner/executor,
+and commands/truncate.c / vacuum.c; each handler drives the columnar
+DML executors (executor/dml.py, executor/merge_executor.py) under the
 colocation-group write lock, invalidates the table's cached plans and
 emits its change to the CDC stream.  This is the local half of
 citus_tpu/commands/dml.py: RETURNING, the foreign-key actions of a
 parent's DELETE and UPDATE (RESTRICT / CASCADE / SET NULL), CHECK,
 unique and partition-bound checks on UPDATE, and DML, TRUNCATE and
 VACUUM on partitioned parents by fan-out.  A modify of a table that
-another coordinator hosts shards of (its forwarding and cross-host 2PC)
-raises, naming ROADMAP.md A11, as do MERGE, COPY to and from files,
-ANALYZE and REINDEX.
+another coordinator hosts shards of (its forwarding and cross-host 2PC),
+and a COPY TO of one, raise, naming ROADMAP.md A13.
 """
 
 from __future__ import annotations
@@ -24,23 +25,68 @@ from citus_tpu_torch.executor import Result
 from citus_tpu_torch.planner import ast as A
 
 
-def refuse_remote_placements(cl, t, what: str) -> None:
+def refuse_remote_placements(
+        cl, t, what: str,
+        work: str = "cross-host DML and its two-phase commit") -> None:
     """A modify of a table some of whose placements another coordinator
     hosts would be forwarded there and committed by cross-host 2PC
     (the reference's ``_forward_remote_dml``/``_two_phase_remote_dml``):
-    not ported yet."""
+    not ported yet.  ``work`` names what the statement would need."""
     cat = cl.catalog
     if cat.remote_data is not None and any(
             cat.is_remote_node(nd) for s in t.shards for nd in s.placements):
         raise UnsupportedFeatureError(
             f"{what} of a table with shards hosted by another coordinator "
-            "(cross-host DML and its two-phase commit) is not ported yet "
-            "(ROADMAP.md A11)")
+            f"({work}) is not ported yet (ROADMAP.md A13)")
 
 
-def _unported(what: str) -> None:
-    raise UnsupportedFeatureError(
-        f"{what} is not ported yet (ROADMAP.md A11)")
+@handles(A.CopyTo)
+def copy_to(cl, stmt):
+    from citus_tpu_torch.cluster import _option_bool
+    # both exports read local placements only: a remote-hosted shard's
+    # rows would be missing from the file (ROADMAP.md C18)
+    refuse_remote_placements(cl, cl.catalog.table(stmt.table), "COPY TO",
+                             "reading another coordinator's placements")
+    if str(stmt.options.get("format", "csv")).lower() == "binary":
+        from citus_tpu_torch.commands.copy_binary import copy_to_binary
+        n = copy_to_binary(cl, stmt.table, stmt.path)
+        return Result(columns=[], rows=[], explain={"copied": n})
+    n = cl.copy_to_csv(
+        stmt.table, stmt.path,
+        delimiter=stmt.options.get("delimiter", ","),
+        header=_option_bool(stmt.options.get("header", "false")),
+        null_string=stmt.options.get("null", ""))
+    return Result(columns=[], rows=[], explain={"copied": n})
+
+
+@handles(A.CopyQueryTo)
+def copy_query_to(cl, stmt):
+    from citus_tpu_torch.cluster import _option_bool
+    r = cl._execute_stmt(stmt.select)
+    nulls = stmt.options.get("null", "")
+    with open(stmt.path, "w", newline="") as fh:
+        w = cl._open_csv_writer(
+            fh, r.columns,
+            delimiter=stmt.options.get("delimiter", ","),
+            header=_option_bool(stmt.options.get("header", "false")))
+        for row in r.rows:
+            w.writerow([nulls if v is None else v for v in row])
+    return Result(columns=[], rows=[], explain={"copied": len(r.rows)})
+
+
+@handles(A.CopyFrom)
+def copy_from(cl, stmt):
+    from citus_tpu_torch.cluster import _option_bool
+    if str(stmt.options.get("format", "csv")).lower() == "binary":
+        from citus_tpu_torch.commands.copy_binary import copy_from_binary
+        n = copy_from_binary(cl, stmt.table, stmt.path)
+        return Result(columns=[], rows=[], explain={"copied": n})
+    n = cl.copy_from_csv(
+        stmt.table, stmt.path,
+        delimiter=stmt.options.get("delimiter", ","),
+        header=_option_bool(stmt.options.get("header", "false")),
+        null_string=stmt.options.get("null", ""))
+    return Result(columns=[], rows=[], explain={"copied": n})
 
 
 @handles(A.Delete)
@@ -221,15 +267,44 @@ def vacuum(cl, stmt):
 
 @handles(A.Merge)
 def merge(cl, stmt):
-    _unported("MERGE (executor/merge_executor.py)")
+    from citus_tpu_torch.executor.merge_executor import execute_merge
+    from citus_tpu_torch.transaction.locks import EXCLUSIVE
+    _mt = cl.catalog.table(stmt.target.name)
+    # the merge executor reads and writes placements directly: a
+    # remote-hosted shard would look empty
+    refuse_remote_placements(cl, _mt, "MERGE")
+    if _mt.foreign_keys or cl.catalog.referencing_fks(_mt.name):
+        # the merge executor writes through the storage layer directly;
+        # fail closed rather than bypass FK enforcement
+        raise UnsupportedFeatureError(
+            "MERGE on tables with foreign key constraints is not "
+            "supported")
+    # unique indexes are enforced inside execute_merge (pre-commit
+    # delete-aware probe); FK targets stay refused above
+    with cl._write_lock(cl.catalog.table(stmt.target.name), EXCLUSIVE):
+        st = execute_merge(
+            cl.catalog, cl.txlog, stmt,
+            encode_value=lambda tbl, col, v:
+                int(cl.catalog.encode_strings(tbl, col, [v])[0]))
+    cl._plan_cache.invalidate_table(stmt.target.name)
+    if cl._cdc_captures(stmt.target.name):
+        cl.cdc.emit(stmt.target.name, "merge",
+                    cl.clock.transaction_clock(), force=True,
+                    count=sum(st.values()))
+    return Result(columns=[], rows=[], explain=st)
 
 
-@handles(A.CopyTo, A.CopyFrom, A.CopyQueryTo)
-def copy_file(cl, stmt):
-    _unported("COPY to and from files (commands/copy_binary.py, "
-              "copy_to_csv / copy_from_csv)")
+@handles(A.VacuumAnalyze)
+def vacuum_analyze(cl, stmt):
+    cl._execute_stmt(A.Vacuum(stmt.table, stmt.full))
+    return cl._execute_analyze(stmt.table)
 
 
-@handles(A.Analyze, A.VacuumAnalyze, A.Reindex)
-def analyze_reindex(cl, stmt):
-    _unported("ANALYZE and REINDEX")
+@handles(A.Analyze)
+def analyze(cl, stmt):
+    return cl._execute_analyze(stmt.table)
+
+
+@handles(A.Reindex)
+def reindex(cl, stmt):
+    return cl._execute_reindex(stmt)

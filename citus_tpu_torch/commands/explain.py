@@ -5,7 +5,7 @@ the plan of the slice it runs: a partitioned parent's surviving
 partitions (``Append``) over one of them, the scan with its shard
 pruning, index lookup, chunk pruning and the partial aggregate with its
 partial ops; EXPLAIN ANALYZE and the other statement kinds are not
-ported yet (ROADMAP.md queue A).
+ported yet (ROADMAP.md A14).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ def execute_explain(cl, stmt: A.Explain) -> Result:
     sel = stmt.statement
     if stmt.analyze:
         raise UnsupportedFeatureError(
-            "EXPLAIN ANALYZE is not ported yet (ROADMAP.md queue A)")
+            "EXPLAIN ANALYZE is not ported yet (ROADMAP.md A14)")
     if not (isinstance(sel, A.Select) and isinstance(sel.from_, A.TableRef)):
         raise UnsupportedFeatureError(
             "EXPLAIN supports single-table SELECT in this port")

@@ -37,7 +37,7 @@ Two differences from the reference, neither visible in the rows:
   any other DO UPDATE, or one with a WHERE, runs the reference's
   per-row UPDATEs.  The CDC stream gets the same per-row update events.
 INSERT ... SELECT into a table with shards hosted by another
-coordinator is not ported yet (ROADMAP.md A11).
+coordinator is not ported yet (ROADMAP.md A13).
 """
 
 from __future__ import annotations
@@ -147,7 +147,7 @@ def _execute_insert_select(cl, t, stmt: A.Insert) -> Result:
             for s in t.shards for nd in s.placements):
         raise UnsupportedFeatureError(
             "INSERT ... SELECT into a table with shards hosted by another "
-            "coordinator is not ported yet (ROADMAP.md A11)")
+            "coordinator is not ported yet (ROADMAP.md A13)")
     names = list(t.schema.names if stmt.columns is None else stmt.columns)
     if stmt.on_conflict is not None:
         # pull the source rows, then run the same upsert machinery row

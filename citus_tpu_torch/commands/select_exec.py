@@ -372,7 +372,10 @@ def _create_temp_from_result(cl, prefix: str, label: str, r: Result) -> str:
                 cl.catalog.active_node_ids())
             cl.catalog.commit()
     if r.rows:
-        cl.copy_from(tmp, rows=r.rows)
+        # the rows as columns by one transposition (a result's rows all
+        # hold one value a column)
+        cl.copy_from(tmp, columns={c: list(v) for c, v in
+                                   zip(names, zip(*r.rows))})
     return tmp
 
 

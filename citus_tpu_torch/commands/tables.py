@@ -6,9 +6,11 @@ through DistributeObjectOps.  The port of ``citus_tpu/commands/
 tables.py``: PRIMARY KEY / UNIQUE (implicit unique indexes), CHECK,
 FOREIGN KEY, DEFAULT, serial columns and their owned sequences,
 PARTITION BY RANGE / PARTITION OF, CREATE TABLE AS and CREATE / DROP
-INDEX.  Enum and domain column types need CREATE TYPE / DOMAIN
-(ROADMAP.md A14) and ALTER TABLE needs operations/alter_table.py
-(ROADMAP.md A11): both raise UnsupportedFeatureError.
+INDEX, and ALTER TABLE (ADD / DROP / RENAME COLUMN, RENAME TO, ADD
+CONSTRAINT … CHECK, DROP CONSTRAINT, ALTER COLUMN … SET DEFAULT),
+cascaded from a partitioned parent to its partitions.  Enum and domain
+column types need CREATE TYPE / DOMAIN (ROADMAP.md A14) and raise
+UnsupportedFeatureError.
 """
 
 from __future__ import annotations
@@ -194,6 +196,194 @@ def drop_index(cl, stmt):
 
 @handles(A.AlterTable)
 def alter_table(cl, stmt):
-    raise UnsupportedFeatureError(
-        "ALTER TABLE is not ported yet (operations/alter_table.py, "
-        "ROADMAP.md A11)")
+    if cl.catalog.has_table(stmt.table) \
+            and cl.catalog.table(stmt.table).is_partitioned:
+        if stmt.action in ("rename_table", "rename_column"):
+            raise UnsupportedFeatureError(
+                "renaming a partitioned parent (or its columns) "
+                "is not supported")
+        if stmt.action == "drop_column" \
+                and stmt.old_name == cl.catalog.table(
+                    stmt.table).partition_by["column"]:
+            raise CatalogError("cannot drop the partition column")
+        # PostgreSQL: schema changes on the parent cascade to every
+        # partition
+        import dataclasses as _dc
+        for p in cl.catalog.partitions_of(stmt.table):
+            cl._execute_stmt(_dc.replace(stmt, table=p.name))
+    if stmt.action == "drop_constraint":
+        t0 = cl.catalog.table(stmt.table)
+        kept = [c for c in t0.check_constraints
+                if c["name"] != stmt.old_name]
+        fks_kept = [f for f in t0.foreign_keys
+                    if f.get("name") != stmt.old_name]
+        if len(kept) == len(t0.check_constraints) \
+                and len(fks_kept) == len(t0.foreign_keys):
+            raise CatalogError(
+                f'constraint "{stmt.old_name}" of relation '
+                f'"{stmt.table}" does not exist')
+        t0.check_constraints[:] = kept
+        t0.foreign_keys[:] = fks_kept
+        t0.version += 1
+        cl.catalog.commit()
+        cl._plan_cache.invalidate_table(stmt.table)
+        return Result(columns=[], rows=[])
+    if stmt.action == "set_default":
+        import dataclasses as _dc
+        t0 = cl.catalog.table(stmt.table)
+        t0.schema.column(stmt.old_name)  # must exist
+        if stmt.check_sql is not None:
+            from citus_tpu_torch.planner.parser import Parser
+            Parser(stmt.check_sql).parse_expr()  # must parse
+        t0.schema.columns[:] = [
+            _dc.replace(c, default_sql=stmt.check_sql or "")
+            if c.name == stmt.old_name else c
+            for c in t0.schema.columns]
+        t0.version += 1
+        cl.catalog.commit()
+        return Result(columns=[], rows=[])
+    if stmt.action == "add_check":
+        from citus_tpu_torch.planner.bind import Binder
+        from citus_tpu_torch.planner.parser import Parser
+        from citus_tpu_torch.transaction.locks import EXCLUSIVE
+        t0 = cl.catalog.table(stmt.table)
+        bound = Binder(cl.catalog, t0).bind_scalar(
+            Parser(stmt.check_sql).parse_expr())
+        if bound.type.kind != "bool":
+            raise AnalysisError(
+                f"CHECK constraint must be boolean: ({stmt.check_sql})")
+        # PostgreSQL validates existing rows at ADD time: any row where
+        # the expression is FALSE (NULL passes) rejects the DDL.  The
+        # validation scan and the catalog commit hold the colocation
+        # group's EXCLUSIVE write lock as ONE critical section — a
+        # writer landing between them could commit a violating row the
+        # scan never saw (PostgreSQL holds AccessExclusiveLock across
+        # ADD CONSTRAINT's validation for the same reason); reads are
+        # snapshot-based and never block behind this lock
+        with cl._write_lock(t0, EXCLUSIVE):
+            t0 = cl.catalog.table(stmt.table)  # re-fetch under lock
+            r = cl._execute_stmt(A.Select(
+                [A.SelectItem(A.FuncCall("count", (A.Star(),)))],
+                A.TableRef(stmt.table),
+                A.UnOp("not", Parser(stmt.check_sql).parse_expr())))
+            if r.rows and r.rows[0][0]:
+                raise AnalysisError(
+                    f'check constraint of relation "{stmt.table}" is '
+                    f"violated by {r.rows[0][0]} existing row(s)")
+            ck_name = stmt.new_name or \
+                f"{stmt.table}_check{len(t0.check_constraints) + 1}"
+            if any(c["name"] == ck_name for c in t0.check_constraints):
+                raise CatalogError(
+                    f'constraint "{ck_name}" already exists')
+            t0.check_constraints.append({"name": ck_name,
+                                         "sql": stmt.check_sql})
+            cl.catalog.commit()
+        cl._plan_cache.invalidate_table(stmt.table)
+        return Result(columns=[], rows=[])
+    if stmt.action == "add_column":
+        tn = stmt.column.type_name
+        if tn in cl.catalog.types or tn in cl.catalog.domains:
+            raise UnsupportedFeatureError(
+                "enum and domain column types (CREATE TYPE / DOMAIN) are "
+                "not ported yet (ROADMAP.md A14)")
+        col = Column(stmt.column.name,
+                     type_from_sql(tn, stmt.column.type_args or None),
+                     stmt.column.not_null)
+        cl.catalog.add_column(stmt.table, col)
+    elif stmt.action == "drop_column":
+        t0 = cl.catalog.table(stmt.table)
+        if t0.index_on(stmt.old_name) is not None:
+            from citus_tpu_torch.storage.overlay import current_overlay
+            txn0 = current_overlay()
+            if txn0 is not None:
+                # irreversible file removal: defer to COMMIT
+                col0 = stmt.old_name
+                tname0 = t0.name
+                txn0.on_commit.append(
+                    lambda: cl._drop_index_segments_if_unindexed(
+                        tname0, col0))
+            else:
+                cl._drop_index_segments(t0, stmt.old_name)
+            t0.indexes[:] = [ix for ix in t0.indexes
+                             if ix["column"] != stmt.old_name]
+        # PostgreSQL drops the table's own FK constraints that include
+        # the column; a referenced parent column needs CASCADE
+        # (unsupported here), so fail closed instead of leaving a stale
+        # constraint behind.
+        for child, fk in cl.catalog.referencing_fks(stmt.table):
+            if child == stmt.table:
+                continue  # self-FK belongs to this table: dropped
+            if stmt.old_name in fk["ref_columns"]:
+                raise AnalysisError(
+                    f'cannot drop column "{stmt.old_name}" of '
+                    f'table "{stmt.table}" because foreign key '
+                    f'constraint "{fk["name"]}" on table '
+                    f'"{child}" depends on it')
+        t = cl.catalog.table(stmt.table)
+        t.foreign_keys[:] = [
+            fk for fk in t.foreign_keys
+            if stmt.old_name not in fk["columns"]
+            and not (fk["ref_table"] == stmt.table
+                     and stmt.old_name in fk["ref_columns"])]
+        key = f"{stmt.table}.{stmt.old_name}"
+        if cl.catalog.domain_columns.pop(key, None) is not None:
+            cl.catalog.tombstone("domain_columns", key)
+        if cl.catalog.enum_columns.pop(key, None) is not None:
+            cl.catalog.tombstone("enum_columns", key)
+        # PostgreSQL auto-drops extended statistics with a column
+        for sname in [n for n, st in cl.catalog.statistics.items()
+                      if st["table"] == stmt.table
+                      and stmt.old_name in st["columns"]]:
+            del cl.catalog.statistics[sname]
+            cl.catalog.tombstone("statistics", sname)
+        cl.catalog.drop_column(stmt.table, stmt.old_name)
+    elif stmt.action == "rename_column":
+        t0 = cl.catalog.table(stmt.table)
+        if t0.index_on(stmt.old_name) is not None:
+            # segments are keyed by logical column name on disk: rename
+            # them with the column
+            import os as _os
+            suffix = f".idx.{stmt.old_name}.npz"
+            for shard in t0.shards:
+                for node in shard.placements:
+                    d = cl.catalog.shard_dir(
+                        t0.name, shard.shard_id, node)
+                    if not _os.path.isdir(d):
+                        continue
+                    for f in _os.listdir(d):
+                        if f.endswith(suffix):
+                            base = f[:-len(suffix)]
+                            _os.replace(
+                                _os.path.join(d, f),
+                                _os.path.join(
+                                    d, base + f".idx.{stmt.new_name}.npz"))
+            for ix in t0.indexes:
+                if ix["column"] == stmt.old_name:
+                    ix["column"] = stmt.new_name
+        cl.catalog.rename_column(stmt.table, stmt.old_name, stmt.new_name)
+        # keep FK metadata consistent: this table's own key columns and
+        # every child's referenced-column names
+        for fk in cl.catalog.table(stmt.table).foreign_keys:
+            fk["columns"] = [stmt.new_name if c == stmt.old_name
+                             else c for c in fk["columns"]]
+        for _child, fk in cl.catalog.referencing_fks(stmt.table):
+            fk["ref_columns"] = [stmt.new_name if c == stmt.old_name
+                                 else c for c in fk["ref_columns"]]
+    elif stmt.action == "rename_table":
+        from citus_tpu_torch.transaction.locks import EXCLUSIVE
+        t = cl.catalog.table(stmt.table)
+        with cl._write_lock(t, EXCLUSIVE):
+            cl.catalog.rename_table(stmt.table, stmt.new_name)
+        # repoint children's FK edges at the new name
+        for other in cl.catalog.tables.values():
+            for fk in other.foreign_keys:
+                if fk["ref_table"] == stmt.table:
+                    fk["ref_table"] = stmt.new_name
+    else:
+        raise UnsupportedFeatureError(
+            f"ALTER TABLE {stmt.action} not supported")
+    cl.catalog.commit()
+    # rename included: entries under the old name drop naturally — the
+    # old name no longer resolves to this TableMeta object
+    cl._plan_cache.invalidate_table(stmt.table)
+    return Result(columns=[], rows=[])

@@ -8,9 +8,12 @@ data plane's transfers), node topology (citus_add_node,
 citus_remove_node), the replicated tenant quotas, the time-partition
 helpers (create_time_partitions, drop_old_time_partitions,
 time_partitions), sequences (nextval, currval, setval,
-citus_sequences), run_command_on_shards / _placements and
-master_get_table_ddl_events; the other utilities are not ported yet
-(ROADMAP.md queue A).
+citus_sequences), run_command_on_shards / _placements,
+master_get_table_ddl_events, and the redistributions
+undistribute_table and alter_distributed_table (refused, naming
+ROADMAP.md A13, for a table with shards another coordinator hosts); the
+other utilities are not ported yet (ROADMAP.md A13 for
+recover_prepared_transactions, A14 for the rest).
 """
 
 from __future__ import annotations
@@ -20,11 +23,17 @@ from citus_tpu_torch.errors import UnsupportedFeatureError
 from citus_tpu_torch.executor import Result
 
 
+#: the unported UDFs of cross-host transactions (ROADMAP.md A13); the
+#: rest are catalog views, operations and services (A14)
+_CROSS_HOST_UTILITIES = frozenset({"recover_prepared_transactions"})
+
+
 def execute_utility(cl, stmt) -> Result:
     fn = UTILITY_HANDLERS.get(stmt.name)
     if fn is None:
+        item = "A13" if stmt.name in _CROSS_HOST_UTILITIES else "A14"
         raise UnsupportedFeatureError(
-            f"utility {stmt.name}() is not ported yet (ROADMAP.md queue A)")
+            f"utility {stmt.name}() is not ported yet (ROADMAP.md {item})")
     return fn(cl, stmt.name, stmt.args)
 
 
@@ -344,3 +353,34 @@ def _citus_priority_classes(cl, name, args):
     from citus_tpu_torch.workload import GLOBAL_TENANTS
     return Result(columns=["class", "weight"],
                   rows=GLOBAL_TENANTS.classes_view())
+
+
+@utility("undistribute_table")
+def _undistribute_table(cl, name, args):
+    from citus_tpu_torch.commands.dml import refuse_remote_placements
+    from citus_tpu_torch.operations.alter_table import undistribute_table
+    # the re-ingest reads local placements only: a remote-hosted shard's
+    # rows would be lost (ROADMAP.md C18)
+    refuse_remote_placements(cl, cl.catalog.table(args[0]),
+                             "undistribute_table",
+                             "moving another coordinator's placements")
+    undistribute_table(cl.catalog, args[0], txlog=cl.txlog)
+    cl._plan_cache.clear()
+    return Result(columns=[name], rows=[(None,)])
+
+
+@utility("alter_distributed_table")
+def _alter_distributed_table(cl, name, args):
+    from citus_tpu_torch.commands.dml import refuse_remote_placements
+    from citus_tpu_torch.operations.alter_table import alter_distributed_table
+    refuse_remote_placements(cl, cl.catalog.table(args[0]),
+                             "alter_distributed_table",
+                             "moving another coordinator's placements")
+    kw = {}
+    if len(args) > 1:
+        kw["shard_count"] = int(args[1])
+    if len(args) > 2:
+        kw["distribution_column"] = str(args[2])
+    alter_distributed_table(cl.catalog, args[0], txlog=cl.txlog, **kw)
+    cl._plan_cache.clear()
+    return Result(columns=[name], rows=[(None,)])

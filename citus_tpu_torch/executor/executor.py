@@ -1215,7 +1215,7 @@ def _guard_remote_written(cat, table_names) -> None:
     """Refuse reads of tables whose REMOTE shards this transaction
     wrote: the staged state would live in branch sessions on other
     hosts, invisible to local scans.  Cross-host DML is not ported
-    (ROADMAP.md A11), so no transaction of this package records such
+    (ROADMAP.md A13), so no transaction of this package records such
     writes today; the check stays at the executor door, as in the
     reference, for when it is."""
     from citus_tpu_torch.storage.overlay import current_overlay

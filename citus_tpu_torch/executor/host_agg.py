@@ -214,6 +214,11 @@ class HostGroupAccumulator:
                 (np.minimum if op.kind == "min" else np.maximum).at(a, inverse, upd)
             local.append(a)
 
+        if n_keys and self._bulk_merge_applies(local):
+            # the batch's groups, one entry each, folded as arrays
+            self._merge_bulk(uniq_rows, [(kv[first_idx], kvalid[first_idx])
+                                         for kv, kvalid in kv_np], local)
+            return
         for li in range(L):
             kb = uniq_rows[li].tobytes()
             gi = self._groups.get(kb)
@@ -262,6 +267,9 @@ class HostGroupAccumulator:
         else:
             enc = np.zeros((sel.size, 0), np.int64)
         pv = [np.asarray(p)[sel] for p in partial_values]
+        if n_keys and self._bulk_merge_applies(pv):
+            self._merge_bulk(enc, kv_np, pv)
+            return
         for r in range(sel.size):
             kb = enc[r].tobytes()
             gi = self._groups.get(kb)
@@ -277,6 +285,65 @@ class HostGroupAccumulator:
                     self._accs[gi][pi] = min(self._accs[gi][pi], val)
                 else:
                     self._accs[gi][pi] = max(self._accs[gi][pi], val)
+
+    def _bulk_merge_applies(self, pv: list) -> bool:
+        """The entries' states fold by array operations, bit for bit as
+        the loops of ``merge_partials`` and ``add_batch`` fold them one
+        entry at a time: sums and counts in the accumulator's dtype
+        (``np.add.at`` adds in entry order), min / max of integers (no
+        NaN, no signed zero)."""
+        for op, v in zip(self.partial_ops, pv):
+            dt = np.dtype(op.dtype)
+            if op.kind not in ("sum", "count", "min", "max") \
+                    or v.dtype != dt:
+                return False
+            if op.kind in ("min", "max") and dt.kind not in "iu":
+                return False
+        return True
+
+    def _merge_bulk(self, enc: np.ndarray, kv_np: list, pv: list) -> None:
+        """``merge_partials`` for entries ``_bulk_merge_applies`` accepts:
+        one dictionary probe an entry (new groups numbered in order of
+        first appearance, as the loop numbers them), then each state
+        folded for every touched group at once."""
+        kbs = np.ascontiguousarray(enc).view(
+            np.dtype((np.void, enc.shape[1] * 8))).ravel().tolist()
+        groups = self._groups
+        base = len(self._key_vals)
+        # new keys numbered in order of first appearance
+        fresh = dict.fromkeys(kb for kb in kbs if kb not in groups)
+        groups.update(zip(fresh, range(base, base + len(fresh))))
+        touched, first, loc = np.unique(
+            np.asarray([groups[kb] for kb in kbs], np.int64),
+            return_index=True, return_inverse=True)
+        old = touched[touched < base].tolist()
+        new = first[touched >= base]  # each new group's first entry
+        n_new = len(new)
+        cols = []
+        for pi, op in enumerate(self.partial_ops):
+            dt = np.dtype(op.dtype)
+            start = 0 if op.kind in ("sum", "count") \
+                else _sentinel(op.kind, dt)
+            acc = np.full(touched.size, start, dt)
+            acc[:len(old)] = [self._accs[g][pi] for g in old]
+            if op.kind in ("sum", "count"):
+                np.add.at(acc, loc, pv[pi])
+            else:
+                (np.minimum if op.kind == "min" else np.maximum).at(
+                    acc, loc, pv[pi])
+            for j, g in enumerate(old):
+                self._accs[g][pi] = acc[j]
+            cols.append(acc[len(old):])
+        if n_new:
+            # keys as Python scalars: ``finalize`` builds them back into
+            # arrays of the key's dtype, the same values and bits
+            nr = new
+            self._key_vals.extend(
+                [list(kv) for kv in zip(*[
+                    list(zip(kv[nr].tolist(), kvalid[nr].tolist()))
+                    for kv, kvalid in kv_np])])
+            self._accs.extend([list(row) for row in zip(*cols)]
+                              if cols else [[] for _ in range(n_new)])
 
     def finalize(self, key_types: list, scalar: bool = False):
         """-> (key_arrays [(values, valid)], partials tuple).  ``scalar``

@@ -141,15 +141,23 @@ def _probe_unique_live(cat, t, ix: dict, uniq: np.ndarray,
             dm = deleted_mask(d, s["file"], s["row_count"], dcache) \
                 if s["file"] in dcache else None
             excl = excl_dir.get(s["file"])
-            excl_arr = np.fromiter(excl, np.int64) if excl else None
-            for val, a, b in zip(uniq[found], lo[found], hi[found]):
-                p = pos[int(a):int(b)]
-                if dm is not None:
-                    p = p[~dm[p]]
-                if excl_arr is not None and p.size:
-                    p = p[~np.isin(p, excl_arr)]
-                if p.size:
-                    return val
+            # every segment position of every found value, value by
+            # value in ``uniq``'s order: the first live one names the
+            # smallest conflicting value
+            idx = np.nonzero(found)[0]
+            lens = (hi - lo)[idx]
+            ends = np.cumsum(lens)
+            at = np.repeat(lo[idx] - (ends - lens), lens) \
+                + np.arange(int(ends[-1]))
+            p = pos[at]
+            live = np.ones(p.size, bool)
+            if dm is not None:
+                live &= ~dm[p]
+            if excl:
+                live &= ~np.isin(p, np.fromiter(excl, np.int64))
+            if live.any():
+                owner = np.repeat(idx, lens)
+                return uniq[owner[int(np.argmax(live))]]
     return None
 
 

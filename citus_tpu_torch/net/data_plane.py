@@ -17,7 +17,7 @@ Stripe files are immutable-append, so the reader side caches them by
 name and only re-fetches the small mutable files (shard meta, deletion
 bitmaps, index segments) per sync.  Cross-host DML and its two-phase
 commit branches are not ported: their methods answer with an error
-naming ROADMAP.md A11.
+naming ROADMAP.md A13.
 """
 
 from __future__ import annotations
@@ -342,7 +342,7 @@ def _refuse_unported(method: str):
     def handler(p: dict) -> dict:
         raise UnsupportedFeatureError(
             f"{method}: cross-host DML and its two-phase commit are not "
-            "ported to citus_tpu_torch yet (ROADMAP.md A11)")
+            "ported to citus_tpu_torch yet (ROADMAP.md A13)")
     return handler
 
 

@@ -1,1 +1,2 @@
-"""Cluster operations: deferred cleanup records (``cleaner``)."""
+"""Cluster operations: deferred cleanup records (``cleaner``) and
+table redistribution (``alter_table``)."""

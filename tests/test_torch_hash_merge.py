@@ -476,3 +476,63 @@ def test_nan_extrema_of_hash_groups_mirror_the_reference(tmp_path):
             == repr(got["citus_tpu", on_cpu])
     assert got["citus_tpu", False] == [(5, math.inf, -math.inf, 3),
                                        (10**12, math.inf, -math.inf, 3)]
+
+
+def _accumulate(acc_cls, seed: int, ops):
+    """Seeded merges of partial tables (keys repeating across and within
+    them, NULL, -0.0 and NaN keys) with raw-row batches between them,
+    through one accumulator; -> its finalized keys and partials."""
+    acc = acc_cls(2, ops)
+    rng = np.random.default_rng(seed)
+    for step in range(6):
+        n = int(rng.integers(1, 400))
+        mask = rng.random(n) < 0.8
+        keys = [(rng.integers(-20, 20, n), rng.random(n) < 0.9),
+                (rng.choice([0.0, -0.0, 1.5, np.nan, -2.25], n),
+                 rng.random(n) < 0.9)]
+        if step % 3 == 2:
+            acc.add_batch(mask, keys, [
+                (rng.integers(-10**12, 10**12, n), rng.random(n) < 0.9),
+                (rng.normal(0, 1e6, n), rng.random(n) < 0.9),
+                (rng.integers(-100, 100, n).astype(np.int32), True)])
+            continue
+        parts = [rng.integers(-2**62, 2**62, n), rng.integers(0, 1000, n),
+                 rng.normal(0, 1e9, n) * rng.choice([1, 1e-9], n),
+                 rng.integers(-10**15, 10**15, n),
+                 rng.integers(-10**15, 10**15, n),
+                 rng.integers(-1000, 1000, n).astype(np.int32),
+                 rng.normal(0, 1, n) * rng.choice([1.0, -0.0, np.nan], n)]
+        acc.merge_partials(mask, keys, parts[:len(ops)],
+                           np.ones(n, np.int64))
+    kt = [type("K", (), {"device_dtype": np.dtype(d)})()
+          for d in ("int64", "float64")]
+    return acc.finalize(kt)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("float_max", [False, True],
+                         ids=["array_fold", "entry_loop"])
+def test_bulk_merge_of_partials_matches_the_reference_accumulator(
+        seed, float_max):
+    """``merge_partials`` folds sum / count and integer min / max states
+    as arrays, and a float min / max entry by entry: either way the
+    finalized groups are the reference accumulator's bit for bit, in the
+    same order."""
+    from citus_tpu.planner.physical import PartialOp as RefOp
+    from citus_tpu_torch.planner.physical import PartialOp
+    spec = [("sum", 0, "int64"), ("count", -1, "int64"),
+            ("sum", 1, "float64"), ("min", 0, "int64"),
+            ("max", 0, "int64"), ("min", 2, "int32")]
+    spec += [("max", 1, "float64")] if float_max else []
+    acc = HostGroupAccumulator(2, [PartialOp(*x) for x in spec])
+    assert acc._bulk_merge_applies(
+        [np.zeros(1, np.dtype(x[2])) for x in spec]) is not float_max
+    got = _accumulate(HostGroupAccumulator, seed,
+                      [PartialOp(*s) for s in spec])
+    want = _accumulate(RefAcc, seed, [RefOp(*s) for s in spec])
+    for (gv, gm), (wv, wm) in zip(got[0], want[0]):
+        np.testing.assert_array_equal(gv.view(np.uint8), wv.view(np.uint8))
+        np.testing.assert_array_equal(gm, wm)
+    for g, w in zip(got[1], want[1]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8))

@@ -8,8 +8,8 @@ tests/test_foreign_keys.py (20) and tests/test_index.py (21), the
 reference fault ROADMAP.md C12 (its FK probe overflows the recursion
 limit; the port answers), and data directories that each package wrote
 with partitions, foreign keys, unique indexes, CHECKs and sequences,
-opened, queried and written by the other.  ALTER TABLE (RENAME, DROP
-COLUMN) and MERGE are refused by the port (ROADMAP.md A11).
+opened, queried and written by the other; ALTER TABLE's renames and
+DROP COLUMN carry the FK edges and index segments in both.
 """
 
 import os
@@ -25,7 +25,6 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_write_pair import Pair  # noqa: E402
 
-from citus_tpu_torch.errors import UnsupportedFeatureError  # noqa: E402
 from citus_tpu_torch.integrity import ForeignKeyViolation  # noqa: E402
 
 
@@ -236,14 +235,19 @@ def test_if_not_exists_does_not_clobber_fks(fk):
 
 
 def test_rename_keeps_fk_edges(fk):
-    """The reference renames the parent and keeps the FK edges; the
-    port refuses ALTER TABLE (ROADMAP.md A11) and its edges stay."""
-    fk.ref.execute("ALTER TABLE customers RENAME TO clients")
-    with pytest.raises(UnsupportedFeatureError, match="A11"):
-        fk.port.execute("ALTER TABLE customers RENAME TO clients")
-    with pytest.raises(ForeignKeyViolation):
-        fk.port.execute("DELETE FROM customers WHERE cid = 1")
-    fk.port.execute("INSERT INTO orders VALUES (61, 3, 1)")
+    """RENAME TO repoints the children's FK edges at the new name."""
+    out = fk.run("ALTER TABLE customers RENAME TO clients",
+                 ("check", lambda cl: [f["ref_table"] for f in
+                                       cl.catalog.table("orders")
+                                       .foreign_keys]),
+                 "DELETE FROM clients WHERE cid = 1",
+                 "INSERT INTO orders VALUES (61, 3, 1)",
+                 "INSERT INTO orders VALUES (62, 99, 1)",
+                 "SELECT count(*) FROM customers")
+    assert out[1] == ("value", ["clients"])
+    assert out[2] == ("error", "ForeignKeyViolation")
+    assert out[4] == ("error", "ForeignKeyViolation")
+    assert out[5][0] == "error"
 
 
 def test_fk_survives_catalog_reload(fk, tmp_path):
@@ -421,21 +425,29 @@ def test_index_survives_vacuum_rewrite(db):
 
 
 def test_rename_column_carries_index(db):
-    """ALTER TABLE RENAME COLUMN is refused by the port (ROADMAP.md A11);
-    its index keeps serving the old name."""
-    db.step("CREATE INDEX ix_grp ON items (grp)")
-    db.ref.execute("ALTER TABLE items RENAME COLUMN grp TO bucket")
-    with pytest.raises(UnsupportedFeatureError, match="A11"):
-        db.port.execute("ALTER TABLE items RENAME COLUMN grp TO bucket")
-    assert db.port.catalog.table("items").index_on("grp") is not None
+    """RENAME COLUMN renames the index's segment files in place."""
+    out = db.run("CREATE INDEX ix_grp ON items (grp)",
+                 ("check", lambda cl: len(_seg_files(cl, "items", "grp"))),
+                 "ALTER TABLE items RENAME COLUMN grp TO bucket",
+                 ("check", lambda cl: (
+                     len(_seg_files(cl, "items", "bucket")),
+                     _seg_files(cl, "items", "grp"),
+                     cl.catalog.table("items").index_on("bucket")["name"])),
+                 "SELECT count(*) FROM items WHERE bucket = 3",
+                 "SELECT count(*) FROM items WHERE grp = 3")
+    assert out[1][1] > 0
+    assert out[3] == ("value", (out[1][1], [], "ix_grp"))
+    assert out[5][0] == "error"
 
 
 def test_drop_column_drops_index(db):
-    """ALTER TABLE DROP COLUMN is refused by the port (ROADMAP.md A11)."""
-    db.step("CREATE INDEX ix_grp ON items (grp)")
-    with pytest.raises(UnsupportedFeatureError, match="A11"):
-        db.port.execute("ALTER TABLE items DROP COLUMN grp")
-    assert _seg_files(db.port, "items", "grp")
+    """DROP COLUMN drops the column's index and its segment files."""
+    out = db.run("CREATE INDEX ix_grp ON items (grp)",
+                 "ALTER TABLE items DROP COLUMN grp",
+                 ("check", lambda cl: (_seg_files(cl, "items", "grp"),
+                                       cl.catalog.table("items").indexes)),
+                 "SELECT count(*), sum(price) FROM items")
+    assert out[2] == ("value", ([], []))
 
 
 def test_unique_index_rejects_duplicate_ingest(db):

@@ -511,30 +511,66 @@ def test_mixed_pair_gives_the_single_reference_rows(tmp_path, single,
         a.close()
 
 
-def test_cross_host_dml_raises_with_its_roadmap_item(pair):
+def test_cross_host_dml_raises_with_its_roadmap_item(pair, tmp_path):
+    """Cross-host DML, and the statements that would read or move only
+    the local placements of a table another coordinator hosts shards of
+    (COPY TO, the redistributions: ROADMAP.md C18), raise naming A13
+    and leave the table and the file system as they were."""
     a, b = pair
     _load(a, _columns(n=200))
     from citus_tpu_torch.errors import UnsupportedFeatureError
+    out = tmp_path / "t.out"
     for sql in ("DELETE FROM t WHERE k = 1", "UPDATE t SET v = 0",
-                "TRUNCATE t"):
-        with pytest.raises(UnsupportedFeatureError, match="A11"):
+                "TRUNCATE t", "MERGE INTO t USING t s ON t.k = s.k "
+                "WHEN MATCHED THEN DELETE",
+                f"COPY t TO '{out}'",
+                f"COPY t TO '{out}' WITH (format binary)",
+                "SELECT alter_distributed_table('t', 8)",
+                "SELECT alter_distributed_table('t', 4, 'g')",
+                "SELECT undistribute_table('t')"):
+        with pytest.raises(UnsupportedFeatureError, match="A13"):
             a.execute(sql)
-    with pytest.raises(rpc.RpcError, match="A11"):
+    assert not out.exists()
+    assert a.execute("SELECT count(*), sum(v) FROM t").rows == [
+        (200, int(_columns(n=200)["v"].sum()))]
+    assert len(a.catalog.table("t").shards) == 4
+    with pytest.raises(rpc.RpcError, match="A13"):
         a.catalog.remote_data.call(a.catalog.node_endpoint(1),
                                    "execute_sql", {"sql": "SELECT 1"})
+
+
+def test_c18_reference_export_and_redistribution_drop_remote_rows(
+        tmp_path):
+    """ROADMAP.md C18, a reference fault the port refuses: on a pair of
+    citus_tpu coordinators, COPY TO writes only the rows of the local
+    placements and alter_distributed_table re-ingests only those, so
+    rows are lost without an error."""
+    a, b = _open_pair(tmp_path, ct, ct)
+    try:
+        _load(a, _columns(n=200), peer=b)
+        assert a.execute("SELECT count(*) FROM t").rows == [(200,)]
+        a.execute(f"COPY t TO '{tmp_path / 't.csv'}'")
+        with open(tmp_path / "t.csv") as fh:
+            assert 0 < sum(1 for _ in fh) < 200
+        a.execute("SELECT alter_distributed_table('t', 8)")
+        b._reload_catalog()
+        assert a.execute("SELECT count(*) FROM t").rows[0][0] < 200
+    finally:
+        b.close()
+        a.close()
 
 
 def test_insert_select_into_remote_shards_raises_with_its_roadmap_item(
         pair):
     """INSERT ... SELECT into a table with shards another coordinator
-    hosts is refused naming ROADMAP.md A11 (its array path writes local
+    hosts is refused naming ROADMAP.md A13 (its array path writes local
     placements only; the pull path's routing is not ported for it)."""
     a, b = pair
     _load(a, _columns(n=200))
     from citus_tpu_torch.errors import UnsupportedFeatureError
     for sql in ("INSERT INTO t SELECT * FROM t WHERE k < 10",
                 "INSERT INTO t (k, v) SELECT k, count(*) FROM t GROUP BY k"):
-        with pytest.raises(UnsupportedFeatureError, match="A11"):
+        with pytest.raises(UnsupportedFeatureError, match="A13"):
             a.execute(sql)
 
 

@@ -6,8 +6,8 @@ The same statements over the same seeded rows go through
 identical write counts and error classes.  The cases are the SQL of
 tests/test_partitioning.py (17) and tests/test_fuzz_partitioned.py (5,
 seed 42), and ``chip_smoke.py`` phase 11's time-partitioned lineitem at
-a few thousand rows.  ALTER TABLE on a parent is refused by the port
-(operations/alter_table.py, ROADMAP.md A11).
+a few thousand rows.  ALTER TABLE on a parent cascades to its
+partitions in both packages.
 """
 
 import datetime
@@ -26,7 +26,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from torch_write_pair import Pair  # noqa: E402
 
-from citus_tpu_torch.errors import UnsupportedFeatureError  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -235,12 +234,18 @@ def test_decimal_partition_column_routing(tmp_path):
 
 
 def test_alter_parent_cascades_add_column(db):
-    """The reference cascades ALTER TABLE to the partitions; the port
-    refuses ALTER TABLE (operations/alter_table.py, ROADMAP.md A11)."""
-    db.ref.execute("ALTER TABLE events ADD COLUMN note text")
-    with pytest.raises(UnsupportedFeatureError, match="A11"):
-        db.port.execute("ALTER TABLE events ADD COLUMN note text")
-    assert db.port.execute("SELECT count(*) FROM events").rows == [(2000,)]
+    """ADD COLUMN on the parent reaches every partition."""
+    out = db.run("ALTER TABLE events ADD COLUMN note text",
+                 ("check", lambda cl: [
+                     p.schema.names
+                     for p in cl.catalog.partitions_of("events")]),
+                 "INSERT INTO events VALUES (3, '2024-08-08', 7, 'late')",
+                 "SELECT note, count(*) FROM events GROUP BY note "
+                 "ORDER BY note",
+                 "SELECT count(*) FROM events_2024h2 WHERE note = 'late'")
+    assert out[1] == ("value", [["tenant", "ts", "amount", "note"]] * 2)
+    assert out[3][2] == [("late", 1), (None, 2000)]
+    assert out[4][2] == [(1,)]
 
 
 # --------------------------------------- tests/test_fuzz_partitioned.py

@@ -6,7 +6,7 @@ against the port's modules (cases that repeat each other are one
 parametrised test).  Left out, as ROADMAP.md records: the tenant
 isolation case (``citus_isolate_tenant_to_node`` needs shard moves and
 splits, A14) and the SQL quota writers (``citus_add_tenant_quota`` and
-friends are 2PC catalog writes, A11/A13); quotas are set here through
+friends are 2PC catalog writes, A13); quotas are set here through
 ``GLOBAL_TENANTS`` directly.
 
 The fairness tests drive a private SharedTaskPool + TenantScheduler pair

@@ -17,6 +17,11 @@ Steps:
   opened at the first such step;
 - ``("check", fn)``: ``fn(cluster)``, compared as a value (catalog
   state, files on disk).
+
+``Pair(..., strict=True)`` also compares an error's message (with each
+package's data directory written as ``<dir>``) and the whole
+``explain`` dict but for the keys that hold timings and executor
+internals (``VOLATILE_KEYS``).
 """
 
 import math
@@ -30,7 +35,12 @@ FLOAT_REL = 1e-12
 #: the ``explain`` keys a write reports (compared between packages)
 EXPLAIN_KEYS = ("inserted", "updated", "deleted", "skipped", "strategy",
                 "partitions_created", "partitions_dropped", "selected",
-                "placements_rewritten", "rows_reclaimed")
+                "placements_rewritten", "rows_reclaimed", "copied",
+                "statistics_refreshed", "segments_rebuilt")
+
+#: ``explain`` keys a strict pair leaves out: wall times, the executor's
+#: task and pipeline records (the two packages' device paths differ)
+VOLATILE_KEYS = ("elapsed_s", "tasks", "remote_tasks", "pipeline")
 
 
 def _close(a, b) -> bool:
@@ -51,10 +61,14 @@ def same_rows(a: list, b: list, ordered: bool) -> bool:
 
 
 class Pair:
-    def __init__(self, tmp_path, name: str = "db", **port_kw):
-        self.ref = ct.Cluster(str(tmp_path / "ref" / name))
+    def __init__(self, tmp_path, name: str = "db", strict: bool = False,
+                 **kw):
+        self.ref = ct.Cluster(str(tmp_path / "ref" / name), **kw)
         self.port = ctt.Cluster(str(tmp_path / "port" / name),
-                                device="cpu", **port_kw)
+                                device="cpu", **kw)
+        self.strict = strict
+        self._dirs = {id(self.ref): str(tmp_path / "ref"),
+                      id(self.port): str(tmp_path / "port")}
         self._sessions = {}
 
     def close(self) -> None:
@@ -86,9 +100,13 @@ class Pair:
             else:
                 raise ValueError(f"unknown step {step!r}")
         except Exception as e:  # noqa: BLE001 -- the class is the outcome
+            if self.strict:
+                return ("error", type(e).__name__,
+                        str(e).replace(self._dirs[id(cl)], "<dir>"))
             return ("error", type(e).__name__)
         explain = {k: v for k, v in (r.explain or {}).items()
-                   if k in EXPLAIN_KEYS}
+                   if (k not in VOLATILE_KEYS if self.strict
+                       else k in EXPLAIN_KEYS)}
         return ("rows", list(r.columns), [tuple(x) for x in r.rows],
                 explain)
 
