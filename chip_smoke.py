@@ -277,7 +277,38 @@ result line:
    nvcc build in a warm run, no kernel but the port's in one more warm
    run of the reads (torch.profiler); the B1, B2 and B4 launches of the
    phase.  Its generated kernels build during its COPY FROM, from a CPU
-   rehearsal in the process of phases 10 and 11.
+   rehearsal in the process of phases 10 and 11;
+13. A14a's catalog objects (run right after phase 12, on phase 4's SF1
+   lineitem and phase 8's orders_b arrays, both checked to be there):
+   (b) ``CREATE TYPE prio AS ENUM ('L', 'M', 'H')``, ``CREATE DOMAIN
+   custkey_t AS bigint CHECK (VALUE >= 0)`` and ``orders_e`` (4 shards)
+   loaded by ``copy_from`` from the arrays (1,500,303 orders, both
+   checks; rows/s, and the domain CHECK alone, on the host once per
+   distinct custkey); (a) TPC-H Q15 as written: ``CREATE FUNCTION
+   disc_price`` inlined into ``CREATE VIEW revenue0``'s aggregate, the
+   view read by the outer FROM and by the scalar subquery (each
+   materialized), its rows equal to phase 10's CTE Q15 on the card,
+   numpy's and the ``cpu`` backend's, the inlined fold's generated
+   source compared with the written-out expression's; then ``CREATE OR
+   REPLACE FUNCTION`` with another body (a new source; rows equal
+   numpy's for it), and golden ``objects``'s ``amount * 1.5`` over
+   l_extendedprice (decimals equal numpy's, printed as the ``cpu``
+   backend's); (b) the enum GROUP BY (rows in declaration order L,
+   M, H) and ``o_flag >= 'M'`` cold and warm against numpy and the
+   ``cpu`` backend, an INSERT of label 'X' and one of custkey -1
+   refused with the table unchanged, an UPDATE of o_custkey kept and
+   one violating the domain refused, an INSERT then the warm query with
+   no nvcc build, and an INSERT that grows an enum column's dictionary
+   (its rank table is a launch argument) with no nvcc build; (c)
+   EXPLAIN of an UPDATE, of QJOIN (no kernel launched) and of the enum
+   GROUP BY, EXPLAIN ANALYZE of Q6 and of the enum GROUP BY twice (Rows
+   the query's, Elapsed within the statement's wall time, the second
+   run a plan-cache hit with no nvcc build), and EXPLAIN ANALYZE's
+   device figures of Q6 beside torch.profiler's device time of the
+   same run, and any other kernel it saw (recorded, not gated); the B1,
+   B2 and B4 launches of the phase and its time against its 40 s.  Its
+   generated kernels build while phase 12 runs, from a CPU rehearsal in
+   the process of phases 10-12 (``phase13_sources``).
 
 Then a JSON line of the kernels, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -767,14 +798,15 @@ def oracle_h2(cols: dict, lo: int = None, hi: int = None) -> list[tuple]:
     return [(int(keys[i]), _dec(rev[i], 4)) for i in order]
 
 
-def oracle_q15(cols: dict) -> list[tuple]:
+def oracle_q15(cols: dict, sign: int = -1) -> list[tuple]:
     """Phase 10's Q15: the suppliers of the largest revenue of ship days
-    [1996-01-01, 1996-04-01)."""
+    [1996-01-01, 1996-04-01), each line's price times (1 - discount) (or
+    with ``sign`` 1, phase 13's replaced body, times (1 + discount))."""
     keep = ((cols["ship"] >= _day(1996, 1, 1))
             & (cols["ship"] < _day(1996, 4, 1)))
     rev = np.zeros(SUPPLIERS + 1, np.int64)
     np.add.at(rev, cols["suppkey"][keep], cols["price"][keep].astype(np.int64)
-              * (100 - cols["disc"][keep]))
+              * (100 + sign * cols["disc"][keep]))
     top = rev.max()
     return [(int(s), _dec(top, 4)) for s in np.nonzero(rev == top)[0]]
 
@@ -1223,14 +1255,21 @@ BENCH_HASH = ("SELECT l_orderkey, count(*), sum(l_quantity) "
 
 
 def plan_as_cluster_does(cl, sql: str):
-    """-> (plan, encoded parameters) of one SELECT, bound, auto-
-    parameterized and planned as ``Cluster.execute`` does it."""
+    """-> (plan, encoded parameters) of one SELECT, its SQL functions
+    inlined, bound, auto-parameterized and planned as ``Cluster.execute``
+    does it."""
     from citus_tpu_torch.executor.executor import encode_params
     from citus_tpu_torch.planner import parse_sql
     from citus_tpu_torch.planner.auto_param import auto_parameterize
     from citus_tpu_torch.planner.bind import bind_select
     from citus_tpu_torch.planner.physical import plan_select
-    bound = bind_select(cl.catalog, parse_sql(sql)[0])
+    stmt = parse_sql(sql)[0]
+    if cl.catalog.functions:
+        from citus_tpu_torch.commands.select_exec import (
+            _expand_functions_stmt,
+        )
+        stmt = _expand_functions_stmt(cl, stmt)
+    bound = bind_select(cl.catalog, stmt)
     values = None
     ap = auto_parameterize(bound)
     if ap is not None:
@@ -1402,18 +1441,19 @@ def rehearsal_sources(tmp: str, name: str, body) -> list:
 
 
 def start_rehearsals(tmp: str, n_orders: int):
-    """Start ``phase10_sources``, ``phase11_sources`` and
-    ``phase12_sources`` (over ``n_orders`` orders' value ranges) in a
-    process of their own, with no CUDA device visible to it, so that
-    their CPU rehearsals run beside phase 2's builds.  -> a handle for
-    ``finish_rehearsals``."""
+    """Start ``phase10_sources``, ``phase11_sources``, ``phase12_sources``
+    and ``phase13_sources`` (the last two over ``n_orders`` orders' value
+    ranges) in a process of their own, with no CUDA device visible to it,
+    so that their CPU rehearsals run beside phase 2's builds.  -> a
+    handle for ``finish_rehearsals``."""
     out = os.path.join(tmp, "rehearsals.json")
     here = os.path.dirname(os.path.abspath(__file__))
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "import chip_smoke as c; "
             "json.dump({'p10': c.phase10_sources(sys.argv[2]), "
             "'p11': c.phase11_sources(sys.argv[2]), "
-            "'p12': c.phase12_sources(sys.argv[2], int(sys.argv[4]))}, "
+            "'p12': c.phase12_sources(sys.argv[2], int(sys.argv[4])), "
+            "'p13': c.phase13_sources(sys.argv[2], int(sys.argv[4]))}, "
             "open(sys.argv[3], 'w'))")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.Popen([sys.executable, "-c", code, here, tmp, out,
@@ -1422,8 +1462,8 @@ def start_rehearsals(tmp: str, n_orders: int):
 
 
 def finish_rehearsals(handle) -> tuple:
-    """Wait for ``start_rehearsals``; -> (phase 10's, phase 11's and
-    phase 12's (build, source) lists)."""
+    """Wait for ``start_rehearsals``; -> (phase 10's, 11's, 12's and
+    13's (build, source) lists)."""
     proc, out = handle
     try:
         rc = proc.wait(timeout=900)
@@ -1435,7 +1475,8 @@ def finish_rehearsals(handle) -> tuple:
         raise AssertionError(f"the kernel-source rehearsals exited {rc}")
     with open(out) as fh:
         got = json.load(fh)
-    return tuple([tuple(b) for b in got[k]] for k in ("p10", "p11", "p12"))
+    return tuple([tuple(b) for b in got[k]]
+                 for k in ("p10", "p11", "p12", "p13"))
 
 
 def phase10_sources(tmp: str) -> list:
@@ -5871,6 +5912,499 @@ def run_phase12(cl, n_orders: int, launches: dict, card: str,
     say(f"phase 12 took {time.perf_counter() - t_phase:.3f} s ({card})")
 
 
+# ------------------------------------------------------------- phase 13
+
+# phase 13: A14a's catalog objects on the card.  (a) TPC-H Q15 as its
+# specification writes it (the view revenue0; no supplier table, so no
+# supplier join), the discounted price an SQL function the view's
+# aggregate calls: the function inlines into the fold, and the view is
+# materialized once for each reference to it (the outer FROM and the
+# scalar subquery), as in the reference
+Q15_DATES = ("l_shipdate >= date '1996-01-01' "
+             "AND l_shipdate < date '1996-04-01'")
+DISC_PRICE = ("CREATE FUNCTION disc_price(p decimal, d decimal) "
+              "RETURNS decimal AS 'p * (1 - d)'")
+#: the replacing body (a surcharge where TPC-H discounts)
+DISC_PRICE_NEW = ("CREATE OR REPLACE FUNCTION disc_price(p decimal, "
+                  "d decimal) RETURNS decimal AS 'p * (1 + d)'")
+REVENUE0_BODY = ("SELECT l_suppkey AS supplier_no, "
+                 "sum(disc_price(l_extendedprice, l_discount)) AS "
+                 f"total_revenue FROM lineitem WHERE {Q15_DATES} "
+                 "GROUP BY l_suppkey")
+REVENUE0 = f"CREATE VIEW revenue0 AS {REVENUE0_BODY}"
+Q15_VIEW = ("SELECT supplier_no, total_revenue FROM revenue0 "
+            "WHERE total_revenue = (SELECT max(total_revenue) FROM revenue0) "
+            "ORDER BY supplier_no")
+#: a decimal times a numeric literal in a function body (golden
+#: ``objects``'s bonus(): the product's scale is the reference's)
+BONUS = ("CREATE FUNCTION bonus(amount decimal) RETURNS decimal AS "
+         "'amount * 1.5'")
+P13_BONUS = ("SELECT sum(bonus(l_extendedprice)), max(bonus(l_extendedprice)) "
+             f"FROM lineitem WHERE {Q15_DATES}")
+#: the view's body with the function written out, as phase 10's CTE has it
+REVENUE_WRITTEN = ("SELECT l_suppkey AS supplier_no, sum(l_extendedprice * "
+                   "(1 - l_discount)) AS total_revenue FROM lineitem WHERE "
+                   f"{Q15_DATES} GROUP BY l_suppkey")
+# (b) an enum and a domain column over phase 8's orders_b arrays
+PRIO = "CREATE TYPE prio AS ENUM ('L', 'M', 'H')"
+PRIO_LABELS = ("L", "M", "H")
+CUSTKEY_T = "CREATE DOMAIN custkey_t AS bigint CHECK (VALUE >= 0)"
+ORDERS_E_DDL = ("CREATE TABLE orders_e (o_orderkey bigint NOT NULL, "
+                "o_custkey custkey_t, o_flag prio)")
+P13_GROUP = ("SELECT o_flag, count(*), sum(o_custkey) FROM orders_e "
+             "GROUP BY o_flag ORDER BY o_flag")
+P13_RANK = "SELECT count(*) FROM orders_e WHERE o_flag >= 'M'"
+P13_TOTALS = "SELECT count(*), sum(o_custkey) FROM orders_e"
+P13_UPDATE_OK = ("UPDATE orders_e SET o_custkey = o_custkey + 7 "
+                 "WHERE o_orderkey = 5")
+P13_UPDATE_BAD = ("UPDATE orders_e SET o_custkey = o_custkey - 1000000000 "
+                  "WHERE o_orderkey = 6")
+P13_EXPLAIN_UPDATE = ("EXPLAIN UPDATE orders_e SET o_custkey = 0 "
+                      "WHERE o_orderkey = 5")
+#: a table whose enum column's dictionary an INSERT grows ('H' is new)
+PRIO_G_DDL = "CREATE TABLE prio_g (k bigint NOT NULL, f prio)"
+PRIO_G_ROWS = 65_536
+#: 'H' alone passes: a rank table left from before the INSERT would
+#: clip 'H' to 'M' and count nothing
+P13_GROW = "SELECT count(*), sum(k) FROM prio_g WHERE f > 'M'"
+P13_WARM = 1
+#: phase 13's time on the card, its load included
+P13_LIMIT_S = 40.0
+
+
+def p13_columns(state: dict) -> dict:
+    return {"o_orderkey": state["key"], "o_custkey": state["cust"],
+            "o_flag": FLAGS[state["flag"]].tolist()}
+
+
+def p13_group_oracle(state: dict) -> list:
+    """P13_GROUP's rows: the labels in their declaration order."""
+    out = []
+    for label in PRIO_LABELS:
+        hit = state["flag"] == int(np.flatnonzero(FLAGS == label)[0])
+        if hit.any():
+            out.append((label, int(hit.sum()), int(state["cust"][hit].sum())))
+    return out
+
+
+def p13_rank_oracle(state: dict) -> list:
+    return [(sum(n for label, n, _ in p13_group_oracle(state)
+                 if label in ("M", "H")),)]
+
+
+def oracle_bonus(cols: dict) -> list:
+    """P13_BONUS's row: cents times 15, at scale 3."""
+    keep = ((cols["ship"] >= _day(1996, 1, 1))
+            & (cols["ship"] < _day(1996, 4, 1)))
+    v = cols["price"][keep].astype(np.int64) * 15
+    return [(_dec(int(v.sum()), 3), _dec(int(v.max()), 3))]
+
+
+def p13_totals(state: dict) -> list:
+    return [(len(state["key"]), int(state["cust"].sum()))]
+
+
+def p13_grow_oracle(k: np.ndarray, f: np.ndarray) -> list:
+    hit = f > 1  # rank of 'M'
+    return [(int(hit.sum()), int(k[hit].sum()) if hit.any() else None)]
+
+
+def p13_fold_source(cl, sql: str) -> str:
+    """The generated fold (or insert) source of one single-table SELECT
+    as ``Cluster.execute`` plans it, its SQL functions inlined."""
+    from citus_tpu_torch.executor.executor import (
+        _hash_key_dtypes, _param_dtypes, _params_env,
+    )
+    from citus_tpu_torch.ops.scan_agg_fold import FoldProgram
+    plan, params = plan_as_cluster_does(cl, sql)
+    kd = None
+    if plan.group_mode.kind == "hash_host":
+        kd = _hash_key_dtypes(plan, _params_env(plan, params))
+    return FoldProgram.of_plan(plan, _param_dtypes(plan, params),
+                               kd).row.source
+
+
+def _digest(text: str) -> str:
+    import hashlib
+    return hashlib.sha256(text.encode()).hexdigest()[:12]
+
+
+def p13_timed(cl, sql: str) -> tuple:
+    """-> (result, nvcc builds it waited for, seconds)."""
+    import torch
+    from citus_tpu_torch.ops import cuda_build
+    b0 = cuda_build.BUILDS["count"]
+    t0 = time.perf_counter()
+    r = cl.execute(sql)
+    if cl.device.type == "cuda":
+        torch.cuda.synchronize()
+    return r, cuda_build.BUILDS["count"] - b0, time.perf_counter() - t0
+
+
+def p13_launches(cl, sql: str) -> dict:
+    """The kernel launches of one more run of ``sql``."""
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    cl.execute(sql)
+    return {k: f.launches for k, f in counters.items() if f.launches}
+
+
+def p13_refused(cl, sql: str, error, totals: list, label: str) -> str:
+    """``sql`` raises ``error`` and leaves P13_TOTALS at ``totals``;
+    -> the error's text."""
+    try:
+        cl.execute(sql)
+    except error as e:
+        msg = f"{type(e).__name__}: {e}"
+    else:
+        raise AssertionError(f"phase 13 {label}: {sql!r} was not refused")
+    got = cl.execute(P13_TOTALS).rows
+    if got != totals:
+        raise AssertionError(f"phase 13 {label}: the table changed: {got} "
+                             f"!= {totals}")
+    return msg
+
+
+def p13_q15(cl, cols: dict, launches: dict, card: str) -> None:
+    """(a) Q15 through the view revenue0 and disc_price(), then with the
+    function replaced."""
+    cl.execute(DISC_PRICE)
+    cl.execute(REVENUE0)
+    inlined = p13_fold_source(cl, REVENUE0_BODY)
+    same = inlined == p13_fold_source(cl, REVENUE_WRITTEN)
+    want = oracle_q15(cols)
+    cte, _, cte_s = p13_timed(cl, Q15)
+    if not same_rows(cte.rows, want):
+        raise AssertionError(f"phase 13 a: phase 10's CTE Q15 gives "
+                             f"{cte.rows}, numpy {want}")
+    cte_launches = p13_launches(cl, Q15)
+    times = ph11_statement(
+        cl, "a Q15 through the view revenue0 and disc_price()",
+        lambda: cl.execute(Q15_VIEW), lambda r: r.rows, want, launches,
+        card, cpu_want=lambda r: cpu_backend_rows(cl, Q15_VIEW),
+        phase="phase 13", warm=P13_WARM)
+    say("phase 13 a: the fold disc_price() inlines into is "
+        + ("the same generated source as the written-out expression's "
+           f"({_digest(inlined)}: phase 10's CTE Q15 built it, no new "
+           "nvcc build for it)" if same else
+           "NOT the written-out expression's source")
+        + "; rows equal phase 10's CTE Q15 on the card, numpy's and the "
+        "cpu backend's; the view is materialized for each of its 2 "
+        f"references: warm {times[-1]:.4f} s, launches "
+        f"{p13_launches(cl, Q15_VIEW)}, beside the CTE form's "
+        f"{cte_s:.4f} s and {cte_launches} ({card})")
+    cl.execute(DISC_PRICE_NEW)
+    replaced = p13_fold_source(cl, REVENUE0_BODY)
+    if replaced == inlined:
+        raise AssertionError("phase 13 a: the replaced body generates the "
+                             "old fold source")
+    want_new = oracle_q15(cols, sign=1)
+    r, builds, secs = p13_timed(cl, Q15_VIEW)
+    if not same_rows(r.rows, want_new):
+        raise AssertionError(f"phase 13 a: after CREATE OR REPLACE FUNCTION "
+                             f"the view gives {r.rows}, numpy {want_new}")
+    say(f"phase 13 a CREATE OR REPLACE FUNCTION disc_price as p * (1 + d): "
+        f"a new fold source ({_digest(inlined)} -> {_digest(replaced)}); "
+        f"the view's rows equal numpy's for the new body, so the old "
+        f"kernel was not reused: {secs:.4f} s, nvcc builds {builds} "
+        f"({card})")
+    cl.execute(BONUS)
+    cpu = {}
+
+    def as_text(r):
+        rows = [tuple(str(v) for v in row) for row in r.rows]
+        cpu.setdefault("rows", [tuple(str(v) for v in row) for row in
+                                cpu_backend_rows(cl, P13_BONUS)])
+        if rows != cpu["rows"]:
+            raise AssertionError(f"phase 13 a bonus(): {rows} on the card, "
+                                 f"{cpu['rows']} on the cpu backend")
+        return r.rows
+    ph11_statement(cl, "a sum(bonus(l_extendedprice)): decimal(12,2) * 1.5",
+                   lambda: cl.execute(P13_BONUS), as_text,
+                   oracle_bonus(cols), launches, card, phase="phase 13",
+                   warm=P13_WARM)
+    say(f"phase 13 a bonus(): the card's decimals print as the cpu "
+        f"backend's, scale and all: {cpu['rows']} ({card})")
+
+
+def p13_load(cl, state: dict, card: str, jobs: list) -> None:
+    """(b) orders_e (a domain and an enum column) loaded by copy_from
+    from phase 8's arrays; then the phase's generated kernels, started
+    before phase 12 (``jobs``), are waited for."""
+    from citus_tpu_torch.ops import cuda_build
+    for sql in (PRIO, CUSTKEY_T, ORDERS_E_DDL,
+                "SELECT create_distributed_table('orders_e', 'o_orderkey', "
+                f"{SHARDS})"):
+        cl.execute(sql)
+    columns = p13_columns(state)
+    n = len(state["key"])
+    check = cl._check_domains
+    dom = []
+
+    def timed_check(t, cols):
+        t0 = time.perf_counter()
+        check(t, cols)
+        dom.append(time.perf_counter() - t0)
+    cl._check_domains = timed_check
+    try:
+        t0 = time.perf_counter()
+        got = cl.copy_from("orders_e", columns=columns)
+        load_s = time.perf_counter() - t0
+    finally:
+        del cl._check_domains
+    if got != n or len(dom) != 1:
+        raise AssertionError(f"phase 13 b load: {got} rows of {n}, "
+                             f"{len(dom)} domain checks")
+    t0 = time.perf_counter()
+    for job in jobs:
+        cuda_build.finish_generated(job)
+    after_s = time.perf_counter() - t0
+    say(f"phase 13 b load: copy_from of {n} orders into orders_e (o_custkey "
+        f"custkey_t over {len(np.unique(state['cust']))} distinct values, "
+        f"o_flag prio) in {load_s:.3f} s ({n / load_s:.1f} rows/s), both "
+        f"checks included; the domain CHECK, on the host once per "
+        f"distinct value, {dom[0]:.3f} s of it; the phase's {len(jobs)} "
+        f"generated kernels, started before phase 12, waited for "
+        f"{after_s:.3f} s after it ({card})")
+
+
+def p13_enum(cl, state: dict, launches: dict, card: str) -> None:
+    """(b) the enum GROUP BY and rank comparison cold and warm, the
+    refused INSERTs and UPDATE, a kept UPDATE, an INSERT then the warm
+    query with no build, and an enum dictionary grown by an INSERT."""
+    from citus_tpu_torch.errors import AnalysisError, ExecutionError
+    n_orders = len(state["key"])
+
+    def statement(label, sql, want, warm=P13_WARM):
+        ph11_statement(cl, label, lambda: cl.execute(sql), lambda r: r.rows,
+                       want, launches, card,
+                       cpu_want=lambda r: cpu_backend_rows(cl, sql),
+                       phase="phase 13", warm=warm)
+    want = p13_group_oracle(state)
+    if [r[0] for r in want] != list(PRIO_LABELS):
+        raise AssertionError(f"phase 13 b: numpy's labels {want}")
+    statement("b GROUP BY o_flag ORDER BY o_flag (L, M, H: declaration "
+              "order)", P13_GROUP, want)
+    statement("b count(*) WHERE o_flag >= 'M'", P13_RANK,
+              p13_rank_oracle(state))
+    totals = p13_totals(state)
+    bad_label = p13_refused(
+        cl, f"INSERT INTO orders_e VALUES ({n_orders}, 1, 'X')",
+        AnalysisError, totals, "an INSERT of label 'X'")
+    bad_cust = p13_refused(
+        cl, f"INSERT INTO orders_e VALUES ({n_orders}, -1, 'L')",
+        ExecutionError, totals, "an INSERT of custkey -1")
+    r = cl.execute(P13_UPDATE_OK)
+    if r.explain.get("updated") != 1:
+        raise AssertionError(f"phase 13 b UPDATE: {r.explain}")
+    state["cust"][5] += 7
+    totals = p13_totals(state)
+    if cl.execute(P13_TOTALS).rows != totals:
+        raise AssertionError("phase 13 b: the kept UPDATE is not read back")
+    bad_update = p13_refused(cl, P13_UPDATE_BAD, ExecutionError, totals,
+                             "an UPDATE violating the domain")
+    say(f"phase 13 b refused, the table unchanged: an INSERT of label 'X' "
+        f"({bad_label}), one of custkey -1 ({bad_cust}), an UPDATE of "
+        f"o_custkey - 1000000000 ({bad_update}); the UPDATE of o_custkey "
+        f"+ 7 kept ({card})")
+    cl.execute(f"INSERT INTO orders_e VALUES ({n_orders}, 3, 'H'), "
+               f"({n_orders + 1}, 4, 'M')")
+    for c, v in (("key", [n_orders, n_orders + 1]), ("cust", [3, 4]),
+                 ("flag", [int(np.flatnonzero(FLAGS == "H")[0]),
+                           int(np.flatnonzero(FLAGS == "M")[0])])):
+        state[c] = np.concatenate([state[c], np.asarray(v, np.int64)])
+    r, builds, secs = p13_timed(cl, P13_GROUP)
+    if r.rows != p13_group_oracle(state) or builds:
+        raise AssertionError(f"phase 13 b after an INSERT: {r.rows} "
+                             f"(numpy {p13_group_oracle(state)}), nvcc "
+                             f"builds {builds}")
+    cl.execute(PRIO_G_DDL)
+    cl.execute(f"SELECT create_distributed_table('prio_g', 'k', {SHARDS})")
+    k = np.arange(PRIO_G_ROWS, dtype=np.int64)
+    f = (k % 3 == 0).astype(np.int64)  # 'L' 0, 'M' 1: no 'H' yet
+    cl.copy_from("prio_g", columns={"k": k, "f": np.array(
+        PRIO_LABELS)[f].tolist()})
+    statement("b prio_g count(*), sum(k) WHERE f > 'M' (2 words in f's "
+              "dictionary, none passes)", P13_GROW, p13_grow_oracle(k, f))
+    cl.execute(f"INSERT INTO prio_g VALUES ({PRIO_G_ROWS}, 'H'), "
+               f"({PRIO_G_ROWS + 1}, 'H')")
+    k = np.concatenate([k, [PRIO_G_ROWS, PRIO_G_ROWS + 1]])
+    f = np.concatenate([f, [2, 2]])
+    r2, builds2, secs2 = p13_timed(cl, P13_GROW)
+    if r2.rows != p13_grow_oracle(k, f) or builds2:
+        raise AssertionError(f"phase 13 b prio_g after 'H': {r2.rows} "
+                             f"(numpy {p13_grow_oracle(k, f)}), nvcc builds "
+                             f"{builds2}")
+    say(f"phase 13 b an INSERT of 2 orders, then {P13_GROUP!r} warm: rows "
+        f"equal numpy's, nvcc builds 0, {secs:.4f} s; an INSERT of 'H' "
+        f"grows prio_g.f's dictionary (its rank table 2 -> 3 entries in "
+        f"the parameter block), then {P13_GROW!r}: rows equal numpy's, "
+        f"nvcc builds 0, {secs2:.4f} s ({card})")
+
+
+def p13_explain(cl, n_queries: dict, launches: dict, card: str) -> None:
+    """(c) EXPLAIN of an UPDATE, of QJOIN (nothing runs) and of the enum
+    GROUP BY; EXPLAIN ANALYZE of Q6 and of the enum GROUP BY twice."""
+    import re
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    upd = [r[0] for r in cl.execute(P13_EXPLAIN_UPDATE).rows]
+    if upd != ["Update on orders_e (shards: 1/4)",
+               "  Shard/Chunk Pruning: o_orderkey",
+               "  Strategy: local (deletion bitmaps + re-insert)"]:
+        raise AssertionError(f"phase 13 c EXPLAIN UPDATE: {upd}")
+    join = [r[0] for r in cl.execute("EXPLAIN " + QJOIN).rows]
+    grp = [r[0] for r in cl.execute("EXPLAIN " + P13_GROUP).rows]
+    ran = {k: f.launches for k, f in counters.items() if f.launches}
+    if ran or not join[0].startswith("Join (") or grp[0] != (
+            f"Distributed Scan on orders_e (shards: {SHARDS}/{SHARDS})") \
+            or "combine: host)" not in grp[1]:
+        raise AssertionError(f"phase 13 c EXPLAIN: launches {ran}, "
+                             f"{join}, {grp}")
+    say(f"phase 13 c EXPLAIN (no kernel launched): {' / '.join(upd)}; "
+        f"{' / '.join(join)}; {' / '.join(grp)} ({card})")
+    for label, sql in (("Q6", Q6), ("the enum GROUP BY", P13_GROUP)):
+        rows = n_queries[label]
+        for i in range(2):
+            r, builds, wall = p13_timed(cl, "EXPLAIN ANALYZE " + sql)
+            lines = [x[0] for x in r.rows]
+            m = re.search(r"Rows: (\d+)  Elapsed: ([\d.]+) ms",
+                          "\n".join(lines))
+            hit = any("Plan Cache: hit" in ln for ln in lines)
+            if m is None or int(m.group(1)) != rows \
+                    or float(m.group(2)) > wall * 1e3 \
+                    or (i == 1 and (not hit or builds)):
+                raise AssertionError(f"phase 13 c EXPLAIN ANALYZE {label} "
+                                     f"run {i}: {lines} (wall {wall} s, "
+                                     f"nvcc builds {builds})")
+            say(f"phase 13 c EXPLAIN ANALYZE {label} run {i} (wall "
+                f"{wall * 1e3:.3f} ms, nvcc builds {builds}): "
+                f"{' / '.join(ln.strip() for ln in lines)} ({card})")
+
+
+def p13_analyze_profiled(cl, sql: str, card: str) -> None:
+    """EXPLAIN ANALYZE's device figures of ``sql`` beside torch.profiler's
+    device time of the port's kernels in the same run (recorded, not
+    gated)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    pause = PROFILE_PAUSE_S
+    for tries in range(1, 4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pause)
+            lines = [x[0] for x in cl.execute("EXPLAIN ANALYZE " + sql).rows]
+            torch.cuda.synchronize()
+            time.sleep(pause)
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.name for k in PORT_KERNELS)]
+        if kern:
+            break
+        pause = PROFILE_RETRY_PAUSE_S
+    text = "\n".join(lines)
+
+    def num(pattern):
+        m = re.search(pattern, text)
+        return float(m.group(1)) if m else float("nan")
+    elapsed_ms = num(r"Elapsed: ([\d.]+) ms")
+    task_ms = num(r"rows, ([\d.]+) ms device dispatch")
+    pipe_ms = num(r"device ([\d.]+) ms, H2D")
+    prof_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    other = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not any(k in e.name for k in PORT_KERNELS)
+                    and not e.name.lower().startswith(("memcpy", "memset"))})
+    say(f"phase 13 c EXPLAIN ANALYZE Q6 under torch.profiler (session "
+        f"{tries}): Elapsed {elapsed_ms} ms, the first task's dispatch "
+        f"{task_ms} ms, Pipeline device {pipe_ms} ms (host clocks around "
+        f"asynchronous launches) beside the profiler's {prof_ms:.4f} ms of "
+        f"the port's {len(kern)} kernels on the card; other kernels "
+        f"{other} ({card})")
+
+
+def start_phase13_builds(sources: list) -> list:
+    """Start building phase 13's generated ``sources``
+    (``phase13_sources``), one nvcc each; -> the jobs ``run_phase13``
+    waits for after its load."""
+    from citus_tpu_torch.ops import cuda_build
+    return [cuda_build.start_generated(name, src) for name, src in sources]
+
+
+def run_phase13(cl, cols: dict, n_orders: int, launches: dict, card: str,
+                jobs: list, profile: bool = True) -> None:
+    """A14a on the card: (b)'s load, then its generated kernels' ``jobs``
+    (``start_phase13_builds``) waited for, (a) Q15 through a view and an
+    SQL function, (b) the enum and domain table, (c) EXPLAIN and EXPLAIN
+    ANALYZE, with (``profile``) Q6's EXPLAIN ANALYZE under
+    torch.profiler; the B1, B2 and B4 launches of the phase."""
+    t_phase = time.perf_counter()
+    for table in ("lineitem", "orders_b"):
+        if not cl.catalog.has_table(table):
+            raise AssertionError(f"phase 13: {table} is gone")
+    p13 = dict.fromkeys(launch_counters(), 0)
+    state = ph12_orders(n_orders)
+    p13_load(cl, state, card, jobs)
+    p13_q15(cl, cols, p13, card)
+    p13_enum(cl, state, p13, card)
+    n_queries = {"Q6": cl.execute(Q6).rowcount,
+                 "the enum GROUP BY": cl.execute(P13_GROUP).rowcount}
+    p13_explain(cl, n_queries, p13, card)
+    if profile:
+        p13_analyze_profiled(cl, Q6, card)
+    for sql in ("DROP VIEW revenue0", "DROP FUNCTION disc_price",
+                "DROP FUNCTION bonus",
+                "DROP TABLE orders_e", "DROP TABLE prio_g",
+                "DROP TYPE prio", "DROP DOMAIN custkey_t"):
+        cl.execute(sql)
+    for k, v in p13.items():
+        launches[k] += v
+    took = time.perf_counter() - t_phase
+    say(f"phase 13 launches: B1 scan_agg_fold {p13['scan_agg_fold']}, B2 "
+        f"hash_agg_insert {p13['hash_agg_insert']}, B4 filter_mask "
+        f"{p13['filter_mask']} ({card})")
+    say(f"phase 13 took {took:.3f} s, "
+        + ("within" if took <= P13_LIMIT_S else "OVER")
+        + f" its {P13_LIMIT_S:g} s ({card})")
+
+
+def phase13_sources(tmp: str, n_orders: int) -> list:
+    """``rehearsal_sources`` of phase 13's reads and writes, over the
+    first 20,000 of ``n_orders`` orders (their custkeys span the full
+    scale's range).  The predicate of the view's outer WHERE is missing:
+    its literal is this data's top revenue."""
+    def body(cl):
+        state = ph12_orders(n_orders, 20_000)
+        cl.execute(DISC_PRICE)
+        cl.execute(REVENUE0)
+        cl.execute(Q15_VIEW)
+        cl.execute(DISC_PRICE_NEW)
+        cl.execute(Q15_VIEW)
+        cl.execute(BONUS)
+        cl.execute(P13_BONUS)
+        for sql in (PRIO, CUSTKEY_T, ORDERS_E_DDL,
+                    "SELECT create_distributed_table('orders_e', "
+                    f"'o_orderkey', {SHARDS})", PRIO_G_DDL,
+                    f"SELECT create_distributed_table('prio_g', 'k', "
+                    f"{SHARDS})"):
+            cl.execute(sql)
+        cl.copy_from("orders_e", columns=p13_columns(state))
+        cl.copy_from("prio_g", columns={"k": np.arange(3),
+                                        "f": ["L", "M", "L"]})
+        for sql in (P13_GROUP, P13_RANK, P13_TOTALS, P13_UPDATE_OK,
+                    P13_GROW, "EXPLAIN ANALYZE " + P13_GROUP):
+            cl.execute(sql)
+        try:
+            cl.execute(P13_UPDATE_BAD)
+        except Exception:  # noqa: BLE001 -- refused, as on the card
+            pass
+    return rehearsal_sources(tmp, "phase13", body)
+
+
 def run(args) -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -5966,9 +6500,9 @@ def run(args) -> dict:
         # started together, all finished before phase 3
         known = set(fold_sources) | {("filter_mask", src) for src in sources}
         t0 = time.perf_counter()
-        p10_sources, p11_sources, p12_sources = finish_rehearsals(
-            rehearsals)
-        say(f"phase 2 rehearsals of phases 10, 11 and 12 on the CPU, in a "
+        p10_sources, p11_sources, p12_sources, p13_sources = \
+            finish_rehearsals(rehearsals)
+        say(f"phase 2 rehearsals of phases 10-13 on the CPU, in a "
             f"process of their own: {time.perf_counter() - t0:.3f} s of "
             f"waiting for them")
         p10 = [b for b in p10_sources
@@ -5983,6 +6517,10 @@ def run(args) -> dict:
         # and phase 12's, but those above, while its own COPY FROM runs
         p12 = [b for b in p12_sources
                if b not in known and b not in set(p10) | set(p11)
+               and b[1] != q1_fold.row.source]
+        # and phase 13's, but those above, while its own load runs
+        p13 = [b for b in p13_sources
+               if b not in known and b not in set(p10) | set(p11) | set(p12)
                and b[1] != q1_fold.row.source]
 
         elapsed("phase 2")
@@ -6057,9 +6595,14 @@ def run(args) -> dict:
         # ---- phase 11: A11's local write surface on the SF1 lineitem
         run_phase11(ctt, cl, cols, launches, card, p11)
         elapsed("phase 11")
-        # ---- phase 12: the rest of A11 on phase 8's orders_b arrays
+        # ---- phase 12: the rest of A11 on phase 8's orders_b arrays;
+        # phase 13's generated kernels build meanwhile
+        p13_jobs = start_phase13_builds(p13)
         run_phase12(cl, n_rows // 4, launches, card, p12, tmp)
         elapsed("phase 12")
+        # ---- phase 13: A14a's objects on the SF1 lineitem and orders_b
+        run_phase13(cl, cols, n_rows // 4, launches, card, p13_jobs)
+        elapsed("phase 13")
         # ---- phase 9: Q6 and QJOIN over a mesh of MESH_MEMBERS members
         # on the card, a second Cluster over the same SF1 tables
         mcl = mesh_cluster(ctt, os.path.join(tmp, "sf"), device)

@@ -90,26 +90,6 @@ def _has_derived(item) -> bool:
     return False
 
 
-def _func_names(node) -> set:
-    """Names of every function a statement calls, anywhere in it (the
-    test for SQL functions the catalog holds, which are not ported)."""
-    import dataclasses
-    out: set = set()
-
-    def walk(x):
-        if isinstance(x, A.FuncCall):
-            out.add(x.name)
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            for f in dataclasses.fields(x):
-                walk(getattr(x, f.name))
-        elif isinstance(x, (list, tuple)):
-            for y in x:
-                walk(y)
-
-    walk(node)
-    return out
-
-
 def _srf_result(name: str, args, alias) -> "Result":
     """Evaluate a set-returning FROM function to rows (reference:
     PostgreSQL SRFs; only constant arguments are supported since the
@@ -539,6 +519,54 @@ def _replace_exprs(e, mapping: dict):
             filter=_replace_exprs(e.filter, mapping)
             if e.filter is not None else None)
     return e
+
+
+def _subst_args(e, sub: dict):
+    """Replace bare ColumnRefs naming function parameters with the call
+    arguments (used by SQL function inlining)."""
+    if isinstance(e, A.ColumnRef) and e.table is None and e.name in sub:
+        return sub[e.name]
+    if isinstance(e, A.BinOp):
+        return A.BinOp(e.op, _subst_args(e.left, sub),
+                       _subst_args(e.right, sub))
+    if isinstance(e, A.UnOp):
+        return A.UnOp(e.op, _subst_args(e.operand, sub))
+    if isinstance(e, A.Between):
+        return A.Between(_subst_args(e.expr, sub), _subst_args(e.lo, sub),
+                         _subst_args(e.hi, sub), e.negated)
+    if isinstance(e, A.InList):
+        return A.InList(_subst_args(e.expr, sub),
+                        tuple(_subst_args(i, sub) for i in e.items),
+                        e.negated)
+    if isinstance(e, A.IsNull):
+        return A.IsNull(_subst_args(e.expr, sub), e.negated)
+    if isinstance(e, A.Cast):
+        return A.Cast(_subst_args(e.expr, sub), e.type_name, e.type_args)
+    if isinstance(e, A.CaseExpr):
+        return A.CaseExpr(tuple((_subst_args(c, sub), _subst_args(v, sub))
+                                for c, v in e.whens),
+                          _subst_args(e.else_, sub)
+                          if e.else_ is not None else None)
+    if isinstance(e, A.FuncCall):
+        import dataclasses
+        return dataclasses.replace(
+            e, args=tuple(_subst_args(a, sub) for a in e.args),
+            agg_order=tuple((_subst_args(oe, sub), asc)
+                            for oe, asc in e.agg_order),
+            filter=_subst_args(e.filter, sub)
+            if e.filter is not None else None)
+    return e
+
+
+def _limit0(stmt):
+    """A zero-row variant of a SELECT-shaped statement (column/type
+    probing without scanning)."""
+    import dataclasses as _dc
+    if isinstance(stmt, (A.Select, A.SetOp)):
+        return _dc.replace(stmt, limit=0)
+    if isinstance(stmt, A.WithSelect):
+        return _dc.replace(stmt, body=_dc.replace(stmt.body, limit=0))
+    return stmt
 
 
 def _sort_rows(rows, names, order_by):
@@ -1526,6 +1554,7 @@ class Cluster:
             # session/transaction context)
             return self._copy_into_partitions(t, columns)
         columns = self._fill_defaults(t, columns)
+        self._check_domains(t, columns)
         values, validity = encode_columns(self.catalog, t, columns)
         if t.partition_of is not None:
             from citus_tpu_torch.partitioning import check_partition_bounds
@@ -1830,15 +1859,105 @@ class Cluster:
         return ({c: v[keep] for c, v in values.items()},
                 {c: x[keep] for c, x in validity.items()}, shipped)
 
+    # ------------------------------------------------------------ domains
+    def _domain_columns_of(self, t) -> list[tuple[str, str, dict]]:
+        """[(column, domain name, domain def)] for ``t``."""
+        out = []
+        for cname in t.schema.names:
+            dn = self.catalog.domain_columns.get(f"{t.name}.{cname}")
+            if dn is None:
+                continue
+            dom = self.catalog.domains.get(dn)
+            if dom is not None:
+                out.append((cname, dn, dom))
+        return out
+
+    def _check_domain_values(self, dn: str, dom: dict, values) -> None:
+        """Evaluate one domain's CHECK over an iterable of logical
+        values, on the host, once per distinct value (the memo keeps a
+        categorical bulk load cheap); NULL passes CHECK (NOT NULL is the
+        column's)."""
+        import numpy as _np
+
+        from citus_tpu_torch.planner.parser import Parser as _P
+        if not dom.get("check"):
+            return
+        expr = _P(dom["check"]).parse_expr()
+        verdicts: dict = {}
+        for v in values:
+            if v is None:
+                continue
+            if isinstance(v, _np.generic):
+                v = v.item()
+            ok = verdicts.get(v)
+            if ok is None:
+                sub = {A.ColumnRef("value"): _pylit(v)}
+                try:
+                    ok = _eval_const(_replace_exprs(expr, sub)) is True
+                except Exception:
+                    raise UnsupportedFeatureError(
+                        f'cannot evaluate CHECK of domain "{dn}" '
+                        f"({dom['check']!r})")
+                verdicts[v] = ok
+            if not ok:
+                raise ExecutionError(
+                    f'value {v!r} for domain "{dn}" violates check '
+                    f"constraint ({dom['check']})")
+
+    def _check_domains(self, t, columns) -> None:
+        """Domain CHECK enforcement at ingest (every insert; VALUE names
+        the checked value)."""
+        for cname, dn, dom in self._domain_columns_of(t):
+            if cname in columns:
+                self._check_domain_values(dn, dom, columns[cname])
+
+    def _check_domains_physical(self, t, values, validity) -> None:
+        """Same enforcement over PHYSICAL column arrays (the UPDATE
+        re-insert path): decode back to logical values first."""
+        import numpy as _np
+
+        from citus_tpu_torch import types as T
+        for cname, dn, dom in self._domain_columns_of(t):
+            if cname not in values or not dom.get("check"):
+                continue
+            col = t.schema.column(cname)
+            vals = []
+            for phys, ok in zip(values[cname], validity[cname]):
+                if not ok:
+                    continue
+                if col.type.is_text:
+                    vals.append(self.catalog.decode_strings(
+                        t.name, cname, [int(phys)])[0])
+                elif col.type.kind == "uuid":
+                    continue  # recombined below from the lane pair
+                else:
+                    vals.append(col.type.from_physical(
+                        _np.asarray(phys).item()))
+            if col.type.kind == "uuid":
+                lane = values[T.uuid_lane_name(cname)]
+                vals = [T.uuid_from_lane_pair(int(h), int(lo))
+                        for h, lo, ok in zip(values[cname], lane,
+                                             validity[cname]) if ok]
+            self._check_domain_values(dn, dom, vals)
+
     # ------------------------------------------------ change data capture
     def _cdc_captures(self, table: str) -> bool:
         """The table's changes are captured when CDC is globally on OR
-        any publication covers it (reference: commands/publication.c)."""
+        any publication covers it (reference: commands/publication.c —
+        publications gate logical decoding per table)."""
         if self.cdc.enabled:
             return True
+        if not self.catalog.publications:
+            return False
+        # a publication on a partitioned parent covers its partitions
+        # (writes route to leaves before this gate runs)
+        names = {table}
+        t = self.catalog.tables.get(table)
+        if t is not None and t.partition_of is not None:
+            names.add(t.partition_of["parent"])
         for pub in self.catalog.publications.values():
             tl = pub.get("tables")
-            if tl == "all" or (isinstance(tl, list) and table in tl):
+            if tl == "all" or (isinstance(tl, list) and names & set(tl)):
                 return True
         return False
 
@@ -1914,8 +2033,8 @@ class Cluster:
     #: stage in memory (Catalog.commit defers), physical file actions
     #: defer to COMMIT or register rollback cleanups (reference: DDL in
     #: transaction blocks via citus_ProcessUtility, utility_hook.c:148).
-    #: The object statements of ROADMAP.md A14 pass this guard and are
-    #: refused by their own handlers.
+    #: The object statements of ROADMAP.md A14b pass this guard and are
+    #: refused when they dispatch.
     _TXN_ALLOWED = (A.Select, A.WithSelect, A.SetOp, A.Explain, A.Insert,
                     A.Update, A.Delete,
                     A.CreateTable, A.DropTable, A.CreateIndex, A.DropIndex,
@@ -2119,7 +2238,7 @@ class Cluster:
         writes stage under the transaction and its reads see them; an
         error aborts the block until ROLLBACK."""
         if role is not None:
-            _unported("roles and row-level security (role=)", "A14")
+            _unported("roles and row-level security (role=)", "A14b")
         if session is None:
             session = self._default_session()
         result = Result(columns=[], rows=[])
@@ -2244,21 +2363,26 @@ class Cluster:
             entry = self._plan_cache.lookup(key, self.catalog, backend)
             if entry is not None:
                 self.counters.bump("plan_cache_hits")
+                with _trace.span("plan", cache_hit=True):
+                    pass
                 return execute_select(self.catalog, entry.bound,
                                       self.settings, plan=entry.plan,
                                       param_values=params,
                                       device=self.device, mesh=self.mesh)
-        try:
-            with _trace.span("bind"):
-                bound = bind_select(self.catalog, stmt, param_count=n_params)
-        except UnsupportedFeatureError:
-            return None  # fall back to literal substitution
-        from citus_tpu_torch.planner.physical import plan_select
-        plan = plan_select(self.catalog, bound,
-                           direct_limit=self.settings.planner.direct_gid_limit)
-        if cache_on:
-            self._plan_cache.put(key, bound, plan, self.catalog, backend)
-            self.counters.bump("plan_cache_misses")
+        with _trace.span("plan", cache_hit=False):
+            try:
+                with _trace.span("bind"):
+                    bound = bind_select(self.catalog, stmt,
+                                        param_count=n_params)
+            except UnsupportedFeatureError:
+                return None  # fall back to literal substitution
+            from citus_tpu_torch.planner.physical import plan_select
+            plan = plan_select(
+                self.catalog, bound,
+                direct_limit=self.settings.planner.direct_gid_limit)
+            if cache_on:
+                self._plan_cache.put(key, bound, plan, self.catalog, backend)
+                self.counters.bump("plan_cache_misses")
         return execute_select(self.catalog, bound, self.settings, plan=plan,
                               param_values=params, device=self.device,
                               mesh=self.mesh)
@@ -2291,7 +2415,10 @@ class Cluster:
         auto-parameterizing filter literals so literal variants of one
         query family share a structural fingerprint (and thus built
         workers, executor/kernel_cache.py).  ``key`` None skips caching.
-        Returns (bound, plan, values)."""
+        Returns (bound, plan, values).  Its ``plan`` span records the
+        cache's hit or miss and the plan's fingerprint (what EXPLAIN
+        ANALYZE's ``Plan Cache`` line reads)."""
+        from citus_tpu_torch.executor.kernel_cache import plan_fingerprint
         backend = self.settings.executor.task_executor_backend
         cache_on = key is not None \
             and self.settings.planner.plan_cache_mode != "force_custom"
@@ -2300,22 +2427,32 @@ class Cluster:
             entry = self._plan_cache.lookup(key, self.catalog, backend)
             if entry is not None:
                 self.counters.bump("plan_cache_hits")
+                with _trace.span("plan", cache_hit=True) as psp:
+                    if psp.recording:
+                        psp.set(fingerprint=plan_fingerprint(
+                            entry.plan)[:12])
                 return entry.bound, entry.plan, entry.values
-        with _trace.span("bind"):
-            bound = bind_select(self.catalog, stmt)
-        values = None
-        if cache_on:
-            from citus_tpu_torch.planner.auto_param import auto_parameterize
-            ap = auto_parameterize(bound)
-            if ap is not None:
-                bound, values = ap
-        from citus_tpu_torch.planner.physical import plan_select
-        plan = plan_select(self.catalog, bound,
-                           direct_limit=self.settings.planner.direct_gid_limit)
-        if cache_on:
-            self._plan_cache.put(key, bound, plan, self.catalog, backend,
-                                 values=values)
-            self.counters.bump("plan_cache_misses")
+        with _trace.span("plan", cache_hit=False) as psp:
+            with _trace.span("bind"):
+                bound = bind_select(self.catalog, stmt)
+            values = None
+            if cache_on:
+                from citus_tpu_torch.planner.auto_param import (
+                    auto_parameterize,
+                )
+                ap = auto_parameterize(bound)
+                if ap is not None:
+                    bound, values = ap
+            from citus_tpu_torch.planner.physical import plan_select
+            plan = plan_select(
+                self.catalog, bound,
+                direct_limit=self.settings.planner.direct_gid_limit)
+            if cache_on:
+                self._plan_cache.put(key, bound, plan, self.catalog, backend,
+                                     values=values)
+                self.counters.bump("plan_cache_misses")
+            if psp.recording:
+                psp.set(fingerprint=plan_fingerprint(plan)[:12])
         return bound, plan, values
 
     # parsed DEFAULT expressions keyed by their SQL text (immutable)
@@ -2347,12 +2484,26 @@ class Cluster:
         from citus_tpu_torch.commands.shard_cmds import _table_ddl
         return _table_ddl(self, name)
 
+    def _table_size(self, name: str) -> int:
+        """Bytes of every placement's files of ``name`` on disk."""
+        import os
+        t = self.catalog.table(name)
+        total = 0
+        for shard in t.shards:
+            for node in shard.placements:
+                d = self.catalog.shard_dir(name, shard.shard_id, node)
+                if os.path.isdir(d):
+                    total += sum(os.path.getsize(os.path.join(d, f))
+                                 for f in os.listdir(d))
+        return total
+
     # set while executing a task a PEER pushed to us: such a task
     # operates on OUR placements only and must never push again
     _remote_exec_guard = __import__("threading").local()
 
-    #: statement-recursion ceiling: subquery materialization and CTE
-    #: bodies re-enter _execute_stmt; a runaway nesting fails with an
+    #: statement-recursion ceiling: subquery materialization, CTE
+    #: bodies and view expansion re-enter _execute_stmt; a circular view
+    #: reference (through another view or a subquery) fails with an
     #: AnalysisError instead of a raw RecursionError
     _MAX_STMT_DEPTH = 64
     _stmt_depth = __import__("threading").local()
@@ -2362,8 +2513,8 @@ class Cluster:
         depth = getattr(self._stmt_depth, "v", 0)
         if depth >= self._MAX_STMT_DEPTH:
             raise AnalysisError(
-                f"query nesting too deep (more than {self._MAX_STMT_DEPTH} "
-                "nested statements)")
+                "query nesting too deep (possible circular view "
+                "reference)")
         self._stmt_depth.v = depth + 1
         try:
             return self._execute_stmt_inner(stmt, sql_text)
@@ -2372,8 +2523,9 @@ class Cluster:
 
     def _execute_stmt_inner(self, stmt: A.Statement,
                             sql_text: Optional[str] = None) -> Result:
-        """One statement, in the reference's order: WITH, set
-        operations, DISTINCT ON, SELECT without FROM, decorrelation,
+        """One statement, in the reference's order: WITH, SQL functions
+        inlined, set operations, DISTINCT ON, SELECT without FROM,
+        decorrelation, views expanded, partitioned parents expanded,
         derived tables, GROUPING SETS, windows, unnest, subqueries
         materialized, DELETE/UPDATE subqueries, joins, single-table
         SELECT; everything else through the handler registry."""
@@ -2393,9 +2545,8 @@ class Cluster:
                         "here); COMMIT first")
         if isinstance(stmt, A.WithSelect):
             return select_exec._execute_with(self, stmt)
-        if isinstance(stmt, (A.Select, A.SetOp)) and self.catalog.functions \
-                and _func_names(stmt) & set(self.catalog.functions):
-            _unported("SQL functions (CREATE FUNCTION)", "A14")
+        if isinstance(stmt, (A.Select, A.SetOp)) and self.catalog.functions:
+            stmt = select_exec._expand_functions_stmt(self, stmt)
         if isinstance(stmt, A.SetOp):
             return select_exec._execute_setop(self, stmt)
         if isinstance(stmt, A.Select) and stmt.distinct_on:
@@ -2408,9 +2559,13 @@ class Cluster:
             )
             stmt = decorrelate_scalars(stmt)
             stmt = decorrelate_where(stmt)
-            rels = _from_relations(stmt)
-            if rels & set(self.catalog.views):
-                _unported("views (CREATE VIEW)", "A14")
+            if self.catalog.views:
+                new_from = select_exec._expand_views(self, stmt.from_)
+                if new_from is not stmt.from_:
+                    stmt = A.Select(stmt.items, new_from, stmt.where,
+                                    stmt.group_by, stmt.having,
+                                    stmt.order_by, stmt.limit, stmt.offset,
+                                    stmt.distinct, stmt.windows)
             if any(t.is_partitioned for t in self.catalog.tables.values()):
                 # partitioned parents rewrite to their surviving
                 # partitions (partition pruning stacks on shard and
@@ -2453,8 +2608,9 @@ class Cluster:
         if handler is not None:
             return handler(self, stmt)
         # every statement kind without a handler is an object DDL of
-        # ROADMAP.md A14 (views, functions, types, roles, policies, ...)
-        _unported(type(stmt).__name__, "A14")
+        # ROADMAP.md A14b (roles, grants, policies, row-level security,
+        # triggers, text-search configurations)
+        _unported(type(stmt).__name__, "A14b")
 
     def _materialize_dml_subqueries(self, stmt):
         """DELETE's WHERE and UPDATE's assignments and WHERE with their

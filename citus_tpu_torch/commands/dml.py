@@ -9,7 +9,7 @@ colocation-group write lock, invalidates the table's cached plans and
 emits its change to the CDC stream.  This is the local half of
 citus_tpu/commands/dml.py: RETURNING, the foreign-key actions of a
 parent's DELETE and UPDATE (RESTRICT / CASCADE / SET NULL), CHECK,
-unique and partition-bound checks on UPDATE, and DML, TRUNCATE and
+domain, unique and partition-bound checks on UPDATE, and DML, TRUNCATE and
 VACUUM on partitioned parents by fan-out.  A modify of a table that
 another coordinator hosts shards of (its forwarding and cross-host 2PC),
 and a COPY TO of one, raise, naming ROADMAP.md A13.
@@ -165,11 +165,6 @@ def update(cl, stmt):
             bound = BCast(bound, target.type)
         assignments.append((col, bound))
     where = b.bind_scalar(stmt.where) if stmt.where is not None else None
-    if any(f"{t.name}.{c}" in cl.catalog.domain_columns
-           for c, _e in stmt.assignments):
-        raise UnsupportedFeatureError(
-            "UPDATE of a domain-typed column is not ported yet "
-            "(ROADMAP.md A14)")
     with cl._write_lock(t, EXCLUSIVE):
         assigned_cols = {c for c, _e in stmt.assignments}
         if cl.catalog.referencing_fks(stmt.table):
@@ -190,7 +185,13 @@ def update(cl, stmt):
             ret = cl._returning_result(stmt.table, stmt.where,
                                        stmt.returning, subst)
         t = cl.catalog.table(stmt.table)  # re-fetch: fresh placements
+        assigned = {c for c, _e in stmt.assignments}
         checks = []
+        if any(c in assigned
+               for c, _dn, _d in cl._domain_columns_of(t)):
+            # a domain's CHECK runs over the re-inserted rows' new values
+            checks.append(
+                lambda v, m: cl._check_domains_physical(t, v, m))
         if t.partition_of is not None:
             from citus_tpu_torch.partitioning import check_partition_bounds
             checks.append(

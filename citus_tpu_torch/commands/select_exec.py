@@ -3,8 +3,13 @@ functions, DISTINCT ON, derived tables, set operations, CTE scaffolding
 (WITH and WITH RECURSIVE), GROUPING SETS, unnest and constant selects.
 Each is host work on the coordinator around sub-statements that run
 through ``Cluster._execute_stmt``, so every device step is one of the
-ported kernels (scan, fold, hash insert, predicate, join).  View and
-SQL-function expansion are not ported (ROADMAP.md A14).
+ported kernels (scan, fold, hash insert, predicate, join).  A view
+named in FROM becomes a derived table over its stored SELECT
+(``_expand_views``: materialized once for each reference, as in the
+reference), and a user SQL function call is replaced by its body with
+the arguments substituted (``_expand_functions_stmt``), so the body is
+generated into the fold, insert or predicate kernel like any written-out
+expression.
 
 Reference: the coordinator-side combine/query shaping the reference
 does in combine_query_planner.c + multi_logical_optimizer.c's master
@@ -28,7 +33,7 @@ from citus_tpu_torch.schema import Column, Schema
 
 from citus_tpu_torch.cluster import (  # noqa: E402  (loaded post-cluster)
     _eval_const, _from_relations, _infer_column_type, _replace_exprs,
-    _sort_rows, _srf_result,
+    _sort_rows, _srf_result, _subst_args,
 )
 
 
@@ -443,6 +448,102 @@ def _execute_derived(cl, stmt: A.Select) -> Result:
         return cl._execute_stmt(new_stmt)
     finally:
         _drop_intermediates(cl, temps)
+
+
+#: the deepest nesting of SQL-function calls that expansion follows (a
+#: function that calls itself fails here, not with a RecursionError)
+_MAX_FUNCTION_DEPTH = 8
+
+
+def _expand_functions_stmt(cl, stmt, depth: int = 0):
+    """Inline user SQL functions (expression macros) everywhere in a
+    SELECT or set operation: the planning-time analog of delegating a
+    distributed function call next to the data
+    (function_call_delegation.c)."""
+    if depth > _MAX_FUNCTION_DEPTH:
+        raise AnalysisError("SQL function expansion too deep (recursive?)")
+    from citus_tpu_torch.planner.parser import Parser
+    fns = cl.catalog.functions
+
+    def rw(e, d):
+        if e is None or not isinstance(e, A.Expr):
+            return e
+        if isinstance(e, A.FuncCall) and e.name in fns:
+            spec = fns[e.name]
+            if spec.get("kind") == "statement":
+                raise AnalysisError(
+                    f'{e.name}() is a trigger function and cannot be '
+                    "called in an expression")
+            if len(e.args) != len(spec["args"]):
+                raise AnalysisError(
+                    f'{e.name}() expects {len(spec["args"])} arguments')
+            if d > _MAX_FUNCTION_DEPTH:
+                raise AnalysisError(
+                    "SQL function expansion too deep (recursive?)")
+            body = Parser(spec["body"]).parse_expr()
+            sub = {n: rw(a, d) for n, a in zip(spec["args"], e.args)}
+            return rw(_subst_args(body, sub), d + 1)
+        if isinstance(e, A.BinOp):
+            return A.BinOp(e.op, rw(e.left, d), rw(e.right, d))
+        if isinstance(e, A.UnOp):
+            return A.UnOp(e.op, rw(e.operand, d))
+        if isinstance(e, A.Between):
+            return A.Between(rw(e.expr, d), rw(e.lo, d), rw(e.hi, d),
+                             e.negated)
+        if isinstance(e, A.InList):
+            return A.InList(rw(e.expr, d), tuple(rw(i, d) for i in e.items),
+                            e.negated)
+        if isinstance(e, A.IsNull):
+            return A.IsNull(rw(e.expr, d), e.negated)
+        if isinstance(e, A.Cast):
+            return A.Cast(rw(e.expr, d), e.type_name, e.type_args)
+        if isinstance(e, A.CaseExpr):
+            return A.CaseExpr(tuple((rw(c, d), rw(v, d)) for c, v in e.whens),
+                              rw(e.else_, d) if e.else_ is not None else None)
+        if isinstance(e, A.FuncCall):
+            return dataclasses.replace(
+                e, args=tuple(rw(a, d) for a in e.args),
+                agg_order=tuple((rw(oe, d), asc)
+                                for oe, asc in e.agg_order),
+                filter=rw(e.filter, d) if e.filter is not None else None)
+        if isinstance(e, A.WindowCall):
+            return A.WindowCall(
+                rw(e.func, d) if e.func is not None else None,
+                tuple(rw(p, d) for p in e.partition_by),
+                tuple((rw(oe, d), asc) for oe, asc in e.order_by),
+                e.frame, e.ref_name, e.ref_verbatim)
+        return e
+
+    if isinstance(stmt, A.SetOp):
+        return A.SetOp(stmt.op, stmt.all,
+                       _expand_functions_stmt(cl, stmt.left, depth + 1),
+                       _expand_functions_stmt(cl, stmt.right, depth + 1),
+                       stmt.order_by, stmt.limit, stmt.offset)
+    return A.Select(
+        [A.SelectItem(rw(i.expr, 0), i.alias) for i in stmt.items],
+        stmt.from_, rw(stmt.where, 0),
+        [rw(g, 0) for g in stmt.group_by], rw(stmt.having, 0),
+        [A.OrderItem(rw(o.expr, 0), o.ascending, o.nulls_first)
+         for o in stmt.order_by],
+        stmt.limit, stmt.offset, stmt.distinct,
+        tuple((wn, rw(spec, 0)) for wn, spec in stmt.windows),
+        tuple(rw(e, 0) for e in stmt.distinct_on))
+
+
+def _expand_views(cl, item):
+    """FROM references to views become derived tables over the view's
+    stored SELECT (reference: views as distributed objects,
+    commands/view.c; executed through recursive planning)."""
+    from citus_tpu_torch.planner import parse_sql
+    if isinstance(item, A.TableRef) and item.name in cl.catalog.views:
+        sel = parse_sql(cl.catalog.views[item.name])[0]
+        return A.SubqueryRef(sel, item.alias or item.name)
+    if isinstance(item, A.Join):
+        left = _expand_views(cl, item.left)
+        right = _expand_views(cl, item.right)
+        if left is not item.left or right is not item.right:
+            return A.Join(left, right, item.kind, item.condition)
+    return item
 
 
 def _execute_constant_select(cl, stmt: A.Select) -> Result:

@@ -8,9 +8,10 @@ FOREIGN KEY, DEFAULT, serial columns and their owned sequences,
 PARTITION BY RANGE / PARTITION OF, CREATE TABLE AS and CREATE / DROP
 INDEX, and ALTER TABLE (ADD / DROP / RENAME COLUMN, RENAME TO, ADD
 CONSTRAINT … CHECK, DROP CONSTRAINT, ALTER COLUMN … SET DEFAULT),
-cascaded from a partitioned parent to its partitions.  Enum and domain
-column types need CREATE TYPE / DOMAIN (ROADMAP.md A14) and raise
-UnsupportedFeatureError.
+cascaded from a partitioned parent to its partitions.  A column of an
+enum type (CREATE TYPE … AS ENUM) is stored as text and recorded in
+``catalog.enum_columns``; one of a domain takes the domain's base type
+and is recorded in ``catalog.domain_columns``.
 """
 
 from __future__ import annotations
@@ -53,7 +54,9 @@ def create_table(cl, stmt):
             stmt.partition_of["lo"], stmt.partition_of["hi"],
             if_not_exists=stmt.if_not_exists)
         return Result(columns=[], rows=[])
-    cols = []
+    from citus_tpu_torch import types as T
+    cols, enum_binds = [], []
+    domain_binds = []
     serial_seqs = []  # sequences to create for serial columns
     _SERIAL = {"smallserial": "smallint", "serial": "int",
                "bigserial": "bigint"}
@@ -67,13 +70,21 @@ def create_table(cl, stmt):
             serial_seqs.append(seq)
             default_sql = f"nextval('{seq}')"
             type_name = _SERIAL[type_name]
-        if type_name in cl.catalog.types or type_name in cl.catalog.domains:
-            raise UnsupportedFeatureError(
-                "CREATE TABLE with enum or domain types is not ported yet "
-                "(ROADMAP.md A14)")
-        cols.append(Column(
-            c.name, type_from_sql(type_name, c.type_args or None),
-            c.not_null, default_sql=default_sql))
+        if type_name in cl.catalog.types:
+            cols.append(Column(c.name, T.TEXT_T, c.not_null,
+                               default_sql=default_sql))
+            enum_binds.append((c.name, c.type_name))
+        elif type_name in cl.catalog.domains:
+            d = cl.catalog.domains[type_name]
+            cols.append(Column(
+                c.name,
+                type_from_sql(d["base"], d["args"] or None),
+                c.not_null or d["not_null"], default_sql=default_sql))
+            domain_binds.append((c.name, type_name))
+        else:
+            cols.append(Column(
+                c.name, type_from_sql(type_name, c.type_args or None),
+                c.not_null, default_sql=default_sql))
     schema = Schema(cols)
     opts = {k: v for k, v in stmt.options.items() if k != "access_method"}
     fks = []
@@ -141,6 +152,15 @@ def create_table(cl, stmt):
     if fks and not pre_existing and cl.catalog.has_table(stmt.name):
         # IF NOT EXISTS no-op must not clobber existing constraints
         cl.catalog.table(stmt.name).foreign_keys = fks
+        cl.catalog.commit()
+    if enum_binds and cl.catalog.has_table(stmt.name):
+        for cn, tn in enum_binds:
+            cl.catalog.enum_columns[f"{stmt.name}.{cn}"] = tn
+        cl.catalog.commit()
+    if domain_binds and not pre_existing \
+            and cl.catalog.has_table(stmt.name):
+        for cn, dn in domain_binds:
+            cl.catalog.domain_columns[f"{stmt.name}.{cn}"] = dn
         cl.catalog.commit()
     if want_indexes and cl.catalog.has_table(stmt.name):
         # PRIMARY KEY / UNIQUE column constraints become unique indexes
@@ -281,15 +301,27 @@ def alter_table(cl, stmt):
         cl._plan_cache.invalidate_table(stmt.table)
         return Result(columns=[], rows=[])
     if stmt.action == "add_column":
+        from citus_tpu_torch import types as T
         tn = stmt.column.type_name
-        if tn in cl.catalog.types or tn in cl.catalog.domains:
-            raise UnsupportedFeatureError(
-                "enum and domain column types (CREATE TYPE / DOMAIN) are "
-                "not ported yet (ROADMAP.md A14)")
-        col = Column(stmt.column.name,
-                     type_from_sql(tn, stmt.column.type_args or None),
-                     stmt.column.not_null)
-        cl.catalog.add_column(stmt.table, col)
+        if tn in cl.catalog.types:  # enum
+            col = Column(stmt.column.name, T.TEXT_T,
+                         stmt.column.not_null)
+            cl.catalog.add_column(stmt.table, col)
+            cl.catalog.enum_columns[
+                f"{stmt.table}.{stmt.column.name}"] = tn
+        elif tn in cl.catalog.domains:
+            d = cl.catalog.domains[tn]
+            col = Column(stmt.column.name,
+                         type_from_sql(d["base"], d["args"] or None),
+                         stmt.column.not_null or d["not_null"])
+            cl.catalog.add_column(stmt.table, col)
+            cl.catalog.domain_columns[
+                f"{stmt.table}.{stmt.column.name}"] = tn
+        else:
+            col = Column(stmt.column.name,
+                         type_from_sql(tn, stmt.column.type_args or None),
+                         stmt.column.not_null)
+            cl.catalog.add_column(stmt.table, col)
     elif stmt.action == "drop_column":
         t0 = cl.catalog.table(stmt.table)
         if t0.index_on(stmt.old_name) is not None:

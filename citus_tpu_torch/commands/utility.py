@@ -8,12 +8,17 @@ data plane's transfers), node topology (citus_add_node,
 citus_remove_node), the replicated tenant quotas, the time-partition
 helpers (create_time_partitions, drop_old_time_partitions,
 time_partitions), sequences (nextval, currval, setval,
-citus_sequences), run_command_on_shards / _placements,
+citus_sequences), the catalog-object inventories (citus_extensions,
+citus_domains, citus_collations, citus_publications,
+citus_statistics_objects, citus_types, citus_views, citus_schemas),
+run_command_on_shards / _placements,
 master_get_table_ddl_events, and the redistributions
 undistribute_table and alter_distributed_table (refused, naming
 ROADMAP.md A13, for a table with shards another coordinator hosts); the
 other utilities are not ported yet (ROADMAP.md A13 for
-recover_prepared_transactions, A14 for the rest).
+recover_prepared_transactions, A14b for the inventories of roles,
+grants, policies, triggers and text-search configurations, A14c for
+the rest).
 """
 
 from __future__ import annotations
@@ -23,15 +28,19 @@ from citus_tpu_torch.errors import UnsupportedFeatureError
 from citus_tpu_torch.executor import Result
 
 
-#: the unported UDFs of cross-host transactions (ROADMAP.md A13); the
-#: rest are catalog views, operations and services (A14)
+#: the unported UDFs of cross-host transactions (ROADMAP.md A13) and of
+#: roles, row-level security and triggers (A14b); the rest are
+#: operations, services and observability (A14c)
 _CROSS_HOST_UTILITIES = frozenset({"recover_prepared_transactions"})
+_RLS_UTILITIES = frozenset({"citus_roles", "citus_grants", "citus_policies",
+                            "citus_triggers", "citus_text_search_configs"})
 
 
 def execute_utility(cl, stmt) -> Result:
     fn = UTILITY_HANDLERS.get(stmt.name)
     if fn is None:
-        item = "A13" if stmt.name in _CROSS_HOST_UTILITIES else "A14"
+        item = "A13" if stmt.name in _CROSS_HOST_UTILITIES else \
+            "A14b" if stmt.name in _RLS_UTILITIES else "A14c"
         raise UnsupportedFeatureError(
             f"utility {stmt.name}() is not ported yet (ROADMAP.md {item})")
     return fn(cl, stmt.name, stmt.args)
@@ -108,6 +117,72 @@ def _citus_sequences(cl, name, args):
             for n, s in sorted(cl.catalog.sequences.items())]
     return Result(columns=["sequence_name", "next_block_start",
                            "increment", "start"], rows=rows)
+
+
+# ----------------------------------------------------- object inventories
+
+@utility("citus_extensions")
+def _citus_extensions(cl, name, args):
+    return Result(columns=["name", "version"],
+                  rows=sorted((k, v.get("version"))
+                              for k, v in cl.catalog.extensions.items()))
+
+
+@utility("citus_domains")
+def _citus_domains(cl, name, args):
+    return Result(
+        columns=["name", "base_type", "not_null", "check"],
+        rows=sorted((k, v["base"], v["not_null"], v.get("check"))
+                    for k, v in cl.catalog.domains.items()))
+
+
+@utility("citus_collations")
+def _citus_collations(cl, name, args):
+    return Result(columns=["name", "locale", "provider"],
+                  rows=sorted((k, v.get("locale"), v.get("provider"))
+                              for k, v in cl.catalog.collations.items()))
+
+
+@utility("citus_publications")
+def _citus_publications(cl, name, args):
+    rows = []
+    for k, v in sorted(cl.catalog.publications.items()):
+        tl = v.get("tables")
+        rows.append((k, "ALL TABLES" if tl == "all" else ", ".join(tl)))
+    return Result(columns=["name", "tables"], rows=rows)
+
+
+@utility("citus_statistics_objects")
+def _citus_statistics_objects(cl, name, args):
+    return Result(
+        columns=["name", "table", "columns", "ndistinct"],
+        rows=sorted((k, v["table"], ", ".join(v["columns"]), v["ndistinct"])
+                    for k, v in cl.catalog.statistics.items()))
+
+
+@utility("citus_types")
+def _citus_types(cl, name, args):
+    return Result(columns=["type_name", "labels"],
+                  rows=[(n, ",".join(ls)) for n, ls in
+                        sorted(cl.catalog.types.items())])
+
+
+@utility("citus_views")
+def _citus_views(cl, name, args):
+    return Result(columns=["view_name", "definition"],
+                  rows=sorted(cl.catalog.views.items()))
+
+
+@utility("citus_schemas")
+def _citus_schemas(cl, name, args):
+    rows = []
+    for sname, info in cl.catalog.schemas.items():
+        members = [t for t in cl.catalog.tables if t.startswith(sname + ".")]
+        size = sum(cl._table_size(m) for m in members)
+        rows.append((sname, info["colocation_id"], info["home_node"],
+                     len(members), size))
+    return Result(columns=["schema_name", "colocation_id", "node",
+                           "table_count", "schema_size"], rows=rows)
 
 
 # ------------------------------------------------------------ shard tools

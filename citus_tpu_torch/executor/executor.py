@@ -320,7 +320,9 @@ class _StreamStats:
             pstats.publish(plan)
         pl = plan.runtime_cache.setdefault("pipeline", {})
         pl["fused_dispatches"] = self.n_dispatch
-        pl["stream_window_peak_bytes"] = self.window_peak
+        if not self.cached:
+            # a pass served from the device cache streams no window
+            pl["stream_window_peak_bytes"] = self.window_peak
         plan.runtime_cache["task_times"] = self.task_times
         plan.runtime_cache["task_bytes"] = self.task_bytes
 
@@ -993,6 +995,7 @@ def _run_hash_device(cat: Catalog, plan: PhysicalPlan, settings: Settings,
     GLOBAL_COUNTERS.bump("hash_fused_dispatches", st.n_dispatch)
     st.publish(plan, pstats)
     pl = plan.runtime_cache["pipeline"]
+    pl["stream_window_peak_bytes"] = st.window_peak
     pl["hash_slots"] = S
     pl["hash_occupancy_pct"] = round(100.0 * int((h_rows > 0).sum()) / S, 1)
     pl["hash_spilled_rows"] = drain.rows

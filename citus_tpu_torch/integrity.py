@@ -27,7 +27,7 @@ its local placements on the host (the reader applies the transaction
 overlay, as ``_execute_stmt`` does) and tests membership with numpy, so
 it answers any number of keys and builds no kernel.  Rows, error
 classes and messages are the reference's wherever the reference
-answers.  Statement triggers are not ported (ROADMAP.md A14), so a
+answers.  Statement triggers are not ported (ROADMAP.md A14b), so a
 cascade fires none.
 """
 

@@ -30,6 +30,7 @@ import subprocess
 import threading
 import time
 
+from citus_tpu_torch.observability import trace as _trace
 from citus_tpu_torch.utils.build import PACKAGE_DIR, build_dir, sources_digest
 
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
@@ -109,8 +110,16 @@ def _finish(name: str, so: str, job) -> None:
     proc, fh, tmp, log, t0 = job
     rc = proc.wait()
     fh.close()
+    t1 = time.perf_counter()
     BUILDS["count"] += 1
-    BUILDS["seconds"] += time.perf_counter() - t0
+    BUILDS["seconds"] += t1 - t0
+    ctx = _trace.current()
+    if ctx is not None:
+        # the statement that waited for this build (EXPLAIN ANALYZE's
+        # "compile" reads these spans)
+        tr, parent = ctx
+        tr.add_closed("kernel_compile", parent.span_id, t0, t1,
+                      {"kernel": name})
     if rc != 0:
         with open(log) as f:
             raise KernelBuildError(f"nvcc failed for {name}.cu:\n{f.read()}")

@@ -49,6 +49,7 @@ never falls back to eager tensor code on the card.
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 
 import numpy as np
@@ -968,7 +969,15 @@ def _fold_row_tail(n_keys, n_args, key_dts, arg_dts, hashed) -> str:
         "    }\n}\n#endif\n")
 
 
+#: a dictionary node's table as its repr shows it (a flat tuple)
+_DICT_TABLE = re.compile(r"\b(mapping|table|mask)=\([^()]*\)")
+
+
 def _one_line(expr) -> str:
-    """The tree as a one-line C++ comment (no line splice, bounded)."""
-    s = repr(expr).replace("\n", " ").replace("\\", "/")
+    """The tree as a one-line C++ comment (no line splice, bounded).  A
+    dictionary node's table is left out: it is a launch argument, so a
+    dictionary that grows (an INSERT of new words, an enum column's new
+    labels) keeps the source, and its build."""
+    s = _DICT_TABLE.sub(r"\1=(...)", repr(expr))
+    s = s.replace("\n", " ").replace("\\", "/")
     return s if len(s) <= 2000 else s[:2000] + " ..."

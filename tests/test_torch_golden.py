@@ -7,9 +7,11 @@ unchanged tests/golden/NAME.out exactly.  The .out files are the
 reference's: they are never regenerated from the port.
 
 ``joins_dml`` (joins, UPDATE, MERGE, DELETE) matches its unchanged .out
-since MERGE is ported.  Left out: types2.sql, whose ``EXPLAIN UPDATE``
-needs the EXPLAIN of DML (commands/explain.py, ROADMAP.md A14); every
-other block of it matches.
+since MERGE is ported; ``views_sequences``, ``analytics2``, ``objects``,
+``objects2`` and ``types2`` (views, enum types, SQL functions, domains,
+collations, publications, extensions, their catalog UDFs and the EXPLAIN
+of an UPDATE) since they are.  Left out: rls_triggers.sql (roles, GRANT,
+policies, statement triggers, text search: ROADMAP.md A14b).
 """
 
 import os
@@ -24,9 +26,10 @@ from citus_tpu_torch.errors import CitusTpuError
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_golden import GOLDEN_DIR, split_statements  # noqa: E402
 
-SCRIPTS = ["aggregates_ext", "basic", "grouping_sets", "insert_select",
-           "joins_dml", "partitioning", "recursive_cte", "setops",
-           "sql_surface2", "strings", "txn_ddl", "windows"]
+SCRIPTS = ["aggregates_ext", "analytics2", "basic", "grouping_sets",
+           "insert_select", "joins_dml", "objects", "objects2",
+           "partitioning", "recursive_cte", "setops", "sql_surface2",
+           "strings", "txn_ddl", "types2", "views_sequences", "windows"]
 
 
 def run_script(cl, text: str) -> str:

@@ -576,12 +576,11 @@ def test_chip_smoke_phase10_oracles_match_the_port(pair):
 def test_views_functions_and_partitions_of_the_catalog_are_refused(
         tmp_path):
     """A data directory the reference wrote with a view, an SQL function
-    and a partitioned table opens in the port; a statement naming a view
-    or a function raises naming ROADMAP.md A14 (their expansion is not
-    ported); one naming the partitioned parent (ported since A11's local
-    write surface) and one that names none of them run, with the
-    reference's rows."""
-    from citus_tpu_torch.errors import UnsupportedFeatureError
+    and a partitioned table opens in the port.  Until A14a a statement
+    naming the view or the function was refused; since their expansion
+    is ported, each runs, as does one naming the partitioned parent
+    (ported since A11's local write surface) and one that names none of
+    them, with the reference's rows."""
     d = str(tmp_path / "db")
     ref = ct.Cluster(d)
     ref.execute("CREATE TABLE vt (k bigint NOT NULL, v bigint)")
@@ -595,15 +594,16 @@ def test_views_functions_and_partitions_of_the_catalog_are_refused(
                 "'2024-01-01 04:00', '2024-01-01 00:00')")
     want = ref.execute("SELECT count(*) FROM vt WHERE v < 2").rows
     want_parent = ref.execute("SELECT count(*) FROM metrics").rows
+    named = ("SELECT count(*) FROM small",
+             "WITH c AS (SELECT k FROM small) SELECT count(*) FROM c",
+             "SELECT addone(k) FROM vt ORDER BY 1",
+             "SELECT k FROM vt UNION SELECT addone(k) FROM vt ORDER BY 1")
+    want_named = [ref.execute(sql).rows for sql in named]
     ref.close()
     port = ctt.Cluster(d, device="cpu")
     try:
-        for sql in ("SELECT count(*) FROM small",
-                    "WITH c AS (SELECT k FROM small) SELECT count(*) FROM c",
-                    "SELECT addone(k) FROM vt",
-                    "SELECT k FROM vt UNION SELECT addone(k) FROM vt"):
-            with pytest.raises(UnsupportedFeatureError, match="A14"):
-                port.execute(sql)
+        for sql, w in zip(named, want_named):
+            assert port.execute(sql).rows == w, sql
         # a partitioned parent expands to its partitions
         assert port.execute("SELECT count(*) FROM metrics").rows \
             == want_parent
