@@ -1441,9 +1441,9 @@ def rehearsal_sources(tmp: str, name: str, body) -> list:
 
 
 def start_rehearsals(tmp: str, n_orders: int):
-    """Start ``phase10_sources``, ``phase11_sources``, ``phase12_sources``
-    and ``phase13_sources`` (the last two over ``n_orders`` orders' value
-    ranges) in a process of their own, with no CUDA device visible to it,
+    """Start ``phase10_sources``, ``phase11_sources``, ``phase12_sources``,
+    ``phase13_sources`` and ``phase14_sources`` (the last three over
+    ``n_orders`` orders' value ranges) in a process of their own, with no CUDA device visible to it,
     so that their CPU rehearsals run beside phase 2's builds.  -> a
     handle for ``finish_rehearsals``."""
     out = os.path.join(tmp, "rehearsals.json")
@@ -1453,7 +1453,8 @@ def start_rehearsals(tmp: str, n_orders: int):
             "json.dump({'p10': c.phase10_sources(sys.argv[2]), "
             "'p11': c.phase11_sources(sys.argv[2]), "
             "'p12': c.phase12_sources(sys.argv[2], int(sys.argv[4])), "
-            "'p13': c.phase13_sources(sys.argv[2], int(sys.argv[4]))}, "
+            "'p13': c.phase13_sources(sys.argv[2], int(sys.argv[4])), "
+            "'p14': c.phase14_sources(sys.argv[2], int(sys.argv[4]))}, "
             "open(sys.argv[3], 'w'))")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.Popen([sys.executable, "-c", code, here, tmp, out,
@@ -1462,8 +1463,8 @@ def start_rehearsals(tmp: str, n_orders: int):
 
 
 def finish_rehearsals(handle) -> tuple:
-    """Wait for ``start_rehearsals``; -> (phase 10's, 11's, 12's and
-    13's (build, source) lists)."""
+    """Wait for ``start_rehearsals``; -> (phase 10's, 11's, 12's, 13's
+    and 14's (build, source) lists)."""
     proc, out = handle
     try:
         rc = proc.wait(timeout=900)
@@ -1476,7 +1477,7 @@ def finish_rehearsals(handle) -> tuple:
     with open(out) as fh:
         got = json.load(fh)
     return tuple([tuple(b) for b in got[k]]
-                 for k in ("p10", "p11", "p12", "p13"))
+                 for k in ("p10", "p11", "p12", "p13", "p14"))
 
 
 def phase10_sources(tmp: str) -> list:
@@ -3909,8 +3910,22 @@ def run_pair_query(a, qname: str, sql: str, want: list, mode: str,
     return dt
 
 
+def pair_load(a, n_rows: int) -> dict:
+    """The sketch table of phase 4 (``n_rows`` rows, 4 shards by
+    l_suppkey) created and loaded through coordinator A; -> its
+    generated columns."""
+    a.execute(S_DDL)
+    a.execute("SELECT create_distributed_table('lineitem', 'l_suppkey', "
+              f"{SHARDS})")
+    chunks = []
+    for c in sketch_chunks(n_rows, 11, n_rows):
+        a.copy_from("lineitem", columns=sketch_copy_columns(c))
+        chunks.append(c)
+    return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+
+
 def run_pair_phase(ctt, tmp: str, n_rows: int, launches: dict,
-                   card: str, device=None) -> None:
+                   card: str, device=None) -> float:
     """Phase 7: two coordinators on the card.  The sketch table of phase
     4 loaded through A (4 shards by l_suppkey over A's and B's nodes:
     the rows of B's shards ship over the data plane); R1 (hash GROUP BY,
@@ -3918,7 +3933,9 @@ def run_pair_phase(ctt, tmp: str, n_rows: int, launches: dict,
     S1 (pushed as an agg task with sketch registers) and R3 (pushed as a
     projection task), each cold and warm, pushed and then pulled; then
     PAIR_DELTA_ROWS more rows by COPY through A, and R1 and R3 warm
-    again, pushed and pulled, against the new oracle."""
+    again, pushed and pulled, against the new oracle; then phase 14 (b),
+    cross-host DML on the same pair (``run_phase14_pair``).  -> phase
+    14 (b)'s seconds."""
     from citus_tpu_torch.executor.executor import GLOBAL_COUNTERS
     a, b = open_pair(ctt, tmp, device)
     try:
@@ -3928,14 +3945,7 @@ def run_pair_phase(ctt, tmp: str, n_rows: int, launches: dict,
             cl.execute("SET citus.hash_agg_slots = auto")
         t0 = time.perf_counter()
         c0 = GLOBAL_COUNTERS.snapshot()
-        a.execute(S_DDL)
-        a.execute("SELECT create_distributed_table('lineitem', 'l_suppkey', "
-                  f"{SHARDS})")
-        chunks = []
-        for c in sketch_chunks(n_rows, 11, n_rows):
-            a.copy_from("lineitem", columns=sketch_copy_columns(c))
-            chunks.append(c)
-        cols = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+        cols = pair_load(a, n_rows)
         c1 = GLOBAL_COUNTERS.snapshot()
         remote_rows = c1.get("rows_ingested_remote", 0) \
             - c0.get("rows_ingested_remote", 0)
@@ -3977,9 +3987,168 @@ def run_pair_phase(ctt, tmp: str, n_rows: int, launches: dict,
                                n_remote, launches)
         st = remote_stats(a)
         say(f"phase 7 data plane totals (citus_remote_stats on A): {st}")
+        return run_phase14_pair(a, b, cols, launches, card)
     finally:
         b.close()
         a.close()
+
+
+# ------------------------------------------ cross-host DML (phase 14 b)
+
+P14B_TOTALS = "SELECT count(*), sum(l_quantity) FROM lineitem"
+#: (b)'s days: the two-phase UPDATE's, the DELETE's (inside S1's year),
+#: the committed and the rolled-back transaction's, the INSERT ...
+#: SELECT's (R3's day)
+P14B_UPDATE_DAY, P14B_DELETE_DAY = (1995, 3, 15), (1995, 6, 2)
+P14B_TXN_DAY, P14B_ROLLBACK_DAY = (1996, 1, 10), (1996, 1, 11)
+P14B_COPY_DAY = (1994, 6, 1)
+
+
+def _sql_day(day: tuple) -> str:
+    return "date '%d-%02d-%02d'" % day
+
+
+P14B_DAY_ROWS = ("SELECT * FROM lineitem WHERE l_shipdate = "
+                 + _sql_day(P14B_COPY_DAY))
+
+
+def p14b_check(a, b, cols: dict, s1: list, label: str, card: str) -> None:
+    """R3, S1 and the totals on A and on B against numpy; no prepared
+    transaction left to recover."""
+    want = {"R3": oracle_r3(cols), "S1": s1,
+            "totals": [(int(cols["qty"].size), int(cols["qty"].sum()))]}
+    t0 = time.perf_counter()
+    times = []
+    for name, cl in (("A", a), ("B", b)):
+        for q, sql in (("R3", R3), ("S1", S1), ("totals", P14B_TOTALS)):
+            t1 = time.perf_counter()
+            rows = cl.execute(sql).rows
+            times.append(time.perf_counter() - t1)
+            rows = sorted(rows) if q == "R3" else rows
+            if rows != want[q]:
+                raise AssertionError(
+                    f"phase 14 b after {label}: {q} on {name} differs from "
+                    f"numpy: {rows[:4]} != {want[q][:4]}")
+        n = cl.execute("SELECT recover_prepared_transactions()").rows
+        if n != [(0,)]:
+            raise AssertionError(f"phase 14 b after {label}: {name} "
+                                 f"recovered {n}")
+    say(f"phase 14 b after {label}: R3 ({len(want['R3'])} rows), S1 and "
+        f"count/sum {want['totals'][0]} on A and on B equal numpy, "
+        f"recover_prepared_transactions() 0 on both, in "
+        f"{time.perf_counter() - t0:.3f} s (the queries on A, then B: "
+        + ", ".join(f"{t:.3f}" for t in times) + f" s) ({card})")
+
+
+def run_phase14_pair(a, b, cols: dict, launches: dict, card: str) -> float:
+    """Phase 14 (b): cross-host DML on phase 7's pair and its sketch
+    lineitem (4 shards by l_suppkey, 2 on each coordinator), each step
+    checked by ``p14b_check``: a router UPDATE of one supplier on B
+    (forwarded whole through execute_sql), an UPDATE and a DELETE of one
+    ship day over both hosts (two-phase: dml_prepare on B, the outcome
+    at A, dml_decide), BEGIN / UPDATE / COMMIT and BEGIN / DELETE /
+    ROLLBACK over both hosts, an INSERT ... SELECT of one day back into
+    the table (the pull path, B's rows shipped).  -> its seconds."""
+    from citus_tpu_torch.catalog.hashing import shard_index_for_values
+    from citus_tpu_torch.ops import cuda_build
+    t_phase = time.perf_counter()
+    b0 = cuda_build.BUILDS["count"]
+    counters = launch_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    rd = a.catalog.remote_data
+    st0 = dict(rd.stats)
+    cols = {k: v.copy() for k, v in cols.items()}
+    s1 = oracle_s1(cols)
+    t = a.catalog.table("lineitem")
+    sk = np.arange(1, SUPPLIERS + 1, dtype=np.int64)
+    on_b = [int(s) for s, i in zip(sk, shard_index_for_values(sk, SHARDS))
+            if a.catalog.is_remote_node(t.shards[i].placements[0])]
+    supplier = on_b[0]
+
+    def day(d):
+        return cols["ship"] == _day(*d)
+
+    def run(sql: str, label: str, key: str, want: int, two_phase: bool,
+            session=None) -> None:
+        f0 = rd.stats["statements_forwarded"]
+        t0 = time.perf_counter()
+        r = (session or a).execute(sql)
+        dt = time.perf_counter() - t0
+        fwd = rd.stats["statements_forwarded"] - f0
+        if r.explain.get(key) != want or ("gxid" in r.explain) != two_phase:
+            raise AssertionError(f"phase 14 b {label}: {r.explain}, "
+                                 f"expected {key} {want}")
+        say(f"phase 14 b {label}: {key} {want} (numpy's) in {dt:.4f} s, "
+            f"{fwd} statement(s) forwarded to B"
+            + (f", gxid {r.explain['gxid']}" if two_phase else "")
+            + f" ({card})")
+
+    sel = cols["suppkey"] == supplier
+    run(f"UPDATE lineitem SET l_quantity = l_quantity + 100 "
+        f"WHERE l_suppkey = {supplier}",
+        f"1 router UPDATE of supplier {supplier} (its shard on B)",
+        "updated", int(sel.sum()), False)
+    cols["qty"][sel] += 100
+    p14b_check(a, b, cols, s1, "step 1", card)
+    sel = day(P14B_UPDATE_DAY)
+    run(f"UPDATE lineitem SET l_quantity = 1 WHERE l_shipdate = "
+        f"{_sql_day(P14B_UPDATE_DAY)}", "2 UPDATE of one ship day over both "
+        "hosts", "updated", int(sel.sum()), True)
+    cols["qty"][sel] = 1
+    p14b_check(a, b, cols, s1, "step 2", card)
+    sel = day(P14B_DELETE_DAY)
+    run(f"DELETE FROM lineitem WHERE l_shipdate = "
+        f"{_sql_day(P14B_DELETE_DAY)}", "3 DELETE of one ship day over both "
+        "hosts", "deleted", int(sel.sum()), True)
+    cols = {k: v[~sel] for k, v in cols.items()}
+    s1 = oracle_s1(cols)
+    p14b_check(a, b, cols, s1, "step 3", card)
+    s = a.session()
+    try:
+        s.execute("BEGIN")
+        sel = day(P14B_TXN_DAY)
+        run(f"UPDATE lineitem SET l_quantity = l_quantity + 7 WHERE "
+            f"l_shipdate = {_sql_day(P14B_TXN_DAY)}",
+            "4 BEGIN; UPDATE of one ship day", "updated", int(sel.sum()),
+            False, s)
+        t0 = time.perf_counter()
+        s.execute("COMMIT")
+        say(f"phase 14 b 4 COMMIT (the branches' two-phase commit): "
+            f"{time.perf_counter() - t0:.4f} s")
+        cols["qty"][sel] += 7
+        s.execute("BEGIN")
+        run(f"DELETE FROM lineitem WHERE l_shipdate = "
+            f"{_sql_day(P14B_ROLLBACK_DAY)}", "4 BEGIN; DELETE of one ship "
+            "day", "deleted", int(day(P14B_ROLLBACK_DAY).sum()), False, s)
+        s.execute("ROLLBACK")
+    finally:
+        s.close()
+    p14b_check(a, b, cols, s1, "step 4 (COMMIT, then ROLLBACK)", card)
+    sel = day(P14B_COPY_DAY)
+    shipped0 = rd.stats["batches_shipped"]
+    run("INSERT INTO lineitem " + P14B_DAY_ROWS, "5 INSERT ... SELECT of "
+        "one ship day", "inserted", int(sel.sum()), False)
+    cols = {k: np.concatenate([v, v[sel]]) for k, v in cols.items()}
+    p14b_check(a, b, cols, s1, "step 5", card)
+    st = remote_stats(a)
+    fwd = rd.stats["statements_forwarded"] - st0["statements_forwarded"]
+    # steps 1-3 one each, step 4 one a statement; step 5 routes rows
+    if fwd != 5 or rd.stats["batches_shipped"] == shipped0:
+        raise AssertionError(f"phase 14 b: {fwd} statements forwarded, "
+                             f"{rd.stats['batches_shipped'] - shipped0} "
+                             "batches shipped by the INSERT ... SELECT")
+    got = {k: f.launches - before[k] for k, f in counters.items()
+           if f.launches != before[k]}
+    for k, v in got.items():
+        launches[k] += v
+    took = time.perf_counter() - t_phase
+    say(f"phase 14 b citus_remote_stats() on A: {st}; statements forwarded "
+        f"by A in the phase: {fwd}; launches: B1 scan_agg_fold "
+        f"{got.get('scan_agg_fold', 0)}, B2 hash_agg_insert "
+        f"{got.get('hash_agg_insert', 0)}, B4 filter_mask "
+        f"{got.get('filter_mask', 0)}; nvcc builds "
+        f"{cuda_build.BUILDS['count'] - b0}; took {took:.3f} s ({card})")
+    return took
 
 
 # ------------------------------------------------- joins and C1 (phase 8)
@@ -6260,7 +6429,7 @@ def p13_explain(cl, n_queries: dict, launches: dict, card: str) -> None:
     ran = {k: f.launches for k, f in counters.items() if f.launches}
     if ran or not join[0].startswith("Join (") or grp[0] != (
             f"Distributed Scan on orders_e (shards: {SHARDS}/{SHARDS})") \
-            or "combine: host)" not in grp[1]:
+            or "combine: psum)" not in grp[1]:
         raise AssertionError(f"phase 13 c EXPLAIN: launches {ran}, "
                              f"{join}, {grp}")
     say(f"phase 13 c EXPLAIN (no kernel launched): {' / '.join(upd)}; "
@@ -6405,6 +6574,376 @@ def phase13_sources(tmp: str, n_orders: int) -> list:
     return rehearsal_sources(tmp, "phase13", body)
 
 
+# ------------------------------------------ roles, RLS, triggers (phase 14)
+
+# (a) reads of phase 4's lineitem under a supplier's role (each supplier
+# a tenant: about 1 % of the rows), writes of phase 8's orders_b arrays
+# under a region's role, statement triggers around TPC-H's RF1 and RF2
+P14_POLICY = "l_suppkey <= 100"
+P14_GROUP = ("SELECT l_returnflag, l_linestatus, count(*), sum(l_quantity) "
+             "FROM lineitem GROUP BY l_returnflag, l_linestatus "
+             "ORDER BY l_returnflag, l_linestatus")
+P14_COUNT = "SELECT count(*) FROM lineitem"
+#: label -> (the SQL a role sends, the superuser's form with the policy
+#: written into its WHERE)
+P14_READS = {
+    "Q6": (Q6, f"{Q6}\n  AND {P14_POLICY}"),
+    "GROUP BY": (P14_GROUP,
+                 P14_GROUP.replace(" GROUP BY", f" WHERE {P14_POLICY} "
+                                                "GROUP BY")),
+    "count(*)": (P14_COUNT, f"{P14_COUNT} WHERE {P14_POLICY}"),
+}
+P14_ROLES = [
+    "CREATE ROLE supp_100", "GRANT SELECT ON lineitem TO supp_100",
+    "CREATE ROLE supp_none", "GRANT SELECT ON lineitem TO supp_none",
+    "CREATE ROLE no_grant",
+    "ALTER TABLE lineitem ENABLE ROW LEVEL SECURITY",
+    f"CREATE POLICY supp_100_rows ON lineitem FOR SELECT TO supp_100 "
+    f"USING ({P14_POLICY})",
+]
+ORDERS_T_DDL = ORDERS_B_DDL.replace("orders_b", "orders_t")
+P14_CUST = 15_000
+P14_ORDERS_T = [
+    ORDERS_T_DDL,
+    f"SELECT create_distributed_table('orders_t', 'o_custkey', {SHARDS})",
+]
+P14_WRITERS = [
+    "CREATE ROLE cust_east",
+    "GRANT SELECT, INSERT, UPDATE, DELETE ON orders_t TO cust_east",
+    "ALTER TABLE orders_t ENABLE ROW LEVEL SECURITY",
+    f"CREATE POLICY east ON orders_t USING (o_custkey <= {P14_CUST}) "
+    f"WITH CHECK (o_custkey <= {P14_CUST})",
+]
+P14_UPDATE_KEYS = 300_000
+P14_UPDATE = ("UPDATE orders_t SET o_flag = 'L' "
+              f"WHERE o_orderkey < {P14_UPDATE_KEYS}")
+P14_TOTALS = ("SELECT count(*), sum(o_custkey), sum(o_orderkey) "
+              "FROM orders_t")
+P14_FLAGS = ("SELECT o_flag, count(*) FROM orders_t GROUP BY o_flag "
+             "ORDER BY o_flag")
+P14_TRIGGERS = [
+    "CREATE TABLE audit (event bigint)",
+    "CREATE FUNCTION audit_insert() RETURNS trigger AS "
+    "'INSERT INTO audit VALUES (1)'",
+    "CREATE FUNCTION audit_delete() RETURNS trigger AS "
+    "'INSERT INTO audit VALUES (2)'",
+    "CREATE TRIGGER orders_t_ins AFTER INSERT ON orders_t "
+    "FOR EACH STATEMENT EXECUTE FUNCTION audit_insert()",
+    "CREATE TRIGGER orders_t_del AFTER DELETE ON orders_t "
+    "FOR EACH STATEMENT EXECUTE FUNCTION audit_delete()",
+    "CREATE TEXT SEARCH CONFIGURATION orders_fts (PARSER = default)",
+]
+P14_AUDIT = "SELECT event, count(*) FROM audit GROUP BY event ORDER BY event"
+#: RF2 deletes the orders of this key range
+P14_RF2_FROM = 600_000
+P14_UDFS = ("citus_roles", "citus_grants", "citus_policies",
+            "citus_triggers", "citus_text_search_configs")
+P14_DROPS = [
+    "DROP TRIGGER orders_t_ins ON orders_t",
+    "DROP TRIGGER orders_t_del ON orders_t",
+    "DROP FUNCTION audit_insert", "DROP FUNCTION audit_delete",
+    "DROP TEXT SEARCH CONFIGURATION orders_fts",
+    "DROP TABLE audit", "DROP TABLE orders_t",
+    "DROP POLICY supp_100_rows ON lineitem",
+    "ALTER TABLE lineitem DISABLE ROW LEVEL SECURITY",
+    "REVOKE ALL ON lineitem FROM supp_100",
+    "REVOKE ALL ON lineitem FROM supp_none",
+    "DROP ROLE supp_100", "DROP ROLE supp_none", "DROP ROLE no_grant",
+    "DROP ROLE cust_east",
+]
+#: phase 14's time on the card, both parts
+P14_LIMIT_S = 40.0
+
+
+def p14_read_oracles(cols: dict) -> tuple:
+    """-> ({label: the supplier's rows}, the superuser's GROUP BY rows)
+    from the generated arrays."""
+    def groups(c):
+        gid = c["rf"] * 2 + c["ls"]
+        out = []
+        for g in np.unique(gid):
+            sel = gid == g
+            out.append((str(RF[g // 2]), str(LS[g % 2]), int(sel.sum()),
+                        _dec(int(c["qty"][sel].sum()), 2)))
+        return sorted(out)
+    keep = cols["suppkey"] <= 100
+    m = {k: v[keep] for k, v in cols.items()}
+    return ({"Q6": oracle_q6(m), "GROUP BY": groups(m),
+             "count(*)": [(int(keep.sum()),)]}, groups(cols))
+
+
+def p14_run(cl, sql: str, role, p14: dict) -> tuple:
+    """One statement, timed, its launches added to ``p14``; -> (result,
+    nvcc builds it waited for, seconds, its launches)."""
+    import torch
+    from citus_tpu_torch.ops import cuda_build
+    counters = launch_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    b0 = cuda_build.BUILDS["count"]
+    t0 = time.perf_counter()
+    r = cl.execute(sql, role=role)
+    if cl.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {k: f.launches - before[k] for k, f in counters.items()
+           if f.launches != before[k]}
+    for k, v in got.items():
+        p14[k] = p14.get(k, 0) + v
+    return r, cuda_build.BUILDS["count"] - b0, dt, got
+
+
+def p14_cpu_rows(cl, sql: str, role=None) -> list:
+    """The rows of the numpy ``cpu`` backend, under ``role``."""
+    cl.execute("SET citus.task_executor_backend = cpu")
+    try:
+        return cl.execute(sql, role=role).rows
+    finally:
+        cl.execute("SET citus.task_executor_backend = gpu")
+
+
+def p14_refused(cl, sql: str, role, match: str, label: str) -> str:
+    from citus_tpu_torch.errors import CitusTpuError
+    try:
+        cl.execute(sql, role=role)
+    except CitusTpuError as e:
+        if match not in str(e):
+            raise
+        return f"{type(e).__name__}: {e}"
+    raise AssertionError(f"phase 14 {label}: {sql!r} was not refused")
+
+
+def p14_reads(cl, cols: dict, p14: dict, card: str) -> None:
+    """(a) the supplier's reads cold and warm against the superuser's
+    form, numpy and the cpu backend; the leak check; default deny; the
+    refusals."""
+    t0 = time.perf_counter()
+    want, su_groups = p14_read_oracles(cols)
+    say(f"phase 14 a numpy oracles: {time.perf_counter() - t0:.3f} s")
+    for label, (sql, written) in P14_READS.items():
+        r, builds, dt, _ = p14_run(cl, written, None, p14)
+        su = r.rows
+        t1 = time.perf_counter()
+        cpu = p14_cpu_rows(cl, sql, "supp_100")
+        say(f"phase 14 a {label}: the superuser's form {dt:.4f} s ({builds} "
+            f"nvcc builds), the role's on the cpu backend "
+            f"{time.perf_counter() - t1:.4f} s ({card})")
+        for run_kind in ("cold", "warm"):
+            r, builds, dt, got = p14_run(cl, sql, "supp_100", p14)
+            if not (same_rows(r.rows, want[label]) and same_rows(r.rows, su)
+                    and same_rows(r.rows, cpu)):
+                raise AssertionError(
+                    f"phase 14 a {label} {run_kind}: {r.rows} against numpy "
+                    f"{want[label]}, the superuser's {su}, cpu {cpu}")
+            if run_kind == "warm" and builds:
+                raise AssertionError(f"phase 14 a {label}: {builds} nvcc "
+                                     "builds warm")
+            say(f"phase 14 a {label} as supp_100 ({P14_POLICY}) {run_kind}: "
+                f"{r.rows[:2]} equals numpy, the superuser's form and the "
+                f"cpu backend in {dt:.4f} s; nvcc builds {builds}; "
+                f"launches {got} ({card})")
+    # the leak check: one SQL text, warm, as three callers in a row
+    seq = [(None, su_groups), ("supp_100", want["GROUP BY"]),
+           (None, su_groups)]
+    times = []
+    for role, rows in seq:
+        r, builds, dt, _ = p14_run(cl, P14_GROUP, role, p14)
+        if r.rows != rows or builds:
+            raise AssertionError(f"phase 14 a leak check as {role}: "
+                                 f"{r.rows} != {rows} ({builds} builds)")
+        times.append(dt)
+    say("phase 14 a leak check, one GROUP BY text warm as superuser, "
+        "supp_100, superuser: each its own rows in "
+        + ", ".join(f"{t:.4f}" for t in times) + f" s ({card})")
+    n = cl.execute(P14_COUNT, role="supp_none").rows
+    if n != [(0,)]:
+        raise AssertionError(f"phase 14 a default deny: {n}")
+    msgs = [p14_refused(cl, P14_COUNT, "no_grant", "permission denied",
+                        "no grant"),
+            p14_refused(cl, "CREATE TABLE x (a bigint)", "supp_100",
+                        "cannot run CreateTable", "DDL"),
+            p14_refused(cl, "EXPLAIN " + P14_COUNT, "supp_100",
+                        "cannot run Explain", "EXPLAIN")]
+    say(f"phase 14 a supp_none (RLS on, no policy) counts {n[0][0]} rows; "
+        f"refused: {'; '.join(msgs)}")
+
+
+def p14_orders(state: dict) -> dict:
+    return {"o_orderkey": state["key"], "o_custkey": state["cust"],
+            "o_flag": FLAGS[state["flag"]].tolist()}
+
+
+def p14_order_oracles(key, cust, flag) -> tuple:
+    counts = np.bincount(flag, minlength=3)
+    return ([(int(key.size), int(cust.sum()), int(key.sum()))],
+            [(str(FLAGS[i]), int(c)) for i, c in enumerate(counts) if c])
+
+
+def p14_writes(cl, state: dict, n_orders: int, p14: dict, card: str) -> None:
+    """(a) orders_t: the region's UPDATE and refused INSERT, then the
+    triggers around RF1 and RF2; every count against numpy."""
+    from citus_tpu_torch.errors import AnalysisError
+    checks = [0.0, 0]  # the checking reads' seconds and nvcc builds
+
+    def read(sql: str) -> list:
+        r, builds, dt, _ = p14_run(cl, sql, None, p14)
+        checks[0] += dt
+        checks[1] += builds
+        return r.rows
+    for sql in P14_ORDERS_T:
+        cl.execute(sql)
+    t0 = time.perf_counter()
+    cl.copy_from("orders_t", columns=p14_orders(state))
+    say(f"phase 14 a load of orders_t: {len(state['key'])} orders in "
+        f"{SHARDS} shards by o_custkey in {time.perf_counter() - t0:.3f} s")
+    for sql in P14_WRITERS:
+        cl.execute(sql)
+    key, cust, flag = state["key"], state["cust"], state["flag"].copy()
+    mine = (key < P14_UPDATE_KEYS) & (cust <= P14_CUST)
+    r, builds, dt, got = p14_run(cl, P14_UPDATE, "cust_east", p14)
+    if r.explain.get("updated") != int(mine.sum()):
+        raise AssertionError(f"phase 14 a UPDATE as cust_east: "
+                             f"{r.explain} != {int(mine.sum())}")
+    flag[mine] = 1  # 'L'
+    totals, flags = p14_order_oracles(key, cust, flag)
+    if read(P14_FLAGS) != flags:
+        raise AssertionError("phase 14 a UPDATE: flags differ from numpy")
+    say(f"phase 14 a UPDATE as cust_east (o_custkey <= {P14_CUST}): "
+        f"{r.explain['updated']} rows, numpy's, in {dt:.4f} s; flags "
+        f"{flags} ({card})")
+    try:
+        cl.execute("INSERT INTO orders_t VALUES "
+                   f"({n_orders + 10**7}, {P14_CUST + 1}, 'H')",
+                   role="cust_east")
+    except AnalysisError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("phase 14 a: an out-of-policy INSERT ran")
+    if read(P14_TOTALS) != totals:
+        raise AssertionError("phase 14 a: the refused INSERT changed "
+                             "orders_t")
+    say(f"phase 14 a INSERT of o_custkey {P14_CUST + 1} as cust_east "
+        f"refused ({msg}); orders_t unchanged")
+    for sql in P14_TRIGGERS:
+        cl.execute(sql)
+    rng = np.random.default_rng(14)
+    top = int(key.max()) + 1
+    nkey = np.arange(top, top + PH12_RF1)
+    ncust = rng.integers(0, n_orders // 8 + 1, PH12_RF1)
+    nflag = rng.integers(0, 3, PH12_RF1)
+    rf1 = ("INSERT INTO orders_t VALUES " + ", ".join(
+        f"({k}, {c}, '{FLAGS[f]}')" for k, c, f in zip(nkey, ncust, nflag)))
+    r, builds, dt1, _ = p14_run(cl, rf1, None, p14)
+    key = np.concatenate([key, nkey])
+    cust = np.concatenate([cust, ncust])
+    flag = np.concatenate([flag, nflag])
+    gone = (key >= P14_RF2_FROM) & (key < P14_RF2_FROM + PH12_RF2)
+    rf2 = (f"DELETE FROM orders_t WHERE o_orderkey >= {P14_RF2_FROM} "
+           f"AND o_orderkey < {P14_RF2_FROM + PH12_RF2}")
+    r2, builds, dt2, _ = p14_run(cl, rf2, None, p14)
+    if r.explain.get("inserted") != PH12_RF1 \
+            or r2.explain.get("deleted") != int(gone.sum()):
+        raise AssertionError(f"phase 14 a RF1 / RF2: {r.explain}, "
+                             f"{r2.explain}")
+    key, cust, flag = key[~gone], cust[~gone], flag[~gone]
+    totals, flags = p14_order_oracles(key, cust, flag)
+    audit = read(P14_AUDIT)
+    if audit != [(1, 1), (2, 1)] or read(P14_TOTALS) != totals \
+            or read(P14_FLAGS) != flags:
+        raise AssertionError(f"phase 14 a triggers: audit {audit}, orders_t "
+                             "differs from numpy")
+    say(f"phase 14 a RF1 (INSERT of {PH12_RF1} orders) {dt1:.4f} s and RF2 "
+        f"(DELETE of {int(gone.sum())} by key range) {dt2:.4f} s, each "
+        f"firing its statement trigger once: audit {audit}; orders_t "
+        f"{totals[0]} equals numpy; the checking reads {checks[0]:.3f} s, "
+        f"{checks[1]} nvcc builds ({card})")
+
+
+def run_phase14(cl, cols: dict, n_orders: int, launches: dict, card: str,
+                jobs: list) -> float:
+    """Phase 14 (a), A14b on the main Cluster: (``jobs``, its generated
+    kernels started before phase 12, waited for) the reads, the writes
+    and the triggers, the five UDFs, then DROP of everything it made.
+    -> its seconds."""
+    from citus_tpu_torch.ops import cuda_build
+    t_phase = time.perf_counter()
+    for job in jobs:
+        cuda_build.finish_generated(job)
+    wait_s = time.perf_counter() - t_phase
+    p14 = dict.fromkeys(launch_counters(), 0)
+    marks = []
+
+    def mark(label):
+        marks.append((label, time.perf_counter(), cuda_build.BUILDS["count"]))
+    mark("the roles and the policy")
+    for sql in P14_ROLES:
+        cl.execute(sql)
+    mark("the reads")
+    p14_reads(cl, cols, p14, card)
+    mark("the writes and triggers")
+    p14_writes(cl, ph12_orders(n_orders), n_orders, p14, card)
+    mark("the UDFs")
+    for udf in P14_UDFS:
+        say(f"phase 14 a {udf}(): {cl.execute(f'SELECT {udf}()').rows}")
+    mark("the DROPs")
+    for sql in P14_DROPS:
+        cl.execute(sql)
+    mark("")
+    say("phase 14 a parts: " + "; ".join(
+        f"{label} {t1 - t0:.3f} s ({b1 - b0} nvcc builds)"
+        for (label, t0, b0), (_, t1, b1) in zip(marks, marks[1:])))
+    if cl.catalog.roles or cl.catalog.policies or cl.catalog.triggers \
+            or cl.catalog.rls:
+        raise AssertionError("phase 14 a: objects left after the DROPs")
+    for k, v in p14.items():
+        launches[k] += v
+    took = time.perf_counter() - t_phase
+    say(f"phase 14 a launches: B1 scan_agg_fold {p14['scan_agg_fold']}, B2 "
+        f"hash_agg_insert {p14['hash_agg_insert']}, B4 filter_mask "
+        f"{p14['filter_mask']}; its {len(jobs)} generated kernels waited "
+        f"for {wait_s:.3f} s; took {took:.3f} s ({card})")
+    return took
+
+
+def phase14_sources(tmp: str, n_orders: int) -> list:
+    """``rehearsal_sources`` of phase 14: (a)'s reads under the role
+    and its writes over the first 20,000 of ``n_orders`` orders, and
+    (b)'s reads of phase 7's sketch table."""
+    def body(cl):
+        for sql in P14_ROLES:
+            cl.execute(sql)
+        for sql, written in P14_READS.values():
+            cl.execute(sql, role="supp_100")
+            cl.execute(written)
+        cl.execute(P14_GROUP)
+        cl.execute(P14_COUNT, role="supp_none")  # a constant-false WHERE
+        for sql in P14_ORDERS_T:
+            cl.execute(sql)
+        cl.copy_from("orders_t",
+                     columns=p14_orders(ph12_orders(n_orders, 20_000)))
+        for sql in P14_WRITERS + P14_TRIGGERS:
+            cl.execute(sql)
+        cl.execute(P14_UPDATE, role="cust_east")
+        # the triggers fill audit: a table with no row runs no fold
+        cl.execute(f"INSERT INTO orders_t VALUES ({n_orders}, 0, 'H')")
+        cl.execute(f"DELETE FROM orders_t WHERE o_orderkey = {n_orders}")
+        for sql in (P14_TOTALS, P14_FLAGS, P14_AUDIT):
+            cl.execute(sql)
+        for sql in P14_DROPS:
+            cl.execute(sql)
+        cl.execute("DROP TABLE lineitem")
+        cl.execute(S_DDL)
+        cl.execute("SELECT create_distributed_table('lineitem', 'l_suppkey', "
+                   f"{SHARDS})")
+        cl.copy_from("lineitem", columns=sketch_copy_columns(
+            next(sketch_chunks(20_000, 11, 20_000))))
+        for sql in (R3, S1, P14B_TOTALS):
+            cl.execute(sql)
+        # step 5's SELECT, planned with no plan-cache key (its literal a
+        # constant of the predicate's source), as the pull path plans it
+        cl.execute("INSERT INTO lineitem " + P14B_DAY_ROWS)
+    return rehearsal_sources(tmp, "phase14", body)
+
+
 def run(args) -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -6500,9 +7039,9 @@ def run(args) -> dict:
         # started together, all finished before phase 3
         known = set(fold_sources) | {("filter_mask", src) for src in sources}
         t0 = time.perf_counter()
-        p10_sources, p11_sources, p12_sources, p13_sources = \
+        p10_sources, p11_sources, p12_sources, p13_sources, p14_sources = \
             finish_rehearsals(rehearsals)
-        say(f"phase 2 rehearsals of phases 10-13 on the CPU, in a "
+        say(f"phase 2 rehearsals of phases 10-14 on the CPU, in a "
             f"process of their own: {time.perf_counter() - t0:.3f} s of "
             f"waiting for them")
         p10 = [b for b in p10_sources
@@ -6521,6 +7060,11 @@ def run(args) -> dict:
         # and phase 13's, but those above, while its own load runs
         p13 = [b for b in p13_sources
                if b not in known and b not in set(p10) | set(p11) | set(p12)
+               and b[1] != q1_fold.row.source]
+        # and phase 14's, but those above, with phase 13's
+        p14 = [b for b in p14_sources
+               if b not in known
+               and b not in set(p10) | set(p11) | set(p12) | set(p13)
                and b[1] != q1_fold.row.source]
 
         elapsed("phase 2")
@@ -6598,11 +7142,15 @@ def run(args) -> dict:
         # ---- phase 12: the rest of A11 on phase 8's orders_b arrays;
         # phase 13's generated kernels build meanwhile
         p13_jobs = start_phase13_builds(p13)
+        p14_jobs = start_phase13_builds(p14)
         run_phase12(cl, n_rows // 4, launches, card, p12, tmp)
         elapsed("phase 12")
         # ---- phase 13: A14a's objects on the SF1 lineitem and orders_b
         run_phase13(cl, cols, n_rows // 4, launches, card, p13_jobs)
         elapsed("phase 13")
+        # ---- phase 14 (a): roles, RLS and triggers on the same tables
+        p14_s = run_phase14(cl, cols, n_rows // 4, launches, card, p14_jobs)
+        elapsed("phase 14 (a)")
         # ---- phase 9: Q6 and QJOIN over a mesh of MESH_MEMBERS members
         # on the card, a second Cluster over the same SF1 tables
         mcl = mesh_cluster(ctt, os.path.join(tmp, "sf"), device)
@@ -6659,9 +7207,12 @@ def run(args) -> dict:
         # ---- phases 4-6 of the sketch aggregates and rollups
         run_sketch_phases(ctt, tmp, n_rows, launches, card)
         elapsed("phases 4-6 of the sketch table")
-        # ---- phase 7: two coordinators on the card
-        run_pair_phase(ctt, tmp, n_rows, launches, card)
-        elapsed("phase 7")
+        # ---- phase 7: two coordinators on the card, then phase 14 (b)
+        p14_s += run_pair_phase(ctt, tmp, n_rows, launches, card)
+        elapsed("phase 7 and phase 14 (b)")
+        say(f"phase 14 took {p14_s:.3f} s, "
+            + ("within" if p14_s <= P14_LIMIT_S else "OVER")
+            + f" its {P14_LIMIT_S:g} s ({card})")
         say(f"phase 4 device cache hits {GLOBAL_CACHE.hits - hits0}, "
             f"peak device memory {torch.cuda.max_memory_allocated(device)} B")
     finally:

@@ -686,11 +686,6 @@ def resolve_mesh(device, mesh_devices=None):
     return DeviceMesh(members)
 
 
-def _unported(what: str, item: str):
-    raise UnsupportedFeatureError(
-        f"{what} is not ported to citus_tpu_torch yet (ROADMAP.md {item})")
-
-
 class Cluster:
     def __init__(self, data_dir: str, *, n_nodes: Optional[int] = None,
                  settings: Optional[Settings] = None, device=None,
@@ -785,6 +780,8 @@ class Cluster:
             data_dir, self.settings.enable_change_data_capture)
         # per-thread implicit sessions: {thread ident: (Thread, Session)}
         self._default_sessions: dict = {}
+        # thread id -> role active in that thread's execute() call
+        self._exec_roles: dict[int, Optional[str]] = {}
         # continuous aggregation (rollup/manager.py): the CDC-fed
         # incremental refresh loop only runs while
         # citus.rollup_refresh_interval_ms > 0
@@ -1164,6 +1161,15 @@ class Cluster:
         for key in [k for k in self.catalog.enum_columns
                     if k.startswith(name + ".")]:
             del self.catalog.enum_columns[key]
+        # the table's policies, RLS switch and triggers die with it
+        if self.catalog.policies.pop(name, None) is not None:
+            self.catalog.tombstone("policies", name)
+        if self.catalog.rls.pop(name, None) is not None:
+            self.catalog.tombstone("rls", name)
+        for tn in [n for n, t in self.catalog.triggers.items()
+                   if t.get("table") == name]:
+            del self.catalog.triggers[tn]
+            self.catalog.tombstone("triggers", tn)
         for key in [k for k in self.catalog.domain_columns
                     if k.startswith(name + ".")]:
             del self.catalog.domain_columns[key]
@@ -1803,8 +1809,9 @@ class Cluster:
             if not eps:
                 return values, validity, 0
             if current_overlay() is not None:
-                _unported("writes to remote-hosted placements inside an "
-                          "explicit transaction", "A13")
+                raise UnsupportedFeatureError(
+                    "writes to remote-hosted placements inside an "
+                    "explicit transaction are not supported yet")
             shipped = 0
             for ep in eps:
                 shipped = cat.remote_data.ship_batch(ep, t.name, values,
@@ -1827,8 +1834,9 @@ class Cluster:
         if not any(cat.is_remote_node(o) for o in owners):
             return values, validity, 0
         if current_overlay() is not None:
-            _unported("writes to remote-hosted shards inside an explicit "
-                      "transaction (cross-host 2PC)", "A13")
+            raise UnsupportedFeatureError(
+                "writes to remote-hosted shards inside an explicit "
+                "transaction are not supported yet (no cross-host 2PC)")
         if t.unique_indexes or t.foreign_keys:
             raise UnsupportedFeatureError(
                 "unique/FK-constrained tables cannot span remote-hosted "
@@ -2033,8 +2041,6 @@ class Cluster:
     #: stage in memory (Catalog.commit defers), physical file actions
     #: defer to COMMIT or register rollback cleanups (reference: DDL in
     #: transaction blocks via citus_ProcessUtility, utility_hook.c:148).
-    #: The object statements of ROADMAP.md A14b pass this guard and are
-    #: refused when they dispatch.
     _TXN_ALLOWED = (A.Select, A.WithSelect, A.SetOp, A.Explain, A.Insert,
                     A.Update, A.Delete,
                     A.CreateTable, A.DropTable, A.CreateIndex, A.DropIndex,
@@ -2065,6 +2071,27 @@ class Cluster:
                 "create_distributed_table", "create_reference_table"):
             raise UnsupportedFeatureError(
                 f"{stmt.name}() cannot run inside a transaction block")
+
+    # ---- roles, row-level security, triggers: commands/rls.py ---------
+    def _policy_predicate(self, role, table, cmd, kind="using"):
+        from citus_tpu_torch.commands.rls import _policy_predicate
+        return _policy_predicate(self, role, table, cmd, kind)
+
+    def _apply_rls(self, role, stmt):
+        from citus_tpu_torch.commands.rls import _apply_rls
+        return _apply_rls(self, role, stmt)
+
+    def _fire_triggers(self, stmt, depth: int = 0):
+        from citus_tpu_torch.commands.rls import _fire_triggers
+        return _fire_triggers(self, stmt, depth)
+
+    def _fire_triggers_for(self, table, event, depth: int):
+        from citus_tpu_torch.commands.rls import _fire_triggers_for
+        return _fire_triggers_for(self, table, event, depth)
+
+    def _check_privileges(self, role, stmt):
+        from citus_tpu_torch.commands.rls import _check_privileges
+        return _check_privileges(self, role, stmt)
 
     def _execute_transaction_stmt(self, session, stmt) -> Result:
         """BEGIN/COMMIT/ROLLBACK/SAVEPOINT state machine (reference:
@@ -2108,6 +2135,10 @@ class Cluster:
                 "current transaction is aborted, commands ignored until "
                 "end of transaction block")
         if kind == "savepoint":
+            if txn.remote_endpoints:
+                raise UnsupportedFeatureError(
+                    "savepoints are not supported in a transaction with "
+                    "remote-shard writes yet")
             txn.savepoints.append((stmt.name, txn.snapshot(self.catalog)))
             return Result(columns=[], rows=[])
         for i in range(len(txn.savepoints) - 1, -1, -1):
@@ -2139,6 +2170,8 @@ class Cluster:
         from citus_tpu_torch.transaction.write_locks import group_resource
 
         txn = session.txn
+        if txn.remote_endpoints:
+            return self._commit_txn_cross_host(session)
         try:
             if not (txn.has_writes or txn.catalog_dirty or txn.on_commit):
                 self.txlog.release(txn.xid)
@@ -2195,11 +2228,35 @@ class Cluster:
             txn.release_locks(self)
             session.txn = None
 
+    # ---- cross-host branches: transaction/branches.py ----------------
+    def _prepare_branch(self, session, gxid: str) -> None:
+        from citus_tpu_torch.transaction.branches import prepare_branch
+        return prepare_branch(self, session, gxid)
+
+    def _finish_branch(self, session, commit: bool) -> None:
+        from citus_tpu_torch.transaction.branches import finish_branch
+        return finish_branch(self, session, commit)
+
+    def _commit_txn_cross_host(self, session) -> None:
+        from citus_tpu_torch.transaction.branches import (
+            commit_txn_cross_host,
+        )
+        return commit_txn_cross_host(self, session)
+
     def _rollback_txn(self, session) -> None:
         from citus_tpu_torch.storage.deletes import abort_staged_deletes
         from citus_tpu_torch.storage.writer import abort_staged
 
         txn = session.txn
+        if txn.remote_endpoints and self.catalog.remote_data is not None:
+            # abort the remote branch sessions first (their staged
+            # writes and locks die with them)
+            for ep in sorted(txn.remote_endpoints):
+                try:
+                    self.catalog.remote_data.call(
+                        ep, "txn_branch_abort", {"gxid": txn.gxid})
+                except Exception:  # noqa: BLE001 -- peer unreachable: branch expiry resolves the orphan branch
+                    pass
         try:
             for d in sorted(txn.ingest_dirs):
                 abort_staged(d, txn.xid)
@@ -2236,51 +2293,79 @@ class Cluster:
         one scan when ``citus.megabatch_window_ms`` is set
         (executor/megabatch.py).  Inside BEGIN..COMMIT a statement's
         writes stage under the transaction and its reads see them; an
-        error aborts the block until ROLLBACK."""
-        if role is not None:
-            _unported("roles and row-level security (role=)", "A14b")
+        error aborts the block until ROLLBACK.  ``role`` runs the
+        statements as that role: its grants are checked for every
+        statement before any runs, and its row-level security policies
+        rewrite each one (commands/rls.py); None is the superuser."""
+        import threading
         if session is None:
             session = self._default_session()
+        if session.txn is None:
+            # inside a transaction the catalog object stays stable
+            # (statements hold references into it)
+            self._maybe_reload_catalog()
         result = Result(columns=[], rows=[])
         with _trace.span("parse"):
             stmts = parse_sql(sql)
+        if role is not None:
+            for stmt in stmts:
+                self._check_privileges(role, stmt)
         t0 = _trace.clock()
-        for stmt in stmts:
-            if isinstance(stmt, A.TransactionStmt):
-                result = self._execute_transaction_stmt(session, stmt)
-                continue
-            txn = session.txn
-            if txn is not None and txn.failed:
-                from citus_tpu_torch.transaction.session import (
-                    InFailedTransaction,
-                )
-                raise InFailedTransaction(
-                    "current transaction is aborted, commands ignored "
-                    "until end of transaction block")
-            if isinstance(stmt, (A.Prepare, A.ExecutePrepared,
-                                 A.Deallocate)):
-                try:
-                    result = self._execute_prepared_stmt(session, stmt)
-                except Exception:
-                    # PostgreSQL: any error aborts the block
-                    if txn is not None:
-                        txn.failed = True
-                    raise
-                continue
-            if txn is None:
-                result = self._execute_in_session(stmt, sql, stmts, params)
-                continue
-            from citus_tpu_torch.storage.overlay import transaction_overlay
-            try:
-                self._guard_in_txn(stmt)
-                with transaction_overlay(txn):
+        # the role of statements synthesized mid-execution (the
+        # upsert's internal UPDATE must see the same policies), per
+        # thread; restored, not popped, on exit: a nested execute() (an
+        # EXECUTE of a prepared statement) keeps the outer call's role
+        tid = threading.get_ident()
+        prev_role = self._exec_roles.get(tid)
+        self._exec_roles[tid] = role
+        try:
+            for stmt in stmts:
+                if isinstance(stmt, A.TransactionStmt):
+                    result = self._execute_transaction_stmt(session, stmt)
+                    continue
+                txn = session.txn
+                if txn is not None and txn.failed:
+                    from citus_tpu_torch.transaction.session import (
+                        InFailedTransaction,
+                    )
+                    raise InFailedTransaction(
+                        "current transaction is aborted, commands ignored "
+                        "until end of transaction block")
+                if isinstance(stmt, (A.Prepare, A.ExecutePrepared,
+                                     A.Deallocate)):
+                    try:
+                        result = self._execute_prepared_stmt(session, stmt,
+                                                             role)
+                    except Exception:
+                        # PostgreSQL: any error aborts the block
+                        if txn is not None:
+                            txn.failed = True
+                        raise
+                    continue
+                if txn is None:
                     result = self._execute_in_session(stmt, sql, stmts,
-                                                      params)
-            except Exception:
-                # PostgreSQL: any error aborts the transaction block
-                # until ROLLBACK [TO SAVEPOINT]
-                txn.failed = True
-                raise
+                                                      params, role)
+                    self._fire_triggers(stmt)
+                    continue
+                from citus_tpu_torch.storage.overlay import (
+                    transaction_overlay,
+                )
+                try:
+                    self._guard_in_txn(stmt)
+                    with transaction_overlay(txn):
+                        result = self._execute_in_session(stmt, sql, stmts,
+                                                          params, role)
+                        self._fire_triggers(stmt)
+                except Exception:
+                    # PostgreSQL: any error aborts the transaction block
+                    # until ROLLBACK [TO SAVEPOINT]
+                    txn.failed = True
+                    raise
+        finally:
+            if prev_role is None:
+                self._exec_roles.pop(tid, None)
+            else:
+                self._exec_roles[tid] = prev_role
         # the nested execute() of an EXECUTE already recorded the
         # underlying statement: the wrapper is not counted twice
         if not (len(stmts) == 1 and isinstance(stmts[0], A.ExecutePrepared)):
@@ -2288,22 +2373,32 @@ class Cluster:
         return result
 
     def _execute_in_session(self, stmt, sql: str, stmts: list,
-                            params) -> Result:
-        """One statement through parameter substitution and plan-cache
-        keying.  A parameterized single SELECT takes the generic plan
-        (``_execute_param_select``); any other statement has its $N
-        replaced by literals (``rewrite_params``) and is not cached."""
+                            params, role) -> Result:
+        """One statement through parameter substitution, the RLS
+        rewrite and plan-cache keying.  A parameterized single SELECT of
+        the superuser takes the generic plan (``_execute_param_select``);
+        any other statement has its $N replaced by literals
+        (``rewrite_params``) and is not cached.  Under a role the text
+        keys nothing: the plan caches key on SQL text, and one role's
+        rewrite must never serve another caller."""
         if params is not None:
-            if len(stmts) == 1 and isinstance(stmt, A.Select):
+            if len(stmts) == 1 and isinstance(stmt, A.Select) \
+                    and role is None:
                 r = self._execute_param_select(sql, stmt, list(params))
                 if r is not None:
                     return r
             from citus_tpu_torch.planner.recursive import rewrite_params
             stmt = rewrite_params(stmt, list(params))
-        key = sql if (len(stmts) == 1 and params is None) else None
+        rls_rewritten = False
+        if role is not None:
+            # after parameter substitution, so WITH CHECK sees the
+            # inserted values
+            stmt, rls_rewritten = self._apply_rls(role, stmt)
+        key = sql if (len(stmts) == 1 and params is None
+                      and not rls_rewritten) else None
         return self._execute_stmt(stmt, key)
 
-    def _execute_prepared_stmt(self, session, stmt) -> Result:
+    def _execute_prepared_stmt(self, session, stmt, role) -> Result:
         """PREPARE / EXECUTE / DEALLOCATE.  The stored unit is SQL text,
         so EXECUTE rides the text-keyed generic-plan cache: one plan and
         one kernel build serve every invocation."""
@@ -2326,7 +2421,8 @@ class Cluster:
             raise CatalogError(
                 f'prepared statement "{stmt.name}" does not exist')
         args = [_eval_const(a) for a in stmt.args]
-        return self.execute(sql, params=args or None, session=session)
+        return self.execute(sql, params=args or None, role=role,
+                            session=session)
 
     def _execute_param_select(self, sql: str, stmt: A.Select,
                               params: list) -> Optional[Result]:
@@ -2497,9 +2593,19 @@ class Cluster:
                                  for f in os.listdir(d))
         return total
 
-    # set while executing a task a PEER pushed to us: such a task
-    # operates on OUR placements only and must never push again
+    # the original SQL of the statement being executed (per thread):
+    # remote DML forwarding re-ships the statement text, the analog of
+    # the reference's deparse-and-send (commands/dml.py
+    # _forward_remote_dml); None for a statement the engine synthesized
+    # or rewrote (a policy's), which is then never forwarded
+    _stmt_sql = __import__("threading").local()
+    # set while executing a task or statement a PEER sent us: it
+    # operates on OUR placements only and must never push or forward
+    # again (two coordinators would ping-pong a TRUNCATE forever)
     _remote_exec_guard = __import__("threading").local()
+    # remote branch counts of an in-transaction modify whose local part
+    # still runs (commands/dml.py _txn_remote_dml sets, handlers merge)
+    _remote_counts = __import__("threading").local()
 
     #: statement-recursion ceiling: subquery materialization, CTE
     #: bodies and view expansion re-enter _execute_stmt; a circular view
@@ -2516,10 +2622,13 @@ class Cluster:
                 "query nesting too deep (possible circular view "
                 "reference)")
         self._stmt_depth.v = depth + 1
+        prev_sql = getattr(self._stmt_sql, "v", None)
+        self._stmt_sql.v = sql_text
         try:
             return self._execute_stmt_inner(stmt, sql_text)
         finally:
             self._stmt_depth.v = depth
+            self._stmt_sql.v = prev_sql
 
     def _execute_stmt_inner(self, stmt: A.Statement,
                             sql_text: Optional[str] = None) -> Result:
@@ -2607,10 +2716,7 @@ class Cluster:
         handler = _lookup(stmt)
         if handler is not None:
             return handler(self, stmt)
-        # every statement kind without a handler is an object DDL of
-        # ROADMAP.md A14b (roles, grants, policies, row-level security,
-        # triggers, text-search configurations)
-        _unported(type(stmt).__name__, "A14b")
+        raise UnsupportedFeatureError(f"cannot execute {type(stmt).__name__}")
 
     def _materialize_dml_subqueries(self, stmt):
         """DELETE's WHERE and UPDATE's assignments and WHERE with their

@@ -1,18 +1,18 @@
 """Catalog-object DDL handlers: schemas, enum types, SQL functions,
-views, sequences, extensions, domains, collations, publications and
-statistics.
+roles and grants, policies and row-level security, statement triggers,
+text-search configurations, views, sequences, extensions, domains,
+collations, publications and statistics.
 
 Reference: the per-object-type handlers under
-src/backend/distributed/commands/ (type.c, function.c, view.c,
+src/backend/distributed/commands/ (type.c, function.c, role.c, view.c,
 sequence.c, extension.c, domain.c, collation.c, publication.c,
-statistics.c, schema.c) dispatched through DistributeObjectOps
+statistics.c, policy.c, trigger.c, text_search.c, schema.c) dispatched
+through DistributeObjectOps
 (``citus_tpu/commands/ddl_objects.py``).  Every object here is catalog
 metadata: a view expands into a derived table and an SQL function into
 its body when a statement names it (``commands/select_exec.py``), so
 their rows come from the kernels that run the expanded statement.
-Roles, grants, policies, row-level security, triggers and text-search
-configurations are not ported yet and raise UnsupportedFeatureError
-naming ROADMAP.md A14b.
+Policies, grants and triggers are enforced by ``commands/rls.py``.
 """
 
 from __future__ import annotations
@@ -91,8 +91,8 @@ def create_function(cl, stmt):
             f'cannot replace "{stmt.name}": trigger(s) depend on it '
             "remaining a trigger function")
     # an expression macro validates as an expression; a trigger
-    # function (RETURNS trigger) holds a SQL statement body, stored for
-    # the statement triggers of ROADMAP.md A14b
+    # function (RETURNS trigger) holds a SQL statement body, which
+    # commands/rls.py _fire_triggers runs
     entry = {"args": list(stmt.arg_names),
              "arg_types": list(stmt.arg_types),
              "returns": stmt.returns, "body": stmt.body}
@@ -127,6 +127,147 @@ def drop_function(cl, stmt):
     cl.catalog.ddl_epoch += 1
     cl.catalog.commit()
     cl._plan_cache.clear()
+    return Result(columns=[], rows=[])
+
+
+@handles(A.CreateRole)
+def create_role(cl, stmt):
+    if stmt.if_not_exists and stmt.name in cl.catalog.roles:
+        return Result(columns=[], rows=[])
+    cl.catalog.create_role(stmt.name)
+    cl.catalog.commit()
+    return Result(columns=[], rows=[])
+
+
+@handles(A.DropRole)
+def drop_role(cl, stmt):
+    if stmt.if_exists and stmt.name not in cl.catalog.roles:
+        return Result(columns=[], rows=[])
+    cl.catalog.drop_role(stmt.name)
+    cl.catalog.commit()
+    return Result(columns=[], rows=[])
+
+
+@handles(A.Grant)
+def grant(cl, stmt):
+    if stmt.revoke:
+        cl.catalog.revoke(stmt.table, stmt.role, stmt.privileges)
+    else:
+        cl.catalog.grant(stmt.table, stmt.role, stmt.privileges)
+    cl.catalog.commit()
+    return Result(columns=[], rows=[])
+
+
+@handles(A.CreatePolicy)
+def create_policy(cl, stmt):
+    cl.catalog.table(stmt.table)  # must exist
+    pols = cl.catalog.policies.setdefault(stmt.table, [])
+    if any(p["name"] == stmt.name for p in pols):
+        raise CatalogError(
+            f'policy "{stmt.name}" for table "{stmt.table}" '
+            "already exists")
+    from citus_tpu_torch.planner.parser import Parser
+    for text in (stmt.using_sql, stmt.check_sql):
+        if text is not None:
+            Parser(text).parse_expr()  # validate
+    pols.append({"name": stmt.name, "cmd": stmt.cmd,
+                 "roles": list(stmt.roles),
+                 "using": stmt.using_sql, "check": stmt.check_sql})
+    cl.catalog.commit()
+    return Result(columns=[], rows=[])
+
+
+@handles(A.DropPolicy)
+def drop_policy(cl, stmt):
+    pols = cl.catalog.policies.get(stmt.table, [])
+    kept = [p for p in pols if p["name"] != stmt.name]
+    if len(kept) == len(pols):
+        if stmt.if_exists:
+            return Result(columns=[], rows=[])
+        raise CatalogError(
+            f'policy "{stmt.name}" for table "{stmt.table}" '
+            "does not exist")
+    if kept:
+        cl.catalog.policies[stmt.table] = kept
+    else:
+        del cl.catalog.policies[stmt.table]
+    # per-policy tombstone: the commit-time merge is per policy
+    cl.catalog.tombstone("policies", f"{stmt.table}.{stmt.name}")
+    cl.catalog.commit()
+    return Result(columns=[], rows=[])
+
+
+@handles(A.AlterTableRls)
+def alter_table_rls(cl, stmt):
+    cl.catalog.table(stmt.table)
+    if stmt.enable:
+        cl.catalog.rls[stmt.table] = True
+    elif cl.catalog.rls.pop(stmt.table, None) is not None:
+        cl.catalog.tombstone("rls", stmt.table)
+    cl.catalog.commit()
+    return Result(columns=[], rows=[])
+
+
+@handles(A.CreateTrigger)
+def create_trigger(cl, stmt):
+    cl.catalog.table(stmt.table)
+    if stmt.name in cl.catalog.triggers:
+        raise CatalogError(f'trigger "{stmt.name}" already exists')
+    fn = cl.catalog.functions.get(stmt.function)
+    if fn is None or fn.get("kind") != "statement":
+        raise CatalogError(
+            f'"{stmt.function}" is not a trigger function '
+            "(CREATE FUNCTION ... RETURNS trigger)")
+    cl.catalog.triggers[stmt.name] = {
+        "table": stmt.table, "event": stmt.event,
+        "function": stmt.function}
+    cl.catalog.commit()
+    return Result(columns=[], rows=[])
+
+
+@handles(A.DropTrigger)
+def drop_trigger(cl, stmt):
+    t = cl.catalog.triggers.get(stmt.name)
+    if t is None or t.get("table") != stmt.table:
+        if stmt.if_exists:
+            return Result(columns=[], rows=[])
+        raise CatalogError(
+            f'trigger "{stmt.name}" on "{stmt.table}" does not exist')
+    del cl.catalog.triggers[stmt.name]
+    cl.catalog.tombstone("triggers", stmt.name)
+    cl.catalog.commit()
+    return Result(columns=[], rows=[])
+
+
+@handles(A.CreateTsConfig)
+def create_ts_config(cl, stmt):
+    if stmt.name in cl.catalog.ts_configs:
+        raise CatalogError(
+            f'text search configuration "{stmt.name}" already exists')
+    src = stmt.options.get("copy")
+    if src is not None and src not in cl.catalog.ts_configs \
+            and src != "simple":
+        raise CatalogError(
+            f'text search configuration "{src}" does not exist')
+    base = (dict(cl.catalog.ts_configs.get(src, {}))
+            if src is not None else {})
+    base["parser"] = stmt.options.get("parser",
+                                      base.get("parser", "default"))
+    cl.catalog.ts_configs[stmt.name] = base
+    cl.catalog.commit()
+    return Result(columns=[], rows=[])
+
+
+@handles(A.DropTsConfig)
+def drop_ts_config(cl, stmt):
+    if stmt.name not in cl.catalog.ts_configs:
+        if stmt.if_exists:
+            return Result(columns=[], rows=[])
+        raise CatalogError(
+            f'text search configuration "{stmt.name}" does not exist')
+    del cl.catalog.ts_configs[stmt.name]
+    cl.catalog.tombstone("ts_configs", stmt.name)
+    cl.catalog.commit()
     return Result(columns=[], rows=[])
 
 

@@ -7,9 +7,11 @@ the partial aggregate and its partials), a partitioned parent's
 surviving partitions, a rollup scan, a join, GROUPING SETS, set
 operations, UPDATE / DELETE with their strategy (the cross-host lines
 too: EXPLAIN only describes, it runs nothing remote) and INSERT …
-SELECT's strategy ladder.  One line differs from the reference: a direct
-GROUP BY's combine is ``host`` here, where the reference prints
-``psum`` (ROADMAP.md C19).
+SELECT's strategy ladder.  Every line is the reference's: a direct
+GROUP BY prints the reference's fixed ``combine: psum`` label, though
+its partials combine on the host, or in B6 over a mesh (as the
+reference's one-device stream combines on the host under the same
+label).
 
 EXPLAIN ANALYZE runs the statement under a forced trace
 (``_run_analyze``) and renders every number from the span tree and the
@@ -146,12 +148,9 @@ def execute_explain(cl, stmt: A.Explain) -> Result:
                      ", ".join(sorted({c.column for c in plan.intervals})))
     if bound.has_aggs:
         mode = plan.group_mode
-        # ROADMAP.md C19: the reference prints "combine: psum"; the
-        # port's direct groups combine on the host (or through B6 on a
-        # mesh), never through a psum
         desc = {"scalar": "Global Aggregate",
                 "direct": f"Direct GroupBy (groups: {mode.n_groups}, "
-                          "combine: host)",
+                          "combine: psum)",
                 "hash_host": "Hash GroupBy (host combine)"}[mode.kind]
         lines.append(f"  Partial Aggregate per shard -> {desc}")
         lines.append("    Partials: " + ", ".join(

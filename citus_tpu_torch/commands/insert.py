@@ -34,15 +34,18 @@ Two differences from the reference, neither visible in the rows:
   on bigint or double) replaces all conflicting rows in one
   delete-and-reinsert transaction (``executor/dml.py execute_replace``)
   where the reference runs one UPDATE statement per conflicting row;
-  any other DO UPDATE, or one with a WHERE, runs the reference's
-  per-row UPDATEs.  The CDC stream gets the same per-row update events.
-INSERT ... SELECT into a table with shards hosted by another
-coordinator is not ported yet (ROADMAP.md A13).
+  any other DO UPDATE, or one with a WHERE, a role's under an UPDATE
+  policy, or one into a table with shards another coordinator hosts,
+  runs the reference's per-row UPDATEs.  The CDC stream gets the same
+  per-row update events.
+INSERT ... SELECT into a table with shards another coordinator hosts
+takes the pull path, whose rows ``copy_from`` routes to their hosts.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional
 
 import numpy as np
@@ -50,6 +53,7 @@ import numpy as np
 from citus_tpu_torch.cluster import (
     _eval_const, _expand_returning_items, _pylit, _subst_excluded,
 )
+from citus_tpu_torch.commands.dml import remote_hosted
 from citus_tpu_torch.commands.registry import handles
 from citus_tpu_torch.errors import (
     AnalysisError, ExecutionError, UnsupportedFeatureError,
@@ -142,12 +146,6 @@ def _execute_insert_select(cl, t, stmt: A.Insert) -> Result:
     if stmt.returning:
         raise UnsupportedFeatureError(
             "RETURNING on INSERT..SELECT is not supported")
-    if cl.catalog.remote_data is not None and any(
-            cl.catalog.is_remote_node(nd)
-            for s in t.shards for nd in s.placements):
-        raise UnsupportedFeatureError(
-            "INSERT ... SELECT into a table with shards hosted by another "
-            "coordinator is not ported yet (ROADMAP.md A13)")
     names = list(t.schema.names if stmt.columns is None else stmt.columns)
     if stmt.on_conflict is not None:
         # pull the source rows, then run the same upsert machinery row
@@ -245,12 +243,7 @@ def _execute_upsert(cl, t, stmt: A.Insert, rows: list, names: list) -> Result:
     within one shard group — multi_router_planner.c rejects others).
     Runs under the colocation group's EXCLUSIVE write lock so probe and
     write are atomic against concurrent writers."""
-    from citus_tpu_torch.commands.dml import refuse_remote_placements
     from citus_tpu_torch.transaction.locks import EXCLUSIVE
-    # the upsert probes and rewrites placements in place: remote-hosted
-    # target shards would need cross-host DML (the reference's
-    # remote-target guard, citus_tpu/commands/insert.py:357)
-    refuse_remote_placements(cl, t, "INSERT ... ON CONFLICT")
     oc = stmt.on_conflict
     if stmt.returning:
         raise UnsupportedFeatureError(
@@ -307,7 +300,16 @@ def _execute_upsert(cl, t, stmt: A.Insert, rows: list, names: list) -> Result:
                     "ON CONFLICT DO UPDATE command cannot affect row a "
                     "second time")
             seen.add(key)
-    batched = oc.action == "update" and _host_exact(t, oc, names, rows)
+    # the executing role: each conflicting row must pass its UPDATE
+    # policies, checked per row by the reference's path below (the
+    # batched update is the superuser's, or a role's without a policy)
+    exec_role = cl._exec_roles.get(threading.get_ident())
+    upd_policy = None if exec_role is None else \
+        cl._policy_predicate(exec_role, t.name, "update")
+    # the batched update rewrites local placements in place: a table
+    # with remote-hosted shards takes the per-row UPDATEs, which forward
+    batched = oc.action == "update" and upd_policy is None \
+        and not remote_hosted(cl.catalog, t) and _host_exact(t, oc, names, rows)
     inserted = updated = skipped = 0
     with cl._write_lock(t, EXCLUSIVE):
         probe_rows = [row for row in rows
@@ -390,14 +392,31 @@ def _execute_upsert(cl, t, stmt: A.Insert, rows: list, names: list) -> Result:
             where = cond
             if oc.where is not None:
                 where = A.BinOp("and", cond, _subst_excluded(oc.where, excl))
-            n_upd = cl._execute_stmt(
-                A.Update(t.name, assignments, where)).explain.get("updated", 0)
+            upd: A.Statement = A.Update(t.name, assignments, where)
+            if exec_role is not None:
+                if upd_policy is not None:
+                    # PostgreSQL raises the RLS violation whenever the
+                    # existing row fails USING, whatever the conflict
+                    # WHERE says
+                    vis = A.Select(
+                        [A.SelectItem(A.FuncCall("count", (A.Star(),)))],
+                        A.TableRef(t.name), A.BinOp("and", cond, upd_policy))
+                    if not cl._execute_stmt(vis).rows[0][0]:
+                        raise AnalysisError(
+                            f'new row violates row-level security '
+                            f'policy for table "{t.name}"')
+                upd, _ = cl._apply_rls(exec_role, upd)
+            n_upd = cl._execute_stmt(upd).explain.get("updated", 0)
             updated += n_upd
             skipped += 0 if n_upd else 1  # DO UPDATE ... WHERE filtered
         if replaced:
             updated += _replace_rows(cl, t, list(oc.targets), replaced)
         if to_insert:
             cl.copy_from(t.name, rows=to_insert, column_names=names)
+    if oc.action == "update":
+        # PostgreSQL fires statement-level UPDATE triggers whenever DO
+        # UPDATE is specified (the INSERT triggers fire in execute())
+        cl._fire_triggers_for(t.name, "update", 0)
     return Result(columns=[], rows=[],
                   explain={"inserted": inserted, "updated": updated,
                            "skipped": skipped, "strategy": "upsert"})
@@ -474,15 +493,17 @@ def _insert_select_arrays(cl, target, sel: A.Select,
     if sel.group_by or sel.having or sel.order_by or sel.limit \
             or sel.distinct or sel.distinct_on or sel.offset:
         return None
+    if remote_hosted(cl.catalog, target):
+        # the array strategies write placements directly: only the pull
+        # path routes rows to another coordinator's shards
+        return None
     try:
         bound = bind_select(cl.catalog, sel)
     except Exception:  # noqa: BLE001 -- the pull path binds (and raises) it
         return None
     if bound.has_aggs or len(bound.final_exprs) != len(names):
         return None
-    if cl.catalog.remote_data is not None and any(
-            cl.catalog.is_remote_node(nd)
-            for s in bound.table.shards for nd in s.placements):
+    if remote_hosted(cl.catalog, bound.table):
         return None  # a remote source pushes its scan: the pull path
     from citus_tpu_torch.planner.bound import BColumn, BDictRemap, compile_expr
     from citus_tpu_torch.planner.physical import plan_select

@@ -384,6 +384,79 @@ def _create_temp_from_result(cl, prefix: str, label: str, r: Result) -> str:
     return tmp
 
 
+def _create_temp_from_scan(cl, label: str, sel) -> Optional[str]:
+    """A derived table that is a plain projection of one table's columns
+    (``SELECT * FROM t WHERE ...``: a row-level security policy's
+    rewrite, most views) materialized by the INSERT ... SELECT array
+    path: the passing rows' physical columns go from the scan (the
+    WHERE as the predicate kernel) straight into the intermediate table,
+    with no Python row in between.  The table is the one
+    ``_create_temp_from_result`` makes of the same rows: the same names
+    and types (a projection's result types are its columns'), and
+    hash-distributed from ``DISTRIBUTED_INTERMEDIATE_ROWS`` rows, which
+    a count over the same WHERE decides.  -> its name, or None when the
+    statement does not qualify (the caller runs it and materializes its
+    rows).  Not with change capture on: ``copy_from`` records an
+    intermediate table's rows in the change stream, the array path does
+    not."""
+    from citus_tpu_torch import types as T
+    from citus_tpu_torch.commands.insert import _insert_select_arrays
+    from citus_tpu_torch.planner.bound import BColumn
+    from citus_tpu_torch.planner.recursive import has_subquery
+    from citus_tpu_torch.storage.overlay import current_overlay
+    if not isinstance(sel, A.Select) or not isinstance(sel.from_, A.TableRef) \
+            or sel.group_by or sel.having or sel.order_by or sel.limit \
+            or sel.offset or sel.distinct or sel.distinct_on or sel.windows \
+            or current_overlay() is not None or cl.catalog.functions \
+            or cl.cdc.enabled or cl.catalog.publications \
+            or (sel.where is not None and has_subquery(sel.where)) \
+            or not cl.catalog.has_table(sel.from_.name):
+        return None
+    t = cl.catalog.table(sel.from_.name)
+    if t.is_partitioned or any(
+            isinstance(i.expr, A.WindowCall) for i in sel.items):
+        return None
+    try:
+        bound = bind_select(cl.catalog, sel)
+    except CitusTpuError:
+        return None  # the caller's run binds (and raises) it
+    if bound.has_aggs or bound.hidden_outputs or not all(
+            isinstance(e, BColumn) and e.type.kind != T.UUID
+            for e in bound.final_exprs):
+        return None
+    names = list(bound.output_names)
+    if len(set(names)) != len(names):
+        return None
+    count = A.Select([A.SelectItem(A.FuncCall("count", (A.Star(),)))],
+                     sel.from_, sel.where)
+    n = cl._execute_stmt(count).rows[0][0]
+    _CTE_SEQ[0] += 1
+    tmp = f"__derived_{_CTE_SEQ[0]}_{label}"
+    cl.catalog.create_table(tmp, Schema(
+        [Column(cn, e.type) for cn, e in zip(names, bound.final_exprs)]))
+    if n >= DISTRIBUTED_INTERMEDIATE_ROWS:
+        dist_col = next((cn for cn, e in zip(names, bound.final_exprs)
+                         if e.type.is_integer or e.type.kind in (T.DATE,)),
+                        None)
+        if dist_col is not None:
+            cl.catalog.distribute_table(
+                tmp, dist_col, cl.settings.sharding.shard_count,
+                cl.catalog.active_node_ids())
+            cl.catalog.commit()
+    if n:
+        try:
+            done = _insert_select_arrays(cl, cl.catalog.table(tmp), sel,
+                                         names)
+        except BaseException:
+            _drop_intermediates(cl, [tmp])
+            raise
+        if done is None:
+            # the array path refused it (a shard on another coordinator)
+            _drop_intermediates(cl, [tmp])
+            return None
+    return tmp
+
+
 def _drop_intermediates(cl, names) -> None:
     """Drop a statement's intermediate tables.  It runs in ``finally``:
     a drop that fails (the table gone with a rolled-back transaction's
@@ -406,6 +479,11 @@ def _execute_derived(cl, stmt: A.Select) -> Result:
 
     def repl(item):
         if isinstance(item, A.SubqueryRef):
+            if not item.alias.startswith("__corr1row_"):
+                tmp = _create_temp_from_scan(cl, item.alias, item.select)
+                if tmp is not None:
+                    temps.append(tmp)
+                    return A.TableRef(tmp, item.alias)
             r = cl._execute_stmt(item.select)
             if item.alias.startswith("__corr1row_") \
                     and "__cnt" in r.columns:

@@ -10,15 +10,14 @@ helpers (create_time_partitions, drop_old_time_partitions,
 time_partitions), sequences (nextval, currval, setval,
 citus_sequences), the catalog-object inventories (citus_extensions,
 citus_domains, citus_collations, citus_publications,
-citus_statistics_objects, citus_types, citus_views, citus_schemas),
+citus_statistics_objects, citus_types, citus_views, citus_schemas,
+citus_roles, citus_grants, citus_policies, citus_triggers,
+citus_text_search_configs), recover_prepared_transactions,
 run_command_on_shards / _placements,
 master_get_table_ddl_events, and the redistributions
 undistribute_table and alter_distributed_table (refused, naming
-ROADMAP.md A13, for a table with shards another coordinator hosts); the
-other utilities are not ported yet (ROADMAP.md A13 for
-recover_prepared_transactions, A14b for the inventories of roles,
-grants, policies, triggers and text-search configurations, A14c for
-the rest).
+ROADMAP.md C18, for a table with shards another coordinator hosts); the
+other utilities are not ported yet (ROADMAP.md A14c).
 """
 
 from __future__ import annotations
@@ -28,21 +27,12 @@ from citus_tpu_torch.errors import UnsupportedFeatureError
 from citus_tpu_torch.executor import Result
 
 
-#: the unported UDFs of cross-host transactions (ROADMAP.md A13) and of
-#: roles, row-level security and triggers (A14b); the rest are
-#: operations, services and observability (A14c)
-_CROSS_HOST_UTILITIES = frozenset({"recover_prepared_transactions"})
-_RLS_UTILITIES = frozenset({"citus_roles", "citus_grants", "citus_policies",
-                            "citus_triggers", "citus_text_search_configs"})
-
-
 def execute_utility(cl, stmt) -> Result:
     fn = UTILITY_HANDLERS.get(stmt.name)
     if fn is None:
-        item = "A13" if stmt.name in _CROSS_HOST_UTILITIES else \
-            "A14b" if stmt.name in _RLS_UTILITIES else "A14c"
+        # operations, services and observability
         raise UnsupportedFeatureError(
-            f"utility {stmt.name}() is not ported yet (ROADMAP.md {item})")
+            f"utility {stmt.name}() is not ported yet (ROADMAP.md A14c)")
     return fn(cl, stmt.name, stmt.args)
 
 
@@ -158,6 +148,59 @@ def _citus_statistics_objects(cl, name, args):
         columns=["name", "table", "columns", "ndistinct"],
         rows=sorted((k, v["table"], ", ".join(v["columns"]), v["ndistinct"])
                     for k, v in cl.catalog.statistics.items()))
+
+
+@utility("citus_roles")
+def _citus_roles(cl, name, args):
+    return Result(columns=["role_name"],
+                  rows=[(r,) for r in sorted(cl.catalog.roles)])
+
+
+@utility("citus_grants")
+def _citus_grants(cl, name, args):
+    rows = []
+    for tbl, by_role in sorted(cl.catalog.grants.items()):
+        for r, privs in sorted(by_role.items()):
+            rows.append((tbl, r, ",".join(privs)))
+    return Result(columns=["table_name", "role_name", "privileges"],
+                  rows=rows)
+
+
+@utility("citus_policies")
+def _citus_policies(cl, name, args):
+    rows = []
+    for tbl in sorted(cl.catalog.policies):
+        for p in cl.catalog.policies[tbl]:
+            rows.append((tbl, p["name"], p["cmd"], ",".join(p["roles"]),
+                         p.get("using"), p.get("check")))
+    return Result(columns=["table_name", "policy_name", "cmd", "roles",
+                           "using_expr", "check_expr"], rows=rows)
+
+
+@utility("citus_triggers")
+def _citus_triggers(cl, name, args):
+    return Result(
+        columns=["trigger_name", "table_name", "event", "function"],
+        rows=[(n, t["table"], t["event"], t["function"])
+              for n, t in sorted(cl.catalog.triggers.items())])
+
+
+@utility("citus_text_search_configs")
+def _citus_text_search_configs(cl, name, args):
+    return Result(
+        columns=["config_name", "parser"],
+        rows=[(n, c.get("parser", "default"))
+              for n, c in sorted(cl.catalog.ts_configs.items())])
+
+
+@utility("recover_prepared_transactions")
+def _recover_prepared_transactions(cl, name, args):
+    from citus_tpu_torch.transaction.recovery import recover_transactions
+    st = recover_transactions(cl.catalog, cl.txlog,
+                              peer_inflight=cl._peer_inflight(),
+                              gxid_outcome=cl._gxid_outcome)
+    return Result(columns=["recover_prepared_transactions"],
+                  rows=[(st["rolled_forward"] + st["rolled_back"],)])
 
 
 @utility("citus_types")

@@ -1217,10 +1217,8 @@ def _run_projection(cat: Catalog, plan: PhysicalPlan, settings: Settings,
 def _guard_remote_written(cat, table_names) -> None:
     """Refuse reads of tables whose REMOTE shards this transaction
     wrote: the staged state would live in branch sessions on other
-    hosts, invisible to local scans.  Cross-host DML is not ported
-    (ROADMAP.md A13), so no transaction of this package records such
-    writes today; the check stays at the executor door, as in the
-    reference, for when it is."""
+    hosts, invisible to local scans (commands/dml.py _txn_remote_dml
+    records such writes), as in the reference."""
     from citus_tpu_torch.storage.overlay import current_overlay
     txn = current_overlay()
     if txn is None or not getattr(txn, "remote_written_tables", None):

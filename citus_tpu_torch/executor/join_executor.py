@@ -633,14 +633,15 @@ def _join_text_src(bj: BoundJoinSelect):
 
 def _guard_remote_hosted(cat: Catalog, bj: BoundJoinSelect) -> None:
     """Refuse a join over shards another coordinator hosts: the frame
-    loads read local placement directories, and pushing or pulling a
-    join's relations is not ported (ROADMAP.md A13)."""
+    loads read local placement directories, so the remote rows would be
+    missing, as they are from the reference's answer (ROADMAP.md C21)."""
     for alias, t in bj.rels:
         if any(cat.is_remote_node(s.placements[0]) for s in t.shards):
             from citus_tpu_torch.errors import UnsupportedFeatureError
             raise UnsupportedFeatureError(
                 f"a join over {t.name!r}, whose shards another coordinator "
-                "hosts, is not ported yet (ROADMAP.md A13)")
+                "hosts, is not supported: the reference loses their rows "
+                "(ROADMAP.md C21)")
 
 
 def execute_join_select(cat: Catalog, bj: BoundJoinSelect, settings: Settings,

@@ -27,8 +27,10 @@ its local placements on the host (the reader applies the transaction
 overlay, as ``_execute_stmt`` does) and tests membership with numpy, so
 it answers any number of keys and builds no kernel.  Rows, error
 classes and messages are the reference's wherever the reference
-answers.  Statement triggers are not ported (ROADMAP.md A14b), so a
-cascade fires none.
+answers.  A parent with shards another coordinator hosts takes the
+reference's probe (a SELECT through ``_execute_stmt``, which pushes its
+tasks to that coordinator).  A cascade runs through ``_execute_stmt``,
+not ``execute``, so it fires no statement trigger, as in the reference.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from typing import Optional
 import numpy as np
 
 from citus_tpu_torch import types as T
+from citus_tpu_torch.commands.dml import remote_hosted
 from citus_tpu_torch.errors import AnalysisError, ExecutionError, CatalogError
 from citus_tpu_torch.planner import ast as A
 
@@ -360,15 +363,8 @@ def _parent_batches(cluster, parent, ref_cols: list[str]):
     local placement.  The reader merges the open transaction's staged
     stripes and deletes (storage/overlay.py), so the probe sees what a
     SELECT of this statement sees."""
-    from citus_tpu_torch.errors import UnsupportedFeatureError
     from citus_tpu_torch.storage.reader import ShardReader
     cat = cluster.catalog
-    if cat.remote_data is not None and any(
-            cat.is_remote_node(nd) for s in parent.shards
-            for nd in s.placements):
-        raise UnsupportedFeatureError(
-            f'a foreign key probe of "{parent.name}", whose shards another '
-            "coordinator hosts, is not ported yet (ROADMAP.md A13)")
     for shard in parent.shards:
         d = _probe_placement_dir(cat, parent, shard)
         if d is None:
@@ -390,7 +386,8 @@ def _parent_key_set(cluster, parent_name: str, ref_cols: list[str],
     cat = cluster.catalog
     parent = cat.table(parent_name)
     types = [parent.schema.column(c).type for c in ref_cols]
-    if any(tt.kind not in _HOST_KINDS for tt in types):
+    if any(tt.kind not in _HOST_KINDS for tt in types) \
+            or remote_hosted(cat, parent):
         return _parent_key_set_by_query(cluster, parent_name, ref_cols,
                                         first_vals)
     first = {_canon(types[0], v) for v in first_vals}
@@ -443,6 +440,9 @@ def _all_present(cluster, fk: dict, child, values: dict,
     key).  False also when the test does not apply; the caller then
     runs the reference's exact check, which names the missing key."""
     parent = cluster.catalog.table(fk["ref_table"])
+    if remote_hosted(cluster.catalog, parent):
+        # read through _execute_stmt, which pushes to the other host
+        return False
     pairs = list(zip(fk["columns"], fk["ref_columns"]))
     for c, rc in pairs:
         ct, pt = child.schema.column(c).type, parent.schema.column(rc).type

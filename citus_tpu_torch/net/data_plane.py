@@ -15,9 +15,12 @@ RPC methods are byte-compatible with the JAX package's, so a
 ``citus_tpu`` node and a ``citus_tpu_torch`` node serve each other.
 Stripe files are immutable-append, so the reader side caches them by
 name and only re-fetches the small mutable files (shard meta, deletion
-bitmaps, index segments) per sync.  Cross-host DML and its two-phase
-commit branches are not ported: their methods answer with an error
-naming ROADMAP.md A13.
+bitmaps, index segments) per sync.  A forwarded statement
+(``execute_sql``), a cross-host modify's branch (``dml_prepare``,
+``dml_decide``) and an interactive transaction's branch session
+(``txn_stmt``, ``txn_branch_prepare``, ``txn_branch_abort``) run here
+with the reference's payloads, so the two packages' coordinators run one
+two-phase commit together.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Optional
 
 import numpy as np
 
-from citus_tpu_torch.errors import UnsupportedFeatureError
+from citus_tpu_torch.errors import ExecutionError
 from citus_tpu_torch.net.rpc import RpcClient, RpcError, RpcServer
 
 #: fetch_file chunk size — one RPC round-trip per chunk
@@ -331,19 +334,8 @@ def _bump_pool_error() -> None:
     GLOBAL_COUNTERS.bump("data_plane_pool_errors")
 
 
-#: data-plane methods of cross-host DML and its two-phase commit
-#: branches (the reference's execute_sql, dml_prepare/decide, txn_stmt,
-#: txn_branch_*), not ported to this package yet
-_UNPORTED_METHODS = ("execute_sql", "dml_prepare", "dml_decide",
-                     "txn_stmt", "txn_branch_prepare", "txn_branch_abort")
-
-
-def _refuse_unported(method: str):
-    def handler(p: dict) -> dict:
-        raise UnsupportedFeatureError(
-            f"{method}: cross-host DML and its two-phase commit are not "
-            "ported to citus_tpu_torch yet (ROADMAP.md A13)")
-    return handler
+#: the RPC methods that carry a statement for the peer to run
+_STATEMENT_METHODS = frozenset({"execute_sql", "dml_prepare", "txn_stmt"})
 
 
 class DataPlaneServer:
@@ -365,12 +357,20 @@ class DataPlaneServer:
         s.register("put_file", self._on_put_file)
         s.register("ingest_batch", self._on_ingest_batch)
         s.register("drop_placement", self._on_drop_placement)
+        s.register("execute_sql", self._on_execute_sql)
         s.register("execute_task", self._on_execute_task)
+        s.register("dml_prepare", self._on_dml_prepare)
+        s.register("dml_decide", self._on_dml_decide)
+        s.register("txn_stmt", self._on_txn_stmt)
+        s.register("txn_branch_prepare", self._on_txn_branch_prepare)
+        s.register("txn_branch_abort", self._on_txn_branch_abort)
         s.register("get_node_stats", self._on_get_node_stats)
-        # cross-host DML and its 2PC branches are not ported: a peer
-        # that forwards one gets an error naming the ROADMAP item
-        for method in _UNPORTED_METHODS:
-            s.register(method, _refuse_unported(method))
+        # open cross-host transaction branches:
+        # gxid -> {"s": Session, "born": monotonic, "prepared": bool,
+        # "mu": Lock}, made before connections are accepted (an early
+        # dml_prepare must find them)
+        self._branches: dict = {}
+        self._branches_mu = threading.Lock()
         s.start()
 
     @property
@@ -455,6 +455,25 @@ class DataPlaneServer:
                                              validity)
         return {"inserted": n}
 
+    def _on_execute_sql(self, p: dict) -> dict:
+        """Run a forwarded statement on this coordinator (the owner of
+        the statement's shards).  This IS the reference's model: the
+        worker-facing RPC protocol is SQL itself (SURVEY §1: shard
+        queries travel as SQL text over libpq).  The connection is
+        HMAC-authenticated; like a PostgreSQL worker, an authenticated
+        coordinator may run any statement."""
+        guard = self.cluster._remote_exec_guard
+        prev = getattr(guard, "v", False)
+        guard.v = True  # a forwarded statement must never forward again
+        try:
+            r = self.cluster.execute(str(p["sql"]))
+        finally:
+            guard.v = prev
+        return {"columns": r.columns,
+                "rows": [list(row) for row in r.rows],
+                "explain": {k: v for k, v in (r.explain or {}).items()
+                            if isinstance(v, (int, float, str))}}
+
     def _on_execute_task(self, p: dict) -> tuple[dict, bytes]:
         """Run the worker half of a pushed SELECT against a placement
         this coordinator hosts and return the encoded partial states as
@@ -510,6 +529,189 @@ class DataPlaneServer:
         finally:
             guard.v = prev
 
+    #: a branch with no phase-2 decision resolves itself after this
+    #: long (via the authority's outcome store; presumed abort)
+    BRANCH_EXPIRE_S = 120.0
+
+    def _run_in_branch(self, s, sql: str) -> dict:
+        """Execute one statement inside a branch session with
+        forwarded-statement (local placements only) semantics."""
+        cl = self.cluster
+        guard = cl._remote_exec_guard
+        prev = getattr(guard, "v", False)
+        guard.v = True
+        try:
+            return s.execute(sql)
+        finally:
+            guard.v = prev
+
+    def _on_dml_prepare(self, p: dict) -> dict:
+        """Phase 1 of a cross-host modify: run the forwarded statement
+        against OUR placements inside an open transaction, then make
+        the branch durable (PREPARED + gxid) while keeping its locks —
+        PostgreSQL's PREPARE TRANSACTION, with the statement shipped as
+        SQL like every worker task in the reference."""
+        import time as _time
+        gxid = str(p["gxid"])
+        cl = self.cluster
+        self._expire_stale_branches()
+        s = cl.session()
+        try:
+            s.execute("BEGIN")
+            r = self._run_in_branch(s, str(p["sql"]))
+            cl._prepare_branch(s, gxid)
+        except BaseException:
+            if s.txn is not None:
+                try:
+                    s.execute("ROLLBACK")
+                except Exception:
+                    _bump_pool_error()
+            raise
+        with self._branches_mu:
+            self._branches[gxid] = {"s": s, "born": _time.monotonic(),
+                                    "prepared": True,
+                                    "mu": threading.Lock()}
+        return {"explain": {k: v for k, v in (r.explain or {}).items()
+                            if isinstance(v, (int, float, str))}}
+
+    def _on_txn_stmt(self, p: dict) -> dict:
+        """One statement of an INTERACTIVE cross-host transaction: the
+        branch session persists across RPCs (lazily opened with BEGIN)
+        and stays un-prepared until txn_branch_prepare — the worker
+        session of the reference's coordinated transaction."""
+        import time as _time
+        gxid = str(p["gxid"])
+        self._expire_stale_branches()
+        with self._branches_mu:
+            entry = self._branches.get(gxid)
+        if entry is None:
+            s = self.cluster.session()
+            s.execute("BEGIN")
+            ours = {"s": s, "born": _time.monotonic(), "prepared": False,
+                    "mu": threading.Lock()}
+            # insert atomically: two first statements of the same gxid
+            # racing here must converge on ONE branch session — the
+            # loser rolls its session back instead of leaking an open
+            # transaction (whose locks would block until process exit)
+            with self._branches_mu:
+                entry = self._branches.setdefault(gxid, ours)
+            if entry is not ours:
+                try:
+                    s.execute("ROLLBACK")
+                except Exception:
+                    _bump_pool_error()
+        with entry["mu"]:
+            # re-check under the entry lock: the expiry duty resolves
+            # branches under the same lock, so a statement can never
+            # run on a session expiry just rolled back (it would
+            # autocommit outside the transaction)
+            with self._branches_mu:
+                if self._branches.get(gxid) is not entry:
+                    raise ExecutionError(
+                        f"transaction branch {gxid} expired")
+            r = self._run_in_branch(entry["s"], str(p["sql"]))
+            entry["born"] = _time.monotonic()  # activity keeps it alive
+        return {"explain": {k: v for k, v in (r.explain or {}).items()
+                            if isinstance(v, (int, float, str))}}
+
+    def _on_txn_branch_prepare(self, p: dict) -> dict:
+        gxid = str(p["gxid"])
+        with self._branches_mu:
+            entry = self._branches.get(gxid)
+        if entry is None:
+            raise KeyError(f"no open branch for gxid {gxid}")
+        self.cluster._prepare_branch(entry["s"], gxid)
+        entry["prepared"] = True
+        return {"ok": True}
+
+    def _on_txn_branch_abort(self, p: dict) -> dict:
+        gxid = str(p["gxid"])
+        with self._branches_mu:
+            entry = self._branches.pop(gxid, None)
+        if entry is None:
+            return {"ok": True}
+        s = entry["s"]
+        if entry["prepared"]:
+            self.cluster._finish_branch(s, False)
+        elif s.txn is not None:
+            s.execute("ROLLBACK")
+        return {"ok": True}
+
+    def _on_dml_decide(self, p: dict) -> dict:
+        gxid = str(p["gxid"])
+        with self._branches_mu:
+            entry = self._branches.pop(gxid, None)
+        if entry is None:
+            # already resolved (expiry raced the decide): report what
+            # the durable outcome store decided so the coordinator can
+            # detect divergence instead of assuming success
+            outcome = None
+            if self.cluster._control is not None:
+                outcome = self.cluster._control.txn_outcome(gxid)
+            return {"ok": False, "resolved": outcome}
+        self.cluster._finish_branch(entry["s"], bool(p.get("commit")))
+        return {"ok": True}
+
+    def _expire_stale_branches(self) -> None:
+        """Resolve branches whose coordinator never sent phase 2.
+
+        PREPARED branches presume abort safely: the participant CLAIMS
+        abort through the authority's first-writer-wins decision
+        register — if the coordinator already recorded commit, the
+        claim returns 'commit' and the branch commits; if the claim
+        wins, any later coordinator commit gets 'abort' back and aborts
+        everywhere.  An UNREACHABLE authority keeps a prepared branch
+        (locks held — the blocking nature of 2PC).  UN-prepared
+        interactive branches have no durable record and no vote: a
+        plain ROLLBACK is always correct for them."""
+        import time as _time
+        if self.cluster._control is None:
+            return
+        now = _time.monotonic()
+        with self._branches_mu:
+            # un-prepared interactive branches idle out on a much longer
+            # leash (user think-time is legitimate; activity refreshes
+            # born), prepared ones on the 2PC window
+            stale = [(g, e) for g, e in self._branches.items()
+                     if now - e["born"] > (self.BRANCH_EXPIRE_S
+                                           if e["prepared"]
+                                           else 10 * self.BRANCH_EXPIRE_S)]
+        for gxid, entry in stale:
+            with entry["mu"]:
+                if not entry["prepared"]:
+                    # re-check age under the lock: a statement may have
+                    # refreshed the branch while we waited
+                    if _time.monotonic() - entry["born"] \
+                            <= 10 * self.BRANCH_EXPIRE_S:
+                        continue
+                    with self._branches_mu:
+                        if self._branches.pop(gxid, None) is None:
+                            continue
+                    s = entry["s"]
+                    if s.txn is not None:
+                        try:
+                            s.execute("ROLLBACK")
+                        except Exception:
+                            _bump_pool_error()
+                    continue
+                try:
+                    winner = self.cluster._control.record_txn_outcome(
+                        gxid, "abort")
+                except Exception:
+                    _bump_pool_error()
+                    continue  # authority unreachable: keep the branch
+                with self._branches_mu:
+                    if self._branches.pop(gxid, None) is None:
+                        continue  # a decide raced us; already resolved
+                self.cluster._finish_branch(entry["s"],
+                                            winner == "commit")
+
+    def expire_branches(self) -> None:
+        """Maintenance-daemon duty: resolve abandoned branches even when
+        no further RPC ever arrives (a branch must not hold its write
+        locks forever because its coordinator died)."""
+        self._expire_stale_branches()
+
     def _on_drop_placement(self, p: dict) -> dict:
         """Deferred-drop a placement directory after its shard moved
         away (reference: pg_dist_cleanup deferred source drop)."""
@@ -546,8 +748,11 @@ class DataPlaneClient:
         # the single selector-driven dispatcher for concurrent RPCs
         # (net/event_loop.py), created on first use
         self._loop = None
+        # statements_forwarded: the statements this coordinator sent a
+        # peer to run (execute_sql, dml_prepare, txn_stmt)
         self.stats = {"files_fetched": 0, "bytes_fetched": 0,
-                      "batches_shipped": 0, "remote_syncs": 0}
+                      "batches_shipped": 0, "remote_syncs": 0,
+                      "statements_forwarded": 0}
         # per-table data-invalidation epoch plus per-placement sync
         # tokens: a mirror whose token still equals the table's epoch
         # (and whose invalidation stream is live, see
@@ -620,6 +825,8 @@ class DataPlaneClient:
 
     def call(self, endpoint: tuple, method: str, payload: dict,
              blob: Optional[bytes] = None) -> dict:
+        if method in _STATEMENT_METHODS:
+            self.stats["statements_forwarded"] += 1
         try:
             return self._conn(endpoint).call(method, payload, blob=blob)
         except RpcError:

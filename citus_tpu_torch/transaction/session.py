@@ -390,7 +390,6 @@ class Session:
 
     # -- public surface --------------------------------------------------
     def execute(self, sql: str, params=None, role=None):
-        # a role (RLS, privileges) is refused: ROADMAP.md A14
         return self._cluster.execute(sql, params=params, role=role,
                                      session=self)
 

@@ -11,8 +11,8 @@ form of the router distribution-key value; the reserved name "*" is the
 shared bucket for multi-shard/analytic queries that have no router key.
 Quotas are process-local control state (like the GUC system), set
 through ``GLOBAL_TENANTS.set_quota`` (the SQL writers
-``citus_add_tenant_quota``/``citus_add_priority_class`` are 2PC catalog
-writes and wait for ROADMAP.md A13); tenants WITHOUT a quota fall
+``citus_add_tenant_quota``/``citus_add_priority_class`` replicate the
+quota as a catalog write); tenants WITHOUT a quota fall
 back to the citus.tenant_* GUC defaults, so an empty registry degrades
 to one uniform tenant class.
 """

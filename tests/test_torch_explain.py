@@ -10,10 +10,8 @@ SETS, set operations, UPDATE / DELETE with their strategy (local, and
 forwarded or cross-host on a pair of coordinators), INSERT … SELECT's
 strategy ladder, and the statements EXPLAIN refuses.
 
-One line differs by design, ROADMAP.md C19: a direct GROUP BY's
-``combine: psum`` in the reference is ``combine: host`` in the port;
-``_c19`` maps one to the other, and
-``test_c19_direct_groupby_combine_line`` holds both lines.
+A direct GROUP BY prints the reference's ``combine: psum`` (ROADMAP.md
+C19, repaired), held by ``test_c19_direct_groupby_combine_line``.
 
 EXPLAIN ANALYZE: each line's name and layout, ``Rows``, the plan
 cache's miss then hit and its fingerprint, the device cache's hits and
@@ -33,16 +31,6 @@ import citus_tpu as ct
 import citus_tpu_torch as ctt
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-
-REF_DIRECT = "combine: psum)"
-PORT_DIRECT = "combine: host)"
-
-
-def _c19(lines):
-    """The reference's lines with ROADMAP.md C19's one difference
-    applied."""
-    return [ln.replace(REF_DIRECT, PORT_DIRECT) for ln in lines]
-
 
 def _fill(cl):
     rng = np.random.default_rng(23)
@@ -176,25 +164,19 @@ def test_explain_lines_identical_to_reference(pair, name):
     ref, port = pair
     want = _outcome(ref, PLANS[name])
     got = _outcome(port, PLANS[name])
-    if isinstance(want, list):
-        assert got == _c19(want), (name, want, got)
-    else:
-        assert got == want, (name, want, got)
+    assert got == want, (name, want, got)
 
 
 def test_c19_direct_groupby_combine_line(pair):
-    """ROADMAP.md C19: the reference prints ``combine: psum`` for a
-    direct GROUP BY; the port's groups combine on the host (or in B6 on
-    a mesh), and it prints ``combine: host``.  Every other line is the
-    reference's."""
+    """ROADMAP.md C19, repaired: a direct GROUP BY's line is the
+    reference's ``combine: psum`` label in both packages, and every
+    line of the two EXPLAINs is equal."""
     ref, port = pair
     sql = "EXPLAIN SELECT g, count(*) FROM t GROUP BY g"
     want, got = _outcome(ref, sql), _outcome(port, sql)
     assert want[1] == ("  Partial Aggregate per shard -> Direct GroupBy "
                        "(groups: 8, combine: psum)")
-    assert got[1] == ("  Partial Aggregate per shard -> Direct GroupBy "
-                      "(groups: 8, combine: host)")
-    assert got[:1] + got[2:] == want[:1] + want[2:]
+    assert got == want
 
 
 # ------------------------------------------------------------- ANALYZE
@@ -253,7 +235,7 @@ def test_explain_analyze_lines_and_second_run_hit(pair, one_device, name):
     sql = ANALYZE[name]
     runs = []
     for _ in range(2):
-        want = _mask(_c19(_outcome(ref, sql)))
+        want = _mask(_outcome(ref, sql))
         got = _mask(_outcome(port, sql))
         assert _line_names(got) == _line_names(want), (want, got)
         assert got == want, (want, got)

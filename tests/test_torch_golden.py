@@ -10,8 +10,9 @@ reference's: they are never regenerated from the port.
 since MERGE is ported; ``views_sequences``, ``analytics2``, ``objects``,
 ``objects2`` and ``types2`` (views, enum types, SQL functions, domains,
 collations, publications, extensions, their catalog UDFs and the EXPLAIN
-of an UPDATE) since they are.  Left out: rls_triggers.sql (roles, GRANT,
-policies, statement triggers, text search: ROADMAP.md A14b).
+of an UPDATE) since they are; ``rls_triggers`` (roles, GRANT, policies
+and row-level security, statement triggers, text search) since those
+are.  Every golden script runs through the port.
 """
 
 import os
@@ -28,8 +29,9 @@ from test_golden import GOLDEN_DIR, split_statements  # noqa: E402
 
 SCRIPTS = ["aggregates_ext", "analytics2", "basic", "grouping_sets",
            "insert_select", "joins_dml", "objects", "objects2",
-           "partitioning", "recursive_cte", "setops", "sql_surface2",
-           "strings", "txn_ddl", "types2", "views_sequences", "windows"]
+           "partitioning", "recursive_cte", "rls_triggers", "setops",
+           "sql_surface2", "strings", "txn_ddl", "types2",
+           "views_sequences", "windows"]
 
 
 def run_script(cl, text: str) -> str:

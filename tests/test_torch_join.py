@@ -25,7 +25,8 @@ EXPLAIN strategy and shuffle mode.
 - the device join's routing: outer joins and outputs over
   MAX_DEVICE_JOIN_CAP take the bucket path, whose packing is B7 too;
 - a join over shards another coordinator hosts is refused, naming
-  ROADMAP.md A13.
+  ROADMAP.md C21: the reference's join reads local placements only and
+  loses the other host's rows without an error.
 """
 
 import os
@@ -413,13 +414,40 @@ def test_join_over_the_cap_takes_the_bucket_path(clusters, monkeypatch):
 
 def test_join_over_remote_hosted_shards_is_refused_naming_a13(tmp_path):
     """Two coordinators: a join whose relations have shards on the other
-    one is refused (pushing or pulling a join is ROADMAP.md A13)."""
+    one is refused, naming ROADMAP.md C21 (the reference answers it
+    from the local placements only, next test)."""
     from test_torch_net import _open_pair
     a, b = _open_pair(tmp_path)
     try:
         _fill_device_join(a)
-        with pytest.raises(UnsupportedFeatureError, match="A13"):
+        with pytest.raises(UnsupportedFeatureError, match="C21"):
             a.execute(QUERIES[0][2])
+    finally:
+        b.close()
+        a.close()
+
+
+def test_c21_reference_join_over_remote_shards_loses_rows(tmp_path):
+    """ROADMAP.md C21, a reference fault the port refuses: on a pair of
+    citus_tpu coordinators a repartition join of two 4-shard tables,
+    two shards on each, counts only the pairs of the rows on the
+    coordinator that runs it, without an error."""
+    from test_torch_net import _open_pair
+    a, b = _open_pair(tmp_path, ct, ct)
+    try:
+        n = 400
+        a.execute("CREATE TABLE o (ok bigint NOT NULL, ck bigint, v bigint)")
+        a.execute("SELECT create_distributed_table('o', 'ok', 4)")
+        a.execute("CREATE TABLE l (lk bigint NOT NULL, ok bigint, q bigint)")
+        a.execute("SELECT create_distributed_table('l', 'lk', 4)")
+        a.copy_from("o", columns={"ok": np.arange(n), "ck": np.arange(n) % 7,
+                                  "v": np.arange(n)})
+        a.copy_from("l", columns={"lk": np.arange(2 * n),
+                                  "ok": np.arange(2 * n) % n,
+                                  "q": np.ones(2 * n, np.int64)})
+        assert a.execute("SELECT count(*) FROM l").rows == [(2 * n,)]
+        r = a.execute("SELECT count(*) FROM o JOIN l ON o.ok = l.ok")
+        assert 0 < r.rows[0][0] < 2 * n
     finally:
         b.close()
         a.close()

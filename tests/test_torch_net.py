@@ -512,31 +512,37 @@ def test_mixed_pair_gives_the_single_reference_rows(tmp_path, single,
 
 
 def test_cross_host_dml_raises_with_its_roadmap_item(pair, tmp_path):
-    """Cross-host DML, and the statements that would read or move only
-    the local placements of a table another coordinator hosts shards of
-    (COPY TO, the redistributions: ROADMAP.md C18), raise naming A13
-    and leave the table and the file system as they were."""
+    """What stays refused of a table another coordinator hosts shards
+    of: the statements that would read or move only its local
+    placements (COPY TO, the redistributions), where the reference loses
+    rows without an error (ROADMAP.md C18), and MERGE, which the
+    reference refuses with the same message.  The table and the file
+    system stay as they were.  DELETE, UPDATE and TRUNCATE run since
+    cross-host DML is ported (tests/test_torch_xhost.py)."""
     a, b = pair
     _load(a, _columns(n=200))
     from citus_tpu_torch.errors import UnsupportedFeatureError
     out = tmp_path / "t.out"
-    for sql in ("DELETE FROM t WHERE k = 1", "UPDATE t SET v = 0",
-                "TRUNCATE t", "MERGE INTO t USING t s ON t.k = s.k "
-                "WHEN MATCHED THEN DELETE",
-                f"COPY t TO '{out}'",
+    for sql in (f"COPY t TO '{out}'",
                 f"COPY t TO '{out}' WITH (format binary)",
                 "SELECT alter_distributed_table('t', 8)",
                 "SELECT alter_distributed_table('t', 4, 'g')",
                 "SELECT undistribute_table('t')"):
-        with pytest.raises(UnsupportedFeatureError, match="A13"):
+        with pytest.raises(UnsupportedFeatureError, match="C18"):
             a.execute(sql)
+    with pytest.raises(UnsupportedFeatureError,
+                       match="MERGE into a table with remote-hosted shards "
+                             "is not supported yet"):
+        a.execute("MERGE INTO t USING t s ON t.k = s.k "
+                  "WHEN MATCHED THEN DELETE")
     assert not out.exists()
     assert a.execute("SELECT count(*), sum(v) FROM t").rows == [
         (200, int(_columns(n=200)["v"].sum()))]
     assert len(a.catalog.table("t").shards) == 4
-    with pytest.raises(rpc.RpcError, match="A13"):
-        a.catalog.remote_data.call(a.catalog.node_endpoint(1),
+    # the data plane runs a forwarded statement on the peer
+    r = a.catalog.remote_data.call(a.catalog.node_endpoint(1),
                                    "execute_sql", {"sql": "SELECT 1"})
+    assert r["rows"] == [[1]]
 
 
 def test_c18_reference_export_and_redistribution_drop_remote_rows(
@@ -561,17 +567,45 @@ def test_c18_reference_export_and_redistribution_drop_remote_rows(
 
 
 def test_insert_select_into_remote_shards_raises_with_its_roadmap_item(
-        pair):
+        tmp_path):
     """INSERT ... SELECT into a table with shards another coordinator
-    hosts is refused naming ROADMAP.md A13 (its array path writes local
-    placements only; the pull path's routing is not ported for it)."""
-    a, b = pair
-    _load(a, _columns(n=200))
-    from citus_tpu_torch.errors import UnsupportedFeatureError
-    for sql in ("INSERT INTO t SELECT * FROM t WHERE k < 10",
-                "INSERT INTO t (k, v) SELECT k, count(*) FROM t GROUP BY k"):
-        with pytest.raises(UnsupportedFeatureError, match="A13"):
-            a.execute(sql)
+    hosts takes the pull path, whose rows copy_from routes to their
+    hosts, as in the reference: the same rows and strategy on a pair of
+    each package, and no directory made for the other host's shards.
+    The GROUP BY source reads key 0 as NULL on a pair (ROADMAP.md C22),
+    so both packages refuse that INSERT with the same error."""
+    outs = []
+    for pkg in (ct, ctt):
+        a, b = _open_pair(tmp_path / pkg.__name__, pkg, pkg)
+        try:
+            _load(a, _columns(n=200), peer=b)
+            got = []
+            for sql in ("INSERT INTO t SELECT * FROM t WHERE k < 10",
+                        "INSERT INTO t (k, v) SELECT k, count(*) "
+                        "FROM t GROUP BY k"):
+                try:
+                    r = a.execute(sql)
+                except Exception as e:  # noqa: BLE001 -- compared
+                    got.append((type(e).__name__, str(e)))
+                    continue
+                got.append((r.explain["inserted"], r.explain["strategy"]))
+            got.append(a.execute("SELECT count(*), sum(v), sum(k) "
+                                 "FROM t").rows)
+            b._maybe_reload_catalog(force_sync=True)
+            got.append(b.execute("SELECT count(*), sum(v) FROM t").rows)
+            t = a.catalog.table("t")
+            got.append([os.path.isdir(a.catalog.shard_dir("t", s.shard_id,
+                                                          s.placements[0]))
+                        for s in t.shards])
+            outs.append(got)
+        finally:
+            b.close()
+            a.close()
+    assert outs[1] == outs[0]
+    assert outs[0][0] == (10, "insert_select:pull")
+    assert outs[0][1] == ("AnalysisError",
+                          "null value in NOT NULL column 'k'")
+    assert outs[0][2][0][0] == 210
 
 
 def test_chip_smoke_phase7_rehearses_on_cpu(tmp_path, monkeypatch):

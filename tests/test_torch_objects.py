@@ -29,6 +29,7 @@ import sys
 import numpy as np
 import pytest
 
+import citus_tpu as ct
 import citus_tpu_torch as ctt
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -380,14 +381,25 @@ def test_schemas_collations_extensions_and_inventories(db):
     "SELECT citus_roles()",
 ])
 def test_rls_roles_and_triggers_stay_refused_naming_a14b(tmp_path, sql):
-    from citus_tpu_torch.errors import UnsupportedFeatureError
-    cl = ctt.Cluster(str(tmp_path / "db"), device="cpu")
-    try:
-        cl.execute(BASE)
-        with pytest.raises(UnsupportedFeatureError, match="A14b"):
-            cl.execute(sql)
-    finally:
-        cl.close()
+    """Ported since A14b (tests/test_torch_policies.py): each statement
+    now runs in both packages with the same outcome, and the catalog
+    inventories that follow it are the reference's."""
+    outs = []
+    for pkg in (ct, ctt):
+        kw = {"device": "cpu"} if pkg is ctt else {}
+        cl = pkg.Cluster(str(tmp_path / pkg.__name__), **kw)
+        try:
+            cl.execute(BASE)
+            if "ROLE" not in sql:
+                cl.execute("CREATE ROLE analyst")
+            got = [cl.execute(sql).rows]
+            for udf in ("citus_roles", "citus_grants", "citus_policies",
+                        "citus_text_search_configs"):
+                got.append(cl.execute(f"SELECT {udf}()").rows)
+            outs.append(got)
+        finally:
+            cl.close()
+    assert outs[1] == outs[0]
 
 
 # ------------------------------------------ the kernels' generated rows

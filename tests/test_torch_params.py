@@ -228,7 +228,20 @@ def test_execute_not_double_counted_in_stats(pair):
 
 
 def test_role_is_refused_naming_its_roadmap_item(pair):
-    from citus_tpu_torch.errors import UnsupportedFeatureError
-    _, port = pair
-    with pytest.raises(UnsupportedFeatureError, match="A14"):
-        port.execute("SELECT 1", role="alice")
+    """Roles are ported (A14b): an unknown role is refused with the
+    reference's error, a known one runs a statement that reads no
+    table, in both packages."""
+    outs = []
+    for cl in pair:
+        got = []
+        try:
+            cl.execute("SELECT 1", role="alice")
+        except Exception as e:  # noqa: BLE001 -- the error is the outcome
+            got.append((type(e).__name__, str(e)))
+        cl.execute("CREATE ROLE alice")
+        got.append(cl.execute("SELECT 1", role="alice").rows)
+        cl.execute("DROP ROLE alice")
+        outs.append(got)
+    assert outs[1] == outs[0]
+    assert outs[0] == [("CatalogError", 'role "alice" does not exist'),
+                       [(1,)]]

@@ -198,23 +198,23 @@ def test_opens_reference_data_directory(tmp_path):
 
 
 @pytest.mark.parametrize("sql", [
-    "CREATE ROLE analyst",
-    "GRANT SELECT ON events TO analyst",
-    "ALTER TABLE events ENABLE ROW LEVEL SECURITY",
+    "SELECT citus_rebalance_start()",
+    "SELECT get_rebalance_table_shards_plan()",
+    "SELECT citus_stat_history('rows_ingested')",
     "SET citus.enable_metadata_sync = off",
-    "CREATE POLICY p ON events USING (id > 0)",
-    "CREATE TRIGGER tr AFTER INSERT ON events FOR EACH STATEMENT "
-    "EXECUTE FUNCTION f()",
-    "SELECT citus_roles()",
+    "SELECT citus_create_restore_point('x')",
+    "SELECT citus_cleanup_orphaned_resources()",
+    "SELECT isolate_tenant_to_new_shard('events', 5)",
     "SELECT citus_move_shard_placement(102008, 0, 1)",
 ])
 def test_unported_statement_raises(pair, sql):
     """What the port does not carry yet raises, naming its ROADMAP.md
-    item (A13, A14b or A14c).  Views, enum types, SQL functions and
-    EXPLAIN ANALYZE run since A14a (tests/test_torch_objects.py,
-    tests/test_torch_explain.py)."""
+    item (A14, A14c: operations, services and observability).  Roles, GRANT,
+    policies, triggers and their UDFs run since A14b
+    (tests/test_torch_policies.py), cross-host DML since A13
+    (tests/test_torch_xhost.py)."""
     _, port = pair
-    with pytest.raises(UnsupportedFeatureError, match=r"ROADMAP\.md A1[34]"):
+    with pytest.raises(UnsupportedFeatureError, match=r"ROADMAP\.md A14"):
         port.execute(sql)
 
 

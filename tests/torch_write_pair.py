@@ -12,9 +12,11 @@ intermediate table may reorder a float sum), everything else exactly.
 Steps:
 - ``"SQL"``: ``execute`` on the default session;
 - ``("params", sql, params)``: ``execute(sql, params=params)``;
+- ``("role", sql, role)`` / ``("rparams", sql, params, role)``:
+  ``execute`` under ``role`` (row-level security, privileges);
 - ``("copy", table, kwargs)``: ``copy_from(table, **kwargs)``;
-- ``("s", sql)`` / ``("scopy", table, kwargs)``: on an explicit session,
-  opened at the first such step;
+- ``("s", sql)`` / ``("scopy", table, kwargs)`` / ``("srole", sql,
+  role)``: on an explicit session, opened at the first such step;
 - ``("check", fn)``: ``fn(cluster)``, compared as a value (catalog
   state, files on disk).
 
@@ -88,6 +90,12 @@ class Pair:
                 r = cl.execute(step)
             elif step[0] == "params":
                 r = cl.execute(step[1], params=step[2])
+            elif step[0] == "role":
+                r = cl.execute(step[1], role=step[2])
+            elif step[0] == "rparams":
+                r = cl.execute(step[1], params=step[2], role=step[3])
+            elif step[0] == "srole":
+                r = self._session(cl).execute(step[1], role=step[2])
             elif step[0] == "copy":
                 return ("copied", cl.copy_from(step[1], **step[2]))
             elif step[0] == "s":
