@@ -3934,8 +3934,9 @@ def run_pair_phase(ctt, tmp: str, n_rows: int, launches: dict,
     projection task), each cold and warm, pushed and then pulled; then
     PAIR_DELTA_ROWS more rows by COPY through A, and R1 and R3 warm
     again, pushed and pulled, against the new oracle; then phase 14 (b),
-    cross-host DML on the same pair (``run_phase14_pair``).  -> phase
-    14 (b)'s seconds."""
+    cross-host DML on the same pair (``run_phase14_pair``), and phase 15,
+    the shard operations on it (``run_phase15_pair``).  -> (phase 14
+    (b)'s seconds, phase 15's)."""
     from citus_tpu_torch.executor.executor import GLOBAL_COUNTERS
     a, b = open_pair(ctt, tmp, device)
     try:
@@ -3987,7 +3988,10 @@ def run_pair_phase(ctt, tmp: str, n_rows: int, launches: dict,
                                n_remote, launches)
         st = remote_stats(a)
         say(f"phase 7 data plane totals (citus_remote_stats on A): {st}")
-        return run_phase14_pair(a, b, cols, launches, card)
+        p14_s, cols, s1 = run_phase14_pair(a, b, cols, launches, card)
+        p15_s = run_phase15_pair(a, b, cols, s1, launches, card,
+                                 os.path.join(tmp, "p15f"), device)
+        return p14_s, p15_s
     finally:
         b.close()
         a.close()
@@ -4012,35 +4016,46 @@ P14B_DAY_ROWS = ("SELECT * FROM lineitem WHERE l_shipdate = "
                  + _sql_day(P14B_COPY_DAY))
 
 
-def p14b_check(a, b, cols: dict, s1: list, label: str, card: str) -> None:
+def p14b_check(a, b, cols: dict, s1: list, label: str, card: str,
+               phase: str = "phase 14 b", launches=None) -> None:
     """R3, S1 and the totals on A and on B against numpy; no prepared
-    transaction left to recover."""
+    transaction left to recover.  With ``launches``, each query's
+    launches are booked there: S1's folds to the sketch fold (B1-sketch),
+    the totals' to the plain one (B1), R3's masks to B4."""
+    from citus_tpu_torch.ops.filter_mask import filter_mask
+    from citus_tpu_torch.ops.scan_agg_fold import scan_agg_fold
     want = {"R3": oracle_r3(cols), "S1": s1,
             "totals": [(int(cols["qty"].size), int(cols["qty"].sum()))]}
     t0 = time.perf_counter()
     times = []
     for name, cl in (("A", a), ("B", b)):
         for q, sql in (("R3", R3), ("S1", S1), ("totals", P14B_TOTALS)):
+            f0, s0 = filter_mask.launches, scan_agg_fold.launches
             t1 = time.perf_counter()
             rows = cl.execute(sql).rows
             times.append(time.perf_counter() - t1)
+            if launches is not None:
+                launches["filter_mask"] += filter_mask.launches - f0
+                launches["scan_agg_fold[sketch]" if q == "S1"
+                         else "scan_agg_fold"] += scan_agg_fold.launches - s0
             rows = sorted(rows) if q == "R3" else rows
             if rows != want[q]:
                 raise AssertionError(
-                    f"phase 14 b after {label}: {q} on {name} differs from "
+                    f"{phase} after {label}: {q} on {name} differs from "
                     f"numpy: {rows[:4]} != {want[q][:4]}")
         n = cl.execute("SELECT recover_prepared_transactions()").rows
         if n != [(0,)]:
-            raise AssertionError(f"phase 14 b after {label}: {name} "
+            raise AssertionError(f"{phase} after {label}: {name} "
                                  f"recovered {n}")
-    say(f"phase 14 b after {label}: R3 ({len(want['R3'])} rows), S1 and "
+    say(f"{phase} after {label}: R3 ({len(want['R3'])} rows), S1 and "
         f"count/sum {want['totals'][0]} on A and on B equal numpy, "
         f"recover_prepared_transactions() 0 on both, in "
         f"{time.perf_counter() - t0:.3f} s (the queries on A, then B: "
         + ", ".join(f"{t:.3f}" for t in times) + f" s) ({card})")
 
 
-def run_phase14_pair(a, b, cols: dict, launches: dict, card: str) -> float:
+def run_phase14_pair(a, b, cols: dict, launches: dict,
+                     card: str) -> tuple:
     """Phase 14 (b): cross-host DML on phase 7's pair and its sketch
     lineitem (4 shards by l_suppkey, 2 on each coordinator), each step
     checked by ``p14b_check``: a router UPDATE of one supplier on B
@@ -4048,7 +4063,8 @@ def run_phase14_pair(a, b, cols: dict, launches: dict, card: str) -> float:
     ship day over both hosts (two-phase: dml_prepare on B, the outcome
     at A, dml_decide), BEGIN / UPDATE / COMMIT and BEGIN / DELETE /
     ROLLBACK over both hosts, an INSERT ... SELECT of one day back into
-    the table (the pull path, B's rows shipped).  -> its seconds."""
+    the table (the pull path, B's rows shipped).  -> (its seconds, the
+    oracle columns after it, S1's rows)."""
     from citus_tpu_torch.catalog.hashing import shard_index_for_values
     from citus_tpu_torch.ops import cuda_build
     t_phase = time.perf_counter()
@@ -4148,6 +4164,374 @@ def run_phase14_pair(a, b, cols: dict, launches: dict, card: str) -> float:
         f"{got.get('hash_agg_insert', 0)}, B4 filter_mask "
         f"{got.get('filter_mask', 0)}; nvcc builds "
         f"{cuda_build.BUILDS['count'] - b0}; took {took:.3f} s ({card})")
+    return took, cols, s1
+
+
+# -------------------------------------- shard operations (phase 15)
+
+#: phase 15's time on the card
+P15_LIMIT_S = 40.0
+P15_TOTALS = P14B_TOTALS
+#: phase 14's tenant: the supplier isolated in step (d)
+P15_TENANT = 100
+#: rows a batch of the writer threads of (a) and (b) inserts
+P15_WRITE_BATCH = 4096
+#: (a) and (b) hold each move at its flip (fault point
+#: ``shard_move_flip``) this long, so a batch waits across it
+P15_FLIP_HOLD_S = 0.5
+#: (f): the single coordinator's table, under phase 11's sizes
+P15F_ROWS = 200_000
+
+
+def p15_rows(seed: int, n: int) -> dict:
+    """``n`` more rows of the sketch table (sketch_chunks' rules)."""
+    return next(sketch_chunks(n, seed, SF1_ROWS))
+
+
+def p15_totals(a, b, cols: dict, label: str, card: str,
+               launches: dict) -> None:
+    """The totals (B1) on A and on B against numpy."""
+    from citus_tpu_torch.ops.scan_agg_fold import scan_agg_fold
+    want = [(int(cols["qty"].size), int(cols["qty"].sum()))]
+    times = []
+    for name, cl in (("A", a), ("B", b)):
+        n0 = scan_agg_fold.launches
+        t0 = time.perf_counter()
+        rows = cl.execute(P15_TOTALS).rows
+        times.append(time.perf_counter() - t0)
+        launches["scan_agg_fold"] += scan_agg_fold.launches - n0
+        if rows != want:
+            raise AssertionError(f"phase 15 after {label}: the totals on "
+                                 f"{name} {rows} != numpy's {want}")
+    say(f"phase 15 after {label}: count/sum {want[0]} on A and on B equal "
+        f"numpy ({times[0]:.3f}, {times[1]:.3f} s) ({card})")
+
+
+def _p15_shards(a) -> list:
+    t = a.catalog.table("lineitem")
+    return [(s.shard_id, s.placements[0], s.hash_min, s.hash_max)
+            for s in t.shards]
+
+
+def _p15_stats(a) -> dict:
+    r = a.execute("SELECT citus_shard_move_stats()")
+    return dict(zip(r.columns, r.rows[-1]))
+
+
+def run_phase15_pair(a, b, cols: dict, s1: list, launches: dict, card: str,
+                     small_dir: str, device=None) -> float:
+    """Phase 15: the shard operations of A14c on phase 7's pair and its
+    sketch lineitem (4 shards by l_suppkey, 2 on each coordinator), as
+    phase 14 (b) left it.  (a) a move of one of A's shards to B's node
+    (the bulk copy, the catch-up, the flip, pushed over the data plane)
+    while a thread inserts batches through A; (b) a rebalance as a
+    background job (the plan pulls a shard back from B); (c) a split of
+    one of A's shards at its hash midpoint; (d) the isolation of phase
+    14's tenant, supplier 100, and its count a one-shard router query;
+    (e) the cleaner and the device-memory ledger; (f) a restore point
+    on a small single coordinator.  The totals (B1) on A and on B after
+    (a)-(c), R3 (B4), S1 (B1-sketch) and the totals after (d)
+    (``p14b_check``).  -> its seconds."""
+    import threading
+
+    import torch
+    from citus_tpu_torch.catalog.hashing import hash_int64
+    from citus_tpu_torch.ops import cuda_build
+    t_phase = time.perf_counter()
+    b0 = cuda_build.BUILDS["count"]
+    kernels = {"B1": "scan_agg_fold", "B1-sketch": "scan_agg_fold[sketch]",
+               "B4": "filter_mask"}
+    l0 = {k: launches[v] for k, v in kernels.items()}
+    cols = {k: v.copy() for k, v in cols.items()}
+    na = next(n for n in a.catalog.nodes if not a.catalog.is_remote_node(n))
+    nb = next(n for n in a.catalog.nodes if a.catalog.is_remote_node(n))
+    h_tenant = int(hash_int64(np.array([P15_TENANT]))[0])
+
+    def holds_tenant(sh) -> bool:
+        return sh[2] <= h_tenant <= sh[3]
+    sources = []  # (coordinator, data dir path) of every deferred source
+    say(f"phase 15 citus_shards before (shard, node, hash range): "
+        f"{_p15_shards(a)}")
+    # the daemons' deferred_cleanup duty would drop the sources before
+    # (e) asks citus_cleanup_orphaned_resources() to: paused until then
+    for cl in (a, b):
+        cl.maintenance.stop()
+
+    def written_during(cl, step: str, seed: int, run) -> tuple:
+        """``run()`` (a move) with its flip held ``P15_FLIP_HOLD_S`` while
+        a thread inserts batches through ``cl``; fails unless a batch
+        began before the flip's commit and committed after it.  -> (the
+        batches' columns, their count across the flip, run's seconds)."""
+        from citus_tpu_torch.testing.faults import FAULTS
+        from citus_tpu_torch.transaction import branches
+        stop, wrote, failed, spans, flips = (threading.Event(), [], [],
+                                             [], [])
+        flip0 = branches.commit_metadata_flip
+
+        def timed_flip(cat, op_id, mutate):
+            flip0(cat, op_id, mutate)
+            flips.append(time.perf_counter())
+
+        def writer():
+            n = seed
+            while not stop.is_set():
+                c = p15_rows(n, P15_WRITE_BATCH)
+                t1 = time.perf_counter()
+                try:
+                    cl.copy_from("lineitem", columns=sketch_copy_columns(c))
+                except Exception as e:  # noqa: BLE001 -- fails the phase below
+                    failed.append(e)
+                    return
+                spans.append((t1, time.perf_counter()))
+                wrote.append(c)
+                n += 1
+                time.sleep(0.02)
+        th = threading.Thread(target=writer, name="p15-writer")
+        branches.commit_metadata_flip = timed_flip
+        FAULTS.arm("shard_move_flip", delay_s=P15_FLIP_HOLD_S, times=1)
+        t1 = time.perf_counter()
+        th.start()
+        try:
+            run()
+        finally:
+            stop.set()
+            th.join()
+            FAULTS.disarm("shard_move_flip")
+            branches.commit_metadata_flip = flip0
+        took = time.perf_counter() - t1
+        if failed:
+            raise AssertionError(f"phase 15 {step}: a write during the move "
+                                 f"failed: {failed[0]!r}")
+        across = sum(1 for t_b, t_e in spans
+                     if flips and t_b < flips[0] < t_e)
+        if not across:
+            raise AssertionError(f"phase 15 {step}: no batch of the "
+                                 f"{len(wrote)} committed across the flip")
+        return wrote, across, took
+
+    # (a) a cross-host move while a thread inserts through A
+    mine = [sh for sh in _p15_shards(a) if sh[1] == na]
+    sid = next((sh for sh in mine if not holds_tenant(sh)), mine[0])[0]
+    wrote, across, move_s = written_during(
+        a, "a", 1500, lambda: a.execute(
+            f"SELECT citus_move_shard_placement({sid}, {na}, {nb})"))
+    cols = {k: np.concatenate([cols[k]] + [c[k] for c in wrote])
+            for k in cols}
+    st = _p15_stats(a)
+    if (st["op"], st["shard_id"]) != ("move", sid):
+        raise AssertionError(f"phase 15 a: move stats {st}")
+    from citus_tpu_torch.operations.shard_transfer import _target_dir
+    moved = next(x for x in a.catalog.table("lineitem").shards
+                 if x.shard_id == sid)
+    sources += [(a, a.catalog.shard_dir("lineitem", sid, na)),
+                (a, _target_dir(a.catalog, a.catalog.table("lineitem"),
+                                moved, nb))]
+    say(f"phase 15 a citus_move_shard_placement({sid}, {na}, {nb}) in "
+        f"{move_s:.3f} s, its flip held {P15_FLIP_HOLD_S:g} s, while A's "
+        f"writer inserted {len(wrote)} batches ({len(wrote) * P15_WRITE_BATCH}"
+        f" rows, now in the oracle; {across} across the flip); "
+        f"citus_shard_move_stats: {st['bytes_copied']} B copied in "
+        f"{st['catchup_rounds']} catch-up round(s), blocked_write_ms "
+        f"{st['blocked_write_ms']}, total_ms {st['total_ms']} "
+        f"({st['bytes_copied'] / max(st['total_ms'], 1e-9) / 1e3:.1f} "
+        f"MB/s) ({card})")
+    say(f"phase 15 a citus_shards after: {_p15_shards(a)}")
+    p15_totals(a, b, cols, "(a)", card, launches)
+
+    # (b) a rebalance as a background job
+    t0 = time.perf_counter()
+    plan = a.execute("SELECT get_rebalance_table_shards_plan()").rows
+    if not plan or any(r[1:] != (nb, na) for r in plan):
+        raise AssertionError(f"phase 15 b: the plan {plan} does not move a "
+                             "shard back from B to A")
+    job = {}
+
+    def rebalance():
+        job["id"] = a.execute("SELECT citus_rebalance_start()").rows[0][0]
+        job["status"] = a.execute(
+            f"SELECT citus_job_wait({job['id']})").rows[0][0]
+    # B's writer commits to the pulled shard's source placement until
+    # the flip, which B's lock, taken over the data plane, holds off
+    wrote, across, _ = written_during(b, "b", 1700, rebalance)
+    cols = {k: np.concatenate([cols[k]] + [c[k] for c in wrote])
+            for k in cols}
+    jid, status = job["id"], job["status"]
+    if status != "done":
+        raise AssertionError(f"phase 15 b: job {jid} ended {status!r}")
+    for r in plan:
+        sources.append((b, b.catalog.shard_dir("lineitem", r[0], nb)))
+    prog = a.execute("SELECT get_rebalance_progress()").rows
+    say(f"phase 15 b get_rebalance_table_shards_plan(): {plan}; "
+        f"citus_rebalance_start() job {jid}, citus_job_wait: {status}, in "
+        f"{time.perf_counter() - t0:.3f} s, its flip held "
+        f"{P15_FLIP_HOLD_S:g} s, while B's writer inserted {len(wrote)} "
+        f"batches ({len(wrote) * P15_WRITE_BATCH} rows, now in the oracle;"
+        f" {across} across the flip); its tasks (task, op, status, "
+        f"phase, bytes done / total): "
+        f"{[(r[0], r[1], r[3], r[5], r[6], r[7]) for r in prog]}; the "
+        f"pull over the data plane: citus_remote_stats on A "
+        f"{remote_stats(a)} ({card})")
+    p15_totals(a, b, cols, "(b)", card, launches)
+
+    # (c) a split of one of A's shards at its hash midpoint
+    mine = [sh for sh in _p15_shards(a) if sh[1] == na]
+    sh = next((x for x in mine if not holds_tenant(x)), mine[0])
+    mid = (sh[2] + sh[3]) // 2
+    h = hash_int64(cols["suppkey"])
+    routed = int(((h >= sh[2]) & (h <= sh[3])).sum())
+    t0 = time.perf_counter()
+    new_ids = [r[0] for r in a.execute(
+        f"SELECT citus_split_shard_by_split_points({sh[0]}, {mid})").rows]
+    split_s = time.perf_counter() - t0
+    st = _p15_stats(a)
+    if len(a.catalog.table("lineitem").shards) != SHARDS + 1:
+        raise AssertionError(f"phase 15 c: {_p15_shards(a)}")
+    sources.append((a, a.catalog.shard_dir("lineitem", sh[0], na)))
+    say(f"phase 15 c citus_split_shard_by_split_points({sh[0]}, {mid}) -> "
+        f"{new_ids} in {split_s:.3f} s: {routed} rows routed "
+        f"({routed / split_s:.0f} rows/s), {st['bytes_copied']} B, "
+        f"blocked_write_ms {st['blocked_write_ms']} ({card})")
+    p15_totals(a, b, cols, "(c)", card, launches)
+
+    # (d) tenant isolation of phase 14's supplier
+    t0 = time.perf_counter()
+    tsh = next(x for x in _p15_shards(a) if holds_tenant(x))
+    if tsh[1] != na:
+        # a split runs where the shard lives (ROADMAP.md C23): pull it
+        a.execute(f"SELECT citus_move_shard_placement({tsh[0]}, {nb}, "
+                  f"{na})")
+        sources.append((b, b.catalog.shard_dir("lineitem", tsh[0], nb)))
+        say(f"phase 15 d the tenant's shard {tsh[0]} pulled from B first")
+    iso = a.execute("SELECT isolate_tenant_to_new_shard('lineitem', "
+                    f"{P15_TENANT})").rows[0][0]
+    iso_s = time.perf_counter() - t0
+    sources.append((a, a.catalog.shard_dir("lineitem", tsh[0], na)))
+    want = int((cols["suppkey"] == P15_TENANT).sum())
+    t0 = time.perf_counter()
+    r = a.execute(f"SELECT count(*) FROM lineitem WHERE l_suppkey = "
+                  f"{P15_TENANT}")
+    q_s = time.perf_counter() - t0
+    if r.rows != [(want,)] or not r.explain.get("router") \
+            or r.explain.get("shards") != 1:
+        raise AssertionError(f"phase 15 d: {r.rows} against numpy's "
+                             f"{want}, router {r.explain.get('router')}, "
+                             f"shards {r.explain.get('shards')}")
+    isolated = next(x for x in _p15_shards(a) if x[0] == iso)
+    say(f"phase 15 d isolate_tenant_to_new_shard('lineitem', {P15_TENANT}) "
+        f"-> shard {iso} (hash range {isolated[2]}..{isolated[3]}) in "
+        f"{iso_s:.3f} s; its count {want} (numpy's) a one-shard router "
+        f"query in {q_s:.4f} s; {len(_p15_shards(a))} shards ({card})")
+    p14b_check(a, b, cols, oracle_s1(cols), "(d)", card, "phase 15",
+               launches)
+
+    # (e) the cleaner, the device-memory ledger, recovery
+    deferred = {p for _, p in sources}
+    kept = {p for p in deferred if os.path.isdir(p)}
+    if kept != deferred:
+        raise AssertionError(f"phase 15 e: deferred source directories "
+                             f"dropped before the cleanup: "
+                             f"{sorted(deferred - kept)}")
+    n_a = a.execute("SELECT citus_cleanup_orphaned_resources()").rows[0][0]
+    n_b = b.execute("SELECT citus_cleanup_orphaned_resources()").rows[0][0]
+    for cl in (a, b):
+        cl.maintenance.start()
+    left = [p for p in deferred if os.path.isdir(p)]
+    if left or n_a + n_b < len(deferred):
+        raise AssertionError(f"phase 15 e: citus_cleanup_orphaned_resources"
+                             f"() dropped {n_a} on A, {n_b} on B of "
+                             f"{len(deferred)}; left: {left}")
+    mem = a.execute("SELECT citus_device_memory()").rows
+    total = next(r[3] for r in mem if r[0] == "total")
+    entries = sum(r[3] for r in mem if r[0] == "entry")
+    # the ledger's batches live on the card (on a CPU rehearsal: in host
+    # memory, with nothing allocated on a card)
+    alloc = torch.cuda.memory_allocated() if device != "cpu" else total
+    if entries != total or total > alloc:
+        raise AssertionError(f"phase 15 e: device memory entries {entries}, "
+                             f"total {total}, allocated {alloc}")
+    rec = [cl.execute("SELECT recover_prepared_transactions()").rows[0][0]
+           for cl in (a, b)]
+    if rec != [0, 0]:
+        raise AssertionError(f"phase 15 e: recovered {rec}")
+    say(f"phase 15 e citus_cleanup_orphaned_resources(): {n_a} on A, {n_b} "
+        f"on B (the daemons paused since (a)): the {len(deferred)} deferred "
+        f"source directories, all on disk before it, none after; "
+        f"citus_device_memory total {total} B = its entry rows, "
+        f"<= {alloc} B allocated; recover_prepared_transactions() "
+        f"{rec[0]} on A, {rec[1]} on B ({card})")
+
+    # (f) a restore point on a small single coordinator
+    restore_s = run_phase15_restore(small_dir, device, card)
+    took = time.perf_counter() - t_phase
+    got = {k: launches[v] - l0[k] for k, v in kernels.items()}
+    say(f"phase 15 launches: " + ", ".join(f"{k} {v}" for k, v in
+                                           got.items())
+        + f"; nvcc builds {cuda_build.BUILDS['count'] - b0}; (f) "
+        f"{restore_s:.3f} s; took {took:.3f} s ({card})")
+    if device != "cpu" and not all(got.values()):
+        raise AssertionError(f"phase 15: a kernel of its checks never "
+                             f"launched: {got}")
+    return took
+
+
+def run_phase15_restore(path: str, device, card: str) -> float:
+    """Phase 15 (f): restore point, write, read (cached), restore,
+    reopen, a different write, read, on a single coordinator of
+    ``P15F_ROWS`` rows; each read on the card against numpy.  The
+    abandoned timeline's batches stay in the process's device cache
+    while the table's version climbs back to its values."""
+    import citus_tpu_torch as ctt
+    from citus_tpu_torch.executor.device_cache import GLOBAL_CACHE
+    from citus_tpu_torch.operations.restore import restore_to_point
+    t_phase = time.perf_counter()
+    c = p15_rows(1900, P15F_ROWS)
+    q = P15_TOTALS
+
+    def want(qty):
+        return [(int(qty.size), int(qty.sum()))]
+
+    def read(cl, qty, label):
+        for run_kind in ("cold", "warm"):
+            h0 = GLOBAL_CACHE.hits
+            rows = cl.execute(q).rows
+            if rows != want(qty):
+                raise AssertionError(f"phase 15 f {label} {run_kind}: "
+                                     f"{rows} != numpy's {want(qty)}")
+        return GLOBAL_CACHE.hits - h0
+    cl = ctt.Cluster(path, device=device)
+    try:
+        cl.execute(S_DDL)
+        cl.execute("SELECT create_distributed_table('lineitem', "
+                   f"'l_suppkey', {SHARDS})")
+        cl.copy_from("lineitem", columns=sketch_copy_columns(c))
+        read(cl, c["qty"], "at the start")
+        cl.execute("SELECT citus_create_restore_point('p15')")
+        d = p15_rows(1901, P15F_ROWS // 4)
+        cl.copy_from("lineitem", columns=sketch_copy_columns(d))
+        hits = read(cl, np.concatenate([c["qty"], d["qty"]]),
+                    "after a write")
+        if hits < 1:
+            raise AssertionError("phase 15 f: the warm read missed the "
+                                 "device cache")
+        restore_to_point(cl.catalog, "p15")
+    finally:
+        cl.close()
+    cl = ctt.Cluster(path, device=device)
+    try:
+        read(cl, c["qty"], "after the restore")
+        cl.execute("UPDATE lineitem SET l_quantity = 1 "
+                   "WHERE l_suppkey <= 500")
+        qty = np.where(c["suppkey"] <= 500, 1, c["qty"])
+        read(cl, qty, "after a different write")
+        points = [r[0] for r in
+                  cl.execute("SELECT citus_list_restore_points()").rows]
+    finally:
+        cl.close()
+    took = time.perf_counter() - t_phase
+    say(f"phase 15 f restore point {points} on one coordinator of "
+        f"{P15F_ROWS} rows: restore point, write, read (cached), restore, "
+        f"reopen, UPDATE, read, each read cold and warm on the card equal "
+        f"to numpy, in {took:.3f} s ({card})")
     return took
 
 
@@ -7208,11 +7592,16 @@ def run(args) -> dict:
         run_sketch_phases(ctt, tmp, n_rows, launches, card)
         elapsed("phases 4-6 of the sketch table")
         # ---- phase 7: two coordinators on the card, then phase 14 (b)
-        p14_s += run_pair_phase(ctt, tmp, n_rows, launches, card)
-        elapsed("phase 7 and phase 14 (b)")
+        # and phase 15 on the same pair
+        p14b_s, p15_s = run_pair_phase(ctt, tmp, n_rows, launches, card)
+        p14_s += p14b_s
+        elapsed("phase 7, phase 14 (b) and phase 15")
         say(f"phase 14 took {p14_s:.3f} s, "
             + ("within" if p14_s <= P14_LIMIT_S else "OVER")
             + f" its {P14_LIMIT_S:g} s ({card})")
+        say(f"phase 15 took {p15_s:.3f} s, "
+            + ("within" if p15_s <= P15_LIMIT_S else "OVER")
+            + f" its {P15_LIMIT_S:g} s ({card})")
         say(f"phase 4 device cache hits {GLOBAL_CACHE.hits - hits0}, "
             f"peak device memory {torch.cuda.max_memory_allocated(device)} B")
     finally:

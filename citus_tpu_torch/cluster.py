@@ -686,6 +686,11 @@ def resolve_mesh(device, mesh_devices=None):
     return DeviceMesh(members)
 
 
+#: how often a COPY routes its rows anew when shard moves keep flipping
+#: their placements under it before it gives up
+_ROUTE_ROUNDS_MAX = 5
+
+
 class Cluster:
     def __init__(self, data_dir: str, *, n_nodes: Optional[int] = None,
                  settings: Optional[Settings] = None, device=None,
@@ -760,6 +765,8 @@ class Cluster:
         GLOBAL_KERNELS.set_capacity(self.settings.executor.kernel_cache_size)
         self.counters = GLOBAL_COUNTERS
         self.locks = LockManager()
+        self._background_jobs = None
+        self._maintenance = None
         # per-statement attribution behind citus_stat_statements() and
         # citus_stat_tenants()
         from citus_tpu_torch.stats import QueryStats, TenantStats
@@ -826,6 +833,12 @@ class Cluster:
         # mtime-poll baseline: our own open-time commit; a newer catalog
         # file is another process's change
         self._catalog_mtime = getattr(self.catalog, "self_mtime", None)
+        # the maintenance daemon starts with the cluster (reference: the
+        # per-database daemon starts with the database, maintenanced.c:138)
+        # — opt out via settings.start_maintenance_daemon for embedded
+        # uses that drive run_once() themselves
+        if self.settings.start_maintenance_daemon:
+            self.maintenance  # noqa: B018 — property constructs + starts
 
     def _peer_inflight(self) -> set:
         """In-flight xids of the other coordinators (2PC recovery spares
@@ -866,12 +879,77 @@ class Cluster:
         """Port of this coordinator's bulk data-plane server, or None."""
         return self._data_server.port if self._data_server else None
 
+    @property
+    def background_jobs(self):
+        """Lazy background task runner (reference: background_jobs.c)."""
+        if self._background_jobs is None:
+            from citus_tpu_torch.operations import move_shard_placement
+            from citus_tpu_torch.services import BackgroundJobRunner
+            r = BackgroundJobRunner(self.catalog)
+            r.register("move_shard", lambda shard_id, source, target:
+                       move_shard_placement(self.catalog, shard_id, source,
+                                            target, lock_manager=self.locks,
+                                            settings=self.settings))
+            r.start()
+            self._background_jobs = r
+        return self._background_jobs
+
+    @property
+    def maintenance(self):
+        """Lazy maintenance daemon (reference: maintenanced.c).  The
+        reference's autopilot duty comes with the flight recorder it
+        reads (ROADMAP.md A14c-2)."""
+        if self._maintenance is None:
+            from citus_tpu_torch.services import MaintenanceDaemon
+            from citus_tpu_torch.transaction.global_deadlock import (
+                run_detection,
+            )
+            from citus_tpu_torch.transaction.recovery import (
+                recover_transactions,
+            )
+            d = MaintenanceDaemon(self.catalog)
+            # 2PC recovery duty (reference: Recover2PCInterval, default 60 s)
+            d.register("transaction_recovery",
+                       lambda: recover_transactions(
+                           self.catalog, self.txlog,
+                           peer_inflight=self._peer_inflight(),
+                           gxid_outcome=self._gxid_outcome),
+                       interval_s=60.0)
+            if self._data_server is not None:
+                # abandoned cross-host branches must resolve (and drop
+                # their write locks) even if no further RPC arrives
+                d.register("branch_expiry",
+                           self._data_server.expire_branches,
+                           interval_s=30.0)
+            # global deadlock detection (reference:
+            # CheckForDistributedDeadlocks every 2 s,
+            # distributed_deadlock_detection.c:105); a due detection pass
+            # runs before any other due duty in the same tick
+            d.register("deadlock_detection",
+                       lambda: run_detection(self),
+                       interval_s=lambda:
+                       self.settings.deadlock_detection_interval_s,
+                       priority=10)
+            if self._control is not None:
+                # authority health / lease-based promotion
+                d.register("authority_watch",
+                           lambda: self._control.ensure_authority(),
+                           interval_s=lambda:
+                           self.settings.authority_watch_interval_s)
+            d.start()
+            self._maintenance = d
+        return self._maintenance
+
     def close(self) -> None:
         # open transactions on the per-thread default sessions roll back
         # (connection-close semantics)
         for _owner, ds in list(self._default_sessions.values()):
             if ds.txn is not None:
                 self._rollback_txn(ds)
+        if self._background_jobs is not None:
+            self._background_jobs.stop()
+        if self._maintenance is not None:
+            self._maintenance.stop()
         self.rollup_manager.stop()
         self.metadata_sync.stop()
         from citus_tpu_torch.observability.load_attribution import (
@@ -927,6 +1005,24 @@ class Cluster:
         from citus_tpu_torch.transaction.locks import SHARED
         with self._write_lock(t, SHARED):
             t = self.catalog.table(table_name)
+            away = self._rows_hosted_elsewhere(t, values)
+            if away is not None and away.any():
+                # routed by a placement map this coordinator has not
+                # seen yet, or by one a move has since flipped: the
+                # authority's document decides
+                self._reload_catalog()
+                t = self.catalog.table(table_name)
+                away = self._rows_hosted_elsewhere(t, values)
+                if away is not None and away.any():
+                    from citus_tpu_torch.net.data_plane import (
+                        PLACEMENT_MOVED,
+                    )
+                    # refused whole: the sender routes these rows again
+                    # (the reference skips them as remote, ROADMAP.md C27)
+                    raise ExecutionError(
+                        f"{PLACEMENT_MOVED}: {int(away.sum())} rows of "
+                        f"{table_name} hash to shards this coordinator "
+                        f"does not host")
             ing = TableIngestor(self.catalog, t, txlog=self.txlog)
             try:
                 ing.append(values, validity)
@@ -1569,14 +1665,8 @@ class Cluster:
             from citus_tpu_torch.integrity import enforce_check_constraints
             enforce_check_constraints(self.catalog, t, values, validity)
         remote_n = 0
-        if self.catalog.remote_data is not None \
-                and not getattr(self._remote_exec_guard, "v", False):
-            values, validity, remote_n = self._route_remote_batch(
-                t, values, validity)
-            if not values or len(next(iter(values.values()))) == 0:
-                # every row went to remote hosts
-                self.counters.bump("rows_ingested", remote_n)
-                return remote_n
+        routes = self.catalog.remote_data is not None \
+            and not getattr(self._remote_exec_guard, "v", False)
         from citus_tpu_torch.transaction.locks import EXCLUSIVE, SHARED
         txn = current_overlay()
         # unique enforcement needs probe+write atomicity: two SHARED
@@ -1585,12 +1675,38 @@ class Cluster:
         # lock — a CREATE UNIQUE INDEX committed after our stale fetch
         # must escalate us before the probe runs.
         lock_mode = EXCLUSIVE if t.unique_indexes else SHARED
+        # rows bound for another coordinator ship before the write lock
+        # is taken: a writer holding its own lock across the RPC would
+        # close a cycle with a move holding the peer's lock and waiting
+        # for ours (operations/shard_transfer.py)
+        route, rounds = routes, 0
         while True:
+            if route:
+                values, validity, shipped = self._route_remote_batch(
+                    t, values, validity)
+                remote_n += shipped
+                route, rounds = False, rounds + 1
+                if not values or len(next(iter(values.values()))) == 0:
+                    break  # every row went to remote hosts
             with self._write_lock(t, lock_mode):
                 t = self.catalog.table(table_name)  # re-fetch: fresh placements
                 if t.unique_indexes and lock_mode == SHARED:
                     lock_mode = EXCLUSIVE
                     continue  # retry under the stronger lock
+                away = self._rows_hosted_elsewhere(t, values) \
+                    if routes else None
+                if away is not None and away.any():
+                    # a move flipped a shard of these rows to another
+                    # coordinator after they were routed: route them
+                    # again.  The reference writes by the stale split,
+                    # and the ingest skips them as remote (ROADMAP.md C25)
+                    if rounds >= _ROUTE_ROUNDS_MAX:
+                        raise ExecutionError(
+                            f"COPY into {table_name}: the placements of "
+                            f"its shards kept moving while its rows were "
+                            f"routed ({rounds} rounds)")
+                    route = True
+                    continue
                 self._copy_from_locked(t, txn, columns, values, validity)
                 break
         n = len(next(iter(values.values()))) if values else 0
@@ -1787,6 +1903,23 @@ class Cluster:
                     raise
                 ing.finish()
 
+    def _rows_hosted_elsewhere(self, t, values):
+        """Mask of the rows of a physical batch of a distributed table
+        whose shard has no placement this coordinator hosts; None for a
+        table that is not distributed, or whose shards all have one."""
+        import numpy as np
+
+        from citus_tpu_torch.catalog.hashing import hash_int64
+        if not t.is_distributed or not values:
+            return None
+        cat = self.catalog
+        away = np.array([all(cat.is_remote_node(nd) for nd in s.placements)
+                         for s in t.shards])
+        if not away.any():
+            return None
+        dist = values[t.dist_column].astype(np.int64)
+        return away[t.route_hashes(hash_int64(dist))]
+
     def _route_remote_batch(self, t, values, validity):
         """Split a physical ingest batch by shard ownership: rows whose
         shard another coordinator hosts ship over the data plane
@@ -1856,11 +1989,22 @@ class Cluster:
                                        np.zeros(len(dist), bool))
             m |= sel
             remote_rows |= sel
+        from citus_tpu_torch.net.data_plane import PLACEMENT_MOVED
+        from citus_tpu_torch.net.rpc import RpcError
         shipped = 0
         for ep, m in by_endpoint.items():
-            shipped += cat.remote_data.ship_batch(
-                ep, t.name, {c: v[m] for c, v in values.items()},
-                {c: x[m] for c, x in validity.items()}, wire=wire)
+            try:
+                shipped += cat.remote_data.ship_batch(
+                    ep, t.name, {c: v[m] for c, v in values.items()},
+                    {c: x[m] for c, x in validity.items()}, wire=wire)
+            except RpcError as e:
+                if PLACEMENT_MOVED not in str(e):
+                    raise
+                # the peer no longer hosts some of these shards: the rows
+                # stay with the local remainder, whose check under the
+                # write lock routes them again by the fresh catalog
+                remote_rows &= ~m
+                self._reload_catalog()
         if not remote_rows.any():
             return values, validity, 0
         keep = ~remote_rows

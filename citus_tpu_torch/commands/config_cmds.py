@@ -5,7 +5,7 @@ ndistinct.
 Reference: the ~139 citus.* GUCs (shared_library_init.c:980+);
 commands/vacuum.c ANALYZE; commands/index.c REINDEX.  The port accepts
 the GUCs its slices read; the others of the JAX package's table are
-not ported yet (ROADMAP.md A14).  Settings apply to this Cluster
+not ported yet (ROADMAP.md A14c-2).  Settings apply to this Cluster
 handle.
 """
 
@@ -156,6 +156,31 @@ _GUCS = {
                                        _bool),
     "citus.repartition_bucket_count_per_device": (
         "planner", "repartition_bucket_count_per_device", int),
+    # non-blocking shard moves (operations/shard_transfer.py): lag bar
+    # the catch-up loop must get under before taking the write lock,
+    # the bound on catch-up rounds, and whether the source placement
+    # drop is deferred to the cleaner or done inline after the flip
+    "citus.shard_move_catchup_threshold": (
+        "sharding", "shard_move_catchup_threshold", int),
+    "citus.shard_move_max_catchup_rounds": (
+        "sharding", "shard_move_max_catchup_rounds", int),
+    "citus.defer_drop_after_shard_move": (
+        "sharding", "defer_drop_after_shard_move", _bool),
+    # the maintenance daemon (services/maintenance.py) and its duties'
+    # intervals (seconds)
+    "citus.start_maintenance_daemon": (None, "start_maintenance_daemon",
+                                       _bool),
+    "citus.distributed_deadlock_detection_interval": (
+        None, "deadlock_detection_interval_s", float),
+    "citus.authority_watch_interval": (None, "authority_watch_interval_s",
+                                       float),
+    # multi-coordinator metadata sync (metadata/sync.py): background
+    # pull-on-mismatch cadence (ms; 0 = loop off) and the
+    # incremental-sync master switch
+    "citus.metadata_sync_interval_ms": ("metadata",
+                                        "metadata_sync_interval_ms", float),
+    "citus.enable_metadata_sync": ("metadata", "enable_metadata_sync",
+                                   _bool),
     "lock_timeout": ("executor", "lock_timeout_s", _ms_duration),
 }
 
@@ -167,7 +192,7 @@ def _guc_key(name: str) -> str:
             return key
     raise UnsupportedFeatureError(
         f'configuration parameter "{name}" is not ported yet '
-        "(ROADMAP.md A14)")
+        "(ROADMAP.md A14c-2)")
 
 
 def _guc_value(cl, key: str) -> str:
@@ -214,6 +239,9 @@ def execute_set(cl, stmt: A.SetConfig) -> Result:
         cl.cdc.enabled = bool(v)
     elif key == "citus.rollup_refresh_interval_ms":
         cl.rollup_manager.apply()  # start/stop the refresh loop
+    elif key in ("citus.metadata_sync_interval_ms",
+                 "citus.enable_metadata_sync"):
+        cl.metadata_sync.apply()  # start/stop the sync loop to match
     cl._plan_cache.clear()  # backend/knob changes invalidate plans
     return Result(columns=[], rows=[])
 

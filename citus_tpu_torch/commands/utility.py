@@ -14,10 +14,14 @@ citus_statistics_objects, citus_types, citus_views, citus_schemas,
 citus_roles, citus_grants, citus_policies, citus_triggers,
 citus_text_search_configs), recover_prepared_transactions,
 run_command_on_shards / _placements,
-master_get_table_ddl_events, and the redistributions
+master_get_table_ddl_events, the redistributions
 undistribute_table and alter_distributed_table (refused, naming
-ROADMAP.md C18, for a table with shards another coordinator hosts); the
-other utilities are not ported yet (ROADMAP.md A14c).
+ROADMAP.md C18, for a table with shards another coordinator hosts), and
+the shard operations and services: shard sizes and inventories, node
+activation, shard moves and copies, splits, tenant isolation, the
+rebalancer with its plan and background jobs, the cleaner and restore
+points.  The observability utilities are not ported yet (ROADMAP.md
+A14c-2).
 """
 
 from __future__ import annotations
@@ -30,9 +34,10 @@ from citus_tpu_torch.executor import Result
 def execute_utility(cl, stmt) -> Result:
     fn = UTILITY_HANDLERS.get(stmt.name)
     if fn is None:
-        # operations, services and observability
+        # observability: metrics, slow queries, activity, locks, clocks,
+        # health, history, autopilot, CDC events
         raise UnsupportedFeatureError(
-            f"utility {stmt.name}() is not ported yet (ROADMAP.md A14c)")
+            f"utility {stmt.name}() is not ported yet (ROADMAP.md A14c-2)")
     return fn(cl, stmt.name, stmt.args)
 
 
@@ -502,3 +507,333 @@ def _alter_distributed_table(cl, name, args):
     alter_distributed_table(cl.catalog, args[0], txlog=cl.txlog, **kw)
     cl._plan_cache.clear()
     return Result(columns=[name], rows=[(None,)])
+
+
+# ------------------------------------------- shard operations and services
+
+
+@utility("citus_shard_load")
+def _citus_shard_load(cl, name, args):
+    """The per-placement attribution ledger, cluster-wide: every node's
+    booked (table, shard, placement, tenant) load fanned in through
+    get_node_stats — ``observer`` is the node that did the work.
+    Optional arg: table-name filter."""
+    from citus_tpu_torch.observability.cluster_stats import (
+        cluster_node_stats, payload_node,
+    )
+    table = str(args[0]) if args else None
+    rows = []
+    for p in cluster_node_stats(cl):
+        if p.get("unreachable"):
+            continue
+        observer = payload_node(p)
+        for r in p.get("shard_load", []):
+            if table is not None and r[0] != table:
+                continue
+            rows.append((observer, *r))
+    rows.sort(key=lambda r: (-r[6], r[1], r[2], r[3], str(r[4]), r[0]))
+    return Result(columns=["observer", "table_name", "shard_id", "node",
+                           "tenant", "queries", "device_ms",
+                           "bytes_scanned", "rows_returned",
+                           "remote_wait_ms", "ewma_ms_per_s"],
+                  rows=rows)
+
+
+@utility("citus_rebalance_plan")
+def _citus_rebalance_plan(cl, name, args):
+    """Dry-run rebalance plan (operations/rebalance_plan.py): ordered
+    move/split/isolate steps with expected-benefit scores.  Executes
+    nothing.  Args: strategy (default by_observed_load), optional
+    imbalance threshold."""
+    from citus_tpu_torch.operations.rebalance_plan import (
+        PLAN_COLUMNS, build_rebalance_plan, plan_rows,
+    )
+    strategy = str(args[0]) if args else "by_observed_load"
+    threshold = float(args[1]) if len(args) > 1 else 0.1
+    steps = build_rebalance_plan(cl.catalog, strategy, threshold=threshold)
+    return Result(columns=list(PLAN_COLUMNS), rows=plan_rows(steps))
+
+
+@utility("citus_device_memory")
+def _citus_device_memory(cl, name, args):
+    """Device-memory ledger of the batch cache: one row per (table,
+    tenant) attribution plus total/high-water/capacity rows (entry rows
+    sum exactly to the total)."""
+    from citus_tpu_torch.executor.device_cache import GLOBAL_CACHE
+    mv = GLOBAL_CACHE.memory_view()
+    rows = [("entry", table, tenant, b)
+            for table, tenant, b in mv["by_owner"]]
+    rows.append(("total", None, None, mv["live_bytes"]))
+    rows.append(("high_water", None, None, mv["high_water_bytes"]))
+    rows.append(("capacity", None, None, mv["capacity_bytes"]))
+    return Result(columns=["scope", "table", "tenant", "bytes"], rows=rows)
+
+
+@utility("get_rebalance_progress")
+def _get_rebalance_progress(cl, name, args):
+    rows = []
+    if cl._background_jobs is not None:
+        jobs = [j["job_id"] for j in cl._background_jobs.jobs_view()["jobs"]]
+        for jid in jobs:
+            rows.extend(cl._background_jobs.job_progress(jid))
+    return Result(columns=["task_id", "op", "args", "status", "attempts",
+                           "phase", "bytes_done", "bytes_total",
+                           "started_at", "eta_s"],
+                  rows=rows)
+
+
+@utility("citus_table_size", "citus_relation_size",
+         "citus_total_relation_size")
+def _citus_table_size(cl, name, args):
+    return Result(columns=[name], rows=[(cl._table_size(str(args[0])),)])
+
+
+@utility("citus_shard_sizes")
+def _citus_shard_sizes(cl, name, args):
+    import os
+
+    from citus_tpu_torch.operations.rebalancer import placement_bytes
+    rows = []
+    for t in cl.catalog.tables.values():
+        for s_ in t.shards:
+            for node in s_.placements:
+                d = cl.catalog.shard_dir(t.name, s_.shard_id, node)
+                size = placement_bytes(d) if os.path.isdir(d) else 0
+                rows.append((t.name, s_.shard_id, node, size))
+    return Result(columns=["table_name", "shardid", "node", "size"],
+                  rows=rows)
+
+
+@utility("citus_shards")
+def _citus_shards(cl, name, args):
+    rows = []
+    for t in cl.catalog.tables.values():
+        for s_ in t.shards:
+            for node in s_.placements:
+                rows.append((t.name, s_.shard_id, t.method, t.colocation_id,
+                             node, s_.hash_min, s_.hash_max))
+    return Result(columns=["table_name", "shardid", "citus_table_type",
+                           "colocation_id", "nodename", "shardminvalue",
+                           "shardmaxvalue"], rows=rows)
+
+
+@utility("citus_tables")
+def _citus_tables(cl, name, args):
+    from citus_tpu_torch.catalog.stats import table_row_count
+    rows = []
+    for t in cl.catalog.tables.values():
+        rows.append((t.name, t.method, t.dist_column, t.colocation_id,
+                     cl._table_size(t.name), t.shard_count,
+                     table_row_count(cl.catalog, t)))
+    return Result(columns=["table_name", "citus_table_type",
+                           "distribution_column", "colocation_id",
+                           "table_size", "shard_count", "row_count"],
+                  rows=rows)
+
+
+@utility("get_shard_id_for_distribution_column")
+def _get_shard_id_for_distribution_column(cl, name, args):
+    from citus_tpu_torch.catalog.hashing import hash_int64_scalar
+    t2 = cl.catalog.table(str(args[0]))
+    if not t2.is_distributed:
+        return Result(columns=[name], rows=[(t2.shards[0].shard_id,)])
+    h = hash_int64_scalar(int(args[1]))
+    return Result(columns=[name],
+                  rows=[(t2.shards[t2.route_hash(h)].shard_id,)])
+
+
+@utility("master_get_active_worker_nodes", "citus_get_active_worker_nodes")
+def _active_worker_nodes(cl, name, args):
+    return Result(columns=["node_id"],
+                  rows=[(nid,) for nid in cl.catalog.active_node_ids()])
+
+
+def _set_node_active(cl, args, active: bool) -> int:
+    from citus_tpu_torch.errors import CatalogError
+    nid = int(args[0])
+    if nid not in cl.catalog.nodes:
+        raise CatalogError(f"node {nid} does not exist")
+    cl.catalog.nodes[nid].is_active = active
+    cl.catalog.ddl_epoch += 1
+    cl.catalog.commit()
+    cl._plan_cache.clear()
+    return nid
+
+
+@utility("citus_disable_node")
+def _citus_disable_node(cl, name, args):
+    _set_node_active(cl, args, False)
+    return Result(columns=[name], rows=[(None,)])
+
+
+@utility("citus_activate_node")
+def _citus_activate_node(cl, name, args):
+    return Result(columns=[name], rows=[(_set_node_active(cl, args, True),)])
+
+
+@utility("citus_activate_node_metadata")
+def _citus_activate_node_metadata(cl, name, args):
+    # mark the node a full metadata peer (pg_dist_node.hasmetadata); the
+    # sync engine keeps its catalog converged
+    from citus_tpu_torch.errors import CatalogError
+    nid = int(args[0])
+    if nid not in cl.catalog.nodes:
+        raise CatalogError(f"node {nid} does not exist")
+    cl.catalog.nodes[nid].metadata_synced = True
+    cl.catalog.ddl_epoch += 1
+    cl.catalog.commit()
+    return Result(columns=[name], rows=[(nid,)])
+
+
+@utility("citus_sync_metadata")
+def _citus_sync_metadata(cl, name, args):
+    # one on-demand pull-on-mismatch round against the metadata
+    # authority: how many catalog objects were applied (0 = converged)
+    return Result(columns=["objects_applied"],
+                  rows=[(cl.metadata_sync.sync_once(),)])
+
+
+@utility("citus_coordinator_nodeid")
+def _citus_coordinator_nodeid(cl, name, args):
+    nids = sorted(cl.catalog.active_node_ids())
+    return Result(columns=["citus_coordinator_nodeid"],
+                  rows=[(nids[0] if nids else 0,)])
+
+
+@utility("citus_move_shard_placement")
+def _citus_move_shard_placement(cl, name, args):
+    from citus_tpu_torch.operations import move_shard_placement
+    move_shard_placement(cl.catalog, int(args[0]), int(args[1]),
+                         int(args[2]), lock_manager=cl.locks,
+                         settings=cl.settings)
+    cl._plan_cache.clear()
+    return Result(columns=[name], rows=[(None,)])
+
+
+@utility("citus_shard_move_stats")
+def _citus_shard_move_stats(cl, name, args):
+    # per-move view of the non-blocking sequence: catch-up rounds and
+    # the milliseconds writers were actually excluded, beside the total
+    from citus_tpu_torch.operations import MOVE_STATS
+    cols = ["op", "shard_id", "source", "target", "bytes_copied",
+            "catchup_rounds", "blocked_write_ms", "total_ms"]
+    return Result(columns=cols,
+                  rows=[tuple(r.get(c) for c in cols)
+                        for r in MOVE_STATS.rows()])
+
+
+@utility("get_rebalance_table_shards_plan")
+def _get_rebalance_table_shards_plan(cl, name, args):
+    from citus_tpu_torch.operations import get_rebalance_plan
+    moves = get_rebalance_plan(
+        cl.catalog, args[0] if args else None,
+        strategy=str(args[1]) if len(args) > 1 else "by_disk_size")
+    return Result(columns=["shardid", "sourcenode", "targetnode"],
+                  rows=[m.to_row() for m in moves])
+
+
+@utility("rebalance_table_shards")
+def _rebalance_table_shards(cl, name, args):
+    from citus_tpu_torch.operations import rebalance_table_shards
+    moves = rebalance_table_shards(
+        cl.catalog, args[0] if args else None,
+        strategy=str(args[1]) if len(args) > 1 else "by_disk_size",
+        lock_manager=cl.locks, settings=cl.settings)
+    cl._plan_cache.clear()
+    return Result(columns=["rebalance_table_shards"], rows=[(len(moves),)])
+
+
+@utility("citus_rebalance_start")
+def _citus_rebalance_start(cl, name, args):
+    from citus_tpu_torch.operations import get_rebalance_plan
+    moves = get_rebalance_plan(cl.catalog)
+    jid = cl.background_jobs.create_job("Rebalance all colocation groups")
+    prev = None
+    for m in moves:
+        prev = cl.background_jobs.add_task(
+            jid, "move_shard",
+            {"shard_id": m.shard_id, "source": m.source_node,
+             "target": m.target_node},
+            depends_on=[prev] if prev is not None else None,
+            node=m.target_node)
+    return Result(columns=["citus_rebalance_start"], rows=[(jid,)])
+
+
+@utility("citus_job_wait")
+def _citus_job_wait(cl, name, args):
+    status = cl.background_jobs.wait_for_job(int(args[0]))
+    cl._plan_cache.clear()
+    return Result(columns=["citus_job_wait"], rows=[(status,)])
+
+
+@utility("citus_cleanup_orphaned_resources")
+def _citus_cleanup_orphaned_resources(cl, name, args):
+    from citus_tpu_torch.operations import try_drop_orphaned_resources
+    n = try_drop_orphaned_resources(cl.catalog)
+    return Result(columns=["citus_cleanup_orphaned_resources"], rows=[(n,)])
+
+
+@utility("citus_copy_shard_placement")
+def _citus_copy_shard_placement(cl, name, args):
+    from citus_tpu_torch.operations import copy_shard_placement
+    copy_shard_placement(cl.catalog, int(args[0]), int(args[1]),
+                         int(args[2]))
+    cl._plan_cache.clear()
+    return Result(columns=[name], rows=[(None,)])
+
+
+@utility("citus_split_shard_by_split_points")
+def _citus_split_shard_by_split_points(cl, name, args):
+    from citus_tpu_torch.operations.shard_split import split_shard
+    points = [int(a) for a in args[1:]
+              if not isinstance(a, str) or a.lstrip("-").isdigit()]
+    new_ids = split_shard(cl.catalog, int(args[0]), points,
+                          lock_manager=cl.locks, settings=cl.settings)
+    cl._plan_cache.clear()
+    return Result(columns=["new_shard_ids"], rows=[(i,) for i in new_ids])
+
+
+@utility("isolate_tenant_to_new_shard")
+def _isolate_tenant_to_new_shard(cl, name, args):
+    # put one distribution-key value in its own shard by splitting
+    # around its hash (reference: isolate_shards.c)
+    from citus_tpu_torch.catalog.hashing import hash_int64_scalar
+    from citus_tpu_torch.operations.shard_split import split_shard
+    t = cl.catalog.table(args[0])
+    h = hash_int64_scalar(int(args[1]))
+    shard = t.shards[t.route_hash(h)]
+    points = []
+    if h - 1 >= shard.hash_min:
+        points.append(h - 1)
+    if h < shard.hash_max:
+        points.append(h)
+    new_ids = split_shard(cl.catalog, shard.shard_id, points,
+                          lock_manager=cl.locks, settings=cl.settings)
+    cl._plan_cache.clear()
+    return Result(columns=["isolate_tenant_to_new_shard"],
+                  rows=[(new_ids[1 if h - 1 >= shard.hash_min else 0],)])
+
+
+@utility("citus_isolate_tenant_to_node")
+def _citus_isolate_tenant_to_node(cl, name, args):
+    # isolate_tenant_to_new_shard + move_shard_placement in one call,
+    # with the pin recorded in the tenant registry
+    from citus_tpu_torch.workload.isolation import isolate_tenant_to_node
+    shard_id = isolate_tenant_to_node(cl, str(args[0]), args[1],
+                                      int(args[2]))
+    return Result(columns=[name], rows=[(shard_id,)])
+
+
+@utility("citus_create_restore_point")
+def _citus_create_restore_point(cl, name, args):
+    from citus_tpu_torch.operations.restore import create_restore_point
+    create_restore_point(cl.catalog, str(args[0]))
+    return Result(columns=["citus_create_restore_point"],
+                  rows=[(str(args[0]),)])
+
+
+@utility("citus_list_restore_points")
+def _citus_list_restore_points(cl, name, args):
+    from citus_tpu_torch.operations.restore import list_restore_points
+    return Result(columns=["name", "created_at"],
+                  rows=list_restore_points(cl.catalog))

@@ -325,6 +325,17 @@ def arrays_to_sketch_words(arrays: dict, name: str) -> list:
     return out
 
 
+#: ``ingest_batch`` refuses a batch with rows of a shard this
+#: coordinator no longer hosts (a move flipped it away after the sender
+#: routed the batch); the sender re-routes them
+PLACEMENT_MOVED = "placement moved"
+#: a remote write-group lock: the longest wait for it (under the RPC
+#: socket's 10 s timeout) and its lease, after which the peer releases
+#: it unasked (a mover that died must not block writers for good)
+GROUP_LOCK_WAIT_MAX_S = 8.0
+GROUP_LOCK_LEASE_S = 120.0
+
+
 def _bump_pool_error() -> None:
     """Count a swallowed data-plane failure (failed close/rollback or an
     unreachable peer on a best-effort path).  These paths deliberately
@@ -357,6 +368,8 @@ class DataPlaneServer:
         s.register("put_file", self._on_put_file)
         s.register("ingest_batch", self._on_ingest_batch)
         s.register("drop_placement", self._on_drop_placement)
+        s.register("lock_group", self._on_lock_group)
+        s.register("unlock_group", self._on_unlock_group)
         s.register("execute_sql", self._on_execute_sql)
         s.register("execute_task", self._on_execute_task)
         s.register("dml_prepare", self._on_dml_prepare)
@@ -371,6 +384,9 @@ class DataPlaneServer:
         # dml_prepare must find them)
         self._branches: dict = {}
         self._branches_mu = threading.Lock()
+        # write-group locks held for a mover on another coordinator:
+        # token -> (release event, holder thread, its state)
+        self._group_locks: dict = {}
         s.start()
 
     @property
@@ -395,10 +411,14 @@ class DataPlaneServer:
         files = []
         for n in sorted(os.listdir(d)):
             fp = os.path.join(d, n)
-            if os.path.isfile(fp):
+            try:
+                if not os.path.isfile(fp):
+                    continue
                 st = os.stat(fp)
-                files.append({"name": n, "size": st.st_size,
-                              "mtime_ns": st.st_mtime_ns})
+            except FileNotFoundError:
+                continue  # removed by its writer since the listing
+            files.append({"name": n, "size": st.st_size,
+                          "mtime_ns": st.st_mtime_ns})
         return {"exists": True, "files": files}
 
     def _on_fetch_file(self, p: dict) -> tuple[dict, bytes]:
@@ -432,6 +452,11 @@ class DataPlaneServer:
         are staged to .part and renamed on the final chunk so a reader
         never sees a torn file."""
         d = self._placement_dir(p)
+        if not int(p.get("offset", 0)):
+            # a pushed placement lands where this coordinator's old one
+            # may still wait for its deferred drop (ROADMAP.md C26)
+            from citus_tpu_torch.operations.cleaner import claim_resource
+            claim_resource(self.cluster.catalog, d)
         os.makedirs(d, exist_ok=True)
         name = str(p["name"])
         if "/" in name or name.startswith(".."):
@@ -723,8 +748,66 @@ class DataPlaneServer:
             record_cleanup(self.cluster.catalog, d, DEFERRED_ON_SUCCESS)
         return {"ok": True}
 
+    def _on_lock_group(self, p: dict) -> dict:
+        """Hold this coordinator's write lock of a table's colocation
+        group for a shard move run by another coordinator, from its
+        final catch-up to its flip: a writer here cannot commit a stripe
+        to the source placement that the move's last pull misses.  The
+        lock is held by a thread of its own until ``unlock_group`` or
+        the end of the lease; before it lets writers in, this
+        coordinator re-reads the catalog, so they route by the flip."""
+        import uuid
+
+        from citus_tpu_torch.transaction.write_locks import group_write_lock
+        cl = self.cluster
+        cl._maybe_reload_catalog(force_sync=True)
+        t = cl.catalog.table(str(p["table"]))
+        acquired, release = threading.Event(), threading.Event()
+        state: dict = {"error": None, "unlocked": False}
+
+        def hold() -> None:
+            try:
+                with group_write_lock(cl.catalog, t, str(p["mode"]),
+                                      lock_manager=cl.locks,
+                                      timeout=float(p["wait_s"])):
+                    acquired.set()
+                    state["unlocked"] = release.wait(float(p["lease_s"]))
+                    cl._reload_catalog()
+            except BaseException as e:  # noqa: BLE001 -- reported to the mover
+                state["error"] = e
+                acquired.set()
+        th = threading.Thread(target=hold, daemon=True,
+                              name="citus-tpu-group-lock")
+        th.start()
+        acquired.wait()
+        if state["error"] is not None:
+            th.join()
+            raise state["error"]
+        token = uuid.uuid4().hex
+        with self._branches_mu:
+            self._group_locks[token] = (release, th, state)
+        return {"token": token}
+
+    def _on_unlock_group(self, p: dict) -> dict:
+        """Release a lock taken by ``lock_group``; ``held`` is false when
+        its lease had already ended."""
+        with self._branches_mu:
+            entry = self._group_locks.pop(str(p["token"]), None)
+        if entry is None:
+            return {"held": False}
+        release, th, state = entry
+        release.set()
+        th.join()
+        return {"held": bool(state["unlocked"])}
+
     def stop(self) -> None:
         self.server.stop()
+        with self._branches_mu:
+            held = list(self._group_locks.values())
+            self._group_locks.clear()
+        for release, th, _state in held:
+            release.set()
+            th.join()
 
 
 class DataPlaneClient:
@@ -841,7 +924,7 @@ class DataPlaneClient:
             raise
 
     def call_binary_pooled(self, endpoint: tuple, method: str,
-                           payload: dict):
+                           payload: dict, blob: Optional[bytes] = None):
         """Like call_binary, but on a checked-out pooled connection so
         concurrent calls to the SAME endpoint each get their own socket
         (the primary connection serializes).  Failed connections are
@@ -861,7 +944,7 @@ class DataPlaneClient:
                 self.evict_endpoint(key)
                 raise
         try:
-            out = c.call_binary(method, payload)
+            out = c.call_binary(method, payload, blob)
         except BaseException:
             try:
                 c.close()
@@ -933,19 +1016,38 @@ class DataPlaneClient:
             self.stats["bytes_fetched"] += a.nbytes
             self.stats["files_fetched"] += 1
 
+    def _fetch_one(self, endpoint: tuple, base: dict, name: str,
+                   dst_dir: str, skip_vanished: bool) -> bool:
+        """fetch_file; False when ``skip_vanished`` and the source's
+        writer removed the file after it was listed."""
+        try:
+            self.fetch_file(endpoint, dict(base, name=name),
+                            os.path.join(dst_dir, name))
+        except RpcError as e:
+            if skip_vanished and "No such file or directory" in str(e):
+                try:
+                    os.remove(os.path.join(dst_dir, name) + ".part")
+                except FileNotFoundError:
+                    pass
+                return False
+            raise
+        return True
+
     def _fetch_many(self, endpoint: tuple, base: dict, needed: list,
-                    dst_dir: str):
+                    dst_dir: str, skip_vanished: bool = False):
         """Fetch (name, tag, size) triples in order: small files
         coalesce into bundle RPCs (≤ CHUNK_BYTES of payload each),
         large files stream chunked through fetch_file, and a failed
         bundle (old peer, truncated frame) degrades to per-file
-        fetches.  Yields each triple once its file is on disk."""
+        fetches.  Yields each triple once its file is on disk; with
+        ``skip_vanished`` a file removed since the listing is passed
+        over (a live placement's side files come and go)."""
         i = 0
         while i < len(needed):
             if needed[i][2] >= CHUNK_BYTES:
-                self.fetch_file(endpoint, dict(base, name=needed[i][0]),
-                                os.path.join(dst_dir, needed[i][0]))
-                yield needed[i]
+                if self._fetch_one(endpoint, base, needed[i][0], dst_dir,
+                                   skip_vanished):
+                    yield needed[i]
                 i += 1
                 continue
             group, total = [], 0
@@ -963,9 +1065,9 @@ class DataPlaneClient:
                 except (RpcError, FrameError, KeyError, OSError):
                     _bump_pool_error()  # visible; per-file path below
             for g in group:
-                self.fetch_file(endpoint, dict(base, name=g[0]),
-                                os.path.join(dst_dir, g[0]))
-                yield g
+                if self._fetch_one(endpoint, base, g[0], dst_dir,
+                                   skip_vanished):
+                    yield g
 
     def sync_placement(self, table: str, shard_id: int, node: int,
                        endpoint: tuple) -> Optional[str]:
@@ -1064,6 +1166,11 @@ class DataPlaneClient:
         names.sort(key=lambda n: n == SHARD_META)
         needed = []
         for name in names:
+            if name.endswith((".tmp", ".part")):
+                # a file the source's writer is still writing: it is
+                # renamed when done, and the next pass ships it (the
+                # reference fetches it and fails when it is gone)
+                continue
             dst = os.path.join(dst_dir, name)
             if name.endswith(".cts") and os.path.exists(dst) \
                     and os.path.getsize(dst) == sizes[name]:
@@ -1071,9 +1178,16 @@ class DataPlaneClient:
             needed.append((name, None, sizes[name]))
         stripe_bytes = 0
         base = {"table": table, "shard_id": shard_id, "node": src_node}
+        # a file its writer removed since the listing (a transaction's
+        # staged side file at its commit) is passed over: the meta file,
+        # fetched last, names what is live
+        from citus_tpu_torch.services.background_jobs import report_progress
         for name, _tag, sz in self._fetch_many(endpoint, base, needed,
-                                               dst_dir):
+                                               dst_dir, skip_vanished=True):
             if name.endswith(".cts"):
+                # stripe bytes shipped feed the owning move's progress
+                # record (no-op outside a background task)
+                report_progress(add_bytes=sz)
                 stripe_bytes += sz
         return stripe_bytes
 
@@ -1104,11 +1218,38 @@ class DataPlaneClient:
     def ship_batch(self, endpoint: tuple, table: str, values: dict,
                    validity: dict, wire: str = "frame") -> int:
         """Send a physical sub-batch to the coordinator hosting its
-        shards."""
-        r = self.call(endpoint, "ingest_batch", {"table": table},
-                      blob=encode_batch(values, validity, wire))
+        shards, on a socket of its own: the peer's ingest may wait for
+        its write lock, which a shard move holds while it calls the
+        same peer."""
+        r, _ = self.call_binary_pooled(
+            endpoint, "ingest_batch", {"table": table},
+            blob=encode_batch(values, validity, wire))
         self.stats["batches_shipped"] += 1
         return int(r.get("inserted", 0))
+
+    def lock_group(self, endpoint: tuple, table: str, mode: str,
+                   wait_s: float) -> Optional[str]:
+        """Take the peer's write lock of ``table``'s colocation group
+        (``DataPlaneServer._on_lock_group``); -> its token, or None from
+        a ``citus_tpu`` peer, which has no such call (ROADMAP.md C27).
+        The wait stays under the socket's 10 s timeout."""
+        try:
+            r, _ = self.call_binary_pooled(
+                endpoint, "lock_group",
+                {"table": table, "mode": mode,
+                 "wait_s": min(wait_s, GROUP_LOCK_WAIT_MAX_S),
+                 "lease_s": GROUP_LOCK_LEASE_S})
+        except RpcError as e:
+            if "unknown method 'lock_group'" in str(e):
+                return None
+            raise
+        return str(r["token"])
+
+    def unlock_group(self, endpoint: tuple, token: str) -> bool:
+        """Release a ``lock_group`` lock; False when its lease ran out
+        first."""
+        return bool(self.call(endpoint, "unlock_group",
+                              {"token": token}).get("held"))
 
     def drop_placement(self, endpoint: tuple, table: str, shard_id: int,
                        node: int) -> None:

@@ -6,10 +6,8 @@ The subsystem the rest of the package admits device work through:
   queue depth) + pinned-node records, GUC-backed defaults
 - ``scheduler`` — stride-scheduled fair-share slot dispatch over the
   shared task pool, with load shedding and live per-tenant stats
-
-The JAX package's ``isolation`` module (pin a tenant's router traffic to
-a dedicated host) needs shard moves and splits and waits for ROADMAP.md
-A14.
+- ``isolation`` — pin a tenant's router traffic to a dedicated host
+  (a split around its key, then a shard move)
 """
 
 from citus_tpu_torch.workload.registry import (  # noqa: F401

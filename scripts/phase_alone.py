@@ -1,4 +1,4 @@
-"""chip_smoke.py's phase 11, 12, 13 or 14 alone, at a chosen size.
+"""chip_smoke.py's phase 11, 12, 13, 14 or 15 alone, at a chosen size.
 
 On a machine with a CUDA card (a bring-up check of one phase without
 the others; it needs nothing built beforehand):
@@ -7,6 +7,7 @@ the others; it needs nothing built beforehand):
     python3 scripts/phase_alone.py --phase 12 --rows 1500303
     python3 scripts/phase_alone.py --phase 13 --rows 6001215
     python3 scripts/phase_alone.py --phase 14 --rows 6001215
+    python3 scripts/phase_alone.py --phase 15 --rows 6001215
 
 Phase 11 loads phase 4's generated lineitem at ``--rows`` rows on the
 card, then runs ``chip_smoke.run_phase11`` (its kernels' sources from
@@ -20,12 +21,15 @@ lineitem at ``--rows`` rows, runs ``chip_smoke.run_phase14`` (part (a),
 over a quarter as many orders; its sources from ``phase14_sources``),
 then opens phase 7's pair of coordinators, loads its sketch table at
 ``--rows`` rows through A and runs ``chip_smoke.run_phase14_pair`` (part
-(b)).  Each prints the phase's lines.
+(b)).  Phase 15 opens phase 7's pair, loads its sketch table at
+``--rows`` rows through A and runs ``chip_smoke.run_phase15_pair`` (the
+shard operations; its kernels build at their first read).  Each prints
+the phase's lines.
 
 With ``--cpu``, on a ``Cluster(device="cpu")``: phase 11 times only its
 load (the partitioned table's DDL, 84 monthly partitions of 4 shards,
 and one ``copy_from`` of ``--rows`` generated rows routed to them);
-phases 12, 13 and 14 run whole, on the kernels' plain versions with no
+phases 12-15 run whole, on the kernels' plain versions with no
 profiled run, for their host times on the CPU.
 """
 
@@ -45,7 +49,8 @@ import chip_smoke  # noqa: E402
 #: each phase's ``--rows`` when it is not given: lineitem rows of phase
 #: 11, orders of phase 12
 DEFAULT_ROWS = {11: 1_000_000, 12: chip_smoke.SF1_ROWS // 4,
-                13: chip_smoke.SF1_ROWS, 14: chip_smoke.SF1_ROWS}
+                13: chip_smoke.SF1_ROWS, 14: chip_smoke.SF1_ROWS,
+                15: chip_smoke.SF1_ROWS}
 
 
 def phase11_cpu_load(tmp: str, rows: int) -> None:
@@ -95,10 +100,38 @@ def phase14_pair(ctt, tmp: str, rows: int, launches: dict, line: str,
         a.close()
 
 
+def phase15_pair(ctt, tmp: str, rows: int, launches: dict, line: str,
+                 device) -> float:
+    """Phase 15 on phase 7's pair over its sketch table at ``rows``
+    rows; -> its seconds."""
+    a, b = chip_smoke.open_pair(ctt, tmp, device)
+    try:
+        t0 = time.perf_counter()
+        cols = chip_smoke.pair_load(a, rows)
+        print(f"phase 15 load of the sketch table through A: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        return chip_smoke.run_phase15_pair(
+            a, b, cols, chip_smoke.oracle_s1(cols), launches, line,
+            os.path.join(tmp, "p15f"), device)
+    finally:
+        b.close()
+        a.close()
+
+
 def run(tmp: str, phase: int, rows: int, cpu: bool) -> None:
     import citus_tpu_torch as ctt
     line = "cpu" if cpu else chip_smoke.card_line()
     print("card", line, flush=True)
+    if phase == 15:
+        launches = dict.fromkeys(chip_smoke.launch_counters(), 0)
+        launches["scan_agg_fold[sketch]"] = 0
+        took = phase15_pair(ctt, tmp, rows, launches, line,
+                            "cpu" if cpu else None)
+        print(f"phase 15 alone: {took:.3f} s; launches: B1 "
+              f"{launches['scan_agg_fold']}, B1-sketch "
+              f"{launches['scan_agg_fold[sketch]']}, B4 "
+              f"{launches['filter_mask']}", flush=True)
+        return
     sources = []
     if not cpu:
         t0 = time.perf_counter()
@@ -143,14 +176,14 @@ def run(tmp: str, phase: int, rows: int, cpu: bool) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", type=int, choices=(11, 12, 13, 14),
+    ap.add_argument("--phase", type=int, choices=(11, 12, 13, 14, 15),
                     required=True)
     ap.add_argument("--rows", type=int, default=None,
-                    help="lineitem rows (phases 11, 13 and 14) or "
+                    help="lineitem rows (phases 11, 13, 14 and 15) or "
                          "orders (phase 12)")
     ap.add_argument("--cpu", action="store_true",
-                    help="on the CPU: phase 11's load only, phases 12, "
-                         "13 and 14 whole")
+                    help="on the CPU: phase 11's load only, phases "
+                         "12-15 whole")
     args = ap.parse_args()
     rows = args.rows if args.rows is not None else DEFAULT_ROWS[args.phase]
     tmp = tempfile.mkdtemp()

@@ -198,23 +198,26 @@ def test_opens_reference_data_directory(tmp_path):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT citus_rebalance_start()",
-    "SELECT get_rebalance_table_shards_plan()",
+    "SELECT citus_metrics()",
+    "SELECT citus_slow_queries()",
     "SELECT citus_stat_history('rows_ingested')",
-    "SET citus.enable_metadata_sync = off",
-    "SELECT citus_create_restore_point('x')",
-    "SELECT citus_cleanup_orphaned_resources()",
-    "SELECT isolate_tenant_to_new_shard('events', 5)",
-    "SELECT citus_move_shard_placement(102008, 0, 1)",
+    "SET citus.trace_sample_rate = 1",
+    "SELECT citus_health_events()",
+    "SELECT citus_locks()",
+    "SELECT citus_get_node_clock()",
+    "SELECT citus_autopilot_log()",
 ])
 def test_unported_statement_raises(pair, sql):
     """What the port does not carry yet raises, naming its ROADMAP.md
-    item (A14, A14c: operations, services and observability).  Roles, GRANT,
-    policies, triggers and their UDFs run since A14b
+    item (A14c-2: observability and the autopilot).  The shard
+    operations and services run since A14c-1
+    (tests/test_torch_operations.py, tests/test_torch_services.py),
+    roles, GRANT, policies, triggers and their UDFs since A14b
     (tests/test_torch_policies.py), cross-host DML since A13
     (tests/test_torch_xhost.py)."""
     _, port = pair
-    with pytest.raises(UnsupportedFeatureError, match=r"ROADMAP\.md A14"):
+    with pytest.raises(UnsupportedFeatureError,
+                       match=r"ROADMAP\.md A14c-2"):
         port.execute(sql)
 
 
@@ -243,6 +246,12 @@ def test_port_imports_no_jax_and_no_reference_package():
         "from citus_tpu_torch.executor import join_executor\n"
         "from citus_tpu_torch.planner import join_planner\n"
         "from citus_tpu_torch.parallel import mesh, shuffle\n"
+        "from citus_tpu_torch import operations, services\n"
+        "from citus_tpu_torch.operations import (shard_split, restore,\n"
+        "    rebalance_plan, rebalancer, shard_transfer, cleaner)\n"
+        "from citus_tpu_torch.services import background_jobs, maintenance\n"
+        "from citus_tpu_torch.workload import isolation\n"
+        "from citus_tpu_torch.observability import cluster_stats\n"
         "import chip_smoke\n"
         "loader.ensure_loaded()\n"
         "cl = ctt.Cluster(tempfile.mkdtemp(), device='cpu')\n"

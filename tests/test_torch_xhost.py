@@ -13,13 +13,19 @@ a ``citus_tpu`` pair.  Also here: the recovery tests of
 tests/test_transactions.py on both packages,
 ``recover_prepared_transactions``, and the refusal to forward a modify
 that a role's policy rewrote (its SQL text is not the statement that
-ran).
+ran).  The shard operations across hosts: a move pulled from and pushed
+to the other coordinator over the data plane (rows of both
+coordinators held against a ``citus_tpu`` pair), a tenant isolated to
+the other coordinator's node, and the split of a remote-hosted shard,
+which the reference answers by losing its rows and the port refuses
+(ROADMAP.md C23).
 """
 
 import fcntl
 import importlib
 import os
 import sys
+import time
 import uuid
 
 import numpy as np
@@ -416,9 +422,10 @@ def test_foreign_key_probe_of_a_remote_hosted_parent(pair):
 
 def test_two_os_processes_two_data_dirs(tmp_path):
     """Coordinators in two OS processes with data directories of their
-    own: a distributed query over both, and a two-phase UPDATE whose
-    branch runs in the other process (test_data_plane.py's test, with
-    the shard move of A14c left out)."""
+    own: a distributed query over both, a two-phase UPDATE whose branch
+    runs in the other process, and a move of a shard the other process
+    hosts into this one over the data plane (test_data_plane.py's
+    test)."""
     import subprocess
     import textwrap
     a = ctt.Cluster(str(tmp_path / "a"), serve_port=0, data_port=0,
@@ -458,6 +465,15 @@ def test_two_os_processes_two_data_dirs(tmp_path):
             [(n, want)]
         assert a.execute("SELECT recover_prepared_transactions()").rows \
             == [(0,)]
+        # move a remote-hosted shard into this process over the wire
+        moved = next(s for s in t.shards if s.placements[0] == nb)
+        a.execute(f"SELECT citus_move_shard_placement({moved.shard_id}, "
+                  f"{nb}, {na})")
+        assert a.execute("SELECT count(*), sum(v) FROM big").rows == \
+            [(n, want)]
+        t = a.catalog.table("big")
+        assert next(s for s in t.shards
+                    if s.shard_id == moved.shard_id).placements == [na]
     finally:
         proc.kill()
         proc.wait()
@@ -576,3 +592,370 @@ def test_c22_direct_group_key_zero_reads_null_on_a_pair(tmp_path, name):
     finally:
         b.close()
         a.close()
+
+
+def _move_steps(a, b, n):
+    """B -> A (a pull over the data plane, the source dropped by RPC),
+    then A -> B (a push); the rows of both coordinators after each."""
+    a.execute("CREATE TABLE m (k bigint NOT NULL, v bigint)")
+    a.execute("SELECT create_distributed_table('m', 'k', 4)")
+    b._reload_catalog()
+    rng = np.random.default_rng(19)
+    a.copy_from("m", columns={"k": np.arange(n),
+                              "v": rng.integers(0, 1000, n)})
+    na = next(x for x in a.catalog.nodes if not a.catalog.is_remote_node(x))
+    nb = next(x for x in a.catalog.nodes if a.catalog.is_remote_node(x))
+    out = []
+
+    def read():
+        _clear_device_caches()
+        b._maybe_reload_catalog(force_sync=True)
+        out.append([cl.execute("SELECT k, v FROM m ORDER BY k").rows
+                    for cl in (a, b)])
+        out.append([cl.execute("SELECT count(*), sum(v) FROM m").rows
+                    for cl in (a, b)])
+    read()
+    t = a.catalog.table("m")
+    pulled = next(s for s in t.shards if s.placements[0] == nb).shard_id
+    a.execute(f"SELECT citus_move_shard_placement({pulled}, {nb}, {na})")
+    assert os.path.isdir(a.catalog.shard_dir("m", pulled, na))
+    read()
+    t = a.catalog.table("m")
+    pushed = next(s for s in t.shards if s.placements[0] == na).shard_id
+    a.execute(f"SELECT citus_move_shard_placement({pushed}, {na}, {nb})")
+    assert os.path.isdir(b.catalog.shard_dir("m", pushed, nb))
+    read()
+    out.append(sorted((r[1], r[4]) for r in
+                      a.execute("SELECT citus_shards()").rows))
+    out.append([r[:6] for r in
+                a.execute("SELECT citus_shard_move_stats()").rows[-2:]])
+    a.execute("SELECT citus_cleanup_orphaned_resources()")
+    b.execute("SELECT citus_cleanup_orphaned_resources()")
+    read()
+    out.append([os.path.isdir(a.catalog.shard_dir("m", pushed, na)),
+                os.path.isdir(b.catalog.shard_dir("m", pulled, nb))])
+    return out
+
+
+def test_move_shard_placement_over_the_wire(pair, tmp_path):
+    """A move between two coordinators, in both directions, on a port
+    pair and on both mixed pairs: the rows of both coordinators after
+    each move, the placements and the move stats equal a
+    ``citus_tpu`` pair's, and the sources are gone after cleanup."""
+    a, b = pair
+    n = 2000
+    got = _move_steps(a, b, n)
+    ra, rb = _open_pair(tmp_path / "ref", ct, ct)
+    try:
+        want = _move_steps(ra, rb, n)
+    finally:
+        rb.close()
+        ra.close()
+    assert got == want
+    assert got[-1] == [False, False]
+    assert got[1] == [[(n, got[1][0][0][1])]] * 2
+
+
+def test_isolate_tenant_to_the_other_coordinators_node(pair, tmp_path):
+    """citus_isolate_tenant_to_node to a node the other coordinator
+    hosts: the split runs where the shard lives, the move pushes the
+    tenant's shard over the data plane."""
+    a, b = pair
+    _make(a, b, "iso", 1000, v=1)
+    na = next(x for x in a.catalog.nodes if not a.catalog.is_remote_node(x))
+    nb = next(x for x in a.catalog.nodes if a.catalog.is_remote_node(x))
+    t = a.catalog.table("iso")
+    key = next(k for k in range(1000)
+               if t.shards[t.route_hash(_h(k))].placements[0] == na)
+    sid = a.execute(f"SELECT citus_isolate_tenant_to_node('iso', {key}, "
+                    f"{nb})").rows[0][0]
+    t = a.catalog.table("iso")
+    assert next(s for s in t.shards if s.shard_id == sid).placements == [nb]
+    assert t.shard_count == 6
+    _clear_device_caches()
+    b._maybe_reload_catalog(force_sync=True)
+    for cl in (a, b):
+        assert cl.execute("SELECT count(*), sum(v) FROM iso").rows == \
+            [(1000, 1000)]
+        assert cl.execute(f"SELECT count(*) FROM iso WHERE k = {key}"
+                          ).rows == [(1,)]
+
+
+def _h(k):
+    from citus_tpu_torch.catalog.hashing import hash_int64_scalar
+    return hash_int64_scalar(k)
+
+
+@pytest.mark.parametrize("op", ["split", "isolate"])
+def test_c23_split_of_a_remote_hosted_shard(tmp_path, op):
+    """ROADMAP.md C23: a split of a shard the other coordinator hosts
+    reads and writes local directories only.  The reference's pair
+    answers with the remote rows gone (1,000 rows become fewer); the
+    port refuses and keeps every row."""
+    counts = {}
+    for name, pkgs in [("reference", (ct, ct)), ("port", (ctt, ctt))]:
+        a, b = _open_pair(tmp_path / name, *pkgs)
+        try:
+            _make(a, b, "sp", 1000, v=1)
+            nb = next(x for x in a.catalog.nodes
+                      if a.catalog.is_remote_node(x))
+            t = a.catalog.table("sp")
+            s = next(s for s in t.shards if s.placements[0] == nb)
+            if op == "split":
+                sql = (f"SELECT citus_split_shard_by_split_points("
+                       f"{s.shard_id}, {(s.hash_min + s.hash_max) // 2})")
+            else:
+                key = next(k for k in range(1000)
+                           if t.shards[t.route_hash(_h(k))] is s)
+                sql = f"SELECT isolate_tenant_to_new_shard('sp', {key})"
+            try:
+                a.execute(sql)
+                outcome = "ran"
+            except Exception as e:  # noqa: BLE001 -- the outcome compared
+                outcome = (type(e).__name__, str(e))
+            _clear_device_caches()
+            counts[name] = (outcome,
+                            a.execute("SELECT count(*) FROM sp").rows[0][0])
+        finally:
+            b.close()
+            a.close()
+    assert counts["reference"][0] == "ran"
+    assert counts["reference"][1] < 1000
+    outcome, n = counts["port"]
+    assert outcome[0] == "UnsupportedFeatureError" and "C23" in outcome[1]
+    assert n == 1000
+
+
+def test_c24_rebalance_plan_sizes_remote_placements(tmp_path):
+    """ROADMAP.md C24: after a move leaves A one shard and B three, the
+    reference's by_disk_size plan on A weighs each of B's placements 1
+    byte and plans nothing; the port sizes them over the data plane and
+    plans one move back from B to A, which a background job runs (the
+    data plane's pull path)."""
+    plans = {}
+    for name, pkgs in [("reference", (ct, ct)), ("port", (ctt, ctt))]:
+        a, b = _open_pair(tmp_path / name, *pkgs)
+        try:
+            _make(a, b, "rp", 4000, v=1)
+            na = next(x for x in a.catalog.nodes
+                      if not a.catalog.is_remote_node(x))
+            nb = next(x for x in a.catalog.nodes
+                      if a.catalog.is_remote_node(x))
+            t = a.catalog.table("rp")
+            sid = next(s for s in t.shards if s.placements[0] == na).shard_id
+            a.execute(f"SELECT citus_move_shard_placement({sid}, {na}, {nb})")
+            a.execute("SELECT citus_cleanup_orphaned_resources()")
+            plans[name] = a.execute(
+                "SELECT get_rebalance_table_shards_plan()").rows
+            if name == "port":
+                jid = a.execute("SELECT citus_rebalance_start()").rows[0][0]
+                assert a.execute(f"SELECT citus_job_wait({jid})").rows == \
+                    [("done",)]
+                t = a.catalog.table("rp")
+                assert sorted(s.placements[0] for s in t.shards) == \
+                    [na, na, nb, nb]
+                _clear_device_caches()
+                assert a.execute("SELECT count(*), sum(v) FROM rp").rows == \
+                    [(4000, 4000)]
+        finally:
+            b.close()
+            a.close()
+    assert plans["reference"] == []
+    assert len(plans["port"]) == 1 and plans["port"][0][1:] == (nb, na)
+
+
+@pytest.mark.parametrize("how", ["copy", "insert"])
+def test_c25_writes_during_a_move_to_the_other_coordinator(tmp_path, how):
+    """ROADMAP.md C25: a write that splits its batch by the placement
+    map before a move's flip and takes the write lock after it: the
+    reference's ingest skips the moved shard's rows as remote, so they
+    are lost; the port ships them under the lock.  The flip is held
+    0.3 s (fault point ``shard_move_flip``) so a writer always waits
+    across it."""
+    import threading
+    got = {}
+    for name, mod in [("reference", ct), ("port", ctt)]:
+        faults = importlib.import_module(f"{mod.__name__}.testing.faults")
+        a, b = _open_pair(tmp_path / name, mod, mod)
+        try:
+            _make(a, b, "mw", 20_000, v=1)
+            na = next(x for x in a.catalog.nodes
+                      if not a.catalog.is_remote_node(x))
+            nb = next(x for x in a.catalog.nodes
+                      if a.catalog.is_remote_node(x))
+            sid = next(s for s in a.catalog.table("mw").shards
+                       if s.placements[0] == na).shard_id
+            stop, wrote = threading.Event(), [0]
+
+            def writer():
+                base = 1_000_000
+                while not stop.is_set():
+                    ks = np.arange(base, base + 256)
+                    if how == "copy":
+                        a.copy_from("mw", columns={
+                            "k": ks, "v": np.ones(ks.size, np.int64)})
+                    else:
+                        a.execute("INSERT INTO mw VALUES " + ", ".join(
+                            f"({k}, 1)" for k in ks))
+                    wrote[0] += ks.size
+                    base += ks.size
+            faults.FAULTS.arm("shard_move_flip", delay_s=0.3, times=1)
+            th = threading.Thread(target=writer)
+            th.start()
+            try:
+                a.execute(f"SELECT citus_move_shard_placement({sid}, {na}, "
+                          f"{nb})")
+            finally:
+                stop.set()
+                th.join()
+                faults.FAULTS.disarm()
+            _clear_device_caches()
+            b._maybe_reload_catalog(force_sync=True)
+            got[name] = (20_000 + wrote[0],
+                         [cl.execute("SELECT count(*), sum(v) FROM mw"
+                                     ).rows[0] for cl in (a, b)])
+        finally:
+            b.close()
+            a.close()
+    want, rows = got["reference"]
+    assert rows[0] == rows[1] and rows[0][0] < want
+    want, rows = got["port"]
+    assert rows == [(want, want)] * 2
+
+
+@pytest.mark.parametrize("move,via", [("pull", "b"), ("pull", "a"),
+                                      ("push", "b")])
+def test_c27_writes_during_a_move_across_coordinators(
+        tmp_path, monkeypatch, move, via):
+    """ROADMAP.md C27: A moves one of B's shards to its own node (pull),
+    or one of its own to B's (push), while a writer commits batches of
+    the source's shards through B or through A.  The move is held 0.3 s
+    at the flip (fault point ``shard_move_flip``, before the final pull)
+    and 0.3 s more between the final pull and the flip's commit.  The
+    reference locks only A's data dir: stripes B commits after the final
+    pull stay in the dropped source, and a batch a coordinator receives
+    after the flip is skipped as remote; or its pull fails on a file B's
+    writer removed after the listing.  The port takes B's lock over the
+    data plane across the final pull and the flip, a coordinator refuses
+    a batch for a shard it no longer hosts, which the sender routes
+    again, and the pull passes over a file that vanished."""
+    import threading
+
+    from citus_tpu_torch.catalog.hashing import shard_index_for_values
+    got = {}
+    for name, mod in [("reference", ct), ("port", ctt)]:
+        faults = importlib.import_module(f"{mod.__name__}.testing.faults")
+        branches = importlib.import_module(
+            f"{mod.__name__}.transaction.branches")
+        flip = branches.commit_metadata_flip
+
+        def held_flip(cat, op_id, mutate, flip=flip):
+            time.sleep(0.3)
+            flip(cat, op_id, mutate)
+        monkeypatch.setattr(branches, "commit_metadata_flip", held_flip)
+        a, b = _open_pair(tmp_path / name, mod, mod)
+        try:
+            _make(a, b, "pw", 20_000, v=1)
+            na = next(x for x in a.catalog.nodes
+                      if not a.catalog.is_remote_node(x))
+            nb = next(x for x in a.catalog.nodes
+                      if a.catalog.is_remote_node(x))
+            src, dst = (nb, na) if move == "pull" else (na, nb)
+            sid = next(s for s in a.catalog.table("pw").shards
+                       if s.placements[0] == src).shard_id
+            writer_cl = b if via == "b" else a
+            # keys of the source's shards only: in a pull, a batch with
+            # rows for A's shards waits for A's lock, which the move
+            # holds, and the writer would commit nothing in the window
+            pool = np.arange(1_000_000, 1_400_000)
+            pool = pool[np.isin(
+                shard_index_for_values(pool, 4),
+                [i for i, s in enumerate(a.catalog.table("pw").shards)
+                 if s.placements[0] == src])]
+            stop, wrote = threading.Event(), [0]
+
+            def writer():
+                while not stop.is_set() and wrote[0] < pool.size:
+                    ks = pool[wrote[0]:wrote[0] + 256]
+                    writer_cl.copy_from("pw", columns={
+                        "k": ks, "v": np.ones(ks.size, np.int64)})
+                    wrote[0] += ks.size
+            faults.FAULTS.arm("shard_move_flip", delay_s=0.3, times=1)
+            th = threading.Thread(target=writer)
+            th.start()
+            failed = None
+            try:
+                a.execute(f"SELECT citus_move_shard_placement({sid}, "
+                          f"{src}, {dst})")
+            except Exception as e:  # noqa: BLE001 -- the reference's, held below
+                failed = str(e)
+            finally:
+                stop.set()
+                th.join()
+                faults.FAULTS.disarm()
+            a.execute("SELECT citus_cleanup_orphaned_resources()")
+            b.execute("SELECT citus_cleanup_orphaned_resources()")
+            _clear_device_caches()
+            b._maybe_reload_catalog(force_sync=True)
+            got[name] = (20_000 + wrote[0], failed,
+                         [cl.execute("SELECT count(*), sum(v) FROM pw"
+                                     ).rows[0] for cl in (a, b)])
+        finally:
+            b.close()
+            a.close()
+    want, failed, rows = got["reference"]
+    assert rows[0] == rows[1]
+    assert rows[0][0] < want \
+        or "No such file or directory" in (failed or "")
+    want, failed, rows = got["port"]
+    assert failed is None and rows == [(want, want)] * 2
+
+
+@pytest.mark.parametrize("then", ["pull_back", "read_pulled",
+                                  "push_again"])
+def test_c26_pull_back_after_writes_on_the_other_coordinator(tmp_path,
+                                                              then):
+    """ROADMAP.md C26: a shard pushed to B, then written there through A.
+    The reference's push stages the copy at B's placement path in A's
+    data dir and leaves it there for the cleaner: a move back to A
+    copies that stale copy (B's writes are lost), and a pulled read on A
+    takes it for the placement.  The port stages outside the placement
+    tree and pulls from B.  Pushed to B once more, the shard lands in
+    the directory B was asked to drop: B's cleaner deletes it in the
+    reference; the port's push claims it on B."""
+    got = {}
+    for name, mod in [("reference", ct), ("port", ctt)]:
+        a, b = _open_pair(tmp_path / name, mod, mod)
+        try:
+            _make(a, b, "pb", 4000, v=1)
+            na = next(x for x in a.catalog.nodes
+                      if not a.catalog.is_remote_node(x))
+            nb = next(x for x in a.catalog.nodes
+                      if a.catalog.is_remote_node(x))
+            t = a.catalog.table("pb")
+            s = next(s for s in t.shards if s.placements[0] == na)
+            a.execute(f"SELECT citus_move_shard_placement({s.shard_id}, "
+                      f"{na}, {nb})")
+            keys = [k for k in range(4000, 40000)
+                    if t.shards[t.route_hash(_h(k))].shard_id == s.shard_id
+                    ][:300]
+            a.copy_from("pb", columns={"k": np.array(keys),
+                                       "v": np.ones(len(keys), np.int64)})
+            if then == "read_pulled":
+                a.execute("SET citus.remote_task_execution = pull")
+            else:
+                a.execute(f"SELECT citus_move_shard_placement("
+                          f"{s.shard_id}, {nb}, {na})")
+            if then == "push_again":
+                # back onto B, whose old directory still waits for the
+                # drop the previous move asked for by RPC
+                a.execute(f"SELECT citus_move_shard_placement("
+                          f"{s.shard_id}, {na}, {nb})")
+                b.execute("SELECT citus_cleanup_orphaned_resources()")
+            _clear_device_caches()
+            got[name] = a.execute("SELECT count(*) FROM pb").rows[0][0]
+        finally:
+            b.close()
+            a.close()
+    assert got["reference"] < 4300
+    assert got["port"] == 4300
